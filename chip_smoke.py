@@ -1,5 +1,6 @@
-"""GPU smoke of the PyTorch port: build, check and time its kernels, then
-serve the sequence policy over HTTP through the port's CLI path.
+"""GPU smoke of the PyTorch port: build, check and time its kernels,
+serve the sequence policy over HTTP through the port's CLI path, then
+train it with SAC through the train CLI's path.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,14 +8,18 @@ Needs one CUDA card and the CUDA toolkit (nvcc); imports nothing of JAX
 or of the JAX package. Phases, one JSON line each:
 
 1. device — the card (``nvidia-smi`` name and power limit on its own line);
-2. build — compiles every kernel of the port from ``csrc/`` (one nvcc per
-   source, in parallel) and reports the seconds;
+2. build — compiles every kernel source of the port from ``csrc/`` (one
+   nvcc per source, in parallel) and reports the seconds;
 3. kernel_vs_plain — each kernel against its plain PyTorch version on the
-   card, at the serving shape and the bench shapes: max abs error (f32 <=
-   1e-4, summation order; bf16 <= 2e-2, the bf16 rounding of p), and
-   median CUDA-event times of the kernel, the plain version and one
-   PyTorch library call of the same function (``library_ms``, a
-   yardstick only: the port never calls it);
+   card, at the training/serving shape (64, 4, 16, 16) and the bench
+   shapes: max abs error (f32 <= 1e-4, summation order; bf16 <= 2e-2, the
+   bf16 rounding of p and ds; the backward kernels' limits scale by
+   max(1, max|plain|)), bitwise-equal repeat runs of the backward, and
+   the device time per call (``torch.profiler``) of the kernel, the plain
+   version and one PyTorch library call (``library_ms``: SDPA forward, or
+   SDPA's backward for the two backward kernels; a yardstick only, the
+   port never calls it), with CUDA-event times per call, host launch
+   included, beside them as ``*_event_ms``;
 4. serve — the full-width sequence policy (d_model 64, 4 heads, 2 layers,
    history 16, obs 3, act 1, act_limit 2.0, f32, max_batch 64) from
    ``--seed``, saved as a port checkpoint and served by the CLI's own
@@ -24,13 +29,26 @@ or of the JAX package. Phases, one JSON line each:
    plain-attention forward on the card (1e-4), the flash launch count
    at least num_layers x forwards; /metrics latency and rate; then 16
    64-row requests under ``torch.profiler`` (wall vs device-busy time per
-   request, top kernels) and the engine's forward alone (host wall time).
+   request, top kernels) and the engine's forward alone (host wall time);
+5. train — the same policy and its twin sequence critic at SACConfig's
+   widths (batch 64, update_every 50), trained through the train CLI's
+   ``build_trainer`` on ``PendulumNumpy-v1|history:16`` (the port's
+   numpy twin of Pendulum-v1; the card's machine has no gymnasium) for
+   2000 steps, the first 1000 random: 1000 gradient steps. Checks: finite
+   losses, every kernel launched, the checkpoint restores, launches per
+   update exactly (3Q+2)L forward and (Q+1)L each backward kernel, and,
+   from one state, the critic's and actor's parameter gradients with the
+   kernels against those with plain attention (1e-4·max(1, max|g|)) and
+   then one update with each (params 1e-4; attention key biases, whose
+   gradient is zero in exact arithmetic, 2·lr; outputs 1e-4). Reports
+   gradient and env steps per second and one profiled burst (device busy
+   vs idle, top kernels per update).
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
+``library_ms`` are device times), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is non-zero and the last line is not printed.
 """
-
 from __future__ import annotations
 
 import argparse
@@ -51,7 +69,11 @@ H100_BF16_FLOPS = 989e12    # H100 SXM, bf16 dense tensor cores
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 SERVE_SHAPE = (64, 4, 16, 16)   # max_batch x heads x history x head_dim
+TRAIN_SHAPE = SERVE_SHAPE       # batch_size 64 x heads x history x head_dim
 BENCH_SHAPE = (4, 8, 2048, 64)  # bench.py's attention shape
+# The port's host pendulum (the JAX package's PendulumJax dynamics): the
+# card's machine has no gymnasium, whose Pendulum-v1 it stands in for.
+TRAIN_ENV = "PendulumNumpy-v1"
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -83,32 +105,46 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int, name: str = ""):
+def device_ms(fn, iters: int, name: str = "", attempts: int = 4) -> float:
     """Mean device time per call of the kernels whose name contains
     ``name`` (all kernels by default), from a ``torch.profiler`` trace of
     ``iters`` calls — the CUDA-event times above include the host's
-    launch overhead. None when the trace holds no device events."""
+    launch overhead. A trace that comes back without device events (the
+    profiler now and then drops a whole session's kernels) is taken
+    again, up to ``attempts`` traces; fails a check when none holds such
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(1, attempts + 1):
+        fn()
         torch.cuda.synchronize()
-    total_us = sum(t for key, t, _ in device_kernels(prof) if name in key)
-    return total_us / iters / 1e3 if total_us > 0 else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(t for key, t, _ in device_kernels(prof) if name in key)
+        if total_us > 0:
+            return total_us / iters / 1e3
+        print(f"chip_smoke: trace {attempt} of {attempts} held no device time "
+              f"of {name or 'any kernel'!r}", file=sys.stderr, flush=True)
+    check(False, f"the profiler traced no device time of {name or 'any kernel'!r} "
+                 f"in {attempts} traces")
+    return 0.0
 
 
 def device_kernels(prof):
     """``(name, device_us, calls)`` of the kernels in a trace. Only
     device-side rows: a host op's row also carries its kernels' time, so
-    summing every row would count each kernel twice."""
+    summing every row would count each kernel twice; and no user
+    annotations (``Optimizer.step#Adam.step`` spans its kernels on the
+    device timeline and would count them again)."""
     from torch.autograd import DeviceType
 
     return [
         (e.key, e.device_time_total, e.count) for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
+        and not e.key.startswith("Optimizer.")
     ]
 
 
@@ -189,25 +225,27 @@ def phase_kernel_vs_plain(attn, seed: int) -> dict:
         check(math.isfinite(err) and err <= TOL[dtype],
               f"flash_fwd {shape} causal={causal} {dtype}: max abs err {err}")
         bound_ms, bound_by = attention_bound(shape, causal, dtype)
+
+        def kernel():
+            return attn.flash_attention_forward(q, k, v, causal)
+
+        def plain():
+            return attn.attention(q, k, v, causal, impl="plain")
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)
+
         row = {
             "phase": "kernel_vs_plain", "kernel": "flash_fwd",
             "shape": list(shape), "causal": causal, "dtype": str(dtype),
             "max_abs_err": err, "tol": TOL[dtype],
-            "kernel_ms": time_ms(
-                lambda: attn.flash_attention_forward(q, k, v, causal), iters),
-            "plain_ms": time_ms(
-                lambda: attn.attention(q, k, v, causal, impl="plain"), iters),
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal), iters),
-            "kernel_device_ms": device_ms(
-                lambda: attn.flash_attention_forward(q, k, v, causal), iters,
-                "flash_fwd_kernel"),
-            "plain_device_ms": device_ms(
-                lambda: attn.attention(q, k, v, causal, impl="plain"), iters),
-            "library_device_ms": device_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal), iters),
+            "kernel_ms": device_ms(kernel, iters, "flash_fwd_kernel"),
+            "plain_ms": device_ms(plain, iters),
+            "library_ms": device_ms(library, iters),
+            "kernel_event_ms": time_ms(kernel, iters),
+            "plain_event_ms": time_ms(plain, iters),
+            "library_event_ms": time_ms(library, iters),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         emit(row)
@@ -215,6 +253,111 @@ def phase_kernel_vs_plain(attn, seed: int) -> dict:
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return rows[0]
+
+
+def bwd_bound(shape, causal: bool, dtype, kernel: str) -> tuple:
+    """(bound_ms, bound_by) of one backward kernel: bytes moved (q, k, v,
+    dO read once, its outputs written once, f32 lse and Δ read once)
+    over HBM rate, and its products' FLOPs over the dtype's peak — dQ
+    three products (s, dO·Vᵀ, ds·K), dK/dV four (s, pᵀ·dO, dO·Vᵀ,
+    dsᵀ·Q), over the visible (q, k) pairs only under causality."""
+    b, h, t, d = shape
+    elt = torch.finfo(dtype).bits // 8
+    rows = b * h * t
+    tensors, products = (5, 3) if kernel == "flash_bwd_dq" else (6, 4)
+    nbytes = tensors * rows * d * elt + 2 * rows * 4
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 2 * products * d * pairs * b * h
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bwd_vs_plain(attn, seed: int) -> dict:
+    """K3 and K4 against their plain versions on the card: error within
+    TOL x max(1, max|plain|), bitwise-equal repeat runs, and times.
+    Returns the training shape's rows by kernel name."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cases = [
+        (TRAIN_SHAPE, True, torch.float32, 200),
+        (BENCH_SHAPE, True, torch.float32, 5),
+        (BENCH_SHAPE, False, torch.float32, 5),
+        (BENCH_SHAPE, True, torch.bfloat16, 5),
+        (BENCH_SHAPE, False, torch.bfloat16, 5),
+        ((4, 8, 1000, 64), True, torch.float32, 10),  # ragged T
+    ]
+    train_rows = {}
+    for shape, causal, dtype, iters in cases:
+        q, k, v, do = (
+            torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(4)
+        )
+        out, lse = attn.flash_attention_forward(q, k, v, causal, return_lse=True)
+
+        def backward():
+            return attn.flash_attention_backward(q, k, v, out, lse, do, causal)
+
+        got = backward()
+        again = backward()
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(deterministic, f"flash backward {shape} {dtype}: repeat runs differ")
+        scale = 1.0 / math.sqrt(shape[-1])
+        delta = (do.float() * out.float()).sum(dim=-1)
+        plain_args = (q, k, v, do, lse, delta, causal, scale)
+        want_dq = attn._plain_flash_bwd_dq(*plain_args)
+        want_dk, want_dv = attn._plain_flash_bwd_dkv(*plain_args)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, pairs in (("flash_bwd_dq", [(got[0], want_dq)]),
+                            ("flash_bwd_dkv", [(got[1], want_dk), (got[2], want_dv)])):
+            err = 0.0
+            for g, w in pairs:
+                check(g.shape == w.shape and g.dtype == dtype, f"{name} {shape} shape/dtype")
+                e = (g.float() - w.float()).abs().max().item()
+                lim = TOL[dtype] * max(1.0, w.float().abs().max().item())
+                check(math.isfinite(e) and e <= lim,
+                      f"{name} {shape} causal={causal} {dtype}: max abs err {e} > {lim}")
+                err = max(err, e)
+            errs[name] = (err, lim)
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal)
+
+        def library():
+            return torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True)
+
+        library_ms = device_ms(library, iters)
+        library_event_ms = time_ms(library, iters)
+        backward_event_ms = time_ms(backward, iters)
+        plain = {
+            "flash_bwd_dq": lambda: attn._plain_flash_bwd_dq(*plain_args),
+            "flash_bwd_dkv": lambda: attn._plain_flash_bwd_dkv(*plain_args),
+        }
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            bound_ms, bound_by = bwd_bound(shape, causal, dtype, name)
+            row = {
+                "phase": "kernel_vs_plain", "kernel": name, "shape": list(shape),
+                "causal": causal, "dtype": str(dtype),
+                "max_abs_err": errs[name][0], "tol": errs[name][1],
+                "deterministic": deterministic,
+                "kernel_ms": device_ms(backward, iters, name + "_kernel"),
+                "plain_ms": device_ms(plain[name], iters),
+                "library_ms": library_ms,
+                "library": "scaled_dot_product_attention backward (dq, dk, dv)",
+                # the whole backward wrapper (both kernels + Δ), host included
+                "backward_wrapper_event_ms": backward_event_ms,
+                "plain_event_ms": time_ms(plain[name], iters),
+                "library_event_ms": library_event_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            emit(row)
+            if shape == TRAIN_SHAPE:
+                train_rows[name] = row
+        del q, k, v, do, out, lse, got, again, want_dq, want_dk, want_dv
+        del qs, ks, vs, sdpa_out, delta
+    torch.cuda.empty_cache()
+    return train_rows
 
 
 def post(url: str, body: dict) -> dict:
@@ -259,7 +402,7 @@ def phase_serve(seed: int, kernels) -> int:
     from server start to the last answered request."""
     import numpy as np
 
-    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.models import build_actor
     from torch_actor_critic_tpu_torch.models.sequence import plain_attention
     from torch_actor_critic_tpu_torch.serve.__main__ import (
         build_server,
@@ -270,9 +413,8 @@ def phase_serve(seed: int, kernels) -> int:
 
     history, obs_dim, act_dim, act_limit = 16, 3, 1, 2.0
     config = SACConfig(history_len=history)  # seq widths: 64 / 4 heads / 2 layers
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        actor = build_models(config, (history, obs_dim), act_dim, act_limit)
+    actor = build_actor(config, (history, obs_dim), act_dim, act_limit,
+                        generator=torch.Generator().manual_seed(seed))
     ckpt = tempfile.mkdtemp(prefix="tac_chip_smoke_")
     try:
         save_actor(ckpt, 1, actor, config)
@@ -288,7 +430,7 @@ def phase_serve(seed: int, kernels) -> int:
         try:
             at_start = kernels.launch_counts["flash_fwd"]
             rng = np.random.default_rng(seed)
-            plain = build_models(config, (history, obs_dim), act_dim, act_limit)
+            plain = build_actor(config, (history, obs_dim), act_dim, act_limit)
             for blk in plain.trunk.blocks:
                 blk.attn.attention_fn = plain_attention
             plain.load_state_dict(actor.state_dict())
@@ -369,6 +511,224 @@ def phase_serve(seed: int, kernels) -> int:
     return launches
 
 
+def _param_gap(a, b) -> tuple:
+    """(max abs gap over parameters, the same over attention key
+    biases) between two modules of one structure."""
+    gap, kbias = 0.0, 0.0
+    pb = dict(b.named_parameters())
+    for name, p in a.named_parameters():
+        e = (p.detach() - pb[name].detach()).abs().max().item()
+        if name.endswith("attn.k.bias"):
+            kbias = max(kbias, e)
+        else:
+            gap = max(gap, e)
+    return gap, kbias
+
+
+def phase_train(seed: int, kernels) -> dict:
+    """Train the full-width sequence policy through train.py's own
+    path; returns the kernels' launch counts of that run."""
+    import copy
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.models.sequence import (
+        MultiHeadAttention,
+        plain_attention,
+    )
+    from torch_actor_critic_tpu_torch.sac import losses
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_train_")
+    try:
+        args = train_cli.parse_arguments([
+            "--environment", TRAIN_ENV, "--history-len", "16", "--device", "cuda",
+            "--seed", str(seed), "--epochs", "1", "--steps-per-epoch", "2000",
+            "--start-steps", "1000", "--update-after", "1000", "--runs-root", runs,
+        ])
+        trainer, tracker = train_cli.build_trainer(args)
+        cfg = trainer.config
+        layers, q = cfg.seq_num_layers, cfg.num_qs
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train(
+            on_epoch=lambda e, m: emit({"phase": "train_epoch", "epoch": e, **m}))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        for key in ("loss_q", "loss_pi", "reward"):
+            check(math.isfinite(metrics[key]), f"train: {key} = {metrics[key]}")
+        updates = trainer.state.step
+        check(updates == 1000, f"train: {updates} gradient steps, expected 1000")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(launches.get(name, 0) > 0, f"train: {name} never launched")
+
+        # The saved actor restores through the serving read path.
+        restored, meta = Checkpointer(trainer.checkpointer.directory).restore_actor_params()
+        live = trainer.state.actor.state_dict()
+        check(all(torch.equal(restored[k], live[k].cpu()) for k in live),
+              "checkpoint does not restore the trained actor")
+
+        # Launches per update, exactly: forward (3Q+2)L, dQ and dK/dV (Q+1)L.
+        gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+        batch = sample(trainer.buffer, cfg.batch_size, generator=gen)
+        kernels.reset_launch_counts()
+        n_upd = 5
+        for _ in range(n_upd):
+            trainer.sac.update(trainer.state, batch)
+        torch.cuda.synchronize()
+        per_update = {k: v / n_upd for k, v in kernels.launch_counts.items()}
+        want = {"flash_fwd": (3 * q + 2) * layers,
+                "flash_bwd_dq": (q + 1) * layers, "flash_bwd_dkv": (q + 1) * layers}
+        check(per_update == want, f"launches per update {per_update} != {want}")
+
+        # One update from one state, with the kernels and with plain attention.
+        obs_shape = trainer.obs_shape
+        act_dim, act_limit = trainer.pool.act_dim, trainer.pool.act_limit
+
+        def replica(attention_fn):
+            actor, critic = build_models(cfg, obs_shape, act_dim, act_limit)
+            if attention_fn is not None:
+                for m in (*actor.modules(), *critic.modules()):
+                    if isinstance(m, MultiHeadAttention):
+                        m.attention_fn = attention_fn
+            actor.load_state_dict(trainer.state.actor.state_dict())
+            critic.load_state_dict(trainer.state.critic.state_dict())
+            st = trainer.sac.init_state(actor.cuda(), critic.cuda(), gen)
+            st.target_critic.load_state_dict(trainer.state.target_critic.state_dict())
+            for mine, theirs in ((st.pi_opt, trainer.state.pi_opt),
+                                 (st.q_opt, trainer.state.q_opt)):
+                mine.load_state_dict(copy.deepcopy(theirs.state_dict()))
+            return st
+
+        idx = torch.randint(0, trainer.buffer.size, (cfg.batch_size,),
+                            generator=gen, device="cuda")
+        batch = sample(trainer.buffer, cfg.batch_size, indices=idx)
+        eps_q, eps_pi = (torch.randn((cfg.batch_size, act_dim), generator=gen,
+                                     device="cuda") for _ in range(2))
+
+        def grads(st):
+            """The critic's and the actor's loss gradients w.r.t. their
+            own parameters, as the update takes them."""
+            alpha = st.log_alpha.detach().exp() if cfg.learn_alpha else cfg.alpha
+            loss_q, _ = losses.critic_loss(
+                st.critic, actor=st.actor, target_critic=st.target_critic,
+                batch=batch, alpha=alpha, gamma=cfg.gamma,
+                reward_scale=cfg.reward_scale, eps=eps_q)
+            g_q = torch.autograd.grad(loss_q, list(st.critic.parameters()))
+            st.critic.requires_grad_(False)
+            try:
+                loss_pi, _ = losses.actor_loss(
+                    st.actor, critic=st.critic, batch=batch, alpha=alpha,
+                    parity_pi_obs=cfg.parity_pi_obs, eps=eps_pi)
+                g_pi = torch.autograd.grad(loss_pi, list(st.actor.parameters()))
+            finally:
+                st.critic.requires_grad_(True)
+            return {"critic": g_q, "actor": g_pi}
+
+        with_kernels, with_plain = replica(None), replica(plain_attention)
+        grads_k = grads(with_kernels)
+        trainer.sac.update(with_kernels, batch, eps_q=eps_q, eps_pi=eps_pi)
+        kernels.reset_launch_counts()
+        grads_p = grads(with_plain)
+        trainer.sac.update(with_plain, batch, eps_q=eps_q, eps_pi=eps_pi)
+        torch.cuda.synchronize()
+        check(sum(kernels.launch_counts.values()) == 0,
+              "the plain-attention gradients or update launched a kernel")
+        grad_gaps = {}
+        for part in ("critic", "actor"):
+            gap = max((a - b).abs().max().item()
+                      for a, b in zip(grads_k[part], grads_p[part]))
+            lim = 1e-4 * max(1.0, max(b.abs().max().item() for b in grads_p[part]))
+            check(gap <= lim, f"kernel vs plain {part} gradients: gap {gap} > {lim}")
+            grad_gaps[part] = {"max_gap": gap, "limit": lim}
+        gaps = {}
+        for part in ("actor", "critic", "target_critic"):
+            gaps[part] = _param_gap(getattr(with_kernels, part), getattr(with_plain, part))
+        worst = max(g for g, _ in gaps.values())
+        worst_kbias = max(kb for _, kb in gaps.values())
+        check(worst <= 1e-4, f"kernel vs plain update: param gap {worst}")
+        check(worst_kbias <= 2 * cfg.lr, f"key-bias gap {worst_kbias} > 2 lr")
+        with torch.no_grad():
+            a_k, _ = with_kernels.actor(batch.states, deterministic=True)
+            a_p, _ = with_plain.actor(batch.states, deterministic=True)
+            q_k = with_kernels.critic(batch.states, batch.actions)
+            q_p = with_plain.critic(batch.states, batch.actions)
+        out_gap = max((a_k - a_p).abs().max().item(), (q_k - q_p).abs().max().item())
+        check(out_gap <= 1e-4, f"kernel vs plain update: output gap {out_gap}")
+
+        # Throughput of bursts alone, then one profiled burst.
+        chunk = sample(trainer.buffer, cfg.update_every, generator=gen)
+
+        def burst():
+            trainer.state, trainer.buffer, m = trainer.sac.update_burst(
+                trainer.state, trainer.buffer, chunk, cfg.updates_per_window)
+            return m
+
+        burst()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_bursts = 4
+        for _ in range(n_bursts):
+            m = burst()
+        torch.cuda.synchronize()
+        burst_s = (time.perf_counter() - t0) / n_bursts
+        check(all(math.isfinite(float(v)) for v in m.values()), "burst metrics not finite")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            burst()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        per = cfg.updates_per_window
+        kern = sorted(((key, us / per / 1e3, calls / per)
+                       for key, us, calls in device_kernels(prof)), key=lambda x: -x[1])
+        busy_ms = sum(k[1] for k in kern) * per
+
+        # Acting alone: policy forward on the card + the host env step.
+        obs = trainer.pool.reset_all([seed])
+        t0 = time.perf_counter()
+        for _ in range(200):
+            obs, *_ = trainer.pool.step(trainer._policy_actions(obs))
+        act_steps_per_s = 200 / (time.perf_counter() - t0)
+        trainer.close()
+        emit({
+            "phase": "train", "env": TRAIN_ENV, "config": {
+                "d_model": cfg.seq_d_model, "heads": cfg.seq_num_heads,
+                "layers": layers, "history": cfg.history_len, "num_qs": q,
+                "batch_size": cfg.batch_size, "update_every": cfg.update_every,
+                "steps": cfg.steps_per_epoch, "start_steps": cfg.start_steps,
+            },
+            "train_wall_s": train_s, "gradient_steps": updates,
+            "epoch_grad_steps_per_sec": metrics["grad_steps_per_sec"],
+            "epoch_env_steps_per_sec": metrics["env_steps_per_sec"],
+            "launches": launches, "launches_per_update": per_update,
+            "kernel_vs_plain_update": {
+                "max_param_gap": worst, "max_key_bias_gap": worst_kbias,
+                "max_output_gap": out_gap, "gradients": grad_gaps,
+                "by_module": {k: {"params": g, "key_bias": kb} for k, (g, kb) in gaps.items()},
+            },
+            "checkpoint_epoch": meta["epoch"],
+            "burst_ms": burst_s * 1e3, "burst_grad_steps_per_sec": per / burst_s,
+            "acting_env_steps_per_sec": act_steps_per_s,
+            "profiled_burst": {
+                "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+                "top_kernels_ms_per_update": [
+                    {"name": k[0][:80], "ms": k[1], "calls": k[2]} for k in kern[:10]
+                ],
+                "device_kernels_per_update": sum(k[2] for k in kern),
+                "host_ops_per_update": host_ops(prof, per, top=10),
+            },
+        })
+        return launches
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -384,23 +744,36 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build(_kernels)
     serve_row = phase_kernel_vs_plain(attn, args.seed)
-    launches = phase_serve(args.seed, _kernels)
-    check(launches > 0, "the serving path launched no flash_fwd kernel")
-    emit({"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "torch_actor_critic_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "torch_actor_critic_tpu/ops/attention.py:428",
-        "launches": launches,
-        "max_abs_err": serve_row["max_abs_err"],
-        "ms": serve_row["kernel_ms"],
-        "kernel_ms": serve_row["kernel_ms"],
-        "plain_ms": serve_row["plain_ms"],
-        "bound_ms": serve_row["bound_ms"],
-        "bound_by": serve_row["bound_by"],
-        "library_ms": serve_row["library_ms"],
-        "shape": serve_row["shape"],
-    }]})
+    bwd_rows = phase_bwd_vs_plain(attn, args.seed)
+    serve_launches = phase_serve(args.seed, _kernels)
+    check(serve_launches > 0, "the serving path launched no flash_fwd kernel")
+    train_launches = phase_train(args.seed, _kernels)
+    fwd_launches = serve_launches + train_launches["flash_fwd"]
+    rows = [
+        ("flash_fwd", "flash_fwd.cu", "torch_actor_critic_tpu/ops/attention.py:428",
+         fwd_launches, serve_row),
+        ("flash_bwd_dq", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:611",
+         train_launches["flash_bwd_dq"], bwd_rows["flash_bwd_dq"]),
+        ("flash_bwd_dkv", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:634",
+         train_launches["flash_bwd_dkv"], bwd_rows["flash_bwd_dkv"]),
+    ]
+    emit({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"torch_actor_critic_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": row["shape"],
+        }
+        for name, source, replaces, launches, row in rows
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and GPU serving path, on the card.
+"""The port's CUDA kernels and its GPU serving and training paths, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card (the
 kernels have no CPU mode). This file imports neither JAX nor the JAX
@@ -7,14 +7,23 @@ package, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
 Tolerances: f32 1e-4 against the plain version (summation order), bf16
-2e-2 (the bf16 rounding of the probability tile), lse 1e-4.
+2e-2 (the bf16 rounding of the probability tile), lse 1e-4; for the
+backward kernels those limits scale by max(1, max|plain|). A full-width
+update with the kernels agrees with the same update through plain
+attention to 1e-4 in every parameter except the attention key biases,
+whose gradient is zero in exact arithmetic (softmax ignores a per-row
+shift), so Adam turns rounding noise into steps up to ``lr``: those
+are held to 2·lr, and the updated networks' outputs to 1e-4.
 """
+
+import math
+
 
 import numpy as np
 import pytest
 import torch
 
-from torch_actor_critic_tpu_torch.models import build_models
+from torch_actor_critic_tpu_torch.models import build_actor
 from torch_actor_critic_tpu_torch.models.sequence import plain_attention
 from torch_actor_critic_tpu_torch.ops import _kernels
 from torch_actor_critic_tpu_torch.ops import attention as tattn
@@ -60,10 +69,8 @@ def test_flash_kernel_takes_strided_views(cuda):
 @pytest.mark.gpu
 def test_gpu_engine_serves_through_the_kernel(cuda):
     cfg = SACConfig(history_len=16)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        actor = build_models(cfg, (16, 3), 1, 2.0)
-    plain = build_models(cfg, (16, 3), 1, 2.0)
+    actor = build_actor(cfg, (16, 3), 1, 2.0, generator=torch.Generator().manual_seed(0))
+    plain = build_actor(cfg, (16, 3), 1, 2.0)
     for blk in plain.trunk.blocks:
         blk.attn.attention_fn = plain_attention
     plain.load_state_dict(actor.state_dict())
@@ -79,3 +86,108 @@ def test_gpu_engine_serves_through_the_kernel(cuda):
     np.testing.assert_allclose(got, want.cpu().numpy(), atol=1e-4, rtol=0)
     single = eng.act(params, obs[:1], deterministic=True)
     np.testing.assert_allclose(single[0], got[0], atol=1e-5, rtol=0)
+
+
+TRAIN_SHAPE = (64, 4, 16, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal,dtype", [
+    (TRAIN_SHAPE, True, torch.float32),
+    ((4, 8, 2048, 64), True, torch.float32),
+    ((4, 8, 2048, 64), False, torch.float32),
+    ((4, 8, 2048, 64), True, torch.bfloat16),
+    ((4, 8, 2048, 64), False, torch.bfloat16),
+    ((4, 8, 1000, 64), True, torch.float32),
+    ((1, 2, 37, 24), False, torch.bfloat16),
+])
+def test_flash_backward_kernels_match_plain_and_repeat_bitwise(cuda, shape, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda).to(dtype) for _ in range(4))
+    out, lse = tattn.flash_attention_forward(q, k, v, causal, return_lse=True)
+    before = dict(_kernels.launch_counts)
+    got = tattn.flash_attention_backward(q, k, v, out, lse, do, causal)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _kernels.launch_counts[name] == before.get(name, 0) + 1
+    again = tattn.flash_attention_backward(q, k, v, out, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    d = shape[-1]
+    dp = next(x for x in (16, 32, 64, 128) if x >= d)
+    pad = (lambda x: torch.nn.functional.pad(x, (0, dp - d))) if dp != d else (lambda x: x)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (pad(q), pad(k), pad(v), pad(do), lse, delta, causal, 1.0 / math.sqrt(d))
+    want = (tattn._plain_flash_bwd_dq(*args), *tattn._plain_flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        w = w[..., :d].float()
+        assert g.shape == w.shape and g.dtype == dtype
+        limit = tol * max(1.0, w.abs().max().item())
+        assert (g.float() - w).abs().max().item() <= limit
+
+
+@pytest.mark.gpu
+def test_attention_grad_runs_the_kernels_on_strided_cotangents(cuda):
+    """The model's MHA hands back a strided cotangent (its output is
+    transposed); the Function launches K2, K3 and K4 once each."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((8, 16, 4, 16), generator=gen, device=cuda).transpose(1, 2)
+    q, k, v = (x.clone().requires_grad_() for _ in range(3))
+    before = dict(_kernels.launch_counts)
+    out = tattn.attention(q, k, v, True)
+    loss = out.transpose(1, 2).reshape(8, 16, 64).square().sum()
+    grads = torch.autograd.grad(loss, (q, k, v))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _kernels.launch_counts[name] == before.get(name, 0) + 1
+    qp, kp, vp = (x.clone().requires_grad_() for _ in range(3))
+    ref = tattn.attention(qp, kp, vp, True, impl="plain")
+    want = torch.autograd.grad(ref.transpose(1, 2).reshape(8, 16, 64).square().sum(), (qp, kp, vp))
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_full_width_update_with_kernels_matches_plain_attention(cuda):
+    from torch_actor_critic_tpu_torch.core.types import Batch
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.models.sequence import MultiHeadAttention
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg = SACConfig(history_len=16)
+    sac = SAC(cfg, 1)
+
+    def state(attention_fn):
+        actor, critic = build_models(cfg, (16, 3), 1, 2.0,
+                                     generator=torch.Generator().manual_seed(0))
+        if attention_fn is not None:
+            for m in (*actor.modules(), *critic.modules()):
+                if isinstance(m, MultiHeadAttention):
+                    m.attention_fn = attention_fn
+        return sac.init_state(actor.to(cuda), critic.to(cuda),
+                              torch.Generator(device=cuda).manual_seed(1))
+
+    rng = np.random.default_rng(0)
+    b = Batch(
+        states=torch.from_numpy(rng.standard_normal((64, 16, 3)).astype(np.float32)),
+        actions=torch.from_numpy(rng.uniform(-2, 2, (64, 1)).astype(np.float32)),
+        rewards=torch.from_numpy(rng.standard_normal(64).astype(np.float32)),
+        next_states=torch.from_numpy(rng.standard_normal((64, 16, 3)).astype(np.float32)),
+        done=torch.zeros(64),
+    ).map(lambda t: t.to(cuda))
+    eps = [torch.from_numpy(rng.standard_normal((64, 1)).astype(np.float32)).to(cuda)
+           for _ in range(2)]
+    with_kernels, with_plain = state(None), state(plain_attention)
+    before = dict(_kernels.launch_counts)
+    sac.update(with_kernels, b, eps_q=eps[0], eps_pi=eps[1])
+    assert _kernels.launch_counts["flash_bwd_dq"] == before.get("flash_bwd_dq", 0) + 6
+    assert _kernels.launch_counts["flash_fwd"] == before.get("flash_fwd", 0) + 16
+    sac.update(with_plain, b, eps_q=eps[0], eps_pi=eps[1])
+    for part in ("actor", "critic", "target_critic"):
+        theirs = dict(getattr(with_plain, part).named_parameters())
+        for name, p in getattr(with_kernels, part).named_parameters():
+            gap = (p - theirs[name]).abs().max().item()
+            assert gap <= (2 * cfg.lr if name.endswith("attn.k.bias") else 1e-4), (part, name, gap)
+    with torch.no_grad():
+        qk = with_kernels.critic(b.states, b.actions)
+        qp = with_plain.critic(b.states, b.actions)
+    assert (qk - qp).abs().max().item() <= 1e-4

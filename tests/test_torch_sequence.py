@@ -24,7 +24,14 @@ from torch_actor_critic_tpu.models import Actor as JaxActor
 from torch_actor_critic_tpu.models import SequenceActor as JaxSequenceActor
 from torch_actor_critic_tpu.ops import distributions as jdist
 from torch_actor_critic_tpu.utils.config import SACConfig as JaxSACConfig
-from torch_actor_critic_tpu_torch.models import Actor, SequenceActor, build_models
+from torch_actor_critic_tpu_torch.models import (
+    Actor,
+    DoubleCritic,
+    SequenceActor,
+    SequenceDoubleCritic,
+    build_actor,
+    build_models,
+)
 from torch_actor_critic_tpu_torch.ops import distributions as tdist
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
 from torch_actor_critic_tpu_torch.weights import actor_from_jax, load_jax_actor_params
@@ -196,11 +203,13 @@ def test_config_model_dtype_maps_to_torch():
 
 def test_build_models_dispatch_and_actor_from_jax():
     cfg = SACConfig(history_len=T, seq_d_model=32, seq_num_heads=2, seq_num_layers=1)
-    seq = build_models(cfg, (T, OBS_DIM), ACT_DIM, ACT_LIMIT)
+    seq, seq_critic = build_models(cfg, (T, OBS_DIM), ACT_DIM, ACT_LIMIT)
     assert isinstance(seq, SequenceActor) and seq.trunk.max_len == T
     assert len(seq.trunk.blocks) == 1 and seq.act_limit == ACT_LIMIT
-    flat = build_models(SACConfig(hidden_sizes=(16,)), (OBS_DIM,), ACT_DIM, 1.0)
-    assert isinstance(flat, Actor)
+    assert isinstance(seq_critic, SequenceDoubleCritic) and len(seq_critic.ensemble) == 2
+    flat, flat_critic = build_models(SACConfig(hidden_sizes=(16,)), (OBS_DIM,), ACT_DIM, 1.0)
+    assert isinstance(flat, Actor) and isinstance(flat_critic, DoubleCritic)
+    assert isinstance(build_actor(cfg, (T, OBS_DIM), ACT_DIM, ACT_LIMIT), SequenceActor)
     _, params = _jax_sequence_actor(1)
     bridged = actor_from_jax(_np_params(params), cfg, (T, OBS_DIM), ACT_DIM, ACT_LIMIT)
     np.testing.assert_array_equal(

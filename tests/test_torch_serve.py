@@ -29,7 +29,7 @@ import torch
 from torch_actor_critic_tpu.models import SequenceActor as JaxSequenceActor
 from torch_actor_critic_tpu.serve.engine import PolicyEngine as JaxPolicyEngine
 from torch_actor_critic_tpu.serve.engine import default_buckets as jax_default_buckets
-from torch_actor_critic_tpu_torch.models import build_models
+from torch_actor_critic_tpu_torch.models import build_actor
 from torch_actor_critic_tpu_torch.serve import (
     MicroBatcher,
     ModelRegistry,
@@ -57,9 +57,9 @@ SPEC = ObsSpec((T, OBS_DIM), np.float32)
 
 
 def _actor(seed=0):
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        return build_models(CFG, SPEC.shape, ACT_DIM, ACT_LIMIT)
+    return build_actor(
+        CFG, SPEC.shape, ACT_DIM, ACT_LIMIT, generator=torch.Generator().manual_seed(seed)
+    )
 
 
 def _obs(n, seed=0):

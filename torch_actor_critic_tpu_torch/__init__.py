@@ -5,9 +5,10 @@ layout and names so each counterpart is found at the same path. It
 imports ``torch``, numpy and the standard library only — never JAX and
 never a module of the JAX package (tests/test_torch_serve.py pins it).
 
-Slice 1 serves a causal-transformer (sequence) policy over HTTP, with
-the attention forward in a hand-written CUDA kernel
-(``csrc/flash_fwd.cu``, wrapped by :mod:`.ops.attention`).
+It serves a causal-transformer (sequence) policy over HTTP and trains
+it with SAC on one device, the attention's forward and backward in
+hand-written CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
+wrapped by :mod:`.ops.attention`).
 """
 
 import torch

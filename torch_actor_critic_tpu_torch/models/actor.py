@@ -7,7 +7,7 @@ import typing as t
 import torch
 from torch import nn
 
-from torch_actor_critic_tpu_torch.models.mlp import MLP, Dense
+from torch_actor_critic_tpu_torch.models.mlp import MLP, Dense, init_generator
 from torch_actor_critic_tpu_torch.ops.distributions import (
     squashed_gaussian_sample,
 )
@@ -24,12 +24,16 @@ class Actor(nn.Module):
         hidden_sizes: t.Sequence[int] = (256, 256),
         act_limit: float = 1.0,
         dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
     ):
         super().__init__()
-        self.trunk = MLP(obs_dim, hidden_sizes, activate_final=True, dtype=dtype)
+        gen = init_generator(generator)
+        self.trunk = MLP(
+            obs_dim, hidden_sizes, activate_final=True, dtype=dtype, generator=gen
+        )
         width = hidden_sizes[-1] if hidden_sizes else obs_dim
-        self.mu = Dense(width, act_dim, dtype=dtype)
-        self.log_std = Dense(width, act_dim, dtype=dtype)
+        self.mu = Dense(width, act_dim, dtype=dtype, generator=gen)
+        self.log_std = Dense(width, act_dim, dtype=dtype, generator=gen)
         self.act_limit = float(act_limit)
 
     def forward(

@@ -1,10 +1,17 @@
 """Sequence (causal-transformer) policy over observation histories.
 
 Port of ``models/sequence.py`` (single device): ``MultiHeadAttention``,
-``TransformerBlock``, ``SequenceTrunk`` and ``SequenceActor``. The
-attention runs through :func:`~torch_actor_critic_tpu_torch.ops.attention.attention`
-— the hand-written CUDA kernel on the card, the plain version on the
-CPU. The ``sp_axis`` ring path and the critics wait for later slices.
+``TransformerBlock``, ``SequenceTrunk``, ``SequenceActor``,
+``SequenceCritic`` and ``SequenceDoubleCritic``. The attention runs
+through :func:`~torch_actor_critic_tpu_torch.ops.attention.attention` —
+the hand-written CUDA kernels on the card (forward, and under grad the
+two backward kernels), their plain versions on the CPU. The ``sp_axis``
+ring path waits for a later slice.
+
+The critic ensemble is an ``nn.ModuleList`` of ``num_qs`` critics, one
+attention launch per critic and layer (the JAX package vmaps one
+parameter-stacked critic; ``torch.func.vmap`` cannot batch through a
+ctypes kernel launch).
 
 Flax divergences this module reproduces on purpose:
 - ``nn.LayerNorm`` uses eps = 1e-6 (torch's default is 1e-5), computes
@@ -23,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_actor_critic_tpu_torch.models.mlp import Dense
+from torch_actor_critic_tpu_torch.models.mlp import Dense, init_generator
 from torch_actor_critic_tpu_torch.ops.attention import attention as sdpa
 from torch_actor_critic_tpu_torch.ops.distributions import (
     squashed_gaussian_sample,
@@ -71,16 +78,18 @@ class MultiHeadAttention(nn.Module):
         self, d_model: int, num_heads: int,
         attention_fn: AttentionFn = default_attention,
         dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
     ):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} % num_heads {num_heads} != 0")
+        gen = init_generator(generator)
         self.num_heads = num_heads
         self.attention_fn = attention_fn
-        self.q = Dense(d_model, d_model, dtype=dtype)
-        self.k = Dense(d_model, d_model, dtype=dtype)
-        self.v = Dense(d_model, d_model, dtype=dtype)
-        self.o = Dense(d_model, d_model, dtype=dtype)
+        self.q = Dense(d_model, d_model, dtype=dtype, generator=gen)
+        self.k = Dense(d_model, d_model, dtype=dtype, generator=gen)
+        self.v = Dense(d_model, d_model, dtype=dtype, generator=gen)
+        self.o = Dense(d_model, d_model, dtype=dtype, generator=gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d_model = x.shape
@@ -102,13 +111,15 @@ class TransformerBlock(nn.Module):
         self, d_model: int, num_heads: int, mlp_ratio: int = 4,
         attention_fn: AttentionFn = default_attention,
         dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
     ):
         super().__init__()
+        gen = init_generator(generator)
         self.ln1 = LayerNorm(d_model)
-        self.attn = MultiHeadAttention(d_model, num_heads, attention_fn, dtype)
+        self.attn = MultiHeadAttention(d_model, num_heads, attention_fn, dtype, gen)
         self.ln2 = LayerNorm(d_model)
-        self.fc1 = Dense(d_model, mlp_ratio * d_model, dtype=dtype)
-        self.fc2 = Dense(mlp_ratio * d_model, d_model, dtype=dtype)
+        self.fc1 = Dense(d_model, mlp_ratio * d_model, dtype=dtype, generator=gen)
+        self.fc2 = Dense(mlp_ratio * d_model, d_model, dtype=dtype, generator=gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -125,14 +136,21 @@ class SequenceTrunk(nn.Module):
         num_layers: int = 2, max_len: int = 512,
         attention_fn: AttentionFn = default_attention,
         dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
     ):
         super().__init__()
+        gen = init_generator(generator)
         self.max_len = max_len
         self.dtype = dtype
-        self.embed = Dense(obs_dim, d_model, dtype=dtype)
-        self.pos_embedding = nn.Parameter(torch.randn(max_len, d_model) * 0.02)
+        self.embed = Dense(obs_dim, d_model, dtype=dtype, generator=gen)
+        self.pos_embedding = nn.Parameter(
+            torch.randn(max_len, d_model, generator=gen) * 0.02
+        )
         self.blocks = nn.ModuleList(
-            TransformerBlock(d_model, num_heads, attention_fn=attention_fn, dtype=dtype)
+            TransformerBlock(
+                d_model, num_heads, attention_fn=attention_fn, dtype=dtype,
+                generator=gen,
+            )
             for _ in range(num_layers)
         )
         self.ln_f = LayerNorm(d_model)
@@ -164,14 +182,16 @@ class SequenceActor(nn.Module):
         act_limit: float = 1.0,
         attention_fn: AttentionFn = default_attention,
         dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
     ):
         super().__init__()
+        gen = init_generator(generator)
         self.trunk = SequenceTrunk(
             obs_dim, d_model, num_heads, num_layers, max_len, attention_fn,
-            dtype=dtype,
+            dtype=dtype, generator=gen,
         )
-        self.mu = Dense(d_model, act_dim, dtype=dtype)
-        self.log_std = Dense(d_model, act_dim, dtype=dtype)
+        self.mu = Dense(d_model, act_dim, dtype=dtype, generator=gen)
+        self.log_std = Dense(d_model, act_dim, dtype=dtype, generator=gen)
         self.act_limit = float(act_limit)
 
     def head(
@@ -203,3 +223,61 @@ class SequenceActor(nn.Module):
             action = action.squeeze(0)
             logp = logp.squeeze(0) if logp is not None else None
         return action, logp
+
+
+class SequenceCritic(nn.Module):
+    """Q(h_T, a): the trunk encodes the history, the last token's
+    representation is concatenated with the action and scored by a
+    ReLU layer of ``hidden`` units and a linear output; Q is f32."""
+
+    def __init__(
+        self, obs_dim: int, act_dim: int, d_model: int = 128,
+        num_heads: int = 4, num_layers: int = 2, max_len: int = 512,
+        hidden: int = 256,
+        attention_fn: AttentionFn = default_attention,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        gen = init_generator(generator)
+        self.trunk = SequenceTrunk(
+            obs_dim, d_model, num_heads, num_layers, max_len, attention_fn,
+            dtype=dtype, generator=gen,
+        )
+        self.fc = Dense(d_model + act_dim, hidden, dtype=dtype, generator=gen)
+        self.out = Dense(hidden, 1, dtype=dtype, generator=gen)
+
+    def forward(self, obs_seq: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        unbatched, obs_seq = _auto_batch(obs_seq)
+        if unbatched:
+            action = action[None]
+        h = self.trunk(obs_seq)[:, -1]
+        x = torch.cat([h, action.to(h.dtype)], dim=-1)
+        q = self.out(F.relu(self.fc(x))).float().squeeze(-1)
+        return q.squeeze(0) if unbatched else q
+
+
+class SequenceDoubleCritic(nn.Module):
+    """``num_qs`` independent :class:`SequenceCritic` s; returns
+    ``(num_qs, B)``."""
+
+    def __init__(
+        self, obs_dim: int, act_dim: int, d_model: int = 128,
+        num_heads: int = 4, num_layers: int = 2, max_len: int = 512,
+        hidden: int = 256, num_qs: int = 2,
+        attention_fn: AttentionFn = default_attention,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        gen = init_generator(generator)
+        self.ensemble = nn.ModuleList(
+            SequenceCritic(
+                obs_dim, act_dim, d_model, num_heads, num_layers, max_len,
+                hidden, attention_fn, dtype, gen,
+            )
+            for _ in range(num_qs)
+        )
+
+    def forward(self, obs_seq: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        return torch.stack([c(obs_seq, action) for c in self.ensemble])

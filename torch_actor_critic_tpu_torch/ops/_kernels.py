@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is a plain-C-interface source compiled by
+Each ``csrc/<source>.cu`` is a plain-C-interface source compiled by
 ``nvcc`` into its own shared library and bound with ``ctypes`` (no
-PyTorch headers: a build takes seconds, not minutes). Libraries are
+PyTorch headers: a build takes seconds, not minutes); one source may
+hold several kernels' entry points. Libraries are
 built at first use into ``_build/`` next to the package, under a name
 keyed on a hash of the sources and flags, so a fresh checkout builds
 exactly once and an edited source rebuilds. Nothing here runs at
@@ -33,13 +34,22 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# name -> (C symbol, argtypes): the ctypes signature of each kernel's
-# entry point. Every pointer and the stream are c_void_p.
-_P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES: t.Dict[str, t.Tuple[str, tuple]] = {
+# kernel name -> (source under csrc/, C symbol, argtypes): the ctypes
+# signature of each kernel's entry point. Every pointer and the stream
+# are c_void_p.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES: t.Dict[str, t.Tuple[str, str, tuple]] = {
     "flash_fwd": (
-        "tac_flash_fwd",
-        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+        "flash_fwd", "tac_flash_fwd",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    ),
+    "flash_bwd_dq": (
+        "flash_bwd", "tac_flash_bwd_dq",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    ),
+    "flash_bwd_dkv": (
+        "flash_bwd", "tac_flash_bwd_dkv",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     ),
 }
 
@@ -47,7 +57,7 @@ launch_counts: t.Counter[str] = collections.Counter()
 
 _lock = threading.Lock()
 _loaded: t.Dict[str, t.Callable[..., int]] = {}
-build_logs: t.Dict[str, str] = {}  # name -> nvcc's output (ptxas -v)
+build_logs: t.Dict[str, str] = {}  # source -> nvcc's output (ptxas -v)
 
 
 class KernelBuildError(RuntimeError):
@@ -75,34 +85,35 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
+def _lib_path(source: str) -> Path:
+    src = SRC_DIR / f"{source}.cu"
     digest = hashlib.sha256(src.read_bytes())
     for extra in sorted(SRC_DIR.glob("*.cuh")):
         digest.update(extra.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: t.Iterable[str] | None = None) -> t.Dict[str, float]:
-    """Compile every missing kernel library in parallel (one ``nvcc``
-    per source, started together) and wait for all of them. Returns
-    ``{name: seconds}`` for the ones built; raises
-    :class:`KernelBuildError` with the compiler output on failure."""
+    """Compile every missing library of the kernels ``names`` (all by
+    default) in parallel (one ``nvcc`` per source, started together)
+    and wait for all of them. Returns ``{source: seconds}`` for the
+    ones built; raises :class:`KernelBuildError` with the compiler
+    output on failure."""
     import time
 
-    names = list(names or SIGNATURES)
-    pending = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
+    sources = sorted({SIGNATURES[n][0] for n in (names or SIGNATURES)})
+    pending = {s: _lib_path(s) for s in sources if not _lib_path(s).exists()}
     if not pending:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name, out in pending.items():
+    for source, out in pending.items():
         tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{source}.cu")]
+        procs[source] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
@@ -111,14 +122,14 @@ def build_all(names: t.Iterable[str] | None = None) -> t.Dict[str, float]:
         )
     seconds = {}
     errors = []
-    for name, (proc, tmp) in procs.items():
+    for source, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
-        build_logs[name] = log
+        build_logs[source] = log
         if proc.returncode != 0:
-            errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            errors.append(f"{source}: nvcc exited {proc.returncode}\n{log}")
             continue
-        os.replace(tmp, pending[name])  # atomic: readers never see a partial .so
-        seconds[name] = time.perf_counter() - t0
+        os.replace(tmp, pending[source])  # atomic: readers never see a partial .so
+        seconds[source] = time.perf_counter() - t0
     if errors:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(errors))
     return seconds
@@ -135,9 +146,9 @@ def load(name: str) -> t.Callable[..., int]:
         if fn is not None:
             return fn
         build_all([name])
-        symbol, argtypes = SIGNATURES[name]
+        source, symbol, argtypes = SIGNATURES[name]
         try:
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(_lib_path(source)))
             fn = getattr(lib, symbol)
         except (OSError, AttributeError) as e:
             raise KernelBuildError(f"cannot load kernel {name!r}: {e}") from e

@@ -1,20 +1,30 @@
-"""Scaled-dot-product attention: the plain version and the CUDA kernel.
+"""Scaled-dot-product attention: the plain versions and the CUDA kernels.
 
-Port of ``ops/attention.py``. All functions take the JAX layout
+Port of ``ops/attention.py``. All public functions take the JAX layout
 ``(batch, heads, seq, head_dim)``.
 
-- :func:`reference_attention` — the plain PyTorch version: the dense
+- :func:`reference_attention` — the plain dense version: the full
   ``(Tq, Tk)`` score matrix, causal mask with global ``q_offset`` /
-  ``k_offset``, rows with no visible key set to 0. The CPU path, and
-  the yardstick the kernel is held against on the card.
+  ``k_offset``, rows with no visible key set to 0. ``impl='plain'``.
 - :func:`flash_attention_forward` — the wrapper of the hand-written
-  Hopper kernel ``csrc/flash_fwd.cu`` (the port of the TPU kernel
-  ``_flash_kernel``). It takes the plain version only for tensors on
-  the CPU; a CUDA tensor launches the kernel or raises.
+  Hopper kernel ``csrc/flash_fwd.cu`` (K2, the port of the TPU kernel
+  ``_flash_kernel``).
+- :func:`flash_attention_backward` — Δ = rowsum(dO∘O) in f32, then the
+  kernels ``csrc/flash_bwd.cu`` (K3 ``_flash_bwd_dq_kernel`` and K4
+  ``_flash_bwd_dkv_kernel``).
+- :class:`FlashAttention` — the ``autograd.Function`` joining the two
+  (the port of ``flash_attention``'s ``custom_vjp``).
 - :func:`attention` — the dispatch the models call.
 
-``blockwise_attention``/``online_block_update`` (the training and ring
-paths) are not ported yet.
+Each wrapper validates and zero-pads the head dim to 16/32/64/128 (the
+scale keeps the logical head dim), then launches: on CPU tensors the
+plain version of that one kernel (``_plain_flash_fwd``,
+``_plain_flash_bwd_dq``, ``_plain_flash_bwd_dkv``, same signatures and
+the same bf16 rounding), on CUDA tensors the kernel. A build or launch
+failure raises; nothing falls back.
+
+``blockwise_attention``/``online_block_update`` (the ring path) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from torch_actor_critic_tpu_torch.ops import _kernels
 
@@ -30,18 +41,23 @@ _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An f32 intermediate as a product with a ``dtype`` operand sees
+    it: rounded to bf16 for bf16 operands (the TPU kernels' ``_acc_dot``
+    rule), unchanged for f32."""
+    return x.to(dtype).float() if dtype != torch.float32 else x
+
+
 def _plain_softmax_pv(scores, v, out_dtype, return_lse):
     """Finish attention from f32 ``scores`` (``-inf`` where masked) the
     way the kernel does: unnormalised ``p = exp(s - max)``, normaliser
     summed in f32, ``p`` rounded to the input dtype before ``P·V``
-    (bf16 inputs; the TPU kernel's ``_acc_dot`` rule), f32 accumulation,
-    all-masked rows -> 0."""
+    (bf16 inputs), f32 accumulation, all-masked rows -> 0."""
     m = scores.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
     p = torch.exp(scores - m_safe)
     l = p.sum(dim=-1, keepdim=True)
-    p_v = p.to(v.dtype).float() if v.dtype != torch.float32 else p
-    acc = torch.matmul(p_v, v.float())
+    acc = torch.matmul(_operand(p, v.dtype), v.float())
     out = (acc / torch.where(l == 0, torch.ones_like(l), l)).to(out_dtype)
     if not return_lse:
         return out
@@ -49,6 +65,17 @@ def _plain_softmax_pv(scores, v, out_dtype, return_lse):
         l == 0, torch.full_like(l, float("-inf")), m_safe + torch.log(l)
     )
     return out, lse.squeeze(-1)
+
+
+def _scores(q, k, causal: bool, scale: float, q_offset: int = 0, k_offset: int = 0):
+    """f32 ``QKᵀ·scale``, ``-inf`` where the causal mask (global
+    positions ``q_offset + i`` vs ``k_offset + j``) hides a key."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        q_pos = q_offset + torch.arange(s.shape[-2], device=q.device)[:, None]
+        k_pos = k_offset + torch.arange(s.shape[-1], device=q.device)[None, :]
+        s = s.masked_fill(q_pos < k_pos, float("-inf"))
+    return s
 
 
 def reference_attention(
@@ -62,14 +89,105 @@ def reference_attention(
 ):
     """Plain ``softmax(QKᵀ/sqrt(d))V`` with the full score matrix, f32
     scores and accumulation; the output has ``q``'s dtype."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        tq, tk = scores.shape[-2], scores.shape[-1]
-        q_pos = q_offset + torch.arange(tq, device=q.device)[:, None]
-        k_pos = k_offset + torch.arange(tk, device=q.device)[None, :]
-        scores = scores.masked_fill(q_pos < k_pos, float("-inf"))
+    scores = _scores(q, k, causal, 1.0 / math.sqrt(q.shape[-1]), q_offset, k_offset)
     return _plain_softmax_pv(scores, v, q.dtype, return_lse)
+
+
+# ------------------------------------------------- plain versions of K2-K4
+# Same signatures as the kernels' wrappers see them: head-dim-padded
+# (B, H, T, dp) operands, the logical scale, f32 (B, H, Tq) lse/Δ.
+
+
+def _plain_flash_fwd(q, k, v, causal: bool, scale: float):
+    """K2's plain version: ``(out, lse)``."""
+    return _plain_softmax_pv(_scores(q, k, causal, scale), v, q.dtype, return_lse=True)
+
+
+def _plain_probs(q, k, lse, causal: bool, scale: float) -> torch.Tensor:
+    """``p = exp(s - lse)`` from the saved lse, 0 where masked or where
+    the forward saw no key (lse = -inf)."""
+    s = _scores(q, k, causal, scale)
+    lse = torch.where(torch.isneginf(lse), torch.full_like(lse, float("inf")), lse)
+    return torch.exp(s - lse[..., None])
+
+
+def _plain_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """K3's plain version: ``dQ = (p∘(dO·Vᵀ − Δ))·K · scale``."""
+    p = _plain_probs(q, k, lse, causal, scale)
+    dpv = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dpv - delta[..., None])
+    return (torch.matmul(_operand(ds, k.dtype), k.float()) * scale).to(q.dtype)
+
+
+def _plain_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """K4's plain version: ``(dK, dV)`` with ``dV = pᵀ·dO`` and
+    ``dK = (p∘(dO·Vᵀ − Δ))ᵀ·Q · scale``."""
+    p = _plain_probs(q, k, lse, causal, scale)
+    dv = torch.matmul(_operand(p, do.dtype).transpose(-1, -2), do.float())
+    dpv = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dpv - delta[..., None])
+    dk = torch.matmul(_operand(ds, q.dtype).transpose(-1, -2), q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------- the wrappers
+
+
+def _check_qkv(where: str, q, k, v) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dim() != 4:
+            raise ValueError(
+                f"{where}: {name} must be (B, H, T, d), got shape {tuple(x.shape)}"
+            )
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(
+            f"{where}: q/k/v must share one dtype, float32 or bfloat16; "
+            f"got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{where}: q/k/v on different devices")
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if k.shape != (b, h, tk, d) or v.shape != k.shape:
+        raise ValueError(
+            f"{where}: shapes disagree: q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    if tq < 1 or tk < 1 or d > _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"{where}: needs T >= 1 and d <= 128, got Tq={tq}, Tk={tk}, d={d}"
+        )
+
+
+def _padded(d: int) -> int:
+    return next(x for x in _KERNEL_HEAD_DIMS if x >= d)
+
+
+def _pad(dp: int, *xs: torch.Tensor):
+    return tuple(F.pad(x, (0, dp - x.shape[-1])) if x.shape[-1] != dp else x
+                 for x in xs)
+
+
+def _kernel_operands(where: str, *xs: torch.Tensor):
+    """Contiguous, 16-byte-aligned CUDA operands for a kernel that reads
+    float4/uint2 vectors (a view with a storage offset may not be
+    aligned)."""
+    for x in xs:
+        if not x.is_cuda:
+            raise ValueError(f"{where}: an operand is not a CUDA tensor")
+    xs = tuple(x.contiguous() for x in xs)
+    return tuple(x.clone() if x.data_ptr() % 16 else x for x in xs)
+
+
+def _launch(name: str, fn, device, args, shape_note: str) -> None:
+    if device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:  # the runtime launches on the thread's current device
+        with torch.cuda.device(device):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err} ({shape_note})")
+    _kernels.count_launch(name)
 
 
 def flash_attention_forward(
@@ -82,75 +200,119 @@ def flash_attention_forward(
     """Flash-attention forward: ``out`` (q's dtype) and, with
     ``return_lse``, the f32 per-row logsumexp ``(B, H, Tq)``.
 
-    On CPU tensors this is the plain version (the CPU has no kernel).
-    Any other device runs ``csrc/flash_fwd.cu``: q/k/v must be CUDA,
-    one dtype (float32 or bfloat16), head dim <= 128 (zero-padded to
-    the next of 16/32/64/128; the scale keeps the logical head dim).
-    A build or launch failure raises; nothing falls back.
+    q/k/v: one dtype (float32 or bfloat16), head dim <= 128. On CPU
+    tensors the launch is :func:`_plain_flash_fwd` (the CPU has no
+    kernel); any other device runs ``csrc/flash_fwd.cu`` and must be
+    CUDA. A build or launch failure raises; nothing falls back.
     """
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, causal, return_lse=return_lse)
-    fn = _kernels.load("flash_fwd")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_cuda:
-            raise ValueError(f"flash_attention_forward: {name} is not a CUDA tensor")
-        if x.dim() != 4:
-            raise ValueError(
-                f"flash_attention_forward: {name} must be (B, H, T, d), "
-                f"got shape {tuple(x.shape)}"
-            )
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(
-            "flash_attention_forward: q/k/v must share one dtype, float32 "
-            f"or bfloat16; got {q.dtype}/{k.dtype}/{v.dtype}"
-        )
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_forward: q/k/v on different devices")
+    on_cpu = q.device.type == "cpu"
+    fn = None if on_cpu else _kernels.load("flash_fwd")
+    _check_qkv("flash_attention_forward", q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if k.shape != (b, h, tk, d) or v.shape != k.shape:
-        raise ValueError(
-            "flash_attention_forward: shapes disagree: "
-            f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
-        )
-    if tq < 1 or tk < 1 or d > _KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(
-            f"flash_attention_forward: needs T >= 1 and d <= 128, got "
-            f"Tq={tq}, Tk={tk}, d={d}"
-        )
     scale = 1.0 / math.sqrt(d)
-    dp = next(x for x in _KERNEL_HEAD_DIMS if x >= d)
-    if dp != d:
-        q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
-    # The kernel reads float4/uint2 vectors: contiguous and 16-byte
-    # aligned (a view with a storage offset may not be).
-    q, k, v = (x.contiguous() for x in (q, k, v))
-    q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
-    out = torch.empty((b, h, tq, dp), dtype=q.dtype, device=q.device)
-    lse = (
-        torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-        if return_lse else None
-    )
-    args = (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        b * h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)),
-        scale, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if q.device.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:  # the runtime launches on the thread's current device
-        with torch.cuda.device(q.device):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: cudaError {err} "
-            f"(B·H={b * h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype})"
+    dp = _padded(d)
+    q, k, v = _pad(dp, q, k, v)
+    if on_cpu:
+        out, lse = _plain_flash_fwd(q, k, v, causal, scale)
+    else:
+        q, k, v = _kernel_operands("flash_attention_forward", q, k, v)
+        out = torch.empty((b, h, tq, dp), dtype=q.dtype, device=q.device)
+        lse = (
+            torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+            if return_lse else None
         )
-    _kernels.count_launch("flash_fwd")
+        _launch("flash_fwd", fn, q.device, (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            b * h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)),
+            scale, torch.cuda.current_stream(q.device).cuda_stream,
+        ), f"B·H={b * h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}")
     if dp != d:
         out = out[..., :d]
     return (out, lse) if return_lse else out
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool = False,
+):
+    """``(dq, dk, dv)`` of attention from the forward's ``o`` and f32
+    ``lse`` and the cotangent ``do``, in q's/k's/v's dtypes.
+
+    ``do`` is cast to q's dtype (an f32 loss over a bf16 output must not
+    make the kernels downcast a real input). Δ = rowsum(dO∘O) is taken
+    here in f32 with a plain reduction; zero head-dim padding leaves it
+    unchanged. Then K3 and K4 run (their plain versions on CPU tensors).
+    """
+    on_cpu = q.device.type == "cpu"
+    fns = None if on_cpu else (
+        _kernels.load("flash_bwd_dq"), _kernels.load("flash_bwd_dkv"),
+    )
+    _check_qkv("flash_attention_backward", q, k, v)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(
+            "flash_attention_backward: o and do must have q's shape "
+            f"{tuple(q.shape)}, got {tuple(o.shape)} and {tuple(do.shape)}"
+        )
+    if lse.shape != (b, h, tq) or lse.dtype != torch.float32:
+        raise ValueError(
+            "flash_attention_backward: lse must be f32 (B, H, Tq), got "
+            f"{lse.dtype} {tuple(lse.shape)}"
+        )
+    do = do.to(q.dtype)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    scale = 1.0 / math.sqrt(d)
+    dp = _padded(d)
+    q, k, v, do = _pad(dp, q, k, v, do)
+    if on_cpu:
+        dq = _plain_flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = _plain_flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    else:
+        where = "flash_attention_backward"
+        q, k, v, do, lse, delta = _kernel_operands(where, q, k, v, do, lse, delta)
+        dq = torch.empty_like(q)
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        common = (b * h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)),
+                  scale, torch.cuda.current_stream(q.device).cuda_stream)
+        note = f"B·H={b * h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}"
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), delta.data_ptr())
+        _launch("flash_bwd_dq", fns[0], q.device,
+                (*ins, dq.data_ptr(), *common), note)
+        _launch("flash_bwd_dkv", fns[1], q.device,
+                (*ins, dk.data_ptr(), dv.data_ptr(), *common), note)
+    if dp != d:
+        dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward in kernels: the forward is K2
+    with the lse saved, the backward :func:`flash_attention_backward`
+    (K3 and K4), recomputing the probabilities from the lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention_forward(q, k, v, causal, return_lse=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, ctx.causal)
+        return dq, dk, dv, None
 
 
 def attention(
@@ -160,11 +322,17 @@ def attention(
     causal: bool = False,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """``'auto'``: the flash kernel on a CUDA tensor, the plain version
-    on a CPU tensor. ``'plain'`` forces the plain version on any device
-    (the tests' and ``chip_smoke.py``'s comparison)."""
+    """``'auto'``: the flash kernels — :class:`FlashAttention` when grad
+    is enabled and an input requires grad (K2 then K3/K4 in the
+    backward), else the forward alone (serving under ``inference_mode``
+    is exactly the forward-only path). Their plain versions run on CPU
+    tensors. ``'plain'`` forces :func:`reference_attention` on any
+    device, differentiated by autograd (the tests' and
+    ``chip_smoke.py``'s comparison)."""
     if impl == "plain":
         return reference_attention(q, k, v, causal)
     if impl != "auto":
         raise ValueError(f"attention impl must be 'auto' or 'plain', got {impl!r}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
     return flash_attention_forward(q, k, v, causal)

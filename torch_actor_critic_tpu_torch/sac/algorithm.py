@@ -1,0 +1,205 @@
+"""The SAC learner: state init, one update step and the update burst
+(port of ``sac/algorithm.py``).
+
+One update runs in the JAX package's order: the critic step, then the
+actor step on the UPDATED critic, then the optional temperature step,
+then the polyak target update. Each network has its own
+``torch.optim.Adam(lr, eps=1e-8)`` (optax's ``adam`` defaults; the two
+order their float ops differently, so parity with optax is a tolerance).
+Gradients are taken with ``torch.autograd.grad`` with respect to one
+network's parameters; during the actor step the critic's parameters are
+frozen, so its attention runs forward-only.
+
+A burst (:func:`run_update_burst`) pushes a chunk, then runs
+``num_updates`` steps, each sampling its batch on the device. Nothing in
+a burst reads a value back to the host: metrics stay device scalars,
+are stacked, and are reduced once by key suffix.
+
+``dynamic_lr_step`` and the PBT hyperparameters are not ported;
+``diagnostics != "off"`` raises.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+import typing as t
+
+import torch
+from torch import nn
+
+from torch_actor_critic_tpu_torch.buffer.replay import push, sample
+from torch_actor_critic_tpu_torch.core.types import Batch, BufferState, TrainState
+from torch_actor_critic_tpu_torch.diagnostics.ingraph import reduce_burst_metrics
+from torch_actor_critic_tpu_torch.ops.polyak import polyak_update_
+from torch_actor_critic_tpu_torch.sac import losses
+
+Metrics = t.Dict[str, torch.Tensor]
+
+ADAM_EPS = 1e-8  # optax.adam's and torch's default
+
+
+def _set_grads(params: t.Sequence[torch.Tensor], grads: t.Sequence[torch.Tensor]) -> None:
+    for p, g in zip(params, grads):
+        p.grad = g
+
+
+class SAC:
+    """SAC over an actor ``actor(obs, generator=, eps=) -> (action,
+    logp)`` and an ensemble critic ``critic(obs, action) -> (num_qs, B)``
+    — the same contract as the JAX learner's module defs."""
+
+    def __init__(self, config, act_dim: int):
+        if config.diagnostics != "off":
+            raise NotImplementedError(
+                f"diagnostics={config.diagnostics!r} is not ported yet (off only)"
+            )
+        self.config = config
+        self.act_dim = act_dim
+        self.target_entropy = (
+            config.target_entropy
+            if config.target_entropy is not None
+            else -float(act_dim)
+        )
+
+    def init_state(
+        self, actor: nn.Module, critic: nn.Module, generator: torch.Generator
+    ) -> TrainState:
+        """The learner state over built modules (already on the training
+        device). The target critic starts as a copy of the critic."""
+        device = next(critic.parameters()).device
+        target = copy.deepcopy(critic).requires_grad_(False)
+        lr = self.config.lr
+        log_alpha = torch.full(
+            (), math.log(self.config.alpha), dtype=torch.float32, device=device,
+            requires_grad=True,
+        )
+        return TrainState(
+            step=0,
+            actor=actor,
+            critic=critic,
+            target_critic=target,
+            pi_opt=torch.optim.Adam(actor.parameters(), lr=lr, eps=ADAM_EPS),
+            q_opt=torch.optim.Adam(critic.parameters(), lr=lr, eps=ADAM_EPS),
+            log_alpha=log_alpha,
+            alpha_opt=torch.optim.Adam([log_alpha], lr=lr, eps=ADAM_EPS),
+            generator=generator,
+        )
+
+    def update(
+        self,
+        state: TrainState,
+        batch: Batch,
+        eps_q: torch.Tensor | None = None,
+        eps_pi: torch.Tensor | None = None,
+    ) -> t.Tuple[TrainState, Metrics]:
+        """One gradient step. ``eps_q`` (the next-action noise of the
+        critic loss) and ``eps_pi`` (the policy-loss noise) default to
+        draws from ``state.generator``; tests inject JAX's."""
+        cfg = self.config
+        gen = state.generator
+        if eps_q is None:
+            eps_q = torch.randn(
+                batch.actions.shape, generator=gen, device=batch.actions.device
+            )
+        if eps_pi is None:
+            eps_pi = torch.randn(
+                batch.actions.shape, generator=gen, device=batch.actions.device
+            )
+        alpha = state.log_alpha.detach().exp() if cfg.learn_alpha else cfg.alpha
+
+        # --- critic step ---
+        q_params = list(state.critic.parameters())
+        loss_q, q_aux = losses.critic_loss(
+            state.critic, actor=state.actor, target_critic=state.target_critic,
+            batch=batch, alpha=alpha, gamma=cfg.gamma,
+            reward_scale=cfg.reward_scale, eps=eps_q,
+        )
+        _set_grads(q_params, torch.autograd.grad(loss_q, q_params))
+        state.q_opt.step()
+
+        # --- actor step, on the updated critic (frozen: grads w.r.t. the
+        # actor's parameters only) ---
+        pi_params = list(state.actor.parameters())
+        state.critic.requires_grad_(False)
+        try:
+            loss_pi, pi_aux = losses.actor_loss(
+                state.actor, critic=state.critic, batch=batch, alpha=alpha,
+                parity_pi_obs=cfg.parity_pi_obs, eps=eps_pi,
+            )
+            _set_grads(pi_params, torch.autograd.grad(loss_pi, pi_params))
+        finally:
+            state.critic.requires_grad_(True)
+        state.pi_opt.step()
+
+        # --- entropy temperature ---
+        if cfg.learn_alpha:
+            (a_grad,) = torch.autograd.grad(
+                losses.alpha_loss(
+                    state.log_alpha, pi_aux["logp_pi"], self.target_entropy
+                ),
+                [state.log_alpha],
+            )
+            state.log_alpha.grad = a_grad
+            state.alpha_opt.step()
+            alpha_metric = state.log_alpha.detach().exp()
+        else:
+            alpha_metric = torch.full((), cfg.alpha, device=batch.rewards.device)
+
+        # --- polyak target update ---
+        polyak_update_(
+            state.critic.parameters(), state.target_critic.parameters(), cfg.polyak
+        )
+        state.step += 1
+        metrics = {
+            "loss_q": loss_q.detach(),
+            "loss_pi": loss_pi.detach(),
+            "alpha": alpha_metric,
+            **q_aux,
+            **pi_aux,
+        }
+        return state, metrics
+
+    def update_burst(
+        self,
+        state: TrainState,
+        buffer_state: BufferState,
+        chunk: Batch,
+        num_updates: int,
+        indices: torch.Tensor | None = None,
+        eps: torch.Tensor | None = None,
+    ) -> t.Tuple[TrainState, BufferState, Metrics]:
+        """Push a chunk, then ``num_updates`` gradient steps; metrics
+        reduced over the burst."""
+        return run_update_burst(
+            self.update, self.config, state, buffer_state, chunk, num_updates,
+            indices=indices, eps=eps,
+        )
+
+
+def run_update_burst(
+    update_fn: t.Callable[..., t.Tuple[TrainState, Metrics]],
+    config,
+    state: TrainState,
+    buffer_state: BufferState,
+    chunk: Batch,
+    num_updates: int,
+    indices: torch.Tensor | None = None,
+    eps: torch.Tensor | None = None,
+) -> t.Tuple[TrainState, BufferState, Metrics]:
+    """The push-then-loop burst. Test hooks: ``indices`` ``(K, B)`` are
+    the replay rows of each update (instead of draws from
+    ``state.generator``), ``eps`` ``(K, 2, B, act_dim)`` each update's
+    ``(eps_q, eps_pi)``."""
+    buffer_state = push(buffer_state, chunk)
+    rows = []
+    for i in range(num_updates):
+        if indices is None:
+            batch = sample(buffer_state, config.batch_size, generator=state.generator)
+        else:
+            batch = sample(buffer_state, config.batch_size, indices=indices[i])
+        noise = {} if eps is None else {"eps_q": eps[i][0], "eps_pi": eps[i][1]}
+        state, metrics = update_fn(state, batch, **noise)
+        rows.append(metrics)
+    stacked = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    return state, buffer_state, reduce_burst_metrics(stacked)

@@ -1,0 +1,282 @@
+"""End-to-end SAC training on one device (port of ``sac/trainer.py``'s
+``Trainer``: ``train`` and ``evaluate``).
+
+The host loop is the JAX trainer's, step for step: a lockstep step
+counter, uniform random actions for the first ``start_steps`` steps,
+the ``max_ep_len`` done-bypass (an episode cut by the length cap stores
+``done = 0``), epoch-end resets seeded by :meth:`Trainer._epoch_seed`,
+an update window every ``update_every`` steps (``(step + 1) %
+update_every == 0``) that pushes the staged transitions and, once
+``step > update_after``, runs a burst of ``updates_per_window``
+gradient steps on the device.
+
+Acting runs on the training device through the same kernels as the
+learner (the JAX trainer's ``host_actor`` CPU mirror is accepted and
+has no effect). ``sentinel=True`` checks every parameter for
+non-finite values at each epoch boundary and raises
+``FloatingPointError`` (rollback waits for full-state checkpoints). The
+actor is saved through :class:`~..utils.checkpoint.Checkpointer` every
+``save_every`` epochs and at the end, so the port's serving CLI serves
+what was trained.
+
+Config fields this slice does not implement raise
+``NotImplementedError`` naming the field when they are not at their
+defaults (:data:`NOT_PORTED`).
+"""
+
+from __future__ import annotations
+
+import time
+import typing as t
+
+import numpy as np
+import torch
+
+from torch_actor_critic_tpu_torch.buffer.replay import init_replay_buffer, push
+from torch_actor_critic_tpu_torch.core.types import Batch
+from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool
+from torch_actor_critic_tpu_torch.models import build_models
+from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+from torch_actor_critic_tpu_torch.utils.config import SACConfig
+from torch_actor_critic_tpu_torch.utils.device import resolve_device
+
+# SACConfig fields whose non-default values select machinery this slice
+# does not port. (Fields that only parameterise one of these, such as
+# staging_policy under decoupled, are inert without it, as in JAX.)
+NOT_PORTED = (
+    "algorithm", "frame_augment", "pixel_pipeline", "on_device", "population",
+    "pbt_every", "ma_critic", "task_embed_dim", "normalize_observations",
+    "actor_param_lag", "parallel_envs", "decoupled", "serve_url", "actors",
+    "elastic", "replay_tiers", "replay_refill", "offline", "telemetry",
+    "diagnostics", "sanitize", "compile_cache", "emit_bundle", "obs",
+    "obs_scrape", "slo_config",
+)
+
+
+def check_ported(config: SACConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first non-default field
+    of :data:`NOT_PORTED`."""
+    defaults = SACConfig()
+    for name in NOT_PORTED:
+        value = getattr(config, name)
+        if value != getattr(defaults, name):
+            raise NotImplementedError(
+                f"SACConfig.{name}={value!r} is not ported yet (default "
+                f"{getattr(defaults, name)!r})"
+            )
+
+
+class Trainer:
+    """SAC on one device with one host env. Per-run seeds: model init
+    from ``seed``, the learner's generator from ``seed + 1``, acting from
+    ``seed + 2``; the env at epoch ``e`` resets with
+    :meth:`_epoch_seed`."""
+
+    def __init__(
+        self,
+        env_name: str,
+        config: SACConfig | None = None,
+        tracker=None,
+        checkpointer=None,
+        seed: int = 0,
+        device: str | torch.device | None = None,
+    ):
+        self.config = config or SACConfig()
+        check_ported(self.config)
+        self.device = resolve_device(device)
+        self.env_name = env_name
+        self.seed = seed
+        self.tracker = tracker
+        self.checkpointer = checkpointer
+        cfg = self.config
+        pool_name = (
+            f"{env_name}|history:{cfg.history_len}" if cfg.history_len > 1 else env_name
+        )
+        self.pool = make_env_pool(pool_name, 1, base_seed=seed, parallel=cfg.parallel_envs)
+        obs_shape = tuple(self.pool.obs_spec.shape)
+        self.obs_shape = obs_shape
+        self.sac = SAC(cfg, self.pool.act_dim)
+        actor, critic = build_models(
+            cfg, obs_shape, self.pool.act_dim, self.pool.act_limit,
+            generator=torch.Generator().manual_seed(seed),
+        )
+        self.state = self.sac.init_state(
+            actor.to(self.device), critic.to(self.device),
+            torch.Generator(device=self.device).manual_seed(seed + 1),
+        )
+        self._act_gen = torch.Generator(device=self.device).manual_seed(seed + 2)
+        self.buffer = init_replay_buffer(
+            cfg.buffer_size, obs_shape, self.pool.act_dim, self.device
+        )
+        self.start_epoch = 0
+
+    # ------------------------------------------------------------ helpers
+
+    def _epoch_seed(self, epoch: int) -> int:
+        """Env seed at the start of ``epoch``: a pure function of (run
+        seed, epoch)."""
+        return self.seed + 1_000_003 * epoch
+
+    @torch.inference_mode()
+    def _policy_actions(self, obs_batch: np.ndarray, deterministic: bool = False) -> np.ndarray:
+        obs = torch.from_numpy(np.asarray(obs_batch, np.float32)).to(self.device)
+        action, _ = self.state.actor(
+            obs, generator=None if deterministic else self._act_gen,
+            deterministic=deterministic, with_logprob=False,
+        )
+        return action.cpu().numpy()
+
+    def _place_chunk(self, staging: t.List[tuple]) -> Batch:
+        """Stack one window of staged transitions into a chunk on the
+        device."""
+
+        def field(i):
+            x = torch.from_numpy(np.stack([tr[i] for tr in staging]).astype(np.float32))
+            if self.device.type == "cuda":
+                x = x.pin_memory()
+            return x.to(self.device, non_blocking=True)
+
+        return Batch(
+            states=field(0), actions=field(1), rewards=field(2),
+            next_states=field(3), done=field(4),
+        )
+
+    def _params_finite(self) -> bool:
+        st = self.state
+        tensors = [
+            *st.actor.parameters(), *st.critic.parameters(),
+            *st.target_critic.parameters(), st.log_alpha,
+        ]
+        return bool(torch.stack([torch.isfinite(x).all() for x in tensors]).all())
+
+    # -------------------------------------------------------------- train
+
+    def train(self, on_epoch: t.Callable[[int, dict], None] | None = None) -> dict:
+        """Run ``config.epochs`` epochs; returns the last epoch's metrics.
+        ``on_epoch(epoch, metrics)`` is called after each epoch."""
+        cfg = self.config
+        obs = self.pool.reset_at(
+            0, seed=self._epoch_seed(self.start_epoch if cfg.epoch_reseed else 0)
+        )
+        ep_ret, ep_len = 0.0, 0
+        staging: t.List[tuple] = []
+        step = self.start_epoch * cfg.steps_per_epoch
+        last_metrics: dict = {}
+        episode_rewards: list = []
+        episode_lengths: list = []
+        last_epoch = self.start_epoch + cfg.epochs - 1
+
+        t_epoch = time.time()
+        for e in range(self.start_epoch, last_epoch + 1):
+            losses_q: t.List[torch.Tensor] = []
+            losses_pi: t.List[torch.Tensor] = []
+            for t_ in range(cfg.steps_per_epoch):
+                if step < cfg.start_steps:
+                    action = self.pool.sample_actions()[0]
+                else:
+                    action = self._policy_actions(obs[None])[0]
+                epoch_ended = t_ == cfg.steps_per_epoch - 1
+                next_obs, reward, terminated, truncated = self.pool.step_at(0, action)
+                ep_len += 1
+                ep_ret += reward
+                # max_ep_len bypass: an episode cut by the length cap is a
+                # truncation, so the bootstrap is not zeroed.
+                hit_cap = ep_len >= cfg.max_ep_len
+                done_for_buffer = np.float32(terminated and not hit_cap)
+                staging.append((obs, action, np.float32(reward), next_obs, done_for_buffer))
+                if terminated or truncated or hit_cap or epoch_ended:
+                    episode_rewards.append(float(ep_ret))
+                    episode_lengths.append(ep_len)
+                    reset_seed = (
+                        self._epoch_seed(e + 1) if epoch_ended and cfg.epoch_reseed else None
+                    )
+                    next_obs = self.pool.reset_at(0, seed=reset_seed)
+                    ep_ret, ep_len = 0.0, 0
+                obs = next_obs
+
+                if (step + 1) % cfg.update_every == 0:
+                    chunk = self._place_chunk(staging)
+                    del staging[:]
+                    if step > cfg.update_after:
+                        self.state, self.buffer, m = self.sac.update_burst(
+                            self.state, self.buffer, chunk, cfg.updates_per_window
+                        )
+                        # Device scalars; read once at epoch end.
+                        losses_q.append(m["loss_q"])
+                        losses_pi.append(m["loss_pi"])
+                    else:
+                        self.buffer = push(self.buffer, chunk)
+                step += 1
+
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.time() - t_epoch
+            grad_steps = len(losses_q) * cfg.updates_per_window
+            rew = np.asarray(episode_rewards, np.float64)
+            last_metrics = {
+                "episode_length": float(np.mean(episode_lengths)) if episode_lengths else 0.0,
+                "reward": float(rew.mean()) if rew.size else 0.0,
+                "reward_std": float(rew.std()) if rew.size else 0.0,
+                "reward_min": float(rew.min()) if rew.size else 0.0,
+                "reward_max": float(rew.max()) if rew.size else 0.0,
+                "loss_q": float(torch.stack(losses_q).mean()) if losses_q else 0.0,
+                "loss_pi": float(torch.stack(losses_pi).mean()) if losses_pi else 0.0,
+                "env_steps_per_sec": cfg.steps_per_epoch / dt,
+                "grad_steps_per_sec": grad_steps / dt,
+            }
+            t_sentinel = time.perf_counter()
+            if cfg.sentinel and not self._params_finite():
+                raise FloatingPointError(
+                    f"epoch {e}: non-finite learner parameters (the sentinel's "
+                    "rollback is not ported yet)"
+                )
+            last_metrics["sentinel_s"] = round(time.perf_counter() - t_sentinel, 4)
+            t_save = time.perf_counter()
+            if self.checkpointer is not None and (
+                e % cfg.save_every == 0 or e == last_epoch
+            ):
+                self.checkpointer.save(e, self.state.actor, cfg, extra={"step": step})
+            last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
+            if self.tracker is not None:
+                self.tracker.log_metrics(last_metrics, e)
+            if on_epoch is not None:
+                on_epoch(e, dict(last_metrics))
+            episode_rewards, episode_lengths = [], []
+            t_epoch = time.time()
+        return last_metrics
+
+    # ----------------------------------------------------------- evaluate
+
+    def evaluate(
+        self, episodes: int = 10, deterministic: bool = True, seed: int | None = None
+    ) -> dict:
+        """Rollouts of the current policy. Episode ``i`` resets with
+        ``seed + i``, and the acting generator is re-seeded from ``seed``
+        for the evaluation (then restored)."""
+        saved = self._act_gen
+        if seed is not None:
+            self._act_gen = torch.Generator(device=self.device).manual_seed(seed)
+        try:
+            returns, lengths = [], []
+            for i in range(episodes):
+                obs = self.pool.reset_at(0, seed=None if seed is None else seed + i)
+                ret, length, done = 0.0, 0, False
+                while not done:
+                    action = self._policy_actions(obs[None], deterministic)[0]
+                    obs, reward, terminated, truncated = self.pool.step_at(0, action)
+                    ret += reward
+                    length += 1
+                    done = terminated or truncated or length >= self.config.max_ep_len
+                returns.append(ret)
+                lengths.append(length)
+        finally:
+            self._act_gen = saved
+        return {
+            "ep_ret_mean": float(np.mean(returns)),
+            "ep_ret_std": float(np.std(returns)),
+            "ep_len_mean": float(np.mean(lengths)),
+        }
+
+    def close(self) -> None:
+        self.pool.close()
+

@@ -79,7 +79,7 @@ def build_server(args: argparse.Namespace):
     """Registry + warmed slot + (not yet started) server from parsed
     CLI args: the path :func:`main` serves, shared with smoke scripts.
     Returns ``(server, info)``."""
-    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.models import build_actor
     from torch_actor_critic_tpu_torch.serve import (
         CircuitBreaker,
         ModelRegistry,
@@ -93,7 +93,7 @@ def build_server(args: argparse.Namespace):
         SACConfig.from_json(meta["config"]) if meta.get("config") else SACConfig()
     )
     obs_spec = obs_spec_for(config, args.obs_dim)
-    actor_def = build_models(config, obs_spec.shape, args.act_dim, args.act_limit)
+    actor_def = build_actor(config, obs_spec.shape, args.act_dim, args.act_limit)
     buckets = (
         [int(b) for b in args.buckets.split(",")] if args.buckets else None
     )

@@ -1,0 +1,149 @@
+"""Training CLI of the port (port of ``train.py``)::
+
+    python -m torch_actor_critic_tpu_torch.train --environment Pendulum-v1 \\
+        --history-len 16 [--device cpu|cuda] [--seed N] [--runs-root DIR]
+
+Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
+true``, ...), built by the JAX CLI's loop. Runs on the card unless
+``--device cpu`` is given; without a card and without that flag it
+exits non-zero. Prints one JSON line per epoch and a final line naming
+the checkpoint directory (and, with ``--eval-episodes N``, the return of
+N deterministic evaluation episodes), which ``python -m
+torch_actor_critic_tpu_torch.serve --ckpt-dir DIR`` serves.
+
+Not ported: ``--run`` (resume needs full-state checkpoints),
+``--devices``/``--fsdp``, the profile and trace flags, ``--render``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+
+from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+logger = logging.getLogger(__name__)
+
+
+def parse_arguments(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        "Soft Actor-Critic trainer of the PyTorch port (one CUDA device)."
+    )
+    parser.add_argument("--experiment", default="Default", help="Experiment name")
+    parser.add_argument(
+        "--disable-logging", dest="logging", action="store_false",
+        help="Turn off file tracking",
+    )
+    parser.add_argument("--environment", default="HalfCheetah-v5", help="Environment to use")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--runs-root", default="runs", help="Tracking root directory")
+    parser.add_argument(
+        "--device", default=None,
+        help="cuda (default; fails without a card) or cpu",
+    )
+    parser.add_argument(
+        "--precision", choices=("f32", "bf16"), default=None,
+        help="Alias of --compute-dtype",
+    )
+    parser.add_argument(
+        "--eval-episodes", type=int, default=0,
+        help="After training, roll out this many deterministic episodes "
+        "(episode i reset with seed + 12345 + i, as the JAX package's "
+        "evidence runs do) and report their return",
+    )
+    # Every SACConfig field becomes a flag (--batch-size, --learn-alpha, ...).
+    for f in dataclasses.fields(SACConfig):
+        flag = "--" + f.name.replace("_", "-")
+        if f.type == "bool" or isinstance(f.default, bool):
+            parser.add_argument(
+                flag, type=lambda s: s.lower() in ("1", "true", "yes"), default=None
+            )
+        elif isinstance(f.default, tuple):
+            parser.add_argument(
+                flag, type=lambda s: tuple(int(x) for x in s.split(",")), default=None
+            )
+        elif f.name == "target_entropy":
+            parser.add_argument(flag, type=float, default=None)
+        else:
+            parser.add_argument(flag, type=type(f.default), default=None)
+    parser.set_defaults(logging=True)
+    return parser.parse_args(argv)
+
+
+def config_from_args(args: argparse.Namespace) -> SACConfig:
+    overrides = {
+        f.name: getattr(args, f.name)
+        for f in dataclasses.fields(SACConfig)
+        if getattr(args, f.name, None) is not None
+    }
+    if args.precision is not None:
+        want = {"f32": "float32", "bf16": "bfloat16"}[args.precision]
+        have = overrides.get("compute_dtype")
+        if have is not None and {"f32": "float32", "bf16": "bfloat16"}.get(have, have) != want:
+            raise ValueError(
+                f"--precision {args.precision} conflicts with "
+                f"--compute-dtype {have}; pass one"
+            )
+        overrides["compute_dtype"] = want
+    return SACConfig(**overrides)
+
+
+def build_trainer(args: argparse.Namespace):
+    """Tracker, checkpointer and :class:`Trainer` from parsed CLI args —
+    the path :func:`main` trains, shared with smoke scripts. Returns
+    ``(trainer, tracker)``."""
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+    from torch_actor_critic_tpu_torch.utils.tracking import Tracker
+
+    config = config_from_args(args)
+    tracker = Tracker(
+        experiment=args.experiment, root=args.runs_root, enabled=args.logging
+    )
+    tracker.log_params({
+        "environment": args.environment,
+        "config": json.loads(config.to_json()),
+        "buffer_size": config.buffer_size,
+        "seed": args.seed,
+    })
+    trainer = Trainer(
+        args.environment, config,
+        tracker=tracker if args.logging else None,
+        checkpointer=Checkpointer(tracker.artifact_path("checkpoints")),
+        seed=args.seed, device=args.device,
+    )
+    return trainer, tracker
+
+
+def main(argv=None) -> dict:
+    logging.basicConfig(level=logging.INFO)
+    args = parse_arguments(argv)
+    trainer, tracker = build_trainer(args)
+    logger.info(
+        "training %s on %s (run %s)", args.environment, trainer.device, tracker.run_id
+    )
+
+    def report(epoch: int, metrics: dict) -> None:
+        print(json.dumps({"epoch": epoch, **metrics}), flush=True)
+
+    try:
+        metrics = trainer.train(on_epoch=report)
+        evaluation = (
+            trainer.evaluate(args.eval_episodes, deterministic=True, seed=args.seed + 12345)
+            if args.eval_episodes > 0 else None
+        )
+    finally:
+        trainer.close()
+    print(json.dumps({
+        "run": tracker.run_id,
+        "checkpoint_dir": str(trainer.checkpointer.directory),
+        "final": metrics,
+        "eval": evaluation,
+    }), flush=True)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

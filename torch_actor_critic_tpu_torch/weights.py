@@ -1,11 +1,16 @@
-"""Bridge the JAX package's Flax actor params into the port's modules.
+"""Bridge the JAX package's Flax params and learner state into the
+port's modules.
 
-The input is a Flax param dict whose leaves are numpy arrays (the
-caller converts, e.g. ``jax.tree_util.tree_map(np.asarray, params)``);
-this module never imports JAX. Flax ``Dense`` kernels are ``(in, out)``
-under an inner name ``col``/``row``/``Dense_0``; ``nn.Linear.weight``
-is ``(out, in)``, so kernels are transposed. LayerNorm ``scale`` is
-``weight``.
+The input is a Flax param dict (or a JAX ``TrainState``) whose leaves
+are numpy arrays (the caller converts, e.g.
+``jax.tree_util.tree_map(np.asarray, params)``); this module never
+imports JAX. Flax ``Dense`` kernels are ``(in, out)`` under an inner
+name ``col``/``row``/``Dense_0``; ``nn.Linear.weight`` is ``(out, in)``,
+so kernels are transposed. LayerNorm ``scale`` is ``weight``. A vmapped
+Flax critic ensemble carries a leading ``num_qs`` axis under
+``ensemble``; critic ``i`` of the port gets slice ``i``. optax's Adam
+state (``mu``/``nu``/``count``) maps through the same names onto
+``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``.
 """
 
 from __future__ import annotations
@@ -16,9 +21,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from torch_actor_critic_tpu_torch.models import build_models
+from torch_actor_critic_tpu_torch.core.types import TrainState
+from torch_actor_critic_tpu_torch.models import build_actor
 from torch_actor_critic_tpu_torch.models.actor import Actor
-from torch_actor_critic_tpu_torch.models.sequence import SequenceActor
+from torch_actor_critic_tpu_torch.models.critic import Critic, DoubleCritic
+from torch_actor_critic_tpu_torch.models.sequence import (
+    SequenceActor,
+    SequenceCritic,
+    SequenceDoubleCritic,
+)
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
 
 
@@ -50,14 +61,13 @@ def _actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
     return out
 
 
-def _sequence_actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
-    trunk = p["_trunk"]
-    out = _flat("trunk.embed", _dense(trunk["Dense_0"]))
-    out["trunk.pos_embedding"] = np.asarray(trunk["pos_embedding"])
+def _trunk_state(prefix: str, trunk: t.Mapping) -> t.Dict[str, np.ndarray]:
+    out = _flat(f"{prefix}.embed", _dense(trunk["Dense_0"]))
+    out[f"{prefix}.pos_embedding"] = np.asarray(trunk["pos_embedding"])
     n_layers = sum(1 for k in trunk if k.startswith("TransformerBlock_"))
     for i in range(n_layers):
         blk = trunk[f"TransformerBlock_{i}"]
-        pre = f"trunk.blocks.{i}"
+        pre = f"{prefix}.blocks.{i}"
         out.update(_flat(f"{pre}.ln1", _layer_norm(blk["LayerNorm_0"])))
         out.update(_flat(f"{pre}.ln2", _layer_norm(blk["LayerNorm_1"])))
         mha = blk["MultiHeadAttention_0"]
@@ -65,32 +75,135 @@ def _sequence_actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
             out.update(_flat(f"{pre}.attn.{name}", _dense(mha[f"Dense_{j}"])))
         out.update(_flat(f"{pre}.fc1", _dense(blk["Dense_0"])))
         out.update(_flat(f"{pre}.fc2", _dense(blk["Dense_1"])))
-    out.update(_flat("trunk.ln_f", _layer_norm(trunk["LayerNorm_0"])))
+    out.update(_flat(f"{prefix}.ln_f", _layer_norm(trunk["LayerNorm_0"])))
+    return out
+
+
+def _sequence_actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
+    out = _trunk_state("trunk", p["_trunk"])
     out.update(_flat("mu", _dense(p["_mu"])))
     out.update(_flat("log_std", _dense(p["_log_std"])))
     return out
+
+
+def _slice(tree: t.Mapping, i: int) -> dict:
+    """Member ``i`` of a vmapped ensemble's param tree."""
+    return {
+        k: _slice(v, i) if isinstance(v, t.Mapping) else np.asarray(v)[i]
+        for k, v in tree.items()
+    }
+
+
+def _critic_state(module: nn.Module, p: t.Mapping) -> t.Dict[str, np.ndarray]:
+    """Names of the port's ensemble critic -> arrays of the Flax tree
+    ``p`` (its ``ensemble`` subtree carries the num_qs axis)."""
+    ens = p["ensemble"]
+    out: t.Dict[str, np.ndarray] = {}
+    for i, member in enumerate(module.ensemble):
+        one = _slice(ens, i)
+        pre = f"ensemble.{i}"
+        if isinstance(member, SequenceCritic):
+            out.update(_trunk_state(f"{pre}.trunk", one["SequenceTrunk_0"]))
+            out.update(_flat(f"{pre}.fc", _dense(one["Dense_0"])))
+            out.update(_flat(f"{pre}.out", _dense(one["Dense_1"])))
+        elif isinstance(member, Critic):
+            mlp = one["MLP_0"]
+            for j in range(len(mlp)):
+                out.update(_flat(f"{pre}.trunk.layers.{j}", _dense(mlp[f"Dense_{j}"])))
+        else:
+            raise TypeError(f"no Flax param mapping for {type(member).__name__}")
+    return out
+
+
+def _named_arrays(module: nn.Module, params_tree: t.Mapping) -> t.Dict[str, np.ndarray]:
+    """The port's parameter names of ``module`` -> the matching arrays
+    of a Flax tree (params, or an optimizer moment of the same shape)."""
+    p = params_tree.get("params", params_tree)
+    if isinstance(module, SequenceActor):
+        return _sequence_actor_state(p)
+    if isinstance(module, Actor):
+        return _actor_state(p)
+    if isinstance(module, (DoubleCritic, SequenceDoubleCritic)):
+        return _critic_state(module, p)
+    raise TypeError(f"no Flax param mapping for {type(module).__name__}")
+
+
+def _load(module: nn.Module, params_tree: t.Mapping) -> nn.Module:
+    state = _named_arrays(module, params_tree)
+    ref = module.state_dict()
+    module.load_state_dict(
+        {
+            k: torch.as_tensor(np.array(v), dtype=ref[k].dtype, device=ref[k].device)
+            for k, v in state.items()  # np.array: a writable copy
+        },
+        strict=True,
+    )
+    return module
 
 
 def load_jax_actor_params(module: nn.Module, params_tree: t.Mapping) -> nn.Module:
     """Copy a Flax actor param dict (``{"params": ...}`` or its inner
     dict, numpy leaves) into ``module`` in place; every parameter must
     be covered (strict)."""
-    p = params_tree.get("params", params_tree)
-    if isinstance(module, SequenceActor):
-        state = _sequence_actor_state(p)
-    elif isinstance(module, Actor):
-        state = _actor_state(p)
+    if not isinstance(module, (Actor, SequenceActor)):
+        raise TypeError(f"no Flax actor mapping for {type(module).__name__}")
+    return _load(module, params_tree)
+
+
+def load_jax_critic_params(module: nn.Module, params_tree: t.Mapping) -> nn.Module:
+    """Copy a Flax ``DoubleCritic``/``SequenceDoubleCritic`` param dict
+    into the port's ensemble in place, critic ``i`` from slice ``i`` of
+    the ``ensemble`` axis (strict)."""
+    if not isinstance(module, (DoubleCritic, SequenceDoubleCritic)):
+        raise TypeError(f"no Flax critic mapping for {type(module).__name__}")
+    return _load(module, params_tree)
+
+
+def _adam_state(opt_state) -> t.Any:
+    """The ``ScaleByAdamState`` (``count``/``mu``/``nu``) inside an optax
+    ``adam`` chain state."""
+    for part in opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,):
+        if all(hasattr(part, f) for f in ("count", "mu", "nu")):
+            return part
+    raise TypeError(f"no Adam moments in optimizer state {type(opt_state).__name__}")
+
+
+def _load_adam(opt: torch.optim.Adam, module_or_param, opt_state) -> None:
+    adam = _adam_state(opt_state)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    if isinstance(module_or_param, nn.Module):
+        mu = _named_arrays(module_or_param, adam.mu)
+        nu = _named_arrays(module_or_param, adam.nu)
+        pairs = [(p, mu[n], nu[n]) for n, p in module_or_param.named_parameters()]
     else:
-        raise TypeError(f"no Flax param mapping for {type(module).__name__}")
-    ref = module.state_dict()
-    module.load_state_dict(
-        {
-            k: torch.as_tensor(np.array(v), dtype=ref[k].dtype)  # np.array: a writable copy
-            for k, v in state.items()
-        },
-        strict=True,
-    )
-    return module
+        pairs = [(module_or_param, adam.mu, adam.nu)]
+    for p, m, v in pairs:
+        opt.state[p] = {
+            "step": step.clone(),
+            "exp_avg": torch.as_tensor(np.array(m), dtype=p.dtype, device=p.device),
+            "exp_avg_sq": torch.as_tensor(np.array(v), dtype=p.dtype, device=p.device),
+        }
+
+
+def train_state_from_jax(
+    jax_state, sac, actor: nn.Module, critic: nn.Module,
+    generator: torch.Generator,
+) -> TrainState:
+    """The port's :class:`TrainState` carrying a JAX ``TrainState``
+    (numpy leaves): actor, critic and target critic params, ``log_alpha``
+    and every Adam state, over the built ``actor``/``critic`` (on their
+    device). Both sides then start an update from the same state."""
+    load_jax_actor_params(actor, jax_state.actor_params)
+    load_jax_critic_params(critic, jax_state.critic_params)
+    state = sac.init_state(actor, critic, generator)
+    load_jax_critic_params(state.target_critic, jax_state.target_critic_params)
+    with torch.no_grad():
+        state.log_alpha.fill_(float(np.asarray(jax_state.log_alpha)))
+    _load_adam(state.pi_opt, actor, jax_state.pi_opt_state)
+    _load_adam(state.q_opt, critic, jax_state.q_opt_state)
+    _load_adam(state.alpha_opt, state.log_alpha, jax_state.alpha_opt_state)
+    state.step = int(np.asarray(jax_state.step))
+    return state
 
 
 def actor_from_jax(
@@ -103,5 +216,5 @@ def actor_from_jax(
     """Build the port's actor for ``config``/``obs_shape`` (the same
     dispatch as the JAX trainer's ``build_models``) and load the Flax
     params into it."""
-    actor = build_models(config, obs_shape, act_dim, act_limit)
+    actor = build_actor(config, obs_shape, act_dim, act_limit)
     return load_jax_actor_params(actor, params_tree)
