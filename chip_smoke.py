@@ -1,6 +1,7 @@
 """GPU smoke of the PyTorch port: build, check and time its kernels,
-serve the sequence policy over HTTP through the port's CLI path, then
-train it with SAC through the train CLI's path.
+serve the sequence policy over HTTP through the port's CLI path, train
+it with SAC through the train CLI's path, then train the visual (pixel)
+policy through the same path and run visual bursts at full width.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -34,7 +35,8 @@ or of the JAX package. Phases, one JSON line each:
    widths (batch 64, update_every 50), trained through the train CLI's
    ``build_trainer`` on ``PendulumNumpy-v1|history:16`` (the port's
    numpy twin of Pendulum-v1; the card's machine has no gymnasium) for
-   2000 steps, the first 1000 random: 1000 gradient steps. Checks: finite
+   1000 steps, the first 500 random: 500 gradient steps (cut from 1000 to
+   keep the whole smoke near 5 minutes). Checks: finite
    losses, every kernel launched, the checkpoint restores, launches per
    update exactly (3Q+2)L forward and (Q+1)L each backward kernel, and,
    from one state, the critic's and actor's parameter gradients with the
@@ -42,10 +44,35 @@ or of the JAX package. Phases, one JSON line each:
    then one update with each (params 1e-4; attention key biases, whose
    gradient is zero in exact arithmetic, 2·lr; outputs 1e-4). Reports
    gradient and env steps per second and one profiled burst (device busy
-   vs idle, top kernels per update).
+   vs idle, top kernels per update);
+6. kernel_vs_plain for K1 (``pixel_gather``, run before serving) — the
+   fused replay-gather → DrQ shift → decode kernel against its plain
+   version, **bitwise** (``torch.equal``), at the pixel recipe's training
+   shape (ring (24000, 32, 32, 3), B 64, f32, /255, shift pad 4), the same
+   with a 3-frame stack over wrap-around rows, and the wall-runner shapes
+   (ring (20000, 64, 64, 3), B 32 f32 and B 512 bf16 with shift and /255);
+   device ms of kernel and plain version; bound = bytes (uint8 read,
+   rows/offsets read, output written) / 3.35 TB/s; ``library_ms`` null:
+   no single PyTorch call gathers, shifts, decodes and casts;
+7. train_visual — the JAX package's pixel recipe (conv 16,32 / 4,3 /
+   2,2, Dense 128, cnn_features 64, /255, DrQ shift, learned α, fused
+   pixel pipeline, hidden 256-256, batch 64, buffer 24000) through
+   ``build_trainer`` on ``PixelPendulumBalanceNumpy-v0`` for 2000 steps,
+   the first 1000 random: 1000 gradient steps. Checks: finite losses,
+   exactly 2 K1 launches per update, the checkpoint restores, and from
+   one state the gradients (1e-4·max(1, max|g|)) and one update (params
+   and outputs 1e-4, log α 1e-6) with K1's frames against the plain
+   gather's; reports steps per second and one profiled burst;
+8. visual_burst — SACConfig's default visual widths (Atari trunk, Dense
+   512, cnn_features 1) on the wall-runner geometry (168 features, 64x64x3
+   frame, act_dim 56) with synthetic transitions, as ``bench.py``'s
+   ``bench_visual`` (the card's machine has no dm_control): 25-update
+   fused bursts at B 32 f32 and B 512 bf16; finite losses, 2 K1 launches
+   per update, gradient steps per second and one profiled burst.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
-``library_ms`` are device times), the nvidia-smi line, and last
+``library_ms`` are device times; K1's launches are train_visual's), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is non-zero and the last line is not printed.
 """
@@ -530,9 +557,6 @@ def phase_train(seed: int, kernels) -> dict:
     path; returns the kernels' launch counts of that run."""
     import copy
 
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
     from torch_actor_critic_tpu_torch import train as train_cli
     from torch_actor_critic_tpu_torch.buffer.replay import sample
     from torch_actor_critic_tpu_torch.models import build_models
@@ -540,15 +564,14 @@ def phase_train(seed: int, kernels) -> dict:
         MultiHeadAttention,
         plain_attention,
     )
-    from torch_actor_critic_tpu_torch.sac import losses
     from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
 
     runs = tempfile.mkdtemp(prefix="tac_chip_train_")
     try:
         args = train_cli.parse_arguments([
             "--environment", TRAIN_ENV, "--history-len", "16", "--device", "cuda",
-            "--seed", str(seed), "--epochs", "1", "--steps-per-epoch", "2000",
-            "--start-steps", "1000", "--update-after", "1000", "--runs-root", runs,
+            "--seed", str(seed), "--epochs", "1", "--steps-per-epoch", "1000",
+            "--start-steps", "500", "--update-after", "500", "--runs-root", runs,
         ])
         trainer, tracker = train_cli.build_trainer(args)
         cfg = trainer.config
@@ -563,7 +586,7 @@ def phase_train(seed: int, kernels) -> dict:
         for key in ("loss_q", "loss_pi", "reward"):
             check(math.isfinite(metrics[key]), f"train: {key} = {metrics[key]}")
         updates = trainer.state.step
-        check(updates == 1000, f"train: {updates} gradient steps, expected 1000")
+        check(updates == 500, f"train: {updates} gradient steps, expected 500")
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             check(launches.get(name, 0) > 0, f"train: {name} never launched")
 
@@ -611,30 +634,11 @@ def phase_train(seed: int, kernels) -> dict:
         eps_q, eps_pi = (torch.randn((cfg.batch_size, act_dim), generator=gen,
                                      device="cuda") for _ in range(2))
 
-        def grads(st):
-            """The critic's and the actor's loss gradients w.r.t. their
-            own parameters, as the update takes them."""
-            alpha = st.log_alpha.detach().exp() if cfg.learn_alpha else cfg.alpha
-            loss_q, _ = losses.critic_loss(
-                st.critic, actor=st.actor, target_critic=st.target_critic,
-                batch=batch, alpha=alpha, gamma=cfg.gamma,
-                reward_scale=cfg.reward_scale, eps=eps_q)
-            g_q = torch.autograd.grad(loss_q, list(st.critic.parameters()))
-            st.critic.requires_grad_(False)
-            try:
-                loss_pi, _ = losses.actor_loss(
-                    st.actor, critic=st.critic, batch=batch, alpha=alpha,
-                    parity_pi_obs=cfg.parity_pi_obs, eps=eps_pi)
-                g_pi = torch.autograd.grad(loss_pi, list(st.actor.parameters()))
-            finally:
-                st.critic.requires_grad_(True)
-            return {"critic": g_q, "actor": g_pi}
-
         with_kernels, with_plain = replica(None), replica(plain_attention)
-        grads_k = grads(with_kernels)
+        grads_k = _sac_grads(with_kernels, cfg, batch, eps_q, eps_pi)
         trainer.sac.update(with_kernels, batch, eps_q=eps_q, eps_pi=eps_pi)
         kernels.reset_launch_counts()
-        grads_p = grads(with_plain)
+        grads_p = _sac_grads(with_plain, cfg, batch, eps_q, eps_pi)
         trainer.sac.update(with_plain, batch, eps_q=eps_q, eps_pi=eps_pi)
         torch.cuda.synchronize()
         check(sum(kernels.launch_counts.values()) == 0,
@@ -678,15 +682,8 @@ def phase_train(seed: int, kernels) -> dict:
         torch.cuda.synchronize()
         burst_s = (time.perf_counter() - t0) / n_bursts
         check(all(math.isfinite(float(v)) for v in m.values()), "burst metrics not finite")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            burst()
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
         per = cfg.updates_per_window
-        kern = sorted(((key, us / per / 1e3, calls / per)
-                       for key, us, calls in device_kernels(prof)), key=lambda x: -x[1])
-        busy_ms = sum(k[1] for k in kern) * per
+        profiled = profile_burst(burst, per)
 
         # Acting alone: policy forward on the card + the host env step.
         obs = trainer.pool.reset_all([seed])
@@ -714,19 +711,408 @@ def phase_train(seed: int, kernels) -> dict:
             "checkpoint_epoch": meta["epoch"],
             "burst_ms": burst_s * 1e3, "burst_grad_steps_per_sec": per / burst_s,
             "acting_env_steps_per_sec": act_steps_per_s,
-            "profiled_burst": {
-                "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
-                "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
-                "top_kernels_ms_per_update": [
-                    {"name": k[0][:80], "ms": k[1], "calls": k[2]} for k in kern[:10]
-                ],
-                "device_kernels_per_update": sum(k[2] for k in kern),
-                "host_ops_per_update": host_ops(prof, per, top=10),
-            },
+            "profiled_burst": profiled,
         })
         return launches
     finally:
         shutil.rmtree(runs, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ visual
+
+PIXEL_PAD = 4
+# (label, ring shape, batch, dtype, normalize, shift, frame_stack, iters): the
+# pixel recipe's training shape (train_visual's batches), the same with a
+# 3-frame stack over wrap-around rows, and the wall-runner geometry at the two
+# visual_burst points.
+PIXEL_CASES = [
+    ("train", (24000, 32, 32, 3), 64, torch.float32, True, True, 1, 200),
+    ("train_stack3", (24000, 32, 32, 3), 64, torch.float32, True, True, 3, 200),
+    ("wall_b32", (20000, 64, 64, 3), 32, torch.float32, False, False, 1, 200),
+    ("wall_b512_bf16", (20000, 64, 64, 3), 512, torch.bfloat16, True, True, 1, 50),
+]
+VISUAL_ENV = "PixelPendulumBalanceNumpy-v0"
+# The JAX package's PIXEL_RECIPE, the configuration of runs/pixelbal-wide/.
+VISUAL_ARGS = [
+    "--environment", VISUAL_ENV, "--filters", "16,32", "--kernel-sizes", "4,3",
+    "--strides", "2,2", "--cnn-dense-size", "128", "--cnn-features", "64",
+    "--normalize-pixels", "true", "--frame-augment", "shift", "--learn-alpha", "true",
+    "--pixel-pipeline", "fused",
+]
+WALL_FEATURES, WALL_FRAME, WALL_ACT_DIM = 168, (64, 64, 3), 56  # envs/wall_runner.py
+
+
+def pixel_bound(batch: int, frame, stack: int, dtype, shift: bool) -> tuple:
+    """(bound_ms, "bytes"): the uint8 frames read once (B·S·H·W·C), the
+    int64 rows and int32 offsets read once, the output written once, over
+    HBM rate. The kernel does no arithmetic to speak of."""
+    h, w, c = frame
+    elems = batch * stack * h * w * c
+    nbytes = elems + 8 * batch + (8 * batch if shift else 0)
+    nbytes += elems * torch.finfo(dtype).bits // 8
+    return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_pixel_vs_plain(pixels, seed: int) -> dict:
+    """K1 against its plain version on the card: bitwise equality and
+    device times. Each timed call gathers other rows (``iters`` draws
+    cycled), as each update does. Returns the training shape's row."""
+    from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    rows = []
+    rings = {}
+    for label, ring_shape, b, dtype, normalize, shift, stack, iters in PIXEL_CASES:
+        if ring_shape not in rings:
+            rings.clear()
+            torch.cuda.empty_cache()
+            ring = torch.randint(0, 256, ring_shape, generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+            ring[1].view(-1)[:256] = torch.arange(256, device="cuda", dtype=torch.uint8)
+            rings[ring_shape] = ring
+        ring = rings[ring_shape]
+        draws = []
+        for i in range(iters):
+            idx = torch.randint(0, ring_shape[0], (b,), generator=gen, device="cuda")
+            if i == 0:
+                idx[:2] = torch.tensor([0, 1], device="cuda")  # wrap-around, all values
+            offs = shift_offsets(b, PIXEL_PAD, gen, "cuda") if shift else None
+            draws.append((idx, offs))
+        kw = dict(pad=PIXEL_PAD, normalize=normalize, out_dtype=dtype, frame_stack=stack)
+        got = pixels.fused_frame_gather(ring, *draws[0], **kw)
+        want = pixels.gather_frames_reference(ring, *draws[0], **kw)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == want.shape, f"pixel_gather {label} shape/dtype")
+        check(torch.equal(got, want), f"pixel_gather {label}: kernel != plain version")
+        err = (got.float() - want.float()).abs().max().item()
+        turn = iter(range(10 ** 9))
+
+        def kernel():
+            return pixels.fused_frame_gather(ring, *draws[next(turn) % iters], **kw)
+
+        def plain():
+            return pixels.gather_frames_reference(ring, *draws[next(turn) % iters], **kw)
+
+        bound_ms, bound_by = pixel_bound(b, ring_shape[1:], stack, dtype, shift)
+        row = {
+            "phase": "kernel_vs_plain", "kernel": "pixel_gather", "case": label,
+            "ring": list(ring_shape), "batch": b, "dtype": str(dtype),
+            "normalize": normalize, "shift": shift, "frame_stack": stack,
+            "bitwise_equal": True, "max_abs_err": err,
+            "kernel_ms": device_ms(kernel, iters, "pixel_gather_kernel"),
+            "plain_ms": device_ms(plain, iters),
+            # No single PyTorch call gathers rows, shifts, decodes and casts.
+            "library_ms": None,
+            "kernel_event_ms": time_ms(kernel, iters),
+            "plain_event_ms": time_ms(plain, iters),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": [b, *ring_shape[1:3], stack * ring_shape[3]],
+        }
+        emit(row)
+        rows.append(row)
+        del got, want, draws
+    rings.clear()
+    torch.cuda.empty_cache()
+    return rows[0]
+
+
+def _visual_replica(trainer, gen):
+    """A fresh learner state on the card holding ``trainer``'s networks,
+    optimizer states and temperature."""
+    import copy
+
+    from torch_actor_critic_tpu_torch.models import build_models
+
+    cfg = trainer.config
+    actor, critic = build_models(cfg, trainer.obs_shape, trainer.pool.act_dim,
+                                 trainer.pool.act_limit)
+    actor.load_state_dict(trainer.state.actor.state_dict())
+    critic.load_state_dict(trainer.state.critic.state_dict())
+    st = trainer.sac.init_state(actor.cuda(), critic.cuda(), gen)
+    st.target_critic.load_state_dict(trainer.state.target_critic.state_dict())
+    with torch.no_grad():
+        st.log_alpha.copy_(trainer.state.log_alpha)
+    for mine, theirs in ((st.pi_opt, trainer.state.pi_opt), (st.q_opt, trainer.state.q_opt),
+                         (st.alpha_opt, trainer.state.alpha_opt)):
+        mine.load_state_dict(copy.deepcopy(theirs.state_dict()))
+    return st
+
+
+def _sac_grads(st, cfg, batch, eps_q, eps_pi) -> dict:
+    """The critic's and the actor's loss gradients w.r.t. their own
+    parameters, as the update takes them."""
+    from torch_actor_critic_tpu_torch.sac import losses
+
+    alpha = st.log_alpha.detach().exp() if cfg.learn_alpha else cfg.alpha
+    loss_q, _ = losses.critic_loss(
+        st.critic, actor=st.actor, target_critic=st.target_critic, batch=batch,
+        alpha=alpha, gamma=cfg.gamma, reward_scale=cfg.reward_scale, eps=eps_q)
+    g_q = torch.autograd.grad(loss_q, list(st.critic.parameters()))
+    st.critic.requires_grad_(False)
+    try:
+        loss_pi, _ = losses.actor_loss(
+            st.actor, critic=st.critic, batch=batch, alpha=alpha,
+            parity_pi_obs=cfg.parity_pi_obs, eps=eps_pi)
+        g_pi = torch.autograd.grad(loss_pi, list(st.actor.parameters()))
+    finally:
+        st.critic.requires_grad_(True)
+    return {"critic": g_q, "actor": g_pi}
+
+
+def profile_burst(burst, per: int) -> dict:
+    """One burst of ``per`` updates under ``torch.profiler``: wall vs
+    device-busy time and the kernels per update."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        burst()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted(((key, us / per / 1e3, calls / per)
+                   for key, us, calls in device_kernels(prof)), key=lambda x: -x[1])
+    busy_ms = sum(k[1] for k in kern) * per
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "top_kernels_ms_per_update": [
+            {"name": k[0][:80], "ms": k[1], "calls": k[2]} for k in kern[:10]
+        ],
+        "device_kernels_per_update": sum(k[2] for k in kern),
+        "host_ops_per_update": host_ops(prof, per, top=10),
+    }
+
+
+def phase_train_visual(seed: int, kernels) -> dict:
+    """Train the pixel recipe's visual policy through train.py's own path
+    on the numpy pixel pendulum; returns the kernels' launch counts of
+    that run."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.buffer.replay import sample, sample_fused_visual
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+    from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+    from torch_actor_critic_tpu_torch.ops.pixels import gather_frames_reference
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_train_visual_")
+    try:
+        args = train_cli.parse_arguments([
+            *VISUAL_ARGS, "--device", "cuda", "--seed", str(seed), "--epochs", "1",
+            "--steps-per-epoch", "2000", "--start-steps", "1000", "--update-after", "1000",
+            "--buffer-size", "24000", "--runs-root", runs,
+        ])
+        trainer, _ = train_cli.build_trainer(args)
+        cfg = trainer.config
+        check(trainer.buffer.data.states.frame.dtype == torch.uint8, "visual ring is not uint8")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train(
+            on_epoch=lambda e, m: emit({"phase": "train_visual_epoch", "epoch": e, **m}))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        for key in ("loss_q", "loss_pi", "reward"):
+            check(math.isfinite(metrics[key]), f"train_visual: {key} = {metrics[key]}")
+        updates = trainer.state.step
+        check(updates == 1000, f"train_visual: {updates} gradient steps, expected 1000")
+        check(launches.get("pixel_gather", 0) == 2 * updates,
+              f"train_visual: pixel_gather launched {launches.get('pixel_gather', 0)} "
+              f"times, expected 2 per update ({2 * updates})")
+
+        restored, meta = Checkpointer(trainer.checkpointer.directory).restore_actor_params()
+        live = trainer.state.actor.state_dict()
+        check(all(torch.equal(restored[k], live[k].cpu()) for k in live),
+              "train_visual: checkpoint does not restore the trained actor")
+
+        # One state, one batch: its frames from K1 and from the plain gather.
+        gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+        b, buf = cfg.batch_size, trainer.buffer
+        idx = torch.randint(0, buf.size, (b,), generator=gen, device="cuda")
+        offsets = torch.stack([shift_offsets(b, cfg.augment_pad, gen, "cuda") for _ in range(2)])
+        kernels.reset_launch_counts()
+        with_kernel = sample_fused_visual(
+            buf, b, cfg.model_dtype, cfg.frame_augment, cfg.augment_pad,
+            cfg.normalize_pixels, indices=idx, offsets=offsets)
+        check(kernels.launch_counts["pixel_gather"] == 2, "fused sample: not 2 K1 launches")
+        frames = [
+            gather_frames_reference(ring, idx, offs, cfg.augment_pad, cfg.normalize_pixels,
+                                    cfg.model_dtype)
+            for ring, offs in ((buf.data.states.frame, offsets[0]),
+                               (buf.data.next_states.frame, offsets[1]))
+        ]
+        with_plain = Batch(
+            states=MultiObservation(with_kernel.states.features, frames[0]),
+            actions=with_kernel.actions, rewards=with_kernel.rewards,
+            next_states=MultiObservation(with_kernel.next_states.features, frames[1]),
+            done=with_kernel.done)
+        check(torch.equal(with_kernel.states.frame, frames[0])
+              and torch.equal(with_kernel.next_states.frame, frames[1]),
+              "train_visual: K1 frames != plain gather frames")
+        act_dim = trainer.pool.act_dim
+        eps_q, eps_pi = (torch.randn((b, act_dim), generator=gen, device="cuda")
+                         for _ in range(2))
+        st_k, st_p = _visual_replica(trainer, gen), _visual_replica(trainer, gen)
+        grads_k = _sac_grads(st_k, cfg, with_kernel, eps_q, eps_pi)
+        grads_p = _sac_grads(st_p, cfg, with_plain, eps_q, eps_pi)
+        grad_gaps = {}
+        for part in ("critic", "actor"):
+            gap = max((x - y).abs().max().item() for x, y in zip(grads_k[part], grads_p[part]))
+            lim = 1e-4 * max(1.0, max(y.abs().max().item() for y in grads_p[part]))
+            check(gap <= lim, f"train_visual: K1 vs plain {part} gradients: {gap} > {lim}")
+            grad_gaps[part] = {"max_gap": gap, "limit": lim}
+        trainer.sac.update(st_k, with_kernel, eps_q=eps_q, eps_pi=eps_pi)
+        trainer.sac.update(st_p, with_plain, eps_q=eps_q, eps_pi=eps_pi)
+        gaps = {part: _param_gap(getattr(st_k, part), getattr(st_p, part))[0]
+                for part in ("actor", "critic", "target_critic")}
+        worst = max(gaps.values())
+        check(worst <= 1e-4, f"train_visual: K1 vs plain update: param gap {worst}")
+        alpha_gap = abs(st_k.log_alpha.item() - st_p.log_alpha.item())
+        check(alpha_gap <= 1e-6, f"train_visual: log_alpha gap {alpha_gap}")
+        with torch.no_grad():
+            a_k, _ = st_k.actor(with_kernel.states, deterministic=True)
+            a_p, _ = st_p.actor(with_plain.states, deterministic=True)
+            q_k = st_k.critic(with_kernel.states, with_kernel.actions)
+            q_p = st_p.critic(with_plain.states, with_plain.actions)
+        out_gap = max((a_k - a_p).abs().max().item(), (q_k - q_p).abs().max().item())
+        check(out_gap <= 1e-4, f"train_visual: K1 vs plain update: output gap {out_gap}")
+        del st_k, st_p, grads_k, grads_p
+
+        # Bursts alone, then one profiled burst.
+        chunk = sample(buf, cfg.update_every, generator=gen)
+
+        def burst():
+            trainer.state, trainer.buffer, m = trainer.sac.update_burst(
+                trainer.state, trainer.buffer, chunk, cfg.updates_per_window)
+            return m
+
+        burst()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        n_bursts = 4
+        t0 = time.perf_counter()
+        for _ in range(n_bursts):
+            m = burst()
+        torch.cuda.synchronize()
+        burst_s = (time.perf_counter() - t0) / n_bursts
+        per = cfg.updates_per_window
+        check(kernels.launch_counts["pixel_gather"] == 2 * per * n_bursts,
+              "burst: not 2 K1 launches per update")
+        check(all(math.isfinite(float(v)) for v in m.values()), "visual burst metrics not finite")
+        profiled = profile_burst(burst, per)
+
+        obs = trainer.pool.reset_all([seed])
+        t0 = time.perf_counter()
+        for _ in range(200):
+            obs, *_ = trainer.pool.step(trainer._policy_actions(obs))
+        act_steps_per_s = 200 / (time.perf_counter() - t0)
+        trainer.close()
+        emit({
+            "phase": "train_visual", "env": VISUAL_ENV, "args": VISUAL_ARGS, "config": {
+                "filters": cfg.filters, "kernel_sizes": cfg.kernel_sizes,
+                "strides": cfg.strides, "cnn_dense_size": cfg.cnn_dense_size,
+                "cnn_features": cfg.cnn_features, "hidden_sizes": cfg.hidden_sizes,
+                "batch_size": cfg.batch_size, "buffer_size": cfg.buffer_size,
+                "steps": cfg.steps_per_epoch, "start_steps": cfg.start_steps,
+            },
+            "train_wall_s": train_s, "gradient_steps": updates,
+            "epoch_grad_steps_per_sec": metrics["grad_steps_per_sec"],
+            "epoch_env_steps_per_sec": metrics["env_steps_per_sec"],
+            "launches": launches, "pixel_gather_per_update": launches["pixel_gather"] / updates,
+            "kernel_vs_plain_update": {
+                "max_param_gap": worst, "log_alpha_gap": alpha_gap,
+                "max_output_gap": out_gap, "gradients": grad_gaps, "by_module": gaps,
+            },
+            "checkpoint_epoch": meta["epoch"],
+            "burst_ms": burst_s * 1e3, "burst_grad_steps_per_sec": per / burst_s,
+            "acting_env_steps_per_sec": act_steps_per_s,
+            "profiled_burst": profiled,
+        })
+        return launches
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+def phase_visual_burst(seed: int, kernels) -> list:
+    """Fused-pipeline bursts at the repo's full visual width: SACConfig's
+    default visual widths (Atari trunk 32/64/64, kernels 8/4/3, strides
+    4/2/1, Dense 512, cnn_features 1) on the wall-runner geometry (168
+    features, 64x64x3 frame, act_dim 56), synthetic transitions as
+    bench.py's bench_visual makes them (the card's machine has no
+    dm_control). B 32 f32 as bench_visual runs it; B 512 bf16 with the
+    shift and /255."""
+    from torch_actor_critic_tpu_torch.buffer.replay import init_visual_replay_buffer, push
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+
+    def chunk(n):
+        def obs():
+            return MultiObservation(
+                torch.randn((n, WALL_FEATURES), generator=gen, device="cuda"),
+                torch.randint(0, 256, (n, *WALL_FRAME), generator=gen, device="cuda",
+                              dtype=torch.uint8))
+        return Batch(
+            states=obs(),
+            actions=torch.tanh(torch.randn((n, WALL_ACT_DIM), generator=gen, device="cuda")),
+            rewards=torch.randn(n, generator=gen, device="cuda"), next_states=obs(),
+            done=torch.zeros(n, device="cuda"))
+
+    rows = []
+    burst_len, n_bursts = 25, 3
+    for bsz, dtype, augment, normalize in ((32, "float32", "none", False),
+                                           (512, "bfloat16", "shift", True)):
+        cfg = SACConfig(batch_size=bsz, compute_dtype=dtype, pixel_pipeline="fused",
+                        frame_augment=augment, normalize_pixels=normalize)
+        shape = MultiObservation((WALL_FEATURES,), WALL_FRAME)
+        actor, critic = build_models(cfg, shape, WALL_ACT_DIM, 1.0,
+                                     generator=torch.Generator().manual_seed(seed))
+        sac = SAC(cfg, WALL_ACT_DIM)
+        state = sac.init_state(actor.cuda(), critic.cuda(),
+                               torch.Generator(device="cuda").manual_seed(seed + 1))
+        buf = push(init_visual_replay_buffer(20000, WALL_FEATURES, WALL_FRAME,
+                                             WALL_ACT_DIM, "cuda"), chunk(2000))
+        chunks = [chunk(burst_len) for _ in range(n_bursts + 2)]
+        turn = iter(range(10 ** 9))
+
+        def burst():
+            nonlocal state, buf
+            state, buf, m = sac.update_burst(state, buf, chunks[next(turn)], burst_len)
+            return m
+
+        burst()  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n_bursts):
+            m = burst()
+        torch.cuda.synchronize()
+        burst_s = (time.perf_counter() - t0) / n_bursts
+        check(all(math.isfinite(float(v)) for v in m.values()),
+              f"visual_burst B{bsz} {dtype}: metrics not finite")
+        check(kernels.launch_counts["pixel_gather"] == 2 * burst_len * n_bursts,
+              f"visual_burst B{bsz}: not 2 K1 launches per update")
+        row = {
+            "phase": "visual_burst", "batch": bsz, "dtype": dtype, "frame_augment": augment,
+            "normalize_pixels": normalize, "features": WALL_FEATURES,
+            "frame": list(WALL_FRAME), "act_dim": WALL_ACT_DIM, "widths": {
+                "filters": cfg.filters, "kernel_sizes": cfg.kernel_sizes,
+                "strides": cfg.strides, "cnn_dense_size": cfg.cnn_dense_size,
+                "cnn_features": cfg.cnn_features, "hidden_sizes": cfg.hidden_sizes,
+            },
+            "burst_updates": burst_len, "burst_ms": burst_s * 1e3,
+            "grad_steps_per_sec": burst_len / burst_s,
+            "loss_q": float(m["loss_q"]), "loss_pi": float(m["loss_pi"]),
+            "launches": dict(kernels.launch_counts),
+            "profiled_burst": profile_burst(burst, burst_len),
+        }
+        emit(row)
+        rows.append(row)
+        del state, buf, chunks, actor, critic
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None) -> int:
@@ -738,16 +1124,19 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     import torch_actor_critic_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
-    from torch_actor_critic_tpu_torch.ops import _kernels
+    from torch_actor_critic_tpu_torch.ops import _kernels, pixels
     from torch_actor_critic_tpu_torch.ops import attention as attn
 
     smi = phase_device()
     phase_build(_kernels)
     serve_row = phase_kernel_vs_plain(attn, args.seed)
     bwd_rows = phase_bwd_vs_plain(attn, args.seed)
+    pixel_row = phase_pixel_vs_plain(pixels, args.seed)
     serve_launches = phase_serve(args.seed, _kernels)
     check(serve_launches > 0, "the serving path launched no flash_fwd kernel")
     train_launches = phase_train(args.seed, _kernels)
+    visual_launches = phase_train_visual(args.seed, _kernels)
+    phase_visual_burst(args.seed, _kernels)
     fwd_launches = serve_launches + train_launches["flash_fwd"]
     rows = [
         ("flash_fwd", "flash_fwd.cu", "torch_actor_critic_tpu/ops/attention.py:428",
@@ -756,6 +1145,8 @@ def main(argv=None) -> int:
          train_launches["flash_bwd_dq"], bwd_rows["flash_bwd_dq"]),
         ("flash_bwd_dkv", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:634",
          train_launches["flash_bwd_dkv"], bwd_rows["flash_bwd_dkv"]),
+        ("pixel_gather", "pixels.cu", "torch_actor_critic_tpu/ops/pixels.py:261",
+         visual_launches["pixel_gather"], pixel_row),
     ]
     emit({"kernels": [
         {

@@ -6,6 +6,11 @@ package, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
+K1 (``csrc/pixels.cu``) is exact integer selection and a correctly
+rounded divide: it equals its plain version bitwise, and a visual update
+fed by it equals one fed by the plain gather to the slice-2 limits
+(cuDNN's convolution backward may sum in another order run to run).
+
 Tolerances: f32 1e-4 against the plain version (summation order), bf16
 2e-2 (the bf16 rounding of the probability tile), lse 1e-4; for the
 backward kernels those limits scale by max(1, max|plain|). A full-width
@@ -191,3 +196,108 @@ def test_full_width_update_with_kernels_matches_plain_attention(cuda):
         qk = with_kernels.critic(b.states, b.actions)
         qp = with_plain.critic(b.states, b.actions)
     assert (qk - qp).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------------------------------ K1
+
+
+PIXEL_CASES = [
+    # ring shape, batch, output dtype
+    ((24000, 32, 32, 3), 64, torch.float32),    # the pixel recipe's training shape
+    ((24000, 32, 32, 3), 64, torch.bfloat16),
+    ((20000, 64, 64, 3), 32, torch.float32),    # the wall-runner geometry
+    ((20000, 64, 64, 3), 512, torch.bfloat16),
+    ((64, 12, 20, 3), 5, torch.bfloat16),       # ragged H != W
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring_shape,batch,dtype", PIXEL_CASES)
+def test_pixel_gather_kernel_is_bitwise_its_plain_version(cuda, ring_shape, batch, dtype):
+    from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+    from torch_actor_critic_tpu_torch.ops.pixels import (
+        fused_frame_gather,
+        gather_frames_reference,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ring = torch.randint(0, 256, ring_shape, generator=gen, device=cuda, dtype=torch.uint8)
+    ring[1].view(-1)[:256] = torch.arange(256, device=cuda, dtype=torch.uint8)  # every value
+    idx = torch.randint(0, ring_shape[0], (batch,), generator=gen, device=cuda)
+    idx[:2] = torch.tensor([0, 1], device=cuda)  # wrap-around when S = 3
+    for normalize in (False, True):
+        for stack in (1, 3):
+            for offsets in (None, shift_offsets(batch, 4, gen, cuda)):
+                before = _kernels.launch_counts["pixel_gather"]
+                got = fused_frame_gather(ring, idx, offsets, 4, normalize, dtype, stack)
+                assert _kernels.launch_counts["pixel_gather"] == before + 1
+                want = gather_frames_reference(ring, idx, offsets, 4, normalize, dtype, stack)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype and got.shape == want.shape
+                assert torch.equal(got, want), (normalize, stack, offsets is None)
+
+
+@pytest.mark.gpu
+def test_visual_update_with_the_kernel_matches_the_plain_gather(cuda):
+    """The pixel recipe's fused update on the card, its frames from K1
+    and from the plain gather (bitwise equal), from one state."""
+    from torch_actor_critic_tpu_torch.buffer.replay import (
+        init_visual_replay_buffer,
+        push,
+        sample_fused_visual,
+    )
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+    from torch_actor_critic_tpu_torch.ops.pixels import gather_frames_reference
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg = SACConfig(filters=(16, 32), kernel_sizes=(4, 3), strides=(2, 2), cnn_dense_size=128,
+                    cnn_features=64, normalize_pixels=True, frame_augment="shift",
+                    learn_alpha=True, pixel_pipeline="fused")
+    shape = MultiObservation((1,), (32, 32, 3))
+    sac = SAC(cfg, 1)
+
+    def state():
+        actor, critic = build_models(cfg, shape, 1, 2.0, generator=torch.Generator().manual_seed(0))
+        return sac.init_state(actor.to(cuda), critic.to(cuda),
+                              torch.Generator(device=cuda).manual_seed(1))
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n = 2000
+
+    def obs():
+        return MultiObservation(
+            torch.randn((n, 1), generator=gen, device=cuda),
+            torch.randint(0, 256, (n, 32, 32, 3), generator=gen, device=cuda, dtype=torch.uint8))
+
+    buf = push(init_visual_replay_buffer(n, 1, (32, 32, 3), 1, cuda), Batch(
+        states=obs(), actions=torch.rand((n, 1), generator=gen, device=cuda) * 4 - 2,
+        rewards=torch.randn(n, generator=gen, device=cuda), next_states=obs(),
+        done=torch.zeros(n, device=cuda)))
+    idx = torch.randint(0, n, (64,), generator=gen, device=cuda)
+    offsets = torch.stack([shift_offsets(64, 4, gen, cuda) for _ in range(2)])
+    before = _kernels.launch_counts["pixel_gather"]
+    with_kernel = sample_fused_visual(buf, 64, torch.float32, "shift", 4, True,
+                                      indices=idx, offsets=offsets)
+    assert _kernels.launch_counts["pixel_gather"] == before + 2
+    frames = [gather_frames_reference(ring, idx, offs, 4, True, torch.float32)
+              for ring, offs in ((buf.data.states.frame, offsets[0]),
+                                 (buf.data.next_states.frame, offsets[1]))]
+    with_plain = Batch(
+        states=MultiObservation(with_kernel.states.features, frames[0]),
+        actions=with_kernel.actions, rewards=with_kernel.rewards,
+        next_states=MultiObservation(with_kernel.next_states.features, frames[1]),
+        done=with_kernel.done)
+    assert torch.equal(with_kernel.states.frame, frames[0])
+    assert torch.equal(with_kernel.next_states.frame, frames[1])
+    eps = [torch.randn((64, 1), generator=gen, device=cuda) for _ in range(2)]
+    a, b = state(), state()
+    sac.update(a, with_kernel, eps_q=eps[0], eps_pi=eps[1])
+    sac.update(b, with_plain, eps_q=eps[0], eps_pi=eps[1])
+    for part in ("actor", "critic", "target_critic"):
+        theirs = dict(getattr(b, part).named_parameters())
+        for name, p in getattr(a, part).named_parameters():
+            gap = (p - theirs[name]).abs().max().item()
+            assert gap <= 1e-4, (part, name, gap)
+    assert abs(a.log_alpha.item() - b.log_alpha.item()) <= 1e-6

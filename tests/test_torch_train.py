@@ -109,7 +109,7 @@ def test_unported_envs_and_parallel_pool_raise():
     with pytest.raises(NotImplementedError):
         make_env("dm:cheetah:run")
     with pytest.raises(NotImplementedError):
-        make_env("PixelPendulum-v0")
+        make_env("DeepMindWallRunner-v0")
     with pytest.raises(NotImplementedError, match="parallel"):
         make_env_pool("PendulumNumpy-v1", 2, parallel=True)
     pool = make_env_pool("PendulumNumpy-v1|history:3", 2, base_seed=1)
@@ -147,7 +147,9 @@ def test_model_init_is_seeded_by_an_explicit_generator():
 def test_build_models_refuses_unported_families():
     with pytest.raises(NotImplementedError, match="td3"):
         build_models(SACConfig(algorithm="td3"), (3,), 1, 1.0)
-    with pytest.raises(NotImplementedError, match="visual"):
+    # A frame alone does not select the visual family: that takes a
+    # MultiObservation (features, frame) spec.
+    with pytest.raises(NotImplementedError, match="MultiObservation"):
         build_models(SACConfig(), (8, 8, 3), 1, 1.0)
 
 
@@ -206,13 +208,23 @@ def test_trainer_without_updates_only_fills_the_buffer():
 @pytest.mark.parametrize("field,value", [
     ("algorithm", "td3"), ("population", 2), ("on_device", True),
     ("replay_tiers", "host"), ("telemetry", True), ("obs", True),
-    ("parallel_envs", True), ("frame_augment", "shift"),
-    ("pixel_pipeline", "fused"), ("decoupled", True), ("emit_bundle", True),
+    ("parallel_envs", True), ("decoupled", True), ("emit_bundle", True),
     ("compile_cache", "/nonexistent"), ("actor_param_lag", True),
 ])
 def test_unported_config_fields_raise(field, value):
     assert field in NOT_PORTED
     with pytest.raises(NotImplementedError, match=field):
+        Trainer("PendulumNumpy-v1", _tiny_config(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("frame_augment", "shift"), ("pixel_pipeline", "fused"),
+])
+def test_pixel_options_on_a_flat_env_raise(field, value):
+    """The JAX trainer's construction gates: a pixel option on a
+    non-visual env would silently do nothing."""
+    assert field not in NOT_PORTED
+    with pytest.raises(ValueError, match=field):
         Trainer("PendulumNumpy-v1", _tiny_config(**{field: value}), device="cpu")
 
 

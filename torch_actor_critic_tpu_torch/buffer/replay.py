@@ -1,13 +1,17 @@
 """Device-resident uniform-sampling ring replay buffer (port of
-``buffer/replay.py``: ``init_replay_buffer``, ``push``, ``sample``).
+``buffer/replay.py``: ``init_replay_buffer``, ``init_visual_replay_buffer``,
+``push``, ``sample``, ``sample_fused_visual``).
 
 The ring lives on the training device. :func:`push` writes a chunk at
 ``(ptr + arange(n)) % capacity`` — in place into the ring (the JAX
 package donates the buffer to get the same effect) — and returns the
 advanced cursor. :func:`sample` draws uniformly with replacement over
 ``[0, size)`` from an explicit ``torch.Generator``, or gathers given
-``indices`` (the tests inject JAX's). The striped and visual variants
-are not ported.
+``indices`` (the tests inject JAX's). Observations are tensors or
+:class:`~..core.types.MultiObservation` values; every leaf keeps its own
+dtype in the ring (a visual ring stores **uint8** HWC frames beside f32
+features). :func:`sample_fused_visual` gathers the frames through the
+fused pixel pipeline (K1). The striped variant is not ported.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ import typing as t
 
 import torch
 
-from torch_actor_critic_tpu_torch.core.types import Batch, BufferState
+from torch_actor_critic_tpu_torch.core.types import Batch, BufferState, MultiObservation
+from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+from torch_actor_critic_tpu_torch.ops.pixels import fused_frame_gather
 
 
 def init_replay_buffer(
@@ -41,8 +47,35 @@ def init_replay_buffer(
     return BufferState(data=data, ptr=0, size=0)
 
 
+def init_visual_replay_buffer(
+    capacity: int,
+    feature_dim: int,
+    frame_shape: t.Sequence[int],
+    act_dim: int,
+    device: torch.device | str = "cpu",
+) -> BufferState:
+    """An empty mixed-observation ring: f32 ``(feature_dim,)`` features
+    and **uint8** ``frame_shape`` (H, W, C) frames."""
+
+    def obs():
+        return MultiObservation(
+            features=torch.zeros((capacity, feature_dim), dtype=torch.float32, device=device),
+            frame=torch.zeros((capacity, *frame_shape), dtype=torch.uint8, device=device),
+        )
+
+    data = Batch(
+        states=obs(),
+        actions=torch.zeros((capacity, act_dim), dtype=torch.float32, device=device),
+        rewards=torch.zeros((capacity,), dtype=torch.float32, device=device),
+        next_states=obs(),
+        done=torch.zeros((capacity,), dtype=torch.float32, device=device),
+    )
+    return BufferState(data=data, ptr=0, size=0)
+
+
 def push(state: BufferState, chunk: Batch) -> BufferState:
-    """Append ``n`` transitions, overwriting the oldest on wrap."""
+    """Append ``n`` transitions, overwriting the oldest on wrap. Each
+    leaf is written in its ring's dtype."""
     capacity = state.capacity
     n = chunk.rewards.shape[0]
     if n > capacity:
@@ -53,13 +86,23 @@ def push(state: BufferState, chunk: Batch) -> BufferState:
         )
     device = state.data.rewards.device
     idx = (torch.arange(n, device=device) + state.ptr) % capacity
-    for name in ("states", "actions", "rewards", "next_states", "done"):
-        ring = getattr(state.data, name)
-        ring.index_copy_(0, idx, getattr(chunk, name).to(ring.device, ring.dtype))
+    for ring, new in zip(state.data.leaves(), chunk.leaves()):
+        ring.index_copy_(0, idx, new.to(ring.device, ring.dtype))
     return BufferState(
         data=state.data, ptr=(state.ptr + n) % capacity,
         size=min(state.size + n, capacity),
     )
+
+
+def _indices(state: BufferState, batch_size: int, generator, indices) -> torch.Tensor:
+    if (generator is None) == (indices is None):
+        raise ValueError("sample: pass exactly one of generator / indices")
+    if state.size == 0:
+        raise ValueError("sample: replay buffer is empty (size == 0).")
+    device = state.data.rewards.device
+    if indices is None:
+        return torch.randint(0, state.size, (batch_size,), generator=generator, device=device)
+    return torch.as_tensor(indices, device=device, dtype=torch.long)
 
 
 def sample(
@@ -70,15 +113,64 @@ def sample(
 ) -> Batch:
     """A uniform batch over ``[0, size)`` drawn from ``generator``, or
     the rows ``indices`` when given (exactly one of the two)."""
-    if (generator is None) == (indices is None):
-        raise ValueError("sample: pass exactly one of generator / indices")
-    if state.size == 0:
-        raise ValueError("sample: replay buffer is empty (size == 0).")
-    device = state.data.rewards.device
-    if indices is None:
-        indices = torch.randint(
-            0, state.size, (batch_size,), generator=generator, device=device
-        )
-    else:
-        indices = torch.as_tensor(indices, device=device, dtype=torch.long)
+    indices = _indices(state, batch_size, generator, indices)
     return state.data.map(lambda ring: ring.index_select(0, indices))
+
+
+def sample_fused_visual(
+    state: BufferState,
+    batch_size: int,
+    out_dtype: torch.dtype,
+    augment: str = "none",
+    pad: int = 4,
+    normalize: bool = False,
+    generator: torch.Generator | None = None,
+    indices: torch.Tensor | None = None,
+    offsets: torch.Tensor | None = None,
+) -> Batch:
+    """:func:`sample` for a visual ring through the fused pixel pipeline
+    (:func:`~..ops.pixels.fused_frame_gather`, the kernel K1 on the
+    card): the non-frame leaves gather as in :func:`sample`; each frame
+    leaf is gathered, DrQ-shifted (``augment="shift"``), decoded and cast
+    to ``out_dtype`` in one pass, so the sampled frames never exist as
+    uint8 or f32 copies in device memory.
+
+    Draws from ``generator``: the rows, then (with a shift) the states'
+    and the next states' offsets. Test hooks: ``indices`` ``(B,)`` and
+    ``offsets`` ``(2, B, 2)`` replace the draws (the JAX package splits
+    its key three ways instead: rows, state shift, next-state shift)."""
+    if not state.visual:
+        raise ValueError(
+            "sample_fused_visual needs a MultiObservation (frame) buffer; got "
+            f"{type(state.data.states).__name__}"
+        )
+    if augment not in ("none", "shift"):
+        raise ValueError(f"unknown frame_augment mode {augment!r}")
+    idx = _indices(state, batch_size, generator, indices)
+    if augment == "none":
+        offs = (None, None)
+    elif offsets is None:
+        if generator is None:
+            raise ValueError("sample_fused_visual: a shift needs offsets or a generator")
+        offs = tuple(shift_offsets(batch_size, pad, generator, idx.device) for _ in range(2))
+    else:
+        offs = (offsets[0].to(idx.device), offsets[1].to(idx.device))
+    d = state.data
+
+    def take(ring):
+        return ring.index_select(0, idx)
+
+    def gather(ring, offsets):
+        return fused_frame_gather(
+            ring, idx, offsets=offsets, pad=pad, normalize=normalize, out_dtype=out_dtype
+        )
+
+    return Batch(
+        states=MultiObservation(take(d.states.features), gather(d.states.frame, offs[0])),
+        actions=take(d.actions),
+        rewards=take(d.rewards),
+        next_states=MultiObservation(
+            take(d.next_states.features), gather(d.next_states.frame, offs[1])
+        ),
+        done=take(d.done),
+    )

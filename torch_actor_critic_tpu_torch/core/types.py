@@ -5,29 +5,67 @@ Plain dataclasses of tensors in place of the JAX package's pytrees.
 ``TrainState`` holds the live modules and optimizers (PyTorch's
 parameters are mutable, so an update changes the state in place and
 returns it) and the ``torch.Generator`` that replaces the PRNG key.
+
+An observation is a tensor (flat or history) or a
+:class:`MultiObservation` (features + uint8 HWC frame);
+:func:`tree_map` and :func:`tree_leaves` walk either, so one ``Batch``
+serves both, as one pytree does in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing as t
 
 import torch
 from torch import nn
 
 
 @dataclasses.dataclass
+class MultiObservation:
+    """Mixed proprioceptive + pixel observation: ``features`` a flat
+    float vector, ``frame`` an HWC image (uint8 from the env and in the
+    replay ring; float once the fused pixel pipeline has decoded it).
+    The leaves may be tensors, numpy arrays or, for a spec, shapes."""
+
+    features: t.Any
+    frame: t.Any
+
+    def map(self, fn) -> "MultiObservation":
+        return MultiObservation(fn(self.features), fn(self.frame))
+
+
+def tree_map(fn, obs):
+    """``fn`` over the leaves of an observation (a :class:`MultiObservation`
+    or a single array)."""
+    return obs.map(fn) if isinstance(obs, MultiObservation) else fn(obs)
+
+
+def tree_leaves(obs) -> list:
+    return [obs.features, obs.frame] if isinstance(obs, MultiObservation) else [obs]
+
+
+@dataclasses.dataclass
 class Batch:
     """A batch of transitions (or a chunk of them to push): leading
-    axis = transition. ``done`` is the Bellman mask in f32."""
+    axis = transition. ``done`` is the Bellman mask in f32;
+    ``states``/``next_states`` are observations (tensor or
+    :class:`MultiObservation`)."""
 
-    states: torch.Tensor
+    states: t.Any
     actions: torch.Tensor
     rewards: torch.Tensor
-    next_states: torch.Tensor
+    next_states: t.Any
     done: torch.Tensor
 
     def map(self, fn) -> "Batch":
-        return Batch(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
+        """``fn`` over every leaf, into :class:`MultiObservation` fields."""
+        return Batch(*(tree_map(fn, getattr(self, f.name))
+                       for f in dataclasses.fields(self)))
+
+    def leaves(self) -> list:
+        return [leaf for f in dataclasses.fields(self)
+                for leaf in tree_leaves(getattr(self, f.name))]
 
 
 @dataclasses.dataclass
@@ -43,6 +81,10 @@ class BufferState:
     @property
     def capacity(self) -> int:
         return self.data.rewards.shape[0]
+
+    @property
+    def visual(self) -> bool:
+        return isinstance(self.data.states, MultiObservation)
 
 
 @dataclasses.dataclass

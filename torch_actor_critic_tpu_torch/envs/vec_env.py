@@ -14,7 +14,18 @@ import typing as t
 
 import numpy as np
 
+from torch_actor_critic_tpu_torch.core.types import MultiObservation
 from torch_actor_critic_tpu_torch.envs.wrappers import make_env
+
+
+def stack_obs(obs: t.Sequence) -> t.Any:
+    """Stack observations on a new leading axis, leaf by leaf for
+    :class:`MultiObservation` observations (each leaf keeps its dtype)."""
+    if isinstance(obs[0], MultiObservation):
+        return MultiObservation(
+            np.stack([o.features for o in obs]), np.stack([o.frame for o in obs])
+        )
+    return np.stack(obs)
 
 
 class SequentialEnvPool:
@@ -29,14 +40,14 @@ class SequentialEnvPool:
 
     def reset_all(self, seeds: t.Sequence[int | None] | None = None) -> np.ndarray:
         seeds = seeds or [None] * self.n
-        return np.stack([e.reset(seed=s) for e, s in zip(self.envs, seeds)])
+        return stack_obs([e.reset(seed=s) for e, s in zip(self.envs, seeds)])
 
     def reset_at(self, i: int, seed: int | None = None) -> np.ndarray:
         return self.envs[i].reset(seed=seed)
 
     def step(self, actions: np.ndarray):
         out = [e.step(a) for e, a in zip(self.envs, actions)]
-        obs = np.stack([o[0] for o in out])
+        obs = stack_obs([o[0] for o in out])
         r = np.asarray([o[1] for o in out], np.float32)
         term = np.asarray([o[2] for o in out], bool)
         trunc = np.asarray([o[3] for o in out], bool)

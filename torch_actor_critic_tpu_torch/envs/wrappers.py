@@ -10,8 +10,10 @@ Every env family is normalised to the protocol the trainer consumes:
 ``make_env`` builds gymnasium envs by name (gymnasium is imported only
 then, and a missing gymnasium raises: no env is substituted), the
 port's numpy pendulum :class:`~.pendulum.PendulumNumpy` under its own
-name, and ``"<name>|history:N"`` wraps any of them in
-:class:`HistoryEnv`. dm_control and the visual envs are not ported.
+name, the pixel pendulums of :mod:`.pixel_pendulum` (observations are
+:class:`~..core.types.MultiObservation` values, ``obs_spec`` one of
+:class:`ObsSpec` leaves), and ``"<name>|history:N"`` wraps a flat env in
+:class:`HistoryEnv`. dm_control and the wall-runner are not ported.
 """
 
 from __future__ import annotations
@@ -66,10 +68,10 @@ class HistoryEnv:
     with the initial observation."""
 
     def __init__(self, env, horizon: int):
-        if len(env.obs_spec.shape) != 1:
+        if not isinstance(env.obs_spec, ObsSpec) or len(env.obs_spec.shape) != 1:
             raise ValueError(
-                "HistoryEnv requires a flat array observation; got shape "
-                f"{env.obs_spec.shape}"
+                "HistoryEnv requires a flat array observation; got "
+                f"{env.obs_spec}"
             )
         self.env = env
         self.horizon = int(horizon)
@@ -98,9 +100,20 @@ class HistoryEnv:
         self.env.close()
 
 
-_NOT_PORTED = (
-    "DeepMindWallRunner-v0", "PixelPendulum-v0", "PixelPendulumBalance-v0",
-)
+_NOT_PORTED = ("DeepMindWallRunner-v0",)
+
+# name -> (gymnasium physics?, balance start?)
+_PIXEL_ENVS = {
+    "PixelPendulum-v0": (True, False),
+    "PixelPendulumBalance-v0": (True, True),
+    "PixelPendulumNumpy-v0": (False, False),
+    "PixelPendulumBalanceNumpy-v0": (False, True),
+}
+
+
+def is_visual_env(name: str) -> bool:
+    """Mixed-observation envs, which need the visual model and buffer."""
+    return name in _PIXEL_ENVS or name in _NOT_PORTED
 
 
 def make_env(name: str, seed: int | None = None):
@@ -113,8 +126,14 @@ def make_env(name: str, seed: int | None = None):
         from torch_actor_critic_tpu_torch.envs.pendulum import PendulumNumpy
 
         return PendulumNumpy(seed=seed)
+    if name in _PIXEL_ENVS:
+        from torch_actor_critic_tpu_torch.envs import pixel_pendulum
+
+        gym_physics, balance = _PIXEL_ENVS[name]
+        cls = pixel_pendulum.PixelPendulum if gym_physics else pixel_pendulum.PixelPendulumNumpy
+        return cls(seed=seed, balance=balance)
     if name.startswith("dm:") or name in _NOT_PORTED:
         raise NotImplementedError(
-            f"env {name!r} (dm_control / visual) is not ported yet"
+            f"env {name!r} (dm_control / the wall-runner) is not ported yet"
         )
     return GymnasiumEnv(name, seed=seed)

@@ -7,6 +7,7 @@ import typing as t
 import torch
 from torch import nn
 
+from torch_actor_critic_tpu_torch.core.types import MultiObservation
 from torch_actor_critic_tpu_torch.models.actor import Actor
 from torch_actor_critic_tpu_torch.models.critic import Critic, DoubleCritic
 from torch_actor_critic_tpu_torch.models.mlp import MLP, Dense, init_generator
@@ -18,45 +19,94 @@ from torch_actor_critic_tpu_torch.models.sequence import (
     SequenceTrunk,
     TransformerBlock,
 )
+from torch_actor_critic_tpu_torch.models.visual import (
+    SimpleCNN,
+    VisualActor,
+    VisualCritic,
+    VisualDoubleCritic,
+)
 
 __all__ = [
     "Actor", "Critic", "Dense", "DoubleCritic", "MLP", "MultiHeadAttention",
     "SequenceActor", "SequenceCritic", "SequenceDoubleCritic", "SequenceTrunk",
-    "TransformerBlock", "build_actor", "build_models",
+    "SimpleCNN", "TransformerBlock", "VisualActor", "VisualCritic",
+    "VisualDoubleCritic", "build_actor", "build_models",
 ]
 
+ObsShape = t.Union[t.Sequence[int], MultiObservation]
 
-def _check_supported(config, obs_shape: t.Tuple[int, ...]) -> None:
+
+def _check_supported(config, obs_shape: ObsShape) -> None:
     if config.algorithm != "sac":
         raise NotImplementedError(
             f"algorithm={config.algorithm!r} is not ported yet (SAC only)"
         )
-    if len(obs_shape) not in (1, 2):
-        raise NotImplementedError(
-            f"observation shape {obs_shape} (visual stack) is not ported yet"
+    visual = isinstance(obs_shape, MultiObservation)
+    # The JAX trainer's construction gates: either pixel option on a
+    # flat/sequence observation would silently do nothing.
+    if config.frame_augment != "none" and not visual:
+        raise ValueError(
+            f"frame_augment={config.frame_augment!r} requires a visual (frame) "
+            f"observation; got observation shape {obs_shape}"
         )
+    if config.pixel_pipeline == "fused" and not visual:
+        raise ValueError(
+            "pixel_pipeline='fused' requires a visual (frame) observation; got "
+            f"observation shape {obs_shape}"
+        )
+    if not visual and len(obs_shape) not in (1, 2):
+        raise NotImplementedError(
+            f"observation shape {obs_shape}: a frame needs a MultiObservation "
+            "(features, frame) spec to select the visual family"
+        )
+
+
+def _visual_kwargs(config, obs_shape: MultiObservation) -> dict:
+    (features_dim,) = obs_shape.features
+    return dict(
+        features_dim=features_dim, frame_shape=tuple(obs_shape.frame),
+        hidden_sizes=config.hidden_sizes, filters=config.filters,
+        kernel_sizes=config.kernel_sizes, strides=config.strides,
+        cnn_features=config.cnn_features, cnn_dense_size=config.cnn_dense_size,
+        normalize_pixels=config.normalize_pixels, dtype=config.model_dtype,
+    )
+
+
+def _shape(obs_shape: ObsShape) -> ObsShape:
+    if isinstance(obs_shape, MultiObservation):
+        return obs_shape.map(tuple)
+    return tuple(obs_shape)
 
 
 def build_models(
     config,
-    obs_shape: t.Sequence[int],
+    obs_shape: ObsShape,
     act_dim: int,
     act_limit: float,
     generator: torch.Generator | None = None,
 ) -> t.Tuple[nn.Module, nn.Module]:
     """``(actor, critic)`` as the JAX trainer's ``build_models`` builds
-    them (``sac/trainer.py``, flat and sequence branches): a flat
-    ``(obs_dim,)`` obs gives :class:`Actor` + :class:`DoubleCritic`, a
+    them (``sac/trainer.py``, visual, sequence and flat branches): a
+    :class:`MultiObservation` of shapes ``(features=(F,), frame=(H, W,
+    C))`` gives :class:`VisualActor` + :class:`VisualDoubleCritic`, a
+    flat ``(obs_dim,)`` obs :class:`Actor` + :class:`DoubleCritic`, a
     ``(T, obs_dim)`` history :class:`SequenceActor` +
     :class:`SequenceDoubleCritic` with ``max_len = T``. Both draw their
-    init from ``generator`` (None: seeded 0), actor first. TD3, visual,
-    multi-agent and task-embedding models raise ``NotImplementedError``.
+    init from ``generator`` (None: seeded 0), actor first.
+    ``frame_augment``/``pixel_pipeline`` on a non-visual observation
+    raise ``ValueError``; TD3, multi-agent and task-embedding models
+    ``NotImplementedError``.
     """
-    obs_shape = tuple(obs_shape)
+    obs_shape = _shape(obs_shape)
     gen = init_generator(generator)
     actor = build_actor(config, obs_shape, act_dim, act_limit, gen)
     dtype = config.model_dtype
-    if len(obs_shape) == 2:
+    if isinstance(obs_shape, MultiObservation):
+        critic = VisualDoubleCritic(
+            act_dim=act_dim, num_qs=config.num_qs, generator=gen,
+            **_visual_kwargs(config, obs_shape),
+        )
+    elif len(obs_shape) == 2:
         horizon, obs_dim = obs_shape
         critic = SequenceDoubleCritic(
             obs_dim, act_dim,
@@ -78,17 +128,22 @@ def build_models(
 
 def build_actor(
     config,
-    obs_shape: t.Sequence[int],
+    obs_shape: ObsShape,
     act_dim: int,
     act_limit: float,
     generator: torch.Generator | None = None,
 ) -> nn.Module:
     """The actor half of :func:`build_models` (the serving callers, which
     load their params from a checkpoint)."""
-    obs_shape = tuple(obs_shape)
+    obs_shape = _shape(obs_shape)
     _check_supported(config, obs_shape)
     gen = init_generator(generator)
     dtype = config.model_dtype
+    if isinstance(obs_shape, MultiObservation):
+        return VisualActor(
+            act_dim=act_dim, act_limit=act_limit, generator=gen,
+            **_visual_kwargs(config, obs_shape),
+        )
     if len(obs_shape) == 2:
         horizon, obs_dim = obs_shape
         return SequenceActor(

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 # kernel name -> (source under csrc/, C symbol, argtypes): the ctypes
 # signature of each kernel's entry point. Every pointer and the stream
 # are c_void_p.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: t.Dict[str, t.Tuple[str, str, tuple]] = {
     "flash_fwd": (
         "flash_fwd", "tac_flash_fwd",
@@ -50,6 +50,10 @@ SIGNATURES: t.Dict[str, t.Tuple[str, str, tuple]] = {
     "flash_bwd_dkv": (
         "flash_bwd", "tac_flash_bwd_dkv",
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    ),
+    "pixel_gather": (
+        "pixels", "tac_pixel_gather",
+        (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
 }
 
@@ -72,6 +76,22 @@ def count_launch(name: str) -> None:
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+
+
+def launch(name: str, fn, device, args, shape_note: str) -> None:
+    """Call kernel ``name``'s entry point ``fn`` with ``args`` on
+    ``device``, raise if the launch was refused (the C function returns
+    ``cudaGetLastError()``), and count it."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:  # the runtime launches on the thread's current device
+        with torch.cuda.device(device):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err} ({shape_note})")
+    count_launch(name)
 
 
 def _nvcc() -> str:

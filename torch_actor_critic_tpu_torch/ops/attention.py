@@ -179,17 +179,6 @@ def _kernel_operands(where: str, *xs: torch.Tensor):
     return tuple(x.clone() if x.data_ptr() % 16 else x for x in xs)
 
 
-def _launch(name: str, fn, device, args, shape_note: str) -> None:
-    if device.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:  # the runtime launches on the thread's current device
-        with torch.cuda.device(device):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err} ({shape_note})")
-    _kernels.count_launch(name)
-
-
 def flash_attention_forward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -222,7 +211,7 @@ def flash_attention_forward(
             torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
             if return_lse else None
         )
-        _launch("flash_fwd", fn, q.device, (
+        _kernels.launch("flash_fwd", fn, q.device, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             b * h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)),
@@ -286,10 +275,10 @@ def flash_attention_backward(
         note = f"B·H={b * h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}"
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                lse.data_ptr(), delta.data_ptr())
-        _launch("flash_bwd_dq", fns[0], q.device,
-                (*ins, dq.data_ptr(), *common), note)
-        _launch("flash_bwd_dkv", fns[1], q.device,
-                (*ins, dk.data_ptr(), dv.data_ptr(), *common), note)
+        _kernels.launch("flash_bwd_dq", fns[0], q.device,
+                        (*ins, dq.data_ptr(), *common), note)
+        _kernels.launch("flash_bwd_dkv", fns[1], q.device,
+                        (*ins, dk.data_ptr(), dv.data_ptr(), *common), note)
     if dp != d:
         dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv

@@ -1,0 +1,143 @@
+"""The fused replay-gather → DrQ shift → uint8 decode → cast pixel
+pipeline: the plain version and the CUDA kernel K1 (port of
+``ops/pixels.py``).
+
+For example ``b``, stack slot ``s``, row ``y``, column ``x``, channel
+``c``::
+
+    out[b, y, x, s·C + c] = decode(ring[rows[b, s], sy, sx, c])
+    rows[b, s] = (idx[b] - (S-1-s)) mod capacity      (floor-mod)
+    sy = clip(y + off[b, 0] - pad, 0, H-1)            (sx likewise)
+    decode(v) = (out_dtype) v, then / (out_dtype) 255 when normalize
+
+- :func:`gather_frames_reference` — the plain PyTorch version (gather,
+  clipped-index shift, cast), kept beside the kernel; the CPU tests hold
+  it bitwise to the JAX package's.
+- :func:`fused_frame_gather` — the dispatch: CPU tensors run the plain
+  version, CUDA tensors the hand-written kernel ``csrc/pixels.cu`` (the
+  port of the TPU kernel ``_pixel_kernel``); a build or launch failure
+  raises, nothing falls back.
+
+Bit contract: the kernel and the plain version agree bitwise for every
+(out_dtype, normalize, augment, frame_stack). The divide is IEEE
+``v / 255`` in the output type's arithmetic (bf16: divided in f32,
+rounded once), as the JAX package's ``_decode`` computes it op by op.
+(Under ``jit``, XLA rewrites the f32 divide into a multiply by
+``1/255``, 1 ulp off on 126 of the 256 values; the port keeps the
+divide.)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from torch_actor_critic_tpu_torch.ops import _kernels
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def stack_rows(idx: torch.Tensor, frame_stack: int, capacity: int) -> torch.Tensor:
+    """Ring rows of a stacked gather ``(B, S)``, oldest first, ``idx``
+    itself last; torch's ``%`` is floor-mod, as jnp's is."""
+    if frame_stack < 1:
+        raise ValueError(f"frame_stack must be >= 1, got {frame_stack}")
+    back = torch.arange(frame_stack - 1, -1, -1, dtype=idx.dtype, device=idx.device)
+    return (idx[:, None] - back[None, :]) % capacity
+
+
+def _decode(x: torch.Tensor, normalize: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """uint8 -> ``out_dtype`` (exact: integers <= 255 fit bf16), then
+    ``/ 255`` in that type."""
+    x = x.to(out_dtype)
+    if normalize:
+        x = x / torch.tensor(255.0, dtype=out_dtype, device=x.device)
+    return x
+
+
+def _clipped_axis_indices(offsets: torch.Tensor, length: int, pad: int) -> torch.Tensor:
+    """``clip(i + off - pad, 0, length-1)`` per example: edge-pad by
+    ``pad`` and crop at ``off``, without the padded frame."""
+    i = torch.arange(length, device=offsets.device)
+    return (i[None, :] + offsets[:, None].long() - pad).clamp(0, length - 1)
+
+
+def gather_frames_reference(
+    ring: torch.Tensor,
+    idx: torch.Tensor,
+    offsets: torch.Tensor | None = None,
+    pad: int = 4,
+    normalize: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+    frame_stack: int = 1,
+) -> torch.Tensor:
+    """K1's plain version. ``ring`` uint8 ``(capacity, H, W, C)``,
+    ``idx`` ``(B,)``, ``offsets`` ``(B, 2)`` in ``[0, 2·pad]`` (None: no
+    shift); returns ``(B, H, W, frame_stack·C)`` in ``out_dtype``."""
+    b = idx.shape[0]
+    capacity, h, w, c = ring.shape
+    rows = stack_rows(idx.long(), frame_stack, capacity)
+    frames = ring.index_select(0, rows.reshape(-1)).reshape(b, frame_stack, h, w, c)
+    if offsets is not None:
+        ys = _clipped_axis_indices(offsets[:, 0], h, pad)
+        xs = _clipped_axis_indices(offsets[:, 1], w, pad)
+        frames = torch.gather(frames, 2, ys[:, None, :, None, None].expand_as(frames))
+        frames = torch.gather(frames, 3, xs[:, None, None, :, None].expand_as(frames))
+    out = _decode(frames, normalize, out_dtype)
+    # (B, S, H, W, C) -> (B, H, W, S·C): newest frame in the last C channels.
+    return out.permute(0, 2, 3, 1, 4).reshape(b, h, w, frame_stack * c)
+
+
+def fused_frame_gather(
+    ring: torch.Tensor,
+    idx: torch.Tensor,
+    offsets: torch.Tensor | None = None,
+    pad: int = 4,
+    normalize: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+    frame_stack: int = 1,
+) -> torch.Tensor:
+    """Gather, shift, decode and cast the frames of replay rows ``idx``
+    (see :func:`gather_frames_reference`). A CPU ring runs the plain
+    version; a CUDA ring launches ``csrc/pixels.cu``."""
+    if ring.dtype != torch.uint8:
+        raise ValueError(
+            f"fused_frame_gather decodes uint8 replay frames, got {ring.dtype}; "
+            "the replay ring stores frames as uint8 by design (buffer/replay.py)"
+        )
+    if ring.dim() != 4 or idx.dim() != 1:
+        raise ValueError(
+            f"fused_frame_gather: ring must be (capacity, H, W, C) and idx (B,); "
+            f"got {tuple(ring.shape)} and {tuple(idx.shape)}"
+        )
+    if out_dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"fused_frame_gather: out_dtype {out_dtype} (float32 or bfloat16)")
+    b = idx.shape[0]
+    if offsets is not None and tuple(offsets.shape) != (b, 2):
+        raise ValueError(f"fused_frame_gather: offsets must be ({b}, 2), got {tuple(offsets.shape)}")
+    if ring.device.type == "cpu":
+        return gather_frames_reference(
+            ring, idx, offsets, pad, normalize, out_dtype, frame_stack
+        )
+    if ring.device.type != "cuda":
+        raise ValueError(f"fused_frame_gather: ring on {ring.device} (cpu or cuda)")
+    if frame_stack < 1:
+        raise ValueError(f"frame_stack must be >= 1, got {frame_stack}")
+    fn = _kernels.load("pixel_gather")
+    for name, x in (("idx", idx), ("offsets", offsets)):
+        if x is not None and x.device != ring.device:
+            raise ValueError(f"fused_frame_gather: {name} is not on the ring's device")
+    capacity, h, w, c = ring.shape
+    ring = ring.contiguous()
+    idx = idx.to(torch.int64).contiguous()
+    if offsets is not None:
+        offsets = offsets.to(torch.int32).contiguous()
+    out = torch.empty((b, h, w, frame_stack * c), dtype=out_dtype, device=ring.device)
+    if b == 0:
+        return out
+    _kernels.launch("pixel_gather", fn, ring.device, (
+        ring.data_ptr(), idx.data_ptr(),
+        offsets.data_ptr() if offsets is not None else None, out.data_ptr(),
+        capacity, h, w, c, b, frame_stack, pad, _KERNEL_DTYPES[out_dtype],
+        int(bool(normalize)), torch.cuda.current_stream(ring.device).cuda_stream,
+    ), f"ring {tuple(ring.shape)}, B={b}, S={frame_stack}, {out_dtype}")
+    return out

@@ -13,7 +13,12 @@ frozen, so its attention runs forward-only.
 A burst (:func:`run_update_burst`) pushes a chunk, then runs
 ``num_updates`` steps, each sampling its batch on the device. Nothing in
 a burst reads a value back to the host: metrics stay device scalars,
-are stacked, and are reduced once by key suffix.
+are stacked, and are reduced once by key suffix. On a visual ring with
+``pixel_pipeline="fused"`` the batch comes from
+:func:`~..buffer.replay.sample_fused_visual` (frames gathered, shifted
+and decoded by the kernel K1); with the reference pipeline and
+``frame_augment="shift"`` the update shifts the sampled uint8 frames
+itself (:func:`~..ops.augment.augment_batch`).
 
 ``dynamic_lr_step`` and the PBT hyperparameters are not ported;
 ``diagnostics != "off"`` raises.
@@ -28,9 +33,10 @@ import typing as t
 import torch
 from torch import nn
 
-from torch_actor_critic_tpu_torch.buffer.replay import push, sample
+from torch_actor_critic_tpu_torch.buffer.replay import push, sample, sample_fused_visual
 from torch_actor_critic_tpu_torch.core.types import Batch, BufferState, TrainState
 from torch_actor_critic_tpu_torch.diagnostics.ingraph import reduce_burst_metrics
+from torch_actor_critic_tpu_torch.ops.augment import augment_batch
 from torch_actor_critic_tpu_torch.ops.polyak import polyak_update_
 from torch_actor_critic_tpu_torch.sac import losses
 
@@ -95,9 +101,19 @@ class SAC:
     ) -> t.Tuple[TrainState, Metrics]:
         """One gradient step. ``eps_q`` (the next-action noise of the
         critic loss) and ``eps_pi`` (the policy-loss noise) default to
-        draws from ``state.generator``; tests inject JAX's."""
+        draws from ``state.generator``; tests inject JAX's. With
+        ``frame_augment != "none"`` under the reference pixel pipeline,
+        the batch's frames are shifted here (offsets drawn from the
+        generator after the noise); fused frames arrive shifted."""
         cfg = self.config
         gen = state.generator
+        if cfg.frame_augment != "none" and cfg.pixel_pipeline != "fused":
+            eps_q, eps_pi = (
+                e if e is not None else torch.randn(
+                    batch.actions.shape, generator=gen, device=batch.actions.device)
+                for e in (eps_q, eps_pi)
+            )
+            batch = augment_batch(batch, cfg.frame_augment, cfg.augment_pad, generator=gen)
         if eps_q is None:
             eps_q = torch.randn(
                 batch.actions.shape, generator=gen, device=batch.actions.device
@@ -168,12 +184,13 @@ class SAC:
         num_updates: int,
         indices: torch.Tensor | None = None,
         eps: torch.Tensor | None = None,
+        offsets: torch.Tensor | None = None,
     ) -> t.Tuple[TrainState, BufferState, Metrics]:
         """Push a chunk, then ``num_updates`` gradient steps; metrics
         reduced over the burst."""
         return run_update_burst(
             self.update, self.config, state, buffer_state, chunk, num_updates,
-            indices=indices, eps=eps,
+            indices=indices, eps=eps, offsets=offsets,
         )
 
 
@@ -186,18 +203,30 @@ def run_update_burst(
     num_updates: int,
     indices: torch.Tensor | None = None,
     eps: torch.Tensor | None = None,
+    offsets: torch.Tensor | None = None,
 ) -> t.Tuple[TrainState, BufferState, Metrics]:
     """The push-then-loop burst. Test hooks: ``indices`` ``(K, B)`` are
     the replay rows of each update (instead of draws from
     ``state.generator``), ``eps`` ``(K, 2, B, act_dim)`` each update's
-    ``(eps_q, eps_pi)``."""
+    ``(eps_q, eps_pi)``, ``offsets`` ``(K, 2, B, 2)`` each fused visual
+    update's DrQ shifts of states and next states."""
     buffer_state = push(buffer_state, chunk)
+    fused_visual = config.pixel_pipeline == "fused" and buffer_state.visual
     rows = []
     for i in range(num_updates):
-        if indices is None:
-            batch = sample(buffer_state, config.batch_size, generator=state.generator)
+        draw = (
+            {"generator": state.generator} if indices is None
+            else {"indices": indices[i]}
+        )
+        if fused_visual:
+            batch = sample_fused_visual(
+                buffer_state, config.batch_size, out_dtype=config.model_dtype,
+                augment=config.frame_augment, pad=config.augment_pad,
+                normalize=config.normalize_pixels,
+                offsets=None if offsets is None else offsets[i], **draw,
+            )
         else:
-            batch = sample(buffer_state, config.batch_size, indices=indices[i])
+            batch = sample(buffer_state, config.batch_size, **draw)
         noise = {} if eps is None else {"eps_q": eps[i][0], "eps_pi": eps[i][1]}
         state, metrics = update_fn(state, batch, **noise)
         rows.append(metrics)

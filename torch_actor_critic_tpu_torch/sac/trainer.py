@@ -19,6 +19,13 @@ actor is saved through :class:`~..utils.checkpoint.Checkpointer` every
 ``save_every`` epochs and at the end, so the port's serving CLI serves
 what was trained.
 
+A visual env (a :class:`~..core.types.MultiObservation` spec) gets the
+visual models and a ring with **uint8** frames: staged frames stay
+uint8 on their way to the device, acting feeds uint8 frames (the CNN
+decodes them), and ``pixel_pipeline="fused"`` samples through the
+kernel K1. ``frame_augment``/``pixel_pipeline`` on a non-visual env
+raise ``ValueError`` at construction, as in JAX.
+
 Config fields this slice does not implement raise
 ``NotImplementedError`` naming the field when they are not at their
 defaults (:data:`NOT_PORTED`).
@@ -32,9 +39,13 @@ import typing as t
 import numpy as np
 import torch
 
-from torch_actor_critic_tpu_torch.buffer.replay import init_replay_buffer, push
-from torch_actor_critic_tpu_torch.core.types import Batch
-from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool
+from torch_actor_critic_tpu_torch.buffer.replay import (
+    init_replay_buffer,
+    init_visual_replay_buffer,
+    push,
+)
+from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation, tree_map
+from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool, stack_obs
 from torch_actor_critic_tpu_torch.models import build_models
 from torch_actor_critic_tpu_torch.sac.algorithm import SAC
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
@@ -44,7 +55,7 @@ from torch_actor_critic_tpu_torch.utils.device import resolve_device
 # does not port. (Fields that only parameterise one of these, such as
 # staging_policy under decoupled, are inert without it, as in JAX.)
 NOT_PORTED = (
-    "algorithm", "frame_augment", "pixel_pipeline", "on_device", "population",
+    "algorithm", "on_device", "population",
     "pbt_every", "ma_critic", "task_embed_dim", "normalize_observations",
     "actor_param_lag", "parallel_envs", "decoupled", "serve_url", "actors",
     "elastic", "replay_tiers", "replay_refill", "offline", "telemetry",
@@ -93,7 +104,11 @@ class Trainer:
             f"{env_name}|history:{cfg.history_len}" if cfg.history_len > 1 else env_name
         )
         self.pool = make_env_pool(pool_name, 1, base_seed=seed, parallel=cfg.parallel_envs)
-        obs_shape = tuple(self.pool.obs_spec.shape)
+        spec = self.pool.obs_spec
+        obs_shape = (
+            spec.map(lambda leaf: tuple(leaf.shape))
+            if isinstance(spec, MultiObservation) else tuple(spec.shape)
+        )
         self.obs_shape = obs_shape
         self.sac = SAC(cfg, self.pool.act_dim)
         actor, critic = build_models(
@@ -105,9 +120,15 @@ class Trainer:
             torch.Generator(device=self.device).manual_seed(seed + 1),
         )
         self._act_gen = torch.Generator(device=self.device).manual_seed(seed + 2)
-        self.buffer = init_replay_buffer(
-            cfg.buffer_size, obs_shape, self.pool.act_dim, self.device
-        )
+        if isinstance(obs_shape, MultiObservation):
+            self.buffer = init_visual_replay_buffer(
+                cfg.buffer_size, obs_shape.features[0], obs_shape.frame,
+                self.pool.act_dim, self.device,
+            )
+        else:
+            self.buffer = init_replay_buffer(
+                cfg.buffer_size, obs_shape, self.pool.act_dim, self.device
+            )
         self.start_epoch = 0
 
     # ------------------------------------------------------------ helpers
@@ -117,9 +138,20 @@ class Trainer:
         seed, epoch)."""
         return self.seed + 1_000_003 * epoch
 
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the device: uint8 frames stay uint8 (4x fewer
+        bytes; the model or the ring decodes them), the rest float32."""
+        x = np.asarray(x)
+        x = torch.from_numpy(x if x.dtype == np.uint8 else x.astype(np.float32))
+        if self.device.type == "cuda":
+            x = x.pin_memory()
+        return x.to(self.device, non_blocking=True)
+
     @torch.inference_mode()
-    def _policy_actions(self, obs_batch: np.ndarray, deterministic: bool = False) -> np.ndarray:
-        obs = torch.from_numpy(np.asarray(obs_batch, np.float32)).to(self.device)
+    def _policy_actions(self, obs_batch, deterministic: bool = False) -> np.ndarray:
+        """Actions for a batch of observations (array or
+        :class:`MultiObservation` of arrays)."""
+        obs = tree_map(self._to_device, obs_batch)
         action, _ = self.state.actor(
             obs, generator=None if deterministic else self._act_gen,
             deterministic=deterministic, with_logprob=False,
@@ -128,13 +160,10 @@ class Trainer:
 
     def _place_chunk(self, staging: t.List[tuple]) -> Batch:
         """Stack one window of staged transitions into a chunk on the
-        device."""
+        device, each leaf in its own dtype (frames uint8)."""
 
         def field(i):
-            x = torch.from_numpy(np.stack([tr[i] for tr in staging]).astype(np.float32))
-            if self.device.type == "cuda":
-                x = x.pin_memory()
-            return x.to(self.device, non_blocking=True)
+            return tree_map(self._to_device, stack_obs([tr[i] for tr in staging]))
 
         return Batch(
             states=field(0), actions=field(1), rewards=field(2),
@@ -174,7 +203,7 @@ class Trainer:
                 if step < cfg.start_steps:
                     action = self.pool.sample_actions()[0]
                 else:
-                    action = self._policy_actions(obs[None])[0]
+                    action = self._policy_actions(stack_obs([obs]))[0]
                 epoch_ended = t_ == cfg.steps_per_epoch - 1
                 next_obs, reward, terminated, truncated = self.pool.step_at(0, action)
                 ep_len += 1
@@ -262,7 +291,7 @@ class Trainer:
                 obs = self.pool.reset_at(0, seed=None if seed is None else seed + i)
                 ret, length, done = 0.0, 0, False
                 while not done:
-                    action = self._policy_actions(obs[None], deterministic)[0]
+                    action = self._policy_actions(stack_obs([obs]), deterministic)[0]
                     obs, reward, terminated, truncated = self.pool.step_at(0, action)
                     ret += reward
                     length += 1

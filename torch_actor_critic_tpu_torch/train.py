@@ -3,8 +3,18 @@
     python -m torch_actor_critic_tpu_torch.train --environment Pendulum-v1 \\
         --history-len 16 [--device cpu|cuda] [--seed N] [--runs-root DIR]
 
+    # the visual (pixel) policy, frames sampled through the kernel K1
+    python -m torch_actor_critic_tpu_torch.train \\
+        --environment PixelPendulumBalanceNumpy-v0 --filters 16,32 \\
+        --kernel-sizes 4,3 --strides 2,2 --cnn-dense-size 128 \\
+        --cnn-features 64 --normalize-pixels true --frame-augment shift \\
+        --learn-alpha true --pixel-pipeline fused
+
 Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
-true``, ...), built by the JAX CLI's loop. Runs on the card unless
+true``, ...), built by the JAX CLI's loop. A pixel env
+(``PixelPendulum[Balance]-v0`` over gymnasium,
+``PixelPendulum[Balance]Numpy-v0`` without it) selects the visual models
+and a uint8 frame ring. Runs on the card unless
 ``--device cpu`` is given; without a card and without that flag it
 exits non-zero. Prints one JSON line per epoch and a final line naming
 the checkpoint directory (and, with ``--eval-episodes N``, the return of

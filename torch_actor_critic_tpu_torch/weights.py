@@ -8,7 +8,10 @@ imports JAX. Flax ``Dense`` kernels are ``(in, out)`` under an inner
 name ``col``/``row``/``Dense_0``; ``nn.Linear.weight`` is ``(out, in)``,
 so kernels are transposed. LayerNorm ``scale`` is ``weight``. A vmapped
 Flax critic ensemble carries a leading ``num_qs`` axis under
-``ensemble``; critic ``i`` of the port gets slice ``i``. optax's Adam
+``ensemble``; critic ``i`` of the port gets slice ``i``. The visual
+critic ensemble is unrolled in Flax (``ensemble_{i}`` subtrees), so
+nothing is sliced there. Conv kernels ``(kh, kw, in, out)`` become
+``nn.Conv2d`` weights ``(out, in, kh, kw)``. optax's Adam
 state (``mu``/``nu``/``count``) maps through the same names onto
 ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``.
 """
@@ -29,6 +32,11 @@ from torch_actor_critic_tpu_torch.models.sequence import (
     SequenceActor,
     SequenceCritic,
     SequenceDoubleCritic,
+)
+from torch_actor_critic_tpu_torch.models.visual import (
+    VisualActor,
+    VisualCritic,
+    VisualDoubleCritic,
 )
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
 
@@ -51,13 +59,35 @@ def _flat(prefix: str, parts: t.Mapping[str, np.ndarray]) -> t.Dict[str, np.ndar
     return {f"{prefix}.{k}": v for k, v in parts.items()}
 
 
-def _actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
+def _mlp_state(prefix: str, mlp: t.Mapping) -> t.Dict[str, np.ndarray]:
     out: t.Dict[str, np.ndarray] = {}
-    mlp = p["MLP_0"]
     for i in range(len(mlp)):
-        out.update(_flat(f"trunk.layers.{i}", _dense(mlp[f"Dense_{i}"])))
+        out.update(_flat(f"{prefix}.layers.{i}", _dense(mlp[f"Dense_{i}"])))
+    return out
+
+
+def _actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
+    """A flat or a visual actor: ``MLP_0`` trunk (plus the CNN
+    ``visual_network``), ``Dense_0``/``Dense_1`` heads."""
+    out = _mlp_state("trunk", p["MLP_0"])
+    if "visual_network" in p:
+        out.update(_cnn_state("visual_network", p["visual_network"]))
     out.update(_flat("mu", _dense(p["Dense_0"])))
     out.update(_flat("log_std", _dense(p["Dense_1"])))
+    return out
+
+
+def _cnn_state(prefix: str, cnn: t.Mapping) -> t.Dict[str, np.ndarray]:
+    """A Flax ``SimpleCNN``: ``conv_{i}`` kernels ``(kh, kw, in, out)``
+    -> ``(out, in, kh, kw)``, then the two wrapped Dense layers."""
+    out: t.Dict[str, np.ndarray] = {}
+    n_convs = sum(1 for k in cnn if k.startswith("conv_"))
+    for i in range(n_convs):
+        conv = cnn[f"conv_{i}"]
+        out[f"{prefix}.convs.{i}.weight"] = np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
+        out[f"{prefix}.convs.{i}.bias"] = np.asarray(conv["bias"])
+    out.update(_flat(f"{prefix}.dense", _dense(cnn["Dense_0"])))
+    out.update(_flat(f"{prefix}.out", _dense(cnn["Dense_1"])))
     return out
 
 
@@ -96,20 +126,24 @@ def _slice(tree: t.Mapping, i: int) -> dict:
 
 def _critic_state(module: nn.Module, p: t.Mapping) -> t.Dict[str, np.ndarray]:
     """Names of the port's ensemble critic -> arrays of the Flax tree
-    ``p`` (its ``ensemble`` subtree carries the num_qs axis)."""
-    ens = p["ensemble"]
+    ``p`` (its ``ensemble`` subtree carries the num_qs axis; a visual
+    ensemble is unrolled into ``ensemble_{i}`` subtrees)."""
     out: t.Dict[str, np.ndarray] = {}
     for i, member in enumerate(module.ensemble):
-        one = _slice(ens, i)
         pre = f"ensemble.{i}"
+        if isinstance(member, VisualCritic):
+            one = p[f"ensemble_{i}"]
+            out.update(_mlp_state(f"{pre}.trunk", one["MLP_0"]))
+            out.update(_cnn_state(f"{pre}.visual_network", one["visual_network"]))
+            out.update(_flat(f"{pre}.final", _dense(one["final"])))
+            continue
+        one = _slice(p["ensemble"], i)
         if isinstance(member, SequenceCritic):
             out.update(_trunk_state(f"{pre}.trunk", one["SequenceTrunk_0"]))
             out.update(_flat(f"{pre}.fc", _dense(one["Dense_0"])))
             out.update(_flat(f"{pre}.out", _dense(one["Dense_1"])))
         elif isinstance(member, Critic):
-            mlp = one["MLP_0"]
-            for j in range(len(mlp)):
-                out.update(_flat(f"{pre}.trunk.layers.{j}", _dense(mlp[f"Dense_{j}"])))
+            out.update(_mlp_state(f"{pre}.trunk", one["MLP_0"]))
         else:
             raise TypeError(f"no Flax param mapping for {type(member).__name__}")
     return out
@@ -121,9 +155,9 @@ def _named_arrays(module: nn.Module, params_tree: t.Mapping) -> t.Dict[str, np.n
     p = params_tree.get("params", params_tree)
     if isinstance(module, SequenceActor):
         return _sequence_actor_state(p)
-    if isinstance(module, Actor):
+    if isinstance(module, (Actor, VisualActor)):
         return _actor_state(p)
-    if isinstance(module, (DoubleCritic, SequenceDoubleCritic)):
+    if isinstance(module, (DoubleCritic, SequenceDoubleCritic, VisualDoubleCritic)):
         return _critic_state(module, p)
     raise TypeError(f"no Flax param mapping for {type(module).__name__}")
 
@@ -145,7 +179,7 @@ def load_jax_actor_params(module: nn.Module, params_tree: t.Mapping) -> nn.Modul
     """Copy a Flax actor param dict (``{"params": ...}`` or its inner
     dict, numpy leaves) into ``module`` in place; every parameter must
     be covered (strict)."""
-    if not isinstance(module, (Actor, SequenceActor)):
+    if not isinstance(module, (Actor, SequenceActor, VisualActor)):
         raise TypeError(f"no Flax actor mapping for {type(module).__name__}")
     return _load(module, params_tree)
 
@@ -153,8 +187,9 @@ def load_jax_actor_params(module: nn.Module, params_tree: t.Mapping) -> nn.Modul
 def load_jax_critic_params(module: nn.Module, params_tree: t.Mapping) -> nn.Module:
     """Copy a Flax ``DoubleCritic``/``SequenceDoubleCritic`` param dict
     into the port's ensemble in place, critic ``i`` from slice ``i`` of
-    the ``ensemble`` axis (strict)."""
-    if not isinstance(module, (DoubleCritic, SequenceDoubleCritic)):
+    the ``ensemble`` axis (a ``VisualDoubleCritic``'s from
+    ``ensemble_{i}``) (strict)."""
+    if not isinstance(module, (DoubleCritic, SequenceDoubleCritic, VisualDoubleCritic)):
         raise TypeError(f"no Flax critic mapping for {type(module).__name__}")
     return _load(module, params_tree)
 
