@@ -93,6 +93,48 @@ def test_flash_forward_lse_matches_jax_saved_lse(causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=0)
 
 
+LAYOUTS = {
+    # (B, T, D) projection split into heads, as MultiHeadAttention does
+    "model_split_view": lambda: torch.zeros(2, 16, 64).reshape(2, 16, 4, 16).transpose(1, 2),
+    "contiguous": lambda: torch.zeros(2, 4, 16, 16),
+    "misaligned_offset": lambda: torch.zeros(2 * 4 * 16 * 16 + 1)[1:].view(2, 4, 16, 16),
+    "last_dim_strided": lambda: torch.zeros(2, 4, 16, 32)[..., ::2],
+}
+
+
+@pytest.mark.parametrize("layout,in_place", [
+    ("model_split_view", True), ("contiguous", True),
+    ("misaligned_offset", False), ("last_dim_strided", False),
+])
+def test_kernel_operand_layout(layout, in_place):
+    """K2 reads an operand through its strides when the last dim is
+    unit-stride and base and strides are 16-byte aligned; any other is
+    copied to a contiguous, aligned tensor first."""
+    x = LAYOUTS[layout]()
+    x.copy_(torch.arange(x.numel(), dtype=x.dtype).reshape(x.shape))
+    assert tattn._reads_in_place(x) is in_place
+    y = tattn._kernel_view(x)
+    assert (y.data_ptr() == x.data_ptr()) is in_place
+    assert tattn._reads_in_place(y) and torch.equal(y, x)
+
+
+def test_cpu_flash_forward_returns_plain_values_in_bhtd():
+    """On CPU tensors (the model's split views) the wrapper returns its
+    plain version's values, in the (B, H, T, d) shape."""
+    rng = np.random.default_rng(11)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((B, 16, 64)).astype(np.float32))
+        .reshape(B, 16, 4, 16).transpose(1, 2) for _ in range(3)
+    )
+    out, lse = tattn.flash_attention_forward(q, k, v, True, return_lse=True)
+    want, want_lse = tattn._plain_flash_fwd(q, k, v, True, 0.25)
+    assert out.shape == (B, 4, 16, 16) and lse.shape == (B, 4, 16)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    np.testing.assert_allclose(
+        out.numpy(), tattn.reference_attention(q, k, v, True).numpy(), atol=1e-6, rtol=0
+    )
+
+
 def test_cpu_path_never_counts_a_launch():
     _kernels.reset_launch_counts()
     q, k, v = _torch(*_qkv(16, 16))

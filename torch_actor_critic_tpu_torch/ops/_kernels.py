@@ -41,7 +41,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES: t.Dict[str, t.Tuple[str, str, tuple]] = {
     "flash_fwd": (
         "flash_fwd", "tac_flash_fwd",
-        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, *(_L,) * 12, _P),
     ),
     "flash_bwd_dq": (
         "flash_bwd", "tac_flash_bwd_dq",

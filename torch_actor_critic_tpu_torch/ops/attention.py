@@ -168,6 +168,28 @@ def _pad(dp: int, *xs: torch.Tensor):
                  for x in xs)
 
 
+def _reads_in_place(x: torch.Tensor) -> bool:
+    """Whether K2 can read (or write) the 4-D tensor ``x`` where it lies:
+    a unit-stride last dim, and a base and (batch, head, seq) strides
+    that are whole 16-byte copies (``cp.async`` reads 16 bytes at a time).
+    A stride of a size-1 dim is never applied, so it does not count."""
+    if x.stride(-1) != 1 or x.data_ptr() % 16:
+        return False
+    return all(
+        n == 1 or (s * x.element_size()) % 16 == 0
+        for n, s in zip(x.shape[:-1], x.stride()[:-1])
+    )
+
+
+def _kernel_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when K2 can read it in place (the model's split
+    ``(B, T, H, d)`` views), else a contiguous, aligned copy."""
+    if _reads_in_place(x):
+        return x
+    x = x.contiguous()
+    return x if _reads_in_place(x) else x.clone()
+
+
 def _kernel_operands(where: str, *xs: torch.Tensor):
     """Contiguous, 16-byte-aligned CUDA operands for a kernel that reads
     float4/uint2 vectors (a view with a storage offset may not be
@@ -192,7 +214,10 @@ def flash_attention_forward(
     q/k/v: one dtype (float32 or bfloat16), head dim <= 128. On CPU
     tensors the launch is :func:`_plain_flash_fwd` (the CPU has no
     kernel); any other device runs ``csrc/flash_fwd.cu`` and must be
-    CUDA. A build or launch failure raises; nothing falls back.
+    CUDA. The kernel reads q/k/v through their strides where
+    :func:`_reads_in_place` allows (the model's split views do) and
+    returns ``out`` as the ``(B, H, T, d)`` view of a ``(B, T, H, d)``
+    tensor. A build or launch failure raises; nothing falls back.
     """
     on_cpu = q.device.type == "cpu"
     fn = None if on_cpu else _kernels.load("flash_fwd")
@@ -205,8 +230,12 @@ def flash_attention_forward(
     if on_cpu:
         out, lse = _plain_flash_fwd(q, k, v, causal, scale)
     else:
-        q, k, v = _kernel_operands("flash_attention_forward", q, k, v)
-        out = torch.empty((b, h, tq, dp), dtype=q.dtype, device=q.device)
+        if not (q.is_cuda and k.is_cuda and v.is_cuda):
+            raise ValueError("flash_attention_forward: an operand is not a CUDA tensor")
+        q, k, v = (_kernel_view(x) for x in (q, k, v))
+        # Written in the model's (B, T, H, d) layout: its merge of the
+        # heads back into (B, T, D) is then a view, not a copy.
+        out = torch.empty((b, tq, h, dp), dtype=q.dtype, device=q.device).transpose(1, 2)
         lse = (
             torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
             if return_lse else None
@@ -214,9 +243,10 @@ def flash_attention_forward(
         _kernels.launch("flash_fwd", fn, q.device, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            b * h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)),
-            scale, torch.cuda.current_stream(q.device).cuda_stream,
-        ), f"B·H={b * h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}")
+            b, h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)), scale,
+            *(s for x in (q, k, v, out) for s in x.stride()[:3]),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        ), f"B={b}, H={h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}")
     if dp != d:
         out = out[..., :d]
     return (out, lse) if return_lse else out
