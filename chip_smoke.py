@@ -11,6 +11,12 @@ or of the JAX package. Phases, one JSON line each:
 1. device — the card (``nvidia-smi`` name and power limit on its own line);
 2. build — compiles every kernel source of the port from ``csrc/`` (one
    nvcc per source, in parallel) and reports the seconds;
+   floor — the device time of an empty kernel (``csrc/floor.cu``) at the
+   attention kernels' main-path grid (64 blocks of 128 threads), without
+   and with K3's shared memory there, and at one block: the launch
+   latency no kernel design removes; beside it K2, K3 and K4 at the
+   main shape on the model's views, each launched alone, back to back,
+   and in turn as a training step launches them;
 3. kernel_vs_plain — each kernel against its plain PyTorch version on the
    card, at the training/serving shape (64, 4, 16, 16) — for K2 first on
    the model's split (B, T, H, d) views, where one call must be exactly
@@ -18,8 +24,11 @@ or of the JAX package. Phases, one JSON line each:
    bench shapes: max abs error (f32 <= 1e-4, summation order, and K2's
    f32 rows <= 1e-5, which its 3xTF32 products meet and one TF32 pass
    would not; bf16 <= 2e-2, the bf16 rounding of p and ds; the backward
-   kernels' limits scale by max(1, max|plain|)), bitwise-equal repeat
-   runs of the backward, and
+   kernels' limits scale by max(1, max|plain|), their f32 rows also
+   <= 1e-5·max(1, max|plain|); K3's Δ is held to its plain version's
+   too), bitwise-equal repeat runs of the backward — first on the
+   model's views, where one backward call must be exactly two device
+   kernels (K3 and K4) — and
    the device time per call (``torch.profiler``) of the kernel, the plain
    version and one PyTorch library call (``library_ms``: SDPA forward, or
    SDPA's backward for the two backward kernels; a yardstick only, the
@@ -75,7 +84,8 @@ or of the JAX package. Phases, one JSON line each:
    per update, gradient steps per second and one profiled burst.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
-``library_ms`` are device times; K1's launches are train_visual's), the
+``library_ms`` are device times; K2-K4's numbers are those of their rows
+on the model's views; K1's launches are train_visual's), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is non-zero and the last line is not printed.
@@ -109,9 +119,13 @@ BENCH_SHAPE = (4, 8, 2048, 64)  # bench.py's attention shape
 # card's machine has no gymnasium, whose Pendulum-v1 it stands in for.
 TRAIN_ENV = "PendulumNumpy-v1"
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# K2's f32 rows are also held to 1e-5: its 3xTF32 products err by ~5e-7,
-# a single TF32 pass anywhere by ~1e-3.
-K2_F32_GUARD = 1e-5
+# f32 rows are also held to 1e-5 (K2) and 1e-5·max(1, max|plain|) (K3 with
+# its Δ, K4): 3xTF32 products err by ~1e-6, a single TF32 pass by ~1e-3.
+F32_GUARD = 1e-5
+MAIN_GRID = (64, 128)  # K2-K4's blocks x threads at the main path's shape
+# K3's dynamic shared memory there in f32: four warps, each with its 16
+# Q and dO rows and one 16-row K/V tile, rows padded to 20 floats.
+K3_SMEM = 4 * (2 * 16 + 2 * 16) * 20 * 4
 
 
 def emit(obj: dict) -> None:
@@ -236,6 +250,68 @@ def phase_build(kernels) -> None:
     })
 
 
+def phase_floor(kernels, attn, seed: int) -> dict:
+    """The device time of one empty kernel at the attention kernels'
+    main-path grid (with no dynamic shared memory and with K3's) and at
+    one block, and of K2, K3 and K4 at TRAIN_SHAPE on the model's views:
+    each alone, back to back, and in turn as the backward and a training
+    step launch them. The wrappers' launches are recorded once and
+    replayed, so only the kernels run between the profiled calls."""
+    fn = kernels.load("empty")
+    device = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(device).cuda_stream
+    row = {"phase": "floor", "kernel": "empty_kernel (csrc/floor.cu)"}
+    for label, (grid, block), smem in (("main_grid", MAIN_GRID, 0),
+                                       ("main_grid_k3_smem", MAIN_GRID, K3_SMEM),
+                                       ("one_block", (1, MAIN_GRID[1]), 0)):
+        def launch():
+            kernels.launch("empty", fn, device, (grid, block, smem, stream), f"{grid}x{block}")
+
+        row[label] = {"grid": grid, "block": block, "smem": smem,
+                      "ms": device_ms(launch, 200, "empty_kernel"),
+                      "event_ms": time_ms(launch, 200)}
+
+    b, h, t, d = TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda")
+                   .reshape(b, t, h, d).transpose(1, 2) for _ in range(4))
+    recorded, launch = [], kernels.launch
+
+    def record(name, fn, device, args, note):
+        recorded.append((name, fn, args))
+        launch(name, fn, device, args, note)
+
+    kernels.launch = record
+    try:
+        out, lse = attn.flash_attention_forward(q, k, v, True, return_lse=True)
+        grads = attn.flash_attention_backward(q, k, v, out, lse, do, True)
+    finally:
+        kernels.launch = launch
+    torch.cuda.synchronize()
+
+    def replay(*names):
+        calls = [(fn, args) for name, fn, args in recorded if name in names]
+
+        def run():
+            for fn, args in calls:
+                check(fn(*args) == 0, f"replayed launch of {names} failed")
+        return run
+
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    row["attention"] = {
+        "shape": list(TRAIN_SHAPE), "causal": True, "dtype": "torch.float32",
+        "layout": "views",
+        "alone_ms": {n: device_ms(replay(n), 200, n + "_kernel") for n in names},
+        "backward_in_turn_ms": {n: device_ms(replay(*names[1:]), 200, n + "_kernel")
+                                for n in names[1:]},
+        "step_in_turn_ms": {n: device_ms(replay(*names), 200, n + "_kernel")
+                            for n in names},
+    }
+    del q, k, v, do, out, lse, grads
+    emit(row)
+    return row
+
+
 def kernels_per_call(fn, attempts: int = 8) -> int:
     """Device kernels launched by one ``fn()`` (``torch.profiler``; a
     trace without device events is taken again)."""
@@ -287,8 +363,8 @@ def phase_kernel_vs_plain(attn, seed: int) -> dict:
         check(math.isfinite(err) and err <= TOL[dtype],
               f"flash_fwd {shape} causal={causal} {dtype}: max abs err {err}")
         if dtype == torch.float32:
-            check(err <= K2_F32_GUARD,
-                  f"flash_fwd {shape} f32: max abs err {err} > {K2_F32_GUARD} "
+            check(err <= F32_GUARD,
+                  f"flash_fwd {shape} f32: max abs err {err} > {F32_GUARD} "
                   "(a single TF32 pass?)")
         bound_ms, bound_by = attention_bound(shape, causal, dtype)
 
@@ -312,7 +388,7 @@ def phase_kernel_vs_plain(attn, seed: int) -> dict:
             "shape": list(shape), "causal": causal, "dtype": str(dtype),
             "layout": layout, "kernels_per_call": per_call,
             "max_abs_err": err, "tol": TOL[dtype],
-            "f32_guard": K2_F32_GUARD if dtype == torch.float32 else None,
+            "f32_guard": F32_GUARD if dtype == torch.float32 else None,
             "kernel_ms": device_ms(kernel, iters, "flash_fwd_kernel"),
             "plain_ms": device_ms(plain, iters),
             "library_ms": device_ms(library, iters),
@@ -329,18 +405,22 @@ def phase_kernel_vs_plain(attn, seed: int) -> dict:
 
 
 def bwd_bound(shape, causal: bool, dtype, kernel: str) -> tuple:
-    """(bound_ms, bound_by) of one backward kernel: bytes moved (q, k, v,
-    dO read once, its outputs written once, f32 lse and Δ read once)
-    over HBM rate, and its products' FLOPs over the dtype's peak — dQ
-    three products (s, dO·Vᵀ, ds·K), dK/dV four (s, pᵀ·dO, dO·Vᵀ,
-    dsᵀ·Q), over the visible (q, k) pairs only under causality."""
+    """(bound_ms, bound_by) of one backward kernel: bytes moved over HBM
+    rate — K3 reads q, k, v, O, dO and the f32 lse once and writes dq
+    and the f32 Δ once; K4 reads q, k, v, dO, lse and Δ once and writes
+    dk and dv once — and its FLOPs over the dtype's peak: K3 three
+    products (s, dO·Vᵀ, ds·K) over the visible (q, k) pairs only under
+    causality, plus Δ = rowsum(dO∘O) (2d per row); K4 four (s, pᵀ·dO,
+    dO·Vᵀ, dsᵀ·Q)."""
     b, h, t, d = shape
     elt = torch.finfo(dtype).bits // 8
     rows = b * h * t
-    tensors, products = (5, 3) if kernel == "flash_bwd_dq" else (6, 4)
-    nbytes = tensors * rows * d * elt + 2 * rows * 4
+    products = 3 if kernel == "flash_bwd_dq" else 4
+    nbytes = 6 * rows * d * elt + 2 * rows * 4
     pairs = t * (t + 1) // 2 if causal else t * t
     flops = 2 * products * d * pairs * b * h
+    if kernel == "flash_bwd_dq":
+        flops += 2 * d * rows
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -349,21 +429,31 @@ def bwd_bound(shape, causal: bool, dtype, kernel: str) -> tuple:
 
 def phase_bwd_vs_plain(attn, seed: int) -> dict:
     """K3 and K4 against their plain versions on the card: error within
-    TOL x max(1, max|plain|), bitwise-equal repeat runs, and times.
-    Returns the training shape's rows by kernel name."""
+    TOL x max(1, max|plain|) (f32 also F32_GUARD x max(1, ...)), K3's
+    Δ too, bitwise-equal repeat runs, and times; on the model's views
+    one backward call must be two device kernels. Returns the views
+    row of each kernel (the main path's operands) by name."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     cases = [
-        (TRAIN_SHAPE, True, torch.float32, 200),
-        (BENCH_SHAPE, True, torch.float32, 5),
-        (BENCH_SHAPE, False, torch.float32, 5),
-        (BENCH_SHAPE, True, torch.bfloat16, 5),
-        (BENCH_SHAPE, False, torch.bfloat16, 5),
-        ((4, 8, 1000, 64), True, torch.float32, 10),  # ragged T
+        # (shape, causal, dtype, iters, layout): "views" are the model's
+        # split (B, T, H, d) projections and head-merge cotangent.
+        (TRAIN_SHAPE, True, torch.float32, 200, "views"),
+        (TRAIN_SHAPE, True, torch.float32, 200, "contiguous"),
+        (BENCH_SHAPE, True, torch.float32, 5, "contiguous"),
+        (BENCH_SHAPE, False, torch.float32, 5, "contiguous"),
+        (BENCH_SHAPE, True, torch.bfloat16, 5, "contiguous"),
+        (BENCH_SHAPE, False, torch.bfloat16, 5, "contiguous"),
+        ((4, 8, 1000, 64), True, torch.float32, 10, "contiguous"),   # ragged T
+        ((2, 3, 37, 24), True, torch.float32, 50, "contiguous"),     # ragged T, padded d
+        ((2, 3, 37, 24), False, torch.bfloat16, 50, "contiguous"),
     ]
-    train_rows = {}
-    for shape, causal, dtype, iters in cases:
+    view_rows = {}
+    for shape, causal, dtype, iters, layout in cases:
+        b, h, t, d = shape
         q, k, v, do = (
-            torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            (torch.randn((b, t, h * d), generator=gen, device="cuda")
+             .reshape(b, t, h, d).transpose(1, 2) if layout == "views"
+             else torch.randn(shape, generator=gen, device="cuda")).to(dtype)
             for _ in range(4)
         )
         out, lse = attn.flash_attention_forward(q, k, v, causal, return_lse=True)
@@ -371,28 +461,38 @@ def phase_bwd_vs_plain(attn, seed: int) -> dict:
         def backward():
             return attn.flash_attention_backward(q, k, v, out, lse, do, causal)
 
-        got = backward()
-        again = backward()
+        got = attn.flash_attention_backward(q, k, v, out, lse, do, causal)
+        again = attn.flash_attention_backward(q, k, v, out, lse, do, causal)
         deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
         check(deterministic, f"flash backward {shape} {dtype}: repeat runs differ")
-        scale = 1.0 / math.sqrt(shape[-1])
-        delta = (do.float() * out.float()).sum(dim=-1)
+        scale = 1.0 / math.sqrt(d)
+        want_dq, delta = attn._plain_flash_bwd_dq(q, k, v, out, do, lse, causal, scale)
         plain_args = (q, k, v, do, lse, delta, causal, scale)
-        want_dq = attn._plain_flash_bwd_dq(*plain_args)
         want_dk, want_dv = attn._plain_flash_bwd_dkv(*plain_args)
         torch.cuda.synchronize()
         errs = {}
-        for name, pairs in (("flash_bwd_dq", [(got[0], want_dq)]),
+        for name, pairs in (("flash_bwd_dq", [(got[0], want_dq), (got[3], delta)]),
                             ("flash_bwd_dkv", [(got[1], want_dk), (got[2], want_dv)])):
-            err = 0.0
+            err, lim = 0.0, 0.0
             for g, w in pairs:
-                check(g.shape == w.shape and g.dtype == dtype, f"{name} {shape} shape/dtype")
+                check(g.shape == w.shape and g.dtype == w.dtype, f"{name} {shape} shape/dtype")
                 e = (g.float() - w.float()).abs().max().item()
-                lim = TOL[dtype] * max(1.0, w.float().abs().max().item())
-                check(math.isfinite(e) and e <= lim,
-                      f"{name} {shape} causal={causal} {dtype}: max abs err {e} > {lim}")
+                wmax = max(1.0, w.float().abs().max().item())
+                lim = max(lim, TOL[dtype] * wmax)
+                check(math.isfinite(e) and e <= TOL[dtype] * wmax,
+                      f"{name} {shape} causal={causal} {dtype}: max abs err {e} > "
+                      f"{TOL[dtype] * wmax}")
+                if dtype == torch.float32:
+                    check(e <= F32_GUARD * wmax,
+                          f"{name} {shape} f32: max abs err {e} > {F32_GUARD * wmax} "
+                          "(a single TF32 pass?)")
                 err = max(err, e)
             errs[name] = (err, lim)
+        per_call = None
+        if layout == "views":
+            per_call = kernels_per_call(backward)
+            check(per_call == 2, f"flash backward on the model's views: {per_call} "
+                                 "device kernels per call, expected 2 (K3, K4)")
         qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
         sdpa_out = torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=causal)
@@ -404,33 +504,37 @@ def phase_bwd_vs_plain(attn, seed: int) -> dict:
         library_event_ms = time_ms(library, iters)
         backward_event_ms = time_ms(backward, iters)
         plain = {
-            "flash_bwd_dq": lambda: attn._plain_flash_bwd_dq(*plain_args),
+            "flash_bwd_dq": lambda: attn._plain_flash_bwd_dq(
+                q, k, v, out, do, lse, causal, scale),
             "flash_bwd_dkv": lambda: attn._plain_flash_bwd_dkv(*plain_args),
         }
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
             bound_ms, bound_by = bwd_bound(shape, causal, dtype, name)
+            kernel_ms = device_ms(backward, iters, name + "_kernel")
             row = {
                 "phase": "kernel_vs_plain", "kernel": name, "shape": list(shape),
-                "causal": causal, "dtype": str(dtype),
+                "causal": causal, "dtype": str(dtype), "layout": layout,
+                "kernels_per_call": per_call,
                 "max_abs_err": errs[name][0], "tol": errs[name][1],
+                "f32_guard": F32_GUARD if dtype == torch.float32 else None,
                 "deterministic": deterministic,
-                "kernel_ms": device_ms(backward, iters, name + "_kernel"),
+                "kernel_ms": kernel_ms,
                 "plain_ms": device_ms(plain[name], iters),
                 "library_ms": library_ms,
                 "library": "scaled_dot_product_attention backward (dq, dk, dv)",
-                # the whole backward wrapper (both kernels + Δ), host included
+                # the whole backward wrapper (K3 and K4), host included
                 "backward_wrapper_event_ms": backward_event_ms,
                 "plain_event_ms": time_ms(plain[name], iters),
                 "library_event_ms": library_event_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
             emit(row)
-            if shape == TRAIN_SHAPE:
-                train_rows[name] = row
+            if layout == "views":
+                view_rows[name] = row
         del q, k, v, do, out, lse, got, again, want_dq, want_dk, want_dv
         del qs, ks, vs, sdpa_out, delta
     torch.cuda.empty_cache()
-    return train_rows
+    return view_rows
 
 
 def post(url: str, body: dict) -> dict:
@@ -1175,6 +1279,7 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build(_kernels)
+    phase_floor(_kernels, attn, args.seed)
     serve_row = phase_kernel_vs_plain(attn, args.seed)
     bwd_rows = phase_bwd_vs_plain(attn, args.seed)
     pixel_row = phase_pixel_vs_plain(pixels, args.seed)

@@ -4,12 +4,15 @@ The JAX side is ``jax.vjp`` of the Pallas ``flash_attention`` in
 interpret mode with 8x8 blocks — its K3/K4 bodies (``_flash_bwd_dq_kernel``,
 ``_flash_bwd_dkv_kernel``) run, as tests/test_attention.py runs them.
 The port's side is the plain version of each kernel
-(``_plain_flash_bwd_dq``/``_plain_flash_bwd_dkv``, fed JAX's own lse and
-Δ) and the ``FlashAttention`` Function, whose CPU launches are those
-plain versions — so the Function's bookkeeping (saved lse, Δ, head-dim
-padding, the cotangent's dtype) is what is checked here; the card holds
-each kernel against the same plain functions (tests/test_torch_gpu.py,
-chip_smoke.py). Cotangents are random, not ones.
+(``_plain_flash_bwd_dq``, fed JAX's own output and lse, which returns
+Δ = rowsum(dO∘O) beside dQ as K3 does, held to JAX's Δ; and
+``_plain_flash_bwd_dkv``, fed that Δ) and the ``FlashAttention``
+Function, whose CPU launches are those plain versions — so the
+Function's bookkeeping (saved lse, Δ, head-dim padding, the cotangent's
+dtype, the model's (B, T, H, d) views) is what is checked here; the card
+holds each kernel against the same plain functions
+(tests/test_torch_gpu.py, chip_smoke.py). Cotangents are random, not
+ones.
 
 Tolerances: f32 1e-4 (JAX's own for its flash gradients); bf16 2e-2
 against the JAX result in bf16 (a few bf16 ulps at these magnitudes;
@@ -17,6 +20,7 @@ both sides round p and ds to bf16 at the same points).
 """
 
 import math
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -76,16 +80,23 @@ def test_flash_gradients_match_jax_pallas_interpret(t, d, causal):
         assert got.shape == (B, H, t, d) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4, rtol=0)
 
-    # Each kernel's plain version alone, on JAX's saved lse and Δ.
+    # Each kernel's plain version alone, on JAX's output and saved lse;
+    # K3's Δ against JAX's (``_flash_backward``'s rowsum(g∘o) in f32).
     _, lse = jattn._flash_forward(
         *(jnp.asarray(x) for x in (q, k, v)), causal, 8, 8, True, save_lse=True
     )
-    delta = np.sum(g * _np(want_out), axis=-1)
-    args = [torch.from_numpy(x) for x in (q, k, v, g)]
-    args += [torch.from_numpy(np.array(lse)), torch.from_numpy(delta)]
+    want_delta = jnp.sum(
+        jnp.asarray(g).astype(jnp.float32) * want_out.astype(jnp.float32), axis=-1
+    )
+    tq_, tk_, tv_, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    tlse = torch.from_numpy(np.array(lse))
     scale = 1.0 / math.sqrt(d)
-    pdq = tattn._plain_flash_bwd_dq(*args, causal, scale)
-    pdk, pdv = tattn._plain_flash_bwd_dkv(*args, causal, scale)
+    pdq, delta = tattn._plain_flash_bwd_dq(
+        tq_, tk_, tv_, torch.from_numpy(np.array(_np(want_out))), tg, tlse, causal, scale
+    )
+    assert delta.shape == (B, H, t) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), np.asarray(want_delta), atol=1e-6, rtol=0)
+    pdk, pdv = tattn._plain_flash_bwd_dkv(tq_, tk_, tv_, tg, tlse, delta, causal, scale)
     for got, want in ((pdq, dq_w), (pdk, dk_w), (pdv, dv_w)):
         np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4, rtol=0)
 
@@ -174,5 +185,48 @@ def test_backward_kernels_are_registered_in_one_source():
         source, symbol, argtypes = _kernels.SIGNATURES[name]
         assert source == "flash_bwd" and symbol == f"tac_{name}"
         assert (_kernels.SRC_DIR / "flash_bwd.cu").read_text().count(symbol) >= 1
-    assert len(_kernels.SIGNATURES["flash_bwd_dq"][2]) == 15
-    assert len(_kernels.SIGNATURES["flash_bwd_dkv"][2]) == 16
+    # 8 pointers, B, H, Tq, Tk, d, dtype, causal, scale, 6 x 3 strides, stream
+    assert len(_kernels.SIGNATURES["flash_bwd_dq"][2]) == 35
+    assert len(_kernels.SIGNATURES["flash_bwd_dkv"][2]) == 35
+
+
+def test_floor_kernel_is_registered():
+    source, symbol, argtypes = _kernels.SIGNATURES["empty"]
+    assert (_kernels.SRC_DIR / f"{source}.cu").read_text().count(symbol) >= 1
+    assert len(argtypes) == 4  # grid, block, dynamic shared bytes, stream
+
+
+def test_kernel_sources_share_the_mma_header(monkeypatch, tmp_path):
+    """K2-K4 include one header of tensor-core helpers; the library
+    names hash it, so an edit there rebuilds both libraries."""
+    for source in ("flash_fwd", "flash_bwd"):
+        assert '#include "mma_sm90.cuh"' in (_kernels.SRC_DIR / f"{source}.cu").read_text()
+    shutil.copytree(_kernels.SRC_DIR, tmp_path / "csrc")
+    monkeypatch.setattr(_kernels, "SRC_DIR", tmp_path / "csrc")
+    before = {s: _kernels._lib_path(s) for s in ("flash_fwd", "flash_bwd")}
+    header = tmp_path / "csrc" / "mma_sm90.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert all(_kernels._lib_path(s) != p for s, p in before.items())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_flash_backward_returns_plain_values_in_bhtd(causal, dtype):
+    """On CPU tensors (the model's split (B, T, H, d) views, the
+    cotangent a view too) the wrapper returns its plain versions'
+    values, in the (B, H, T, d) shape, and K3's Δ."""
+    rng = np.random.default_rng(12)
+
+    def view():
+        x = rng.standard_normal((B, 16, 64)).astype(np.float32)
+        return torch.from_numpy(x).to(dtype).reshape(B, 16, 4, 16).transpose(1, 2)
+
+    q, k, v, do = view(), view(), view(), view()
+    out, lse = tattn.flash_attention_forward(q, k, v, causal, return_lse=True)
+    dq, dk, dv, delta = tattn.flash_attention_backward(q, k, v, out, lse, do, causal)
+    want_dq, want_delta = tattn._plain_flash_bwd_dq(q, k, v, out, do, lse, causal, 0.25)
+    want_dk, want_dv = tattn._plain_flash_bwd_dkv(q, k, v, do, lse, want_delta, causal, 0.25)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv), (delta, want_delta)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.equal(got, want)
+    assert dq.shape == (B, 4, 16, 16) and delta.shape == (B, 4, 16)

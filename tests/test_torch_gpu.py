@@ -14,8 +14,9 @@ fed by it equals one fed by the plain gather to the slice-2 limits
 Tolerances: f32 1e-4 against the plain version (summation order), bf16
 2e-2 (the bf16 rounding of the probability tile), lse 1e-4; K2's f32
 forward is held to 1e-5, which its 3xTF32 products meet (~5e-7) and a
-single TF32 pass (~1e-3) would not; for the
-backward kernels those limits scale by max(1, max|plain|). A full-width
+single TF32 pass (~1e-3) would not; for the backward kernels (K3's Δ
+included) those limits scale by max(1, max|plain|), f32 held to
+1e-5·max(1, max|plain|) for the same reason. A full-width
 update with the kernels agrees with the same update through plain
 attention to 1e-4 in every parameter except the attention key biases,
 whose gradient is zero in exact arithmetic (softmax ignores a per-row
@@ -169,6 +170,31 @@ def test_gpu_engine_serves_through_the_kernel(cuda):
 TRAIN_SHAPE = (64, 4, 16, 16)
 
 
+def _plain_backward(q, k, v, out, lse, do, causal):
+    """K3's and K4's plain versions on the wrapper's padded operands:
+    ``(dq, dk, dv, Δ)``."""
+    d = q.shape[-1]
+    dp = next(x for x in (16, 32, 64, 128) if x >= d)
+    pad = (lambda x: torch.nn.functional.pad(x, (0, dp - d))) if dp != d else (lambda x: x)
+    q, k, v, out, do = (pad(x) for x in (q, k, v, out, do))
+    scale = 1.0 / math.sqrt(d)
+    dq, delta = tattn._plain_flash_bwd_dq(q, k, v, out, do, lse, causal, scale)
+    dk, dv = tattn._plain_flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq[..., :d], dk[..., :d], dv[..., :d], delta
+
+
+def _assert_backward_close(got, want, dtype):
+    """Each of dq, dk, dv and Δ within TOL x max(1, max|plain|); f32 also
+    within 1e-5 x max(1, max|plain|), which 3xTF32 meets and a single
+    TF32 pass would not."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        w = w.float()
+        limit = tol * max(1.0, w.abs().max().item())
+        assert (g.float() - w).abs().max().item() <= limit
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,causal,dtype", [
     (TRAIN_SHAPE, True, torch.float32),
@@ -178,6 +204,17 @@ TRAIN_SHAPE = (64, 4, 16, 16)
     ((4, 8, 2048, 64), False, torch.bfloat16),
     ((4, 8, 1000, 64), True, torch.float32),
     ((1, 2, 37, 24), False, torch.bfloat16),
+    # packed (Tq, Tk <= 16), B*H not a multiple of 4
+    ((3, 5, 16, 16), True, torch.float32),
+    ((3, 5, 16, 16), False, torch.bfloat16),
+    ((2, 3, 9, 32), True, torch.bfloat16),
+    # several double-buffered tiles on both sides
+    ((2, 3, 100, 64), True, torch.float32),
+    ((2, 3, 100, 64), False, torch.bfloat16),
+    ((1, 2, 200, 32), True, torch.bfloat16),
+    ((1, 2, 200, 128), True, torch.float32),
+    ((1, 2, 200, 128), False, torch.float32),
+    ((1, 2, 100, 128), True, torch.bfloat16),
 ])
 def test_flash_backward_kernels_match_plain_and_repeat_bitwise(cuda, shape, causal, dtype):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -189,19 +226,81 @@ def test_flash_backward_kernels_match_plain_and_repeat_bitwise(cuda, shape, caus
         assert _kernels.launch_counts[name] == before.get(name, 0) + 1
     again = tattn.flash_attention_backward(q, k, v, out, lse, do, causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    d = shape[-1]
-    dp = next(x for x in (16, 32, 64, 128) if x >= d)
-    pad = (lambda x: torch.nn.functional.pad(x, (0, dp - d))) if dp != d else (lambda x: x)
-    delta = (do.float() * out.float()).sum(-1)
-    args = (pad(q), pad(k), pad(v), pad(do), lse, delta, causal, 1.0 / math.sqrt(d))
-    want = (tattn._plain_flash_bwd_dq(*args), *tattn._plain_flash_bwd_dkv(*args))
+    want = _plain_backward(q, k, v, out, lse, do, causal)
     torch.cuda.synchronize()
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for g, w in zip(got, want):
-        w = w[..., :d].float()
-        assert g.shape == w.shape and g.dtype == dtype
-        limit = tol * max(1.0, w.abs().max().item())
-        assert (g.float() - w).abs().max().item() <= limit
+    _assert_backward_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,offset,in_place", [(64, 0, True), (104, 8, True), (104, 1, False)])
+def test_flash_backward_takes_strided_views(cuda, dtype, width, offset, in_place):
+    """q/k/v and dO as the model hands them over: (B, T, H, d) transposed
+    views of (B, T, width) buffers, here also sliced with a storage
+    offset. Read in place when base and strides stay 16-byte aligned,
+    copied first when they do not; dq/dk/dv come back as (B, H, T, d)
+    views of (B, T, H, d) memory; both match the plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    views = []
+    for _ in range(4):
+        wide = torch.randn((3, 20, width), generator=gen, device=cuda).to(dtype)
+        views.append(wide[:, :, offset:offset + 64].reshape(3, 20, 4, 16).transpose(1, 2))
+    q, k, v, do = views
+    assert not do.is_contiguous() and do.storage_offset() == offset
+    assert all(tattn._reads_in_place(x) is in_place for x in views)
+    out, lse = tattn.flash_attention_forward(q, k, v, True, return_lse=True)
+    got = tattn.flash_attention_backward(q, k, v, out, lse, do, True)
+    assert all(g.transpose(1, 2).is_contiguous() for g in got[:3])
+    want = _plain_backward(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    _assert_backward_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_backward_on_model_views_is_two_kernels(cuda):
+    """At the training shape, on the model's split (B, T, H, d) views
+    (dO too, as the head merge's backward hands it over), one backward
+    call is two device kernels, K3 and K4: no copy, no Δ kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn((64, 16, 64), generator=gen, device=cuda)
+                   .reshape(64, 16, 4, 16).transpose(1, 2) for _ in range(4))
+    out, lse = tattn.flash_attention_forward(q, k, v, True, return_lse=True)
+
+    def backward():
+        return tattn.flash_attention_backward(q, k, v, out, lse, do, True)
+
+    backward()
+    torch.cuda.synchronize()
+    rows = _device_kernels(backward)
+    assert len(rows) == 2 and all(n == 1 for _, n in rows), rows
+    for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        assert sum(name in key for key, _ in rows) == 1, rows
+
+
+@pytest.mark.gpu
+def test_mha_input_gradients_reach_qkv_without_a_copy(cuda, monkeypatch):
+    """dq/dk/dv are (B, H, T, d) views of (B, T, H, d) memory, so the
+    backward of MultiHeadAttention's head split is a view: the q, k and
+    v projections receive the kernels' output buffers themselves."""
+    from torch_actor_critic_tpu_torch.models.sequence import MultiHeadAttention
+
+    mha = MultiHeadAttention(64, 4, generator=torch.Generator().manual_seed(0)).to(cuda)
+    seen = {}
+    backward = tattn.flash_attention_backward
+
+    def recording_backward(*args, **kwargs):
+        seen["dqkv"] = backward(*args, **kwargs)
+        return seen["dqkv"]
+
+    monkeypatch.setattr(tattn, "flash_attention_backward", recording_backward)
+    for name in ("q", "k", "v"):
+        def hook(mod, args, out, name=name):
+            out.register_hook(lambda g: seen.__setitem__(name, g))
+        getattr(mha, name).register_forward_hook(hook)
+    x = torch.randn((8, 16, 64), device=cuda)
+    mha(x).square().sum().backward()
+    for name, g in zip("qkv", seen["dqkv"]):
+        assert seen[name].data_ptr() == g.data_ptr(), name
 
 
 @pytest.mark.gpu

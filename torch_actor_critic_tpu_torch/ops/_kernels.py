@@ -45,16 +45,20 @@ SIGNATURES: t.Dict[str, t.Tuple[str, str, tuple]] = {
     ),
     "flash_bwd_dq": (
         "flash_bwd", "tac_flash_bwd_dq",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        (*(_P,) * 8, _I, _I, _I, _I, _I, _I, _I, _F, *(_L,) * 18, _P),
     ),
     "flash_bwd_dkv": (
         "flash_bwd", "tac_flash_bwd_dkv",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        (*(_P,) * 8, _I, _I, _I, _I, _I, _I, _I, _F, *(_L,) * 18, _P),
     ),
     "pixel_gather": (
         "pixels", "tac_pixel_gather",
         (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     ),
+    # An empty kernel (grid, block, dynamic shared bytes, stream): the
+    # launch-latency floor that chip_smoke.py reads the attention kernels'
+    # times against.
+    "empty": ("floor", "tac_empty", (_I, _I, _I, _P)),
 }
 
 launch_counts: t.Counter[str] = collections.Counter()

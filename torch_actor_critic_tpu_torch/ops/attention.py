@@ -9,9 +9,10 @@ Port of ``ops/attention.py``. All public functions take the JAX layout
 - :func:`flash_attention_forward` — the wrapper of the hand-written
   Hopper kernel ``csrc/flash_fwd.cu`` (K2, the port of the TPU kernel
   ``_flash_kernel``).
-- :func:`flash_attention_backward` — Δ = rowsum(dO∘O) in f32, then the
-  kernels ``csrc/flash_bwd.cu`` (K3 ``_flash_bwd_dq_kernel`` and K4
-  ``_flash_bwd_dkv_kernel``).
+- :func:`flash_attention_backward` — the kernels ``csrc/flash_bwd.cu``:
+  K3 (``_flash_bwd_dq_kernel``), which also computes Δ = rowsum(dO∘O)
+  in f32 and writes it out, then K4 (``_flash_bwd_dkv_kernel``), which
+  reads that Δ. Two device kernels per call on the model's views.
 - :class:`FlashAttention` — the ``autograd.Function`` joining the two
   (the port of ``flash_attention``'s ``custom_vjp``).
 - :func:`attention` — the dispatch the models call.
@@ -111,12 +112,15 @@ def _plain_probs(q, k, lse, causal: bool, scale: float) -> torch.Tensor:
     return torch.exp(s - lse[..., None])
 
 
-def _plain_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """K3's plain version: ``dQ = (p∘(dO·Vᵀ − Δ))·K · scale``."""
+def _plain_flash_bwd_dq(q, k, v, o, do, lse, causal: bool, scale: float):
+    """K3's plain version: ``(dQ, Δ)`` with ``Δ = rowsum(dO∘O)`` in f32
+    and ``dQ = (p∘(dO·Vᵀ − Δ))·K · scale``."""
+    delta = (do.float() * o.float()).sum(dim=-1)
     p = _plain_probs(q, k, lse, causal, scale)
     dpv = torch.matmul(do.float(), v.float().transpose(-1, -2))
     ds = p * (dpv - delta[..., None])
-    return (torch.matmul(_operand(ds, k.dtype), k.float()) * scale).to(q.dtype)
+    dq = (torch.matmul(_operand(ds, k.dtype), k.float()) * scale).to(q.dtype)
+    return dq, delta
 
 
 def _plain_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
@@ -169,7 +173,7 @@ def _pad(dp: int, *xs: torch.Tensor):
 
 
 def _reads_in_place(x: torch.Tensor) -> bool:
-    """Whether K2 can read (or write) the 4-D tensor ``x`` where it lies:
+    """Whether K2-K4 can read the 4-D tensor ``x`` where it lies:
     a unit-stride last dim, and a base and (batch, head, seq) strides
     that are whole 16-byte copies (``cp.async`` reads 16 bytes at a time).
     A stride of a size-1 dim is never applied, so it does not count."""
@@ -182,23 +186,18 @@ def _reads_in_place(x: torch.Tensor) -> bool:
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when K2 can read it in place (the model's split
-    ``(B, T, H, d)`` views), else a contiguous, aligned copy."""
+    """``x`` itself when the kernels can read it in place (the model's
+    split ``(B, T, H, d)`` views), else a contiguous, aligned copy."""
     if _reads_in_place(x):
         return x
     x = x.contiguous()
     return x if _reads_in_place(x) else x.clone()
 
 
-def _kernel_operands(where: str, *xs: torch.Tensor):
-    """Contiguous, 16-byte-aligned CUDA operands for a kernel that reads
-    float4/uint2 vectors (a view with a storage offset may not be
-    aligned)."""
-    for x in xs:
-        if not x.is_cuda:
-            raise ValueError(f"{where}: an operand is not a CUDA tensor")
-    xs = tuple(x.contiguous() for x in xs)
-    return tuple(x.clone() if x.data_ptr() % 16 else x for x in xs)
+def _bthd(b: int, h: int, t: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised ``(B, H, T, d)`` view of ``(B, T, H, d)`` memory
+    with ``like``'s dtype and device."""
+    return torch.empty((b, t, h, d), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
 def flash_attention_forward(
@@ -235,7 +234,7 @@ def flash_attention_forward(
         q, k, v = (_kernel_view(x) for x in (q, k, v))
         # Written in the model's (B, T, H, d) layout: its merge of the
         # heads back into (B, T, D) is then a view, not a copy.
-        out = torch.empty((b, tq, h, dp), dtype=q.dtype, device=q.device).transpose(1, 2)
+        out = _bthd(b, h, tq, dp, q)
         lse = (
             torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
             if return_lse else None
@@ -261,13 +260,17 @@ def flash_attention_backward(
     do: torch.Tensor,
     causal: bool = False,
 ):
-    """``(dq, dk, dv)`` of attention from the forward's ``o`` and f32
-    ``lse`` and the cotangent ``do``, in q's/k's/v's dtypes.
+    """``(dq, dk, dv, delta)``: the gradients of attention from the
+    forward's ``o`` and f32 ``lse`` and the cotangent ``do``, in
+    q's/k's/v's dtypes, and K3's f32 Δ = rowsum(dO∘O), ``(B, H, Tq)``.
 
     ``do`` is cast to q's dtype (an f32 loss over a bf16 output must not
-    make the kernels downcast a real input). Δ = rowsum(dO∘O) is taken
-    here in f32 with a plain reduction; zero head-dim padding leaves it
-    unchanged. Then K3 and K4 run (their plain versions on CPU tensors).
+    make the kernels downcast a real input). K3 computes Δ for its rows
+    (zero head-dim padding leaves it unchanged) and K4 reads it: on CPU
+    tensors their plain versions run. The kernels read q/k/v/o/dO through
+    their strides where :func:`_reads_in_place` allows (the model's views
+    do) and write dq/dk/dv as ``(B, H, T, d)`` views of ``(B, T, H, d)``
+    tensors, so the backward of the model's head split is a view.
     """
     on_cpu = q.device.type == "cpu"
     fns = None if on_cpu else (
@@ -287,31 +290,35 @@ def flash_attention_backward(
             f"{lse.dtype} {tuple(lse.shape)}"
         )
     do = do.to(q.dtype)
-    delta = (do.float() * o.float()).sum(dim=-1)
     scale = 1.0 / math.sqrt(d)
     dp = _padded(d)
-    q, k, v, do = _pad(dp, q, k, v, do)
+    q, k, v, o, do = _pad(dp, q, k, v, o.to(q.dtype), do)
     if on_cpu:
-        dq = _plain_flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dq, delta = _plain_flash_bwd_dq(q, k, v, o, do, lse, causal, scale)
         dk, dv = _plain_flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
     else:
-        where = "flash_attention_backward"
-        q, k, v, do, lse, delta = _kernel_operands(where, q, k, v, do, lse, delta)
-        dq = torch.empty_like(q)
-        dk = torch.empty_like(k)
-        dv = torch.empty_like(v)
-        common = (b * h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)),
-                  scale, torch.cuda.current_stream(q.device).cuda_stream)
-        note = f"B·H={b * h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}"
-        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-               lse.data_ptr(), delta.data_ptr())
-        _kernels.launch("flash_bwd_dq", fns[0], q.device,
-                        (*ins, dq.data_ptr(), *common), note)
-        _kernels.launch("flash_bwd_dkv", fns[1], q.device,
-                        (*ins, dk.data_ptr(), dv.data_ptr(), *common), note)
+        if not all(x.is_cuda for x in (q, k, v, o, do, lse)):
+            raise ValueError("flash_attention_backward: an operand is not a CUDA tensor")
+        q, k, v, o, do = (_kernel_view(x) for x in (q, k, v, o, do))
+        lse = lse.contiguous()
+        delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+        dq = _bthd(b, h, tq, dp, q)
+        dk = _bthd(b, h, tk, dp, k)
+        dv = _bthd(b, h, tk, dp, v)
+        common = (b, h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)), scale)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        note = f"B={b}, H={h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}"
+        _kernels.launch("flash_bwd_dq", fns[0], q.device, (
+            *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq)), *common,
+            *(s for x in (q, k, v, o, do, dq) for s in x.stride()[:3]), stream,
+        ), note)
+        _kernels.launch("flash_bwd_dkv", fns[1], q.device, (
+            *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)), *common,
+            *(s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]), stream,
+        ), note)
     if dp != d:
         dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
-    return dq, dk, dv
+    return dq, dk, dv, delta
 
 
 class FlashAttention(torch.autograd.Function):
@@ -330,7 +337,7 @@ class FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, ctx.causal)
+        dq, dk, dv, _ = flash_attention_backward(q, k, v, out, lse, do, ctx.causal)
         return dq, dk, dv, None
 
 
