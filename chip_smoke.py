@@ -63,30 +63,34 @@ or of the JAX package. Phases, one JSON line each:
    version, **bitwise** (``torch.equal``), at the pixel recipe's training
    shape (ring (24000, 32, 32, 3), B 64, f32, /255, shift pad 4), the same
    with a 3-frame stack over wrap-around rows, and the wall-runner shapes
-   (ring (20000, 64, 64, 3), B 32 f32 and B 512 bf16 with shift and /255);
-   device ms of kernel and plain version; bound = bytes (uint8 read,
-   rows/offsets read, output written) / 3.35 TB/s; ``library_ms`` null:
-   no single PyTorch call gathers, shifts, decodes and casts;
+   (ring (20000, 64, 64, 3), B 32 f32 and B 512 bf16 with shift and /255),
+   one leaf a call; then the training shape and wall B 512 bf16 with both
+   frame leaves in one launch (``*_pair``, each leaf bitwise; the plain
+   version is two calls); device ms of kernel and plain version; bound =
+   bytes (uint8 read, rows/offsets read, output written; rows once for
+   both leaves) / 3.35 TB/s; ``library_ms`` null: no single PyTorch call
+   gathers, shifts, decodes and casts;
 7. train_visual — the JAX package's pixel recipe (conv 16,32 / 4,3 /
    2,2, Dense 128, cnn_features 64, /255, DrQ shift, learned α, fused
    pixel pipeline, hidden 256-256, batch 64, buffer 24000) through
    ``build_trainer`` on ``PixelPendulumBalanceNumpy-v0`` for 2000 steps,
    the first 1000 random: 1000 gradient steps. Checks: finite losses,
-   exactly 2 K1 launches per update, the checkpoint restores, and from
-   one state the gradients (1e-4·max(1, max|g|)) and one update (params
-   and outputs 1e-4, log α 1e-6) with K1's frames against the plain
-   gather's; reports steps per second and one profiled burst;
+   exactly 1 K1 launch per update (both frame leaves), the checkpoint
+   restores, and from one state the gradients (1e-4·max(1, max|g|)) and
+   one update (params and outputs 1e-4, log α 1e-6) with K1's frames
+   against the plain gather's; reports steps per second and one
+   profiled burst;
 8. visual_burst — SACConfig's default visual widths (Atari trunk, Dense
    512, cnn_features 1) on the wall-runner geometry (168 features, 64x64x3
    frame, act_dim 56) with synthetic transitions, as ``bench.py``'s
    ``bench_visual`` (the card's machine has no dm_control): 25-update
-   fused bursts at B 32 f32 and B 512 bf16; finite losses, 2 K1 launches
+   fused bursts at B 32 f32 and B 512 bf16; finite losses, 1 K1 launch
    per update, gradient steps per second and one profiled burst.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
-on the model's views; K1's launches are train_visual's), the
-nvidia-smi line, and last
+on the model's views; K1's row is ``train_pair``, what the main path
+launches, with train_visual's launches), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is non-zero and the last line is not printed.
 """
@@ -871,15 +875,19 @@ def phase_train(seed: int, kernels) -> dict:
 # ------------------------------------------------------------------ visual
 
 PIXEL_PAD = 4
-# (label, ring shape, batch, dtype, normalize, shift, frame_stack, iters): the
-# pixel recipe's training shape (train_visual's batches), the same with a
-# 3-frame stack over wrap-around rows, and the wall-runner geometry at the two
-# visual_burst points.
+# (label, ring shape, batch, dtype, normalize, shift, frame_stack, leaves,
+# iters): the pixel recipe's training shape (train_visual's batches), the same
+# with a 3-frame stack over wrap-around rows, and the wall-runner geometry at
+# the two visual_burst points, one leaf a call; then the training shape and the
+# B 512 wall-runner burst with both frame leaves (states, next states) in one
+# launch, as sample_fused_visual launches K1.
 PIXEL_CASES = [
-    ("train", (24000, 32, 32, 3), 64, torch.float32, True, True, 1, 200),
-    ("train_stack3", (24000, 32, 32, 3), 64, torch.float32, True, True, 3, 200),
-    ("wall_b32", (20000, 64, 64, 3), 32, torch.float32, False, False, 1, 200),
-    ("wall_b512_bf16", (20000, 64, 64, 3), 512, torch.bfloat16, True, True, 1, 50),
+    ("train", (24000, 32, 32, 3), 64, torch.float32, True, True, 1, 1, 200),
+    ("train_stack3", (24000, 32, 32, 3), 64, torch.float32, True, True, 3, 1, 200),
+    ("wall_b32", (20000, 64, 64, 3), 32, torch.float32, False, False, 1, 1, 200),
+    ("wall_b512_bf16", (20000, 64, 64, 3), 512, torch.bfloat16, True, True, 1, 1, 50),
+    ("train_pair", (24000, 32, 32, 3), 64, torch.float32, True, True, 1, 2, 200),
+    ("wall_b512_bf16_pair", (20000, 64, 64, 3), 512, torch.bfloat16, True, True, 1, 2, 50),
 ]
 VISUAL_ENV = "PixelPendulumBalanceNumpy-v0"
 # The JAX package's PIXEL_RECIPE, the configuration of runs/pixelbal-wide/.
@@ -892,78 +900,91 @@ VISUAL_ARGS = [
 WALL_FEATURES, WALL_FRAME, WALL_ACT_DIM = 168, (64, 64, 3), 56  # envs/wall_runner.py
 
 
-def pixel_bound(batch: int, frame, stack: int, dtype, shift: bool) -> tuple:
-    """(bound_ms, "bytes"): the uint8 frames read once (B·S·H·W·C), the
-    int64 rows and int32 offsets read once, the output written once, over
-    HBM rate. The kernel does no arithmetic to speak of."""
+def pixel_bound(batch: int, frame, stack: int, dtype, shift: bool, leaves: int = 1) -> tuple:
+    """(bound_ms, "bytes"): per leaf, the uint8 frames read once (B·S·H·W·C),
+    its int32 offsets read once and its output written once; the int64 rows
+    read once for all leaves; over HBM rate. The kernel does no arithmetic
+    to speak of."""
     h, w, c = frame
     elems = batch * stack * h * w * c
-    nbytes = elems + 8 * batch + (8 * batch if shift else 0)
-    nbytes += elems * torch.finfo(dtype).bits // 8
+    per_leaf = elems + (8 * batch if shift else 0) + elems * torch.finfo(dtype).bits // 8
+    nbytes = 8 * batch + leaves * per_leaf
     return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
 
 
 def phase_pixel_vs_plain(pixels, seed: int) -> dict:
-    """K1 against its plain version on the card: bitwise equality and
-    device times. Each timed call gathers other rows (``iters`` draws
-    cycled), as each update does. Returns the training shape's row."""
+    """K1 against its plain version on the card: bitwise equality (each
+    leaf of a pair) and device times. Each timed call gathers other rows
+    (``iters`` draws cycled), as each update does. Returns the rows by
+    label."""
     from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    rows = []
+    rows = {}
     rings = {}
-    for label, ring_shape, b, dtype, normalize, shift, stack, iters in PIXEL_CASES:
+    for label, ring_shape, b, dtype, normalize, shift, stack, leaves, iters in PIXEL_CASES:
         if ring_shape not in rings:
             rings.clear()
             torch.cuda.empty_cache()
-            ring = torch.randint(0, 256, ring_shape, generator=gen, device="cuda",
-                                 dtype=torch.uint8)
-            ring[1].view(-1)[:256] = torch.arange(256, device="cuda", dtype=torch.uint8)
-            rings[ring_shape] = ring
-        ring = rings[ring_shape]
+            pair = []
+            for _ in range(2):  # the states' and the next states' rings
+                ring = torch.randint(0, 256, ring_shape, generator=gen, device="cuda",
+                                     dtype=torch.uint8)
+                ring[1].view(-1)[:256] = torch.arange(256, device="cuda", dtype=torch.uint8)
+                pair.append(ring)
+            rings[ring_shape] = pair
+        pair = rings[ring_shape][:leaves]
         draws = []
         for i in range(iters):
             idx = torch.randint(0, ring_shape[0], (b,), generator=gen, device="cuda")
             if i == 0:
                 idx[:2] = torch.tensor([0, 1], device="cuda")  # wrap-around, all values
-            offs = shift_offsets(b, PIXEL_PAD, gen, "cuda") if shift else None
+            offs = [shift_offsets(b, PIXEL_PAD, gen, "cuda") if shift else None
+                    for _ in range(leaves)]
             draws.append((idx, offs))
         kw = dict(pad=PIXEL_PAD, normalize=normalize, out_dtype=dtype, frame_stack=stack)
-        got = pixels.fused_frame_gather(ring, *draws[0], **kw)
-        want = pixels.gather_frames_reference(ring, *draws[0], **kw)
+
+        def kernel(i):
+            idx, offs = draws[i % iters]
+            if leaves == 2:
+                return pixels.fused_frame_gather_pair(pair, idx, offs, **kw)
+            return (pixels.fused_frame_gather(pair[0], idx, offs[0], **kw),)
+
+        def plain(i):
+            idx, offs = draws[i % iters]
+            return tuple(pixels.gather_frames_reference(r, idx, o, **kw)
+                         for r, o in zip(pair, offs))
+
+        got, want = kernel(0), plain(0)
         torch.cuda.synchronize()
-        check(got.dtype == dtype and got.shape == want.shape, f"pixel_gather {label} shape/dtype")
-        check(torch.equal(got, want), f"pixel_gather {label}: kernel != plain version")
-        err = (got.float() - want.float()).abs().max().item()
+        err = 0.0
+        for leaf, (g, w) in enumerate(zip(got, want)):
+            check(g.dtype == dtype and g.shape == w.shape,
+                  f"pixel_gather {label} leaf {leaf} shape/dtype")
+            check(torch.equal(g, w), f"pixel_gather {label} leaf {leaf}: kernel != plain version")
+            err = max(err, (g.float() - w.float()).abs().max().item())
         turn = iter(range(10 ** 9))
-
-        def kernel():
-            return pixels.fused_frame_gather(ring, *draws[next(turn) % iters], **kw)
-
-        def plain():
-            return pixels.gather_frames_reference(ring, *draws[next(turn) % iters], **kw)
-
-        bound_ms, bound_by = pixel_bound(b, ring_shape[1:], stack, dtype, shift)
+        bound_ms, bound_by = pixel_bound(b, ring_shape[1:], stack, dtype, shift, leaves)
         row = {
             "phase": "kernel_vs_plain", "kernel": "pixel_gather", "case": label,
             "ring": list(ring_shape), "batch": b, "dtype": str(dtype),
-            "normalize": normalize, "shift": shift, "frame_stack": stack,
+            "normalize": normalize, "shift": shift, "frame_stack": stack, "leaves": leaves,
             "bitwise_equal": True, "max_abs_err": err,
-            "kernel_ms": device_ms(kernel, iters, "pixel_gather_kernel"),
-            "plain_ms": device_ms(plain, iters),
+            "kernel_ms": device_ms(lambda: kernel(next(turn)), iters, "pixel_gather_kernel"),
+            "plain_ms": device_ms(lambda: plain(next(turn)), iters),
             # No single PyTorch call gathers rows, shifts, decodes and casts.
             "library_ms": None,
-            "kernel_event_ms": time_ms(kernel, iters),
-            "plain_event_ms": time_ms(plain, iters),
+            "kernel_event_ms": time_ms(lambda: kernel(next(turn)), iters),
+            "plain_event_ms": time_ms(lambda: plain(next(turn)), iters),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": [b, *ring_shape[1:3], stack * ring_shape[3]],
         }
         emit(row)
-        rows.append(row)
+        rows[label] = row
         del got, want, draws
     rings.clear()
     torch.cuda.empty_cache()
-    return rows[0]
+    return rows
 
 
 def _visual_replica(trainer, gen):
@@ -1065,9 +1086,9 @@ def phase_train_visual(seed: int, kernels) -> dict:
             check(math.isfinite(metrics[key]), f"train_visual: {key} = {metrics[key]}")
         updates = trainer.state.step
         check(updates == 1000, f"train_visual: {updates} gradient steps, expected 1000")
-        check(launches.get("pixel_gather", 0) == 2 * updates,
+        check(launches.get("pixel_gather", 0) == updates,
               f"train_visual: pixel_gather launched {launches.get('pixel_gather', 0)} "
-              f"times, expected 2 per update ({2 * updates})")
+              f"times, expected 1 per update ({updates})")
 
         restored, meta = Checkpointer(trainer.checkpointer.directory).restore_actor_params()
         live = trainer.state.actor.state_dict()
@@ -1083,7 +1104,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
         with_kernel = sample_fused_visual(
             buf, b, cfg.model_dtype, cfg.frame_augment, cfg.augment_pad,
             cfg.normalize_pixels, indices=idx, offsets=offsets)
-        check(kernels.launch_counts["pixel_gather"] == 2, "fused sample: not 2 K1 launches")
+        check(kernels.launch_counts["pixel_gather"] == 1, "fused sample: not 1 K1 launch")
         frames = [
             gather_frames_reference(ring, idx, offs, cfg.augment_pad, cfg.normalize_pixels,
                                     cfg.model_dtype)
@@ -1145,8 +1166,8 @@ def phase_train_visual(seed: int, kernels) -> dict:
         torch.cuda.synchronize()
         burst_s = (time.perf_counter() - t0) / n_bursts
         per = cfg.updates_per_window
-        check(kernels.launch_counts["pixel_gather"] == 2 * per * n_bursts,
-              "burst: not 2 K1 launches per update")
+        check(kernels.launch_counts["pixel_gather"] == per * n_bursts,
+              "burst: not 1 K1 launch per update")
         check(all(math.isfinite(float(v)) for v in m.values()), "visual burst metrics not finite")
         profiled = profile_burst(burst, per)
 
@@ -1242,8 +1263,8 @@ def phase_visual_burst(seed: int, kernels) -> list:
         burst_s = (time.perf_counter() - t0) / n_bursts
         check(all(math.isfinite(float(v)) for v in m.values()),
               f"visual_burst B{bsz} {dtype}: metrics not finite")
-        check(kernels.launch_counts["pixel_gather"] == 2 * burst_len * n_bursts,
-              f"visual_burst B{bsz}: not 2 K1 launches per update")
+        check(kernels.launch_counts["pixel_gather"] == burst_len * n_bursts,
+              f"visual_burst B{bsz}: not 1 K1 launch per update")
         row = {
             "phase": "visual_burst", "batch": bsz, "dtype": dtype, "frame_augment": augment,
             "normalize_pixels": normalize, "features": WALL_FEATURES,
@@ -1282,7 +1303,7 @@ def main(argv=None) -> int:
     phase_floor(_kernels, attn, args.seed)
     serve_row = phase_kernel_vs_plain(attn, args.seed)
     bwd_rows = phase_bwd_vs_plain(attn, args.seed)
-    pixel_row = phase_pixel_vs_plain(pixels, args.seed)
+    pixel_row = phase_pixel_vs_plain(pixels, args.seed)["train_pair"]
     serve_launches = phase_serve(args.seed, _kernels)
     check(serve_launches > 0, "the serving path launched no flash_fwd kernel")
     train_launches = phase_train(args.seed, _kernels)

@@ -92,7 +92,7 @@ def test_flash_kernel_takes_strided_views(cuda, dtype, width, offset, in_place):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
-def _device_kernels(fn, attempts=4):
+def _device_kernels(fn, attempts=8):
     """``(name, calls)`` of the device kernels one ``fn()`` launched,
     from a ``torch.profiler`` trace (retaken when a trace comes back
     without device events)."""
@@ -379,8 +379,27 @@ PIXEL_CASES = [
     ((24000, 32, 32, 3), 64, torch.bfloat16),
     ((20000, 64, 64, 3), 32, torch.float32),    # the wall-runner geometry
     ((20000, 64, 64, 3), 512, torch.bfloat16),
-    ((64, 12, 20, 3), 5, torch.bfloat16),       # ragged H != W
+    ((64, 12, 20, 3), 5, torch.bfloat16),       # ragged H != W; rows of 60 bytes
+    ((50, 7, 9, 1), 6, torch.float32),          # C = 1, odd W: 1-byte loads
+    ((50, 7, 9, 1), 6, torch.bfloat16),
+    ((40, 10, 6, 4), 5, torch.bfloat16),        # C = 4: the generic build
+    ((30, 9, 11, 2), 7, torch.float32),         # W*C = 22: no 16- or 4-byte loads
 ]
+
+
+def _pixel_inputs(cuda, ring_shape, batch, seed=4):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ring = torch.randint(0, 256, ring_shape, generator=gen, device=cuda, dtype=torch.uint8)
+    n = min(256, ring[1].numel())
+    ring[1].view(-1)[:n] = torch.arange(n, device=cuda, dtype=torch.uint8)  # every value
+    idx = torch.randint(0, ring_shape[0], (batch,), generator=gen, device=cuda)
+    idx[:2] = torch.tensor([0, 1], device=cuda)  # wrap-around when S = 3
+    return gen, ring, idx
+
+
+def _pixel_pads(ring_shape):
+    """No shift, then shifts at pad 4, pad 0 and a pad wider than W/2."""
+    return (None, 4, 0, ring_shape[2] // 2 + 3)
 
 
 @pytest.mark.gpu
@@ -392,21 +411,47 @@ def test_pixel_gather_kernel_is_bitwise_its_plain_version(cuda, ring_shape, batc
         gather_frames_reference,
     )
 
-    gen = torch.Generator(device=cuda).manual_seed(4)
-    ring = torch.randint(0, 256, ring_shape, generator=gen, device=cuda, dtype=torch.uint8)
-    ring[1].view(-1)[:256] = torch.arange(256, device=cuda, dtype=torch.uint8)  # every value
-    idx = torch.randint(0, ring_shape[0], (batch,), generator=gen, device=cuda)
-    idx[:2] = torch.tensor([0, 1], device=cuda)  # wrap-around when S = 3
+    gen, ring, idx = _pixel_inputs(cuda, ring_shape, batch)
     for normalize in (False, True):
         for stack in (1, 3):
-            for offsets in (None, shift_offsets(batch, 4, gen, cuda)):
+            for pad in _pixel_pads(ring_shape):
+                offsets = None if pad is None else shift_offsets(batch, pad, gen, cuda)
+                pad = 4 if pad is None else pad
                 before = _kernels.launch_counts["pixel_gather"]
-                got = fused_frame_gather(ring, idx, offsets, 4, normalize, dtype, stack)
+                got = fused_frame_gather(ring, idx, offsets, pad, normalize, dtype, stack)
                 assert _kernels.launch_counts["pixel_gather"] == before + 1
-                want = gather_frames_reference(ring, idx, offsets, 4, normalize, dtype, stack)
+                want = gather_frames_reference(ring, idx, offsets, pad, normalize, dtype, stack)
                 torch.cuda.synchronize()
                 assert got.dtype == dtype and got.shape == want.shape
-                assert torch.equal(got, want), (normalize, stack, offsets is None)
+                assert torch.equal(got, want), (normalize, stack, pad, offsets is None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring_shape,batch,dtype", [PIXEL_CASES[0], PIXEL_CASES[3],
+                                                    PIXEL_CASES[4], PIXEL_CASES[7]])
+def test_pixel_gather_pair_is_one_launch_and_bitwise_per_leaf(cuda, ring_shape, batch, dtype):
+    """Both frame leaves in one launch, each its plain version bitwise,
+    the second leaf with its own ring and offsets (or none)."""
+    from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+    from torch_actor_critic_tpu_torch.ops.pixels import (
+        fused_frame_gather_pair,
+        gather_frames_reference,
+    )
+
+    gen, ring, idx = _pixel_inputs(cuda, ring_shape, batch)
+    rings = (ring, torch.randint(0, 256, ring_shape, generator=gen, device=cuda,
+                                 dtype=torch.uint8))
+    for stack in (1, 3):
+        for offsets in ((shift_offsets(batch, 4, gen, cuda), shift_offsets(batch, 4, gen, cuda)),
+                        (shift_offsets(batch, 4, gen, cuda), None), None):
+            before = _kernels.launch_counts["pixel_gather"]
+            got = fused_frame_gather_pair(rings, idx, offsets, 4, True, dtype, stack)
+            assert _kernels.launch_counts["pixel_gather"] == before + 1
+            for g, r, o in zip(got, rings, offsets or (None, None)):
+                want = gather_frames_reference(r, idx, o, 4, True, dtype, stack)
+                torch.cuda.synchronize()
+                assert g.dtype == dtype and g.shape == want.shape
+                assert torch.equal(g, want), (stack, o is None)
 
 
 @pytest.mark.gpu
@@ -452,7 +497,7 @@ def test_visual_update_with_the_kernel_matches_the_plain_gather(cuda):
     before = _kernels.launch_counts["pixel_gather"]
     with_kernel = sample_fused_visual(buf, 64, torch.float32, "shift", 4, True,
                                       indices=idx, offsets=offsets)
-    assert _kernels.launch_counts["pixel_gather"] == before + 2
+    assert _kernels.launch_counts["pixel_gather"] == before + 1  # both leaves, one launch
     frames = [gather_frames_reference(ring, idx, offs, 4, True, torch.float32)
               for ring, offs in ((buf.data.states.frame, offsets[0]),
                                  (buf.data.next_states.frame, offsets[1]))]

@@ -170,6 +170,69 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         pixels.fused_frame_gather(ring, torch.zeros(2, dtype=torch.long), out_dtype=torch.float16)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("frame_stack", [1, 3])
+def test_pair_gather_is_bitwise_two_jax_references(dtype, normalize, shift, frame_stack):
+    """Both frame leaves from one call (one launch on the card) equal two
+    calls of JAX's reference; rows 0 and 1 wrap when S = 3."""
+    jdt, tdt = DTYPES[dtype]
+    rings = (_ring(seed=4), _ring(seed=5))
+    offsets = (_offsets(6), _offsets(7)) if shift else (None, None)
+    before = dict(_kernels.launch_counts)
+    got = pixels.fused_frame_gather_pair(
+        tuple(torch.from_numpy(r) for r in rings), torch.from_numpy(IDX),
+        None if not shift else tuple(torch.from_numpy(o) for o in offsets),
+        pad=PAD, normalize=normalize, out_dtype=tdt, frame_stack=frame_stack,
+    )
+    assert dict(_kernels.launch_counts) == before  # the CPU runs no kernel
+    assert len(got) == 2
+    for g, ring, offs in zip(got, rings, offsets):
+        want = jpixels.gather_frames_reference(
+            jnp.asarray(ring), jnp.asarray(IDX), None if offs is None else jnp.asarray(offs),
+            pad=PAD, normalize=normalize, out_dtype=jdt, frame_stack=frame_stack,
+        )
+        assert g.dtype == tdt and tuple(g.shape) == want.shape
+        np.testing.assert_array_equal(_f32(g), _f32(want))
+
+
+@pytest.mark.parametrize("case", ["shape", "device", "offsets", "dtype", "count"])
+def test_pair_wrapper_rejects_what_the_kernel_does_not_take(case):
+    ring = torch.zeros((4, 8, 8, 3), dtype=torch.uint8)
+    idx = torch.zeros(2, dtype=torch.long)
+    rings, offsets, match = (ring, ring.clone()), None, "uint8"
+    if case == "shape":
+        rings, match = (ring, torch.zeros((4, 8, 9, 3), dtype=torch.uint8)), "shape or device"
+    elif case == "device":
+        rings, match = (ring, ring.to("meta")), "shape or device"
+    elif case == "offsets":
+        offsets = (torch.zeros((2, 2), dtype=torch.int32), torch.zeros((3, 2), dtype=torch.int32))
+        match = "offsets"
+    elif case == "dtype":
+        rings = (ring.float(), ring.float())
+    else:
+        rings, match = (ring,), "two rings"
+    with pytest.raises(ValueError, match=match):
+        pixels.fused_frame_gather_pair(rings, idx, offsets)
+
+
+def test_pixel_gather_signature_matches_the_c_entry():
+    """``SIGNATURES["pixel_gather"]`` has one argtype per parameter of
+    the ``extern "C"`` entry in ``csrc/pixels.cu``."""
+    import re
+
+    source, symbol, argtypes = _kernels.SIGNATURES["pixel_gather"]
+    text = (_kernels.SRC_DIR / f"{source}.cu").read_text()
+    entry = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert entry is not None
+    params = [p.strip() for p in entry.group(1).split(",")]
+    assert len(params) == len(argtypes) == 18
+    for param, argtype in zip(params, argtypes):
+        is_pointer = "*" in param
+        assert (argtype is _kernels.ctypes.c_void_p) == is_pointer, param
+
+
 # ------------------------------------------------------------- DrQ shift
 
 
@@ -239,7 +302,7 @@ def _tbatch(b):
 def test_visual_ring_push_sample_and_fused_sample_match_jax():
     cap = 16
     jbuf = jreplay.init_visual_replay_buffer(cap, 2, (H, W, C), 1)
-    buf = replay.init_visual_replay_buffer(cap, 2, (H, W, C), 1)
+    buf = replay.init_visual_replay_buffer(cap, 2, (H, W, C), 1, device="cpu")
     assert buf.data.states.frame.dtype == torch.uint8 and buf.visual
     for i, n in enumerate((10, 10)):  # wraps
         chunk = _visual_chunk(n, seed=10 + i)
@@ -277,7 +340,7 @@ def test_visual_ring_push_sample_and_fused_sample_match_jax():
     assert drawn.next_states.frame.shape == (5, H, W, C)
     assert float(drawn.states.frame.max()) <= 1.0
     with pytest.raises(ValueError, match="MultiObservation"):
-        replay.sample_fused_visual(replay.init_replay_buffer(4, (3,), 1), 2, torch.float32,
+        replay.sample_fused_visual(replay.init_replay_buffer(4, (3,), 1, "cpu"), 2, torch.float32,
                                    generator=torch.Generator())
     with pytest.raises(ValueError, match="offsets or a generator"):
         replay.sample_fused_visual(buf, 2, torch.float32, "shift", indices=torch.zeros(2))

@@ -294,7 +294,7 @@ def test_burst_of_three_matches_jax_with_injected_indices_and_eps():
         eps.append(torch.stack([eps_q, eps_pi]))
 
     sac, ts = _port_state(name)
-    buf = replay.push(replay.init_replay_buffer(capacity, obs_shape, ACT_DIM),
+    buf = replay.push(replay.init_replay_buffer(capacity, obs_shape, ACT_DIM, "cpu"),
                       _tbatch(_batch(obs_shape, n=prefill, seed=6)))
     ts, buf, tm = sac.update_burst(
         ts, buf, _tbatch(chunk), 3,
@@ -360,7 +360,7 @@ def test_replay_push_wraparound_and_sample_are_exact():
     obs_shape, capacity = (T, OBS_DIM), 32
     spec = jax.ShapeDtypeStruct(obs_shape, jnp.float32)
     jbuf = jreplay.init_replay_buffer(capacity, spec, ACT_DIM)
-    buf = replay.init_replay_buffer(capacity, obs_shape, ACT_DIM)
+    buf = replay.init_replay_buffer(capacity, obs_shape, ACT_DIM, "cpu")
     for i, n in enumerate((20, 20, 32, 7)):  # wraps twice; one full-ring chunk
         chunk = _batch(obs_shape, n=n, seed=20 + i)
         jbuf = jreplay.push(jbuf, JBatch(**chunk))
@@ -380,7 +380,7 @@ def test_replay_push_wraparound_and_sample_are_exact():
 
 
 def test_replay_rejects_oversized_chunk_and_empty_sample():
-    buf = replay.init_replay_buffer(4, (OBS_DIM,), ACT_DIM)
+    buf = replay.init_replay_buffer(4, (OBS_DIM,), ACT_DIM, "cpu")
     with pytest.raises(ValueError, match="empty"):
         replay.sample(buf, 2, generator=torch.Generator())
     with pytest.raises(ValueError, match="capacity"):

@@ -275,7 +275,7 @@ def test_fused_visual_burst_matches_jax_with_its_draws():
         eps.append(torch.stack([eps_q, eps_pi]))
 
     sac, ts = _port_state(name)
-    buf = replay.push(replay.init_visual_replay_buffer(capacity, feat, frame, act_dim),
+    buf = replay.push(replay.init_visual_replay_buffer(capacity, feat, frame, act_dim, "cpu"),
                       _tbatch(chunk(prefill, 6)))
     before = dict(_kernels.launch_counts)
     ts, buf, tm = sac.update_burst(
@@ -311,6 +311,24 @@ def test_reference_pipeline_shifts_frames_in_the_update():
         runs.append(m)
     assert all(math.isfinite(float(v)) for v in runs[0].values())
     assert float(runs[0]["loss_q"]) == float(runs[1]["loss_q"])  # seeded: reproducible
+
+
+@pytest.mark.parametrize("visual", [False, True])
+def test_replay_rings_default_to_the_card(monkeypatch, visual):
+    """``device=None`` means the card, as for the port's other entry
+    points: without one it raises; the CPU is asked for by name."""
+
+    def init(**kw):
+        if visual:
+            return replay.init_visual_replay_buffer(8, 2, (4, 4, 3), 1, **kw)
+        return replay.init_replay_buffer(8, (3,), 1, **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init()
+    buf = init(device="cpu")
+    assert all(leaf.device.type == "cpu" for leaf in buf.data.leaves())
+    assert buf.visual == visual and (buf.ptr, buf.size) == (0, 0)
 
 
 # -------------------------------------------------------------- trainer

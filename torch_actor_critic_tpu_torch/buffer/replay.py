@@ -2,7 +2,9 @@
 ``buffer/replay.py``: ``init_replay_buffer``, ``init_visual_replay_buffer``,
 ``push``, ``sample``, ``sample_fused_visual``).
 
-The ring lives on the training device. :func:`push` writes a chunk at
+The ring lives on the training device: ``device=None`` means the card,
+as for the port's other entry points (``utils/device.resolve_device``),
+and a CPU ring is asked for by name. :func:`push` writes a chunk at
 ``(ptr + arange(n)) % capacity`` — in place into the ring (the JAX
 package donates the buffer to get the same effect) — and returns the
 advanced cursor. :func:`sample` draws uniformly with replacement over
@@ -11,7 +13,8 @@ advanced cursor. :func:`sample` draws uniformly with replacement over
 :class:`~..core.types.MultiObservation` values; every leaf keeps its own
 dtype in the ring (a visual ring stores **uint8** HWC frames beside f32
 features). :func:`sample_fused_visual` gathers the frames through the
-fused pixel pipeline (K1). The striped variant is not ported.
+fused pixel pipeline (K1, one launch for both frame leaves). The
+striped variant is not ported.
 """
 
 from __future__ import annotations
@@ -22,17 +25,20 @@ import torch
 
 from torch_actor_critic_tpu_torch.core.types import Batch, BufferState, MultiObservation
 from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
-from torch_actor_critic_tpu_torch.ops.pixels import fused_frame_gather
+from torch_actor_critic_tpu_torch.ops.pixels import fused_frame_gather_pair
+from torch_actor_critic_tpu_torch.utils.device import resolve_device
 
 
 def init_replay_buffer(
     capacity: int,
     obs_shape: t.Sequence[int],
     act_dim: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> BufferState:
     """An empty float32 ring of ``capacity`` transitions of ``obs_shape``
-    observations."""
+    observations, on ``device`` (``None``: the card; raises without
+    one)."""
+    device = resolve_device(device)
 
     def zeros(*shape):
         return torch.zeros((capacity, *shape), dtype=torch.float32, device=device)
@@ -52,10 +58,12 @@ def init_visual_replay_buffer(
     feature_dim: int,
     frame_shape: t.Sequence[int],
     act_dim: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> BufferState:
     """An empty mixed-observation ring: f32 ``(feature_dim,)`` features
-    and **uint8** ``frame_shape`` (H, W, C) frames."""
+    and **uint8** ``frame_shape`` (H, W, C) frames, on ``device``
+    (``None``: the card; raises without one)."""
+    device = resolve_device(device)
 
     def obs():
         return MultiObservation(
@@ -129,11 +137,12 @@ def sample_fused_visual(
     offsets: torch.Tensor | None = None,
 ) -> Batch:
     """:func:`sample` for a visual ring through the fused pixel pipeline
-    (:func:`~..ops.pixels.fused_frame_gather`, the kernel K1 on the
-    card): the non-frame leaves gather as in :func:`sample`; each frame
-    leaf is gathered, DrQ-shifted (``augment="shift"``), decoded and cast
-    to ``out_dtype`` in one pass, so the sampled frames never exist as
-    uint8 or f32 copies in device memory.
+    (:func:`~..ops.pixels.fused_frame_gather_pair`, one launch of the
+    kernel K1 on the card): the non-frame leaves gather as in
+    :func:`sample`; both frame leaves are gathered, DrQ-shifted
+    (``augment="shift"``), decoded and cast to ``out_dtype`` in one
+    pass, so the sampled frames never exist as uint8 or f32 copies in
+    device memory.
 
     Draws from ``generator``: the rows, then (with a shift) the states'
     and the next states' offsets. Test hooks: ``indices`` ``(B,)`` and
@@ -160,17 +169,14 @@ def sample_fused_visual(
     def take(ring):
         return ring.index_select(0, idx)
 
-    def gather(ring, offsets):
-        return fused_frame_gather(
-            ring, idx, offsets=offsets, pad=pad, normalize=normalize, out_dtype=out_dtype
-        )
-
+    frames = fused_frame_gather_pair(
+        (d.states.frame, d.next_states.frame), idx, offs, pad=pad,
+        normalize=normalize, out_dtype=out_dtype,
+    )
     return Batch(
-        states=MultiObservation(take(d.states.features), gather(d.states.frame, offs[0])),
+        states=MultiObservation(take(d.states.features), frames[0]),
         actions=take(d.actions),
         rewards=take(d.rewards),
-        next_states=MultiObservation(
-            take(d.next_states.features), gather(d.next_states.frame, offs[1])
-        ),
+        next_states=MultiObservation(take(d.next_states.features), frames[1]),
         done=take(d.done),
     )

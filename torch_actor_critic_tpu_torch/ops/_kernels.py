@@ -51,9 +51,12 @@ SIGNATURES: t.Dict[str, t.Tuple[str, str, tuple]] = {
         "flash_bwd", "tac_flash_bwd_dkv",
         (*(_P,) * 8, _I, _I, _I, _I, _I, _I, _I, _F, *(_L,) * 18, _P),
     ),
+    # Two (ring, offsets, out) leaves share idx: ring0, ring1, idx, off0,
+    # off1, out0, out1, leaves, capacity, H, W, C, B, S, pad, dtype,
+    # normalize, stream.
     "pixel_gather": (
         "pixels", "tac_pixel_gather",
-        (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        (*(_P,) * 7, _I, _L, *(_I,) * 8, _P),
     ),
     # An empty kernel (grid, block, dynamic shared bytes, stream): the
     # launch-latency floor that chip_smoke.py reads the attention kernels'

@@ -16,7 +16,11 @@ For example ``b``, stack slot ``s``, row ``y``, column ``x``, channel
 - :func:`fused_frame_gather` — the dispatch: CPU tensors run the plain
   version, CUDA tensors the hand-written kernel ``csrc/pixels.cu`` (the
   port of the TPU kernel ``_pixel_kernel``); a build or launch failure
-  raises, nothing falls back.
+  raises, nothing falls back. (The kernel stages a block's source rows
+  in shared memory, so it refuses a frame whose S stack rows exceed
+  the card's 227 KB of it.)
+- :func:`fused_frame_gather_pair` — the same for a batch's two frame
+  leaves (states, next states) at the same rows: one launch for both.
 
 Bit contract: the kernel and the plain version agree bitwise for every
 (out_dtype, normalize, augment, frame_stack). The divide is IEEE
@@ -28,6 +32,8 @@ divide.)
 """
 
 from __future__ import annotations
+
+import typing as t
 
 import torch
 
@@ -87,6 +93,60 @@ def gather_frames_reference(
     return out.permute(0, 2, 3, 1, 4).reshape(b, h, w, frame_stack * c)
 
 
+def _check_leaf(name: str, ring: torch.Tensor, idx: torch.Tensor, offsets, out_dtype) -> None:
+    """Raise on what neither the kernel nor the plain version takes."""
+    if ring.dtype != torch.uint8:
+        raise ValueError(
+            f"{name} decodes uint8 replay frames, got {ring.dtype}; "
+            "the replay ring stores frames as uint8 by design (buffer/replay.py)"
+        )
+    if ring.dim() != 4 or idx.dim() != 1:
+        raise ValueError(
+            f"{name}: ring must be (capacity, H, W, C) and idx (B,); "
+            f"got {tuple(ring.shape)} and {tuple(idx.shape)}"
+        )
+    if out_dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name}: out_dtype {out_dtype} (float32 or bfloat16)")
+    b = idx.shape[0]
+    if offsets is not None and tuple(offsets.shape) != (b, 2):
+        raise ValueError(f"{name}: offsets must be ({b}, 2), got {tuple(offsets.shape)}")
+    if ring.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: ring on {ring.device} (cpu or cuda)")
+
+
+def _launch(rings, idx, offsets, pad, normalize, out_dtype, frame_stack) -> t.List[torch.Tensor]:
+    """One launch of ``csrc/pixels.cu`` for one or two leaves on the
+    card, each ``(ring, offsets)`` gathered at the rows ``idx``."""
+    if frame_stack < 1:
+        raise ValueError(f"frame_stack must be >= 1, got {frame_stack}")
+    device = rings[0].device
+    for name, x in (("idx", idx), *(("offsets", o) for o in offsets)):
+        if x is not None and x.device != device:
+            raise ValueError(f"fused_frame_gather: {name} is not on the ring's device")
+    fn = _kernels.load("pixel_gather")
+    capacity, h, w, c = rings[0].shape
+    b = idx.shape[0]
+    rings = [r.contiguous() for r in rings]
+    idx = idx.to(torch.int64).contiguous()
+    offsets = [None if o is None else o.to(torch.int32).contiguous() for o in offsets]
+    outs = [torch.empty((b, h, w, frame_stack * c), dtype=out_dtype, device=device)
+            for _ in rings]
+    if b == 0:
+        return outs
+
+    # Each leaf's pointer, None where there is no second leaf or no shift.
+    (ring0, ring1), (off0, off1), (out0, out1) = (
+        [None if x is None else x.data_ptr() for x in (*xs, None)[:2]]
+        for xs in (rings, offsets, outs)
+    )
+    _kernels.launch("pixel_gather", fn, device, (
+        ring0, ring1, idx.data_ptr(), off0, off1, out0, out1, len(rings),
+        capacity, h, w, c, b, frame_stack, pad, _KERNEL_DTYPES[out_dtype], int(bool(normalize)),
+        torch.cuda.current_stream(device).cuda_stream,
+    ), f"{len(rings)} x ring {tuple(rings[0].shape)}, B={b}, S={frame_stack}, {out_dtype}")
+    return outs
+
+
 def fused_frame_gather(
     ring: torch.Tensor,
     idx: torch.Tensor,
@@ -99,45 +159,46 @@ def fused_frame_gather(
     """Gather, shift, decode and cast the frames of replay rows ``idx``
     (see :func:`gather_frames_reference`). A CPU ring runs the plain
     version; a CUDA ring launches ``csrc/pixels.cu``."""
-    if ring.dtype != torch.uint8:
-        raise ValueError(
-            f"fused_frame_gather decodes uint8 replay frames, got {ring.dtype}; "
-            "the replay ring stores frames as uint8 by design (buffer/replay.py)"
-        )
-    if ring.dim() != 4 or idx.dim() != 1:
-        raise ValueError(
-            f"fused_frame_gather: ring must be (capacity, H, W, C) and idx (B,); "
-            f"got {tuple(ring.shape)} and {tuple(idx.shape)}"
-        )
-    if out_dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"fused_frame_gather: out_dtype {out_dtype} (float32 or bfloat16)")
-    b = idx.shape[0]
-    if offsets is not None and tuple(offsets.shape) != (b, 2):
-        raise ValueError(f"fused_frame_gather: offsets must be ({b}, 2), got {tuple(offsets.shape)}")
+    _check_leaf("fused_frame_gather", ring, idx, offsets, out_dtype)
     if ring.device.type == "cpu":
         return gather_frames_reference(
             ring, idx, offsets, pad, normalize, out_dtype, frame_stack
         )
-    if ring.device.type != "cuda":
-        raise ValueError(f"fused_frame_gather: ring on {ring.device} (cpu or cuda)")
-    if frame_stack < 1:
-        raise ValueError(f"frame_stack must be >= 1, got {frame_stack}")
-    fn = _kernels.load("pixel_gather")
-    for name, x in (("idx", idx), ("offsets", offsets)):
-        if x is not None and x.device != ring.device:
-            raise ValueError(f"fused_frame_gather: {name} is not on the ring's device")
-    capacity, h, w, c = ring.shape
-    ring = ring.contiguous()
-    idx = idx.to(torch.int64).contiguous()
-    if offsets is not None:
-        offsets = offsets.to(torch.int32).contiguous()
-    out = torch.empty((b, h, w, frame_stack * c), dtype=out_dtype, device=ring.device)
-    if b == 0:
-        return out
-    _kernels.launch("pixel_gather", fn, ring.device, (
-        ring.data_ptr(), idx.data_ptr(),
-        offsets.data_ptr() if offsets is not None else None, out.data_ptr(),
-        capacity, h, w, c, b, frame_stack, pad, _KERNEL_DTYPES[out_dtype],
-        int(bool(normalize)), torch.cuda.current_stream(ring.device).cuda_stream,
-    ), f"ring {tuple(ring.shape)}, B={b}, S={frame_stack}, {out_dtype}")
-    return out
+    return _launch([ring], idx, [offsets], pad, normalize, out_dtype, frame_stack)[0]
+
+
+def fused_frame_gather_pair(
+    rings: t.Sequence[torch.Tensor],
+    idx: torch.Tensor,
+    offsets: t.Sequence[torch.Tensor | None] | None = None,
+    pad: int = 4,
+    normalize: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+    frame_stack: int = 1,
+) -> t.Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_frame_gather` of two frame leaves (a batch's states
+    and next states: rings of one shape on one device) at the same rows
+    ``idx``, each with its own ``offsets`` (``None``: no shift for
+    either). CPU rings run the plain version per leaf; CUDA rings take
+    one launch of ``csrc/pixels.cu`` for both."""
+    rings = tuple(rings)
+    offsets = (None, None) if offsets is None else tuple(offsets)
+    if len(rings) != 2 or len(offsets) != 2:
+        raise ValueError(
+            f"fused_frame_gather_pair: two rings and two offsets, got "
+            f"{len(rings)} and {len(offsets)}"
+        )
+    if rings[0].shape != rings[1].shape or rings[0].device != rings[1].device:
+        raise ValueError(
+            "fused_frame_gather_pair: the two rings differ in shape or device: "
+            f"{tuple(rings[0].shape)} on {rings[0].device}, "
+            f"{tuple(rings[1].shape)} on {rings[1].device}"
+        )
+    for ring, offs in zip(rings, offsets):
+        _check_leaf("fused_frame_gather_pair", ring, idx, offs, out_dtype)
+    if rings[0].device.type == "cpu":
+        return tuple(
+            gather_frames_reference(ring, idx, offs, pad, normalize, out_dtype, frame_stack)
+            for ring, offs in zip(rings, offsets)
+        )
+    return tuple(_launch(rings, idx, offsets, pad, normalize, out_dtype, frame_stack))
