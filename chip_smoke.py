@@ -13,17 +13,21 @@ or of the JAX package. Phases, one JSON line each:
    nvcc per source, in parallel) and reports the seconds;
    floor — the device time of an empty kernel (``csrc/floor.cu``) at the
    attention kernels' main-path grid (64 blocks of 128 threads), without
-   and with K3's shared memory there, and at one block: the launch
-   latency no kernel design removes; beside it K2, K3 and K4 at the
-   main shape on the model's views, each launched alone, back to back,
-   and in turn as a training step launches them;
+   and with K3's shared memory there, at the stacked critics' grid (128
+   blocks) and at one block: the launch latency no kernel design
+   removes; beside it K2, K3 and K4 at the main shape and at the
+   critics' folded shape on the model's views, each launched alone,
+   back to back, and in turn as a training step launches them;
 3. kernel_vs_plain — each kernel against its plain PyTorch version on the
    card, at the training/serving shape (64, 4, 16, 16) — for K2 first on
    the model's split (B, T, H, d) views, where one call must be exactly
-   one device kernel (``kernels_per_call``, ``torch.profiler``) — and the
-   bench shapes: max abs error (f32 <= 1e-4, summation order, and K2's
-   f32 rows <= 1e-5, which its 3xTF32 products meet and one TF32 pass
-   would not; bf16 <= 2e-2, the bf16 rounding of p and ds; the backward
+   one device kernel (``kernels_per_call``, ``torch.profiler``) — at the
+   stacked critics' folded shape (128, 4, 16, 16) on the views the
+   training config's critic itself hands its first attention call
+   (``critic_views``: num_qs 2 × batch 64; one device kernel a K2 call,
+   two a backward call), and the bench shapes: max abs error (f32 <=
+   1e-4, summation order, and K2's f32 rows <= 1e-5, which its 3xTF32
+   products meet and one TF32 pass would not; bf16 <= 2e-2, the bf16 rounding of p and ds; the backward
    kernels' limits scale by max(1, max|plain|), their f32 rows also
    <= 1e-5·max(1, max|plain|); K3's Δ is held to its plain version's
    too), bitwise-equal repeat runs of the backward — first on the
@@ -44,20 +48,25 @@ or of the JAX package. Phases, one JSON line each:
    at least num_layers x forwards; /metrics latency and rate; then 16
    64-row requests under ``torch.profiler`` (wall vs device-busy time per
    request, top kernels) and the engine's forward alone (host wall time);
-5. train — the same policy and its twin sequence critic at SACConfig's
-   widths (batch 64, update_every 50), trained through the train CLI's
-   ``build_trainer`` on ``PendulumNumpy-v1|history:16`` (the port's
-   numpy twin of Pendulum-v1; the card's machine has no gymnasium) for
-   1000 steps, the first 500 random: 500 gradient steps (cut from 1000 to
-   keep the whole smoke near 5 minutes). Checks: finite
-   losses, every kernel launched, the checkpoint restores, launches per
-   update exactly (3Q+2)L forward and (Q+1)L each backward kernel, and,
+5. train — the same policy and its twin sequence critic (one stacked
+   ensemble) at SACConfig's widths (batch 64, update_every 50), trained
+   through the train CLI's ``build_trainer`` on
+   ``PendulumNumpy-v1|history:16`` (the port's numpy twin of
+   Pendulum-v1; the card's machine has no gymnasium) for 1000 steps, the
+   first 500 random: 500 gradient steps (cut from 1000 to keep the whole
+   smoke near 5 minutes). Checks: finite losses, every kernel launched, the checkpoint restores, launches per
+   update exactly 5L forward and 2L each backward kernel, whatever Q
+   (one call a layer serves the whole critic ensemble), one critic
+   forward exactly L K2 launches and its backward L K3 and L K4, each
+   member of the stacked critic equal to its slices run alone through a
+   single ``SequenceCritic`` (1e-5·max(1, max|q|)), and,
    from one state, the critic's and actor's parameter gradients with the
    kernels against those with plain attention (1e-4·max(1, max|g|)) and
    then one update with each (params 1e-4; attention key biases, whose
    gradient is zero in exact arithmetic, 2·lr; outputs 1e-4). Reports
-   gradient and env steps per second and one profiled burst (device busy
-   vs idle, top kernels per update);
+   gradient and env steps per second, one profiled burst (device busy
+   vs idle, kernels per update, the top ones) and the device kernels of
+   one stacked critic forward and of one forward + backward;
 6. kernel_vs_plain for K1 (``pixel_gather``, run before serving) — the
    fused replay-gather → DrQ shift → decode kernel against its plain
    version, **bitwise** (``torch.equal``), at the pixel recipe's training
@@ -118,6 +127,8 @@ H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 SERVE_SHAPE = (64, 4, 16, 16)   # max_batch x heads x history x head_dim
 TRAIN_SHAPE = SERVE_SHAPE       # batch_size 64 x heads x history x head_dim
+# The stacked critics' attention: num_qs 2 folded into the batch axis.
+CRITIC_SHAPE = (2 * TRAIN_SHAPE[0], *TRAIN_SHAPE[1:])
 BENCH_SHAPE = (4, 8, 2048, 64)  # bench.py's attention shape
 # The port's host pendulum (the JAX package's PendulumJax dynamics): the
 # card's machine has no gymnasium, whose Pendulum-v1 it stands in for.
@@ -127,6 +138,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # its Δ, K4): 3xTF32 products err by ~1e-6, a single TF32 pass by ~1e-3.
 F32_GUARD = 1e-5
 MAIN_GRID = (64, 128)  # K2-K4's blocks x threads at the main path's shape
+CRITIC_GRID = (128, 128)  # the same at CRITIC_SHAPE
 # K3's dynamic shared memory there in f32: four warps, each with its 16
 # Q and dO rows and one 16-row K/V tile, rows padded to 20 floats.
 K3_SMEM = 4 * (2 * 16 + 2 * 16) * 20 * 4
@@ -256,17 +268,19 @@ def phase_build(kernels) -> None:
 
 def phase_floor(kernels, attn, seed: int) -> dict:
     """The device time of one empty kernel at the attention kernels'
-    main-path grid (with no dynamic shared memory and with K3's) and at
-    one block, and of K2, K3 and K4 at TRAIN_SHAPE on the model's views:
-    each alone, back to back, and in turn as the backward and a training
-    step launch them. The wrappers' launches are recorded once and
-    replayed, so only the kernels run between the profiled calls."""
+    main-path grid (with no dynamic shared memory and with K3's), at the
+    stacked critics' grid and at one block, and of K2, K3 and K4 at
+    TRAIN_SHAPE and CRITIC_SHAPE on the model's views: each alone, back
+    to back, and in turn as the backward and a training step launch
+    them. The wrappers' launches are recorded once and replayed, so only
+    the kernels run between the profiled calls."""
     fn = kernels.load("empty")
     device = torch.device("cuda", torch.cuda.current_device())
     stream = torch.cuda.current_stream(device).cuda_stream
     row = {"phase": "floor", "kernel": "empty_kernel (csrc/floor.cu)"}
     for label, (grid, block), smem in (("main_grid", MAIN_GRID, 0),
                                        ("main_grid_k3_smem", MAIN_GRID, K3_SMEM),
+                                       ("critic_grid", CRITIC_GRID, 0),
                                        ("one_block", (1, MAIN_GRID[1]), 0)):
         def launch():
             kernels.launch("empty", fn, device, (grid, block, smem, stream), f"{grid}x{block}")
@@ -275,8 +289,17 @@ def phase_floor(kernels, attn, seed: int) -> dict:
                       "ms": device_ms(launch, 200, "empty_kernel"),
                       "event_ms": time_ms(launch, 200)}
 
-    b, h, t, d = TRAIN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    row["attention"] = [_floor_attention(kernels, attn, shape, gen)
+                        for shape in (TRAIN_SHAPE, CRITIC_SHAPE)]
+    emit(row)
+    return row
+
+
+def _floor_attention(kernels, attn, shape, gen) -> dict:
+    """K2, K3 and K4 at ``shape`` on the model's views, replayed alone and
+    in turn (``phase_floor``)."""
+    b, h, t, d = shape
     q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda")
                    .reshape(b, t, h, d).transpose(1, 2) for _ in range(4))
     recorded, launch = [], kernels.launch
@@ -302,8 +325,8 @@ def phase_floor(kernels, attn, seed: int) -> dict:
         return run
 
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    row["attention"] = {
-        "shape": list(TRAIN_SHAPE), "causal": True, "dtype": "torch.float32",
+    part = {
+        "shape": list(shape), "causal": True, "dtype": "torch.float32",
         "layout": "views",
         "alone_ms": {n: device_ms(replay(n), 200, n + "_kernel") for n in names},
         "backward_in_turn_ms": {n: device_ms(replay(*names[1:]), 200, n + "_kernel")
@@ -312,36 +335,96 @@ def phase_floor(kernels, attn, seed: int) -> dict:
                             for n in names},
     }
     del q, k, v, do, out, lse, grads
-    emit(row)
-    return row
+    return part
 
 
-def kernels_per_call(fn, attempts: int = 8) -> int:
-    """Device kernels launched by one ``fn()`` (``torch.profiler``; a
-    trace without device events is taken again)."""
+def kernels_per_call(fn, calls: int = 10, attempts: int = 8) -> int:
+    """Device kernels launched by one ``fn()``: the kernels of ``calls``
+    calls in one ``torch.profiler`` trace over ``calls``, rounded. The
+    profiler on the card now and then drops a whole trace's kernels (the
+    trace is taken again, up to ``attempts`` traces) or a trace's first
+    few (a K3 + K4 call alone came back as one kernel in every trace of
+    a run); one more kernel per call still shows as ``calls`` more."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        calls = sum(n for _, _, n in device_kernels(prof))
-        if calls:
-            return calls
+        total = sum(n for _, _, n in device_kernels(prof))
+        if total:
+            if total % calls:
+                print(f"chip_smoke: {total} device kernels in a trace of {calls} calls",
+                      file=sys.stderr, flush=True)
+            return round(total / calls)
     check(False, f"the profiler traced no device kernel in {attempts} traces")
     return 0
 
 
-def phase_kernel_vs_plain(attn, seed: int) -> dict:
+def critic_views(seed: int):
+    """q, k, v as the training config's stacked sequence critic hands
+    them to its first attention call on a random batch: ``(num_qs·B, H,
+    T, d)`` views of its projections. The attention itself runs plain."""
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.models.sequence import (
+        StackedMultiHeadAttention,
+        plain_attention,
+    )
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    cfg = SACConfig(history_len=TRAIN_SHAPE[2])
+    _, critic = build_models(cfg, (cfg.history_len, 3), 1, 2.0,
+                             generator=torch.Generator().manual_seed(seed))
+    seen = []
+
+    def capture(q, k, v, causal=True):
+        seen.append((q, k, v))
+        return plain_attention(q, k, v, causal)
+
+    for m in critic.modules():
+        if isinstance(m, StackedMultiHeadAttention):
+            m.attention_fn = capture
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    obs = torch.randn((cfg.batch_size, cfg.history_len, 3), generator=gen, device="cuda")
+    act = torch.rand((cfg.batch_size, 1), generator=gen, device="cuda") * 4 - 2
+    with torch.no_grad():
+        critic.cuda()(obs, act)
+    q, k, v = seen[0]
+    check(len(seen) == cfg.seq_num_layers and tuple(q.shape) == CRITIC_SHAPE,
+          f"stacked critic: {len(seen)} attention calls on {tuple(q.shape)}, expected "
+          f"{cfg.seq_num_layers} on {CRITIC_SHAPE}")
+    return q, k, v
+
+
+def _operands(layout, shape, dtype, gen, critic_qkv, n):
+    """``n`` operands of ``shape``: the critic's own q, k, v (then a
+    cotangent in their layout), the model's split views, or contiguous."""
+    b, h, t, d = shape
+    if layout == "critic_views":
+        extra = (torch.randn((b, t, h * d), generator=gen, device="cuda")
+                 .reshape(b, t, h, d).transpose(1, 2) for _ in range(n - 3))
+        return (*critic_qkv, *extra)
+    return tuple(
+        (torch.randn((b, t, h * d), generator=gen, device="cuda")
+         .reshape(b, t, h, d).transpose(1, 2) if layout == "views"
+         else torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+        for _ in range(n)
+    )
+
+
+def phase_kernel_vs_plain(attn, seed: int, critic_qkv) -> dict:
     """Every shape's check and times; returns the serving shape's row on
     the model's split views (the main path's operands)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [
         # (shape, causal, dtype, iters, layout): "views" are the model's
-        # split (B, T, H, d) projections, transposed to (B, H, T, d).
+        # split (B, T, H, d) projections, transposed to (B, H, T, d);
+        # "critic_views" the stacked critic's own (critic_views()).
         (SERVE_SHAPE, True, torch.float32, 200, "views"),
+        (CRITIC_SHAPE, True, torch.float32, 200, "critic_views"),
         (SERVE_SHAPE, True, torch.float32, 200, "contiguous"),
         (BENCH_SHAPE, True, torch.float32, 5, "contiguous"),
         (BENCH_SHAPE, False, torch.float32, 5, "contiguous"),
@@ -352,13 +435,7 @@ def phase_kernel_vs_plain(attn, seed: int) -> dict:
     ]
     rows = []
     for shape, causal, dtype, iters, layout in cases:
-        b, h, t, d = shape
-        q, k, v = (
-            (torch.randn((b, t, h * d), generator=gen, device="cuda")
-             .reshape(b, t, h, d).transpose(1, 2) if layout == "views"
-             else torch.randn(shape, generator=gen, device="cuda")).to(dtype)
-            for _ in range(3)
-        )
+        q, k, v = _operands(layout, shape, dtype, gen, critic_qkv, 3)
         out = attn.flash_attention_forward(q, k, v, causal)
         ref = attn.attention(q, k, v, causal, impl="plain")
         torch.cuda.synchronize()
@@ -383,9 +460,9 @@ def phase_kernel_vs_plain(attn, seed: int) -> dict:
                 q, k, v, is_causal=causal)
 
         per_call = None
-        if layout == "views":
+        if layout != "contiguous":
             per_call = kernels_per_call(kernel)
-            check(per_call == 1, f"flash_fwd on the model's views: {per_call} "
+            check(per_call == 1, f"flash_fwd on the model's {layout}: {per_call} "
                                  "device kernels per call, expected 1")
         row = {
             "phase": "kernel_vs_plain", "kernel": "flash_fwd",
@@ -431,7 +508,7 @@ def bwd_bound(shape, causal: bool, dtype, kernel: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_bwd_vs_plain(attn, seed: int) -> dict:
+def phase_bwd_vs_plain(attn, seed: int, critic_qkv) -> dict:
     """K3 and K4 against their plain versions on the card: error within
     TOL x max(1, max|plain|) (f32 also F32_GUARD x max(1, ...)), K3's
     Δ too, bitwise-equal repeat runs, and times; on the model's views
@@ -440,8 +517,10 @@ def phase_bwd_vs_plain(attn, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     cases = [
         # (shape, causal, dtype, iters, layout): "views" are the model's
-        # split (B, T, H, d) projections and head-merge cotangent.
+        # split (B, T, H, d) projections and head-merge cotangent;
+        # "critic_views" the stacked critic's own q, k, v.
         (TRAIN_SHAPE, True, torch.float32, 200, "views"),
+        (CRITIC_SHAPE, True, torch.float32, 200, "critic_views"),
         (TRAIN_SHAPE, True, torch.float32, 200, "contiguous"),
         (BENCH_SHAPE, True, torch.float32, 5, "contiguous"),
         (BENCH_SHAPE, False, torch.float32, 5, "contiguous"),
@@ -453,13 +532,8 @@ def phase_bwd_vs_plain(attn, seed: int) -> dict:
     ]
     view_rows = {}
     for shape, causal, dtype, iters, layout in cases:
-        b, h, t, d = shape
-        q, k, v, do = (
-            (torch.randn((b, t, h * d), generator=gen, device="cuda")
-             .reshape(b, t, h, d).transpose(1, 2) if layout == "views"
-             else torch.randn(shape, generator=gen, device="cuda")).to(dtype)
-            for _ in range(4)
-        )
+        d = shape[-1]
+        q, k, v, do = _operands(layout, shape, dtype, gen, critic_qkv, 4)
         out, lse = attn.flash_attention_forward(q, k, v, causal, return_lse=True)
 
         def backward():
@@ -493,9 +567,9 @@ def phase_bwd_vs_plain(attn, seed: int) -> dict:
                 err = max(err, e)
             errs[name] = (err, lim)
         per_call = None
-        if layout == "views":
+        if layout != "contiguous":
             per_call = kernels_per_call(backward)
-            check(per_call == 2, f"flash backward on the model's views: {per_call} "
+            check(per_call == 2, f"flash backward on the model's {layout}: {per_call} "
                                  "device kernels per call, expected 2 (K3, K4)")
         qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
         sdpa_out = torch.nn.functional.scaled_dot_product_attention(
@@ -716,6 +790,7 @@ def phase_train(seed: int, kernels) -> dict:
     from torch_actor_critic_tpu_torch.models import build_models
     from torch_actor_critic_tpu_torch.models.sequence import (
         MultiHeadAttention,
+        StackedMultiHeadAttention,
         plain_attention,
     )
     from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
@@ -750,7 +825,9 @@ def phase_train(seed: int, kernels) -> dict:
         check(all(torch.equal(restored[k], live[k].cpu()) for k in live),
               "checkpoint does not restore the trained actor")
 
-        # Launches per update, exactly: forward (3Q+2)L, dQ and dK/dV (Q+1)L.
+        # Launches per update, exactly, whatever Q: forward 5L (actor on the
+        # next states, target critic, critic, actor, frozen critic), dQ and
+        # dK/dV 2L (critic, actor); one call a layer serves all Q critics.
         gen = torch.Generator(device="cuda").manual_seed(seed + 5)
         batch = sample(trainer.buffer, cfg.batch_size, generator=gen)
         kernels.reset_launch_counts()
@@ -759,9 +836,10 @@ def phase_train(seed: int, kernels) -> dict:
             trainer.sac.update(trainer.state, batch)
         torch.cuda.synchronize()
         per_update = {k: v / n_upd for k, v in kernels.launch_counts.items()}
-        want = {"flash_fwd": (3 * q + 2) * layers,
-                "flash_bwd_dq": (q + 1) * layers, "flash_bwd_dkv": (q + 1) * layers}
+        want = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                "flash_bwd_dkv": 2 * layers}
         check(per_update == want, f"launches per update {per_update} != {want}")
+        stacked = _check_stacked_critic(trainer, batch, kernels)
 
         # One update from one state, with the kernels and with plain attention.
         obs_shape = trainer.obs_shape
@@ -771,7 +849,7 @@ def phase_train(seed: int, kernels) -> dict:
             actor, critic = build_models(cfg, obs_shape, act_dim, act_limit)
             if attention_fn is not None:
                 for m in (*actor.modules(), *critic.modules()):
-                    if isinstance(m, MultiHeadAttention):
+                    if isinstance(m, (MultiHeadAttention, StackedMultiHeadAttention)):
                         m.attention_fn = attention_fn
             actor.load_state_dict(trainer.state.actor.state_dict())
             critic.load_state_dict(trainer.state.critic.state_dict())
@@ -857,6 +935,7 @@ def phase_train(seed: int, kernels) -> dict:
             "epoch_grad_steps_per_sec": metrics["grad_steps_per_sec"],
             "epoch_env_steps_per_sec": metrics["env_steps_per_sec"],
             "launches": launches, "launches_per_update": per_update,
+            "stacked_critic": stacked,
             "kernel_vs_plain_update": {
                 "max_param_gap": worst, "max_key_bias_gap": worst_kbias,
                 "max_output_gap": out_gap, "gradients": grad_gaps,
@@ -864,12 +943,68 @@ def phase_train(seed: int, kernels) -> dict:
             },
             "checkpoint_epoch": meta["epoch"],
             "burst_ms": burst_s * 1e3, "burst_grad_steps_per_sec": per / burst_s,
+            "device_kernels_per_update": profiled["device_kernels_per_update"],
+            "device_idle_share": profiled["device_idle_share"],
             "acting_env_steps_per_sec": act_steps_per_s,
             "profiled_burst": profiled,
         })
         return launches
     finally:
         shutil.rmtree(runs, ignore_errors=True)
+
+
+def _check_stacked_critic(trainer, batch, kernels) -> dict:
+    """The trained stacked critic on the card: one forward launches L K2
+    kernels and its backward L K3 and L K4, for all Q members at once;
+    each member's Q equals its slices run alone through a single
+    ``SequenceCritic`` (1e-5·max(1, max|q|)). Reports the device kernels
+    of one forward and of one forward + backward."""
+    from torch_actor_critic_tpu_torch.models.sequence import SequenceCritic
+
+    cfg, critic = trainer.config, trainer.state.critic
+    layers = cfg.seq_num_layers
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        q_all = critic(batch.states, batch.actions)
+    torch.cuda.synchronize()
+    forward = dict(kernels.launch_counts)
+    check(forward == {"flash_fwd": layers},
+          f"stacked critic forward launched {forward}, expected {layers} flash_fwd")
+    kernels.reset_launch_counts()
+    critic(batch.states, batch.actions).sum().backward()
+    torch.cuda.synchronize()
+    critic.zero_grad(set_to_none=True)
+    with_grad = dict(kernels.launch_counts)
+    want = {"flash_fwd": layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    check(with_grad == want, f"stacked critic forward + backward launched {with_grad}, "
+                             f"expected {want}")
+    obs_dim, act_dim = batch.states.shape[-1], batch.actions.shape[-1]
+    gap, lim = 0.0, 1e-5 * max(1.0, q_all.abs().max().item())
+    for i in range(critic.num_qs):
+        alone = SequenceCritic(
+            obs_dim, act_dim, cfg.seq_d_model, cfg.seq_num_heads, layers,
+            cfg.history_len, hidden=critic.fc.weight.shape[1], dtype=cfg.model_dtype,
+        )
+        alone.load_state_dict({k: v[i] for k, v in critic.state_dict().items()})
+        with torch.no_grad():
+            q_i = alone.cuda()(batch.states, batch.actions)
+        gap = max(gap, (q_all[i] - q_i).abs().max().item())
+    check(gap <= lim, f"stacked critic vs its members alone: gap {gap} > {lim}")
+
+    def forward_only():
+        with torch.no_grad():
+            critic(batch.states, batch.actions)
+
+    def forward_backward():
+        critic(batch.states, batch.actions).sum().backward()
+
+    device_kernels = {"forward": kernels_per_call(forward_only),
+                      "forward_backward": kernels_per_call(forward_backward)}
+    critic.zero_grad(set_to_none=True)
+    return {"num_qs": critic.num_qs, "forward_launches": forward,
+            "forward_backward_launches": with_grad,
+            "device_kernels": device_kernels,
+            "member_alone_max_gap": gap, "member_alone_limit": lim}
 
 
 # ------------------------------------------------------------------ visual
@@ -1301,8 +1436,10 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build(_kernels)
     phase_floor(_kernels, attn, args.seed)
-    serve_row = phase_kernel_vs_plain(attn, args.seed)
-    bwd_rows = phase_bwd_vs_plain(attn, args.seed)
+    critic_qkv = critic_views(args.seed)
+    serve_row = phase_kernel_vs_plain(attn, args.seed, critic_qkv)
+    bwd_rows = phase_bwd_vs_plain(attn, args.seed, critic_qkv)
+    del critic_qkv
     pixel_row = phase_pixel_vs_plain(pixels, args.seed)["train_pair"]
     serve_launches = phase_serve(args.seed, _kernels)
     check(serve_launches > 0, "the serving path launched no flash_fwd kernel")

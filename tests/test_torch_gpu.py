@@ -92,19 +92,23 @@ def test_flash_kernel_takes_strided_views(cuda, dtype, width, offset, in_place):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
-def _device_kernels(fn, attempts=8):
-    """``(name, calls)`` of the device kernels one ``fn()`` launched,
-    from a ``torch.profiler`` trace (retaken when a trace comes back
-    without device events)."""
+def _device_kernels(fn, calls=10, attempts=8):
+    """``(name, calls)`` of the device kernels one ``fn()`` launched:
+    each kernel's count in one ``torch.profiler`` trace of ``calls``
+    calls over ``calls``, rounded (a trace can lose its first few
+    kernels, or all of them: an empty trace is retaken, up to
+    ``attempts`` in all)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        rows = [(e.key, e.count) for e in prof.key_averages()
+        rows = [(e.key, round(e.count / calls)) for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+        rows = [(key, n) for key, n in rows if n]
         if rows:
             return rows
     return []
@@ -323,11 +327,73 @@ def test_attention_grad_runs_the_kernels_on_strided_cotangents(cuda):
         assert (g - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
 
 
+def _with_attention(attention_fn, *modules):
+    """Point every (stacked) MultiHeadAttention of ``modules`` at
+    ``attention_fn``."""
+    from torch_actor_critic_tpu_torch.models.sequence import (
+        MultiHeadAttention,
+        StackedMultiHeadAttention,
+    )
+
+    for module in modules:
+        for m in module.modules():
+            if isinstance(m, (MultiHeadAttention, StackedMultiHeadAttention)):
+                m.attention_fn = attention_fn
+    return modules
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_qs", [2, 3])
+def test_stacked_sequence_critic_kernels_match_plain_attention(cuda, num_qs):
+    """The full-width stacked critic runs one K2 a layer for all its
+    members, and one K3 and one K4 a layer in the backward; its Q and
+    its gradients (parameters, shared history, shared action) match the
+    same critic through plain attention to 1e-4·max(1, max|plain|)."""
+    from torch_actor_critic_tpu_torch.models import build_models
+
+    cfg = SACConfig(history_len=16, num_qs=num_qs)
+    layers = cfg.seq_num_layers
+
+    def critic(attention_fn=None):
+        _, c = build_models(cfg, (16, 3), 1, 2.0, generator=torch.Generator().manual_seed(0))
+        if attention_fn is not None:
+            _with_attention(attention_fn, c)
+        return c.to(cuda)
+
+    rng = np.random.default_rng(num_qs)
+    obs = torch.from_numpy(rng.standard_normal((64, 16, 3)).astype(np.float32)).to(cuda)
+    act = torch.from_numpy(rng.uniform(-2, 2, (64, 1)).astype(np.float32)).to(cuda)
+    coef = torch.from_numpy(rng.standard_normal((num_qs, 64)).astype(np.float32)).to(cuda)
+    with_kernels, with_plain = critic(), critic(plain_attention)
+    before = dict(_kernels.launch_counts)
+    with torch.no_grad():
+        with_kernels(obs, act)
+    assert _kernels.launch_counts["flash_fwd"] == before.get("flash_fwd", 0) + layers
+
+    def grads(c):
+        o, a = obs.clone().requires_grad_(), act.clone().requires_grad_()
+        q = c(o, a)
+        loss = (q * coef).sum() + q.amin(0).sum()
+        return q.detach(), torch.autograd.grad(loss, [*c.parameters(), o, a])
+
+    before = dict(_kernels.launch_counts)
+    qk, gk = grads(with_kernels)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _kernels.launch_counts[name] == before.get(name, 0) + layers, name
+    before = dict(_kernels.launch_counts)
+    qp, gp = grads(with_plain)
+    assert dict(_kernels.launch_counts) == before
+    assert qk.shape == (num_qs, 64)
+    assert (qk - qp).abs().max().item() <= 1e-4 * max(1.0, qp.abs().max().item())
+    names = [n for n, _ in with_kernels.named_parameters()] + ["obs", "action"]
+    for name, g, w in zip(names, gk, gp):
+        assert (g - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item()), name
+
+
 @pytest.mark.gpu
 def test_full_width_update_with_kernels_matches_plain_attention(cuda):
     from torch_actor_critic_tpu_torch.core.types import Batch
     from torch_actor_critic_tpu_torch.models import build_models
-    from torch_actor_critic_tpu_torch.models.sequence import MultiHeadAttention
     from torch_actor_critic_tpu_torch.sac.algorithm import SAC
 
     cfg = SACConfig(history_len=16)
@@ -337,9 +403,7 @@ def test_full_width_update_with_kernels_matches_plain_attention(cuda):
         actor, critic = build_models(cfg, (16, 3), 1, 2.0,
                                      generator=torch.Generator().manual_seed(0))
         if attention_fn is not None:
-            for m in (*actor.modules(), *critic.modules()):
-                if isinstance(m, MultiHeadAttention):
-                    m.attention_fn = attention_fn
+            _with_attention(attention_fn, actor, critic)
         return sac.init_state(actor.to(cuda), critic.to(cuda),
                               torch.Generator(device=cuda).manual_seed(1))
 
@@ -356,8 +420,10 @@ def test_full_width_update_with_kernels_matches_plain_attention(cuda):
     with_kernels, with_plain = state(None), state(plain_attention)
     before = dict(_kernels.launch_counts)
     sac.update(with_kernels, b, eps_q=eps[0], eps_pi=eps[1])
-    assert _kernels.launch_counts["flash_bwd_dq"] == before.get("flash_bwd_dq", 0) + 6
-    assert _kernels.launch_counts["flash_fwd"] == before.get("flash_fwd", 0) + 16
+    # One call a layer serves both critics: forward 5L, each backward 2L.
+    layers = cfg.seq_num_layers
+    assert _kernels.launch_counts["flash_bwd_dq"] == before.get("flash_bwd_dq", 0) + 2 * layers
+    assert _kernels.launch_counts["flash_fwd"] == before.get("flash_fwd", 0) + 5 * layers
     sac.update(with_plain, b, eps_q=eps[0], eps_pi=eps[1])
     for part in ("actor", "critic", "target_critic"):
         theirs = dict(getattr(with_plain, part).named_parameters())

@@ -206,7 +206,7 @@ def test_build_models_dispatch_and_actor_from_jax():
     seq, seq_critic = build_models(cfg, (T, OBS_DIM), ACT_DIM, ACT_LIMIT)
     assert isinstance(seq, SequenceActor) and seq.trunk.max_len == T
     assert len(seq.trunk.blocks) == 1 and seq.act_limit == ACT_LIMIT
-    assert isinstance(seq_critic, SequenceDoubleCritic) and len(seq_critic.ensemble) == 2
+    assert isinstance(seq_critic, SequenceDoubleCritic) and seq_critic.fc.weight.shape[0] == 2
     flat, flat_critic = build_models(SACConfig(hidden_sizes=(16,)), (OBS_DIM,), ACT_DIM, 1.0)
     assert isinstance(flat, Actor) and isinstance(flat_critic, DoubleCritic)
     assert isinstance(build_actor(cfg, (T, OBS_DIM), ACT_DIM, ACT_LIMIT), SequenceActor)

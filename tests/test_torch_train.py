@@ -138,10 +138,9 @@ def test_model_init_is_seeded_by_an_explicit_generator():
     other = build_models(cfg, (8, 3), 1, 2.0, generator=torch.Generator().manual_seed(5))
     assert not torch.equal(other[0].trunk.pos_embedding, builds[0][0].trunk.pos_embedding)
     critic = builds[0][1]
-    q0 = critic.ensemble[0].trunk.blocks[0].attn.q.weight
-    q1 = critic.ensemble[1].trunk.blocks[0].attn.q.weight
+    q0, q1 = critic.trunk.blocks[0].attn.q.weight  # the stacked members' slices
     assert not torch.equal(q0, q1)  # each draw advances the one generator
-    assert len(flat[1].ensemble) == 2
+    assert flat[1].trunk.layers[0].weight.shape[0] == 2
 
 
 def test_build_models_refuses_unported_families():

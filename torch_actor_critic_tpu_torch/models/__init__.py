@@ -91,8 +91,11 @@ def build_models(
     C))`` gives :class:`VisualActor` + :class:`VisualDoubleCritic`, a
     flat ``(obs_dim,)`` obs :class:`Actor` + :class:`DoubleCritic`, a
     ``(T, obs_dim)`` history :class:`SequenceActor` +
-    :class:`SequenceDoubleCritic` with ``max_len = T``. Both draw their
-    init from ``generator`` (None: seeded 0), actor first.
+    :class:`SequenceDoubleCritic` with ``max_len = T``; the flat and
+    sequence critics stack their ``config.num_qs`` members' parameters
+    on a leading axis (any ``num_qs >= 1``), the visual one keeps them
+    unrolled. Both draw their init from ``generator`` (None: seeded 0),
+    actor first, then the critics one after another.
     ``frame_augment``/``pixel_pipeline`` on a non-visual observation
     raise ``ValueError``; TD3, multi-agent and task-embedding models
     ``NotImplementedError``.

@@ -1,11 +1,12 @@
 """Q-critics (port of ``models/critic.py``).
 
 ``Critic`` is a ReLU MLP over ``concat([obs, action])`` with a linear
-scalar output, cast to f32. ``DoubleCritic`` holds ``num_qs``
-independent critics in an ``nn.ModuleList`` and returns
-``(num_qs, batch)``; the JAX package vmaps one parameter-stacked critic
-instead (``weights.load_jax_critic_params`` slices its ``ensemble``
-axis).
+scalar output, cast to f32. ``DoubleCritic`` is ``num_qs`` of them with
+their parameters stacked on a leading axis, as the JAX package's
+``nn.vmap`` over ``Critic`` holds them: each layer is one batched
+product for the whole ensemble, and the output is ``(num_qs, batch)``.
+Member ``i`` is drawn as the ``i``-th of ``num_qs`` ``Critic`` s built
+one after another from the generator.
 """
 
 from __future__ import annotations
@@ -15,7 +16,12 @@ import typing as t
 import torch
 from torch import nn
 
-from torch_actor_critic_tpu_torch.models.mlp import MLP, init_generator
+from torch_actor_critic_tpu_torch.models.mlp import (
+    MLP,
+    StackedMLP,
+    init_generator,
+    stack_members_,
+)
 
 
 class Critic(nn.Module):
@@ -41,7 +47,8 @@ class Critic(nn.Module):
 
 
 class DoubleCritic(nn.Module):
-    """Ensemble of ``num_qs`` independent critics; ``(num_qs, ...)``."""
+    """Ensemble of ``num_qs`` critics, parameters stacked on a leading
+    axis; ``Q(s, a) -> (num_qs, ...)`` in f32."""
 
     def __init__(
         self,
@@ -54,9 +61,16 @@ class DoubleCritic(nn.Module):
     ):
         super().__init__()
         gen = init_generator(generator)
-        self.ensemble = nn.ModuleList(
-            Critic(obs_dim, act_dim, hidden_sizes, dtype, gen) for _ in range(num_qs)
+        self.num_qs = num_qs
+        self.trunk = StackedMLP(
+            num_qs, obs_dim + act_dim, tuple(hidden_sizes) + (1,),
+            activate_final=False, dtype=dtype,
         )
+        stack_members_(self, [
+            Critic(obs_dim, act_dim, hidden_sizes, dtype, gen) for _ in range(num_qs)
+        ])
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        return torch.stack([c(obs, action) for c in self.ensemble])
+        x = torch.cat([obs, action], dim=-1)
+        q = self.trunk(x.reshape(-1, x.shape[-1])).float()  # (num_qs, N, 1)
+        return q.reshape(self.num_qs, *x.shape[:-1])

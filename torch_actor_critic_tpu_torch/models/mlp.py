@@ -10,6 +10,13 @@ param_dtype=float32)`` does.
 Every module of the port takes ``generator=``; ``None`` means a fresh
 generator seeded 0 (:func:`init_generator`), so a build is reproducible
 and leaves the global RNG untouched.
+
+``StackedDense`` and ``StackedMLP`` are ``num_qs`` of them with one
+leading parameter axis, as the JAX package's ``nn.vmap`` over a critic
+stacks them (``variable_axes={"params": 0}``). They draw nothing
+themselves: an ensemble builds its members one after another from its
+generator and copies them in with :func:`stack_members_`, so a seeded
+ensemble holds exactly the members a list of single modules would.
 """
 
 from __future__ import annotations
@@ -84,3 +91,77 @@ class MLP(nn.Module):
             if self.activate_final or i < n - 1:
                 x = F.relu(x)
         return x
+
+
+class StackedDense(nn.Module):
+    """``num_qs`` :class:`Dense` layers in one: ``weight (Q, out, in)``,
+    ``bias (Q, out)``, float32, the products in ``dtype``.
+
+    ``forward`` takes a stacked ``(Q, ..., in)`` input (member ``i``'s
+    rows through member ``i``'s weights, one batched product) or one
+    shared ``(N, in)`` input that every member reads (``in_axes=None``
+    under ``vmap``: one product against all members' weights at once);
+    either returns ``(Q, ..., out)``. Uninitialised until
+    :func:`stack_members_` fills it.
+    """
+
+    def __init__(
+        self, num_qs: int, in_features: int, out_features: int,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_qs, out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(num_qs, out_features))
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        q, n_out, n_in = w.shape
+        if x.dim() == 2:  # shared: (N, in) @ (in, Q*out), viewed as (Q, N, out)
+            y = F.linear(x.to(dt), w.reshape(q * n_out, n_in), b.reshape(q * n_out))
+            return y.unflatten(-1, (q, n_out)).transpose(0, 1)
+        if x.shape[0] != q:
+            raise ValueError(f"stacked input {tuple(x.shape)} has no leading axis of {q}")
+        y = torch.baddbmm(b.unsqueeze(1), x.to(dt).reshape(q, -1, n_in), w.transpose(1, 2))
+        return y.reshape(*x.shape[:-1], n_out)
+
+
+class StackedMLP(nn.Module):
+    """:class:`MLP` over ``num_qs`` members: ``layers`` are
+    :class:`StackedDense`; the first takes a shared ``(N, in)`` input or
+    a stacked one, the output is ``(Q, N, out)``."""
+
+    def __init__(
+        self,
+        num_qs: int,
+        in_features: int,
+        hidden_sizes: t.Sequence[int],
+        activate_final: bool = True,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        widths = [in_features, *hidden_sizes]
+        self.layers = nn.ModuleList(
+            StackedDense(num_qs, a, b, dtype=dtype)
+            for a, b in zip(widths[:-1], widths[1:])
+        )
+        self.activate_final = activate_final
+
+    forward = MLP.forward
+
+
+def stack_members_(stacked: nn.Module, members: t.Sequence[nn.Module]) -> None:
+    """Copy each member's parameters into slice ``i`` of ``stacked``'s
+    parameter of the same name. Every name must match both ways."""
+    named = [dict(m.named_parameters()) for m in members]
+    params = dict(stacked.named_parameters())
+    for i, member in enumerate(named):
+        if member.keys() != params.keys():
+            raise ValueError(
+                f"member {i} has parameters {sorted(member.keys() ^ params.keys())} "
+                "that the stacked module does not, or the reverse"
+            )
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(torch.stack([member[name] for member in named]))

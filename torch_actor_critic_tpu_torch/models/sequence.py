@@ -2,16 +2,25 @@
 
 Port of ``models/sequence.py`` (single device): ``MultiHeadAttention``,
 ``TransformerBlock``, ``SequenceTrunk``, ``SequenceActor``,
-``SequenceCritic`` and ``SequenceDoubleCritic``. The attention runs
+``SequenceCritic`` and ``SequenceDoubleCritic``, and the stacked
+building blocks of the last (``StackedLayerNorm``,
+``StackedMultiHeadAttention``, ``StackedTransformerBlock``,
+``StackedSequenceTrunk``). The attention runs
 through :func:`~torch_actor_critic_tpu_torch.ops.attention.attention` —
 the hand-written CUDA kernels on the card (forward, and under grad the
 two backward kernels), their plain versions on the CPU. The ``sp_axis``
 ring path waits for a later slice.
 
-The critic ensemble is an ``nn.ModuleList`` of ``num_qs`` critics, one
-attention launch per critic and layer (the JAX package vmaps one
-parameter-stacked critic; ``torch.func.vmap`` cannot batch through a
-ctypes kernel launch).
+The critic ensemble holds its ``num_qs`` critics' parameters stacked on
+a leading axis, as the JAX package's ``nn.vmap`` over ``SequenceCritic``
+does, and its activations as ``(num_qs, B, T, d_model)``. Each layer's
+products are one batched product for the whole ensemble, and its
+attention is one call with ``num_qs`` folded into the batch axis:
+``(num_qs·B, H, T, d)`` views of the projections, the same strides the
+kernels read in place for one critic. The kernels treat every (batch,
+head) row on its own, so each member gets what it would get alone.
+Member ``i`` is drawn as the ``i``-th of ``num_qs`` ``SequenceCritic`` s
+built one after another from the generator.
 
 Flax divergences this module reproduces on purpose:
 - ``nn.LayerNorm`` uses eps = 1e-6 (torch's default is 1e-5), computes
@@ -30,7 +39,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_actor_critic_tpu_torch.models.mlp import Dense, init_generator
+from torch_actor_critic_tpu_torch.models.mlp import (
+    Dense,
+    StackedDense,
+    init_generator,
+    stack_members_,
+)
 from torch_actor_critic_tpu_torch.ops.attention import attention as sdpa
 from torch_actor_critic_tpu_torch.ops.distributions import (
     squashed_gaussian_sample,
@@ -257,9 +271,115 @@ class SequenceCritic(nn.Module):
         return q.squeeze(0) if unbatched else q
 
 
+class StackedLayerNorm(nn.Module):
+    """``num_qs`` Flax LayerNorms (eps 1e-6, f32 statistics and output)
+    over a ``(Q, ..., d)`` input; ``weight``/``bias`` are ``(Q, d)``."""
+
+    def __init__(self, num_qs: int, d: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_qs, d))
+        self.bias = nn.Parameter(torch.zeros(num_qs, d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        y = F.layer_norm(x.float(), x.shape[-1:], eps=FLAX_LN_EPS)
+        return torch.addcmul(self.bias.view(shape), y, self.weight.view(shape))
+
+
+class StackedMultiHeadAttention(nn.Module):
+    """:class:`MultiHeadAttention` over ``num_qs`` members: ``(Q, B, T,
+    D)`` in and out, projections :class:`StackedDense`, and ONE
+    ``attention_fn`` call on ``(Q·B, H, T, d)``."""
+
+    def __init__(
+        self, num_qs: int, d_model: int, num_heads: int,
+        attention_fn: AttentionFn = default_attention,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} % num_heads {num_heads} != 0")
+        self.num_heads = num_heads
+        self.attention_fn = attention_fn
+        self.q, self.k, self.v, self.o = (
+            StackedDense(num_qs, d_model, d_model, dtype=dtype) for _ in range(4)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q, b, s, d_model = x.shape
+        hd = d_model // self.num_heads
+
+        def split(y):  # (Q, B, T, D) -> (Q·B, H, T, d), a view
+            return y.reshape(q * b, s, self.num_heads, hd).transpose(1, 2)
+
+        out = self.attention_fn(
+            split(self.q(x)), split(self.k(x)), split(self.v(x)), causal=True
+        )
+        return self.o(out.transpose(1, 2).reshape(q, b, s, d_model))
+
+
+class StackedTransformerBlock(nn.Module):
+    """:class:`TransformerBlock` over ``num_qs`` members."""
+
+    def __init__(
+        self, num_qs: int, d_model: int, num_heads: int, mlp_ratio: int = 4,
+        attention_fn: AttentionFn = default_attention,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.ln1 = StackedLayerNorm(num_qs, d_model)
+        self.attn = StackedMultiHeadAttention(num_qs, d_model, num_heads, attention_fn, dtype)
+        self.ln2 = StackedLayerNorm(num_qs, d_model)
+        self.fc1 = StackedDense(num_qs, d_model, mlp_ratio * d_model, dtype=dtype)
+        self.fc2 = StackedDense(num_qs, mlp_ratio * d_model, d_model, dtype=dtype)
+
+    forward = TransformerBlock.forward
+
+
+class StackedSequenceTrunk(nn.Module):
+    """:class:`SequenceTrunk` over ``num_qs`` members: a shared ``(B, T,
+    obs_dim)`` history in, ``(Q, B, T, d_model)`` out;
+    ``pos_embedding`` is ``(Q, max_len, d_model)``."""
+
+    def __init__(
+        self, num_qs: int, obs_dim: int, d_model: int = 128, num_heads: int = 4,
+        num_layers: int = 2, max_len: int = 512,
+        attention_fn: AttentionFn = default_attention,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.max_len = max_len
+        self.dtype = dtype
+        self.embed = StackedDense(num_qs, obs_dim, d_model, dtype=dtype)
+        self.pos_embedding = nn.Parameter(torch.empty(num_qs, max_len, d_model))
+        self.blocks = nn.ModuleList(
+            StackedTransformerBlock(
+                num_qs, d_model, num_heads, attention_fn=attention_fn, dtype=dtype,
+            )
+            for _ in range(num_layers)
+        )
+        self.ln_f = StackedLayerNorm(num_qs, d_model)
+
+    def forward(self, obs_seq: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+        b, s, obs_dim = obs_seq.shape
+        if pos_offset + s > self.max_len:
+            raise ValueError(
+                f"history length {s} (offset {pos_offset}) exceeds "
+                f"max_len={self.max_len}"
+            )
+        x = self.embed(obs_seq.reshape(b * s, obs_dim)).unflatten(1, (b, s))
+        pos = self.pos_embedding[:, None, pos_offset:pos_offset + s]
+        # Added in f32, then cast, as SequenceTrunk does.
+        x = (x + pos).to(self.dtype)
+        for block in self.blocks:
+            x = block(x)
+        return self.ln_f(x)
+
+
 class SequenceDoubleCritic(nn.Module):
-    """``num_qs`` independent :class:`SequenceCritic` s; returns
-    ``(num_qs, B)``."""
+    """``num_qs`` :class:`SequenceCritic` s, parameters stacked on a
+    leading axis; returns ``(num_qs, B)`` (``(num_qs,)`` for one
+    unbatched history). History and action are shared by every member."""
 
     def __init__(
         self, obs_dim: int, act_dim: int, d_model: int = 128,
@@ -271,13 +391,27 @@ class SequenceDoubleCritic(nn.Module):
     ):
         super().__init__()
         gen = init_generator(generator)
-        self.ensemble = nn.ModuleList(
+        self.num_qs = num_qs
+        self.trunk = StackedSequenceTrunk(
+            num_qs, obs_dim, d_model, num_heads, num_layers, max_len, attention_fn,
+            dtype=dtype,
+        )
+        self.fc = StackedDense(num_qs, d_model + act_dim, hidden, dtype=dtype)
+        self.out = StackedDense(num_qs, hidden, 1, dtype=dtype)
+        stack_members_(self, [
             SequenceCritic(
                 obs_dim, act_dim, d_model, num_heads, num_layers, max_len,
                 hidden, attention_fn, dtype, gen,
             )
             for _ in range(num_qs)
-        )
+        ])
 
     def forward(self, obs_seq: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        return torch.stack([c(obs_seq, action) for c in self.ensemble])
+        unbatched, obs_seq = _auto_batch(obs_seq)
+        if unbatched:
+            action = action[None]
+        h = self.trunk(obs_seq)[:, :, -1]  # (Q, B, d_model)
+        a = action.to(h.dtype).expand(self.num_qs, *action.shape)
+        x = torch.cat([h, a], dim=-1)
+        q = self.out(F.relu(self.fc(x))).float().squeeze(-1)
+        return q.squeeze(1) if unbatched else q

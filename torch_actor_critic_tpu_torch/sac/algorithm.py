@@ -46,8 +46,14 @@ ADAM_EPS = 1e-8  # optax.adam's and torch's default
 
 
 def _set_grads(params: t.Sequence[torch.Tensor], grads: t.Sequence[torch.Tensor]) -> None:
+    """Store each gradient with its parameter's strides, as ``.backward()``
+    would. A stacked critic weight's gradient comes out of the batched
+    product transposed (or, for a width-1 output, with another stride on
+    that axis), and one gradient whose strides differ from its
+    parameter's sends Adam's multi-tensor passes over the whole list down
+    their per-tensor path on the card."""
     for p, g in zip(params, grads):
-        p.grad = g
+        p.grad = g if g.stride() == p.stride() else torch.empty_like(p).copy_(g)
 
 
 class SAC:

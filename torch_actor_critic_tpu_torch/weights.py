@@ -6,11 +6,12 @@ are numpy arrays (the caller converts, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``); this module never
 imports JAX. Flax ``Dense`` kernels are ``(in, out)`` under an inner
 name ``col``/``row``/``Dense_0``; ``nn.Linear.weight`` is ``(out, in)``,
-so kernels are transposed. LayerNorm ``scale`` is ``weight``. A vmapped
-Flax critic ensemble carries a leading ``num_qs`` axis under
-``ensemble``; critic ``i`` of the port gets slice ``i``. The visual
-critic ensemble is unrolled in Flax (``ensemble_{i}`` subtrees), so
-nothing is sliced there. Conv kernels ``(kh, kw, in, out)`` become
+so kernels are transposed (on their last two axes). LayerNorm ``scale``
+is ``weight``. A vmapped Flax critic ensemble carries a leading
+``num_qs`` axis on every leaf under ``ensemble``, and so do the port's
+stacked ``DoubleCritic``/``SequenceDoubleCritic``: each leaf loads as it
+is. The visual critic ensemble is unrolled in both (``ensemble_{i}``
+subtrees, ``ensemble.{i}`` members). Conv kernels ``(kh, kw, in, out)`` become
 ``nn.Conv2d`` weights ``(out, in, kh, kw)``. optax's Adam
 state (``mu``/``nu``/``count``) maps through the same names onto
 ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``.
@@ -27,15 +28,13 @@ from torch import nn
 from torch_actor_critic_tpu_torch.core.types import TrainState
 from torch_actor_critic_tpu_torch.models import build_actor
 from torch_actor_critic_tpu_torch.models.actor import Actor
-from torch_actor_critic_tpu_torch.models.critic import Critic, DoubleCritic
+from torch_actor_critic_tpu_torch.models.critic import DoubleCritic
 from torch_actor_critic_tpu_torch.models.sequence import (
     SequenceActor,
-    SequenceCritic,
     SequenceDoubleCritic,
 )
 from torch_actor_critic_tpu_torch.models.visual import (
     VisualActor,
-    VisualCritic,
     VisualDoubleCritic,
 )
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
@@ -46,7 +45,7 @@ def _dense(tree: t.Mapping) -> t.Dict[str, np.ndarray]:
     ``nn.Dense`` named by its tensor-parallel role)."""
     (inner,) = tree.values()
     return {
-        "weight": np.asarray(inner["kernel"]).T,
+        "weight": np.swapaxes(np.asarray(inner["kernel"]), -1, -2),
         "bias": np.asarray(inner["bias"]),
     }
 
@@ -116,37 +115,26 @@ def _sequence_actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
     return out
 
 
-def _slice(tree: t.Mapping, i: int) -> dict:
-    """Member ``i`` of a vmapped ensemble's param tree."""
-    return {
-        k: _slice(v, i) if isinstance(v, t.Mapping) else np.asarray(v)[i]
-        for k, v in tree.items()
-    }
-
-
 def _critic_state(module: nn.Module, p: t.Mapping) -> t.Dict[str, np.ndarray]:
     """Names of the port's ensemble critic -> arrays of the Flax tree
-    ``p`` (its ``ensemble`` subtree carries the num_qs axis; a visual
-    ensemble is unrolled into ``ensemble_{i}`` subtrees)."""
-    out: t.Dict[str, np.ndarray] = {}
-    for i, member in enumerate(module.ensemble):
-        pre = f"ensemble.{i}"
-        if isinstance(member, VisualCritic):
-            one = p[f"ensemble_{i}"]
+    ``p``: its ``ensemble`` subtree already carries the stacked
+    critics' num_qs axis; a visual ensemble is unrolled into
+    ``ensemble_{i}`` subtrees."""
+    if isinstance(module, VisualDoubleCritic):
+        out: t.Dict[str, np.ndarray] = {}
+        for i in range(len(module.ensemble)):
+            pre, one = f"ensemble.{i}", p[f"ensemble_{i}"]
             out.update(_mlp_state(f"{pre}.trunk", one["MLP_0"]))
             out.update(_cnn_state(f"{pre}.visual_network", one["visual_network"]))
             out.update(_flat(f"{pre}.final", _dense(one["final"])))
-            continue
-        one = _slice(p["ensemble"], i)
-        if isinstance(member, SequenceCritic):
-            out.update(_trunk_state(f"{pre}.trunk", one["SequenceTrunk_0"]))
-            out.update(_flat(f"{pre}.fc", _dense(one["Dense_0"])))
-            out.update(_flat(f"{pre}.out", _dense(one["Dense_1"])))
-        elif isinstance(member, Critic):
-            out.update(_mlp_state(f"{pre}.trunk", one["MLP_0"]))
-        else:
-            raise TypeError(f"no Flax param mapping for {type(member).__name__}")
-    return out
+        return out
+    stacked = p["ensemble"]
+    if isinstance(module, SequenceDoubleCritic):
+        out = _trunk_state("trunk", stacked["SequenceTrunk_0"])
+        out.update(_flat("fc", _dense(stacked["Dense_0"])))
+        out.update(_flat("out", _dense(stacked["Dense_1"])))
+        return out
+    return _mlp_state("trunk", stacked["MLP_0"])
 
 
 def _named_arrays(module: nn.Module, params_tree: t.Mapping) -> t.Dict[str, np.ndarray]:
@@ -186,8 +174,8 @@ def load_jax_actor_params(module: nn.Module, params_tree: t.Mapping) -> nn.Modul
 
 def load_jax_critic_params(module: nn.Module, params_tree: t.Mapping) -> nn.Module:
     """Copy a Flax ``DoubleCritic``/``SequenceDoubleCritic`` param dict
-    into the port's ensemble in place, critic ``i`` from slice ``i`` of
-    the ``ensemble`` axis (a ``VisualDoubleCritic``'s from
+    into the port's stacked ensemble in place, the ``ensemble`` subtree's
+    num_qs axis as it is (a ``VisualDoubleCritic``'s member ``i`` from
     ``ensemble_{i}``) (strict)."""
     if not isinstance(module, (DoubleCritic, SequenceDoubleCritic, VisualDoubleCritic)):
         raise TypeError(f"no Flax critic mapping for {type(module).__name__}")
