@@ -54,8 +54,13 @@ or of the JAX package. Phases, one JSON line each:
    ``PendulumNumpy-v1|history:16`` (the port's numpy twin of
    Pendulum-v1; the card's machine has no gymnasium) for 1000 steps, the
    first 500 random: 500 gradient steps (cut from 1000 to keep the whole
-   smoke near 5 minutes). Checks: finite losses, every kernel launched, the checkpoint restores, launches per
-   update exactly 5L forward and 2L each backward kernel, whatever Q
+   smoke near 5 minutes). The run is traced (``torch.profiler``): its
+   bursts are CUDA graph replays, which launch the kernels without
+   calling their wrappers, so its launches are read from the device
+   trace by kernel symbol. Checks: finite losses, every kernel launched
+   by its wrapper and run on the device, the device's launches equal to
+   the wrappers' plus those of the replays, the checkpoint restores,
+   launches per update exactly 5L forward and 2L each backward kernel, whatever Q
    (one call a layer serves the whole critic ensemble), one critic
    forward exactly L K2 launches and its backward L K3 and L K4, each
    member of the stacked critic equal to its slices run alone through a
@@ -63,10 +68,24 @@ or of the JAX package. Phases, one JSON line each:
    from one state, the critic's and actor's parameter gradients with the
    kernels against those with plain attention (1e-4·max(1, max|g|)) and
    then one update with each (params 1e-4; attention key biases, whose
-   gradient is zero in exact arithmetic, 2·lr; outputs 1e-4). Reports
-   gradient and env steps per second, one profiled burst (device busy
-   vs idle, kernels per update, the top ones) and the device kernels of
-   one stacked critic forward and of one forward + backward;
+   gradient is zero in exact arithmetic, 2·lr; outputs 1e-4). Training's
+   bursts run as CUDA graph replays (``SAC.update_burst``): from clones
+   of one state and ring, two captured bursts must equal two eager ones
+   (``eager=True``) to the bit (parameters, Adam moments and steps,
+   log α, generator, metrics), and the graph captured at training's
+   first burst must serve every later one; one Adam step, capturable
+   (the card's) against plain (the CPU's, held to optax by the tier-1
+   tests), within those tests' limits (atol 1e-5, rtol 1e-4). Reports,
+   for each burst mode in turn, gradient steps per second, one profiled
+   burst (exact launches per update from its device trace, device busy
+   vs idle, kernels per update, the top ones; idle also against the
+   unprofiled bursts' time); acting steps per second; the device
+   kernels of one stacked critic forward and of one forward + backward;
+   and those of one Adam step of the actor and of the critic, plain and
+   capturable;
+   graph_push — a replay after a push samples the grown ring (a flat
+   learner at SACConfig's widths, every transition terminal, rewards
+   marking the rows pushed after the capture);
 6. kernel_vs_plain for K1 (``pixel_gather``, run before serving) — the
    fused replay-gather → DrQ shift → decode kernel against its plain
    version, **bitwise** (``torch.equal``), at the pixel recipe's training
@@ -87,19 +106,29 @@ or of the JAX package. Phases, one JSON line each:
    exactly 1 K1 launch per update (both frame leaves), the checkpoint
    restores, and from one state the gradients (1e-4·max(1, max|g|)) and
    one update (params and outputs 1e-4, log α 1e-6) with K1's frames
-   against the plain gather's; reports steps per second and one
-   profiled burst;
+   against the plain gather's; the captured against the eager burst as
+   for the sequence policy, both on cuDNN's deterministic algorithms (its
+   default convolution backward may sum in another order run to run: the
+   row also gives two default eager runs against each other, and holds
+   one replayed update on the default algorithms against one eager update
+   to the one-update limits above); the traced run and the Adam step as
+   for the sequence policy; reports both burst modes as above;
 8. visual_burst — SACConfig's default visual widths (Atari trunk, Dense
    512, cnn_features 1) on the wall-runner geometry (168 features, 64x64x3
    frame, act_dim 56) with synthetic transitions, as ``bench.py``'s
    ``bench_visual`` (the card's machine has no dm_control): 25-update
-   fused bursts at B 32 f32 and B 512 bf16; finite losses, 1 K1 launch
-   per update, gradient steps per second and one profiled burst.
+   fused bursts at B 32 f32 and B 512 bf16; captured against eager as in
+   train_visual; each burst mode's finite losses, 1 K1 launch per update
+   in its device trace,
+   gradient steps per second and one profiled burst.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
 on the model's views; K1's row is ``train_pair``, what the main path
-launches, with train_visual's launches), the nvidia-smi line, and last
+launches, with train_visual's launches; every ``launches`` is counted
+in the main path's run: serving's by the wrappers, as it runs no graph,
+training's from its device trace),
+the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is non-zero and the last line is not printed.
 """
@@ -213,6 +242,122 @@ def device_kernels(prof):
         and not getattr(e, "is_user_annotation", False)
         and not e.key.startswith("Optimizer.")
     ]
+
+
+# The kernels' device symbols, as a trace names them.
+KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_kernel", "pixel_gather": "pixel_gather_kernel"}
+
+
+def trace_lead_in(n: int = 32) -> None:
+    """The start of a trace: ``n`` empty kernels (``csrc/floor.cu``), a
+    synchronize and 20 ms of host sleep. The card's profiler can lose a
+    trace's first kernels (one K1 launch of an eager visual burst's 50,
+    in each of two runs); this gives it kernels to lose, which
+    ``traced_rows`` leaves out."""
+    from torch_actor_critic_tpu_torch.ops import _kernels
+
+    fn = _kernels.load("empty")
+    device = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for _ in range(n):
+        _kernels.launch("empty", fn, device, (1, 32, 0, stream), "lead-in")
+    torch.cuda.synchronize()
+    time.sleep(0.02)
+
+
+def traced_rows(prof):
+    """``device_kernels`` of a trace that began with ``trace_lead_in``,
+    without the lead-in's empty kernels."""
+    return [row for row in device_kernels(prof) if "empty_kernel" not in row[0]]
+
+
+def launches_by_symbol(rows) -> dict:
+    """Each kernel's launches in a trace's ``device_kernels`` rows, found
+    by its device symbol: what ran on the card, CUDA graph replays
+    included (a replay calls no wrapper, so ``launch_counts`` misses
+    it)."""
+    return {name: sum(n for key, _, n in rows if sym in key)
+            for name, sym in KERNEL_SYMBOLS.items()}
+
+
+def traced(fn, what: str, discard=None, attempts: int = 3):
+    """``fn()`` under ``torch.profiler``, after ``trace_lead_in``; returns
+    its result and the kernels' launches the trace saw
+    (``launches_by_symbol``). A trace
+    with no device kernel at all (the card's profiler now and then drops
+    all of a trace's) is not read: ``discard(result)`` runs, then
+    ``fn()`` again, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trace_lead_in()
+            out = fn()
+            torch.cuda.synchronize()
+        rows = traced_rows(prof)
+        if rows:
+            return out, launches_by_symbol(rows)
+        print(f"chip_smoke: {what}: trace {attempt} of {attempts} held no device kernel",
+              file=sys.stderr, flush=True)
+        if discard is not None:
+            discard(out)
+    check(False, f"{what}: the profiler traced no device kernel in {attempts} traces")
+    return None, {}
+
+
+def check_through_graphs(what: str, device: dict, wrapped: dict, per_update: dict,
+                         updates: int, captures: int) -> None:
+    """The device's launches of a run whose bursts were CUDA graphs
+    against its wrappers' counts: every update launched ``per_update`` of
+    each kernel, the wrappers saw the eager ones (warm-ups, acting) and
+    one update's recorded at each capture, and the replays
+    (``updates`` less the warm-ups) ran on the device without them."""
+    from torch_actor_critic_tpu_torch.sac.graph import WARMUP_UPDATES
+
+    replays = updates - captures * WARMUP_UPDATES
+    want = {k: wrapped.get(k, 0) + (replays - captures) * n for k, n in per_update.items()}
+    got = {k: device.get(k, 0) for k in per_update}
+    check(got == want, f"{what}: device launches {got} != {want} (wrappers {wrapped}, "
+                       f"{updates} updates, {captures} captures)")
+
+
+def adam_parity(module, opt, lr: float, gen) -> dict:
+    """One Adam step from ``opt``'s state, on one set of random gradients:
+    the capturable Adam the card's learner steps (step count and bias
+    correction on the device) against the plain one the CPU steps, which
+    the tier-1 tests hold to optax. Fails unless the parameters and both
+    moments agree within those tests' limits, atol 1e-5 and rtol 1e-4;
+    returns each quantity's largest |gap| / (1e-5 + 1e-4·|plain|)."""
+    import copy
+
+    from torch_actor_critic_tpu_torch.sac.algorithm import ADAM_EPS
+
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") for p in module.parameters()]
+    runs = []
+    for capturable in (True, False):
+        params = [p.detach().clone().requires_grad_(True) for p in module.parameters()]
+        adam = torch.optim.Adam(params, lr=lr, eps=ADAM_EPS, capturable=capturable)
+        saved = copy.deepcopy(opt.state_dict())
+        for group in saved["param_groups"]:
+            group["capturable"] = capturable
+        for st in saved["state"].values():
+            st["step"] = st["step"].to("cuda" if capturable else "cpu")
+        adam.load_state_dict(saved)
+        for p, g in zip(params, grads):
+            p.grad = g.clone()
+        adam.step()
+        runs.append({"params": params,
+                     "exp_avg": [adam.state[p]["exp_avg"] for p in params],
+                     "exp_avg_sq": [adam.state[p]["exp_avg_sq"] for p in params]})
+    got, want = runs
+    out = {"tensors": len(grads), "step": float(next(iter(opt.state.values()))["step"])}
+    for key in ("params", "exp_avg", "exp_avg_sq"):
+        out[key] = max(((a.detach() - b.detach()).abs() / (1e-5 + 1e-4 * b.detach().abs()))
+                       .max().item() for a, b in zip(got[key], want[key]))
+    check(max(out[k] for k in ("params", "exp_avg", "exp_avg_sq")) <= 1.0,
+          f"capturable vs plain Adam step: {out}")
+    return out
 
 
 def host_ops(prof, n: int, top: int = 8):
@@ -793,6 +938,7 @@ def phase_train(seed: int, kernels) -> dict:
         StackedMultiHeadAttention,
         plain_attention,
     )
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
     from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
 
     runs = tempfile.mkdtemp(prefix="tac_chip_train_")
@@ -802,22 +948,29 @@ def phase_train(seed: int, kernels) -> dict:
             "--seed", str(seed), "--epochs", "1", "--steps-per-epoch", "1000",
             "--start-steps", "500", "--update-after", "500", "--runs-root", runs,
         ])
-        trainer, tracker = train_cli.build_trainer(args)
+
+        def drive():
+            trainer, _ = train_cli.build_trainer(args)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = trainer.train(
+                on_epoch=lambda e, m: emit({"phase": "train_epoch", "epoch": e, **m}))
+            torch.cuda.synchronize()
+            return trainer, metrics, time.perf_counter() - t0, dict(kernels.launch_counts)
+
+        # The main path, traced: its replays launch the kernels without
+        # the wrappers, so the launches are read from the device trace.
+        (trainer, metrics, train_s, wrapped), launches = traced(
+            drive, "train", discard=lambda out: out[0].close())
         cfg = trainer.config
         layers, q = cfg.seq_num_layers, cfg.num_qs
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        metrics = trainer.train(
-            on_epoch=lambda e, m: emit({"phase": "train_epoch", "epoch": e, **m}))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = dict(kernels.launch_counts)
         for key in ("loss_q", "loss_pi", "reward"):
             check(math.isfinite(metrics[key]), f"train: {key} = {metrics[key]}")
         updates = trainer.state.step
         check(updates == 500, f"train: {updates} gradient steps, expected 500")
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            check(launches.get(name, 0) > 0, f"train: {name} never launched")
+            check(wrapped.get(name, 0) > 0, f"train: {name} never launched by its wrapper")
+            check(launches[name] > 0, f"train: {name} never ran on the device")
 
         # The saved actor restores through the serving read path.
         restored, meta = Checkpointer(trainer.checkpointer.directory).restore_actor_params()
@@ -839,6 +992,8 @@ def phase_train(seed: int, kernels) -> dict:
         want = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
                 "flash_bwd_dkv": 2 * layers}
         check(per_update == want, f"launches per update {per_update} != {want}")
+        check_through_graphs("train", launches, wrapped, want, updates,
+                             trainer.sac.graph_captures)
         stacked = _check_stacked_critic(trainer, batch, kernels)
 
         # One update from one state, with the kernels and with plain attention.
@@ -897,25 +1052,30 @@ def phase_train(seed: int, kernels) -> dict:
         out_gap = max((a_k - a_p).abs().max().item(), (q_k - q_p).abs().max().item())
         check(out_gap <= 1e-4, f"kernel vs plain update: output gap {out_gap}")
 
-        # Throughput of bursts alone, then one profiled burst.
+        # From one cloned state, the captured burst against the eager one;
+        # then each mode's bursts alone, timed and profiled.
+        per = cfg.updates_per_window
+        same = compare_bursts(
+            lambda: SAC(cfg, act_dim), trainer.state, trainer.buffer,
+            [sample(trainer.buffer, cfg.update_every, generator=gen) for _ in range(2)], per)
         chunk = sample(trainer.buffer, cfg.update_every, generator=gen)
 
-        def burst():
+        def burst(eager):
             trainer.state, trainer.buffer, m = trainer.sac.update_burst(
-                trainer.state, trainer.buffer, chunk, cfg.updates_per_window)
+                trainer.state, trainer.buffer, chunk, per, eager=eager)
             return m
 
-        burst()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n_bursts = 4
-        for _ in range(n_bursts):
-            m = burst()
-        torch.cuda.synchronize()
-        burst_s = (time.perf_counter() - t0) / n_bursts
-        check(all(math.isfinite(float(v)) for v in m.values()), "burst metrics not finite")
-        per = cfg.updates_per_window
-        profiled = profile_burst(burst, per)
+        modes = burst_modes(kernels, burst, per, 4, want)
+        # The graph captured at the first burst of training served every
+        # later one, here too.
+        check(trainer.sac.graph_captures == 1,
+              f"train: {trainer.sac.graph_captures} captures, expected 1")
+        captured = modes["captured"]
+        adam_kernels = {part: adam_step_kernels(getattr(trainer.state, part))
+                        for part in ("actor", "critic")}
+        adam = {part: adam_parity(getattr(trainer.state, part), getattr(trainer.state, opt),
+                                  cfg.lr, gen)
+                for part, opt in (("actor", "pi_opt"), ("critic", "q_opt"))}
 
         # Acting alone: policy forward on the card + the host env step.
         obs = trainer.pool.reset_all([seed])
@@ -934,19 +1094,23 @@ def phase_train(seed: int, kernels) -> dict:
             "train_wall_s": train_s, "gradient_steps": updates,
             "epoch_grad_steps_per_sec": metrics["grad_steps_per_sec"],
             "epoch_env_steps_per_sec": metrics["env_steps_per_sec"],
-            "launches": launches, "launches_per_update": per_update,
-            "stacked_critic": stacked,
+            "launches": launches, "wrapper_launches": wrapped,
+            "launches_per_update": per_update, "stacked_critic": stacked,
             "kernel_vs_plain_update": {
                 "max_param_gap": worst, "max_key_bias_gap": worst_kbias,
                 "max_output_gap": out_gap, "gradients": grad_gaps,
                 "by_module": {k: {"params": g, "key_bias": kb} for k, (g, kb) in gaps.items()},
             },
             "checkpoint_epoch": meta["epoch"],
-            "burst_ms": burst_s * 1e3, "burst_grad_steps_per_sec": per / burst_s,
-            "device_kernels_per_update": profiled["device_kernels_per_update"],
-            "device_idle_share": profiled["device_idle_share"],
+            "burst_ms": captured["burst_ms"],
+            "burst_grad_steps_per_sec": captured["grad_steps_per_sec"],
+            "device_kernels_per_update": captured["device_kernels_per_update"],
+            "device_idle_share": captured["device_idle_share"],
+            "graph_captures": trainer.sac.graph_captures, "captured_vs_eager": same,
+            "bursts": modes,
+            "adam_step_device_kernels": adam_kernels,
+            "adam_capturable_vs_plain": adam,
             "acting_env_steps_per_sec": act_steps_per_s,
-            "profiled_burst": profiled,
         })
         return launches
     finally:
@@ -1165,20 +1329,32 @@ def _sac_grads(st, cfg, batch, eps_q, eps_pi) -> dict:
     return {"critic": g_q, "actor": g_pi}
 
 
-def profile_burst(burst, per: int) -> dict:
+def profile_burst(burst, per: int, attempts: int = 4) -> dict:
     """One burst of ``per`` updates under ``torch.profiler``: wall vs
-    device-busy time and the kernels per update."""
+    device-busy time, the kernels per update, and each hand-written
+    kernel's launches per update by its device symbol, in a trace that
+    begins with ``trace_lead_in``. A trace with no device kernel is taken
+    again with another burst, up to ``attempts``."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        burst()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = sorted(((key, us / per / 1e3, calls / per)
-                   for key, us, calls in device_kernels(prof)), key=lambda x: -x[1])
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trace_lead_in()
+            t0 = time.perf_counter()
+            burst()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = traced_rows(prof)
+        if rows:
+            break
+        print(f"chip_smoke: burst trace {attempt} of {attempts} held no device kernel",
+              file=sys.stderr, flush=True)
+    check(bool(rows), f"the profiler traced no device kernel of a burst in {attempts} traces")
+    kern = sorted(((key, us / per / 1e3, calls / per) for key, us, calls in rows),
+                  key=lambda x: -x[1])
     busy_ms = sum(k[1] for k in kern) * per
     return {
+        "launches_per_update": {k: n / per for k, n in launches_by_symbol(rows).items()},
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels_ms_per_update": [
@@ -1187,6 +1363,206 @@ def profile_burst(burst, per: int) -> dict:
         "device_kernels_per_update": sum(k[2] for k in kern),
         "host_ops_per_update": host_ops(prof, per, top=10),
     }
+
+
+def _learner_gaps(a, b) -> dict:
+    """Max abs gap of two learner states: parameters (actor, critic,
+    target), Adam states (moments and device step), log α; and whether
+    their generators' states (seed and offset) and step counts agree."""
+    def gap(x, y):
+        return (torch.as_tensor(x).double() - torch.as_tensor(y).double()).abs().max().item()
+
+    def opt_states(st, opt):
+        o = getattr(st, opt)
+        return [o.state[p] for g in o.param_groups for p in g["params"]]
+
+    return {
+        "params": max(gap(p, q) for part in ("actor", "critic", "target_critic")
+                      for p, q in zip(getattr(a, part).parameters(),
+                                      getattr(b, part).parameters(), strict=True)),
+        "adam": max(gap(x[k], y[k]) for opt in ("pi_opt", "q_opt", "alpha_opt")
+                    for x, y in zip(opt_states(a, opt), opt_states(b, opt), strict=True)
+                    for k in x),
+        "log_alpha": gap(a.log_alpha, b.log_alpha),
+        "same_generator": torch.equal(a.generator.get_state(), b.generator.get_state()),
+        "same_step": a.step == b.step,
+    }
+
+
+BITWISE = {"params": 0.0, "adam": 0.0, "log_alpha": 0.0, "same_generator": True,
+           "same_step": True}
+
+
+def compare_bursts(make_sac, state, ring, chunks, per: int,
+                   cudnn_deterministic: bool = False) -> dict:
+    """From clones of one learner state and ring (``TrainState.clone``,
+    ``BufferState.clone``: modules, target, Adam states with their device
+    steps, log α, the generator; the ring with its device size),
+    ``len(chunks)`` bursts of ``per`` updates as CUDA graph replays (the
+    first: 1 warm-up update, the capture, per - 1 replays; the next all
+    replays) and through the eager loop (``eager=True``). Fails unless
+    every parameter, Adam moment and step, log α, the generator's state,
+    the step count and every burst metric agree to the bit, with one
+    capture. ``cudnn_deterministic``: both run on cuDNN's deterministic
+    algorithms, as its default convolution backward may sum in another
+    order run to run; the row then also holds two eager runs under the
+    default against each other, and one replayed update under the
+    default against one eager update (``one_update_default_cudnn``)."""
+    def run(eager):
+        sac, st, buf = make_sac(), state.clone(), ring.clone()
+        metrics = []
+        for chunk in chunks:
+            st, buf, m = sac.update_burst(st, buf, chunk, per, eager=eager)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        return st, metrics, sac.graph_captures
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = cudnn_deterministic
+    try:
+        eager, m_eager, _ = run(True)
+        graph, m_graph, captures = run(False)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    gaps = _learner_gaps(graph, eager)
+    row = {"bursts": len(chunks), "updates_per_burst": per,
+           "cudnn_deterministic": cudnn_deterministic, "captures": captures, **gaps,
+           "metrics_bitwise": all(torch.equal(g[k], e[k])
+                                  for g, e in zip(m_graph, m_eager) for k in e)}
+    check(captures == 1 and gaps == BITWISE and row["metrics_bitwise"],
+          f"captured vs eager burst from one state: {row}")
+    if cudnn_deterministic:
+        row["eager_vs_eager_default_cudnn"] = _learner_gaps(run(True)[0], run(True)[0])
+        row["one_update_default_cudnn"] = one_update_default_cudnn(make_sac, state, ring, chunks)
+    return row
+
+
+def one_update_default_cudnn(make_sac, state, ring, chunks) -> dict:
+    """The captured update on cuDNN's default algorithms, where it is not
+    bitwise run to run: from a clone of one state, a 1-update burst
+    (the warm-up and the capture), then from one state one replay
+    against one eager update on the same chunk. Held to the limits of
+    the repo's one-update check of two summation orders (the
+    kernel-vs-plain update): parameters 1e-4, log α 1e-6, every metric
+    1e-4·max(1, |eager|), Adam moments 1e-4·max(1, max|eager|) per
+    tensor; the generator and step exactly."""
+    sac, st, buf = make_sac(), state.clone(), ring.clone()
+    st, buf, _ = sac.update_burst(st, buf, chunks[0], 1)
+    twin, twin_buf = st.clone(), buf.clone()
+    st, buf, m_graph = sac.update_burst(st, buf, chunks[1], 1)
+    twin, twin_buf, m_eager = sac.update_burst(twin, twin_buf, chunks[1], 1, eager=True)
+    torch.cuda.synchronize()
+    gaps = _learner_gaps(st, twin)
+    moments = max(
+        ((x[k] - y[k]).abs().max() / y[k].abs().max().clamp(min=1.0)).item()
+        for opt in ("pi_opt", "q_opt", "alpha_opt")
+        for p, q in zip(*([p for g in getattr(s, opt).param_groups for p in g["params"]]
+                          for s in (st, twin)), strict=True)
+        for x, y in [(getattr(st, opt).state[p], getattr(twin, opt).state[q])]
+        for k in ("exp_avg", "exp_avg_sq") if k in y)
+    metrics = max((abs(float(m_graph[k]) - float(m_eager[k])) / max(1.0, abs(float(m_eager[k])))
+                   for k in m_eager))
+    row = {**gaps, "adam_moments_rel": moments, "metrics_rel": metrics,
+           "captures": sac.graph_captures}
+    check(row["captures"] == 1 and gaps["params"] <= 1e-4 and gaps["log_alpha"] <= 1e-6
+          and moments <= 1e-4 and metrics <= 1e-4 and gaps["same_generator"]
+          and gaps["same_step"], f"one captured update on cuDNN's default algorithms: {row}")
+    return row
+
+
+def burst_modes(kernels, burst, per: int, n_bursts: int, per_update: dict) -> dict:
+    """The captured (default) and the eager burst of one workload, in
+    turn: one burst to warm up (the captured one captures there unless
+    it has a graph), ``n_bursts`` timed (host clock to a synchronize),
+    then one profiled burst: device kernels, busy and idle per update,
+    and exactly ``per_update`` launches of each named kernel per update
+    in its device trace. The wrappers count those launches in the eager
+    mode and none in the captured one (a replay calls no wrapper)."""
+    out = {}
+    for mode, eager in (("captured", False), ("eager", True)):
+        burst(eager)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n_bursts):
+            m = burst(eager)
+        torch.cuda.synchronize()
+        burst_s = (time.perf_counter() - t0) / n_bursts
+        wrapped = {k: kernels.launch_counts.get(k, 0) / (per * n_bursts) for k in per_update}
+        want = per_update if eager else dict.fromkeys(per_update, 0)
+        check(wrapped == want, f"{mode} burst: wrapper launches per update {wrapped} != {want}")
+        check(all(math.isfinite(float(v)) for v in m.values()), f"{mode} burst metrics not finite")
+        profiled = profile_burst(lambda: burst(eager), per)
+        got = {k: profiled["launches_per_update"][k] for k in per_update}
+        check(got == per_update,
+              f"{mode} burst: device launches per update {got} != {per_update}")
+        busy_ms = profiled["device_busy_ms"] / per
+        out[mode] = {
+            "burst_ms": burst_s * 1e3, "grad_steps_per_sec": per / burst_s,
+            "launches_per_update": got, "wrapper_launches_per_update": wrapped,
+            "device_kernels_per_update": profiled["device_kernels_per_update"],
+            "device_busy_ms_per_update": busy_ms,
+            "device_idle_share": profiled["device_idle_share"],
+            # the profiled burst's busy time against the unprofiled bursts'
+            # wall time (the profiler slows the host)
+            "device_idle_share_timed": 1.0 - busy_ms * per / (burst_s * 1e3),
+            "profiled_burst": profiled,
+        }
+    return out
+
+
+def adam_step_kernels(module) -> dict:
+    """Device kernels of one foreach Adam step over copies of
+    ``module``'s parameters (random gradients in their strides): plain,
+    as the CPU runs it, and capturable, as the card runs it."""
+    out = {"tensors": len(list(module.parameters()))}
+    for label, capturable in (("plain", False), ("capturable", True)):
+        params = [p.detach().clone().requires_grad_(True) for p in module.parameters()]
+        for p in params:
+            p.grad = torch.randn_like(p)
+        opt = torch.optim.Adam(params, lr=1e-4, foreach=True, capturable=capturable)
+        out[label] = kernels_per_call(opt.step)
+    return out
+
+
+def phase_graph_push(seed: int) -> dict:
+    """A replay after a push samples the grown ring: every transition is
+    terminal, so an update's mean backup is its batch's mean reward, 0 on
+    the ring's first 128 rows and 1 on the 1920 pushed after the capture.
+    A graph that froze the size at capture would draw none of them
+    (``backup_mean`` exactly 0); the expected share is 1920/2048. A flat
+    learner at SACConfig's widths on Pendulum's dimensions."""
+    from torch_actor_critic_tpu_torch.buffer.replay import init_replay_buffer, push
+    from torch_actor_critic_tpu_torch.core.types import Batch
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    cfg = SACConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    actor, critic = build_models(cfg, (3,), 1, 2.0, generator=torch.Generator().manual_seed(seed))
+    sac = SAC(cfg, 1)
+    state = sac.init_state(actor.cuda(), critic.cuda(),
+                           torch.Generator(device="cuda").manual_seed(seed + 1))
+
+    def chunk(n, reward):
+        return Batch(states=torch.randn((n, 3), generator=gen, device="cuda"),
+                     actions=torch.rand((n, 1), generator=gen, device="cuda") * 4 - 2,
+                     rewards=torch.full((n,), reward, device="cuda"),
+                     next_states=torch.randn((n, 3), generator=gen, device="cuda"),
+                     done=torch.ones(n, device="cuda"))
+
+    ring = push(init_replay_buffer(4096, (3,), 1, "cuda"), chunk(64, 0.0))
+    state, ring, first = sac.update_burst(state, ring, chunk(64, 0.0), 8)
+    state, ring, grown = sac.update_burst(state, ring, chunk(1920, 1.0), 8)
+    row = {"phase": "graph_push", "size_at_capture": 128, "size_after_push": ring.size,
+           "captures": sac.graph_captures, "backup_mean_at_capture": float(first["backup_mean"]),
+           "backup_mean_after_push": float(grown["backup_mean"]), "expected": 1920 / 2048}
+    check(row["captures"] == 1 and ring.size == 2048 and row["backup_mean_at_capture"] == 0.0
+          and 0.85 < row["backup_mean_after_push"] <= 1.0,
+          f"a replay after a push did not sample the grown ring: {row}")
+    emit(row)
+    return row
 
 
 def phase_train_visual(seed: int, kernels) -> dict:
@@ -1198,6 +1574,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
     from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
     from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
     from torch_actor_critic_tpu_torch.ops.pixels import gather_frames_reference
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
     from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
 
     runs = tempfile.mkdtemp(prefix="tac_chip_train_visual_")
@@ -1207,23 +1584,32 @@ def phase_train_visual(seed: int, kernels) -> dict:
             "--steps-per-epoch", "2000", "--start-steps", "1000", "--update-after", "1000",
             "--buffer-size", "24000", "--runs-root", runs,
         ])
-        trainer, _ = train_cli.build_trainer(args)
+
+        def drive():
+            trainer, _ = train_cli.build_trainer(args)
+            check(trainer.buffer.data.states.frame.dtype == torch.uint8,
+                  "visual ring is not uint8")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = trainer.train(
+                on_epoch=lambda e, m: emit({"phase": "train_visual_epoch", "epoch": e, **m}))
+            torch.cuda.synchronize()
+            return trainer, metrics, time.perf_counter() - t0, dict(kernels.launch_counts)
+
+        # The main path, traced, as for the sequence policy.
+        (trainer, metrics, train_s, wrapped), launches = traced(
+            drive, "train_visual", discard=lambda out: out[0].close())
         cfg = trainer.config
-        check(trainer.buffer.data.states.frame.dtype == torch.uint8, "visual ring is not uint8")
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        metrics = trainer.train(
-            on_epoch=lambda e, m: emit({"phase": "train_visual_epoch", "epoch": e, **m}))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = dict(kernels.launch_counts)
         for key in ("loss_q", "loss_pi", "reward"):
             check(math.isfinite(metrics[key]), f"train_visual: {key} = {metrics[key]}")
         updates = trainer.state.step
         check(updates == 1000, f"train_visual: {updates} gradient steps, expected 1000")
-        check(launches.get("pixel_gather", 0) == updates,
-              f"train_visual: pixel_gather launched {launches.get('pixel_gather', 0)} "
-              f"times, expected 1 per update ({updates})")
+        check(wrapped.get("pixel_gather", 0) > 0, "train_visual: K1 never launched by its wrapper")
+        check(launches["pixel_gather"] == updates,
+              f"train_visual: pixel_gather ran {launches['pixel_gather']} times on the "
+              f"device, expected 1 per update ({updates})")
+        check_through_graphs("train_visual", launches, wrapped, {"pixel_gather": 1}, updates,
+                             trainer.sac.graph_captures)
 
         restored, meta = Checkpointer(trainer.checkpointer.directory).restore_actor_params()
         live = trainer.state.actor.state_dict()
@@ -1283,28 +1669,28 @@ def phase_train_visual(seed: int, kernels) -> dict:
         check(out_gap <= 1e-4, f"train_visual: K1 vs plain update: output gap {out_gap}")
         del st_k, st_p, grads_k, grads_p
 
-        # Bursts alone, then one profiled burst.
+        # From one cloned state, the captured burst against the eager one;
+        # then each mode's bursts alone (1 K1 launch per update), timed
+        # and profiled.
+        per = cfg.updates_per_window
+        same = compare_bursts(
+            lambda: SAC(cfg, act_dim), trainer.state, trainer.buffer,
+            [sample(buf, cfg.update_every, generator=gen) for _ in range(2)], per,
+            cudnn_deterministic=True)
         chunk = sample(buf, cfg.update_every, generator=gen)
 
-        def burst():
+        def burst(eager):
             trainer.state, trainer.buffer, m = trainer.sac.update_burst(
-                trainer.state, trainer.buffer, chunk, cfg.updates_per_window)
+                trainer.state, trainer.buffer, chunk, per, eager=eager)
             return m
 
-        burst()
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        n_bursts = 4
-        t0 = time.perf_counter()
-        for _ in range(n_bursts):
-            m = burst()
-        torch.cuda.synchronize()
-        burst_s = (time.perf_counter() - t0) / n_bursts
-        per = cfg.updates_per_window
-        check(kernels.launch_counts["pixel_gather"] == per * n_bursts,
-              "burst: not 1 K1 launch per update")
-        check(all(math.isfinite(float(v)) for v in m.values()), "visual burst metrics not finite")
-        profiled = profile_burst(burst, per)
+        modes = burst_modes(kernels, burst, per, 4, {"pixel_gather": 1})
+        check(trainer.sac.graph_captures == 1,
+              f"train_visual: {trainer.sac.graph_captures} captures, expected 1")
+        captured = modes["captured"]
+        adam = {part: adam_parity(getattr(trainer.state, part), getattr(trainer.state, opt),
+                                  cfg.lr, gen)
+                for part, opt in (("actor", "pi_opt"), ("critic", "q_opt"))}
 
         obs = trainer.pool.reset_all([seed])
         t0 = time.perf_counter()
@@ -1323,15 +1709,20 @@ def phase_train_visual(seed: int, kernels) -> dict:
             "train_wall_s": train_s, "gradient_steps": updates,
             "epoch_grad_steps_per_sec": metrics["grad_steps_per_sec"],
             "epoch_env_steps_per_sec": metrics["env_steps_per_sec"],
-            "launches": launches, "pixel_gather_per_update": launches["pixel_gather"] / updates,
+            "launches": launches, "wrapper_launches": wrapped,
+            "pixel_gather_per_update": launches["pixel_gather"] / updates,
             "kernel_vs_plain_update": {
                 "max_param_gap": worst, "log_alpha_gap": alpha_gap,
                 "max_output_gap": out_gap, "gradients": grad_gaps, "by_module": gaps,
             },
             "checkpoint_epoch": meta["epoch"],
-            "burst_ms": burst_s * 1e3, "burst_grad_steps_per_sec": per / burst_s,
+            "burst_ms": captured["burst_ms"],
+            "burst_grad_steps_per_sec": captured["grad_steps_per_sec"],
+            "device_kernels_per_update": captured["device_kernels_per_update"],
+            "device_idle_share": captured["device_idle_share"],
+            "graph_captures": trainer.sac.graph_captures, "captured_vs_eager": same,
+            "bursts": modes, "adam_capturable_vs_plain": adam,
             "acting_env_steps_per_sec": act_steps_per_s,
-            "profiled_burst": profiled,
         })
         return launches
     finally:
@@ -1380,26 +1771,23 @@ def phase_visual_burst(seed: int, kernels) -> list:
                                torch.Generator(device="cuda").manual_seed(seed + 1))
         buf = push(init_visual_replay_buffer(20000, WALL_FEATURES, WALL_FRAME,
                                              WALL_ACT_DIM, "cuda"), chunk(2000))
-        chunks = [chunk(burst_len) for _ in range(n_bursts + 2)]
+        same = compare_bursts(lambda: SAC(cfg, WALL_ACT_DIM), state, buf,
+                              [chunk(burst_len) for _ in range(2)], burst_len,
+                              cudnn_deterministic=True)
+        chunks = [chunk(burst_len) for _ in range(8)]
         turn = iter(range(10 ** 9))
 
-        def burst():
+        def burst(eager):
             nonlocal state, buf
-            state, buf, m = sac.update_burst(state, buf, chunks[next(turn)], burst_len)
+            state, buf, m = sac.update_burst(state, buf, chunks[next(turn) % len(chunks)],
+                                             burst_len, eager=eager)
             return m
 
-        burst()  # warm-up: cuDNN picks its algorithms
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(n_bursts):
-            m = burst()
-        torch.cuda.synchronize()
-        burst_s = (time.perf_counter() - t0) / n_bursts
-        check(all(math.isfinite(float(v)) for v in m.values()),
-              f"visual_burst B{bsz} {dtype}: metrics not finite")
-        check(kernels.launch_counts["pixel_gather"] == burst_len * n_bursts,
-              f"visual_burst B{bsz}: not 1 K1 launch per update")
+        # Each mode: one burst to warm up (cuDNN picks its algorithms; the
+        # graph is captured), then timed bursts and one profiled.
+        modes = burst_modes(kernels, burst, burst_len, n_bursts, {"pixel_gather": 1})
+        captured = modes["captured"]
+        check(sac.graph_captures == 1, f"visual_burst B{bsz}: {sac.graph_captures} captures")
         row = {
             "phase": "visual_burst", "batch": bsz, "dtype": dtype, "frame_augment": augment,
             "normalize_pixels": normalize, "features": WALL_FEATURES,
@@ -1408,11 +1796,12 @@ def phase_visual_burst(seed: int, kernels) -> list:
                 "strides": cfg.strides, "cnn_dense_size": cfg.cnn_dense_size,
                 "cnn_features": cfg.cnn_features, "hidden_sizes": cfg.hidden_sizes,
             },
-            "burst_updates": burst_len, "burst_ms": burst_s * 1e3,
-            "grad_steps_per_sec": burst_len / burst_s,
-            "loss_q": float(m["loss_q"]), "loss_pi": float(m["loss_pi"]),
-            "launches": dict(kernels.launch_counts),
-            "profiled_burst": profile_burst(burst, burst_len),
+            "burst_updates": burst_len, "burst_ms": captured["burst_ms"],
+            "grad_steps_per_sec": captured["grad_steps_per_sec"],
+            "device_kernels_per_update": captured["device_kernels_per_update"],
+            "device_idle_share": captured["device_idle_share"],
+            "graph_captures": sac.graph_captures, "captured_vs_eager": same,
+            "bursts": modes,
         }
         emit(row)
         rows.append(row)
@@ -1444,6 +1833,7 @@ def main(argv=None) -> int:
     serve_launches = phase_serve(args.seed, _kernels)
     check(serve_launches > 0, "the serving path launched no flash_fwd kernel")
     train_launches = phase_train(args.seed, _kernels)
+    phase_graph_push(args.seed)
     visual_launches = phase_train_visual(args.seed, _kernels)
     phase_visual_burst(args.seed, _kernels)
     fwd_launches = serve_launches + train_launches["flash_fwd"]

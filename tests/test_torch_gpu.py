@@ -22,6 +22,11 @@ attention to 1e-4 in every parameter except the attention key biases,
 whose gradient is zero in exact arithmetic (softmax ignores a per-row
 shift), so Adam turns rounding noise into steps up to ``lr``: those
 are held to 2·lr, and the updated networks' outputs to 1e-4.
+
+A burst captured as a CUDA graph equals the eager burst from one cloned
+state to the bit; the visual one runs both on cuDNN's deterministic
+algorithms, as its default convolution backward is not bitwise run to
+run.
 """
 
 import math
@@ -584,3 +589,271 @@ def test_visual_update_with_the_kernel_matches_the_plain_gather(cuda):
             gap = (p - theirs[name]).abs().max().item()
             assert gap <= 1e-4, (part, name, gap)
     assert abs(a.log_alpha.item() - b.log_alpha.item()) <= 1e-6
+
+
+# ------------------------------------------------------- the captured burst
+
+# name: (SACConfig overrides, observation shape); act_dim 1
+BURST_CASES = {
+    "flat": ({}, (3,)),
+    "sequence": (dict(history_len=16), (16, 3)),
+    "visual-fused": (dict(filters=(16, 32), kernel_sizes=(4, 3), strides=(2, 2),
+                          cnn_dense_size=128, cnn_features=64, normalize_pixels=True,
+                          frame_augment="shift", learn_alpha=True, pixel_pipeline="fused"),
+                     ((1,), (32, 32, 3))),
+}
+
+
+def _burst_chunk(cuda, shape, n, gen, reward=None, done=None):
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+
+    def obs():
+        if isinstance(shape, MultiObservation):
+            return MultiObservation(
+                torch.randn((n, *shape.features), generator=gen, device=cuda),
+                torch.randint(0, 256, (n, *shape.frame), generator=gen, device=cuda,
+                              dtype=torch.uint8))
+        return torch.randn((n, *shape), generator=gen, device=cuda)
+
+    return Batch(
+        states=obs(), actions=torch.rand((n, 1), generator=gen, device=cuda) * 4 - 2,
+        rewards=(torch.randn(n, generator=gen, device=cuda) if reward is None
+                 else torch.full((n,), reward, device=cuda)),
+        next_states=obs(),
+        done=torch.full((n,), 0.0 if done is None else done, device=cuda))
+
+
+def _burst_learner(cuda, name, capacity=4096, prefill=2000, **cfg_kw):
+    """A learner of case ``name`` at the repo's widths on the card and a
+    ring holding ``prefill`` random transitions; returns (config, shape,
+    state, ring, generator for chunks)."""
+    from torch_actor_critic_tpu_torch.buffer.replay import (
+        init_replay_buffer,
+        init_visual_replay_buffer,
+        push,
+    )
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    overrides, shape = BURST_CASES[name]
+    cfg = SACConfig(**{**overrides, **cfg_kw})
+    if isinstance(shape[0], tuple):
+        shape = MultiObservation(*shape)
+        ring = init_visual_replay_buffer(capacity, shape.features[0], shape.frame, 1, cuda)
+    else:
+        ring = init_replay_buffer(capacity, shape, 1, cuda)
+    actor, critic = build_models(cfg, shape, 1, 2.0, generator=torch.Generator().manual_seed(0))
+    state = SAC(cfg, 1).init_state(actor.to(cuda), critic.to(cuda),
+                                   torch.Generator(device=cuda).manual_seed(1))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    if prefill:
+        ring = push(ring, _burst_chunk(cuda, shape, prefill, gen))
+    return cfg, shape, state, ring, gen
+
+
+def _learner_gaps(a, b) -> dict:
+    """Max abs gap of two learner states: parameters (actor, critic,
+    target), Adam states (moments and step), log α; and whether the
+    generators and step counts agree."""
+    def gap(x, y):
+        return (torch.as_tensor(x).double() - torch.as_tensor(y).double()).abs().max().item()
+
+    params = max(gap(p, q) for part in ("actor", "critic", "target_critic")
+                 for p, q in zip(getattr(a, part).parameters(), getattr(b, part).parameters(),
+                                 strict=True))
+    adam = max(
+        gap(sa[k], sb[k])
+        for opt in ("pi_opt", "q_opt", "alpha_opt")
+        for pa, pb in zip(*([p for g in getattr(s, opt).param_groups for p in g["params"]]
+                            for s in (a, b)), strict=True)
+        for sa, sb in [(getattr(a, opt).state[pa], getattr(b, opt).state[pb])]
+        for k in sa
+    )
+    return {"params": params, "adam": adam, "log_alpha": gap(a.log_alpha, b.log_alpha),
+            "same_generator": torch.equal(a.generator.get_state(), b.generator.get_state()),
+            "same_step": a.step == b.step}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BURST_CASES))
+def test_captured_burst_equals_the_eager_burst_bitwise(cuda, name):
+    """From one cloned state and ring, two bursts of 5 updates as CUDA
+    graph replays (the first: 1 warm-up update, the capture, 4 replays;
+    the second: 5 replays) and through the eager loop: the same
+    parameters, Adam states, log α, step, generator and metrics, to the
+    bit. cuDNN's default convolution backward may sum in another order
+    run to run, so the visual case runs both with cuDNN's deterministic
+    algorithms."""
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, name)
+    chunks = [_burst_chunk(cuda, shape, 50, gen) for _ in range(2)]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for captured in (False, True):
+            sac, st, buf = SAC(cfg, 1), state.clone(), ring.clone()
+            metrics = []
+            for chunk in chunks:
+                st, buf, m = sac.update_burst(st, buf, chunk, 5, eager=not captured)
+                metrics.append(m)
+            runs[captured] = (st, metrics, sac.graph_captures)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (eager, m_eager, _), (graph, m_graph, captures) = runs[False], runs[True]
+    torch.cuda.synchronize()
+    assert captures == 1 and graph.step == eager.step == 10
+    gaps = _learner_gaps(graph, eager)
+    assert gaps == {"params": 0.0, "adam": 0.0, "log_alpha": 0.0, "same_generator": True,
+                    "same_step": True}, gaps
+    for mg, me in zip(m_graph, m_eager):
+        assert mg.keys() == me.keys()
+        assert all(torch.equal(mg[k], me[k]) for k in me), {k: (mg[k], me[k]) for k in me}
+
+
+# the kernels' device symbols, as a trace names them
+KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_kernel", "pixel_gather": "pixel_gather_kernel"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,per_update", [
+    ("sequence", {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}),
+    ("visual-fused", {"pixel_gather": 1}),
+])
+def test_captured_burst_replays_launch_the_kernels_of_every_update(cuda, name, per_update):
+    """The wrappers count the first burst's warm-up launches and its
+    capture's (each recorded into the graph), and nothing of a replay;
+    the device trace of a burst of 6 replays holds 6 updates' launches
+    of each kernel."""
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, name)
+    sac = SAC(cfg, 1)
+    before = dict(_kernels.launch_counts)
+    state, ring, _ = sac.update_burst(state, ring, _burst_chunk(cuda, shape, 50, gen), 6)
+    torch.cuda.synchronize()
+    got = {k: _kernels.launch_counts[k] - before.get(k, 0) for k in per_update}
+    assert got == {k: 2 * n for k, n in per_update.items()}, got
+    before = dict(_kernels.launch_counts)
+    chunk = _burst_chunk(cuda, shape, 50, gen)
+
+    def burst():
+        nonlocal state, ring
+        state, ring, _ = sac.update_burst(state, ring, chunk, 6)
+
+    rows = _device_kernels(burst, calls=1)
+    seen = {k: sum(n for key, n in rows if KERNEL_SYMBOLS[k] in key) for k in per_update}
+    assert seen == {k: 6 * n for k, n in per_update.items()}, rows
+    assert dict(_kernels.launch_counts) == before
+    assert sac.graph_captures == 1
+
+
+@pytest.mark.gpu
+def test_burst_graph_is_captured_once_per_state_ring_and_length(cuda):
+    from torch_actor_critic_tpu_torch.buffer.replay import push
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, "flat")
+    sac = SAC(cfg, 1)
+
+    def burst(st, buf, k):
+        return sac.update_burst(st, buf, _burst_chunk(cuda, shape, 10, gen), k)
+
+    for _ in range(3):  # across bursts, and across pushes outside a burst
+        state, ring, _ = burst(state, ring, 4)
+        ring = push(ring, _burst_chunk(cuda, shape, 7, gen))
+    assert sac.graph_captures == 1
+    state, ring, _ = burst(state, ring, 6)  # another length
+    state, ring, _ = burst(state, ring, 6)
+    assert sac.graph_captures == 2
+    twin, twin_ring = state.clone(), ring.clone()  # another state and ring
+    burst(twin, twin_ring, 6)
+    assert sac.graph_captures == 3
+    state, ring, _ = burst(state, ring, 6)  # one graph is kept: the last
+    assert sac.graph_captures == 4 and state.step == 4 * 3 + 6 * 3
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises_and_runs_no_eager_update(cuda):
+    """An error inside the capture propagates; the burst runs no update
+    beyond its warm-up, keeps no graph and counts no capture."""
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, "flat")
+    twin, twin_ring = state.clone(), ring.clone()
+    chunk = _burst_chunk(cuda, shape, 10, gen)
+    sac = SAC(cfg, 1)
+    update = sac.update
+
+    def refusing_update(st, batch, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused under capture")
+        return update(st, batch, **kw)
+
+    sac.update = refusing_update
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        sac.update_burst(state, ring, chunk, 8)
+    assert sac.graph is None and sac.graph_captures == 0
+    SAC(cfg, 1).update_burst(twin, twin_ring, chunk, 1, eager=True)  # the warm-up alone
+    torch.cuda.synchronize()
+    gaps = _learner_gaps(state, twin)
+    assert (gaps["params"], gaps["adam"], state.step) == (0.0, 0.0, 1), gaps
+
+
+@pytest.mark.gpu
+def test_a_replay_after_a_push_samples_the_grown_ring(cuda):
+    """Every transition is terminal, so a batch's mean backup is its mean
+    reward: 0 on the first 128 rows, 1 on the 1920 pushed after the
+    capture. Replays that read a frozen size would see none of them."""
+    from torch_actor_critic_tpu_torch.buffer.replay import push
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, "flat", prefill=0)
+    ring = push(ring, _burst_chunk(cuda, shape, 64, gen, reward=0.0, done=1.0))
+    sac = SAC(cfg, 1)
+    state, ring, first = sac.update_burst(
+        state, ring, _burst_chunk(cuda, shape, 64, gen, reward=0.0, done=1.0), 8)
+    assert ring.size == 128 and float(first["backup_mean"]) == 0.0
+    state, ring, grown = sac.update_burst(
+        state, ring, _burst_chunk(cuda, shape, 1920, gen, reward=1.0, done=1.0), 8)
+    assert sac.graph_captures == 1 and ring.size == 2048
+    share = float(grown["backup_mean"])  # 1920/2048 = 0.9375 expected, sd ~0.011
+    assert 0.85 < share <= 1.0, share
+
+
+@pytest.mark.gpu
+def test_capturable_adam_step_matches_the_plain_adam(cuda):
+    """One Adam step from a trained learner's Adam states, on the same
+    gradients: the capturable Adam the card's learner steps (its step
+    count and bias correction on the device) against the plain Adam the
+    CPU steps, which the tier-1 tests hold to optax, at their limits
+    (atol 1e-5, rtol 1e-4) on the parameters and both moments."""
+    import copy
+
+    from torch_actor_critic_tpu_torch.sac.algorithm import ADAM_EPS, SAC
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, "sequence")
+    state, ring, _ = SAC(cfg, 1).update_burst(state, ring, _burst_chunk(cuda, shape, 50, gen), 20)
+    for module, opt in ((state.critic, state.q_opt), (state.actor, state.pi_opt)):
+        grads = [torch.randn(p.shape, generator=gen, device=cuda) for p in module.parameters()]
+        runs = []
+        for capturable in (True, False):
+            params = [p.detach().clone().requires_grad_(True) for p in module.parameters()]
+            adam = torch.optim.Adam(params, lr=cfg.lr, eps=ADAM_EPS, capturable=capturable)
+            saved = copy.deepcopy(opt.state_dict())
+            for group in saved["param_groups"]:
+                group["capturable"] = capturable
+            for st in saved["state"].values():
+                st["step"] = st["step"].to(cuda if capturable else "cpu")
+            adam.load_state_dict(saved)
+            for p, g in zip(params, grads):
+                p.grad = g.clone()
+            adam.step()
+            runs.append([(p, adam.state[p]["exp_avg"], adam.state[p]["exp_avg_sq"])
+                         for p in params])
+        for got, want in zip(*runs):
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a.detach(), b.detach(), atol=1e-5, rtol=1e-4)

@@ -7,9 +7,12 @@ as for the port's other entry points (``utils/device.resolve_device``),
 and a CPU ring is asked for by name. :func:`push` writes a chunk at
 ``(ptr + arange(n)) % capacity`` — in place into the ring (the JAX
 package donates the buffer to get the same effect) — and returns the
-advanced cursor. :func:`sample` draws uniformly with replacement over
-``[0, size)`` from an explicit ``torch.Generator``, or gathers given
-``indices`` (the tests inject JAX's). Observations are tensors or
+advanced cursor, with the ring's device size updated in place.
+:func:`sample` draws uniformly with replacement over ``[0, size)`` from
+an explicit ``torch.Generator``, or gathers given ``indices`` (the
+tests inject JAX's). The draw reads the size from the device
+(:func:`draw_rows`), so an update captured in a CUDA graph samples
+from the size of the ring at replay time. Observations are tensors or
 :class:`~..core.types.MultiObservation` values; every leaf keeps its own
 dtype in the ring (a visual ring stores **uint8** HWC frames beside f32
 features). :func:`sample_fused_visual` gathers the frames through the
@@ -27,6 +30,10 @@ from torch_actor_critic_tpu_torch.core.types import Batch, BufferState, MultiObs
 from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
 from torch_actor_critic_tpu_torch.ops.pixels import fused_frame_gather_pair
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
+
+
+def _zero_size(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=device)
 
 
 def init_replay_buffer(
@@ -50,7 +57,7 @@ def init_replay_buffer(
         next_states=zeros(*obs_shape),
         done=zeros(),
     )
-    return BufferState(data=data, ptr=0, size=0)
+    return BufferState(data=data, ptr=0, size=0, device_size=_zero_size(device))
 
 
 def init_visual_replay_buffer(
@@ -78,12 +85,13 @@ def init_visual_replay_buffer(
         next_states=obs(),
         done=torch.zeros((capacity,), dtype=torch.float32, device=device),
     )
-    return BufferState(data=data, ptr=0, size=0)
+    return BufferState(data=data, ptr=0, size=0, device_size=_zero_size(device))
 
 
 def push(state: BufferState, chunk: Batch) -> BufferState:
     """Append ``n`` transitions, overwriting the oldest on wrap. Each
-    leaf is written in its ring's dtype."""
+    leaf is written in its ring's dtype; the device size is filled in
+    place (a captured update holds that tensor's address)."""
     capacity = state.capacity
     n = chunk.rewards.shape[0]
     if n > capacity:
@@ -96,10 +104,23 @@ def push(state: BufferState, chunk: Batch) -> BufferState:
     idx = (torch.arange(n, device=device) + state.ptr) % capacity
     for ring, new in zip(state.data.leaves(), chunk.leaves()):
         ring.index_copy_(0, idx, new.to(ring.device, ring.dtype))
+    size = min(state.size + n, capacity)
+    state.device_size.fill_(size)
     return BufferState(
-        data=state.data, ptr=(state.ptr + n) % capacity,
-        size=min(state.size + n, capacity),
+        data=state.data, ptr=(state.ptr + n) % capacity, size=size,
+        device_size=state.device_size,
     )
+
+
+def draw_rows(state: BufferState, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+    """``(batch_size,)`` int64 rows uniform over ``[0, size)``, against
+    the ring's device size: ``floor(u · size)`` for ``u`` uniform f64 in
+    ``[0, 1)`` (uniform to 2⁻⁵³, no modulo bias), clamped to ``size - 1``
+    against rounding. No host read, so a CUDA graph can capture it; the
+    eager path draws the same rows from the same generator state."""
+    u = torch.rand((batch_size,), dtype=torch.float64, generator=generator,
+                   device=state.device_size.device)
+    return torch.minimum((u * state.device_size).long(), state.device_size - 1)
 
 
 def _indices(state: BufferState, batch_size: int, generator, indices) -> torch.Tensor:
@@ -107,10 +128,9 @@ def _indices(state: BufferState, batch_size: int, generator, indices) -> torch.T
         raise ValueError("sample: pass exactly one of generator / indices")
     if state.size == 0:
         raise ValueError("sample: replay buffer is empty (size == 0).")
-    device = state.data.rewards.device
     if indices is None:
-        return torch.randint(0, state.size, (batch_size,), generator=generator, device=device)
-    return torch.as_tensor(indices, device=device, dtype=torch.long)
+        return draw_rows(state, batch_size, generator)
+    return torch.as_tensor(indices, device=state.data.rewards.device, dtype=torch.long)
 
 
 def sample(

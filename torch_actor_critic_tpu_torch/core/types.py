@@ -14,6 +14,7 @@ serves both, as one pytree does in the JAX package.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import typing as t
 
@@ -72,11 +73,16 @@ class Batch:
 class BufferState:
     """Replay ring on the device plus its cursor. ``ptr``/``size`` are
     host integers: the host drives every push, so it knows them without
-    reading the device (the JAX package traces them as device scalars)."""
+    reading the device. ``device_size`` mirrors ``size`` as a 0-d int64
+    tensor on the ring's device, which sampling reads (the JAX package
+    traces ``size`` as a device scalar): a captured update reads it at
+    replay time, so :func:`~..buffer.replay.push` updates it in place
+    and every ``BufferState`` of one ring shares that one tensor."""
 
     data: Batch
     ptr: int  # next write slot
     size: int  # valid rows (<= capacity)
+    device_size: torch.Tensor  # 0-d int64, == size
 
     @property
     def capacity(self) -> int:
@@ -85,6 +91,11 @@ class BufferState:
     @property
     def visual(self) -> bool:
         return isinstance(self.data.states, MultiObservation)
+
+    def clone(self) -> "BufferState":
+        """An independent copy: every ring leaf and the device size."""
+        return BufferState(self.data.map(torch.clone), self.ptr, self.size,
+                           self.device_size.clone())
 
 
 @dataclasses.dataclass
@@ -102,3 +113,12 @@ class TrainState:
     log_alpha: torch.Tensor  # 0-d f32 leaf; exp() is the temperature
     alpha_opt: torch.optim.Adam
     generator: torch.Generator
+
+    def clone(self) -> "TrainState":
+        """An independent copy to run from: the modules, the target
+        critic, ``log_alpha``, each Adam state (its moments and its
+        ``step``, a device tensor when capturable) over the copied
+        parameters, and a new generator at this one's state."""
+        gen = torch.Generator(device=self.generator.device)
+        gen.set_state(self.generator.get_state())
+        return copy.deepcopy(self, memo={id(self.generator): gen})

@@ -11,7 +11,10 @@ import time: the CPU tests import every module of the port.
 
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 ``launch_counts`` is the per-kernel count of launches: each wrapper
-adds one where its kernel launches, and nowhere else.
+adds one where its kernel launches, and nowhere else. Under a CUDA
+graph capture a wrapper's launch is recorded into the graph and counted
+once; the graph's replays launch it again without the wrapper and are
+not counted here (:mod:`..sac.graph`).
 """
 
 from __future__ import annotations

@@ -10,10 +10,16 @@ Gradients are taken with ``torch.autograd.grad`` with respect to one
 network's parameters; during the actor step the critic's parameters are
 frozen, so its attention runs forward-only.
 
-A burst (:func:`run_update_burst`) pushes a chunk, then runs
-``num_updates`` steps, each sampling its batch on the device. Nothing in
-a burst reads a value back to the host: metrics stay device scalars,
-are stacked, and are reduced once by key suffix. On a visual ring with
+A burst pushes a chunk, then runs ``num_updates`` steps, each sampling
+its batch on the device. Nothing in a burst reads a value back to the
+host: metrics stay device scalars, are stacked, and are reduced once by
+key suffix. On the card :meth:`SAC.update_burst` runs the burst as one
+device program, as the JAX package jits its ``lax.scan``: one update
+(:func:`update_step`) captured in a CUDA graph and replayed for every
+update (:mod:`.graph`); the Adam instances are ``capturable`` there.
+The CPU, and every test hook that injects per-update data, take the
+eager loop (:func:`run_update_burst`); both draw the same rows, shifts
+and noise from the same generator state. On a visual ring with
 ``pixel_pipeline="fused"`` the batch comes from
 :func:`~..buffer.replay.sample_fused_visual` (frames gathered, shifted
 and decoded by the kernel K1); with the reference pipeline and
@@ -29,6 +35,7 @@ from __future__ import annotations
 import copy
 import math
 import typing as t
+import warnings
 
 import torch
 from torch import nn
@@ -39,10 +46,25 @@ from torch_actor_critic_tpu_torch.diagnostics.ingraph import reduce_burst_metric
 from torch_actor_critic_tpu_torch.ops.augment import augment_batch
 from torch_actor_critic_tpu_torch.ops.polyak import polyak_update_
 from torch_actor_critic_tpu_torch.sac import losses
+from torch_actor_critic_tpu_torch.sac.graph import BurstGraph, MetricStack
 
 Metrics = t.Dict[str, torch.Tensor]
 
 ADAM_EPS = 1e-8  # optax.adam's and torch's default
+
+# The warm-up update of a capture and the eager burst on the card step the
+# very capturable Adam a graph holds; torch's advice to drop `capturable`
+# when stepping outside a capture does not apply to them.
+_CAPTURABLE_OUTSIDE_CAPTURE = "This instance was constructed with capturable=True"
+
+
+def _step(opt: torch.optim.Optimizer) -> None:
+    """``opt.step()``, without torch's warning against stepping a
+    capturable optimizer outside a capture."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_CAPTURABLE_OUTSIDE_CAPTURE,
+                                category=UserWarning)
+        opt.step()
 
 
 def _set_grads(params: t.Sequence[torch.Tensor], grads: t.Sequence[torch.Tensor]) -> None:
@@ -73,28 +95,38 @@ class SAC:
             if config.target_entropy is not None
             else -float(act_dim)
         )
+        self.graph: BurstGraph | None = None  # the last captured burst
+        self.graph_captures = 0
 
     def init_state(
         self, actor: nn.Module, critic: nn.Module, generator: torch.Generator
     ) -> TrainState:
         """The learner state over built modules (already on the training
-        device). The target critic starts as a copy of the critic."""
+        device). The target critic starts as a copy of the critic. On
+        the card each Adam is ``capturable`` (its step count a device
+        tensor, its bias correction on the device), so a CUDA graph can
+        hold it, and the eager burst runs the same kernels; on the CPU,
+        which refuses ``capturable``, it is the plain one."""
         device = next(critic.parameters()).device
         target = copy.deepcopy(critic).requires_grad_(False)
-        lr = self.config.lr
         log_alpha = torch.full(
             (), math.log(self.config.alpha), dtype=torch.float32, device=device,
             requires_grad=True,
         )
+
+        def adam(params):
+            return torch.optim.Adam(params, lr=self.config.lr, eps=ADAM_EPS,
+                                    capturable=device.type == "cuda")
+
         return TrainState(
             step=0,
             actor=actor,
             critic=critic,
             target_critic=target,
-            pi_opt=torch.optim.Adam(actor.parameters(), lr=lr, eps=ADAM_EPS),
-            q_opt=torch.optim.Adam(critic.parameters(), lr=lr, eps=ADAM_EPS),
+            pi_opt=adam(actor.parameters()),
+            q_opt=adam(critic.parameters()),
             log_alpha=log_alpha,
-            alpha_opt=torch.optim.Adam([log_alpha], lr=lr, eps=ADAM_EPS),
+            alpha_opt=adam([log_alpha]),
             generator=generator,
         )
 
@@ -138,7 +170,7 @@ class SAC:
             reward_scale=cfg.reward_scale, eps=eps_q,
         )
         _set_grads(q_params, torch.autograd.grad(loss_q, q_params))
-        state.q_opt.step()
+        _step(state.q_opt)
 
         # --- actor step, on the updated critic (frozen: grads w.r.t. the
         # actor's parameters only) ---
@@ -152,7 +184,7 @@ class SAC:
             _set_grads(pi_params, torch.autograd.grad(loss_pi, pi_params))
         finally:
             state.critic.requires_grad_(True)
-        state.pi_opt.step()
+        _step(state.pi_opt)
 
         # --- entropy temperature ---
         if cfg.learn_alpha:
@@ -163,7 +195,7 @@ class SAC:
                 [state.log_alpha],
             )
             state.log_alpha.grad = a_grad
-            state.alpha_opt.step()
+            _step(state.alpha_opt)
             alpha_metric = state.log_alpha.detach().exp()
         else:
             alpha_metric = torch.full((), cfg.alpha, device=batch.rewards.device)
@@ -191,13 +223,82 @@ class SAC:
         indices: torch.Tensor | None = None,
         eps: torch.Tensor | None = None,
         offsets: torch.Tensor | None = None,
+        eager: bool = False,
     ) -> t.Tuple[TrainState, BufferState, Metrics]:
         """Push a chunk, then ``num_updates`` gradient steps; metrics
-        reduced over the burst."""
-        return run_update_burst(
-            self.update, self.config, state, buffer_state, chunk, num_updates,
-            indices=indices, eps=eps, offsets=offsets,
+        reduced over the burst.
+
+        A ring on the card runs as a CUDA graph (:mod:`.graph`); a CPU
+        ring, a burst given a test hook (``indices``/``eps``/``offsets``,
+        see :func:`run_update_burst`), or ``eager=True`` takes the eager
+        loop. The graph is captured once per (state, ring,
+        ``num_updates``) and replayed across bursts; another key
+        captures anew (``graph_captures`` counts). A failed capture or
+        replay raises, with ``state.step`` counting the updates that
+        ran."""
+        hooked = indices is not None or eps is not None or offsets is not None
+        if eager or hooked or buffer_state.data.rewards.device.type != "cuda":
+            return run_update_burst(
+                self.update, self.config, state, buffer_state, chunk, num_updates,
+                indices=indices, eps=eps, offsets=offsets,
+            )
+        buffer_state = push(buffer_state, chunk)
+        key = (state, state.actor, state.critic, state.target_critic, state.pi_opt,
+               state.q_opt, state.alpha_opt, state.log_alpha, state.generator,
+               buffer_state.data, buffer_state.device_size)
+        step = state.step
+        graph = self.graph
+        if graph is None or not graph.serves(key, num_updates):
+            self.graph = None  # its memory pool goes before the next capture
+            graph = BurstGraph(
+                lambda stack: update_step(self.update, self.config, state, buffer_state, stack),
+                key, num_updates, state.generator,
+            )
+        try:
+            metrics = graph.run()
+        finally:
+            state.step = step + graph.ran  # the capture counted a step it did not run
+        if graph is not self.graph:
+            self.graph = graph
+            self.graph_captures += 1
+        return state, buffer_state, metrics
+
+
+def sample_update_batch(
+    config,
+    buffer_state: BufferState,
+    generator: torch.Generator | None = None,
+    indices: torch.Tensor | None = None,
+    offsets: torch.Tensor | None = None,
+) -> Batch:
+    """One update's batch: through the fused pixel pipeline
+    (:func:`~..buffer.replay.sample_fused_visual`) on a visual ring with
+    ``pixel_pipeline="fused"``, else :func:`~..buffer.replay.sample`;
+    drawn from ``generator`` or at the given ``indices``/``offsets``."""
+    draw = {"generator": generator} if indices is None else {"indices": indices}
+    if config.pixel_pipeline == "fused" and buffer_state.visual:
+        return sample_fused_visual(
+            buffer_state, config.batch_size, out_dtype=config.model_dtype,
+            augment=config.frame_augment, pad=config.augment_pad,
+            normalize=config.normalize_pixels, offsets=offsets, **draw,
         )
+    return sample(buffer_state, config.batch_size, **draw)
+
+
+def update_step(
+    update_fn: t.Callable[..., t.Tuple[TrainState, Metrics]],
+    config,
+    state: TrainState,
+    buffer_state: BufferState,
+    stack: MetricStack,
+) -> None:
+    """One update as the burst's CUDA graph captures it: a batch drawn
+    from ``state.generator``, the update, and its metrics written at the
+    stack's device counter. The eager loop's update, but for where the
+    metrics go."""
+    batch = sample_update_batch(config, buffer_state, generator=state.generator)
+    _, metrics = update_fn(state, batch)
+    stack.write(metrics)
 
 
 def run_update_burst(
@@ -211,28 +312,21 @@ def run_update_burst(
     eps: torch.Tensor | None = None,
     offsets: torch.Tensor | None = None,
 ) -> t.Tuple[TrainState, BufferState, Metrics]:
-    """The push-then-loop burst. Test hooks: ``indices`` ``(K, B)`` are
-    the replay rows of each update (instead of draws from
+    """The eager push-then-loop burst (the CPU's, and the card's with
+    ``eager=True``). Test hooks: ``indices`` ``(K, B)`` are the
+    replay rows of each update (instead of draws from
     ``state.generator``), ``eps`` ``(K, 2, B, act_dim)`` each update's
     ``(eps_q, eps_pi)``, ``offsets`` ``(K, 2, B, 2)`` each fused visual
     update's DrQ shifts of states and next states."""
     buffer_state = push(buffer_state, chunk)
-    fused_visual = config.pixel_pipeline == "fused" and buffer_state.visual
     rows = []
     for i in range(num_updates):
-        draw = (
-            {"generator": state.generator} if indices is None
-            else {"indices": indices[i]}
+        batch = sample_update_batch(
+            config, buffer_state,
+            generator=state.generator if indices is None else None,
+            indices=None if indices is None else indices[i],
+            offsets=None if offsets is None else offsets[i],
         )
-        if fused_visual:
-            batch = sample_fused_visual(
-                buffer_state, config.batch_size, out_dtype=config.model_dtype,
-                augment=config.frame_augment, pad=config.augment_pad,
-                normalize=config.normalize_pixels,
-                offsets=None if offsets is None else offsets[i], **draw,
-            )
-        else:
-            batch = sample(buffer_state, config.batch_size, **draw)
         noise = {} if eps is None else {"eps_q": eps[i][0], "eps_pi": eps[i][1]}
         state, metrics = update_fn(state, batch, **noise)
         rows.append(metrics)

@@ -1,0 +1,126 @@
+"""The update burst as one device program: one update captured as a CUDA
+graph and replayed for every update of a burst — the port's counterpart
+of the JAX burst's ``jax.jit(lax.scan(update))``
+(``torch_actor_critic_tpu/sac/algorithm.py:421-470``).
+
+A :class:`BurstGraph` holds a step function — for SAC one whole update
+and the write of its metrics (:func:`~.algorithm.update_step`). Its
+first burst runs the step eagerly on a side stream
+(:data:`WARMUP_UPDATES` real updates of the burst: PyTorch's CUDA-graph
+rules ask for it, and it creates Adam's lazy state, loads the kernel
+libraries and sets up cuBLAS's workspaces), captures one more call as a
+``torch.cuda.CUDAGraph`` and replays it for the rest; every later burst
+is replays only. A capture executes nothing. The learner's generator is
+registered with the graph, so every replay draws fresh rows, shifts and
+noise, and leaves the generator where the eager loop would.
+
+The graph reads and writes fixed addresses: the parameters and Adam
+states (updated in place), the replay ring and its device size (``push``
+writes both in place), and a :class:`MetricStack` whose device counter
+says which row a replay writes. What the update allocates comes from the
+graph's private pool and is rewritten by every replay; the burst's
+reduced metrics are new tensors. A failed capture or replay raises:
+nothing falls back to the eager loop, and the updates that did run stay
+run (:attr:`BurstGraph.ran` counts them).
+
+The kernel wrappers count the warm-up's launches and the capture's (each
+records its launch into the graph); a replay launches the graph's kernels
+without calling a wrapper, so ``_kernels.launch_counts`` does not see
+them: a device trace (``torch.profiler``) does.
+"""
+
+from __future__ import annotations
+
+import typing as t
+
+import torch
+
+from torch_actor_critic_tpu_torch.diagnostics.ingraph import reduce_burst_metrics
+
+WARMUP_UPDATES = 1
+
+
+class MetricStack:
+    """The ``(K, ...)`` metric rows of a burst of ``K`` updates and
+    ``step``, the ``(1,)`` int64 device counter of the row the next
+    update writes (reset before each burst). The rows are allocated at
+    the first write, in its metrics' shapes and dtypes."""
+
+    def __init__(self, num_updates: int, device: torch.device | str):
+        self.num_updates = num_updates
+        self.step = torch.zeros(1, dtype=torch.int64, device=device)
+        self.rows: t.Dict[str, torch.Tensor] | None = None
+
+    def write(self, metrics: t.Mapping[str, torch.Tensor]) -> None:
+        """Row ``step`` of every metric, then ``step += 1``, on the
+        device: a graph replays it at the counter's value."""
+        if self.rows is None:
+            self.rows = {k: v.new_empty((self.num_updates, *v.shape))
+                         for k, v in metrics.items()}
+        for k, v in metrics.items():
+            self.rows[k].index_copy_(0, self.step, v.unsqueeze(0))
+        self.step.add_(1)
+
+    def reduce(self) -> t.Dict[str, torch.Tensor]:
+        """The burst's metrics, reduced by key suffix into new tensors:
+        the eager loop's reduction of the same stacked values."""
+        return reduce_burst_metrics(self.rows)
+
+
+class BurstGraph:
+    """``step_fn(stack)`` captured once and replayed for each of
+    ``num_updates`` updates a burst. ``key`` holds the objects the
+    capture read (state, modules, optimizers, ring): the graph serves a
+    burst only over those same objects (:meth:`serves`)."""
+
+    def __init__(
+        self,
+        step_fn: t.Callable[[MetricStack], None],
+        key: t.Sequence[object],
+        num_updates: int,
+        generator: torch.Generator,
+    ):
+        if num_updates < WARMUP_UPDATES:
+            raise ValueError(f"a captured burst needs num_updates >= {WARMUP_UPDATES}, "
+                             f"got {num_updates}")
+        self.key = tuple(key)
+        self.num_updates = num_updates
+        self.generator = generator
+        self.stack = MetricStack(num_updates, generator.device)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.ran = 0  # updates the last burst ran (warm-up and replays)
+        self._step_fn = step_fn
+
+    def serves(self, key: t.Sequence[object], num_updates: int) -> bool:
+        return (num_updates == self.num_updates and len(key) == len(self.key)
+                and all(a is b for a, b in zip(key, self.key)))
+
+    def run(self) -> t.Dict[str, torch.Tensor]:
+        """One burst: the counter reset, the warm-up and the capture if
+        there is no graph yet, then a replay for every other update;
+        returns the reduced metrics."""
+        self.stack.step.zero_()
+        self.ran = 0
+        if self.graph is None:
+            self._capture()
+        while self.ran < self.num_updates:
+            self.graph.replay()
+            self.ran += 1
+        return self.stack.reduce()
+
+    def _capture(self) -> None:
+        device = self.stack.step.device
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(WARMUP_UPDATES):
+                    self._step_fn(self.stack)
+                    self.ran += 1
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            with torch.cuda.graph(graph, stream=stream):
+                self._step_fn(self.stack)
+        finally:
+            torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph = graph

@@ -8,7 +8,11 @@ the ``max_ep_len`` done-bypass (an episode cut by the length cap stores
 an update window every ``update_every`` steps (``(step + 1) %
 update_every == 0``) that pushes the staged transitions and, once
 ``step > update_after``, runs a burst of ``updates_per_window``
-gradient steps on the device.
+gradient steps on the device (on the card, replays of one captured
+update: :meth:`~.algorithm.SAC.update_burst`). Acting between bursts
+reads the parameters the replays updated in place; the burst's metrics
+are new tensors, read once at epoch end, outside the graph, as the
+sentinel is.
 
 Acting runs on the training device through the same kernels as the
 learner (the JAX trainer's ``host_actor`` CPU mirror is accepted and

@@ -200,9 +200,10 @@ def _load_adam(opt: torch.optim.Adam, module_or_param, opt_state) -> None:
         pairs = [(p, mu[n], nu[n]) for n, p in module_or_param.named_parameters()]
     else:
         pairs = [(module_or_param, adam.mu, adam.nu)]
+    capturable = opt.defaults["capturable"]  # a capturable Adam counts on the device
     for p, m, v in pairs:
         opt.state[p] = {
-            "step": step.clone(),
+            "step": step.to(p.device) if capturable else step.clone(),
             "exp_avg": torch.as_tensor(np.array(m), dtype=p.dtype, device=p.device),
             "exp_avg_sq": torch.as_tensor(np.array(v), dtype=p.dtype, device=p.device),
         }
