@@ -1,7 +1,9 @@
 """GPU smoke of the PyTorch port: build, check and time its kernels,
 serve the sequence policy over HTTP through the port's CLI path, train
 it with SAC through the train CLI's path, then train the visual (pixel)
-policy through the same path and run visual bursts at full width.
+policy through the same path and run visual bursts at full width, then
+preempt, resume, roll back and evaluate training runs from full-state
+checkpoints.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -120,14 +122,29 @@ or of the JAX package. Phases, one JSON line each:
    fused bursts at B 32 f32 and B 512 bf16; captured against eager as in
    train_visual; each burst mode's finite losses, 1 K1 launch per update
    in its device trace,
-   gradient steps per second and one profiled burst.
+   gradient steps per second and one profiled burst;
+9. resume — full-state checkpoints on the card under captured bursts,
+   at the sequence training widths (200-step epochs, update_every 50):
+   3 epochs uninterrupted (A) against a run preempted by a real SIGTERM
+   in epoch 1 (B: ``Preempted``, exit code 75, checkpoint at epoch 1,
+   step 400) and a fresh trainer resumed from it for the last epoch (C,
+   traced): every leaf of C equal to A's to the bit, one capture each,
+   K2/K3/K4 launches per update from the device trace; C's checkpoint
+   restored exactly into a CPU trainer; ``run_agent`` twice on C's run,
+   the same line; a NaN reward in epoch 2 of a 4-epoch run (D) rolled
+   back in place to epoch 1: bitwise equal to the checkpoint on disk, no
+   new capture, and one burst through the old graph equal to one eager
+   burst from a clone; the pixel recipe, 2 epochs against 1 + resume + 1
+   on cuDNN's deterministic algorithms, bitwise, 1 K1 launch per update.
+   Reports ``save_s``, ``sentinel_s``, restore seconds and checkpoint
+   bytes beside the card's name and power limit.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
 on the model's views; K1's row is ``train_pair``, what the main path
 launches, with train_visual's launches; every ``launches`` is counted
-in the main path's run: serving's by the wrappers, as it runs no graph,
-training's from its device trace),
+in the main path's runs: serving's by the wrappers, as it runs no graph,
+training's and the resumed runs' from their device traces),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is non-zero and the last line is not printed.
@@ -1810,6 +1827,329 @@ def phase_visual_burst(seed: int, kernels) -> list:
     return rows
 
 
+# The resume phase's runs: the README's sequence policy at SACConfig's widths,
+# 200-step epochs, 50-step update windows (50-update captured bursts).
+RESUME_ARGS = [
+    "--environment", TRAIN_ENV, "--history-len", "16", "--device", "cuda",
+    "--epochs", "3", "--steps-per-epoch", "200", "--start-steps", "100",
+    "--update-after", "100", "--update-every", "50", "--save-every", "10",
+]
+
+
+def learner_snapshot(trainer) -> dict:
+    """Every leaf that defines a run's state, on the host: the learner
+    (parameters, target, the three Adam states with their steps, log α,
+    the step count, the learner generator), the ring's rows, ``ptr``,
+    ``size`` and device size, and the acting generator."""
+    return {"state": trainer.state.state_dict(), "buffer": trainer.buffer.state_dict(),
+            "device_size": int(trainer.buffer.device_size),
+            "act": trainer._act_gen.get_state()}
+
+
+def bitwise_diff(a, b, path="") -> list:
+    """The paths at which two snapshots differ (tensors by ``torch.equal``
+    and dtype, everything else by ``==``)."""
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [path]
+        return [d for k in a for d in bitwise_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in bitwise_diff(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def phase_resume(seed: int, kernels, smi: str) -> dict:
+    """Full-state checkpoint, resume, rollback and preemption on the card,
+    under captured bursts, through the train CLI's ``build_trainer``:
+
+    A. 3 epochs, uninterrupted;
+    B. the same seed with a ``PreemptionGuard`` installed and a real
+       SIGTERM sent by ``FaultyEnvPool.call_at`` at step 250 (epoch 1):
+       ``Preempted``, exit code 75, the checkpoint at epoch 1, step 400;
+    C. a fresh ``Trainer`` on B's checkpoints: ``restore()`` returns 2,
+       one epoch, traced; every leaf equal to A's to the bit (parameters,
+       target, Adam moments and steps, log α, step, both generators, the
+       ring, ptr, size, device size), one capture in A and in C, and
+       K2/K3/K4 launches per update from the device trace
+       (``check_through_graphs``);
+    D. ``save_every`` 1 and a NaN reward at step 450 (epoch 2), 4 epochs:
+       one rollback; right after it the state equals the epoch-1
+       checkpoint on disk to the bit, no new capture, and one captured
+       burst from it (replays of the graph captured before the rollback)
+       equals one eager burst from its clone to the bit; finite final
+       metrics;
+    visual: the pixel recipe, 2 epochs of 200 steps against 1 + resume +
+       1, on cuDNN's deterministic algorithms, bitwise; the resumed run
+       traced, exactly 1 K1 launch per update;
+    card to CPU: C's checkpoint restored into a CPU trainer: parameters,
+       target, Adam moments and steps, log α and the ring exactly C's;
+    run_agent: the evaluation CLI twice on C's run (``--episodes 2 --seed
+       0``, on the card), one identical, finite JSON line each.
+
+    Returns the kernels' launch counts of C's and the visual resume's
+    runs (the wrappers set to 0 just before each, the device traces read
+    just after)."""
+    import os
+    import signal
+    from pathlib import Path
+
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+    from torch_actor_critic_tpu_torch.resilience import Preempted, PreemptionGuard
+    from torch_actor_critic_tpu_torch.resilience.faultinject import FaultyEnvPool
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_resume_")
+    row = {"phase": "resume", "card": smi}
+    try:
+        def cli_args(*extra):
+            return train_cli.parse_arguments([*RESUME_ARGS, "--seed", str(seed),
+                                              "--runs-root", runs, *extra])
+
+        def fresh(config, directory, device="cuda", epochs=1):
+            return Trainer(TRAIN_ENV, config.replace(epochs=epochs),
+                           checkpointer=Checkpointer(directory), seed=seed, device=device)
+
+        # A: uninterrupted.
+        epochs_a = []
+        a, _ = train_cli.build_trainer(cli_args())
+        a.train(on_epoch=lambda e, m: epochs_a.append(m))
+        torch.cuda.synchronize()
+        ref, captures_a, cfg = learner_snapshot(a), a.sac.graph_captures, a.config
+        act_dim = a.pool.act_dim
+        a.close()
+        check(captures_a == 1, f"resume A: {captures_a} captures, expected 1")
+
+        # B: a real SIGTERM inside epoch 1.
+        guard = PreemptionGuard()
+        b, tracker_b = train_cli.build_trainer(cli_args(), preemption=guard)
+        b.pool = FaultyEnvPool(b.pool).call_at(250, lambda: os.kill(os.getpid(), signal.SIGTERM))
+        preempted = None
+        guard.install()
+        try:
+            b.train()
+        except Preempted as p:
+            preempted = p
+        finally:
+            guard.uninstall()
+            b.close()
+        check(preempted is not None and preempted.epoch == 1 and not preempted.urgent
+              and preempted.exit_code == 75, f"resume B: preempted {preempted!r}")
+        directory = b.checkpointer.directory
+        meta = b.checkpointer.peek_meta()
+        check((meta["epoch"], meta["step"]) == (1, 400), f"resume B: meta {meta}")
+        ckpt_bytes = {f.name: f.stat().st_size for f in (directory / "epoch_1").iterdir()}
+
+        # C: a fresh trainer on B's checkpoints, one epoch, traced (a
+        # retaken trace starts again from the restore).
+        def drive():
+            c = fresh(cfg, directory)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start = c.restore()
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            restored_step = c.state.step
+            kernels.reset_launch_counts()
+            metrics = c.train()
+            torch.cuda.synchronize()
+            return c, metrics, dict(kernels.launch_counts), start, restore_s, restored_step
+
+        def discard(out):  # a lost trace: its epoch-2 save goes with it
+            out[0].close()
+            shutil.rmtree(directory / "epoch_2")
+
+        (c, metrics_c, wrapped, start, restore_s, restored_step), launches = traced(
+            drive, "resume", discard=discard)
+        check(start == 2 and c._resume_step == 400, f"resume C: restore() -> {start}")
+        updates = c.state.step - restored_step
+        diff = bitwise_diff(ref, learner_snapshot(c))
+        check(not diff, f"resume C differs from A at {diff[:8]}")
+        check(c.sac.graph_captures == 1, f"resume C: {c.sac.graph_captures} captures")
+        check(all(math.isfinite(metrics_c[k]) for k in ("loss_q", "loss_pi")),
+              f"resume C: metrics {metrics_c}")
+        per_update = {"flash_fwd": 5 * cfg.seq_num_layers, "flash_bwd_dq": 2 * cfg.seq_num_layers,
+                      "flash_bwd_dkv": 2 * cfg.seq_num_layers}
+        check_through_graphs("resume", launches, wrapped, per_update, updates,
+                             c.sac.graph_captures)
+        row.update({
+            "resumed_epoch": start, "resumed_step": c._resume_step, "updates": updates,
+            "bitwise_vs_uninterrupted": True, "graph_captures": [captures_a, c.sac.graph_captures],
+            "launches": launches, "wrapper_launches": wrapped,
+            "save_s": epochs_a[-1]["save_s"], "save_s_epoch0": epochs_a[0]["save_s"],
+            "sentinel_s": [m["sentinel_s"] for m in epochs_a],
+            "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes,
+        })
+
+        # Card to CPU: C's checkpoint (epoch 2) into a CPU trainer.
+        host = fresh(cfg, directory, device="cpu")
+        check(host.restore() == 3, "card to CPU: restore() != 3")
+        def exact_part(st):
+            # The networks, Adam moments and steps, log α and the step count:
+            # not the generator (each device has its own kind) nor Adam's
+            # hyperparameters (capturable on the card only).
+            full = st.state_dict()
+            return {**{k: full[k] for k in ("step", "actor", "critic", "target_critic",
+                                            "log_alpha")},
+                    **{k: full[k]["state"] for k in ("pi_opt", "q_opt", "alpha_opt")}}
+
+        diff = bitwise_diff(exact_part(c.state), exact_part(host.state))
+        diff += bitwise_diff(c.buffer.state_dict(), host.buffer.state_dict(), "/buffer")
+        check(not diff, f"card to CPU restore differs at {diff[:8]}")
+        steps = {str(s["step"].device) for o in ("pi_opt", "q_opt")
+                 for s in getattr(host.state, o).state.values()}
+        host.close()
+        c.close()
+        row["card_to_cpu"] = {"exact": True, "adam_step_devices_on_cpu": sorted(steps)}
+
+        # run_agent on C's run, twice, on the card.
+        evals = []
+        for _ in range(2):
+            res = subprocess.run(
+                [sys.executable, "-m", "torch_actor_critic_tpu_torch.run_agent",
+                 "--run", tracker_b.run_id, "--runs-root", runs, "--episodes", "2",
+                 "--seed", "0"],
+                cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
+                timeout=300)
+            check(res.returncode == 0, f"run_agent exited {res.returncode}: {res.stderr[-2000:]}")
+            evals.append(res.stdout.strip().splitlines()[-1])
+        out = json.loads(evals[0])
+        check(evals[0] == evals[1] and all(math.isfinite(v) for v in out.values()),
+              f"run_agent: {evals}")
+        row["run_agent"] = out
+
+        # D: a NaN reward in epoch 2, rolled back in place to epoch 1.
+        runs_d = tempfile.mkdtemp(prefix="tac_chip_rollback_", dir=runs)
+        d, _ = train_cli.build_trainer(train_cli.parse_arguments([
+            *RESUME_ARGS, "--seed", str(seed), "--runs-root", runs_d, "--epochs", "4",
+            "--save-every", "1"]))
+        d.pool = FaultyEnvPool(d.pool).nan_rewards_at(450)
+        rollback = d._rollback
+        seen = {}
+
+        def checked_rollback():
+            before = d.sac.graph_captures
+            epoch = rollback()
+            torch.cuda.synchronize()
+            on_disk = d.checkpointer.directory / f"epoch_{epoch}"
+            saved = {"state": torch.load(on_disk / "state.pt", weights_only=True),
+                     "buffer": torch.load(on_disk / "buffer.pt", weights_only=True)}
+            live = {"state": d.state.state_dict(), "buffer": d.buffer.state_dict()}
+            seen["epoch"], seen["diff"] = epoch, bitwise_diff(saved, live)
+            seen["device_size"] = int(d.buffer.device_size) == saved["buffer"]["size"]
+            # One burst through the graph captured before the rollback, on
+            # the restored tensors, against one eager burst from a clone.
+            gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+            chunk = sample(d.buffer, cfg.update_every, generator=gen)
+            twin, twin_ring = d.state.clone(), d.buffer.clone()
+            graph = d.sac.graph
+            d.state, d.buffer, m_graph = d.sac.update_burst(
+                d.state, d.buffer, chunk, cfg.updates_per_window)
+            twin, twin_ring, m_eager = SAC(cfg, act_dim).update_burst(
+                twin, twin_ring, chunk, cfg.updates_per_window, eager=True)
+            torch.cuda.synchronize()
+            seen["same_graph"] = d.sac.graph is graph
+            seen["burst"] = {**_learner_gaps(d.state, twin), "metrics_bitwise": all(
+                torch.equal(m_graph[k], m_eager[k]) for k in m_eager)}
+            seen["captures"] = (before, d.sac.graph_captures)
+            rollback()  # back to the checkpoint: training goes on from it
+            return epoch
+
+        d._rollback = checked_rollback
+        metrics_d = d.train()
+        torch.cuda.synchronize()
+        check(d.sentinel.total_rollbacks == 1 and metrics_d["rollbacks"] == 1,
+              f"rollback D: {d.sentinel.total_rollbacks} rollbacks")
+        check(seen["epoch"] == 1 and not seen["diff"] and seen["device_size"],
+              f"rollback D: the rolled-back state differs from epoch 1 at {seen['diff'][:8]}")
+        check(seen["captures"] == (1, 1) and seen["same_graph"] and d.sac.graph_captures == 1,
+              f"rollback D: captures {seen['captures']}, then {d.sac.graph_captures}")
+        burst = seen["burst"]
+        check(burst.pop("metrics_bitwise") and burst == BITWISE,
+              f"rollback D: captured vs eager burst {burst}")
+        check(all(math.isfinite(metrics_d[k]) for k in ("loss_q", "loss_pi", "reward")),
+              f"rollback D: final metrics {metrics_d}")
+        d.close()
+        row["rollback"] = {"rolled_to": seen["epoch"], "bitwise_vs_checkpoint": True,
+                           "captures": d.sac.graph_captures, "burst_vs_eager": BITWISE,
+                           "final_loss_q": metrics_d["loss_q"]}
+
+        row["visual"], visual_launches = _visual_resume(seed, kernels, runs)
+        emit(row)
+        return {**launches, "pixel_gather": visual_launches["pixel_gather"]}
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+def _visual_resume(seed: int, kernels, runs: str):
+    """The pixel recipe, 2 epochs of 200 steps uninterrupted against 1
+    epoch, a fresh trainer's ``restore()`` and 1 more (traced), on cuDNN's
+    deterministic algorithms: bitwise, 1 K1 launch per update."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    def build(epochs):
+        args = train_cli.parse_arguments([
+            *VISUAL_ARGS, "--device", "cuda", "--seed", str(seed), "--epochs", str(epochs),
+            "--steps-per-epoch", "200", "--start-steps", "100", "--update-after", "100",
+            "--update-every", "50", "--buffer-size", "24000", "--runs-root", runs])
+        return train_cli.build_trainer(args)[0]
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole = build(2)
+        whole.train()
+        torch.cuda.synchronize()
+        ref = learner_snapshot(whole)
+        whole.close()
+        first = build(1)
+        first.train()
+        first.close()
+        cfg, directory = first.config, first.checkpointer.directory
+
+        def drive():
+            resumed = Trainer(VISUAL_ENV, cfg, checkpointer=Checkpointer(directory),
+                              seed=seed, device="cuda")
+            start = resumed.restore()
+            restored_step = resumed.state.step
+            kernels.reset_launch_counts()
+            resumed.train()
+            torch.cuda.synchronize()
+            return resumed, start, restored_step, dict(kernels.launch_counts)
+
+        def discard(out):  # a lost trace: its epoch-1 save goes with it
+            out[0].close()
+            shutil.rmtree(directory / "epoch_1")
+
+        (resumed, start, restored_step, wrapped), launches = traced(
+            drive, "visual resume", discard=discard)
+        check(start == 1, f"visual resume: restore() -> {start}")
+        updates = resumed.state.step - restored_step
+        diff = bitwise_diff(ref, learner_snapshot(resumed))
+        check(not diff, f"visual resume differs from the uninterrupted run at {diff[:8]}")
+        check(launches["pixel_gather"] == updates,
+              f"visual resume: {launches['pixel_gather']} K1 launches for {updates} updates")
+        check_through_graphs("visual resume", launches, wrapped, {"pixel_gather": 1}, updates,
+                             resumed.sac.graph_captures)
+        captures = resumed.sac.graph_captures
+        resumed.close()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return ({"bitwise_vs_uninterrupted": True, "cudnn_deterministic": True, "updates": updates,
+             "pixel_gather_per_update": launches["pixel_gather"] / updates,
+             "graph_captures": captures}, launches)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1836,16 +2176,19 @@ def main(argv=None) -> int:
     phase_graph_push(args.seed)
     visual_launches = phase_train_visual(args.seed, _kernels)
     phase_visual_burst(args.seed, _kernels)
-    fwd_launches = serve_launches + train_launches["flash_fwd"]
+    resume_launches = phase_resume(args.seed, _kernels, smi)
+    fwd_launches = serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]
     rows = [
         ("flash_fwd", "flash_fwd.cu", "torch_actor_critic_tpu/ops/attention.py:428",
          fwd_launches, serve_row),
         ("flash_bwd_dq", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:611",
-         train_launches["flash_bwd_dq"], bwd_rows["flash_bwd_dq"]),
+         train_launches["flash_bwd_dq"] + resume_launches["flash_bwd_dq"],
+         bwd_rows["flash_bwd_dq"]),
         ("flash_bwd_dkv", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:634",
-         train_launches["flash_bwd_dkv"], bwd_rows["flash_bwd_dkv"]),
+         train_launches["flash_bwd_dkv"] + resume_launches["flash_bwd_dkv"],
+         bwd_rows["flash_bwd_dkv"]),
         ("pixel_gather", "pixels.cu", "torch_actor_critic_tpu/ops/pixels.py:261",
-         visual_launches["pixel_gather"], pixel_row),
+         visual_launches["pixel_gather"] + resume_launches["pixel_gather"], pixel_row),
     ]
     emit({"kernels": [
         {

@@ -857,3 +857,136 @@ def test_capturable_adam_step_matches_the_plain_adam(cuda):
         for got, want in zip(*runs):
             for a, b in zip(got, want):
                 torch.testing.assert_close(a.detach(), b.detach(), atol=1e-5, rtol=1e-4)
+
+
+# ------------------------------------------- full-state checkpoint, resume
+
+# tests/test_resilience.py's TINY schedule with the sequence policy at a
+# small width: on the card its attention runs through K2-K4 and its bursts
+# are CUDA graph replays.
+RESUME_CFG = dict(hidden_sizes=(16, 16), batch_size=16, epochs=3, steps_per_epoch=40,
+                  start_steps=10, update_after=10, update_every=10, buffer_size=500,
+                  max_ep_len=100, save_every=10, history_len=4, seq_d_model=16,
+                  seq_num_heads=2, seq_num_layers=1)
+
+
+def _resume_trainer(device, ckpt_dir, preemption=None, **over):
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    return Trainer("PendulumNumpy-v1", SACConfig(**{**RESUME_CFG, **over}),
+                   checkpointer=Checkpointer(ckpt_dir, retry_backoff_s=0.0), seed=7,
+                   device=device, preemption=preemption)
+
+
+def _snapshot(tr) -> dict:
+    return {"state": tr.state.state_dict(), "buffer": tr.buffer.state_dict(),
+            "device_size": int(tr.buffer.device_size), "act": tr._act_gen.get_state()}
+
+
+def _diff(a, b, path="") -> list:
+    if isinstance(a, torch.Tensor):
+        return [] if a.dtype == b.dtype and torch.equal(a, b) else [path]
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [path]
+        return [d for k in a for d in _diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b, strict=True))
+                for d in _diff(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+@pytest.mark.gpu
+def test_resume_under_captured_bursts_is_bitwise(cuda, tmp_path):
+    """3 epochs uninterrupted against a run preempted in epoch 1 (the
+    programmatic path of the guard) and a fresh trainer resumed from its
+    checkpoint for the last epoch: every leaf equal to the bit, one
+    capture in each run."""
+    from torch_actor_critic_tpu_torch.resilience import Preempted, PreemptionGuard
+    from torch_actor_critic_tpu_torch.resilience.faultinject import FaultyEnvPool
+
+    a = _resume_trainer(cuda, tmp_path / "a")
+    a.train()
+    ref, captures = _snapshot(a), a.sac.graph_captures
+    a.close()
+    guard = PreemptionGuard()
+    b = _resume_trainer(cuda, tmp_path / "b", preemption=guard)
+    b.pool = FaultyEnvPool(b.pool).call_at(45, guard.request_preemption)
+    with pytest.raises(Preempted):
+        b.train()
+    b.close()
+    c = _resume_trainer(cuda, tmp_path / "b", epochs=1)
+    assert c.restore() == 2 and c._resume_step == 80
+    c.train()
+    torch.cuda.synchronize()
+    assert _diff(ref, _snapshot(c)) == []
+    assert captures == c.sac.graph_captures == 1
+    c.close()
+
+
+@pytest.mark.gpu
+def test_rollback_in_place_keeps_the_graph_and_equals_an_eager_burst(cuda, tmp_path):
+    """A NaN reward in epoch 1 rolls back to epoch 0 in place: the
+    rolled-back state is the checkpoint's to the bit, no burst is
+    captured anew, and one burst through the graph captured before the
+    rollback equals one eager burst from a clone of the rolled-back
+    state, to the bit."""
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+    from torch_actor_critic_tpu_torch.resilience.faultinject import FaultyEnvPool
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    tr = _resume_trainer(cuda, tmp_path / "ck", save_every=1, epochs=3)
+    tr.pool = FaultyEnvPool(tr.pool).nan_rewards_at(50)
+    rollback, seen = tr._rollback, {}
+
+    def checked_rollback():
+        epoch = rollback()
+        on_disk = tr.checkpointer.directory / f"epoch_{epoch}"
+        saved = torch.load(on_disk / "state.pt", weights_only=True)
+        seen["diff"] = _diff(saved, tr.state.state_dict())
+        graph, cfg = tr.sac.graph, tr.config
+        chunk = sample(tr.buffer, 10, generator=torch.Generator(device=cuda).manual_seed(3))
+        twin, twin_ring = tr.state.clone(), tr.buffer.clone()
+        tr.state, tr.buffer, m_graph = tr.sac.update_burst(tr.state, tr.buffer, chunk, 10)
+        twin, twin_ring, m_eager = SAC(cfg, 1).update_burst(twin, twin_ring, chunk, 10,
+                                                            eager=True)
+        torch.cuda.synchronize()
+        seen["same_graph"] = tr.sac.graph is graph
+        seen["gaps"] = _learner_gaps(tr.state, twin)
+        seen["metrics"] = all(torch.equal(m_graph[k], m_eager[k]) for k in m_eager)
+        rollback()
+        return epoch
+
+    tr._rollback = checked_rollback
+    metrics = tr.train()
+    tr.close()
+    assert tr.sentinel.total_rollbacks == 1 and seen["diff"] == []
+    assert seen["same_graph"] and tr.sac.graph_captures == 1
+    assert seen["gaps"] == {"params": 0.0, "adam": 0.0, "log_alpha": 0.0,
+                            "same_generator": True, "same_step": True}, seen["gaps"]
+    assert seen["metrics"] and math.isfinite(metrics["loss_q"])
+
+
+@pytest.mark.gpu
+def test_card_checkpoint_restores_on_the_cpu(cuda, tmp_path):
+    """A checkpoint written on the card restores into a CPU trainer: the
+    networks, Adam moments and step values, log α, the step count and
+    the ring exactly; each Adam's step lands where a CPU Adam keeps it."""
+    card = _resume_trainer(cuda, tmp_path / "ck", epochs=1)
+    card.train()
+    host = _resume_trainer("cpu", tmp_path / "ck")
+    assert host.restore() == 1
+
+    def exact(st):
+        full = st.state_dict()
+        return {**{k: full[k] for k in ("step", "actor", "critic", "target_critic", "log_alpha")},
+                **{k: full[k]["state"] for k in ("pi_opt", "q_opt", "alpha_opt")}}
+
+    assert _diff(exact(card.state), exact(host.state)) == []
+    assert _diff(card.buffer.state_dict(), host.buffer.state_dict()) == []
+    step = next(iter(host.state.q_opt.state.values()))["step"]
+    # windows at steps 19, 29 and 39 (after update_after 10): 3 bursts of 10
+    assert step.device.type == "cpu" and float(step) == host.state.step == 30
+    card.close()
+    host.close()

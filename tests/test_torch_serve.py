@@ -423,7 +423,7 @@ def test_checkpointer_surface_matches_registry_use(tmp_path):
     ckpt = Checkpointer(tmp_path)
     with pytest.raises(FileNotFoundError):
         ckpt.peek_meta()
-    ckpt.save(4, _actor(), CFG)
+    save_actor(ckpt.directory, 4, _actor(), CFG)  # an actor-only epoch
     ckpt.refresh()
     assert ckpt.latest_epoch() == 4 and ckpt.peek_meta()["epoch"] == 4
     state, meta = ckpt.restore_actor_params()

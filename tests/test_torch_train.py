@@ -32,6 +32,7 @@ from torch_actor_critic_tpu_torch.envs.pendulum import PendulumNumpy
 from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool
 from torch_actor_critic_tpu_torch.envs.wrappers import HistoryEnv, make_env
 from torch_actor_critic_tpu_torch.models import build_actor, build_models
+from torch_actor_critic_tpu_torch.resilience import TrainingDiverged
 from torch_actor_critic_tpu_torch.sac.trainer import NOT_PORTED, Trainer
 from torch_actor_critic_tpu_torch.serve import ModelRegistry
 from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
@@ -232,7 +233,7 @@ def test_trainer_sentinel_raises_on_non_finite_params():
     with torch.no_grad():
         next(trainer.state.actor.parameters()).fill_(float("nan"))
     try:
-        with pytest.raises(FloatingPointError):
+        with pytest.raises(TrainingDiverged, match="no checkpoint"):
             trainer.train()
     finally:
         trainer.close()

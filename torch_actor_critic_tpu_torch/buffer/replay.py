@@ -1,6 +1,7 @@
 """Device-resident uniform-sampling ring replay buffer (port of
 ``buffer/replay.py``: ``init_replay_buffer``, ``init_visual_replay_buffer``,
-``push``, ``sample``, ``sample_fused_visual``).
+``push``, ``sample``, ``sample_fused_visual``), and the in-place
+restore of a checkpointed ring (:func:`load_buffer_`).
 
 The ring lives on the training device: ``device=None`` means the card,
 as for the port's other entry points (``utils/device.resolve_device``),
@@ -110,6 +111,35 @@ def push(state: BufferState, chunk: Batch) -> BufferState:
         data=state.data, ptr=(state.ptr + n) % capacity, size=size,
         device_size=state.device_size,
     )
+
+
+def load_buffer_(state: BufferState, saved: t.Mapping[str, t.Any]) -> BufferState:
+    """Restore :meth:`~..core.types.BufferState.state_dict`'s snapshot
+    into ``state``'s ring **in place** (a captured update holds its
+    addresses): rows ``[0, size)`` of every leaf copied, the rest
+    zeroed, the device size filled; returns the ring at the saved
+    cursor. A snapshot of another capacity, leaf set, row shape or dtype
+    raises ``ValueError``."""
+    if int(saved["capacity"]) != state.capacity:
+        raise ValueError(f"replay snapshot capacity {saved['capacity']} != ring "
+                         f"capacity {state.capacity}")
+    size = int(saved["size"])
+    rings = dict(state.data.named_leaves())
+    if set(saved["leaves"]) != set(rings):
+        raise ValueError(f"replay snapshot leaves {sorted(saved['leaves'])} != "
+                         f"ring leaves {sorted(rings)}")
+    for name, ring in rings.items():
+        src = saved["leaves"][name]
+        if tuple(src.shape) != (size, *ring.shape[1:]) or src.dtype != ring.dtype:
+            raise ValueError(f"replay snapshot leaf {name!r}: {src.dtype} "
+                             f"{tuple(src.shape)} does not fit the ring's {ring.dtype} "
+                             f"{tuple(ring.shape)} at size {size}")
+    for name, ring in rings.items():
+        ring[:size].copy_(saved["leaves"][name])
+        ring[size:].zero_()
+    state.device_size.fill_(size)
+    return BufferState(data=state.data, ptr=int(saved["ptr"]), size=size,
+                       device_size=state.device_size)
 
 
 def draw_rows(state: BufferState, batch_size: int, generator: torch.Generator) -> torch.Tensor:

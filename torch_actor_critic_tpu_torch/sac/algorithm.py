@@ -233,7 +233,9 @@ class SAC:
         see :func:`run_update_burst`), or ``eager=True`` takes the eager
         loop. The graph is captured once per (state, ring,
         ``num_updates``) and replayed across bursts; another key
-        captures anew (``graph_captures`` counts). A failed capture or
+        (:func:`graph_key`: those objects and every tensor of them the
+        update reads or writes) captures anew (``graph_captures``
+        counts). A failed capture or
         replay raises, with ``state.step`` counting the updates that
         ran."""
         hooked = indices is not None or eps is not None or offsets is not None
@@ -243,9 +245,7 @@ class SAC:
                 indices=indices, eps=eps, offsets=offsets,
             )
         buffer_state = push(buffer_state, chunk)
-        key = (state, state.actor, state.critic, state.target_critic, state.pi_opt,
-               state.q_opt, state.alpha_opt, state.log_alpha, state.generator,
-               buffer_state.data, buffer_state.device_size)
+        key = graph_key(state, buffer_state)
         step = state.step
         graph = self.graph
         if graph is None or not graph.serves(key, num_updates):
@@ -259,9 +259,30 @@ class SAC:
         finally:
             state.step = step + graph.ran  # the capture counted a step it did not run
         if graph is not self.graph:
+            graph.key = graph_key(state, buffer_state)  # now with the warm-up's Adam state
             self.graph = graph
             self.graph_captures += 1
         return state, buffer_state, metrics
+
+
+def graph_key(state: TrainState, buffer_state: BufferState) -> tuple:
+    """What a captured update reads and writes, compared by identity
+    (:meth:`~.graph.BurstGraph.serves`): the state and its modules,
+    optimizers, ``log_alpha`` and generator; every parameter, module
+    buffer and Adam state tensor; the ring's leaves and device size. A
+    restore that copies into those tensors
+    (:meth:`~..core.types.TrainState.load_state_dict_`,
+    :func:`~..buffer.replay.load_buffer_`) keeps the graph; one that
+    replaced any of them (``Optimizer.load_state_dict`` builds new state
+    tensors) is never replayed onto: the next burst captures anew."""
+    modules = (state.actor, state.critic, state.target_critic)
+    opts = (state.pi_opt, state.q_opt, state.alpha_opt)
+    return (
+        state, *modules, *opts, state.log_alpha, state.generator,
+        buffer_state.data, buffer_state.device_size, *buffer_state.data.leaves(),
+        *(x for m in modules for x in (*m.parameters(), *m.buffers())),
+        *(x for opt in opts for st in opt.state.values() for x in st.values()),
+    )
 
 
 def sample_update_batch(

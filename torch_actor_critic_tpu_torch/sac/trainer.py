@@ -16,12 +16,31 @@ sentinel is.
 
 Acting runs on the training device through the same kernels as the
 learner (the JAX trainer's ``host_actor`` CPU mirror is accepted and
-has no effect). ``sentinel=True`` checks every parameter for
-non-finite values at each epoch boundary and raises
-``FloatingPointError`` (rollback waits for full-state checkpoints). The
-actor is saved through :class:`~..utils.checkpoint.Checkpointer` every
-``save_every`` epochs and at the end, so the port's serving CLI serves
-what was trained.
+has no effect).
+
+The resilience path is the JAX trainer's. At each epoch boundary the
+divergence sentinel (``sentinel=True``) runs one all-finite pass over
+the learner state, the replay ring and the epoch's losses; a
+non-finite epoch rolls back, in place, to the newest checkpoint
+(:meth:`Trainer._rollback`), within ``max_rollbacks`` consecutive
+rollbacks (:class:`~..resilience.sentinel.TrainingDiverged` past them,
+or with nothing to roll back to). Only sentinel-validated epochs are
+saved, every ``save_every`` epochs and always at the last, as full
+state (:class:`~..utils.checkpoint.Checkpointer`: the learner, the ring,
+the step counter, the normalizer and the acting generator), so the
+port's serving CLI serves what was trained and :meth:`Trainer.restore`
+resumes it. A :class:`~..resilience.preemption.PreemptionGuard`
+(``preemption=``) is polled at safe boundaries, never inside a burst:
+after one signal the epoch finishes, is saved and
+:class:`~..resilience.preemption.Preempted` is raised; after two, the
+save happens at the next update-window boundary. A resumed run equals
+the uninterrupted one bitwise when it resumes from an epoch boundary
+and ``steps_per_epoch % update_every == 0``: transitions staged in a
+half window are not checkpointed (nor are they by the JAX trainer).
+
+``normalize_observations`` selects the JAX trainer's normalizer: Welford
+statistics for flat observations, for the ``features`` leaf of visual
+ones, none (with a warning) for a history stack.
 
 A visual env (a :class:`~..core.types.MultiObservation` spec) gets the
 visual models and a ring with **uint8** frames: staged frames stay
@@ -37,6 +56,7 @@ defaults (:data:`NOT_PORTED`).
 
 from __future__ import annotations
 
+import logging
 import time
 import typing as t
 
@@ -51,17 +71,29 @@ from torch_actor_critic_tpu_torch.buffer.replay import (
 from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation, tree_map
 from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool, stack_obs
 from torch_actor_critic_tpu_torch.models import build_models
+from torch_actor_critic_tpu_torch.resilience.preemption import Preempted, PreemptionGuard
+from torch_actor_critic_tpu_torch.resilience.sentinel import (
+    DivergenceSentinel,
+    TrainingDiverged,
+)
 from torch_actor_critic_tpu_torch.sac.algorithm import SAC
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
+from torch_actor_critic_tpu_torch.utils.normalize import (
+    FeaturesNormalizer,
+    IdentityNormalizer,
+    WelfordNormalizer,
+)
+
+logger = logging.getLogger(__name__)
 
 # SACConfig fields whose non-default values select machinery this slice
 # does not port. (Fields that only parameterise one of these, such as
 # staging_policy under decoupled, are inert without it, as in JAX.)
 NOT_PORTED = (
     "algorithm", "on_device", "population",
-    "pbt_every", "ma_critic", "task_embed_dim", "normalize_observations",
-    "actor_param_lag", "parallel_envs", "decoupled", "serve_url", "actors",
+    "pbt_every", "ma_critic", "task_embed_dim", "actor_param_lag",
+    "parallel_envs", "decoupled", "serve_url", "actors",
     "elastic", "replay_tiers", "replay_refill", "offline", "telemetry",
     "diagnostics", "sanitize", "compile_cache", "emit_bundle", "obs",
     "obs_scrape", "slo_config",
@@ -95,6 +127,7 @@ class Trainer:
         checkpointer=None,
         seed: int = 0,
         device: str | torch.device | None = None,
+        preemption: PreemptionGuard | None = None,
     ):
         self.config = config or SACConfig()
         check_ported(self.config)
@@ -114,6 +147,19 @@ class Trainer:
             if isinstance(spec, MultiObservation) else tuple(spec.shape)
         )
         self.obs_shape = obs_shape
+        if cfg.normalize_observations and isinstance(spec, MultiObservation):
+            self.normalizer = FeaturesNormalizer(spec.features.shape[0])
+        elif cfg.normalize_observations and len(spec.shape) == 1:
+            self.normalizer = WelfordNormalizer(spec.shape[0])
+        else:
+            # History stacks run unnormalized (windows replay PAST
+            # observations; normalizing them with later statistics leaks).
+            if cfg.normalize_observations:
+                logger.warning(
+                    "normalize_observations=True ignored: obs spec %s is a history "
+                    "stack, which runs unnormalized", tuple(spec.shape),
+                )
+            self.normalizer = IdentityNormalizer()
         self.sac = SAC(cfg, self.pool.act_dim)
         actor, critic = build_models(
             cfg, obs_shape, self.pool.act_dim, self.pool.act_limit,
@@ -134,6 +180,9 @@ class Trainer:
                 cfg.buffer_size, obs_shape, self.pool.act_dim, self.device
             )
         self.start_epoch = 0
+        self._resume_step: int | None = None
+        self.sentinel = DivergenceSentinel(cfg.max_rollbacks) if cfg.sentinel else None
+        self.preemption = preemption
 
     # ------------------------------------------------------------ helpers
 
@@ -174,26 +223,92 @@ class Trainer:
             next_states=field(3), done=field(4),
         )
 
-    def _params_finite(self) -> bool:
-        st = self.state
-        tensors = [
-            *st.actor.parameters(), *st.critic.parameters(),
-            *st.target_critic.parameters(), st.log_alpha,
-        ]
-        return bool(torch.stack([torch.isfinite(x).all() for x in tensors]).all())
+    # --------------------------------------------------------- resilience
+
+    def _checkpoint_extra(self, step: int) -> dict:
+        """The JSON metadata saved beside the arrays: the config, the
+        normalizer's statistics, the lockstep step counter (warm-up and
+        update gates continue on resume) and the acting generator's
+        state (the exploration stream continues bitwise)."""
+        return {
+            "config": self.config.to_json(),
+            "normalizer": self.normalizer.state_dict(),
+            "step": int(step),
+            "act_key": self._act_gen.get_state().tolist(),
+            "act_key_device": self._act_gen.device.type,
+        }
+
+    def _save_checkpoint(self, epoch: int, step: int) -> None:
+        self.checkpointer.save(epoch, self.state, self.buffer,
+                               extra=self._checkpoint_extra(step))
+
+    def _load_checkpoint(self, epoch: int | None = None, include_buffer: bool = True) -> dict:
+        """Restore the learner (and the ring, with ``include_buffer``),
+        the normalizer and the acting generator in place from the
+        checkpointer; shared by :meth:`restore` and :meth:`_rollback`.
+        A checkpoint of another algorithm raises ``ValueError`` before
+        any array is read. Returns the checkpoint's meta."""
+        meta_probe = self.checkpointer.peek_meta(epoch)
+        if meta_probe.get("config"):
+            saved_algo = SACConfig.from_json(meta_probe["config"]).algorithm
+            if saved_algo != self.config.algorithm:
+                raise ValueError(
+                    f"checkpoint was written by algorithm={saved_algo!r} but this "
+                    f"trainer is configured for {self.config.algorithm!r}; pass "
+                    f"--algorithm {saved_algo} to resume it"
+                )
+        self.state, buffer, meta = self.checkpointer.restore(
+            self.state, self.buffer if include_buffer else None, epoch=epoch)
+        if buffer is not None:
+            self.buffer = buffer
+        if meta.get("normalizer"):
+            self.normalizer.load_state_dict(meta["normalizer"])
+        if meta.get("act_key"):
+            if meta.get("act_key_device") == self._act_gen.device.type:
+                self._act_gen.set_state(torch.tensor(meta["act_key"], dtype=torch.uint8))
+            else:
+                logger.warning(
+                    "the checkpoint's acting generator lived on %r; this trainer's "
+                    "is on %r and keeps its own state",
+                    meta.get("act_key_device"), self._act_gen.device.type,
+                )
+        return meta
+
+    def _rollback(self) -> int:
+        """Divergence recovery: restore the newest (sentinel-validated)
+        checkpoint in place — parameters, optimizer moments AND the
+        replay ring (a poisoned ring would re-diverge on the next unlucky
+        sample) — and report its epoch."""
+        if self.checkpointer is None or self.checkpointer.latest_epoch() is None:
+            raise TrainingDiverged(
+                "training state is non-finite and there is no checkpoint to roll "
+                "back to (no checkpointer configured, or divergence before the "
+                "first save)"
+            )
+        meta = self._load_checkpoint(epoch=None, include_buffer=True)
+        return int(meta["epoch"])
 
     # -------------------------------------------------------------- train
 
     def train(self, on_epoch: t.Callable[[int, dict], None] | None = None) -> dict:
-        """Run ``config.epochs`` epochs; returns the last epoch's metrics.
-        ``on_epoch(epoch, metrics)`` is called after each epoch."""
+        """Run ``config.epochs`` epochs from ``start_epoch``; returns the
+        last epoch's metrics. ``on_epoch(epoch, metrics)`` is called
+        after each epoch."""
         cfg = self.config
-        obs = self.pool.reset_at(
+        # A resumed run continues the checkpointed step counter, so the
+        # warm-up and the update gates are not replayed.
+        step = (self._resume_step if self._resume_step is not None
+                else self.start_epoch * cfg.steps_per_epoch)
+        # An epoch-boundary checkpoint's normalizer has already counted
+        # this reset (the uninterrupted run's epoch-end reset); counting
+        # it again would break the bitwise resume. (The JAX trainer counts
+        # it twice.)
+        counted = self._resume_step == self.start_epoch * cfg.steps_per_epoch
+        obs = self.normalizer.normalize(self.pool.reset_at(
             0, seed=self._epoch_seed(self.start_epoch if cfg.epoch_reseed else 0)
-        )
+        ), update=not counted)
         ep_ret, ep_len = 0.0, 0
         staging: t.List[tuple] = []
-        step = self.start_epoch * cfg.steps_per_epoch
         last_metrics: dict = {}
         episode_rewards: list = []
         episode_lengths: list = []
@@ -210,6 +325,7 @@ class Trainer:
                     action = self._policy_actions(stack_obs([obs]))[0]
                 epoch_ended = t_ == cfg.steps_per_epoch - 1
                 next_obs, reward, terminated, truncated = self.pool.step_at(0, action)
+                next_obs = self.normalizer.normalize(next_obs, update=True)
                 ep_len += 1
                 ep_ret += reward
                 # max_ep_len bypass: an episode cut by the length cap is a
@@ -223,11 +339,13 @@ class Trainer:
                     reset_seed = (
                         self._epoch_seed(e + 1) if epoch_ended and cfg.epoch_reseed else None
                     )
-                    next_obs = self.pool.reset_at(0, seed=reset_seed)
+                    next_obs = self.normalizer.normalize(
+                        self.pool.reset_at(0, seed=reset_seed), update=True)
                     ep_ret, ep_len = 0.0, 0
                 obs = next_obs
 
-                if (step + 1) % cfg.update_every == 0:
+                window_full = (step + 1) % cfg.update_every == 0
+                if window_full:
                     chunk = self._place_chunk(staging)
                     del staging[:]
                     if step > cfg.update_after:
@@ -241,8 +359,18 @@ class Trainer:
                         self.buffer = push(self.buffer, chunk)
                 step += 1
 
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                # Urgent preemption (a second signal): the window boundary
+                # is the safe step boundary (staging just flushed, the burst
+                # done), so save now and unwind. The learner state is
+                # lossless; the epoch's un-stepped env tail is skipped on
+                # resume.
+                if window_full and self.preemption is not None and self.preemption.urgent:
+                    if self.checkpointer is not None:
+                        self._synchronize()
+                        self._save_checkpoint(e, step)
+                    raise Preempted(epoch=e, urgent=True)
+
+            self._synchronize()
             dt = time.time() - t_epoch
             grad_steps = len(losses_q) * cfg.updates_per_window
             rew = np.asarray(episode_rewards, np.float64)
@@ -257,26 +385,73 @@ class Trainer:
                 "env_steps_per_sec": cfg.steps_per_epoch / dt,
                 "grad_steps_per_sec": grad_steps / dt,
             }
+            # Divergence sentinel: one all-finite pass over the learner
+            # state, the ring and this epoch's losses, BEFORE anything is
+            # saved, so every checkpoint on disk is sentinel-validated and
+            # the newest is the last good one.
             t_sentinel = time.perf_counter()
-            if cfg.sentinel and not self._params_finite():
-                raise FloatingPointError(
-                    f"epoch {e}: non-finite learner parameters (the sentinel's "
-                    "rollback is not ported yet)"
-                )
+            sentinel_ok = True
+            if self.sentinel is not None:
+                sentinel_ok = self.sentinel.check(
+                    self.state, self.buffer.data, losses_q, losses_pi)
+                if not sentinel_ok:
+                    # Budget first: raises TrainingDiverged once exhausted.
+                    self.sentinel.note_divergence(f"state at epoch {e}")
+                    rolled_to = self._rollback()
+                    logger.warning(
+                        "epoch %d: non-finite training state; rolled back to "
+                        "checkpoint epoch %d (rollback %d, %d consecutive), "
+                        "skipping the save", e, rolled_to,
+                        self.sentinel.total_rollbacks, self.sentinel.consecutive,
+                    )
+                else:
+                    self.sentinel.note_good()
+                last_metrics["rollbacks"] = self.sentinel.total_rollbacks
             last_metrics["sentinel_s"] = round(time.perf_counter() - t_sentinel, 4)
+
+            # The last epoch always saves, so a short run leaves a
+            # checkpoint to serve, evaluate and resume.
+            saved_this_epoch = False
             t_save = time.perf_counter()
-            if self.checkpointer is not None and (
+            if sentinel_ok and self.checkpointer is not None and (
                 e % cfg.save_every == 0 or e == last_epoch
             ):
-                self.checkpointer.save(e, self.state.actor, cfg, extra={"step": step})
+                self._save_checkpoint(e, step)
+                saved_this_epoch = True
             last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
             if self.tracker is not None:
                 self.tracker.log_metrics(last_metrics, e)
             if on_epoch is not None:
                 on_epoch(e, dict(last_metrics))
+
+            # Graceful preemption (one signal): the epoch is complete and,
+            # if it passed the sentinel, saved: the lossless exit point.
+            if self.preemption is not None and self.preemption.triggered:
+                if sentinel_ok and self.checkpointer is not None and not saved_this_epoch:
+                    self._save_checkpoint(e, step)
+                raise Preempted(epoch=e)
             episode_rewards, episode_lengths = [], []
             t_epoch = time.time()
         return last_metrics
+
+    def _synchronize(self) -> None:
+        """Wait for the device's queued work (bursts, pushes)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------- resume
+
+    def restore(self, epoch: int | None = None, include_buffer: bool = True) -> int:
+        """Resume the full state (ring, normalizer and acting generator
+        included) from the checkpointer, newest epoch by default;
+        returns the epoch :meth:`train` starts at. ``include_buffer=False``
+        restores the learner only (the evaluation CLI)."""
+        if self.checkpointer is None:
+            raise ValueError("no checkpointer configured")
+        meta = self._load_checkpoint(epoch, include_buffer)
+        self.start_epoch = int(meta["epoch"]) + 1
+        self._resume_step = int(meta["step"])
+        return self.start_epoch
 
     # ----------------------------------------------------------- evaluate
 
@@ -292,11 +467,14 @@ class Trainer:
         try:
             returns, lengths = [], []
             for i in range(episodes):
-                obs = self.pool.reset_at(0, seed=None if seed is None else seed + i)
+                obs = self.normalizer.normalize(
+                    self.pool.reset_at(0, seed=None if seed is None else seed + i),
+                    update=False)
                 ret, length, done = 0.0, 0, False
                 while not done:
                     action = self._policy_actions(stack_obs([obs]), deterministic)[0]
                     obs, reward, terminated, truncated = self.pool.step_at(0, action)
+                    obs = self.normalizer.normalize(obs, update=False)
                     ret += reward
                     length += 1
                     done = terminated or truncated or length >= self.config.max_ep_len

@@ -10,8 +10,18 @@
         --cnn-features 64 --normalize-pixels true --frame-augment shift \\
         --learn-alpha true --pixel-pipeline fused
 
+    # resume a run where its newest checkpoint left it
+    python -m torch_actor_critic_tpu_torch.train --run <id> [--runs-root DIR]
+
 Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
-true``, ...), built by the JAX CLI's loop. A pixel env
+true``, ...), built by the JAX CLI's loop. ``--run <id>`` takes the
+config, environment and seed from the run's stored params (the flags
+are ignored, as in the JAX CLI) and resumes from its newest checkpoint
+(full state: learner, replay ring, step counter, normalizer, acting
+generator), training ``epochs`` more epochs. A SIGTERM/SIGINT finishes
+the epoch, saves it and exits with code 75 (a second signal saves at
+the next update window); ``--no-preemption-guard`` leaves the signals
+alone. A pixel env
 (``PixelPendulum[Balance]-v0`` over gymnasium,
 ``PixelPendulum[Balance]Numpy-v0`` without it) selects the visual models
 and a uint8 frame ring. Runs on the card unless
@@ -21,8 +31,8 @@ the checkpoint directory (and, with ``--eval-episodes N``, the return of
 N deterministic evaluation episodes), which ``python -m
 torch_actor_critic_tpu_torch.serve --ckpt-dir DIR`` serves.
 
-Not ported: ``--run`` (resume needs full-state checkpoints),
-``--devices``/``--fsdp``, the profile and trace flags, ``--render``.
+Not ported: ``--devices``/``--fsdp``, ``--no-save-buffer``, the
+profile and trace flags, ``--render``.
 """
 
 from __future__ import annotations
@@ -42,6 +52,14 @@ def parse_arguments(argv=None) -> argparse.Namespace:
         "Soft Actor-Critic trainer of the PyTorch port (one CUDA device)."
     )
     parser.add_argument("--experiment", default="Default", help="Experiment name")
+    parser.add_argument(
+        "--run", default=None,
+        help="Resume this run id (config, environment and seed from its stored params)",
+    )
+    parser.add_argument(
+        "--no-preemption-guard", dest="preemption_guard", action="store_false",
+        help="Do not turn SIGTERM/SIGINT into a checkpoint and exit code 75",
+    )
     parser.add_argument(
         "--disable-logging", dest="logging", action="store_false",
         help="Turn off file tracking",
@@ -78,7 +96,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
             parser.add_argument(flag, type=float, default=None)
         else:
             parser.add_argument(flag, type=type(f.default), default=None)
-    parser.set_defaults(logging=True)
+    parser.set_defaults(logging=True, preemption_guard=True)
     return parser.parse_args(argv)
 
 
@@ -100,52 +118,82 @@ def config_from_args(args: argparse.Namespace) -> SACConfig:
     return SACConfig(**overrides)
 
 
-def build_trainer(args: argparse.Namespace):
+def build_trainer(args: argparse.Namespace, preemption=None):
     """Tracker, checkpointer and :class:`Trainer` from parsed CLI args —
-    the path :func:`main` trains, shared with smoke scripts. Returns
-    ``(trainer, tracker)``."""
+    the path :func:`main` trains, shared with smoke scripts. With
+    ``--run`` the run's stored params give the config, environment and
+    seed, and the trainer is restored from the run's newest checkpoint.
+    Returns ``(trainer, tracker)``."""
     from torch_actor_critic_tpu_torch.sac.trainer import Trainer
     from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
     from torch_actor_critic_tpu_torch.utils.tracking import Tracker
 
-    config = config_from_args(args)
-    tracker = Tracker(
-        experiment=args.experiment, root=args.runs_root, enabled=args.logging
-    )
-    tracker.log_params({
-        "environment": args.environment,
-        "config": json.loads(config.to_json()),
-        "buffer_size": config.buffer_size,
-        "seed": args.seed,
-    })
+    if args.run is not None:
+        tracker = Tracker.load(args.run, experiment=args.experiment, root=args.runs_root)
+        stored = tracker.params()
+        config = SACConfig.from_json(json.dumps(stored.get("config", {})))
+        env_name = stored.get("environment", args.environment)
+        seed = stored.get("seed", args.seed)
+    else:
+        config = config_from_args(args)
+        env_name, seed = args.environment, args.seed
+        tracker = Tracker(
+            experiment=args.experiment, root=args.runs_root, enabled=args.logging
+        )
+        tracker.log_params({
+            "environment": env_name,
+            "config": json.loads(config.to_json()),
+            "buffer_size": config.buffer_size,
+            "seed": seed,
+        })
     trainer = Trainer(
-        args.environment, config,
+        env_name, config,
         tracker=tracker if args.logging else None,
         checkpointer=Checkpointer(tracker.artifact_path("checkpoints")),
-        seed=args.seed, device=args.device,
+        seed=seed, device=args.device, preemption=preemption,
     )
+    if args.run is not None and trainer.checkpointer.latest_epoch() is not None:
+        start = trainer.restore()
+        logger.info("resumed run %s at epoch %d", tracker.run_id, start)
     return trainer, tracker
 
 
 def main(argv=None) -> dict:
-    logging.basicConfig(level=logging.INFO)
-    args = parse_arguments(argv)
-    trainer, tracker = build_trainer(args)
-    logger.info(
-        "training %s on %s (run %s)", args.environment, trainer.device, tracker.run_id
+    from torch_actor_critic_tpu_torch.resilience.preemption import (
+        Preempted,
+        PreemptionGuard,
     )
 
-    def report(epoch: int, metrics: dict) -> None:
-        print(json.dumps({"epoch": epoch, **metrics}), flush=True)
-
+    logging.basicConfig(level=logging.INFO)
+    args = parse_arguments(argv)
+    guard = PreemptionGuard().install() if args.preemption_guard else None
     try:
-        metrics = trainer.train(on_epoch=report)
-        evaluation = (
-            trainer.evaluate(args.eval_episodes, deterministic=True, seed=args.seed + 12345)
-            if args.eval_episodes > 0 else None
+        trainer, tracker = build_trainer(args, preemption=guard)
+        logger.info(
+            "training %s on %s (run %s)", trainer.env_name, trainer.device, tracker.run_id
         )
+
+        def report(epoch: int, metrics: dict) -> None:
+            print(json.dumps({"epoch": epoch, **metrics}), flush=True)
+
+        try:
+            metrics = trainer.train(on_epoch=report)
+            evaluation = (
+                trainer.evaluate(args.eval_episodes, deterministic=True,
+                                 seed=trainer.seed + 12345)
+                if args.eval_episodes > 0 else None
+            )
+        except Preempted as p:
+            logger.warning(
+                "%s — resume with: python -m torch_actor_critic_tpu_torch.train "
+                "--run %s --runs-root %s", p, tracker.run_id, args.runs_root,
+            )
+            raise SystemExit(p.exit_code)
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if guard is not None:
+            guard.uninstall()
     print(json.dumps({
         "run": tracker.run_id,
         "checkpoint_dir": str(trainer.checkpointer.directory),

@@ -59,10 +59,12 @@ class Tracker:
 
     @classmethod
     def load(cls, run_id: str, experiment: str = "Default", root="runs") -> "Tracker":
-        t_ = cls(experiment=experiment, run_id=run_id, root=root)
-        if not t_.run_dir.exists():
-            raise FileNotFoundError(f"run {run_id} not found under {t_.run_dir}")
-        return t_
+        """An existing run; raises ``FileNotFoundError`` when there is
+        none (checked before the constructor creates the directory)."""
+        run_dir = Path(root) / experiment / run_id
+        if not run_dir.is_dir():
+            raise FileNotFoundError(f"run {run_id} not found under {run_dir}")
+        return cls(experiment=experiment, run_id=run_id, root=root)
 
     # ------------------------------------------------------------------ api
 
