@@ -3,7 +3,7 @@ serve the sequence policy over HTTP through the port's CLI path, train
 it with SAC through the train CLI's path, then train the visual (pixel)
 policy through the same path and run visual bursts at full width, then
 preempt, resume, roll back and evaluate training runs from full-state
-checkpoints.
+checkpoints, then train TD3 on the flat and visual stacks.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -137,12 +137,26 @@ or of the JAX package. Phases, one JSON line each:
    burst from a clone; the pixel recipe, 2 epochs against 1 + resume + 1
    on cuDNN's deterministic algorithms, bitwise, 1 K1 launch per update.
    Reports ``save_s``, ``sentinel_s``, restore seconds and checkpoint
-   bytes beside the card's name and power limit.
+   bytes beside the card's name and power limit;
+10. train_td3 — TD3 through ``build_trainer(--algorithm td3)``: flat at
+   SACConfig's defaults (hidden 256,256, batch 64, policy_delay 2) on
+   ``PendulumNumpy-v1``, 500 gradient steps, traced; from clones of its
+   state, captured against eager bursts to the bit over 25-update bursts
+   (odd starts) and with policy_delay 3, one capture each; one replayed
+   update at a skipped step leaves the actor, ``pi_opt`` and both
+   targets bitwise and moves the critic; visual at the pixel recipe's
+   widths (learn_alpha off), 500 gradient steps, traced: exactly 1 K1
+   launch per update, captured == eager on cuDNN's deterministic
+   algorithms; the wall-runner geometry at B 32 f32 in 25-update bursts;
+   a flat ``--run`` resume bitwise (the target actor and the device step
+   included). Each cell's burst modes timed and profiled (beside a SAC
+   flat learner's), one line each before the last with the card.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
 on the model's views; K1's row is ``train_pair``, what the main path
-launches, with train_visual's launches; every ``launches`` is counted
+launches, with the launches of train_visual, the visual resume and
+train_td3's visual run; every ``launches`` is counted
 in the main path's runs: serving's by the wrappers, as it runs no graph,
 training's and the resumed runs' from their device traces),
 the nvidia-smi line, and last
@@ -1384,8 +1398,9 @@ def profile_burst(burst, per: int, attempts: int = 4) -> dict:
 
 def _learner_gaps(a, b) -> dict:
     """Max abs gap of two learner states: parameters (actor, critic,
-    target), Adam states (moments and device step), log α; and whether
-    their generators' states (seed and offset) and step counts agree."""
+    targets: TD3's target actor too), Adam states (moments and device
+    step), log α; and whether their generators' states (seed and offset)
+    and step counts (host and device) agree."""
     def gap(x, y):
         return (torch.as_tensor(x).double() - torch.as_tensor(y).double()).abs().max().item()
 
@@ -1394,15 +1409,14 @@ def _learner_gaps(a, b) -> dict:
         return [o.state[p] for g in o.param_groups for p in g["params"]]
 
     return {
-        "params": max(gap(p, q) for part in ("actor", "critic", "target_critic")
-                      for p, q in zip(getattr(a, part).parameters(),
-                                      getattr(b, part).parameters(), strict=True)),
+        "params": max(gap(p, q) for ma, mb in zip(a.modules(), b.modules(), strict=True)
+                      for p, q in zip(ma.parameters(), mb.parameters(), strict=True)),
         "adam": max(gap(x[k], y[k]) for opt in ("pi_opt", "q_opt", "alpha_opt")
                     for x, y in zip(opt_states(a, opt), opt_states(b, opt), strict=True)
                     for k in x),
         "log_alpha": gap(a.log_alpha, b.log_alpha),
         "same_generator": torch.equal(a.generator.get_state(), b.generator.get_state()),
-        "same_step": a.step == b.step,
+        "same_step": a.step == b.step and torch.equal(a.device_step, b.device_step),
     }
 
 
@@ -2150,6 +2164,276 @@ def _visual_resume(seed: int, kernels, runs: str):
              "graph_captures": captures}, launches)
 
 
+# The train_td3 phase's runs: SACConfig's defaults (hidden 256,256, batch 64,
+# policy_delay 2) with TD3 on the flat pendulum, through the train CLI.
+TD3_ARGS = ["--algorithm", "td3", "--environment", TRAIN_ENV, "--device", "cuda"]
+# The pixel recipe's widths with TD3: learn_alpha off (TD3 has no temperature;
+# the later flag wins).
+TD3_VISUAL_ARGS = [*VISUAL_ARGS, "--learn-alpha", "false", "--algorithm", "td3",
+                   "--device", "cuda"]
+
+
+def policy_tensors(st) -> dict:
+    """What a skipped TD3 update must leave bitwise: the actor, the
+    capturable ``pi_opt``'s state (moments and device ``step``) and both
+    targets; copies."""
+    out = {f"actor.{n}": p for n, p in st.actor.named_parameters()}
+    out.update({f"target_actor.{n}": p for n, p in st.target_actor.named_parameters()})
+    out.update({f"target_critic.{n}": p for n, p in st.target_critic.named_parameters()})
+    for i, p in enumerate(st.actor.parameters()):
+        out.update({f"pi_opt.{i}.{k}": v for k, v in st.pi_opt.state[p].items()})
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def skipped_replay(make_td3, state, ring, chunk) -> dict:
+    """From a clone of ``state``: one-update bursts through one graph
+    (the first one's warm-up runs an update eagerly and captures) up to
+    a skipped step (``(device_step + 1) % delay != 0``); there one
+    replayed update must leave the actor, ``pi_opt`` and both targets
+    bitwise as they were and move the critic; the next applied update,
+    also a replay, must move them."""
+    td3, st, buf = make_td3(), state.clone(), ring.clone()
+    delay = td3.config.policy_delay
+
+    def replay(applied):
+        nonlocal st, buf
+        while ((int(st.device_step) + 1) % delay == 0) != applied:
+            st, buf, _ = td3.update_burst(st, buf, chunk, 1)
+        step = int(st.device_step)
+        before, critic = policy_tensors(st), [p.detach().clone() for p in st.critic.parameters()]
+        st, buf, _ = td3.update_burst(st, buf, chunk, 1)
+        torch.cuda.synchronize()
+        after = policy_tensors(st)
+        return {"step": step, "tensors": len(before),
+                "moved": sum(not torch.equal(before[k], after[k]) for k in before),
+                "critic_moved": all(not torch.equal(c, p)
+                                    for c, p in zip(critic, st.critic.parameters()))}
+
+    st, buf, _ = td3.update_burst(st, buf, chunk, 1)
+    row = {"skipped": replay(applied=False), "applied": replay(applied=True)}
+    row["captures"] = td3.graph_captures
+    check(row["skipped"]["moved"] == 0 and row["skipped"]["critic_moved"]
+          and row["captures"] == 1 and row["applied"]["moved"] > 0
+          and row["applied"]["critic_moved"],
+          f"train_td3: a skipped replay moved the policy, or an applied one did not: {row}")
+    return row
+
+
+def phase_train_td3(seed: int, kernels, smi: str) -> dict:
+    """TD3 on the card, through the train CLI's ``build_trainer``:
+
+    flat — SACConfig's defaults (hidden 256,256, batch 64, policy_delay
+       2) on ``PendulumNumpy-v1``, 600 steps, 500 gradient steps in
+       50-update captured bursts (the run traced); then, from clones of
+       the trained state and ring, captured against eager bursts to the
+       bit over three 25-update bursts (the second starts on an odd
+       step) and over two with policy_delay 3, one capture each; one
+       replayed update at a skipped step on a clone leaves the actor,
+       ``pi_opt`` and both targets bitwise, the critic moved; each burst
+       mode timed and profiled, beside a SAC flat learner's;
+    visual — the pixel recipe's widths (learn_alpha off) on
+       ``PixelPendulumBalanceNumpy-v0``, 600 steps, 500 gradient steps,
+       traced: exactly 1 K1 launch per update; captured against eager to
+       the bit on cuDNN's deterministic algorithms; each burst mode;
+    wall — the wall-runner geometry at B 32 f32 (SACConfig's visual
+       widths), 25-update bursts in each mode, 1 K1 launch per update;
+    resume — flat TD3 with 25-update windows, 2 epochs of 200 steps
+       against 1 epoch, ``train --run`` and 1 more: every leaf (the
+       target actor and the device step included) to the bit, one
+       capture each; the checkpoint's bytes.
+
+    Returns the kernels' launches of the traced visual run."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.buffer.replay import (
+        init_visual_replay_buffer,
+        push,
+        sample,
+    )
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.td3 import TD3
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_td3_")
+    row = {"phase": "train_td3", "card": smi}
+    try:
+        def cli(*extra):
+            return train_cli.parse_arguments([*extra, "--seed", str(seed), "--runs-root", runs])
+
+        def train(args, what, per_update):
+            """One traced run of the train CLI's trainer; checks its
+            losses and launches through the graphs."""
+            def drive():
+                trainer, tracker = train_cli.build_trainer(args)
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                metrics = trainer.train()
+                torch.cuda.synchronize()
+                return (trainer, tracker, metrics, time.perf_counter() - t0,
+                        dict(kernels.launch_counts))
+
+            (trainer, tracker, metrics, wall_s, wrapped), launches = traced(
+                drive, what, discard=lambda out: out[0].close())
+            for key in ("loss_q", "loss_pi", "reward"):
+                check(math.isfinite(metrics[key]), f"{what}: {key} = {metrics[key]}")
+            check(type(trainer.sac) is TD3, f"{what}: learner {type(trainer.sac).__name__}")
+            updates = trainer.state.step
+            check(updates == int(trainer.state.device_step) == 500,
+                  f"{what}: {updates} gradient steps, device step "
+                  f"{int(trainer.state.device_step)}, expected 500")
+            check_through_graphs(what, launches, wrapped, per_update, updates,
+                                 trainer.sac.graph_captures)
+            check(trainer.sac.graph_captures == 1,
+                  f"{what}: {trainer.sac.graph_captures} captures")
+            return trainer, {"train_wall_s": wall_s, "gradient_steps": updates,
+                             "epoch_grad_steps_per_sec": metrics["grad_steps_per_sec"],
+                             "launches": launches, "wrapper_launches": wrapped,
+                             "loss_q": metrics["loss_q"], "loss_pi": metrics["loss_pi"]}
+
+        steps = ["--epochs", "1", "--steps-per-epoch", "600", "--start-steps", "100",
+                 "--update-after", "100"]
+
+        # Flat.
+        flat, row["flat"] = train(cli(*TD3_ARGS, *steps), "train_td3 flat", {})
+        cfg, act_dim = flat.config, flat.pool.act_dim
+        gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+        chunks = [sample(flat.buffer, 50, generator=gen) for _ in range(3)]
+        row["flat"]["captured_vs_eager"] = compare_bursts(
+            lambda: TD3(cfg, act_dim), flat.state, flat.buffer, chunks, 25)
+        cfg3 = cfg.replace(policy_delay=3)
+        row["flat"]["captured_vs_eager_delay3"] = compare_bursts(
+            lambda: TD3(cfg3, act_dim), flat.state, flat.buffer, chunks[:2], 25)
+        row["flat"]["skipped_replay"] = skipped_replay(
+            lambda: TD3(cfg, act_dim), flat.state, flat.buffer, chunks[0])
+
+        def flat_burst(learner, st, buf):  # training's 50-update bursts
+            def burst(eager):
+                nonlocal st, buf
+                st, buf, m = learner.update_burst(st, buf, chunks[0], 50, eager=eager)
+                return m
+            return burst
+
+        row["flat"]["bursts"] = burst_modes(
+            kernels, flat_burst(flat.sac, flat.state, flat.buffer), 50, 4, {})
+        sac_actor, sac_critic = build_models(SACConfig(), (3,), act_dim, 2.0,
+                                             generator=torch.Generator().manual_seed(seed))
+        sac = SAC(SACConfig(), act_dim)
+        sac_state = sac.init_state(sac_actor.cuda(), sac_critic.cuda(),
+                                   torch.Generator(device="cuda").manual_seed(seed + 1))
+        row["flat"]["sac_bursts"] = burst_modes(
+            kernels, flat_burst(sac, sac_state, flat.buffer.clone()), 50, 4, {})
+        check(flat.sac.graph_captures == 1 and sac.graph_captures == 1,
+              f"train_td3 flat: captures {flat.sac.graph_captures}, SAC {sac.graph_captures}")
+        flat.close()
+        del sac_state, sac
+
+        # Visual.
+        visual, row["visual"] = train(
+            cli(*TD3_VISUAL_ARGS, *steps, "--buffer-size", "24000"), "train_td3 visual",
+            {"pixel_gather": 1})
+        launches = row["visual"]["launches"]
+        check(launches["pixel_gather"] == visual.state.step,
+              f"train_td3 visual: {launches['pixel_gather']} K1 launches for "
+              f"{visual.state.step} updates")
+        row["visual"]["pixel_gather_per_update"] = launches["pixel_gather"] / visual.state.step
+        vcfg, vact = visual.config, visual.pool.act_dim
+        row["visual"]["captured_vs_eager"] = compare_bursts(
+            lambda: TD3(vcfg, vact), visual.state, visual.buffer,
+            [sample(visual.buffer, 50, generator=gen) for _ in range(2)], 25,
+            cudnn_deterministic=True)
+        vchunk = sample(visual.buffer, 50, generator=gen)
+
+        def visual_burst(eager):
+            visual.state, visual.buffer, m = visual.sac.update_burst(
+                visual.state, visual.buffer, vchunk, 50, eager=eager)
+            return m
+
+        row["visual"]["bursts"] = burst_modes(kernels, visual_burst, 50, 4, {"pixel_gather": 1})
+        check(visual.sac.graph_captures == 1,
+              f"train_td3 visual: {visual.sac.graph_captures} captures")
+        visual.close()
+
+        # Wall-runner geometry, B 32 f32.
+        wcfg = SACConfig(algorithm="td3", batch_size=32, pixel_pipeline="fused")
+        shape = MultiObservation((WALL_FEATURES,), WALL_FRAME)
+        actor, critic = build_models(wcfg, shape, WALL_ACT_DIM, 1.0,
+                                     generator=torch.Generator().manual_seed(seed))
+        wall = TD3(wcfg, WALL_ACT_DIM)
+        wstate = wall.init_state(actor.cuda(), critic.cuda(),
+                                 torch.Generator(device="cuda").manual_seed(seed + 1))
+
+        def wall_chunk(n):
+            def obs():
+                return MultiObservation(
+                    torch.randn((n, WALL_FEATURES), generator=gen, device="cuda"),
+                    torch.randint(0, 256, (n, *WALL_FRAME), generator=gen, device="cuda",
+                                  dtype=torch.uint8))
+            return Batch(
+                states=obs(), actions=torch.tanh(
+                    torch.randn((n, WALL_ACT_DIM), generator=gen, device="cuda")),
+                rewards=torch.randn(n, generator=gen, device="cuda"), next_states=obs(),
+                done=torch.zeros(n, device="cuda"))
+
+        wring = push(init_visual_replay_buffer(20000, WALL_FEATURES, WALL_FRAME, WALL_ACT_DIM,
+                                               "cuda"), wall_chunk(2000))
+        wchunk = wall_chunk(25)
+
+        def wall_burst(eager):
+            nonlocal wstate, wring
+            wstate, wring, m = wall.update_burst(wstate, wring, wchunk, 25, eager=eager)
+            return m
+
+        row["wall_b32"] = {"bursts": burst_modes(kernels, wall_burst, 25, 3, {"pixel_gather": 1}),
+                           "graph_captures": wall.graph_captures}
+        check(wall.graph_captures == 1, f"train_td3 wall: {wall.graph_captures} captures")
+        del wstate, wring, actor, critic
+        torch.cuda.empty_cache()
+
+        # Resume: 2 epochs against 1 + `train --run` + 1.
+        epochs = ["--steps-per-epoch", "200", "--start-steps", "100", "--update-after", "100",
+                  "--update-every", "25", "--save-every", "10"]
+        whole, _ = train_cli.build_trainer(cli(*TD3_ARGS, *epochs, "--epochs", "2"))
+        whole.train()
+        torch.cuda.synchronize()
+        ref, captures_a = learner_snapshot(whole), whole.sac.graph_captures
+        whole.close()
+        first, tracker = train_cli.build_trainer(cli(*TD3_ARGS, *epochs, "--epochs", "1"))
+        first.train()
+        first.close()
+        directory = first.checkpointer.directory
+        ckpt_bytes = {f.name: f.stat().st_size for f in (directory / "epoch_0").iterdir()}
+        resumed, _ = train_cli.build_trainer(train_cli.parse_arguments(
+            ["--run", tracker.run_id, "--runs-root", runs]))
+        check(resumed.start_epoch == 1 and int(resumed.state.device_step) == 100,
+              f"train_td3 resume: start epoch {resumed.start_epoch}, device step "
+              f"{int(resumed.state.device_step)}")
+        resumed.train()
+        torch.cuda.synchronize()
+        diff = bitwise_diff(ref, learner_snapshot(resumed))
+        check(not diff, f"train_td3 resume differs from the uninterrupted run at {diff[:8]}")
+        check("target_actor" in ref["state"] and int(ref["state"]["device_step"]) == 300,
+              f"train_td3 resume: device step {int(ref['state']['device_step'])}")
+        check(captures_a == resumed.sac.graph_captures == 1,
+              f"train_td3 resume: captures {captures_a}, {resumed.sac.graph_captures}")
+        row["resume"] = {"bitwise_vs_uninterrupted": True, "updates": resumed.state.step,
+                         "graph_captures": [captures_a, resumed.sac.graph_captures],
+                         "checkpoint_bytes": ckpt_bytes}
+        resumed.close()
+
+        for cell in ("flat", "visual", "wall_b32"):
+            for mode in ("captured", "eager"):
+                b = row[cell]["bursts"][mode]
+                print(f"train_td3 {cell} {mode}: {b['grad_steps_per_sec']:.2f} steps/s, "
+                      f"{b['device_kernels_per_update']:.2f} device kernels per update, "
+                      f"idle {b['device_idle_share']:.3f} ({smi})", flush=True)
+        emit(row)
+        return row["visual"]["launches"]
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2177,6 +2461,7 @@ def main(argv=None) -> int:
     visual_launches = phase_train_visual(args.seed, _kernels)
     phase_visual_burst(args.seed, _kernels)
     resume_launches = phase_resume(args.seed, _kernels, smi)
+    td3_launches = phase_train_td3(args.seed, _kernels, smi)
     fwd_launches = serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]
     rows = [
         ("flash_fwd", "flash_fwd.cu", "torch_actor_critic_tpu/ops/attention.py:428",
@@ -2188,7 +2473,8 @@ def main(argv=None) -> int:
          train_launches["flash_bwd_dkv"] + resume_launches["flash_bwd_dkv"],
          bwd_rows["flash_bwd_dkv"]),
         ("pixel_gather", "pixels.cu", "torch_actor_critic_tpu/ops/pixels.py:261",
-         visual_launches["pixel_gather"] + resume_launches["pixel_gather"], pixel_row),
+         visual_launches["pixel_gather"] + resume_launches["pixel_gather"]
+         + td3_launches["pixel_gather"], pixel_row),
     ]
     emit({"kernels": [
         {

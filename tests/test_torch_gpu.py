@@ -634,7 +634,7 @@ def _burst_learner(cuda, name, capacity=4096, prefill=2000, **cfg_kw):
     )
     from torch_actor_critic_tpu_torch.core.types import MultiObservation
     from torch_actor_critic_tpu_torch.models import build_models
-    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.sac.trainer import make_learner
 
     overrides, shape = BURST_CASES[name]
     cfg = SACConfig(**{**overrides, **cfg_kw})
@@ -644,8 +644,8 @@ def _burst_learner(cuda, name, capacity=4096, prefill=2000, **cfg_kw):
     else:
         ring = init_replay_buffer(capacity, shape, 1, cuda)
     actor, critic = build_models(cfg, shape, 1, 2.0, generator=torch.Generator().manual_seed(0))
-    state = SAC(cfg, 1).init_state(actor.to(cuda), critic.to(cuda),
-                                   torch.Generator(device=cuda).manual_seed(1))
+    state = make_learner(cfg, 1).init_state(actor.to(cuda), critic.to(cuda),
+                                            torch.Generator(device=cuda).manual_seed(1))
     gen = torch.Generator(device=cuda).manual_seed(2)
     if prefill:
         ring = push(ring, _burst_chunk(cuda, shape, prefill, gen))
@@ -654,14 +654,13 @@ def _burst_learner(cuda, name, capacity=4096, prefill=2000, **cfg_kw):
 
 def _learner_gaps(a, b) -> dict:
     """Max abs gap of two learner states: parameters (actor, critic,
-    target), Adam states (moments and step), log α; and whether the
-    generators and step counts agree."""
+    targets), Adam states (moments and step), log α; and whether the
+    generators and step counts (host and device) agree."""
     def gap(x, y):
         return (torch.as_tensor(x).double() - torch.as_tensor(y).double()).abs().max().item()
 
-    params = max(gap(p, q) for part in ("actor", "critic", "target_critic")
-                 for p, q in zip(getattr(a, part).parameters(), getattr(b, part).parameters(),
-                                 strict=True))
+    params = max(gap(p, q) for ma, mb in zip(a.modules(), b.modules(), strict=True)
+                 for p, q in zip(ma.parameters(), mb.parameters(), strict=True))
     adam = max(
         gap(sa[k], sb[k])
         for opt in ("pi_opt", "q_opt", "alpha_opt")
@@ -672,7 +671,7 @@ def _learner_gaps(a, b) -> dict:
     )
     return {"params": params, "adam": adam, "log_alpha": gap(a.log_alpha, b.log_alpha),
             "same_generator": torch.equal(a.generator.get_state(), b.generator.get_state()),
-            "same_step": a.step == b.step}
+            "same_step": a.step == b.step and torch.equal(a.device_step, b.device_step)}
 
 
 @pytest.mark.gpu
@@ -990,3 +989,115 @@ def test_card_checkpoint_restores_on_the_cpu(cuda, tmp_path):
     assert step.device.type == "cpu" and float(step) == host.state.step == 30
     card.close()
     host.close()
+
+
+# ------------------------------------------------------------------ TD3
+
+TD3_CASES = {"flat": dict(algorithm="td3"),
+             "visual-fused": dict(algorithm="td3", learn_alpha=False)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(TD3_CASES))
+def test_captured_td3_burst_equals_the_eager_burst_bitwise(cuda, name):
+    """TD3 (policy delay 2) from one cloned state and ring: two bursts of
+    25 updates, so the second starts on an odd step, as CUDA graph
+    replays and through the eager loop, on cuDNN's deterministic
+    algorithms: every parameter (both targets), Adam state, the steps
+    (the device one needs no correction after the capture, which runs
+    nothing), the generator and the metrics to the bit."""
+    from torch_actor_critic_tpu_torch.td3 import TD3
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, name, **TD3_CASES[name])
+    chunks = [_burst_chunk(cuda, shape, 50, gen) for _ in range(2)]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for captured in (False, True):
+            td3, st, buf = TD3(cfg, 1), state.clone(), ring.clone()
+            metrics = []
+            for chunk in chunks:
+                st, buf, m = td3.update_burst(st, buf, chunk, 25, eager=not captured)
+                metrics.append(m)
+            runs[captured] = (st, metrics, td3.graph_captures)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (eager, m_eager, _), (graph, m_graph, captures) = runs[False], runs[True]
+    torch.cuda.synchronize()
+    assert captures == 1 and graph.step == int(graph.device_step) == 50
+    assert {float(s["step"]) for s in graph.pi_opt.state.values()} == {25.0}
+    gaps = _learner_gaps(graph, eager)
+    assert gaps == {"params": 0.0, "adam": 0.0, "log_alpha": 0.0, "same_generator": True,
+                    "same_step": True}, gaps
+    for mg, me in zip(m_graph, m_eager):
+        assert mg.keys() == me.keys() == {"loss_q", "loss_pi", "q_mean", "backup_mean",
+                                          "q_pi_mean"}
+        assert all(torch.equal(mg[k], me[k]) for k in me), {k: (mg[k], me[k]) for k in me}
+
+
+def _td3_policy(st) -> dict:
+    """The tensors a skipped TD3 update must leave bitwise: the actor,
+    the capturable ``pi_opt``'s state (its ``step`` a device tensor) and
+    both targets."""
+    out = {f"actor.{n}": p for n, p in st.actor.named_parameters()}
+    out.update({f"target_actor.{n}": p for n, p in st.target_actor.named_parameters()})
+    out.update({f"target_critic.{n}": p for n, p in st.target_critic.named_parameters()})
+    for i, p in enumerate(st.actor.parameters()):
+        out.update({f"pi_opt.{i}.{k}": v for k, v in st.pi_opt.state[p].items()})
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+@pytest.mark.gpu
+def test_a_skipped_td3_replay_leaves_the_policy_bitwise(cuda):
+    """One-update bursts through one graph (delay 2): the first burst's
+    warm-up runs step 0 and captures; the replay of step 1 applies the
+    policy, the replay of step 2 skips it: the actor, ``pi_opt``'s step
+    tensors and moments and both targets bitwise unchanged, the critic
+    moved."""
+    from torch_actor_critic_tpu_torch.td3 import TD3
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, "flat", algorithm="td3")
+    td3 = TD3(cfg, 1)
+    state, ring, _ = td3.update_burst(state, ring, _burst_chunk(cuda, shape, 10, gen), 1)
+    moved = {}
+    for step in (1, 2):
+        before = _td3_policy(state)
+        critic = [p.detach().clone() for p in state.critic.parameters()]
+        state, ring, _ = td3.update_burst(state, ring, _burst_chunk(cuda, shape, 10, gen), 1)
+        torch.cuda.synchronize()
+        after = _td3_policy(state)
+        moved[step] = {k for k in before if not torch.equal(before[k], after[k])}
+        assert all(not torch.equal(c, p) for c, p in zip(critic, state.critic.parameters()))
+        assert state.step == int(state.device_step) == step + 1
+    assert td3.graph_captures == 1
+    assert moved[1] == set(before) and moved[2] == set()
+    assert {float(s["step"]) for s in state.pi_opt.state.values()} == {1.0}
+    assert all(s["step"].device.type == "cuda" for s in state.pi_opt.state.values())
+
+
+@pytest.mark.gpu
+def test_td3_state_restored_in_place_keeps_the_graph(cuda):
+    """A TD3 learner snapshot (target actor and device step included)
+    restored in place under the captured graph: no new capture, and the
+    next burst from it equals, to the bit, the burst first run from the
+    same snapshot."""
+    from torch_actor_critic_tpu_torch.buffer.replay import load_buffer_
+    from torch_actor_critic_tpu_torch.td3 import TD3
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, "flat", algorithm="td3")
+    td3 = TD3(cfg, 1)
+    chunk = _burst_chunk(cuda, shape, 50, gen)
+    state, ring, _ = td3.update_burst(state, ring, chunk, 25)
+    saved, saved_ring = state.state_dict(), ring.state_dict()
+    runs = []
+    for _ in range(2):
+        state.load_state_dict_(saved)
+        ring = load_buffer_(ring, saved_ring)
+        assert int(state.device_step) == 25
+        state, ring, m = td3.update_burst(state, ring, chunk, 25)
+        torch.cuda.synchronize()
+        runs.append((state.state_dict(), {k: v.clone() for k, v in m.items()}))
+    assert td3.graph_captures == 1
+    assert _diff(runs[0], runs[1]) == []
+    assert int(runs[0][0]["device_step"]) == 50

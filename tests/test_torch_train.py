@@ -145,8 +145,10 @@ def test_model_init_is_seeded_by_an_explicit_generator():
 
 
 def test_build_models_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="td3"):
-        build_models(SACConfig(algorithm="td3"), (3,), 1, 1.0)
+    # TD3 is ported for the flat and visual stacks; its sequence stack is
+    # refused, as the JAX trainer refuses it.
+    with pytest.raises(ValueError, match="sequence"):
+        build_models(SACConfig(algorithm="td3"), (8, 3), 1, 1.0)
     # A frame alone does not select the visual family: that takes a
     # MultiObservation (features, frame) spec.
     with pytest.raises(NotImplementedError, match="MultiObservation"):
@@ -206,7 +208,7 @@ def test_trainer_without_updates_only_fills_the_buffer():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("algorithm", "td3"), ("population", 2), ("on_device", True),
+    ("diagnostics", "light"), ("population", 2), ("on_device", True),
     ("replay_tiers", "host"), ("telemetry", True), ("obs", True),
     ("parallel_envs", True), ("decoupled", True), ("emit_bundle", True),
     ("compile_cache", "/nonexistent"), ("actor_param_lag", True),

@@ -125,9 +125,17 @@ class BufferState:
 
 @dataclasses.dataclass
 class TrainState:
-    """The complete learner state: actor, critic, target critic, one
-    Adam per network, the entropy temperature, the gradient-step count
-    and the generator every update draws its indices and noise from."""
+    """The complete learner state: actor, critic, target critic (and,
+    for TD3, target actor), one Adam per network, the entropy
+    temperature, the gradient-step count and the generator every update
+    draws its indices and noise from.
+
+    ``step`` is the host's count; ``device_step`` mirrors it as a 0-d
+    int64 tensor on the critic's device, which an update increments in
+    place: a captured update reads it at replay time (TD3's policy delay
+    is a select on it), as sampling reads ``BufferState.device_size``.
+    ``target_actor`` is ``None`` for SAC, as the JAX state's
+    ``target_actor_params``."""
 
     step: int
     actor: nn.Module
@@ -138,21 +146,38 @@ class TrainState:
     log_alpha: torch.Tensor  # 0-d f32 leaf; exp() is the temperature
     alpha_opt: torch.optim.Adam
     generator: torch.Generator
+    device_step: torch.Tensor | None = None  # 0-d int64, == step; None: made from step
+    target_actor: nn.Module | None = None
+
+    def __post_init__(self):
+        if self.device_step is None:
+            device = next(self.critic.parameters()).device
+            self.device_step = torch.full((), int(self.step), dtype=torch.int64, device=device)
+
+    def module_names(self) -> t.Tuple[str, ...]:
+        """The networks' fields: actor, critic, target critic, then the
+        target actor when there is one."""
+        names = ("actor", "critic", "target_critic")
+        return names + (("target_actor",) if self.target_actor is not None else ())
+
+    def modules(self) -> t.List[nn.Module]:
+        return [getattr(self, name) for name in self.module_names()]
 
     def clone(self) -> "TrainState":
-        """An independent copy to run from: the modules, the target
-        critic, ``log_alpha``, each Adam state (its moments and its
-        ``step``, a device tensor when capturable) over the copied
-        parameters, and a new generator at this one's state."""
+        """An independent copy to run from: the modules, the targets,
+        ``log_alpha``, each Adam state (its moments and its ``step``, a
+        device tensor when capturable) over the copied parameters, the
+        device step, and a new generator at this one's state."""
         gen = torch.Generator(device=self.generator.device)
         gen.set_state(self.generator.get_state())
         return copy.deepcopy(self, memo={id(self.generator): gen})
 
     def state_dict(self) -> dict:
         """A host snapshot of the whole state, for a checkpoint: the
-        three networks' state dicts, each Adam's (moments and ``step``
-        tensor), ``log_alpha``, the step count and the generator's state
-        (a uint8 tensor) with its device type."""
+        networks' state dicts (``target_actor`` only when there is one),
+        each Adam's (moments and ``step`` tensor), ``log_alpha``, the
+        step count and the device step, and the generator's state (a
+        uint8 tensor) with its device type."""
         def host(x):
             return x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x
 
@@ -164,8 +189,9 @@ class TrainState:
 
         return {
             "step": int(self.step),
+            "device_step": host(self.device_step),
             **{name: {k: host(v) for k, v in getattr(self, name).state_dict().items()}
-               for name in ("actor", "critic", "target_critic")},
+               for name in self.module_names()},
             **{name: adam(getattr(self, name)) for name in ("pi_opt", "q_opt", "alpha_opt")},
             "log_alpha": host(self.log_alpha),
             "generator": self.generator.get_state(),
@@ -177,13 +203,14 @@ class TrainState:
         device: the modules through ``load_state_dict`` (which copies),
         every Adam state tensor by ``copy_`` into the tensor the
         optimizer (and a captured burst's CUDA graph) holds,
-        ``log_alpha`` by ``copy_``, the generator by ``set_state``, and
-        ``step``. An Adam without state yet (a fresh learner, which no
-        graph has captured) gets new tensors, placed as it would place
-        them: ``step`` on the parameter's device when capturable, on the
-        CPU otherwise. A snapshot whose generator lived on another
-        device type leaves the generator as it is (the two devices'
-        streams differ anyway).
+        ``log_alpha`` and ``device_step`` by ``copy_`` (a snapshot
+        without ``device_step`` gives it ``step``), the generator by
+        ``set_state``, and ``step``. An Adam without state yet (a fresh
+        learner, which no graph has captured) gets new tensors, placed
+        as it would place them: ``step`` on the parameter's device when
+        capturable, on the CPU otherwise. A snapshot whose generator
+        lived on another device type leaves the generator as it is (the
+        two devices' streams differ anyway).
 
         One case cannot be written in place: a snapshot whose Adam had
         no state yet clears the live Adam's (a fresh Adam, as the
@@ -191,11 +218,18 @@ class TrainState:
         then no longer serves (its key, :func:`~..sac.algorithm.
         graph_key`, holds them) and the next burst captures anew. A
         snapshot of another model raises (``load_state_dict``'s
-        ``RuntimeError``, or ``ValueError`` for an optimizer)."""
-        for name in ("actor", "critic", "target_critic"):
+        ``RuntimeError``, or ``ValueError`` for an optimizer, or for a
+        target actor present on one side only)."""
+        if ("target_actor" in saved) != (self.target_actor is not None):
+            raise ValueError(
+                "learner snapshot and state disagree on a target actor (TD3 has "
+                "one, SAC none): a snapshot of another algorithm"
+            )
+        for name in self.module_names():
             getattr(self, name).load_state_dict(saved[name])
         with torch.no_grad():
             self.log_alpha.copy_(saved["log_alpha"])
+            self.device_step.copy_(saved.get("device_step", torch.tensor(saved["step"])))
         for name in ("pi_opt", "q_opt", "alpha_opt"):
             _load_adam_(getattr(self, name), saved[name])
         if saved["generator_device"] == self.generator.device.type:

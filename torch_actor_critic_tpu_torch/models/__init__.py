@@ -8,7 +8,7 @@ import torch
 from torch import nn
 
 from torch_actor_critic_tpu_torch.core.types import MultiObservation
-from torch_actor_critic_tpu_torch.models.actor import Actor
+from torch_actor_critic_tpu_torch.models.actor import Actor, DeterministicActor
 from torch_actor_critic_tpu_torch.models.critic import Critic, DoubleCritic
 from torch_actor_critic_tpu_torch.models.mlp import MLP, Dense, init_generator
 from torch_actor_critic_tpu_torch.models.sequence import (
@@ -20,6 +20,7 @@ from torch_actor_critic_tpu_torch.models.sequence import (
     TransformerBlock,
 )
 from torch_actor_critic_tpu_torch.models.visual import (
+    DeterministicVisualActor,
     SimpleCNN,
     VisualActor,
     VisualCritic,
@@ -27,7 +28,8 @@ from torch_actor_critic_tpu_torch.models.visual import (
 )
 
 __all__ = [
-    "Actor", "Critic", "Dense", "DoubleCritic", "MLP", "MultiHeadAttention",
+    "Actor", "Critic", "Dense", "DeterministicActor", "DeterministicVisualActor",
+    "DoubleCritic", "MLP", "MultiHeadAttention",
     "SequenceActor", "SequenceCritic", "SequenceDoubleCritic", "SequenceTrunk",
     "SimpleCNN", "TransformerBlock", "VisualActor", "VisualCritic",
     "VisualDoubleCritic", "build_actor", "build_models",
@@ -37,11 +39,14 @@ ObsShape = t.Union[t.Sequence[int], MultiObservation]
 
 
 def _check_supported(config, obs_shape: ObsShape) -> None:
-    if config.algorithm != "sac":
-        raise NotImplementedError(
-            f"algorithm={config.algorithm!r} is not ported yet (SAC only)"
-        )
     visual = isinstance(obs_shape, MultiObservation)
+    if config.algorithm == "td3" and not visual and len(obs_shape) != 1:
+        # The JAX trainer's gate: the sequence stack is squashed-Gaussian only.
+        raise ValueError(
+            "algorithm='td3' supports flat and visual observations "
+            f"(got obs spec {obs_shape}); use algorithm='sac' for "
+            "the sequence (history) stack"
+        )
     # The JAX trainer's construction gates: either pixel option on a
     # flat/sequence observation would silently do nothing.
     if config.frame_augment != "none" and not visual:
@@ -86,7 +91,7 @@ def build_models(
     generator: torch.Generator | None = None,
 ) -> t.Tuple[nn.Module, nn.Module]:
     """``(actor, critic)`` as the JAX trainer's ``build_models`` builds
-    them (``sac/trainer.py``, visual, sequence and flat branches): a
+    them (``sac/trainer.py``, TD3, visual, sequence and flat branches): a
     :class:`MultiObservation` of shapes ``(features=(F,), frame=(H, W,
     C))`` gives :class:`VisualActor` + :class:`VisualDoubleCritic`, a
     flat ``(obs_dim,)`` obs :class:`Actor` + :class:`DoubleCritic`, a
@@ -94,11 +99,14 @@ def build_models(
     :class:`SequenceDoubleCritic` with ``max_len = T``; the flat and
     sequence critics stack their ``config.num_qs`` members' parameters
     on a leading axis (any ``num_qs >= 1``), the visual one keeps them
-    unrolled. Both draw their init from ``generator`` (None: seeded 0),
-    actor first, then the critics one after another.
+    unrolled. With ``algorithm="td3"`` the actor is the deterministic
+    one (:class:`DeterministicVisualActor` or :class:`DeterministicActor`,
+    exploration noise ``act_noise``) over the same critics, and a history
+    raises ``ValueError``. Both draw their init from ``generator`` (None:
+    seeded 0), actor first, then the critics one after another.
     ``frame_augment``/``pixel_pipeline`` on a non-visual observation
-    raise ``ValueError``; TD3, multi-agent and task-embedding models
-    ``NotImplementedError``.
+    raise ``ValueError``. Multi-agent and task-embedding models are not
+    ported.
     """
     obs_shape = _shape(obs_shape)
     gen = init_generator(generator)
@@ -142,10 +150,21 @@ def build_actor(
     _check_supported(config, obs_shape)
     gen = init_generator(generator)
     dtype = config.model_dtype
+    td3 = config.algorithm == "td3"
     if isinstance(obs_shape, MultiObservation):
+        if td3:
+            return DeterministicVisualActor(
+                act_dim=act_dim, act_limit=act_limit, act_noise=config.act_noise,
+                generator=gen, **_visual_kwargs(config, obs_shape),
+            )
         return VisualActor(
             act_dim=act_dim, act_limit=act_limit, generator=gen,
             **_visual_kwargs(config, obs_shape),
+        )
+    if td3:
+        return DeterministicActor(
+            obs_shape[0], act_dim, hidden_sizes=config.hidden_sizes,
+            act_limit=act_limit, act_noise=config.act_noise, dtype=dtype, generator=gen,
         )
     if len(obs_shape) == 2:
         horizon, obs_dim = obs_shape

@@ -5,6 +5,7 @@
 - :class:`SimpleCNN` — conv trunk (ReLU after each conv) → flatten →
   ``Dense(dense_size)`` → ``Dense(out_features)``.
 - :class:`VisualActor` — MLP(features) ⊕ CNN(frame) → squashed Gaussian.
+- :class:`DeterministicVisualActor` — the same trunk → TD3's tanh head.
 - :class:`VisualCritic` / :class:`VisualDoubleCritic` — the reference's
   critic: ReLU through every MLP layer *including* the width-1 output,
   then concat with the CNN embedding and a ``final`` Dense.
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torch_actor_critic_tpu_torch.core.types import MultiObservation
+from torch_actor_critic_tpu_torch.models.actor import clipped_noise_action
 from torch_actor_critic_tpu_torch.models.mlp import MLP, Dense, init_generator
 from torch_actor_critic_tpu_torch.ops.distributions import squashed_gaussian_sample
 
@@ -138,7 +140,40 @@ def _batched(obs: MultiObservation, *rest):
     return (unbatched, features, frame, *rest)
 
 
-class VisualActor(nn.Module):
+class _VisualActorTrunk(nn.Module):
+    """The MLP(features) ⊕ CNN(frame) embedding both visual actors share
+    (JAX ``_visual_actor_trunk``): ``trunk`` then ``visual_network``
+    draw their init from the generator, the heads after them."""
+
+    def __init__(
+        self,
+        features_dim: int,
+        frame_shape: t.Sequence[int],
+        hidden_sizes: t.Sequence[int],
+        filters: t.Sequence[int],
+        kernel_sizes: t.Sequence[int],
+        strides: t.Sequence[int],
+        cnn_features: int,
+        cnn_dense_size: int,
+        normalize_pixels: bool,
+        dtype: torch.dtype,
+        generator: torch.Generator,
+    ):
+        super().__init__()
+        self.trunk = MLP(features_dim, hidden_sizes, activate_final=True,
+                         dtype=dtype, generator=generator)
+        self.visual_network = SimpleCNN(
+            frame_shape, filters, kernel_sizes, strides, cnn_dense_size,
+            cnn_features, normalize_pixels, dtype=dtype, generator=generator,
+        )
+        self.width = (hidden_sizes[-1] if hidden_sizes else features_dim) + cnn_features
+
+    def embed(self, features: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+        x = self.trunk(features)
+        return torch.cat([x, self.visual_network(frame).to(x.dtype)], dim=-1)
+
+
+class VisualActor(_VisualActorTrunk):
     """Squashed-Gaussian policy over a :class:`MultiObservation`: MLP
     trunk on ``features`` ⊕ CNN embedding of ``frame`` before the
     ``mu``/``log_std`` heads."""
@@ -159,17 +194,11 @@ class VisualActor(nn.Module):
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
     ):
-        super().__init__()
         gen = init_generator(generator)
-        self.trunk = MLP(features_dim, hidden_sizes, activate_final=True,
-                         dtype=dtype, generator=gen)
-        self.visual_network = SimpleCNN(
-            frame_shape, filters, kernel_sizes, strides, cnn_dense_size,
-            cnn_features, normalize_pixels, dtype=dtype, generator=gen,
-        )
-        width = (hidden_sizes[-1] if hidden_sizes else features_dim) + cnn_features
-        self.mu = Dense(width, act_dim, dtype=dtype, generator=gen)
-        self.log_std = Dense(width, act_dim, dtype=dtype, generator=gen)
+        super().__init__(features_dim, frame_shape, hidden_sizes, filters, kernel_sizes,
+                         strides, cnn_features, cnn_dense_size, normalize_pixels, dtype, gen)
+        self.mu = Dense(self.width, act_dim, dtype=dtype, generator=gen)
+        self.log_std = Dense(self.width, act_dim, dtype=dtype, generator=gen)
         self.act_limit = float(act_limit)
 
     def forward(
@@ -181,8 +210,7 @@ class VisualActor(nn.Module):
         eps: torch.Tensor | None = None,
     ):
         unbatched, features, frame = _batched(obs)
-        x = self.trunk(features)
-        x = torch.cat([x, self.visual_network(frame).to(x.dtype)], dim=-1)
+        x = self.embed(features, frame)
         mu = self.mu(x).float()
         log_std = self.log_std(x).float()
         if eps is not None and unbatched:
@@ -195,6 +223,56 @@ class VisualActor(nn.Module):
             action = action[0]
             logp = logp[0] if logp is not None else None
         return action, logp
+
+
+class DeterministicVisualActor(_VisualActorTrunk):
+    """TD3's deterministic tanh policy over a :class:`MultiObservation`:
+    :class:`VisualActor`'s trunk and one ``mu`` head, with the clipped
+    exploration noise of
+    :class:`~torch_actor_critic_tpu_torch.models.actor.DeterministicActor`.
+    Returns ``(action, None)``."""
+
+    def __init__(
+        self,
+        features_dim: int,
+        frame_shape: t.Sequence[int],
+        act_dim: int,
+        hidden_sizes: t.Sequence[int] = (256, 256),
+        act_limit: float = 1.0,
+        act_noise: float = 0.1,
+        filters: t.Sequence[int] = (32, 64, 64),
+        kernel_sizes: t.Sequence[int] = (8, 4, 3),
+        strides: t.Sequence[int] = (4, 2, 1),
+        cnn_features: int = 1,
+        cnn_dense_size: int = 512,
+        normalize_pixels: bool = False,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+    ):
+        gen = init_generator(generator)
+        super().__init__(features_dim, frame_shape, hidden_sizes, filters, kernel_sizes,
+                         strides, cnn_features, cnn_dense_size, normalize_pixels, dtype, gen)
+        self.mu = Dense(self.width, act_dim, dtype=dtype, generator=gen)
+        self.act_limit = float(act_limit)
+        self.act_noise = float(act_noise)
+
+    def forward(
+        self,
+        obs: MultiObservation,
+        generator: torch.Generator | None = None,
+        deterministic: bool = False,
+        with_logprob: bool = True,  # noqa: ARG002 — contract only
+        eps: torch.Tensor | None = None,
+    ):
+        unbatched, features, frame = _batched(obs)
+        mu = self.mu(self.embed(features, frame)).float()
+        if eps is not None and unbatched:
+            eps = eps[None]
+        action = clipped_noise_action(
+            mu, self.act_limit, self.act_noise, deterministic, type(self).__name__,
+            generator=generator, eps=eps,
+        )
+        return (action[0] if unbatched else action), None
 
 
 class VisualCritic(nn.Module):

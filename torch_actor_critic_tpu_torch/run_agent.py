@@ -3,10 +3,12 @@
     python -m torch_actor_critic_tpu_torch.run_agent --run <id> \\
         [--episodes N] [--seed S] [--random] [--device cpu|cuda]
 
-Loads the run's stored params (environment, config, seed), restores the
-learner from its newest checkpoint (not the replay ring), rolls out
-``--episodes`` episodes with the deterministic policy (``--random``:
-sampled actions) and prints their mean return, spread and length as one
+Loads the run's stored params (environment, config, seed), builds the
+run's learner from its config (SAC or TD3: a TD3 run gets the
+deterministic actor), restores it from its newest checkpoint (not the
+replay ring), rolls out ``--episodes`` episodes with the deterministic
+policy (``--random``: sampled actions, TD3's with its exploration
+noise) and prints their mean return, spread and length as one
 JSON line. ``--seed S`` resets episode ``i`` with ``S + i`` and seeds
 the acting generator, so two invocations print the same line.
 ``--headless`` is accepted and has no effect (the port does not
@@ -26,7 +28,7 @@ logger = logging.getLogger(__name__)
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
-    parser = argparse.ArgumentParser("Soft Actor-Critic evaluation of the PyTorch port.")
+    parser = argparse.ArgumentParser("Actor-critic (SAC or TD3) evaluation of the PyTorch port.")
     parser.add_argument("--run", type=str, required=True, help="Run id to evaluate")
     parser.add_argument("--experiment", default="Default", help="Experiment name")
     parser.add_argument("--runs-root", default="runs")

@@ -3,7 +3,8 @@
 
 One update runs in the JAX package's order: the critic step, then the
 actor step on the UPDATED critic, then the optional temperature step,
-then the polyak target update. Each network has its own
+then the polyak target update, then the device step (one kernel:
+``TrainState.device_step += 1``). Each network has its own
 ``torch.optim.Adam(lr, eps=1e-8)`` (optax's ``adam`` defaults; the two
 order their float ops differently, so parity with optax is a tolerance).
 Gradients are taken with ``torch.autograd.grad`` with respect to one
@@ -13,7 +14,8 @@ frozen, so its attention runs forward-only.
 A burst pushes a chunk, then runs ``num_updates`` steps, each sampling
 its batch on the device. Nothing in a burst reads a value back to the
 host: metrics stay device scalars, are stacked, and are reduced once by
-key suffix. On the card :meth:`SAC.update_burst` runs the burst as one
+key suffix. On the card :meth:`Learner.update_burst` (SAC's and TD3's)
+runs the burst as one
 device program, as the JAX package jits its ``lax.scan``: one update
 (:func:`update_step`) captured in a CUDA graph and replayed for every
 update (:mod:`.graph`); the Adam instances are ``capturable`` there.
@@ -78,10 +80,17 @@ def _set_grads(params: t.Sequence[torch.Tensor], grads: t.Sequence[torch.Tensor]
         p.grad = g if g.stride() == p.stride() else torch.empty_like(p).copy_(g)
 
 
-class SAC:
-    """SAC over an actor ``actor(obs, generator=, eps=) -> (action,
-    logp)`` and an ensemble critic ``critic(obs, action) -> (num_qs, B)``
-    — the same contract as the JAX learner's module defs."""
+def make_adam(params, lr: float, device: torch.device) -> torch.optim.Adam:
+    """``Adam(lr, eps=1e-8)``, ``capturable`` on the card (its step count a
+    device tensor, its bias correction on the device) so a CUDA graph can
+    hold it; the plain one on the CPU, which refuses ``capturable``."""
+    return torch.optim.Adam(params, lr=lr, eps=ADAM_EPS, capturable=device.type == "cuda")
+
+
+class Learner:
+    """What SAC and TD3 share: the config, the action size, and the burst
+    (:meth:`update_burst`) over the subclass's ``update``. A subclass
+    gives ``init_state``, ``update`` and :meth:`burst_noise`."""
 
     def __init__(self, config, act_dim: int):
         if config.diagnostics != "off":
@@ -90,13 +99,81 @@ class SAC:
             )
         self.config = config
         self.act_dim = act_dim
+        self.graph: BurstGraph | None = None  # the last captured burst
+        self.graph_captures = 0
+
+    def burst_noise(self, eps: torch.Tensor) -> t.Dict[str, torch.Tensor]:
+        """``update``'s noise arguments from one update's slice of a
+        burst's ``eps`` test hook."""
+        raise NotImplementedError
+
+    def update_burst(
+        self,
+        state: TrainState,
+        buffer_state: BufferState,
+        chunk: Batch,
+        num_updates: int,
+        indices: torch.Tensor | None = None,
+        eps: torch.Tensor | None = None,
+        offsets: torch.Tensor | None = None,
+        eager: bool = False,
+    ) -> t.Tuple[TrainState, BufferState, Metrics]:
+        """Push a chunk, then ``num_updates`` gradient steps; metrics
+        reduced over the burst.
+
+        A ring on the card runs as a CUDA graph (:mod:`.graph`); a CPU
+        ring, a burst given a test hook (``indices``/``eps``/``offsets``,
+        see :func:`run_update_burst`), or ``eager=True`` takes the eager
+        loop. The graph is captured once per (state, ring,
+        ``num_updates``) and replayed across bursts; another key
+        (:func:`graph_key`: those objects and every tensor of them the
+        update reads or writes) captures anew (``graph_captures``
+        counts). A failed capture or
+        replay raises, with ``state.step`` counting the updates that
+        ran."""
+        hooked = indices is not None or eps is not None or offsets is not None
+        if eager or hooked or buffer_state.data.rewards.device.type != "cuda":
+            return run_update_burst(
+                self.update, self.config, state, buffer_state, chunk, num_updates,
+                indices=indices, eps=eps, offsets=offsets, noise=self.burst_noise,
+            )
+        buffer_state = push(buffer_state, chunk)
+        key = graph_key(state, buffer_state)
+        step = state.step
+        graph = self.graph
+        if graph is None or not graph.serves(key, num_updates):
+            self.graph = None  # its memory pool goes before the next capture
+            graph = BurstGraph(
+                lambda stack: update_step(self.update, self.config, state, buffer_state, stack),
+                key, num_updates, state.generator,
+            )
+        try:
+            metrics = graph.run()
+        finally:
+            state.step = step + graph.ran  # the capture counted a step it did not run
+        if graph is not self.graph:
+            graph.key = graph_key(state, buffer_state)  # now with the warm-up's Adam state
+            self.graph = graph
+            self.graph_captures += 1
+        return state, buffer_state, metrics
+
+
+class SAC(Learner):
+    """SAC over an actor ``actor(obs, generator=, eps=) -> (action,
+    logp)`` and an ensemble critic ``critic(obs, action) -> (num_qs, B)``
+    — the same contract as the JAX learner's module defs."""
+
+    def __init__(self, config, act_dim: int):
+        super().__init__(config, act_dim)
         self.target_entropy = (
             config.target_entropy
             if config.target_entropy is not None
             else -float(act_dim)
         )
-        self.graph: BurstGraph | None = None  # the last captured burst
-        self.graph_captures = 0
+
+    def burst_noise(self, eps: torch.Tensor) -> t.Dict[str, torch.Tensor]:
+        """``eps`` ``(2, B, act_dim)``: ``(eps_q, eps_pi)``."""
+        return {"eps_q": eps[0], "eps_pi": eps[1]}
 
     def init_state(
         self, actor: nn.Module, critic: nn.Module, generator: torch.Generator
@@ -114,19 +191,16 @@ class SAC:
             requires_grad=True,
         )
 
-        def adam(params):
-            return torch.optim.Adam(params, lr=self.config.lr, eps=ADAM_EPS,
-                                    capturable=device.type == "cuda")
-
+        lr = self.config.lr
         return TrainState(
             step=0,
             actor=actor,
             critic=critic,
             target_critic=target,
-            pi_opt=adam(actor.parameters()),
-            q_opt=adam(critic.parameters()),
+            pi_opt=make_adam(actor.parameters(), lr, device),
+            q_opt=make_adam(critic.parameters(), lr, device),
             log_alpha=log_alpha,
-            alpha_opt=adam([log_alpha]),
+            alpha_opt=make_adam([log_alpha], lr, device),
             generator=generator,
         )
 
@@ -204,6 +278,7 @@ class SAC:
         polyak_update_(
             state.critic.parameters(), state.target_critic.parameters(), cfg.polyak
         )
+        state.device_step.add_(1)
         state.step += 1
         metrics = {
             "loss_q": loss_q.detach(),
@@ -214,71 +289,21 @@ class SAC:
         }
         return state, metrics
 
-    def update_burst(
-        self,
-        state: TrainState,
-        buffer_state: BufferState,
-        chunk: Batch,
-        num_updates: int,
-        indices: torch.Tensor | None = None,
-        eps: torch.Tensor | None = None,
-        offsets: torch.Tensor | None = None,
-        eager: bool = False,
-    ) -> t.Tuple[TrainState, BufferState, Metrics]:
-        """Push a chunk, then ``num_updates`` gradient steps; metrics
-        reduced over the burst.
-
-        A ring on the card runs as a CUDA graph (:mod:`.graph`); a CPU
-        ring, a burst given a test hook (``indices``/``eps``/``offsets``,
-        see :func:`run_update_burst`), or ``eager=True`` takes the eager
-        loop. The graph is captured once per (state, ring,
-        ``num_updates``) and replayed across bursts; another key
-        (:func:`graph_key`: those objects and every tensor of them the
-        update reads or writes) captures anew (``graph_captures``
-        counts). A failed capture or
-        replay raises, with ``state.step`` counting the updates that
-        ran."""
-        hooked = indices is not None or eps is not None or offsets is not None
-        if eager or hooked or buffer_state.data.rewards.device.type != "cuda":
-            return run_update_burst(
-                self.update, self.config, state, buffer_state, chunk, num_updates,
-                indices=indices, eps=eps, offsets=offsets,
-            )
-        buffer_state = push(buffer_state, chunk)
-        key = graph_key(state, buffer_state)
-        step = state.step
-        graph = self.graph
-        if graph is None or not graph.serves(key, num_updates):
-            self.graph = None  # its memory pool goes before the next capture
-            graph = BurstGraph(
-                lambda stack: update_step(self.update, self.config, state, buffer_state, stack),
-                key, num_updates, state.generator,
-            )
-        try:
-            metrics = graph.run()
-        finally:
-            state.step = step + graph.ran  # the capture counted a step it did not run
-        if graph is not self.graph:
-            graph.key = graph_key(state, buffer_state)  # now with the warm-up's Adam state
-            self.graph = graph
-            self.graph_captures += 1
-        return state, buffer_state, metrics
-
-
 def graph_key(state: TrainState, buffer_state: BufferState) -> tuple:
     """What a captured update reads and writes, compared by identity
-    (:meth:`~.graph.BurstGraph.serves`): the state and its modules,
-    optimizers, ``log_alpha`` and generator; every parameter, module
-    buffer and Adam state tensor; the ring's leaves and device size. A
+    (:meth:`~.graph.BurstGraph.serves`): the state and its modules (the
+    target actor too, for TD3), optimizers, ``log_alpha``, device step
+    and generator; every parameter, module buffer and Adam state tensor;
+    the ring's leaves and device size. A
     restore that copies into those tensors
     (:meth:`~..core.types.TrainState.load_state_dict_`,
     :func:`~..buffer.replay.load_buffer_`) keeps the graph; one that
     replaced any of them (``Optimizer.load_state_dict`` builds new state
     tensors) is never replayed onto: the next burst captures anew."""
-    modules = (state.actor, state.critic, state.target_critic)
+    modules = state.modules()
     opts = (state.pi_opt, state.q_opt, state.alpha_opt)
     return (
-        state, *modules, *opts, state.log_alpha, state.generator,
+        state, *modules, *opts, state.log_alpha, state.device_step, state.generator,
         buffer_state.data, buffer_state.device_size, *buffer_state.data.leaves(),
         *(x for m in modules for x in (*m.parameters(), *m.buffers())),
         *(x for opt in opts for st in opt.state.values() for x in st.values()),
@@ -332,13 +357,16 @@ def run_update_burst(
     indices: torch.Tensor | None = None,
     eps: torch.Tensor | None = None,
     offsets: torch.Tensor | None = None,
+    noise: t.Callable[[torch.Tensor], t.Dict[str, torch.Tensor]] | None = None,
 ) -> t.Tuple[TrainState, BufferState, Metrics]:
     """The eager push-then-loop burst (the CPU's, and the card's with
     ``eager=True``). Test hooks: ``indices`` ``(K, B)`` are the
     replay rows of each update (instead of draws from
-    ``state.generator``), ``eps`` ``(K, 2, B, act_dim)`` each update's
-    ``(eps_q, eps_pi)``, ``offsets`` ``(K, 2, B, 2)`` each fused visual
-    update's DrQ shifts of states and next states."""
+    ``state.generator``), ``eps[i]`` each update's noise, which
+    ``noise(eps[i])`` turns into ``update_fn``'s keyword arguments (the
+    learner's ``burst_noise``; SAC's takes ``(2, B, act_dim)``, ``(eps_q,
+    eps_pi)``), ``offsets`` ``(K, 2, B, 2)`` each fused visual update's
+    DrQ shifts of states and next states."""
     buffer_state = push(buffer_state, chunk)
     rows = []
     for i in range(num_updates):
@@ -348,8 +376,7 @@ def run_update_burst(
             indices=None if indices is None else indices[i],
             offsets=None if offsets is None else offsets[i],
         )
-        noise = {} if eps is None else {"eps_q": eps[i][0], "eps_pi": eps[i][1]}
-        state, metrics = update_fn(state, batch, **noise)
+        state, metrics = update_fn(state, batch, **({} if eps is None else noise(eps[i])))
         rows.append(metrics)
     stacked = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
     return state, buffer_state, reduce_burst_metrics(stacked)

@@ -1,5 +1,6 @@
-"""End-to-end SAC training on one device (port of ``sac/trainer.py``'s
-``Trainer``: ``train`` and ``evaluate``).
+"""End-to-end SAC or TD3 training on one device (port of
+``sac/trainer.py``'s ``Trainer``: ``train`` and ``evaluate``, and
+``make_learner``, the one algorithm dispatch).
 
 The host loop is the JAX trainer's, step for step: a lockstep step
 counter, uniform random actions for the first ``start_steps`` steps,
@@ -9,14 +10,17 @@ an update window every ``update_every`` steps (``(step + 1) %
 update_every == 0``) that pushes the staged transitions and, once
 ``step > update_after``, runs a burst of ``updates_per_window``
 gradient steps on the device (on the card, replays of one captured
-update: :meth:`~.algorithm.SAC.update_burst`). Acting between bursts
+update: :meth:`~.algorithm.Learner.update_burst`). Acting between bursts
 reads the parameters the replays updated in place; the burst's metrics
 are new tensors, read once at epoch end, outside the graph, as the
 sentinel is.
 
 Acting runs on the training device through the same kernels as the
 learner (the JAX trainer's ``host_actor`` CPU mirror is accepted and
-has no effect).
+has no effect): SAC samples its squashed Gaussian, TD3 adds its clipped
+exploration noise, both drawn from the acting generator; evaluation is
+deterministic. ``algorithm="td3"`` takes the flat and visual stacks; a
+history raises ``ValueError``, as in JAX.
 
 The resilience path is the JAX trainer's. At each epoch boundary the
 divergence sentinel (``sentinel=True``) runs one all-finite pass over
@@ -76,7 +80,8 @@ from torch_actor_critic_tpu_torch.resilience.sentinel import (
     DivergenceSentinel,
     TrainingDiverged,
 )
-from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+from torch_actor_critic_tpu_torch.sac.algorithm import SAC, Learner
+from torch_actor_critic_tpu_torch.td3 import TD3
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
 from torch_actor_critic_tpu_torch.utils.normalize import (
@@ -91,7 +96,7 @@ logger = logging.getLogger(__name__)
 # does not port. (Fields that only parameterise one of these, such as
 # staging_policy under decoupled, are inert without it, as in JAX.)
 NOT_PORTED = (
-    "algorithm", "on_device", "population",
+    "on_device", "population",
     "pbt_every", "ma_critic", "task_embed_dim", "actor_param_lag",
     "parallel_envs", "decoupled", "serve_url", "actors",
     "elastic", "replay_tiers", "replay_refill", "offline", "telemetry",
@@ -113,8 +118,16 @@ def check_ported(config: SACConfig) -> None:
             )
 
 
+def make_learner(config: SACConfig, act_dim: int) -> Learner:
+    """The one algorithm dispatch, as the JAX trainer's: ``config.algorithm``
+    picks :class:`~..td3.TD3` or :class:`~.algorithm.SAC`."""
+    if config.algorithm == "td3":
+        return TD3(config, act_dim)
+    return SAC(config, act_dim)
+
+
 class Trainer:
-    """SAC on one device with one host env. Per-run seeds: model init
+    """SAC or TD3 on one device with one host env. Per-run seeds: model init
     from ``seed``, the learner's generator from ``seed + 1``, acting from
     ``seed + 2``; the env at epoch ``e`` resets with
     :meth:`_epoch_seed`."""
@@ -160,7 +173,7 @@ class Trainer:
                     "stack, which runs unnormalized", tuple(spec.shape),
                 )
             self.normalizer = IdentityNormalizer()
-        self.sac = SAC(cfg, self.pool.act_dim)
+        self.sac = make_learner(cfg, self.pool.act_dim)
         actor, critic = build_models(
             cfg, obs_shape, self.pool.act_dim, self.pool.act_limit,
             generator=torch.Generator().manual_seed(seed),

@@ -7,9 +7,10 @@ Serves the newest epoch of a port actor checkpoint
 (:mod:`torch_actor_critic_tpu_torch.utils.checkpoint`) over HTTP, with
 hot-reload polling, and prints ``{"serving": <url>, "slots": ...}`` on
 one line once it accepts requests. The model geometry comes from the
-checkpoint's stored config; a config with ``history_len > 1`` is a
-sequence policy served over ``(history_len, obs_dim)`` observations, as
-the trainer builds it. SIGTERM drains (answers every accepted request)
+checkpoint's stored config, as the trainer builds it: a config with
+``history_len > 1`` is a sequence policy served over ``(history_len,
+obs_dim)`` observations, one with ``algorithm="td3"`` TD3's
+deterministic actor (sampled requests add its exploration noise). SIGTERM drains (answers every accepted request)
 and exits 0.
 
 The single-process subset of ``serve.py``'s flags; ``--run``, fleets,

@@ -10,6 +10,11 @@
         --cnn-features 64 --normalize-pixels true --frame-augment shift \\
         --learn-alpha true --pixel-pipeline fused
 
+    # TD3 (its DDPG corner: --policy-delay 1 --target-noise 0 --num-qs 1),
+    # flat or visual; a history (--history-len > 1) raises ValueError
+    python -m torch_actor_critic_tpu_torch.train --algorithm td3 \
+        --environment PendulumNumpy-v1
+
     # resume a run where its newest checkpoint left it
     python -m torch_actor_critic_tpu_torch.train --run <id> [--runs-root DIR]
 
@@ -49,7 +54,7 @@ logger = logging.getLogger(__name__)
 
 def parse_arguments(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        "Soft Actor-Critic trainer of the PyTorch port (one CUDA device)."
+        "Actor-critic (SAC or TD3) trainer of the PyTorch port (one CUDA device)."
     )
     parser.add_argument("--experiment", default="Default", help="Experiment name")
     parser.add_argument(

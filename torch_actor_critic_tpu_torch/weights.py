@@ -14,7 +14,8 @@ is. The visual critic ensemble is unrolled in both (``ensemble_{i}``
 subtrees, ``ensemble.{i}`` members). Conv kernels ``(kh, kw, in, out)`` become
 ``nn.Conv2d`` weights ``(out, in, kh, kw)``. optax's Adam
 state (``mu``/``nu``/``count``) maps through the same names onto
-``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``.
+``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``. The
+deterministic (TD3) actors have one head, ``Dense_0`` -> ``mu``.
 """
 
 from __future__ import annotations
@@ -27,13 +28,14 @@ from torch import nn
 
 from torch_actor_critic_tpu_torch.core.types import TrainState
 from torch_actor_critic_tpu_torch.models import build_actor
-from torch_actor_critic_tpu_torch.models.actor import Actor
+from torch_actor_critic_tpu_torch.models.actor import Actor, DeterministicActor
 from torch_actor_critic_tpu_torch.models.critic import DoubleCritic
 from torch_actor_critic_tpu_torch.models.sequence import (
     SequenceActor,
     SequenceDoubleCritic,
 )
 from torch_actor_critic_tpu_torch.models.visual import (
+    DeterministicVisualActor,
     VisualActor,
     VisualDoubleCritic,
 )
@@ -67,12 +69,14 @@ def _mlp_state(prefix: str, mlp: t.Mapping) -> t.Dict[str, np.ndarray]:
 
 def _actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
     """A flat or a visual actor: ``MLP_0`` trunk (plus the CNN
-    ``visual_network``), ``Dense_0``/``Dense_1`` heads."""
+    ``visual_network``), ``Dense_0``/``Dense_1`` heads (a deterministic
+    actor's ``Dense_0`` alone)."""
     out = _mlp_state("trunk", p["MLP_0"])
     if "visual_network" in p:
         out.update(_cnn_state("visual_network", p["visual_network"]))
     out.update(_flat("mu", _dense(p["Dense_0"])))
-    out.update(_flat("log_std", _dense(p["Dense_1"])))
+    if "Dense_1" in p:
+        out.update(_flat("log_std", _dense(p["Dense_1"])))
     return out
 
 
@@ -137,13 +141,17 @@ def _critic_state(module: nn.Module, p: t.Mapping) -> t.Dict[str, np.ndarray]:
     return _mlp_state("trunk", stacked["MLP_0"])
 
 
+# The actors whose Flax tree is ``MLP_0`` (+ ``visual_network``) and Dense heads.
+_MLP_ACTORS = (Actor, VisualActor, DeterministicActor, DeterministicVisualActor)
+
+
 def _named_arrays(module: nn.Module, params_tree: t.Mapping) -> t.Dict[str, np.ndarray]:
     """The port's parameter names of ``module`` -> the matching arrays
     of a Flax tree (params, or an optimizer moment of the same shape)."""
     p = params_tree.get("params", params_tree)
     if isinstance(module, SequenceActor):
         return _sequence_actor_state(p)
-    if isinstance(module, (Actor, VisualActor)):
+    if isinstance(module, _MLP_ACTORS):
         return _actor_state(p)
     if isinstance(module, (DoubleCritic, SequenceDoubleCritic, VisualDoubleCritic)):
         return _critic_state(module, p)
@@ -167,7 +175,7 @@ def load_jax_actor_params(module: nn.Module, params_tree: t.Mapping) -> nn.Modul
     """Copy a Flax actor param dict (``{"params": ...}`` or its inner
     dict, numpy leaves) into ``module`` in place; every parameter must
     be covered (strict)."""
-    if not isinstance(module, (Actor, SequenceActor, VisualActor)):
+    if not isinstance(module, (SequenceActor, *_MLP_ACTORS)):
         raise TypeError(f"no Flax actor mapping for {type(module).__name__}")
     return _load(module, params_tree)
 
@@ -189,6 +197,11 @@ def _adam_state(opt_state) -> t.Any:
         if all(hasattr(part, f) for f in ("count", "mu", "nu")):
             return part
     raise TypeError(f"no Adam moments in optimizer state {type(opt_state).__name__}")
+
+
+def _has_adam_state(opt_state) -> bool:
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    return any(all(hasattr(part, f) for f in ("count", "mu", "nu")) for part in parts)
 
 
 def _load_adam(opt: torch.optim.Adam, module_or_param, opt_state) -> None:
@@ -214,19 +227,28 @@ def train_state_from_jax(
     generator: torch.Generator,
 ) -> TrainState:
     """The port's :class:`TrainState` carrying a JAX ``TrainState``
-    (numpy leaves): actor, critic and target critic params, ``log_alpha``
-    and every Adam state, over the built ``actor``/``critic`` (on their
-    device). Both sides then start an update from the same state."""
+    (numpy leaves): actor, critic and target critic params (and a TD3
+    state's target actor), ``log_alpha``, every Adam state and the step
+    (host and device), over the built ``actor``/``critic`` (on their
+    device) and the learner ``sac`` (a SAC or a TD3). A TD3 state's
+    temperature Adam is optax's ``EmptyState``: the port's stays empty.
+    Both sides then start an update from the same state."""
+    state = sac.init_state(actor, critic, generator)
+    if (jax_state.target_actor_params is None) != (state.target_actor is None):
+        raise ValueError("the JAX state and the learner disagree on a target actor")
     load_jax_actor_params(actor, jax_state.actor_params)
     load_jax_critic_params(critic, jax_state.critic_params)
-    state = sac.init_state(actor, critic, generator)
     load_jax_critic_params(state.target_critic, jax_state.target_critic_params)
+    if state.target_actor is not None:
+        load_jax_actor_params(state.target_actor, jax_state.target_actor_params)
     with torch.no_grad():
         state.log_alpha.fill_(float(np.asarray(jax_state.log_alpha)))
     _load_adam(state.pi_opt, actor, jax_state.pi_opt_state)
     _load_adam(state.q_opt, critic, jax_state.q_opt_state)
-    _load_adam(state.alpha_opt, state.log_alpha, jax_state.alpha_opt_state)
+    if _has_adam_state(jax_state.alpha_opt_state):
+        _load_adam(state.alpha_opt, state.log_alpha, jax_state.alpha_opt_state)
     state.step = int(np.asarray(jax_state.step))
+    state.device_step.fill_(state.step)
     return state
 
 
