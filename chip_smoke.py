@@ -3,7 +3,8 @@ serve the sequence policy over HTTP through the port's CLI path, train
 it with SAC through the train CLI's path, then train the visual (pixel)
 policy through the same path and run visual bursts at full width, then
 preempt, resume, roll back and evaluate training runs from full-state
-checkpoints, then train TD3 on the flat and visual stacks.
+checkpoints, then train TD3 on the flat and visual stacks, then run the
+fused on-device loop (env twins, replay and learner on the card).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -150,15 +151,40 @@ or of the JAX package. Phases, one JSON line each:
    algorithms; the wall-runner geometry at B 32 f32 in 25-update bursts;
    a flat ``--run`` resume bitwise (the target actor and the device step
    included). Each cell's burst modes timed and profiled (beside a SAC
-   flat learner's), one line each before the last with the card.
+   flat learner's), one line each before the last with the card;
+11. on_device — the fused loop (``sac/ondevice.py``, ``envs/ondevice.py``),
+   in a child process of its own (a fresh CUDA context and profiler):
+   K2 at history 8 on the acting batch (16, 4, 8, 16), the update batch
+   (64, 4, 8, 16) and the critics' fold (128, 4, 8, 16), K3/K4 at the
+   last two, against their plain versions at the limits of 3; the twins
+   on the card against the CPU (floats 1e-5, frames at most 1 count on
+   at most 0.1% of the pixels, the renderer on 4096 angles); four cells
+   at SACConfig's widths with 16 twins, update_every 50, utd 1 and a
+   10^6-row ring (the sequence policy at history 8, the pixel recipe on
+   ``PixelPendulumBalanceNumpy-v0``, flat SAC, flat TD3): a warm-up
+   epoch that launches none of K1-K4 (traced in the sequence cell),
+   a captured against an eager epoch from clones to the bit (learner,
+   ring, env states, the three generators; the pixel cell on cuDNN's
+   deterministic algorithms), a traced 1000-step epoch whose device
+   launches are exactly L K2 per acting step and 5L K2, 2L K3, 2L K4
+   (or 1 K1) per update, and whose device idle share is read from its
+   own trace; the same epoch untraced and timed (env and gradient steps
+   per second) beside the captured burst alone and the host trainer's
+   epoch,
+   an epoch under ``torch.cuda.set_sync_debug_mode("error")``; the async
+   save of the full history-8 ring (seconds in ``save`` and to ``wait``,
+   bytes) and ``save_buffer=False``; ``train --on-device true`` then
+   ``--run <id>``.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
 on the model's views; K1's row is ``train_pair``, what the main path
-launches, with the launches of train_visual, the visual resume and
-train_td3's visual run; every ``launches`` is counted
+launches, with the launches of train_visual, the visual resume,
+train_td3's visual run and the on-device pixel cell; every ``launches``
+is counted
 in the main path's runs: serving's by the wrappers, as it runs no graph,
-training's and the resumed runs' from their device traces),
+training's, the resumed runs' and the on-device epochs' from their
+device traces),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is non-zero and the last line is not printed.
@@ -168,6 +194,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -264,7 +291,32 @@ def device_kernels(prof):
     device-side rows: a host op's row also carries its kernels' time, so
     summing every row would count each kernel twice; and no user
     annotations (``Optimizer.step#Adam.step`` spans its kernels on the
-    device timeline and would count them again)."""
+    device timeline and would count them again).
+
+    Read from the profiler's raw events, not ``key_averages()``: the
+    same rows (``key_averages_rows`` is the check), without building
+    the host's event tree, whose cost grows faster than the events (a
+    1000-step on-device epoch's trace took ~100 s to average)."""
+    from torch.autograd import DeviceType
+
+    rows: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        hidden = getattr(e, "is_hidden_event", lambda: False)()  # as key_averages
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation() or hidden
+                or e.name().startswith("Optimizer.")):
+            continue
+        us, n = rows.get(e.name(), (0.0, 0))
+        rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    named: dict = {}  # keyed as key_averages keys them: demangled
+    for raw, (us, n) in rows.items():
+        key = torch._C._demangle(raw) if len(raw) > 1 else raw
+        us0, n0 = named.get(key, (0.0, 0))
+        named[key] = (us0 + us, n0 + n)
+    return [(name, us, n) for name, (us, n) in named.items() if us > 0]
+
+
+def key_averages_rows(prof):
+    """``device_kernels``' rows as ``key_averages()`` gives them."""
     from torch.autograd import DeviceType
 
     return [
@@ -273,6 +325,45 @@ def device_kernels(prof):
         and not getattr(e, "is_user_annotation", False)
         and not e.key.startswith("Optimizer.")
     ]
+
+
+def phase_trace_reader() -> dict:
+    """``device_kernels`` against ``key_averages_rows`` on one trace of
+    what the smoke traces: eager kernels, an Adam step (its user
+    annotation) and three replays of a CUDA graph. Names and calls
+    equal, device times within 1e-3 us a call (the two sum differently)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w = torch.randn(256, 256, device="cuda", requires_grad=True)
+    opt = torch.optim.Adam([w], lr=1e-3)
+    x = torch.randn(64, 256, device="cuda")
+    static = torch.empty(64, 256, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        static.copy_(torch.tanh(x @ w.detach()) * 2)  # warm-up before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static.copy_(torch.tanh(x @ w.detach()) * 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trace_lead_in()
+        (x @ w).square().sum().backward()
+        opt.step()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    fast = {k: (us, n) for k, us, n in device_kernels(prof)}
+    slow = {k: (us, n) for k, us, n in key_averages_rows(prof)}
+    check(fast.keys() == slow.keys() and all(
+        fast[k][1] == slow[k][1] and abs(fast[k][0] - slow[k][0]) <= 1e-3 * fast[k][1]
+        for k in fast),
+        f"device_kernels {fast} != key_averages {slow}")
+    out = {"phase": "trace_reader", "rows": len(fast),
+           "calls": sum(n for _, n in fast.values())}
+    emit(out)
+    return out
 
 
 # The kernels' device symbols, as a trace names them.
@@ -297,10 +388,37 @@ def trace_lead_in(n: int = 32) -> None:
     time.sleep(0.02)
 
 
+def trace_tail() -> None:
+    """The end of a trace: one spin kernel (``torch.cuda._sleep``) on the
+    current stream after the traced work, and a synchronize. A trace
+    that lost its end lacks it, and ``traced_rows`` then reads nothing."""
+    torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
 def traced_rows(prof):
-    """``device_kernels`` of a trace that began with ``trace_lead_in``,
-    without the lead-in's empty kernels."""
-    return [row for row in device_kernels(prof) if "empty_kernel" not in row[0]]
+    """``device_kernels`` of a trace that began with ``trace_lead_in``
+    and ended with ``trace_tail``, without the lead-in's empty kernels
+    and the tail's spin kernel; no rows when the tail's kernel is
+    missing, since a trace that lost its end counts no launches."""
+    rows = device_kernels(prof)
+    if not any("spin_kernel" in key for key, _, _ in rows):
+        return []
+    return [row for row in rows if "empty_kernel" not in row[0] and "spin_kernel" not in row[0]]
+
+
+def trace_buffers(mb: int = 1024) -> None:
+    """Lets the profiler (Kineto) keep ``mb`` MB of device records in a
+    trace, where it keeps 128 MB by default and can stop recording past
+    them. A traced 1000-step on-device sequence epoch holds about
+    916,000 kernels, near that default. Kineto holds the size in bytes
+    in a 32-bit int, so ``mb`` stays below 2048 (4096 wraps to 0 MB).
+    Kineto reads the file that ``KINETO_CONFIG`` names when the
+    process's first trace starts; the on-device child inherits it."""
+    conf = os.path.join(tempfile.mkdtemp(prefix="tac_chip_kineto_"), "kineto.conf")
+    with open(conf, "w") as f:
+        f.write(f"ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB={mb}\n")
+    os.environ["KINETO_CONFIG"] = conf
 
 
 def launches_by_symbol(rows) -> dict:
@@ -313,11 +431,11 @@ def launches_by_symbol(rows) -> dict:
 
 
 def traced(fn, what: str, discard=None, attempts: int = 3):
-    """``fn()`` under ``torch.profiler``, after ``trace_lead_in``; returns
-    its result and the kernels' launches the trace saw
-    (``launches_by_symbol``). A trace
-    with no device kernel at all (the card's profiler now and then drops
-    all of a trace's) is not read: ``discard(result)`` runs, then
+    """``fn()`` under ``torch.profiler``, between ``trace_lead_in`` and
+    ``trace_tail``; returns its result and the kernels' launches the
+    trace saw (``launches_by_symbol``). A trace with no device kernel at
+    all (the card's profiler now and then drops all of a trace's) or
+    without the tail's is not read: ``discard(result)`` runs, then
     ``fn()`` again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -326,10 +444,12 @@ def traced(fn, what: str, discard=None, attempts: int = 3):
             trace_lead_in()
             out = fn()
             torch.cuda.synchronize()
+            trace_tail()
         rows = traced_rows(prof)
         if rows:
             return out, launches_by_symbol(rows)
-        print(f"chip_smoke: {what}: trace {attempt} of {attempts} held no device kernel",
+        print(f"chip_smoke: {what}: trace {attempt} of {attempts} held no device kernel "
+              "or lost its end",
               file=sys.stderr, flush=True)
         if discard is not None:
             discard(out)
@@ -416,11 +536,16 @@ def attention_bound(shape, causal: bool, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_device() -> str:
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> str:
+    smi = nvidia_smi()
     emit({
         "phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
         "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -540,10 +665,11 @@ def kernels_per_call(fn, calls: int = 10, attempts: int = 8) -> int:
     return 0
 
 
-def critic_views(seed: int):
-    """q, k, v as the training config's stacked sequence critic hands
-    them to its first attention call on a random batch: ``(num_qs·B, H,
-    T, d)`` views of its projections. The attention itself runs plain."""
+def critic_views(seed: int, history: int = TRAIN_SHAPE[2]):
+    """q, k, v as the training config's stacked sequence critic (at
+    ``history``) hands them to its first attention call on a random
+    batch: ``(num_qs·B, H, T, d)`` views of its projections. The
+    attention itself runs plain."""
     from torch_actor_critic_tpu_torch.models import build_models
     from torch_actor_critic_tpu_torch.models.sequence import (
         StackedMultiHeadAttention,
@@ -551,7 +677,7 @@ def critic_views(seed: int):
     )
     from torch_actor_critic_tpu_torch.utils.config import SACConfig
 
-    cfg = SACConfig(history_len=TRAIN_SHAPE[2])
+    cfg = SACConfig(history_len=history)
     _, critic = build_models(cfg, (cfg.history_len, 3), 1, 2.0,
                              generator=torch.Generator().manual_seed(seed))
     seen = []
@@ -569,9 +695,10 @@ def critic_views(seed: int):
     with torch.no_grad():
         critic.cuda()(obs, act)
     q, k, v = seen[0]
-    check(len(seen) == cfg.seq_num_layers and tuple(q.shape) == CRITIC_SHAPE,
+    want = (*CRITIC_SHAPE[:2], history, CRITIC_SHAPE[3])
+    check(len(seen) == cfg.seq_num_layers and tuple(q.shape) == want,
           f"stacked critic: {len(seen)} attention calls on {tuple(q.shape)}, expected "
-          f"{cfg.seq_num_layers} on {CRITIC_SHAPE}")
+          f"{cfg.seq_num_layers} on {want}")
     return q, k, v
 
 
@@ -591,11 +718,12 @@ def _operands(layout, shape, dtype, gen, critic_qkv, n):
     )
 
 
-def phase_kernel_vs_plain(attn, seed: int, critic_qkv) -> dict:
-    """Every shape's check and times; returns the serving shape's row on
-    the model's split views (the main path's operands)."""
+def phase_kernel_vs_plain(attn, seed: int, critic_qkv, cases=None) -> dict:
+    """Every shape's check and times; returns the first case's row (by
+    default the serving shape on the model's split views, the main
+    path's operands)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cases = [
+    cases = cases or [
         # (shape, causal, dtype, iters, layout): "views" are the model's
         # split (B, T, H, d) projections, transposed to (B, H, T, d);
         # "critic_views" the stacked critic's own (critic_views()).
@@ -684,14 +812,14 @@ def bwd_bound(shape, causal: bool, dtype, kernel: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_bwd_vs_plain(attn, seed: int, critic_qkv) -> dict:
+def phase_bwd_vs_plain(attn, seed: int, critic_qkv, cases=None) -> dict:
     """K3 and K4 against their plain versions on the card: error within
     TOL x max(1, max|plain|) (f32 also F32_GUARD x max(1, ...)), K3's
     Δ too, bitwise-equal repeat runs, and times; on the model's views
     one backward call must be two device kernels. Returns the views
     row of each kernel (the main path's operands) by name."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    cases = [
+    cases = cases or [
         # (shape, causal, dtype, iters, layout): "views" are the model's
         # split (B, T, H, d) projections and head-merge cotangent;
         # "critic_views" the stacked critic's own q, k, v.
@@ -1364,8 +1492,9 @@ def profile_burst(burst, per: int, attempts: int = 4) -> dict:
     """One burst of ``per`` updates under ``torch.profiler``: wall vs
     device-busy time, the kernels per update, and each hand-written
     kernel's launches per update by its device symbol, in a trace that
-    begins with ``trace_lead_in``. A trace with no device kernel is taken
-    again with another burst, up to ``attempts``."""
+    begins with ``trace_lead_in`` and ends with ``trace_tail``. A trace
+    with no device kernel or without the tail's is taken again with
+    another burst, up to ``attempts``."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, attempts + 1):
@@ -1375,10 +1504,12 @@ def profile_burst(burst, per: int, attempts: int = 4) -> dict:
             burst()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            trace_tail()
         rows = traced_rows(prof)
         if rows:
             break
-        print(f"chip_smoke: burst trace {attempt} of {attempts} held no device kernel",
+        print(f"chip_smoke: burst trace {attempt} of {attempts} held no device kernel "
+              "or lost its end",
               file=sys.stderr, flush=True)
     check(bool(rows), f"the profiler traced no device kernel of a burst in {attempts} traces")
     kern = sorted(((key, us / per / 1e3, calls / per) for key, us, calls in rows),
@@ -2434,47 +2565,544 @@ def phase_train_td3(seed: int, kernels, smi: str) -> dict:
 
 
 
+# The fused on-device loop's cells: the README's sequence command, the
+# pixel recipe on the balance twin, flat SAC and flat TD3 (SACConfig's
+# widths: hidden 256,256, batch 64, d_model 64, 4 heads, 2 layers), each
+# with 16 twins, update_every 50, utd 1 and the config's 10^6-row ring.
+ONDEVICE_CELLS = {
+    "sequence": ["--environment", TRAIN_ENV, "--history-len", "8"],
+    "pixel": VISUAL_ARGS,
+    "flat_sac": ["--environment", TRAIN_ENV],
+    "flat_td3": ["--environment", TRAIN_ENV, "--algorithm", "td3"],
+}
+ONDEVICE_STEPS = 1000  # the traced and the timed epoch: 1000 acting steps, 1000 updates
+T8_SHAPE = (64, 4, 8, 16)  # batch 64 x heads x history 8 x head_dim
+T8_ACT_SHAPE = (16, 4, 8, 16)  # the 16 twins' acting forward
+T8_CRITIC_SHAPE = (128, 4, 8, 16)  # num_qs 2 x batch 64, folded
+
+
+def traced_run(fn, what: str, attempts: int = 3):
+    """``fn()`` under ``torch.profiler`` between ``trace_lead_in`` and
+    ``trace_tail``: its result, the kernels' launches by symbol, the
+    device-busy ms, the wall ms to a synchronize, and the trace's own
+    cost (seconds to stop the profiler and to read its rows, its device
+    kernels, which attempt it was). A trace with no device kernel or
+    without the tail's is taken again (``fn`` runs again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trace_lead_in()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            trace_tail()
+            t_stop = time.perf_counter()
+        t_read = time.perf_counter()
+        rows = traced_rows(prof)
+        cost = {"stop_s": t_read - t_stop, "read_s": time.perf_counter() - t_read,
+                "device_kernels": sum(n for _, _, n in rows), "attempt": attempt}
+        if rows:
+            busy_ms = sum(us for _, us, _ in rows) / 1e3
+            return out, launches_by_symbol(rows), busy_ms, wall_ms, cost
+        print(f"chip_smoke: {what}: trace {attempt} of {attempts} held no device kernel "
+              "or lost its end",
+              file=sys.stderr, flush=True)
+    check(False, f"{what}: the profiler traced no device kernel in {attempts} traces")
+    return None, {}, 0.0, 0.0, {}
+
+
+def _frames_gap(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(max |a - b| in counts, share of differing pixels) of uint8 frames."""
+    d = (a.int() - b.int()).abs()
+    return int(d.max().item()) if d.numel() else 0, float((d > 0).float().mean().item())
+
+
+def twins_on_the_card(seed: int) -> dict:
+    """Each twin's step on the card against the same step on the CPU from
+    the same states, actions and reset poses, at every step of 210 CPU
+    steps of 16 envs (one ends at step 5, the rest at 200): floats 1e-5
+    (absolute and relative), counts and ``ended`` exactly, frames at
+    most 1 count on at most 0.1% of the pixels; and the renderer on 4096
+    angles on the card against the CPU's."""
+    from torch_actor_critic_tpu_torch.envs.ondevice import (
+        PendulumTorch,
+        PixelPendulumBalanceTorch,
+        PixelPendulumTorch,
+        StepOut,
+        history_env,
+        tree_leaves,
+    )
+    from torch_actor_critic_tpu_torch.envs.pixel_pendulum import render_rod_torch
+
+    out = {}
+    gen = torch.Generator().manual_seed(seed + 21)
+    thetas = torch.rand(4096, generator=gen) * 14 - 7
+    counts, share = _frames_gap(render_rod_torch(thetas.cuda()).cpu(), render_rod_torch(thetas))
+    check(counts <= 1 and share <= 1e-3,
+          f"render_rod_torch on the card: {counts} counts off on {share:.2e} of the pixels")
+    out["renderer"] = {"angles": 4096, "max_counts_off": counts, "pixel_share_off": share,
+                       "bitwise": counts == 0}
+    for name, cls in (("pendulum", PendulumTorch), ("pixel", PixelPendulumTorch),
+                      ("pixel_balance", PixelPendulumBalanceTorch),
+                      ("history8", history_env(PendulumTorch, 8))):
+        state = cls.reset(16, generator=gen)
+        state.step_count[0] = 195
+        if name == "history8":
+            state.inner.step_count[0] = 195
+        worst, frames = 0.0, (0, 0.0)
+        for t_ in range(210):
+            action = torch.rand((16, 1), generator=gen) * 5 - 2.5
+            pose = cls.sample_pose(16, gen)
+            card, card_out = cls.step(state.map(lambda x: x.cuda()), action.cuda(),
+                                      pose=pose.cuda())
+            state, host_out = cls.step(state, action, pose=pose)
+            pairs = list(zip(card.leaves(), state.leaves()))
+            pairs += [(tree_leaves(getattr(card_out, f))[i], tree_leaves(getattr(host_out, f))[i])
+                      for f in StepOut.__dataclass_fields__
+                      for i in range(len(tree_leaves(getattr(host_out, f))))]
+            for a, b in pairs:
+                a = a.cpu()
+                if b.dtype == torch.uint8:
+                    c, s = _frames_gap(a, b)
+                    frames = (max(frames[0], c), max(frames[1], s))
+                elif b.is_floating_point():
+                    gap = ((a - b).abs() / (1 + b.abs())).max().item()
+                    worst = max(worst, gap)
+                else:
+                    check(torch.equal(a, b), f"twin {name} step {t_}: {a} != {b}")
+        check(worst <= 1e-5 and frames[0] <= 1 and frames[1] <= 1e-3,
+              f"twin {name} on the card: float gap {worst}, frames {frames}")
+        out[name] = {"steps": 210, "envs": 16, "max_rel_gap": worst,
+                     "max_frame_counts_off": frames[0], "max_frame_pixel_share_off": frames[1]}
+    return out
+
+
+def _ondevice_snapshot(state, ring, es, act_gen, metrics) -> dict:
+    return {"state": state.state_dict(), "ring": ring.state_dict(),
+            "device_size": int(ring.device_size), "env": [x.cpu() for x in es.leaves()],
+            "env_gen": es.rng.get_state(), "act_gen": act_gen.get_state(),
+            # NaN (a reward with no episode ended) compares by its mask
+            "metrics": [{k: (v.nan_to_num().cpu(), v.isnan().cpu()) for k, v in m.items()}
+                        for m in metrics]}
+
+
+def _clone_gen(gen):
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def ondevice_captured_vs_eager(make_loop, parts, cudnn_deterministic: bool) -> dict:
+    """From clones of one learner state, ring, env batch and acting
+    generator, two 100-step epochs (two windows each) with the acting
+    steps and the bursts as CUDA graph replays, and the same epochs
+    eagerly: learner, ring, env states, the three generators and the
+    metrics to the bit; one capture of each graph."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = cudnn_deterministic
+    runs, captures = {}, None
+    try:
+        for eager in (True, False):
+            loop = make_loop()
+            state, ring, es, act_gen = parts
+            run = (state.clone(), ring.clone(), es.clone(), _clone_gen(act_gen))
+            metrics = []
+            for _ in range(2):
+                *run, m = loop.epoch(*run, steps=100, update_every=50, eager=eager)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            runs[eager] = _ondevice_snapshot(*run, metrics)
+            if not eager:
+                captures = (loop.act_captures, loop.sac.graph_captures)
+            del loop, run
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    diff = bitwise_diff(runs[False], runs[True])
+    check(not diff and captures == (1, 1),
+          f"captured vs eager on-device epochs: differ at {diff[:8]}, captures {captures}")
+    return {"epochs": 2, "steps_per_epoch": 100, "bitwise": True,
+            "captures": {"acting": captures[0], "burst": captures[1]},
+            "cudnn_deterministic": cudnn_deterministic}
+
+
+def _timed_epoch(loop, parts, steps: int) -> tuple:
+    """One untraced epoch timed by the host clock to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    *parts, m = loop.epoch(*parts, steps=steps, update_every=50)
+    torch.cuda.synchronize()
+    return parts, m, time.perf_counter() - t0
+
+
+def _host_trainer_epoch(cli, args) -> dict:
+    """The host ``Trainer`` at the same config (one env, 2 epochs of 300
+    steps, the first 100 random): its second epoch's rates."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+
+    seen = []
+    trainer, _ = train_cli.build_trainer(cli(*args, "--epochs", "2", "--steps-per-epoch", "300",
+                                             "--start-steps", "100", "--update-after", "100"))
+    try:
+        trainer.train(on_epoch=lambda e, m: seen.append(m))
+    finally:
+        trainer.close()
+    return {"env_steps_per_sec": seen[-1]["env_steps_per_sec"],
+            "grad_steps_per_sec": seen[-1]["grad_steps_per_sec"]}
+
+
+def _burst_rate(learner, state, ring, gen) -> float:
+    """Gradient steps per second of the captured 50-update burst alone,
+    at the cell's config, from clones (four timed bursts after one)."""
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+
+    st, buf = state.clone(), ring.clone()
+    chunk = sample(buf, 50 * 16, generator=gen)  # one window of the 16 twins
+    st, buf, _ = learner.update_burst(st, buf, chunk, 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        st, buf, _ = learner.update_burst(st, buf, chunk, 50)
+    torch.cuda.synchronize()
+    return 200 / (time.perf_counter() - t0)
+
+
+def _full_ring_save(state, ring, smi: str) -> dict:
+    """The async save of the full ring: fills it to capacity with random
+    rows, then times ``save`` (the host copies) and ``wait`` (the
+    background write), twice (the second reuses the host buffers); then
+    ``save_buffer=False`` writes no ``buffer.pt``."""
+    from torch_actor_critic_tpu_torch.buffer.replay import push
+    from torch_actor_critic_tpu_torch.core.types import Batch
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = 50_000
+    ring = ring.clone()
+
+    def rand(*shape):
+        return torch.randn((n, *shape), generator=gen, device="cuda")
+
+    obs = tuple(ring.data.states.shape[1:])
+    while ring.size < ring.capacity:
+        ring = push(ring, Batch(rand(*obs), rand(1), rand(), rand(*obs), torch.zeros(n, device="cuda")))
+    torch.cuda.synchronize()
+    directory = tempfile.mkdtemp(prefix="tac_chip_ondevice_ckpt_")
+    try:
+        ck = Checkpointer(directory)
+        saves = []
+        for epoch in range(2):
+            t0 = time.perf_counter()
+            ck.save(epoch, state, ring)
+            t_save = time.perf_counter() - t0
+            ck.wait()
+            saves.append({"save_s": t_save, "until_wait_s": time.perf_counter() - t0})
+        ring_file = f"{directory}/epoch_1/buffer.pt"
+        nbytes = {f: os.path.getsize(f"{directory}/epoch_1/{f}")
+                  for f in ("actor.pt", "state.pt", "buffer.pt")}
+        restored = torch.load(ring_file, weights_only=True)
+        check(restored["size"] == ring.capacity and torch.equal(
+            restored["leaves"]["rewards"][-5:], ring.data.rewards[-5:].cpu()),
+            "the full-ring save does not read back")
+        bare = Checkpointer(f"{directory}/bare", save_buffer=False)
+        bare.save(0, state, ring, wait=True)
+        check(not os.path.exists(f"{directory}/bare/epoch_0/buffer.pt"),
+              "save_buffer=False wrote buffer.pt")
+        return {"rows": ring.capacity, "saves": saves, "bytes": nbytes,
+                "no_save_buffer_writes_no_ring": True, "card": smi}
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def _cli_resume(seed: int) -> dict:
+    """``train --on-device true`` for one short epoch, then ``train --run
+    <id>``: the resumed run restores learner and ring, runs no warm-up
+    and captures each graph once."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_ondevice_run_")
+    try:
+        common = ["--runs-root", runs, "--seed", str(seed)]
+        first = train_cli.main(["--on-device", "true", "--environment", TRAIN_ENV,
+                                "--history-len", "8", "--epochs", "1", "--steps-per-epoch",
+                                "100", "--start-steps", "50", "--buffer-size", "100000",
+                                *common])
+        (run_id,) = os.listdir(f"{runs}/Default")
+        resumed = train_cli.main(["--run", run_id, *common])
+        meta = json.loads(open(f"{runs}/Default/{run_id}/artifacts/checkpoints/epoch_1/"
+                               "meta.json").read())
+        check(meta["step"] == 250 and resumed["graph_captures"] == 1
+              and resumed["act_graph_captures"] == 1 and math.isfinite(resumed["loss_q"]),
+              f"on-device --run resume: meta {meta.get('step')}, {resumed}")
+        return {"first": first, "resumed": resumed, "resumed_epoch": meta["epoch"]}
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
+    """The fused on-device loop on the card (``sac/ondevice.py``):
+
+    - K2 at history 8 on the acting batch (16), the update batch (64) and
+      the stacked critics' fold (128, the critic's own views), K3/K4 at
+      64 and 128, each against its plain version at the earlier phases'
+      limits, with times;
+    - the twins on the card against the CPU (``twins_on_the_card``);
+    - per cell (``ONDEVICE_CELLS``): the ring's device bytes
+      (``mem_get_info``); the warm-up epoch of 1000 uniform steps, traced
+      in the sequence cell (it launches no kernel); a captured against
+      an eager 100-step epoch from clones, to the bit (the pixel cell on
+      cuDNN's deterministic algorithms); a traced 1000-step epoch whose
+      device launches are
+      exactly L K2 per acting step and 5L K2 + 2L K3 + 2L K4 per update
+      (sequence, L = 2: K2 = 12·S, K3 = K4 = 4·S) or 1 K1 per update
+      (pixel), the wrappers having seen one warm-up and one capture of
+      each graph, and whose device idle share is 1 - busy / wall of that
+      traced run; the same epoch untraced and timed (env and gradient
+      steps per second, and the traced wall over this one: the
+      profiler's stretch); an epoch under ``torch.cuda.set_sync_debug_mode
+      ("error")``; the captured burst alone and the host ``Trainer``'s
+      epoch at the same config; each part's seconds;
+    - the async save of the full history-8 ring and ``save_buffer=False``;
+    - ``train --on-device true`` then ``train --run <id>``.
+
+    Returns the traced trained epochs' K1-K4 launches, summed."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.envs.ondevice import get_on_device_env
+    from torch_actor_critic_tpu_torch.sac.ondevice import (
+        OnDeviceLoop,
+        _wrap_and_build,
+        warmup_steps,
+    )
+
+    row = {"phase": "on_device", "card": smi, "seconds": {}}
+    t_phase = time.perf_counter()
+    qkv8 = critic_views(seed, history=8)
+    fwd = phase_kernel_vs_plain(attn, seed, qkv8, cases=[
+        (T8_ACT_SHAPE, True, torch.float32, 50, "views"),
+        (T8_SHAPE, True, torch.float32, 50, "views"),
+        (T8_CRITIC_SHAPE, True, torch.float32, 50, "critic_views"),
+    ])
+    bwd = phase_bwd_vs_plain(attn, seed, qkv8, cases=[
+        (T8_CRITIC_SHAPE, True, torch.float32, 50, "critic_views"),
+        (T8_SHAPE, True, torch.float32, 50, "views"),
+    ])
+    del qkv8
+    row["kernels_t8"] = {"flash_fwd_act": fwd["shape"], "flash_bwd": bwd["flash_bwd_dq"]["shape"]}
+    row["seconds"]["kernel_rows"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    row["twins"] = twins_on_the_card(seed)
+    row["seconds"]["twins"] = time.perf_counter() - t0
+
+    def cli(*extra):
+        return train_cli.parse_arguments([*extra, "--seed", str(seed), "--device", "cuda"])
+
+    totals = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for name, args in ONDEVICE_CELLS.items():
+        cfg = train_cli.config_from_args(cli(*args)).replace(on_device=True)
+        env_name = args[args.index("--environment") + 1]
+        env, learner = _wrap_and_build(get_on_device_env(env_name), cfg)
+        layers = cfg.seq_num_layers if cfg.history_len > 1 else 0
+        per_step = {"flash_fwd": layers}
+        per_update = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                      "flash_bwd_dkv": 2 * layers,
+                      "pixel_gather": int(cfg.pixel_pipeline == "fused")}
+        seconds, t0 = {}, time.perf_counter()
+
+        def lap(what):
+            nonlocal t0
+            seconds[what] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+        def make_loop():
+            return OnDeviceLoop(_wrap_and_build(get_on_device_env(env_name), cfg)[1], env,
+                                n_envs=cfg.on_device_envs, device="cuda")
+
+        loop = OnDeviceLoop(learner, env, n_envs=cfg.on_device_envs, device="cuda")
+        free0 = torch.cuda.mem_get_info()[0]
+        parts = loop.init(seed, buffer_capacity=cfg.buffer_size)
+        torch.cuda.synchronize()
+        cell = {"env": env_name, "algorithm": cfg.algorithm, "history_len": cfg.history_len,
+                "n_envs": loop.n_envs, "update_every": cfg.update_every, "utd": cfg.utd,
+                "ring_rows": cfg.buffer_size,
+                "ring_bytes": sum(x.numel() * x.element_size() for x in parts[1].data.leaves()),
+                "device_bytes_taken_by_init": free0 - torch.cuda.mem_get_info()[0]}
+        n_warmup = warmup_steps(cfg.start_steps, cfg.update_every)
+
+        def warm_up():
+            return loop.epoch(*parts, steps=n_warmup, update_every=cfg.update_every,
+                              warmup=True)[:4]
+
+        if layers:
+            parts, warm, *_ = traced_run(warm_up, f"on_device {name} warm-up")
+            check(sum(warm.values()) == 0, f"on_device {name}: warm-up epoch launched {warm}")
+            cell["warmup"] = {"steps": n_warmup, "launches": warm}
+        else:
+            parts = warm_up()
+            cell["warmup"] = {"steps": n_warmup}
+        lap("warmup")
+        cell["captured_vs_eager"] = ondevice_captured_vs_eager(
+            make_loop, parts, cudnn_deterministic=name == "pixel")
+        lap("captured_vs_eager")
+
+        kernels.reset_launch_counts()
+        steps = ONDEVICE_STEPS
+        (parts, m), launches, busy_ms, wall_ms, trace_cost = traced_run(
+            lambda: (lambda out: (out[:4], out[4]))(
+                loop.epoch(*parts, steps=steps, update_every=cfg.update_every)),
+            f"on_device {name}")
+        wrapped = dict(kernels.launch_counts)
+        updates = steps // cfg.update_every * cfg.updates_per_window
+        want = {k: per_step.get(k, 0) * steps + per_update[k] * updates for k in KERNEL_SYMBOLS}
+        want_wrapped = {k: 2 * (per_step.get(k, 0) + per_update[k]) for k in KERNEL_SYMBOLS}
+        got_wrapped = {k: wrapped.get(k, 0) for k in KERNEL_SYMBOLS}
+        check(launches == want and got_wrapped == want_wrapped,
+              f"on_device {name}: device launches {launches} != {want} or wrappers "
+              f"{got_wrapped} != {want_wrapped}")
+        check(loop.act_captures == 2 and learner.graph_captures == 1,
+              f"on_device {name}: captures {loop.act_captures}, {learner.graph_captures}")
+        check(all(math.isfinite(float(m[k])) for k in ("loss_q", "loss_pi")),
+              f"on_device {name}: losses {m}")
+        for k in totals:
+            totals[k] += launches[k]
+        cell["traced_epoch"] = {"steps": steps, "updates": updates, "launches": launches,
+                                "wrapper_launches": got_wrapped, "wall_ms": wall_ms,
+                                "device_busy_ms": busy_ms,
+                                "device_kernels": trace_cost.pop("device_kernels"),
+                                "trace_attempt": trace_cost.pop("attempt"),
+                                "device_idle_share": 1.0 - busy_ms / wall_ms,
+                                "trace_cost_s": trace_cost}
+        lap("traced_epoch")
+        parts, m, dt = _timed_epoch(loop, parts, ONDEVICE_STEPS)
+        updates = ONDEVICE_STEPS // cfg.update_every * cfg.updates_per_window
+        cell["epoch"] = {
+            "steps": ONDEVICE_STEPS, "seconds": dt,
+            "env_steps_per_sec": ONDEVICE_STEPS * loop.n_envs / dt,
+            "grad_steps_per_sec": updates / dt,
+            # the profiler's stretch of the same epoch: its idle share
+            # is read from the trace alone (busy time needs the trace)
+            "traced_wall_over_timed": wall_ms / (dt * 1e3),
+            "loss_q": float(m["loss_q"]), "reward": float(m["reward"]),
+            "episodes": float(m["episodes"]),
+        }
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            *parts, m = loop.epoch(*parts, steps=100, update_every=cfg.update_every)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(math.isfinite(float(m["loss_q"])), f"on_device {name}: sync-free epoch {m}")
+        cell["sync_free_epoch"] = {"steps": 100, "sync_debug_mode": "error"}
+        cell["captured_burst_grad_steps_per_sec"] = _burst_rate(
+            learner, parts[0], parts[1], torch.Generator(device="cuda").manual_seed(seed + 9))
+        lap("timed")
+        if name == "sequence":
+            row["full_ring_save"] = _full_ring_save(parts[0], parts[1], smi)
+            lap("full_ring_save")
+        del loop, learner, parts, make_loop
+        torch.cuda.empty_cache()
+        cell["host_trainer_epoch"] = _host_trainer_epoch(cli, args)
+        lap("host_trainer")
+        cell["vs_host_trainer"] = (cell["epoch"]["grad_steps_per_sec"]
+                                   / cell["host_trainer_epoch"]["grad_steps_per_sec"])
+        cell["vs_captured_burst"] = (cell["epoch"]["grad_steps_per_sec"]
+                                     / cell["captured_burst_grad_steps_per_sec"])
+        cell["seconds"] = seconds
+        row[name] = cell
+        print(f"on_device {name}: {cell['epoch']['env_steps_per_sec']:.1f} env steps/s, "
+              f"{cell['epoch']['grad_steps_per_sec']:.2f} grad steps/s "
+              f"({cell['vs_captured_burst']:.3f} of the captured burst, "
+              f"{cell['vs_host_trainer']:.2f}x the host trainer), idle "
+              f"{cell['traced_epoch']['device_idle_share']:.3f} (traced, "
+              f"{cell['epoch']['traced_wall_over_timed']:.2f}x the untraced wall) "
+              f"({smi})", flush=True)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    row["cli_resume"] = _cli_resume(seed)
+    row["seconds"]["cli_resume"] = time.perf_counter() - t0
+    row["seconds"]["phase"] = time.perf_counter() - t_phase
+    emit(row)
+    return totals
+
+
+def on_device_in_a_child(seed: int) -> dict:
+    """``phase_on_device`` in a process of its own (``--on-device-phase``),
+    so its 6 GB pixel ring and its profiler traces start from a fresh
+    CUDA context after the earlier phases; the kernel libraries it loads
+    are those ``phase_build`` left in ``_build/``. Its lines pass through;
+    returns the launches its last line reports."""
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the child's rings
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--on-device-phase", "--seed", str(seed)],
+        capture_output=True, text=True, timeout=900,
+    )
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(res.returncode == 0 and lines, f"the on_device phase exited {res.returncode}")
+    return json.loads(lines[-1])["on_device_launches"]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--on-device-phase", action="store_true",
+                   help="Run only the on_device phase (the smoke starts it so, in a child)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU only",
               file=sys.stderr)
         return 2
+    trace_buffers()
     import torch_actor_critic_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
     from torch_actor_critic_tpu_torch.ops import _kernels, pixels
     from torch_actor_critic_tpu_torch.ops import attention as attn
 
-    smi = phase_device()
-    phase_build(_kernels)
-    phase_floor(_kernels, attn, args.seed)
+    if args.on_device_phase:
+        launches = phase_on_device(args.seed, _kernels, attn, nvidia_smi())
+        emit({"on_device_launches": launches})
+        return 0
+    seconds, t_start = {}, time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build, _kernels)
+    timed("trace_reader", phase_trace_reader)
+    timed("floor", phase_floor, _kernels, attn, args.seed)
     critic_qkv = critic_views(args.seed)
-    serve_row = phase_kernel_vs_plain(attn, args.seed, critic_qkv)
-    bwd_rows = phase_bwd_vs_plain(attn, args.seed, critic_qkv)
+    serve_row = timed("kernel_vs_plain", phase_kernel_vs_plain, attn, args.seed, critic_qkv)
+    bwd_rows = timed("bwd_vs_plain", phase_bwd_vs_plain, attn, args.seed, critic_qkv)
     del critic_qkv
-    pixel_row = phase_pixel_vs_plain(pixels, args.seed)["train_pair"]
-    serve_launches = phase_serve(args.seed, _kernels)
+    pixel_row = timed("pixel_vs_plain", phase_pixel_vs_plain, pixels, args.seed)["train_pair"]
+    serve_launches = timed("serve", phase_serve, args.seed, _kernels)
     check(serve_launches > 0, "the serving path launched no flash_fwd kernel")
-    train_launches = phase_train(args.seed, _kernels)
-    phase_graph_push(args.seed)
-    visual_launches = phase_train_visual(args.seed, _kernels)
-    phase_visual_burst(args.seed, _kernels)
-    resume_launches = phase_resume(args.seed, _kernels, smi)
-    td3_launches = phase_train_td3(args.seed, _kernels, smi)
-    fwd_launches = serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]
+    train_launches = timed("train", phase_train, args.seed, _kernels)
+    timed("graph_push", phase_graph_push, args.seed)
+    visual_launches = timed("train_visual", phase_train_visual, args.seed, _kernels)
+    timed("visual_burst", phase_visual_burst, args.seed, _kernels)
+    resume_launches = timed("resume", phase_resume, args.seed, _kernels, smi)
+    td3_launches = timed("train_td3", phase_train_td3, args.seed, _kernels, smi)
+    ondevice_launches = timed("on_device", on_device_in_a_child, args.seed)
+    emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
+    fwd_launches = (serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]
+                    + ondevice_launches["flash_fwd"])
     rows = [
         ("flash_fwd", "flash_fwd.cu", "torch_actor_critic_tpu/ops/attention.py:428",
          fwd_launches, serve_row),
         ("flash_bwd_dq", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:611",
-         train_launches["flash_bwd_dq"] + resume_launches["flash_bwd_dq"],
-         bwd_rows["flash_bwd_dq"]),
+         train_launches["flash_bwd_dq"] + resume_launches["flash_bwd_dq"]
+         + ondevice_launches["flash_bwd_dq"], bwd_rows["flash_bwd_dq"]),
         ("flash_bwd_dkv", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:634",
-         train_launches["flash_bwd_dkv"] + resume_launches["flash_bwd_dkv"],
-         bwd_rows["flash_bwd_dkv"]),
+         train_launches["flash_bwd_dkv"] + resume_launches["flash_bwd_dkv"]
+         + ondevice_launches["flash_bwd_dkv"], bwd_rows["flash_bwd_dkv"]),
         ("pixel_gather", "pixels.cu", "torch_actor_critic_tpu/ops/pixels.py:261",
          visual_launches["pixel_gather"] + resume_launches["pixel_gather"]
-         + td3_launches["pixel_gather"], pixel_row),
+         + td3_launches["pixel_gather"] + ondevice_launches["pixel_gather"], pixel_row),
     ]
     emit({"kernels": [
         {

@@ -718,6 +718,54 @@ KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq
 
 
 @pytest.mark.gpu
+def test_a_capture_collects_dead_graphs_first_and_not_during(cuda):
+    """A CUDA graph dead in a reference cycle is freed by the cyclic
+    collector, and freeing one while a stream captures fails the
+    capture. A burst's capture collects before it begins (the dead graph
+    is gone when the captured step runs, even with the collector off)
+    and keeps the collector off while it runs, then as it was."""
+    import gc
+    import weakref
+
+    from torch_actor_critic_tpu_torch.sac.graph import BurstGraph
+
+    class Cycle:
+        pass
+
+    x = torch.zeros(4, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    seen = []
+
+    def step(stack):
+        seen.append((gc.isenabled(), dead() is None))
+        x.add_(torch.rand(4, generator=gen, device=cuda))
+        stack.write({"x": x.sum()})
+
+    for enabled in (False, True):
+        seen.clear()
+        cycle = Cycle()
+        cycle.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cycle.graph):
+            x.mul_(1)
+        cycle.self = cycle
+        dead = weakref.ref(cycle)
+        del cycle
+        (gc.enable if enabled else gc.disable)()
+        try:
+            burst = BurstGraph(step, key=(), num_updates=3, generators=gen)
+            burst.run()
+            torch.cuda.synchronize()
+            after = gc.isenabled()
+        finally:
+            gc.enable()
+        assert after == enabled and burst.ran == 3
+        # the warm-up step, then the captured one (replays call no step)
+        assert len(seen) == 2 and seen[1] == (False, True), seen
+        if not enabled:
+            assert seen[0] == (False, False)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name,per_update", [
     ("sequence", {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}),
     ("visual-fused", {"pixel_gather": 1}),
@@ -1101,3 +1149,103 @@ def test_td3_state_restored_in_place_keeps_the_graph(cuda):
     assert td3.graph_captures == 1
     assert _diff(runs[0], runs[1]) == []
     assert int(runs[0][0]["device_step"]) == 50
+
+
+# ------------------------------------------------ the fused on-device loop
+
+# The README's on-device history length: a new sequence length for K2-K4.
+T8_SHAPES = [(16, 4, 8, 16), (64, 4, 8, 16), (128, 4, 8, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", T8_SHAPES)
+def test_kernels_at_history_8_match_plain(cuda, shape):
+    """K2-K4 at the acting batch (16), the update batch (64) and the
+    stacked critics' fold (128) of history 8, on the model's split views."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b, h, t, d = shape
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device=cuda)
+                   .reshape(b, t, h, d).transpose(1, 2) for _ in range(4))
+    out, lse = tattn.flash_attention_forward(q, k, v, True, return_lse=True)
+    ref, ref_lse = tattn.reference_attention(q, k, v, True, return_lse=True)
+    got = tattn.flash_attention_backward(q, k, v, out, lse, do, True)
+    want = _plain_backward(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    _assert_backward_close(got, want, torch.float32)
+
+
+ONDEVICE_CASES = {
+    "flat": dict(hidden_sizes=(64, 64), batch_size=32),
+    "sequence": dict(history_len=8, seq_d_model=64, seq_num_heads=4, seq_num_layers=2,
+                     batch_size=32),
+}
+
+
+def _ondevice_loop(cuda, cfg):
+    from torch_actor_critic_tpu_torch.envs.ondevice import PendulumTorch
+    from torch_actor_critic_tpu_torch.sac.ondevice import OnDeviceLoop, _wrap_and_build
+
+    env, learner = _wrap_and_build(PendulumTorch, cfg)
+    return OnDeviceLoop(learner, env, n_envs=16, device=cuda)
+
+
+def _gen_clone(gen):
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def _ondevice_snapshot(state, ring, es, act_gen, metrics) -> dict:
+    return {"state": state.state_dict(), "ring": ring.state_dict(),
+            "device_size": int(ring.device_size), "env": [x.cpu() for x in es.leaves()],
+            "env_gen": es.rng.get_state(), "act_gen": act_gen.get_state(),
+            # NaN (a reward with no episode ended) compares by its mask
+            "metrics": [{k: (v.nan_to_num().cpu(), v.isnan().cpu()) for k, v in m.items()}
+                        for m in metrics]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ONDEVICE_CASES))
+def test_captured_on_device_epochs_equal_the_eager_epochs_bitwise(cuda, name):
+    """From one initial state, a warm-up and two trained epochs with the
+    acting steps and the bursts as CUDA graph replays, against the same
+    epochs run eagerly: learner, ring, env states, the three generators
+    and the metrics to the bit; one capture of each graph."""
+    cfg = SACConfig(update_every=10, **ONDEVICE_CASES[name])
+    state, ring, es, act_gen = _ondevice_loop(cuda, cfg).init(0, buffer_capacity=2000)
+    runs = {}
+    for eager in (True, False):
+        loop = _ondevice_loop(cuda, cfg)
+        parts = (state.clone(), ring.clone(), es.clone(), _gen_clone(act_gen))
+        metrics = []
+        for steps, warmup in ((20, True), (30, False), (30, False)):
+            *parts, m = loop.epoch(*parts, steps=steps, update_every=10, warmup=warmup,
+                                   eager=eager)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        runs[eager] = _ondevice_snapshot(*parts, metrics)
+        if not eager:
+            assert loop.act_captures == 2 and loop.sac.graph_captures == 1
+    assert _diff(runs[False], runs[True]) == []
+    assert runs[False]["state"]["step"] == 60 and runs[False]["ring"]["size"] == 80 * 16
+
+
+@pytest.mark.gpu
+def test_an_on_device_epoch_does_not_synchronize(cuda):
+    """Once its graphs are captured, an epoch of the sequence cell runs
+    under ``set_sync_debug_mode("error")``: nothing reads the device."""
+    cfg = SACConfig(update_every=10, **ONDEVICE_CASES["sequence"])
+    loop = _ondevice_loop(cuda, cfg)
+    parts = loop.init(0, buffer_capacity=2000)
+    for steps, warmup in ((20, True), (20, False)):
+        *parts, _ = loop.epoch(*parts, steps=steps, update_every=10, warmup=warmup)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        *parts, m = loop.epoch(*parts, steps=20, update_every=10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert math.isfinite(float(m["loss_q"])) and parts[0].step == 40
+    assert loop.act_captures == 2 and loop.sac.graph_captures == 1

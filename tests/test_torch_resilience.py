@@ -23,6 +23,7 @@ import copy
 import json
 import os
 import signal
+import threading
 
 import numpy as np
 import pytest
@@ -316,7 +317,7 @@ def test_checkpoint_save_and_restore_retry_transient_io(tmp_path):
         ck = Checkpointer(tmp_path / "ck", retries=2, retry_backoff_s=0.0,
                           sleep=lambda s: None)
         ck._write_epoch = make_flaky(ck._write_epoch, failures=2)
-        ck.save(0, tr.state, tr.buffer)  # 2 failures < 3 attempts -> lands
+        ck.save(0, tr.state, tr.buffer, wait=True)  # 2 failures < 3 attempts -> lands
         ck._read_json = make_flaky(ck._read_json, failures=2)
         assert ck.peek_meta(0)["epoch"] == 0
         ck._read_file = make_flaky(ck._read_file, failures=2)
@@ -326,9 +327,145 @@ def test_checkpoint_save_and_restore_retry_transient_io(tmp_path):
                            sleep=lambda s: None)
         ck2._write_epoch = make_flaky(ck2._write_epoch, failures=2)
         with pytest.raises(OSError, match="injected"):
-            ck2.save(0, tr.state, tr.buffer)
+            ck2.save(0, tr.state, tr.buffer, wait=True)
     finally:
         tr.close()
+
+
+# ------------------------- the asynchronous save and --no-save-buffer
+
+
+def _filled_trainer(tmp_path):
+    """A trained tiny trainer (its ring partly filled) and no checkpointer."""
+    tr = make_trainer(None, epochs=1)
+    tr.train()
+    return tr
+
+
+def test_async_save_files_equal_a_synchronous_saves_bitwise(tmp_path):
+    """The host copies are taken before ``save`` returns: the files of an
+    async save equal a synchronous save's even when the live state and
+    ring change right after ``save`` returns (as the next replay changes
+    them in place)."""
+    tr = _filled_trainer(tmp_path)
+    try:
+        sync = Checkpointer(tmp_path / "sync")
+        sync.save(0, tr.state, tr.buffer, extra={"step": 1}, wait=True)
+        gate = threading.Event()
+        ck = Checkpointer(tmp_path / "async")
+        real = ck._write_epoch
+
+        def held(*a):
+            gate.wait(timeout=60)
+            return real(*a)
+
+        ck._write_epoch = held
+        ck.save(0, tr.state, tr.buffer, extra={"step": 1})
+        with torch.no_grad():
+            for p in tr.state.actor.parameters():
+                p.add_(1.0)
+            for leaf in tr.buffer.data.leaves():
+                leaf.add_(1.0)
+        gate.set()
+        ck.wait()
+        for name in ("actor.pt", "state.pt", "buffer.pt"):
+            assert_bitwise(torch.load(tmp_path / "async" / "epoch_0" / name, weights_only=True),
+                           torch.load(tmp_path / "sync" / "epoch_0" / name, weights_only=True),
+                           name)
+        assert ck.peek_meta(0) == sync.peek_meta(0)
+        ring = torch.load(tmp_path / "async" / "epoch_0" / "buffer.pt", weights_only=True)
+        assert ring["leaves"]["rewards"].shape == (tr.buffer.size,)  # rows [0, size) only
+        # The host ring buffers are kept and reused by the next save.
+        held_rows = dict(ck._host_ring)
+        ck.save(1, tr.state, tr.buffer, wait=True)
+        assert all(ck._host_ring[k] is v for k, v in held_rows.items())
+    finally:
+        tr.close()
+
+
+def test_epochs_report_the_background_writes_seconds(tmp_path):
+    """``save_s`` is the training thread's time in ``save``; the write
+    runs in the background and ``save_write_s`` is the newest finished
+    write's seconds: absent before any write has finished, then the
+    checkpointer's ``last_write_s``."""
+    seen = []
+    tr = make_trainer(tmp_path / "ck", epochs=3)
+    try:
+        tr.train(on_epoch=lambda e, m: seen.append(m))
+    finally:
+        tr.close()
+    assert all(m["save_s"] >= 0.0 for m in seen)
+    # Each save first waits for the write before it, so from the second
+    # epoch on a write has finished when the epoch reports.
+    assert all(m["save_write_s"] > 0.0 for m in seen[1:])
+    assert tr.checkpointer.last_write_s > 0.0
+
+
+def test_latest_epoch_skips_an_epoch_whose_write_is_in_flight(tmp_path):
+    tr = _filled_trainer(tmp_path)
+    try:
+        ck = Checkpointer(tmp_path / "ck")
+        ck.save(0, tr.state, tr.buffer, wait=True)
+        gate = threading.Event()
+        real = ck._write_epoch
+
+        def held(*a):
+            gate.wait(timeout=60)
+            return real(*a)
+
+        ck._write_epoch = held
+        ck.save(1, tr.state, tr.buffer)  # returns with the write held
+        assert ck._writer.is_alive() and ck.latest_epoch() == 0
+        gate.set()
+        ck.wait()
+        assert ck.latest_epoch() == 1
+        gate.clear()
+        ck.save(1, tr.state, tr.buffer)  # rewriting an epoch: skipped until its meta lands
+        assert ck.latest_epoch() == 0
+        gate.set()
+        ck.wait()
+        assert ck.latest_epoch() == 1
+    finally:
+        tr.close()
+
+
+def test_a_failing_writer_surfaces_at_wait_after_the_retries(tmp_path):
+    tr = _filled_trainer(tmp_path)
+    try:
+        ck = Checkpointer(tmp_path / "ck", retries=1, retry_backoff_s=0.0, sleep=lambda s: None)
+        ck._write_epoch = make_flaky(ck._write_epoch, failures=2)
+        ck.save(0, tr.state, tr.buffer)  # returns: the writer fails behind it
+        with pytest.raises(OSError, match="injected"):
+            ck.wait()
+        ck.wait()  # raised once
+        ck._write_epoch = make_flaky(ck._write_epoch, failures=5)
+        ck.save(1, tr.state, tr.buffer)
+        with pytest.raises(OSError, match="injected"):
+            ck.save(2, tr.state, tr.buffer)  # the next save raises it first
+        assert ck.latest_epoch() is None
+    finally:
+        tr.close()
+
+
+def test_no_save_buffer_writes_no_ring_and_resumes_empty(tmp_path, capsys):
+    argv = ["--environment", ENV, "--device", "cpu", "--runs-root", str(tmp_path),
+            "--epochs", "1", "--steps-per-epoch", "40", "--start-steps", "10",
+            "--update-after", "10", "--update-every", "10", "--batch-size", "16",
+            "--hidden-sizes", "16,16", "--buffer-size", "500", "--no-save-buffer"]
+    train_mod.main(argv)
+    run_id = next((tmp_path / "Default").iterdir()).name
+    epoch_dir = tmp_path / "Default" / run_id / "artifacts" / "checkpoints" / "epoch_0"
+    assert sorted(p.name for p in epoch_dir.iterdir()) == ["actor.pt", "meta.json", "state.pt"]
+    assert json.loads((epoch_dir / "meta.json").read_text())["buffer"] is False
+    trainer, _ = train_mod.build_trainer(train_mod.parse_arguments(
+        ["--run", run_id, "--runs-root", str(tmp_path), "--device", "cpu"]))
+    try:
+        assert trainer.start_epoch == 1 and trainer.state.step > 0
+        assert trainer.buffer.size == 0 and int(trainer.buffer.device_size) == 0
+        m = trainer.train()  # pushes its first window, then updates
+        assert np.isfinite(m["loss_q"]) and trainer.buffer.size == 40
+    finally:
+        trainer.close()
 
 
 def test_retry_backoff_is_exponential_and_fnf_gives_up():

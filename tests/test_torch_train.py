@@ -208,7 +208,7 @@ def test_trainer_without_updates_only_fills_the_buffer():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("diagnostics", "light"), ("population", 2), ("on_device", True),
+    ("diagnostics", "light"), ("population", 2),
     ("replay_tiers", "host"), ("telemetry", True), ("obs", True),
     ("parallel_envs", True), ("decoupled", True), ("emit_bundle", True),
     ("compile_cache", "/nonexistent"), ("actor_param_lag", True),

@@ -111,16 +111,45 @@ class BufferState:
         return BufferState(self.data.map(torch.clone), self.ptr, self.size,
                            self.device_size.clone())
 
-    def state_dict(self) -> dict:
+    def state_dict(self, host: t.Dict[str, torch.Tensor] | None = None) -> dict:
         """A host snapshot for a checkpoint: the cursor and rows
         ``[0, size)`` of every leaf (the rows past ``size`` are never
         written, so they are zero; :func:`~..buffer.replay.load_buffer_`
-        zeroes them)."""
-        return {
-            "capacity": self.capacity, "ptr": self.ptr, "size": self.size,
-            "leaves": {name: leaf[:self.size].detach().to("cpu", copy=True)
-                       for name, leaf in self.data.named_leaves()},
-        }
+        zeroes them).
+
+        ``host`` holds reusable host tensors by leaf name (a
+        checkpointer's, kept across saves, pinned for a ring on the
+        card; without it the buffers are this snapshot's own): a leaf
+        whose entry is missing or of another shape or dtype gets one of
+        the ring's shape, the rows are copied into it, and the
+        snapshot's leaf is a tensor over the first ``size`` rows of its
+        storage, so ``torch.save`` writes those rows alone. The copy is
+        complete when this returns."""
+        keep = host is not None
+        host = host if keep else {}
+        leaves = {}
+        for name, leaf in self.data.named_leaves():
+            buf = host.get(name)
+            if buf is None or buf.shape != leaf.shape or buf.dtype != leaf.dtype:
+                buf = host[name] = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                               pin_memory=keep and leaf.is_cuda)
+            buf[:self.size].copy_(leaf[:self.size], non_blocking=True)
+            leaves[name] = _leading_rows(buf, self.size)
+        if self.device_size.is_cuda:
+            torch.cuda.current_stream(self.device_size.device).synchronize()
+        return {"capacity": self.capacity, "ptr": self.ptr, "size": self.size,
+                "leaves": leaves}
+
+
+def _leading_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The first ``n`` rows of contiguous ``x`` as a tensor over a slice
+    of its storage: shares its memory, and ``torch.save`` writes only
+    those rows (a view ``x[:n]`` would write the whole storage)."""
+    shape = (n, *x.shape[1:])
+    if n == 0:
+        return torch.empty(shape, dtype=x.dtype)
+    nbytes = n * x[0].numel() * x.element_size()
+    return torch.empty(0, dtype=x.dtype).set_(x.untyped_storage()[:nbytes], 0, shape)
 
 
 @dataclasses.dataclass

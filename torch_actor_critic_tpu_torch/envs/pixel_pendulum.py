@@ -7,7 +7,9 @@ frame), and, as ``features``, only the previous action. Angle and
 velocity never appear as scalars.
 
 - :func:`render_rod` — the numpy rasteriser, bit-identical to the JAX
-  package's (float32 throughout).
+  package's (float32 throughout); :func:`render_rod_torch`, the same
+  raster for a batch of angles as tensors (the on-device twins'
+  renderer, :mod:`.ondevice`).
 - :class:`PixelPendulum` — over gymnasium's ``Pendulum-v1``, as in the
   JAX package (``PixelPendulum-v0``; ``balance=True`` is
   ``PixelPendulumBalance-v0``: resets near upright).
@@ -22,6 +24,7 @@ velocity never appear as scalars.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from torch_actor_critic_tpu_torch.core.types import MultiObservation
 from torch_actor_critic_tpu_torch.envs.pendulum import PendulumNumpy
@@ -54,6 +57,30 @@ def render_rod(theta: float, size: int = SIZE) -> np.ndarray:
     dist = np.sqrt(np.sum((p - closest) ** 2, axis=-1))
     shade = np.clip(ROD_HALF_WIDTH + 1.0 - dist, 0.0, 1.0)
     return np.round(shade * 255).astype(np.uint8)
+
+
+def render_rod_torch(theta: torch.Tensor, size: int = SIZE) -> torch.Tensor:
+    """:func:`render_rod` for a batch: ``theta`` ``(n,)`` gives ``(n, size,
+    size)`` uint8 frames on its device, computed in float32 as the
+    numpy and JAX rasterisers are, then rounded and cast (the port of
+    the JAX package's ``render_rod_jax``)."""
+    c = (size - 1) / 2.0
+    length = size * ROD_LEN_FRAC
+    theta = theta.to(torch.float32)
+    tip_r = c - length * torch.cos(theta)  # (n,)
+    tip_c = c + length * torch.sin(theta)
+    seg_r, seg_c = tip_r - c, tip_c - c
+    seg_len2 = seg_r * seg_r + seg_c * seg_c
+    grid = torch.arange(size, dtype=torch.float32, device=theta.device)
+    d_r = (grid - c)[None, :, None]  # pixel minus pivot, rows
+    d_c = (grid - c)[None, None, :]
+    seg_r, seg_c, seg_len2 = (x[:, None, None] for x in (seg_r, seg_c, seg_len2))
+    t_par = torch.clamp((d_r * seg_r + d_c * seg_c) / seg_len2, 0.0, 1.0)
+    rows = grid[None, :, None]
+    cols = grid[None, None, :]
+    dist = torch.sqrt((rows - (c + t_par * seg_r)) ** 2 + (cols - (c + t_par * seg_c)) ** 2)
+    shade = torch.clamp(ROD_HALF_WIDTH + 1.0 - dist, 0.0, 1.0)
+    return torch.round(shade * 255).to(torch.uint8)
 
 
 class _PixelObs:

@@ -10,9 +10,11 @@ first burst runs the step eagerly on a side stream
 rules ask for it, and it creates Adam's lazy state, loads the kernel
 libraries and sets up cuBLAS's workspaces), captures one more call as a
 ``torch.cuda.CUDAGraph`` and replays it for the rest; every later burst
-is replays only. A capture executes nothing. The learner's generator is
-registered with the graph, so every replay draws fresh rows, shifts and
-noise, and leaves the generator where the eager loop would.
+is replays only. A capture executes nothing. The step's generators are
+registered with the graph (the learner's, for an update; the acting and
+the env generators, for the fused loop's acting step), so every replay
+draws fresh rows, shifts and noise, and leaves each generator where the
+eager loop would.
 
 The graph reads and writes fixed addresses: the parameters and Adam
 states (updated in place), the replay ring and its device size (``push``
@@ -23,6 +25,11 @@ reduced metrics are new tensors. A failed capture or replay raises:
 nothing falls back to the eager loop, and the updates that did run stay
 run (:attr:`BurstGraph.ran` counts them).
 
+The fused on-device loop (:mod:`.ondevice`) holds its acting step in a
+second ``BurstGraph``: one vectorized env step, its transition written
+as row ``step`` of the window chunk (the stack's rows), replayed once per
+step of a window (:meth:`BurstGraph.play`).
+
 The kernel wrappers count the warm-up's launches and the capture's (each
 records its launch into the graph); a replay launches the graph's kernels
 without calling a wrapper, so ``_kernels.launch_counts`` does not see
@@ -31,6 +38,7 @@ them: a device trace (``torch.profiler``) does.
 
 from __future__ import annotations
 
+import gc
 import typing as t
 
 import torch
@@ -71,22 +79,25 @@ class BurstGraph:
     """``step_fn(stack)`` captured once and replayed for each of
     ``num_updates`` updates a burst. ``key`` holds the objects the
     capture read (state, modules, optimizers, ring): the graph serves a
-    burst only over those same objects (:meth:`serves`)."""
+    burst only over those same objects (:meth:`serves`). ``generators``
+    (one or several) are those the step draws from."""
 
     def __init__(
         self,
         step_fn: t.Callable[[MetricStack], None],
         key: t.Sequence[object],
         num_updates: int,
-        generator: torch.Generator,
+        generators: torch.Generator | t.Sequence[torch.Generator],
     ):
         if num_updates < WARMUP_UPDATES:
             raise ValueError(f"a captured burst needs num_updates >= {WARMUP_UPDATES}, "
                              f"got {num_updates}")
+        if isinstance(generators, torch.Generator):
+            generators = (generators,)
         self.key = tuple(key)
         self.num_updates = num_updates
-        self.generator = generator
-        self.stack = MetricStack(num_updates, generator.device)
+        self.generators = tuple(generators)
+        self.stack = MetricStack(num_updates, self.generators[0].device)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.ran = 0  # updates the last burst ran (warm-up and replays)
         self._step_fn = step_fn
@@ -96,9 +107,14 @@ class BurstGraph:
                 and all(a is b for a, b in zip(key, self.key)))
 
     def run(self) -> t.Dict[str, torch.Tensor]:
-        """One burst: the counter reset, the warm-up and the capture if
-        there is no graph yet, then a replay for every other update;
-        returns the reduced metrics."""
+        """One burst (:meth:`play`); returns the reduced metrics."""
+        self.play()
+        return self.stack.reduce()
+
+    def play(self) -> None:
+        """The counter reset, the warm-up and the capture if there is no
+        graph yet, then a replay for every other step; the stack's rows
+        hold what each step wrote."""
         self.stack.step.zero_()
         self.ran = 0
         if self.graph is None:
@@ -106,7 +122,6 @@ class BurstGraph:
         while self.ran < self.num_updates:
             self.graph.replay()
             self.ran += 1
-        return self.stack.reduce()
 
     def _capture(self) -> None:
         device = self.stack.step.device
@@ -118,9 +133,20 @@ class BurstGraph:
                     self._step_fn(self.stack)
                     self.ran += 1
             graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(self.generator)
-            with torch.cuda.graph(graph, stream=stream):
-                self._step_fn(self.stack)
+            for generator in self.generators:
+                graph.register_generator_state(generator)
+            # A dead CUDA graph in a reference cycle is freed by the cyclic
+            # collector, and freeing one while a stream captures fails the
+            # capture: collect before it, and not during it.
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, stream=stream):
+                    self._step_fn(self.stack)
+            finally:
+                if collecting:
+                    gc.enable()
         finally:
             torch.cuda.current_stream(device).wait_stream(stream)
         self.graph = graph

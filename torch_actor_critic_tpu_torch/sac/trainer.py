@@ -55,7 +55,14 @@ raise ``ValueError`` at construction, as in JAX.
 
 Config fields this slice does not implement raise
 ``NotImplementedError`` naming the field when they are not at their
-defaults (:data:`NOT_PORTED`).
+defaults (:data:`NOT_PORTED`). ``on_device`` selects the fused loop
+(:mod:`.ondevice`) in the train CLI; the host trainer ignores it, as
+JAX's does.
+
+Checkpoints are written asynchronously (:meth:`~..utils.checkpoint.
+Checkpointer.save`); the trainer waits for the write in flight before
+any restore or rollback, before it raises ``Preempted`` and at the end
+of :meth:`Trainer.train`.
 """
 
 from __future__ import annotations
@@ -96,7 +103,7 @@ logger = logging.getLogger(__name__)
 # does not port. (Fields that only parameterise one of these, such as
 # staging_policy under decoupled, are inert without it, as in JAX.)
 NOT_PORTED = (
-    "on_device", "population",
+    "population",
     "pbt_every", "ma_critic", "task_embed_dim", "actor_param_lag",
     "parallel_envs", "decoupled", "serve_url", "actors",
     "elastic", "replay_tiers", "replay_refill", "offline", "telemetry",
@@ -261,6 +268,7 @@ class Trainer:
         checkpointer; shared by :meth:`restore` and :meth:`_rollback`.
         A checkpoint of another algorithm raises ``ValueError`` before
         any array is read. Returns the checkpoint's meta."""
+        self.checkpointer.wait()
         meta_probe = self.checkpointer.peek_meta(epoch)
         if meta_probe.get("config"):
             saved_algo = SACConfig.from_json(meta_probe["config"]).algorithm
@@ -292,6 +300,8 @@ class Trainer:
         checkpoint in place — parameters, optimizer moments AND the
         replay ring (a poisoned ring would re-diverge on the next unlucky
         sample) — and report its epoch."""
+        if self.checkpointer is not None:
+            self.checkpointer.wait()
         if self.checkpointer is None or self.checkpointer.latest_epoch() is None:
             raise TrainingDiverged(
                 "training state is non-finite and there is no checkpoint to roll "
@@ -381,6 +391,7 @@ class Trainer:
                     if self.checkpointer is not None:
                         self._synchronize()
                         self._save_checkpoint(e, step)
+                        self.checkpointer.wait()
                     raise Preempted(epoch=e, urgent=True)
 
             self._synchronize()
@@ -431,7 +442,12 @@ class Trainer:
             ):
                 self._save_checkpoint(e, step)
                 saved_this_epoch = True
+            # save_s: the training thread's time in save (the host copies,
+            # and the wait for the write before); the write itself runs in
+            # the background, and save_write_s is the newest finished one's
             last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
+            if self.checkpointer is not None and self.checkpointer.last_write_s is not None:
+                last_metrics["save_write_s"] = round(self.checkpointer.last_write_s, 4)
             if self.tracker is not None:
                 self.tracker.log_metrics(last_metrics, e)
             if on_epoch is not None:
@@ -442,9 +458,13 @@ class Trainer:
             if self.preemption is not None and self.preemption.triggered:
                 if sentinel_ok and self.checkpointer is not None and not saved_this_epoch:
                     self._save_checkpoint(e, step)
+                if self.checkpointer is not None:
+                    self.checkpointer.wait()
                 raise Preempted(epoch=e)
             episode_rewards, episode_lengths = [], []
             t_epoch = time.time()
+        if self.checkpointer is not None:
+            self.checkpointer.wait()
         return last_metrics
 
     def _synchronize(self) -> None:

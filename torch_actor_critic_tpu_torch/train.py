@@ -18,6 +18,11 @@
     # resume a run where its newest checkpoint left it
     python -m torch_actor_critic_tpu_torch.train --run <id> [--runs-root DIR]
 
+    # the fused on-device loop: 16 pendulum twins, replay and learner on
+    # the card (a history and TD3 as above; PixelPendulum[Balance]-v0 too)
+    python -m torch_actor_critic_tpu_torch.train --on-device true \
+        --environment Pendulum-v1 --history-len 8 [--on-device-envs 16] [--utd 1]
+
 Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
 true``, ...), built by the JAX CLI's loop. ``--run <id>`` takes the
 config, environment and seed from the run's stored params (the flags
@@ -35,9 +40,20 @@ exits non-zero. Prints one JSON line per epoch and a final line naming
 the checkpoint directory (and, with ``--eval-episodes N``, the return of
 N deterministic evaluation episodes), which ``python -m
 torch_actor_critic_tpu_torch.serve --ckpt-dir DIR`` serves.
+``--no-save-buffer`` leaves the replay ring out of the checkpoints (a
+resumed run starts with an empty ring, as in JAX).
 
-Not ported: ``--devices``/``--fsdp``, ``--no-save-buffer``, the
-profile and trace flags, ``--render``.
+``--on-device true`` routes to the fused loop
+(:func:`~.sac.ondevice.train_on_device`) before the host trainer, as the
+JAX CLI does, for an env with an on-device twin (``Pendulum-v1``,
+``PixelPendulum[Balance]-v0`` and the port's ``...Numpy`` names for
+them); another env raises, naming the twins. There the preemption guard
+is not installed and ``--eval-episodes`` is ignored (as in JAX);
+``run_agent`` evaluates the run on the host env. ``--population`` > 1,
+the scenario envs and ``--devices`` > 1 raise ``NotImplementedError``.
+
+Not ported: ``--devices`` > 1, ``--fsdp``, the profile and trace flags,
+``--render``.
 """
 
 from __future__ import annotations
@@ -71,6 +87,14 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     )
     parser.add_argument("--environment", default="HalfCheetah-v5", help="Environment to use")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--devices", type=int, default=1,
+        help="Devices to train on; only 1 is ported",
+    )
+    parser.add_argument(
+        "--no-save-buffer", dest="save_buffer", action="store_false",
+        help="Leave the replay ring out of the checkpoints",
+    )
     parser.add_argument("--runs-root", default="runs", help="Tracking root directory")
     parser.add_argument(
         "--device", default=None,
@@ -101,7 +125,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
             parser.add_argument(flag, type=float, default=None)
         else:
             parser.add_argument(flag, type=type(f.default), default=None)
-    parser.set_defaults(logging=True, preemption_guard=True)
+    parser.set_defaults(logging=True, preemption_guard=True, save_buffer=True)
     return parser.parse_args(argv)
 
 
@@ -123,16 +147,16 @@ def config_from_args(args: argparse.Namespace) -> SACConfig:
     return SACConfig(**overrides)
 
 
-def build_trainer(args: argparse.Namespace, preemption=None):
-    """Tracker, checkpointer and :class:`Trainer` from parsed CLI args —
-    the path :func:`main` trains, shared with smoke scripts. With
-    ``--run`` the run's stored params give the config, environment and
-    seed, and the trainer is restored from the run's newest checkpoint.
-    Returns ``(trainer, tracker)``."""
-    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+def run_setup(args: argparse.Namespace):
+    """``(config, env_name, seed, tracker, checkpointer)`` from parsed CLI
+    args: with ``--run`` the run's stored params give the config,
+    environment and seed; else the flags do, and a new run stores them."""
     from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
     from torch_actor_critic_tpu_torch.utils.tracking import Tracker
 
+    if args.devices != 1:
+        raise NotImplementedError(
+            f"--devices {args.devices}: training on more than one device is not ported yet")
     if args.run is not None:
         tracker = Tracker.load(args.run, experiment=args.experiment, root=args.runs_root)
         stored = tracker.params()
@@ -151,16 +175,54 @@ def build_trainer(args: argparse.Namespace, preemption=None):
             "buffer_size": config.buffer_size,
             "seed": seed,
         })
+    checkpointer = Checkpointer(tracker.artifact_path("checkpoints"),
+                                save_buffer=args.save_buffer)
+    return config, env_name, seed, tracker, checkpointer
+
+
+def build_trainer(args: argparse.Namespace, preemption=None, setup=None):
+    """Tracker, checkpointer and :class:`Trainer` from parsed CLI args —
+    the path :func:`main` trains, shared with smoke scripts. With
+    ``--run`` the run's stored params give the config, environment and
+    seed, and the trainer is restored from the run's newest checkpoint.
+    ``setup`` is :func:`run_setup`'s result, when the caller has it.
+    Returns ``(trainer, tracker)``."""
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+
+    config, env_name, seed, tracker, checkpointer = setup or run_setup(args)
     trainer = Trainer(
         env_name, config,
         tracker=tracker if args.logging else None,
-        checkpointer=Checkpointer(tracker.artifact_path("checkpoints")),
+        checkpointer=checkpointer,
         seed=seed, device=args.device, preemption=preemption,
     )
     if args.run is not None and trainer.checkpointer.latest_epoch() is not None:
         start = trainer.restore()
         logger.info("resumed run %s at epoch %d", tracker.run_id, start)
     return trainer, tracker
+
+
+def report(epoch: int, metrics: dict) -> None:
+    print(json.dumps({"epoch": epoch, **metrics}), flush=True)
+
+
+def train_on_device_cli(args: argparse.Namespace, setup) -> dict:
+    """The ``--on-device true`` path: the fused loop on the run's twin
+    (``setup`` is :func:`run_setup`'s result); prints one JSON line per
+    epoch and the final line."""
+    from torch_actor_critic_tpu_torch.sac.ondevice import train_on_device
+
+    config, env_name, seed, tracker, checkpointer = setup
+    logger.info("on-device training: %s (run %s)", env_name, tracker.run_id)
+    metrics = train_on_device(
+        env_name, config, tracker=tracker if args.logging else None,
+        checkpointer=checkpointer, seed=seed, device=args.device, on_epoch=report,
+    )
+    print(json.dumps({
+        "run": tracker.run_id, "checkpoint_dir": str(checkpointer.directory),
+        "final": metrics, "eval": None,
+    }), flush=True)
+    return metrics
 
 
 def main(argv=None) -> dict:
@@ -171,16 +233,16 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO)
     args = parse_arguments(argv)
+    # --on-device, or the stored config of the --run it resumes
+    setup = run_setup(args)
+    if setup[0].on_device:
+        return train_on_device_cli(args, setup)
     guard = PreemptionGuard().install() if args.preemption_guard else None
     try:
-        trainer, tracker = build_trainer(args, preemption=guard)
+        trainer, tracker = build_trainer(args, preemption=guard, setup=setup)
         logger.info(
             "training %s on %s (run %s)", trainer.env_name, trainer.device, tracker.run_id
         )
-
-        def report(epoch: int, metrics: dict) -> None:
-            print(json.dumps({"epoch": epoch, **metrics}), flush=True)
-
         try:
             metrics = trainer.train(on_epoch=report)
             evaluation = (

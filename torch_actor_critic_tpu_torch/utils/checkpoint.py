@@ -10,8 +10,9 @@ port keeps its own layout, one directory per epoch::
                                 # step tensors, log_alpha, the gradient-step
                                 # count and the learner generator's state
     <dir>/epoch_<N>/buffer.pt   # BufferState.state_dict(): ring rows [0, size),
-                                # ptr, size
-    <dir>/epoch_<N>/meta.json   # {"epoch", "ckpt_format", and the trainer's
+                                # ptr, size (absent with save_buffer=False)
+    <dir>/epoch_<N>/meta.json   # {"epoch", "ckpt_format", "buffer" (whether
+                                # buffer.pt was written), and the trainer's
                                 # extra: "step", "config", "normalizer",
                                 # "act_key", ...}
 
@@ -20,6 +21,19 @@ unreadable is a half-written save and is skipped (:meth:`Checkpointer.
 latest_epoch`). Files are written with ``torch.save`` from host copies
 and read with ``torch.load(weights_only=True, map_location="cpu")``, so
 a checkpoint written on the card restores on the CPU and the reverse.
+
+:meth:`Checkpointer.save` is asynchronous unless ``wait=True``, as the
+JAX ``Checkpointer``'s: it takes the host copies on the calling thread
+(the next update rewrites the parameters, the Adam states and the ring
+in place), removes the epoch's old meta, and leaves the files and the
+meta to one background writer. The ring is copied into host buffers the
+checkpointer keeps across saves (pinned for a ring on the card), one per
+leaf, so a large ring costs no new host allocation per save.
+:meth:`Checkpointer.wait` joins the writer; a second save waits for the
+first; a write that fails after the retries raises out of the next
+``save`` or ``wait``. ``save_buffer=False`` writes no ``buffer.pt``: a
+restore then leaves the live ring as it is (empty in a new process), as
+in JAX.
 :meth:`Checkpointer.restore` writes into the live state in place
 (:meth:`~..core.types.TrainState.load_state_dict_`,
 :func:`~..buffer.replay.load_buffer_`): a captured burst's CUDA graph
@@ -42,6 +56,7 @@ import json
 import logging
 import re
 import shutil
+import threading
 import time
 import typing as t
 from pathlib import Path
@@ -63,7 +78,8 @@ __all__ = [
 # buffer.pt's structure. Actor-only epochs (save_actor) carry none.
 CKPT_FORMAT = 1
 # Epochs a Checkpointer keeps, newest first (the JAX package's default):
-# the newest is the rollback target, and a 10^6-row ring is ~0.4 GB a save.
+# the newest is the rollback target, and a 10^6-row ring is ~0.4 GB a save
+# (~6.1 GB for the pixel twins' uint8 frames).
 MAX_TO_KEEP = 3
 
 _EPOCH_DIR = re.compile(r"^epoch_(\d+)$")
@@ -176,21 +192,30 @@ class Checkpointer:
     """Full-state checkpoints of one run under ``directory``, with the
     JAX ``Checkpointer``'s surface: :meth:`save`, :meth:`peek_meta`,
     :meth:`latest_epoch`, :meth:`restore`, :meth:`restore_actor_params`,
-    :meth:`wait`, :meth:`close`. Saves are synchronous and keep the
-    :data:`MAX_TO_KEEP` newest epochs. IO is retried with backoff
-    (``resilience/retry.py``)."""
+    :meth:`wait`, :meth:`close`. Saves are asynchronous unless
+    ``wait=True`` and keep the :data:`MAX_TO_KEEP` newest epochs;
+    ``save_buffer=False`` leaves the ring out. IO is retried with
+    backoff (``resilience/retry.py``)."""
 
     def __init__(
         self,
         directory: str | Path,
+        save_buffer: bool = True,
         retries: int = 2,
         retry_backoff_s: float = 0.5,
         sleep: t.Callable[[float], None] = time.sleep,
     ):
         self.directory = Path(directory).absolute()
+        self.save_buffer = bool(save_buffer)
         self._retries = int(retries)
         self._retry_backoff_s = float(retry_backoff_s)
         self._sleep = sleep
+        self._writer: threading.Thread | None = None
+        self._write_error: BaseException | None = None
+        self._host_ring: t.Dict[str, torch.Tensor] = {}  # reused across saves
+        # Seconds the newest finished write took (files, meta and the
+        # pruning of old epochs), off the training thread unless ``wait``.
+        self.last_write_s: float | None = None
 
     def _retry(self, fn, what: str):
         return call_with_retries(
@@ -206,20 +231,48 @@ class Checkpointer:
         state: TrainState,
         buffer: BufferState | None = None,
         extra: t.Mapping[str, t.Any] | None = None,
+        wait: bool = False,
     ) -> Path:
-        """Write ``epoch``'s full state (and the ring, when given) from
-        host copies, meta last; then drop the epochs beyond
-        :data:`MAX_TO_KEEP`. Returns the epoch dir."""
+        """Write ``epoch``'s full state (and the ring, when given and
+        ``save_buffer``), meta last; then drop the epochs beyond
+        :data:`MAX_TO_KEEP`. Returns the epoch dir.
+
+        First waits for the save in flight (raising its error). The host
+        copies are complete when this returns; the files are written by
+        a background writer unless ``wait``, which writes them here and
+        raises a failed write's error."""
+        self.wait()
         files = {"actor.pt": _host_copy(state.actor.state_dict()),
                  "state.pt": state.state_dict()}
-        if buffer is not None:
-            files["buffer.pt"] = buffer.state_dict()
-        meta = dict(extra or {}, epoch=int(epoch), ckpt_format=CKPT_FORMAT)
-        out = self._retry(lambda: self._write_epoch(epoch, files, meta),
-                          what=f"checkpoint save (epoch {epoch})")
-        for old in _all_epochs(self.directory)[MAX_TO_KEEP:]:
-            shutil.rmtree(_epoch_dir(self.directory, old), ignore_errors=True)
+        if buffer is not None and self.save_buffer:
+            files["buffer.pt"] = buffer.state_dict(host=self._host_ring)
+        meta = dict(extra or {}, epoch=int(epoch), ckpt_format=CKPT_FORMAT,
+                    buffer="buffer.pt" in files)
+        out = _epoch_dir(self.directory, epoch)
+        # Incomplete until the writer rewrites it: latest_epoch skips it now.
+        (out / "meta.json").unlink(missing_ok=True)
+
+        def write() -> None:
+            t0 = time.perf_counter()
+            self._retry(lambda: self._write_epoch(epoch, files, meta),
+                        what=f"checkpoint save (epoch {epoch})")
+            for old in _all_epochs(self.directory)[MAX_TO_KEEP:]:
+                shutil.rmtree(_epoch_dir(self.directory, old), ignore_errors=True)
+            self.last_write_s = time.perf_counter() - t0
+
+        if wait:
+            write()
+        else:
+            self._writer = threading.Thread(target=self._run_writer, args=(write,),
+                                            name=f"checkpoint-epoch-{epoch}")
+            self._writer.start()
         return out
+
+    def _run_writer(self, write: t.Callable[[], None]) -> None:
+        try:
+            write()
+        except Exception as e:  # noqa: BLE001 — the next save or wait raises it
+            self._write_error = e
 
     def _write_epoch(self, epoch: int, files: t.Mapping[str, t.Any], meta: dict) -> Path:
         out = _epoch_dir(self.directory, epoch)
@@ -229,6 +282,15 @@ class Checkpointer:
             torch.save(obj, out / name)
         _write_meta(out, meta)
         return out
+
+    def wait(self) -> None:
+        """Join the save in flight; raise its write error, once."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        error, self._write_error = self._write_error, None
+        if error is not None:
+            raise error
 
     # ----------------------------------------------------------------- read
 
@@ -273,7 +335,7 @@ class Checkpointer:
         state = self._retry(lambda: self._read_file(out / "state.pt"),
                             what=f"checkpoint restore (epoch {epoch})")
         buffer = None
-        if include_buffer:
+        if include_buffer and meta.get("buffer", True):
             buffer = self._retry(lambda: self._read_file(out / "buffer.pt"),
                                  what=f"replay restore (epoch {epoch})")
         return state, buffer, meta
@@ -287,8 +349,9 @@ class Checkpointer:
         """Restore ``(state, buffer, meta)`` in place: the networks,
         target, Adam states, ``log_alpha``, step count and generator of
         ``state`` (:meth:`~..core.types.TrainState.load_state_dict_`),
-        and, when ``buffer`` is given, the ring
-        (:func:`~..buffer.replay.load_buffer_`).
+        and, when ``buffer`` is given and the epoch holds a ring, the ring
+        (:func:`~..buffer.replay.load_buffer_`; an epoch saved with
+        ``save_buffer=False`` leaves ``buffer`` as it is).
 
         ``epoch=None`` takes the newest epoch, falling back past one
         whose meta or files fail to read (a save cut short): losing one
@@ -333,8 +396,6 @@ class Checkpointer:
     def refresh(self) -> None:
         """Nothing cached: every read lists the directory afresh."""
 
-    def wait(self) -> None:
-        """Saves are synchronous: nothing is in flight."""
-
     def close(self) -> None:
-        """Nothing held open."""
+        """Join the save in flight (raising its error)."""
+        self.wait()
