@@ -4,7 +4,8 @@ it with SAC through the train CLI's path, then train the visual (pixel)
 policy through the same path and run visual bursts at full width, then
 preempt, resume, roll back and evaluate training runs from full-state
 checkpoints, then train TD3 on the flat and visual stacks, then run the
-fused on-device loop (env twins, replay and learner on the card).
+fused on-device loop (env twins, replay and learner on the card), then
+its population with PBT.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -174,14 +175,35 @@ or of the JAX package. Phases, one JSON line each:
    an epoch under ``torch.cuda.set_sync_debug_mode("error")``; the async
    save of the full history-8 ring (seconds in ``save`` and to ``wait``,
    bytes) and ``save_buffer=False``; ``train --on-device true`` then
-   ``--run <id>``.
+   ``--run <id>``;
+12. population — the fused population (``--population N``,
+   ``sac/population.py``, ``PopulationOnDeviceLoop``), in a child
+   process of its own: K2 at the folded shapes of a history-8 population
+   of 8 (acting (128, 4, 8, 16), update (512, ...), critics (1024,
+   ...)) and at the critics' fold of 32 (4096, ...), K3/K4 at the
+   update and critics' folds, against their plain versions at the
+   limits of 3; the README's command (the cheetah twin, P = 32, 10^6
+   rows per member, ``--pbt-every 1``) through ``train.main`` for two
+   1000-step epochs, each PBT step checked in place (an exploited
+   member's networks and all its Adam state bitwise its winner's, its
+   hyperparameters the winner's times exactly 1.25^±1, rings and
+   generators untouched; at least one exploit), ``loss_q_m0`` ...
+   ``loss_q_m31`` finite in ``metrics.jsonl``; a captured against an
+   eager history-8 population epoch, to the bit, and a member against a
+   lone ``OnDeviceLoop`` given its weights and draws, to 1e-4; the
+   sequence cell (P = 8, history 8, 10^6 rows per member): a traced
+   1000-step epoch whose launches are L K2 per acting step and 5L K2, 2L
+   K3, 2L K4 per update, the same per update at P = 32, then save, run,
+   restore in place under the graphs and run again, bitwise; untraced
+   flat-cell rates and device memory at P = 1, 8, 32, one line each
+   with the card.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
 on the model's views; K1's row is ``train_pair``, what the main path
 launches, with the launches of train_visual, the visual resume,
-train_td3's visual run and the on-device pixel cell; every ``launches``
-is counted
+train_td3's visual run and the on-device pixel cell; K2-K4's include
+the population's traced sequence epoch; every ``launches`` is counted
 in the main path's runs: serving's by the wrappers, as it runs no graph,
 training's, the resumed runs' and the on-device epochs' from their
 device traces),
@@ -3043,11 +3065,452 @@ def on_device_in_a_child(seed: int) -> dict:
     return json.loads(lines[-1])["on_device_launches"]
 
 
+POP_FLAT_ARGS = ["--environment", "HalfCheetah-v5", "--on-device", "true", "--population", "32",
+                 "--pbt-every", "1", "--pbt-quantile", "0.25"]
+POP_SEQ_ARGS = ["--environment", TRAIN_ENV, "--on-device", "true", "--history-len", "8",
+                "--population", "8"]
+POP_STEPS = 1000  # a cheetah episode: every member ends one in each 1000-step epoch
+# K2-K4 at the population's folded shapes (P = 8, history 8): the acting
+# batch P·16, the update batch P·64, the critics' fold P·Q·64; and the
+# critics' fold at P = 32 (grid and index range).
+T8_POP_ACT_SHAPE = (8 * 16, 4, 8, 16)
+T8_POP_SHAPE = (8 * 64, 4, 8, 16)
+T8_POP_CRITIC_SHAPE = (8 * 2 * 64, 4, 8, 16)
+T8_POP32_CRITIC_SHAPE = (32 * 2 * 64, 4, 8, 16)
+
+
+def _ring_sums(ring) -> list:
+    """Each member's f64 sum of every ring leaf: a ``(P,)`` fingerprint
+    read without copying the ring."""
+    return [leaf.reshape(leaf.shape[0], -1).sum(dim=1, dtype=torch.float64)
+            for leaf in ring.data.leaves()]
+
+
+class PBTChecks:
+    """Wraps ``PopulationOnDeviceLoop.epoch`` and ``.pbt_step`` while a
+    run trains through the CLI: each PBT step is checked right after it
+    runs — each exploited member's networks, ``log_alpha`` and Adam
+    state bitwise its winner's before the step, the others' untouched,
+    its hyperparameters the winner's times exactly ``pbt_perturb ** ±1``
+    (f32), every member's ring (by its sums) and the learner's, acting
+    and env generators unchanged."""
+
+    def __init__(self, loop_cls, perturb: float):
+        self.loop_cls, self.perturb = loop_cls, perturb
+        self.real = (loop_cls.epoch, loop_cls.pbt_step)
+        self.steps, self.last = [], {}
+
+    def __enter__(self):
+        from torch_actor_critic_tpu_torch.sac.population import member_tensors
+
+        real_epoch, real_pbt = self.real
+        checks = self
+
+        def epoch(loop, state, ring, env_states, act_gen, *a, **k):
+            out = real_epoch(loop, state, ring, env_states, act_gen, *a, **k)
+            checks.last = {"ring": out[1], "env_states": out[2], "act_gen": out[3]}
+            return out
+
+        def pbt_step(loop, state, pbt_state, **k):
+            before = [x.clone() for x in member_tensors(state)]
+            hp = {n: v.clone() for n, v in state.hyperparams.items()}
+            sums = _ring_sums(checks.last["ring"])
+            gens = [state.generator, checks.last["act_gen"], checks.last["env_states"].rng]
+            gen_states = [g.get_state() for g in gens]
+            ev = real_pbt(loop, state, pbt_state, **k)
+            src = ev["src"].tolist()
+            losers = [i for i, s in enumerate(src) if s != i]
+            for a, b in zip(member_tensors(state), before, strict=True):
+                check(all(torch.equal(a[i], b[s]) for i, s in enumerate(src)),
+                      f"pbt_step: a member tensor {tuple(a.shape)} is not its source's")
+            f32 = torch.tensor([checks.perturb, 1.0 / checks.perturb], dtype=torch.float32,
+                               device="cuda")
+            for n, v in state.hyperparams.items():
+                for i, s in enumerate(src):
+                    want = hp[n][s] * f32 if i in losers else hp[n][i:i + 1]
+                    check(bool((v[i] == want).any()),
+                          f"pbt_step: {n}[{i}] = {v[i].item()}, not {want.tolist()}")
+            check(all(torch.equal(a, b) for a, b in zip(_ring_sums(checks.last["ring"]), sums)),
+                  "pbt_step changed a ring")
+            check(all(torch.equal(g.get_state(), s) for g, s in zip(gens, gen_states)),
+                  "pbt_step moved a generator")
+            checks.steps.append({"exploited": losers, "src": src,
+                                 "ready": bool(ev["ready"]),
+                                 "tensors_checked": len(before)})
+            return ev
+
+        self.loop_cls.epoch, self.loop_cls.pbt_step = epoch, pbt_step
+        return self
+
+    def __exit__(self, *exc):
+        self.loop_cls.epoch, self.loop_cls.pbt_step = self.real
+
+
+def _population_flat_cli(seed: int, smi: str) -> dict:
+    """The README's command at P = 32 through ``train.main``: the cheetah
+    twin, SACConfig's widths, 10^6 rows per member, a 1000-step warm-up
+    and two 1000-step epochs, a PBT step after each (checked by
+    :class:`PBTChecks`; the first exploits, since every member has ended
+    an episode by then). ``metrics.jsonl`` holds ``loss_q_m0`` ...
+    ``loss_q_m31``, all finite."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.sac.ondevice import PopulationOnDeviceLoop
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_population_")
+    try:
+        t0 = time.perf_counter()
+        with PBTChecks(PopulationOnDeviceLoop, 1.25) as pbt:
+            final = train_cli.main([*POP_FLAT_ARGS, "--epochs", "2", "--steps-per-epoch",
+                                    str(POP_STEPS), "--no-save-buffer", "--runs-root", runs,
+                                    "--seed", str(seed)])
+        seconds = time.perf_counter() - t0
+        (run_id,) = os.listdir(f"{runs}/Default")
+        rows = [json.loads(x) for x in
+                open(f"{runs}/Default/{run_id}/metrics.jsonl").read().splitlines()]
+        keys = set().union(*(set(r.get("metrics", r)) for r in rows))
+        losses = [final[f"loss_q_m{i}"] for i in range(32)]
+        check({f"loss_q_m{i}" for i in range(32)} <= keys and "pbt_exploits" in keys,
+              f"population metrics.jsonl keys: {sorted(keys)[:12]}...")
+        check(all(math.isfinite(x) for x in losses), f"population losses {losses}")
+        check(len(pbt.steps) == 2 and pbt.steps[0]["exploited"],
+              f"population PBT steps {pbt.steps}")
+        return {"population": 32, "ring_rows_per_member": 10**6, "seconds": seconds,
+                "pbt_steps": pbt.steps,
+                "final": {k: final[k] for k in ("loss_q", "loss_pi", "reward", "episodes",
+                                                "env_steps_per_sec", "grad_steps_per_sec",
+                                                "pbt_exploits")},
+                "card": smi}
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+def _population_loop(args, seed: int, buffer: int, members: int | None = None, pbt=False):
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.envs.ondevice import get_on_device_env, history_env
+    from torch_actor_critic_tpu_torch.sac.ondevice import PopulationOnDeviceLoop
+    from torch_actor_critic_tpu_torch.sac.population import PopulationSAC
+
+    cfg = train_cli.config_from_args(train_cli.parse_arguments(
+        [*args, "--seed", str(seed)])).replace(on_device=True, buffer_size=buffer)
+    if members is not None:
+        cfg = cfg.replace(population=members, pbt_every=cfg.pbt_every if members > 1 else 0)
+    env = get_on_device_env(args[args.index("--environment") + 1])
+    if cfg.history_len > 1:
+        env = history_env(env, cfg.history_len)
+    p = cfg.population
+    return cfg, PopulationOnDeviceLoop(PopulationSAC(cfg, env.act_dim, p), env, p,
+                                       n_envs=cfg.on_device_envs, pbt=pbt, device="cuda")
+
+
+def member_vs_solo(seed: int) -> dict:
+    """Member 3 of a flat cheetah population of 8, extracted after a
+    warm-up, against a lone ``OnDeviceLoop`` fed member 3's weights and
+    its slice of the population's draws (acting noise, reset poses,
+    replay rows, update noise), for two 50-step windows of 50 updates:
+    every parameter within 1e-4 of the member's (batched products sum in
+    another order than the lone ones)."""
+    from torch_actor_critic_tpu_torch.buffer.replay import init_replay_buffer, push
+    from torch_actor_critic_tpu_torch.core.types import Batch
+    from torch_actor_critic_tpu_torch.envs.ondevice import EnvState
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.sac.ondevice import OnDeviceLoop
+
+    cfg, loop = _population_loop(POP_FLAT_ARGS, seed, 20_000, members=8)
+    p, n, m_ = 8, cfg.on_device_envs, 3
+    state, ring, es, act_gen, _ = loop.init(seed, 20_000)
+    state, ring, es, act_gen, _ = loop.epoch(state, ring, es, act_gen, steps=100,
+                                             update_every=50, warmup=True)
+    solo = loop.extract_member(state, m_)
+    solo_ring = push(init_replay_buffer(20_000, (17,), 6, "cuda"),
+                     Batch(*(x[m_, :ring.size] for x in ring.data.leaves())))
+    rows = slice(m_ * n, (m_ + 1) * n)
+    solo_es = EnvState(inner=tuple(x[rows].clone() for x in es.inner), obs=es.obs[rows].clone(),
+                       step_count=es.step_count[rows].clone(),
+                       episode_return=es.episode_return[rows].clone(),
+                       rng=torch.Generator(device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    k = cfg.updates_per_window
+    noise = torch.randn((100, p, n, 6), generator=gen, device="cuda")
+    poses = loop.env.sample_pose(100 * p * n, gen, "cuda").reshape(100, p * n, 16)
+    indices = (torch.rand((2, k, p, cfg.batch_size), generator=gen, device="cuda")
+               * ring.size).long()
+    eps = torch.randn((2, k, 2, p, cfg.batch_size, 6), generator=gen, device="cuda")
+    state, ring, es, act_gen, m = loop.epoch(state, ring, es, act_gen, steps=100,
+                                             update_every=50, noise=noise, poses=poses,
+                                             indices=indices, eps=eps)
+    solo_loop = OnDeviceLoop(SAC(cfg, 6), loop.env, n_envs=n, device="cuda")
+    solo, solo_ring, solo_es, _, sm = solo_loop.epoch(
+        solo, solo_ring, solo_es, torch.Generator(device="cuda"), steps=100, update_every=50,
+        noise=noise[:, m_], poses=poses[:, rows], indices=indices[:, :, m_],
+        eps=eps[:, :, :, m_])
+    gaps = {}
+    for mod in ("actor", "critic", "target_critic"):
+        mine = dict(getattr(solo, mod).named_parameters())
+        gaps[mod] = max((t_.detach()[m_] - mine[name].detach()).abs().max().item()
+                        for name, t_ in getattr(state, mod).named_parameters())
+    ring_gap = max((a[m_, :ring.size] - b[:ring.size]).abs().max().item()
+                   for a, b in zip(ring.data.leaves(), solo_ring.data.leaves()))
+    loss_gap = abs(float(m["loss_q"][m_]) - float(sm["loss_q"]))
+    check(max(gaps.values()) <= 1e-4 and ring_gap <= 1e-4 and loss_gap <= 1e-4 * max(
+        1.0, abs(float(sm["loss_q"]))),
+        f"population member vs a lone loop: params {gaps}, ring {ring_gap}, loss {loss_gap}")
+    return {"population": p, "member": m_, "updates": 2 * k, "max_param_gap": gaps,
+            "max_ring_gap": ring_gap, "loss_q_gap": loss_gap, "tol": 1e-4}
+
+
+def _population_counts(loop, parts, steps, kernels, what):
+    """A traced ``steps``-step epoch (both graphs captured in it): its
+    device launches, which must be exactly L K2 per acting step and 5L
+    K2, 2L K3, 2L K4 per update whatever P; and the wrappers' (one
+    warm-up and one capture of each graph)."""
+    cfg = loop.sac.config
+    layers = cfg.seq_num_layers
+    per_step = {"flash_fwd": layers}
+    per_update = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                  "flash_bwd_dkv": 2 * layers, "pixel_gather": 0}
+    kernels.reset_launch_counts()
+    (parts, m), launches, busy_ms, wall_ms, cost = traced_run(
+        lambda: (lambda out: (out[:4], out[4]))(
+            loop.epoch(*parts, steps=steps, update_every=cfg.update_every)), what)
+    wrapped = {k: kernels.launch_counts.get(k, 0) for k in KERNEL_SYMBOLS}
+    updates = steps // cfg.update_every * cfg.updates_per_window
+    want = {k: per_step.get(k, 0) * steps + per_update[k] * updates for k in KERNEL_SYMBOLS}
+    want_wrapped = {k: 2 * (per_step.get(k, 0) + per_update[k]) for k in KERNEL_SYMBOLS}
+    check(launches == want and wrapped == want_wrapped,
+          f"{what}: device launches {launches} != {want} or wrappers {wrapped} != "
+          f"{want_wrapped}")
+    check(bool(torch.isfinite(m["loss_q"]).all()), f"{what}: losses {m['loss_q']}")
+    return parts, m, {"population": loop.members, "steps": steps, "updates": updates,
+                      "launches": launches, "wrapper_launches": wrapped,
+                      "per_update": {k: per_update[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                                                "flash_bwd_dkv")},
+                      "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                      "device_idle_share": 1.0 - busy_ms / wall_ms,
+                      "device_kernels": cost["device_kernels"]}
+
+
+def _resume_under_graphs(loop, parts, pbt_state) -> dict:
+    """Save at an epoch (learner, rings, env states, acting generator,
+    PBT state), run a 100-step epoch, restore the save in place under the
+    captured graphs, run it again: the two bitwise equal, no recapture."""
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    state, ring, es, act_gen = parts
+    arrays = {"env_states": es, "act_gen": act_gen, "pbt_state": pbt_state}
+    captures = (loop.act_captures, loop.sac.graph_captures)
+    directory = tempfile.mkdtemp(prefix="tac_chip_population_ckpt_")
+    try:
+        ck = Checkpointer(directory)
+        t0 = time.perf_counter()
+        ck.save(0, state, ring, arrays=arrays, wait=True)
+        save_s = time.perf_counter() - t0
+        runs = []
+        for restore in (False, True):
+            if restore:
+                state, ring, _, _ = ck.restore(state, ring, abstract_arrays=arrays)
+            out = loop.epoch(state, ring, es, act_gen, steps=100,
+                             update_every=loop.sac.config.update_every)
+            torch.cuda.synchronize()
+            state, ring = out[0], out[1]
+            runs.append({**_ondevice_snapshot(state, ring, es, act_gen, [out[4]]),
+                         "pbt": pbt_state.state_dict()})
+        diff = bitwise_diff(runs[0], runs[1])
+        now = (loop.act_captures, loop.sac.graph_captures)
+        check(not diff and now == captures,
+              f"population resume under graphs: differs at {diff[:8]}, captures {captures} "
+              f"-> {now}")
+        return {"bitwise": True, "steps": 100, "save_s": save_s, "captures": list(now),
+                "ring_rows_saved": ring.size}
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def _solo_cheetah_rate(cfg, seed: int) -> dict:
+    """The lone ``OnDeviceLoop`` on the cheetah twin at the population's
+    config, timed as ``_population_rates`` times a member count: what
+    the member axis costs at P = 1."""
+    from torch_actor_critic_tpu_torch.envs.ondevice import CheetahRunTorch
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.sac.ondevice import OnDeviceLoop
+
+    cfg = cfg.replace(population=1, pbt_every=0)
+    loop = OnDeviceLoop(SAC(cfg, 6), CheetahRunTorch, n_envs=cfg.on_device_envs, device="cuda")
+    parts = loop.init(seed, 10**6)
+    parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
+    parts = loop.epoch(*parts, steps=POP_STEPS, update_every=50)[:4]
+    parts, _, dt = _timed_epoch(loop, parts, POP_STEPS)
+    updates = POP_STEPS // 50 * cfg.updates_per_window
+    return {"seconds": dt, "grad_steps_per_sec": updates / dt,
+            "burst_updates_per_sec": _burst_rate(
+                loop.sac, parts[0], parts[1],
+                torch.Generator(device="cuda").manual_seed(seed + 9))}
+
+
+def _population_rates(seed: int, smi: str) -> dict:
+    """Untraced flat-cell epochs at P = 1, 8, 32 (the cheetah twin,
+    SACConfig's widths, 10^6 rows per member): after a 1000-step warm-up
+    and one 1000-step epoch (which captures), one timed 1000-step epoch:
+    aggregate env and gradient steps per second (both × P), the captured
+    burst's updates per second alone (and at P = 1 the lone loop's
+    epoch and burst on the same twin and config), and the
+    device memory the population holds and at its peak, above what the
+    process held before it was made."""
+    import gc
+
+    out = {}
+    for p in (1, 8, 32):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cfg, loop = _population_loop(POP_FLAT_ARGS, seed, 10**6, members=p)
+        parts = loop.init(seed, 10**6)[:4]
+        parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
+        parts = loop.epoch(*parts, steps=POP_STEPS, update_every=50)[:4]
+        parts, m, dt = _timed_epoch(loop, parts, POP_STEPS)
+        updates = POP_STEPS // 50 * cfg.updates_per_window
+        row = {"population": p, "seconds": dt,
+               "env_steps_per_sec": POP_STEPS * loop.n_envs * p / dt,
+               "grad_steps_per_sec": updates * p / dt,
+               "updates_per_sec": updates / dt,
+               "ring_bytes": sum(x.numel() * x.element_size() for x in parts[1].data.leaves()),
+               "memory_allocated_bytes": torch.cuda.memory_allocated() - base,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() - base,
+               "memory_before_bytes": base,
+               "loss_q_finite": bool(torch.isfinite(m["loss_q"]).all())}
+        check(row["loss_q_finite"], f"population rates P={p}: losses {m['loss_q']}")
+        # The captured 50-update burst alone: what the epoch's acting adds.
+        row["burst_updates_per_sec"] = _burst_rate(
+            loop.sac, parts[0], parts[1], torch.Generator(device="cuda").manual_seed(seed + 9))
+        if p == 1:
+            row["solo_loop"] = _solo_cheetah_rate(cfg, seed)
+        out[f"P{p}"] = row
+        print(f"population P={p}: {row['env_steps_per_sec']:.1f} env steps/s, "
+              f"{row['grad_steps_per_sec']:.1f} grad steps/s (x P; burst alone "
+              f"{row['burst_updates_per_sec']:.1f} updates/s), "
+              f"{row['max_memory_allocated_bytes'] / 2**30:.2f} GiB peak ({smi})", flush=True)
+        del loop, parts
+    return out
+
+
+def phase_population(seed: int, kernels, attn, smi: str) -> dict:
+    """The fused population (``--on-device true --population N``):
+
+    - K2 at the folded shapes of a history-8 population of 8 (acting
+      (128, 4, 8, 16), update (512, ...), critics (1024, ...)) and at the
+      critics' fold of 32 (4096, ...), K3/K4 at the update and critics'
+      folds, against their plain versions at the limits of 3, with times;
+    - the README's command at P = 32 on the cheetah twin through
+      ``train.main`` with each PBT step checked in place
+      (:class:`PBTChecks`; at least one exploit);
+    - a captured against an eager history-8 population epoch from clones,
+      to the bit, and a member against a lone loop to 1e-4;
+    - the sequence cell (P = 8, history 8, 10^6 rows per member): a traced
+      1000-step epoch whose launches are L K2 per acting step and 5L K2,
+      2L K3, 2L K4 per update, as at P = 32 in a traced 100-step epoch;
+      then a save, an epoch, an in-place restore under the graphs and
+      the epoch again, bitwise;
+    - untraced flat-cell rates and memory at P = 1, 8, 32.
+
+    Returns the sequence cell's traced launches."""
+    from torch_actor_critic_tpu_torch.sac.ondevice import warmup_steps
+
+    row = {"phase": "population", "card": smi, "seconds": {}}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        row["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    fwd = phase_kernel_vs_plain(attn, seed, None, cases=[
+        (T8_POP_ACT_SHAPE, True, torch.float32, 50, "views"),
+        (T8_POP_SHAPE, True, torch.float32, 50, "views"),
+        (T8_POP_CRITIC_SHAPE, True, torch.float32, 50, "views"),
+        (T8_POP32_CRITIC_SHAPE, True, torch.float32, 20, "views"),
+    ])
+    bwd = phase_bwd_vs_plain(attn, seed, None, cases=[
+        (T8_POP_SHAPE, True, torch.float32, 50, "views"),
+        (T8_POP_CRITIC_SHAPE, True, torch.float32, 50, "views"),
+        (T8_POP32_CRITIC_SHAPE, True, torch.float32, 20, "views"),
+    ])
+    row["kernels_t8_population"] = {"flash_fwd_act": fwd["shape"],
+                                    "flash_bwd": bwd["flash_bwd_dq"]["shape"]}
+    lap("kernel_rows")
+    row["flat_cli"] = _population_flat_cli(seed, smi)
+    lap("flat_cli")
+    torch.cuda.empty_cache()
+
+    cfg, _ = _population_loop(POP_SEQ_ARGS, seed, 100_000)
+
+    def make_loop():
+        return _population_loop(POP_SEQ_ARGS, seed, 100_000)[1]
+
+    probe = make_loop()
+    parts = probe.init(seed, 100_000)[:4]
+    parts = probe.epoch(*parts, steps=100, update_every=50, warmup=True)[:4]
+    row["captured_vs_eager"] = ondevice_captured_vs_eager(make_loop, parts,
+                                                          cudnn_deterministic=False)
+    del probe, parts
+    row["member_vs_solo"] = member_vs_solo(seed)
+    lap("captured_vs_eager_and_solo")
+    torch.cuda.empty_cache()
+
+    cfg, loop = _population_loop(POP_SEQ_ARGS, seed, 10**6)
+    free0 = torch.cuda.mem_get_info()[0]
+    *parts, pbt_state = loop.init(seed, 10**6)
+    n_warmup = warmup_steps(cfg.start_steps, cfg.update_every)
+    parts = loop.epoch(*parts, steps=n_warmup, update_every=cfg.update_every, warmup=True)[:4]
+    row["sequence"] = {"population": cfg.population, "ring_rows_per_member": 10**6,
+                       "device_bytes_taken_by_init": free0 - torch.cuda.mem_get_info()[0]}
+    parts, m, traced = _population_counts(loop, parts, POP_STEPS, kernels,
+                                          "population sequence P=8")
+    row["sequence"]["traced_epoch"] = traced
+    lap("sequence_traced")
+    row["sequence"]["resume_under_graphs"] = _resume_under_graphs(loop, parts, pbt_state)
+    lap("resume")
+    del loop, parts
+    torch.cuda.empty_cache()
+    cfg32, loop32 = _population_loop(POP_SEQ_ARGS, seed, 20_000, members=32)
+    parts32 = loop32.init(seed, 20_000)[:4]
+    parts32 = loop32.epoch(*parts32, steps=100, update_every=50, warmup=True)[:4]
+    *_, traced32 = _population_counts(loop32, parts32, 100, kernels, "population sequence P=32")
+    check(traced32["per_update"] == traced["per_update"],
+          f"K2-K4 per update depend on P: {traced['per_update']} vs {traced32['per_update']}")
+    row["sequence_p32_counts"] = traced32
+    del loop32, parts32
+    lap("sequence_p32_counts")
+    torch.cuda.empty_cache()
+    row["rates"] = _population_rates(seed, smi)
+    lap("rates")
+    row["seconds"]["phase"] = time.perf_counter() - t_phase
+    emit(row)
+    return traced["launches"]
+
+
+def population_in_a_child(seed: int) -> dict:
+    """``phase_population`` in a process of its own
+    (``--population-phase``), as ``on_device_in_a_child``; returns the
+    launches its last line reports."""
+    torch.cuda.empty_cache()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--population-phase", "--seed", str(seed)],
+        capture_output=True, text=True, timeout=600,
+    )
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(res.returncode == 0 and lines, f"the population phase exited {res.returncode}")
+    return json.loads(lines[-1])["population_launches"]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--on-device-phase", action="store_true",
                    help="Run only the on_device phase (the smoke starts it so, in a child)")
+    p.add_argument("--population-phase", action="store_true",
+                   help="Run only the population phase (the smoke starts it so, in a child)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU only",
@@ -3061,6 +3524,10 @@ def main(argv=None) -> int:
     if args.on_device_phase:
         launches = phase_on_device(args.seed, _kernels, attn, nvidia_smi())
         emit({"on_device_launches": launches})
+        return 0
+    if args.population_phase:
+        launches = phase_population(args.seed, _kernels, attn, nvidia_smi())
+        emit({"population_launches": launches})
         return 0
     seconds, t_start = {}, time.perf_counter()
 
@@ -3088,18 +3555,21 @@ def main(argv=None) -> int:
     resume_launches = timed("resume", phase_resume, args.seed, _kernels, smi)
     td3_launches = timed("train_td3", phase_train_td3, args.seed, _kernels, smi)
     ondevice_launches = timed("on_device", on_device_in_a_child, args.seed)
+    population_launches = timed("population", population_in_a_child, args.seed)
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
     fwd_launches = (serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]
-                    + ondevice_launches["flash_fwd"])
+                    + ondevice_launches["flash_fwd"] + population_launches["flash_fwd"])
     rows = [
         ("flash_fwd", "flash_fwd.cu", "torch_actor_critic_tpu/ops/attention.py:428",
          fwd_launches, serve_row),
         ("flash_bwd_dq", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:611",
          train_launches["flash_bwd_dq"] + resume_launches["flash_bwd_dq"]
-         + ondevice_launches["flash_bwd_dq"], bwd_rows["flash_bwd_dq"]),
+         + ondevice_launches["flash_bwd_dq"] + population_launches["flash_bwd_dq"],
+         bwd_rows["flash_bwd_dq"]),
         ("flash_bwd_dkv", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:634",
          train_launches["flash_bwd_dkv"] + resume_launches["flash_bwd_dkv"]
-         + ondevice_launches["flash_bwd_dkv"], bwd_rows["flash_bwd_dkv"]),
+         + ondevice_launches["flash_bwd_dkv"] + population_launches["flash_bwd_dkv"],
+         bwd_rows["flash_bwd_dkv"]),
         ("pixel_gather", "pixels.cu", "torch_actor_critic_tpu/ops/pixels.py:261",
          visual_launches["pixel_gather"] + resume_launches["pixel_gather"]
          + td3_launches["pixel_gather"] + ondevice_launches["pixel_gather"], pixel_row),

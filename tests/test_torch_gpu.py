@@ -1249,3 +1249,109 @@ def test_an_on_device_epoch_does_not_synchronize(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert math.isfinite(float(m["loss_q"])) and parts[0].step == 40
     assert loop.act_captures == 2 and loop.sac.graph_captures == 1
+
+
+# ------------------------------------------------ the fused population
+
+
+def _population_loop(cuda, members, pbt=False, **over):
+    from torch_actor_critic_tpu_torch.envs.ondevice import PendulumTorch, history_env
+    from torch_actor_critic_tpu_torch.sac.ondevice import PopulationOnDeviceLoop
+    from torch_actor_critic_tpu_torch.sac.population import PopulationSAC
+
+    cfg = SACConfig(update_every=10, population=members, on_device=True,
+                    pbt_every=1 if pbt else 0, **over)
+    env = history_env(PendulumTorch, cfg.history_len) if cfg.history_len > 1 else PendulumTorch
+    return PopulationOnDeviceLoop(PopulationSAC(cfg, 1, members), env, members, n_envs=4,
+                                  pbt=pbt, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ONDEVICE_CASES))
+def test_captured_population_epochs_equal_the_eager_epochs_bitwise(cuda, name):
+    """A population of 3 with PBT hyperparameters: a warm-up and two
+    trained epochs as CUDA graph replays against the same epochs run
+    eagerly, from one initial state, to the bit; one capture of each
+    graph."""
+    loop = _population_loop(cuda, 3, pbt=True, **ONDEVICE_CASES[name])
+    state, ring, es, act_gen, _ = loop.init(0, buffer_capacity=500)
+    runs = {}
+    for eager in (True, False):
+        loop = _population_loop(cuda, 3, pbt=True, **ONDEVICE_CASES[name])
+        parts = (state.clone(), ring.clone(), es.clone(), _gen_clone(act_gen))
+        metrics = []
+        for steps, warmup in ((20, True), (30, False), (30, False)):
+            *parts, m = loop.epoch(*parts, steps=steps, update_every=10, warmup=warmup,
+                                   eager=eager)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        runs[eager] = _ondevice_snapshot(*parts, metrics)
+        if not eager:
+            assert loop.act_captures == 2 and loop.sac.graph_captures == 1
+    assert _diff(runs[False], runs[True]) == []
+    assert runs[False]["ring"]["leaves"]["rewards"].shape == (3, 80 * 4)
+
+
+def _flash_launches(fn) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead_in = torch.zeros(1, device="cuda")
+        for _ in range(64):  # the profiler can lose a trace's first kernels
+            lead_in.add_(1)
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"), 0)
+    for e in prof.key_averages():
+        for k in out:
+            if e.device_type == DeviceType.CUDA and k in e.key:
+                out[k] += e.count
+    return out
+
+
+@pytest.mark.gpu
+def test_attention_launches_per_update_do_not_grow_with_the_population(cuda):
+    """A captured epoch of the history-8 population launches L K2 per
+    acting step and 5L K2, 2L K3, 2L K4 per update, at P = 2 as at P = 6:
+    the member axis is folded into each call's batch."""
+    counts = {}
+    for p in (2, 6):
+        loop = _population_loop(cuda, p, **ONDEVICE_CASES["sequence"])
+        parts = loop.init(0, buffer_capacity=500)[:4]
+        for steps, warmup in ((20, True), (20, False)):
+            parts = loop.epoch(*parts, steps=steps, update_every=10, warmup=warmup)[:4]
+        torch.cuda.synchronize()
+        counts[p] = _flash_launches(
+            lambda: loop.epoch(*parts, steps=20, update_every=10))
+    layers, updates = 2, 20
+    want = {"flash_fwd_kernel": layers * 20 + 5 * layers * updates,
+            "flash_bwd_dq_kernel": 2 * layers * updates,
+            "flash_bwd_dkv_kernel": 2 * layers * updates}
+    assert counts[2] == counts[6] == want, counts
+
+
+@pytest.mark.gpu
+def test_an_exploit_under_the_graphs_is_seen_by_the_next_replay(cuda):
+    """After the graphs are captured, a PBT step writes in place: the
+    next captured epoch equals an eager epoch run from a clone of the
+    exploited state, with no new capture, and the loser starts it as its
+    winner."""
+    loop = _population_loop(cuda, 4, pbt=True, hidden_sizes=(64, 64), batch_size=32)
+    state, ring, es, act_gen, ps = loop.init(0, buffer_capacity=500)
+    for steps, warmup in ((20, True), (20, False)):
+        state, ring, es, act_gen, _ = loop.epoch(state, ring, es, act_gen, steps=steps,
+                                                 update_every=10, warmup=warmup)
+    ps.return_ema.copy_(torch.tensor([0.0, 10.0, 5.0, 3.0]))
+    ps.ema_count.fill_(1)
+    ev = loop.pbt_step(state, ps)
+    assert ev["exploited"].tolist() == [True, False, False, False] and int(ev["src"][0]) == 1
+    for x in state.actor.parameters():
+        assert torch.equal(x[0], x[1])
+    eager_loop = _population_loop(cuda, 4, pbt=True, hidden_sizes=(64, 64), batch_size=32)
+    clone = (state.clone(), ring.clone(), es.clone(), _gen_clone(act_gen))
+    *got, m = loop.epoch(state, ring, es, act_gen, steps=20, update_every=10)
+    *want, wm = eager_loop.epoch(*clone, steps=20, update_every=10, eager=True)
+    torch.cuda.synchronize()
+    assert loop.act_captures == 2 and loop.sac.graph_captures == 1
+    assert _diff(_ondevice_snapshot(*got, [m]), _ondevice_snapshot(*want, [wm])) == []

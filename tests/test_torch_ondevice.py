@@ -266,7 +266,9 @@ def test_registry():
     assert tenv.get_on_device_env("PendulumNumpy-v1") is PendulumTorch
     assert tenv.get_on_device_env("PixelPendulumBalanceNumpy-v0") is PixelPendulumBalanceTorch
     assert tenv.get_on_device_env("Walker2d-v4") is None
-    for name in ("HalfCheetah-v5", "cheetah-run-jax", "multi-pendulum-4"):
+    assert tenv.get_on_device_env("HalfCheetah-v5") is tenv.CheetahRunTorch
+    assert tenv.get_on_device_env("cheetah-run-jax") is tenv.CheetahRunTorch
+    for name in ("multi-pendulum-4", "hurdle-runner"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tenv.get_on_device_env(name)
 
@@ -695,9 +697,13 @@ def test_on_device_no_save_buffer_resumes_with_an_empty_ring(tmp_path, monkeypat
 
 @pytest.mark.parametrize("argv,err,match", [
     (["--environment", "Walker2d-v4"], ValueError, "PixelPendulumBalance-v0"),
-    (["--environment", "HalfCheetah-v5"], NotImplementedError, "CheetahRun"),
+    # The cheetah twin trains; its TD3 population waits, naming the twin.
+    (["--environment", "HalfCheetah-v5", "--population", "2", "--algorithm", "td3"],
+     NotImplementedError, "CheetahRun"),
     (["--environment", "multi-pendulum-4"], NotImplementedError, "scenario"),
-    (["--environment", "Pendulum-v1", "--population", "2"], NotImplementedError, "population"),
+    # The fused population trains; its visual stack waits.
+    (["--environment", "PixelPendulumNumpy-v0", "--population", "2"], NotImplementedError,
+     "population"),
     (["--environment", "Pendulum-v1", "--devices", "2"], NotImplementedError, "--devices"),
 ])
 def test_on_device_cli_raises_for_what_it_does_not_run(tmp_path, argv, err, match):

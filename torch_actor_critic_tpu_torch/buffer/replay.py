@@ -19,10 +19,18 @@ dtype in the ring (a visual ring stores **uint8** HWC frames beside f32
 features). :func:`sample_fused_visual` gathers the frames through the
 fused pixel pipeline (K1, one launch for both frame leaves). The
 striped variant is not ported.
+
+A population's rings (``members=P`` at init) are one ring of ``(P,
+capacity, ...)`` leaves: a chunk ``(P, n, ...)`` is pushed at one cursor
+for every member (they push in lockstep), and a batch is ``(P, B)``
+rows, each member's drawn from its own ring. :func:`estimate_buffer_bytes`
+and :func:`warn_if_buffer_exceeds_hbm` size a ring before it is made.
 """
 
 from __future__ import annotations
 
+import logging
+import math
 import typing as t
 
 import torch
@@ -32,9 +40,43 @@ from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
 from torch_actor_critic_tpu_torch.ops.pixels import fused_frame_gather_pair
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
 
+logger = logging.getLogger(__name__)
+
 
 def _zero_size(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int64, device=device)
+
+
+def estimate_buffer_bytes(capacity: int, obs_shape, act_dim: int) -> int:
+    """Device bytes of a ring of ``capacity`` transitions: two
+    observation copies (state, next state), the action, reward and done
+    per row (``obs_shape`` a shape, or a :class:`MultiObservation` of
+    shapes whose frame is uint8)."""
+    if isinstance(obs_shape, MultiObservation):
+        obs_bytes = math.prod(obs_shape.features) * 4 + math.prod(obs_shape.frame)
+    else:
+        obs_bytes = math.prod(obs_shape) * 4
+    return capacity * (2 * obs_bytes + act_dim * 4 + 2 * 4)
+
+
+def warn_if_buffer_exceeds_hbm(
+    capacity: int, obs_shape, act_dim: int, device=None,
+    advice: str = "reduce buffer capacity or history_len",
+) -> None:
+    """Warn when a ring of ``capacity`` rows would take more than half of
+    the card's memory (``torch.cuda.mem_get_info``'s total), where the
+    parameters, optimizer states and the update's intermediates share
+    the rest; ``advice`` names the caller's knobs. Nothing on the CPU."""
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return
+    _, total = torch.cuda.mem_get_info(device)
+    need = estimate_buffer_bytes(capacity, obs_shape, act_dim)
+    if need > 0.5 * total:
+        logger.warning(
+            "replay ring needs ~%.1f GB of ~%.1f GB device memory; params, optimizer "
+            "state and update intermediates share the rest — %s if allocation fails",
+            need / 1024**3, total / 1024**3, advice)
 
 
 def init_replay_buffer(
@@ -42,14 +84,17 @@ def init_replay_buffer(
     obs_shape: t.Sequence[int],
     act_dim: int,
     device: torch.device | str | None = None,
+    members: int | None = None,
 ) -> BufferState:
     """An empty float32 ring of ``capacity`` transitions of ``obs_shape``
     observations, on ``device`` (``None``: the card; raises without
-    one)."""
+    one); with ``members=P``, a population's ``(P, capacity, ...)``
+    rings."""
     device = resolve_device(device)
+    lead = (capacity,) if members is None else (members, capacity)
 
     def zeros(*shape):
-        return torch.zeros((capacity, *shape), dtype=torch.float32, device=device)
+        return torch.zeros((*lead, *shape), dtype=torch.float32, device=device)
 
     data = Batch(
         states=zeros(*obs_shape),
@@ -92,9 +137,12 @@ def init_visual_replay_buffer(
 def push(state: BufferState, chunk: Batch) -> BufferState:
     """Append ``n`` transitions, overwriting the oldest on wrap. Each
     leaf is written in its ring's dtype; the device size is filled in
-    place (a captured update holds that tensor's address)."""
+    place (a captured update holds that tensor's address). A
+    population's chunk is ``(P, n, ...)``, written at the one cursor of
+    every member's ring."""
     capacity = state.capacity
-    n = chunk.rewards.shape[0]
+    n = chunk.rewards.shape[-1]
+    axis = 0 if state.members is None else 1
     if n > capacity:
         # Duplicate scatter indices would overwrite in unspecified order.
         raise ValueError(
@@ -104,7 +152,7 @@ def push(state: BufferState, chunk: Batch) -> BufferState:
     device = state.data.rewards.device
     idx = (torch.arange(n, device=device) + state.ptr) % capacity
     for ring, new in zip(state.data.leaves(), chunk.leaves()):
-        ring.index_copy_(0, idx, new.to(ring.device, ring.dtype))
+        ring.index_copy_(axis, idx, new.to(ring.device, ring.dtype))
     size = min(state.size + n, capacity)
     state.device_size.fill_(size)
     return BufferState(
@@ -116,10 +164,11 @@ def push(state: BufferState, chunk: Batch) -> BufferState:
 def load_buffer_(state: BufferState, saved: t.Mapping[str, t.Any]) -> BufferState:
     """Restore :meth:`~..core.types.BufferState.state_dict`'s snapshot
     into ``state``'s ring **in place** (a captured update holds its
-    addresses): rows ``[0, size)`` of every leaf copied, the rest
-    zeroed, the device size filled; returns the ring at the saved
-    cursor. A snapshot of another capacity, leaf set, row shape or dtype
-    raises ``ValueError``."""
+    addresses): rows ``[0, size)`` of every leaf (of every member's ring,
+    in a population) copied, the rest zeroed, the device size filled;
+    returns the ring at the saved cursor. A snapshot of another
+    capacity, leaf set, member count, row shape or dtype raises
+    ``ValueError``."""
     if int(saved["capacity"]) != state.capacity:
         raise ValueError(f"replay snapshot capacity {saved['capacity']} != ring "
                          f"capacity {state.capacity}")
@@ -128,27 +177,33 @@ def load_buffer_(state: BufferState, saved: t.Mapping[str, t.Any]) -> BufferStat
     if set(saved["leaves"]) != set(rings):
         raise ValueError(f"replay snapshot leaves {sorted(saved['leaves'])} != "
                          f"ring leaves {sorted(rings)}")
+    k = 0 if state.members is None else 1  # the row axis
     for name, ring in rings.items():
         src = saved["leaves"][name]
-        if tuple(src.shape) != (size, *ring.shape[1:]) or src.dtype != ring.dtype:
+        if (tuple(src.shape) != (*ring.shape[:k], size, *ring.shape[k + 1:])
+                or src.dtype != ring.dtype):
             raise ValueError(f"replay snapshot leaf {name!r}: {src.dtype} "
                              f"{tuple(src.shape)} does not fit the ring's {ring.dtype} "
                              f"{tuple(ring.shape)} at size {size}")
     for name, ring in rings.items():
-        ring[:size].copy_(saved["leaves"][name])
-        ring[size:].zero_()
+        rows = ring if k == 0 else ring.transpose(0, 1)
+        rows[:size].copy_(saved["leaves"][name] if k == 0 else
+                          saved["leaves"][name].transpose(0, 1))
+        rows[size:].zero_()
     state.device_size.fill_(size)
     return BufferState(data=state.data, ptr=int(saved["ptr"]), size=size,
                        device_size=state.device_size)
 
 
 def draw_rows(state: BufferState, batch_size: int, generator: torch.Generator) -> torch.Tensor:
-    """``(batch_size,)`` int64 rows uniform over ``[0, size)``, against
-    the ring's device size: ``floor(u · size)`` for ``u`` uniform f64 in
-    ``[0, 1)`` (uniform to 2⁻⁵³, no modulo bias), clamped to ``size - 1``
-    against rounding. No host read, so a CUDA graph can capture it; the
-    eager path draws the same rows from the same generator state."""
-    u = torch.rand((batch_size,), dtype=torch.float64, generator=generator,
+    """``(batch_size,)`` int64 rows uniform over ``[0, size)`` (``(P,
+    batch_size)`` for a population, one draw), against the ring's device
+    size: ``floor(u · size)`` for ``u`` uniform f64 in ``[0, 1)``
+    (uniform to 2⁻⁵³, no modulo bias), clamped to ``size - 1`` against
+    rounding. No host read, so a CUDA graph can capture it; the eager
+    path draws the same rows from the same generator state."""
+    shape = (batch_size,) if state.members is None else (state.members, batch_size)
+    u = torch.rand(shape, dtype=torch.float64, generator=generator,
                    device=state.device_size.device)
     return torch.minimum((u * state.device_size).long(), state.device_size - 1)
 
@@ -170,9 +225,18 @@ def sample(
     indices: torch.Tensor | None = None,
 ) -> Batch:
     """A uniform batch over ``[0, size)`` drawn from ``generator``, or
-    the rows ``indices`` when given (exactly one of the two)."""
+    the rows ``indices`` when given (exactly one of the two). A
+    population's batch is ``(P, batch_size, ...)``: row ``indices[i, j]``
+    of member ``i``'s ring, one gather over the ``(P·capacity, ...)``
+    view."""
     indices = _indices(state, batch_size, generator, indices)
-    return state.data.map(lambda ring: ring.index_select(0, indices))
+    if state.members is None:
+        return state.data.map(lambda ring: ring.index_select(0, indices))
+    p, cap = state.members, state.capacity
+    flat = (indices + torch.arange(p, device=indices.device)[:, None] * cap).reshape(-1)
+    return state.data.map(
+        lambda ring: ring.reshape(p * cap, *ring.shape[2:]).index_select(0, flat)
+        .reshape(p, -1, *ring.shape[2:]))
 
 
 def sample_fused_visual(

@@ -91,7 +91,11 @@ class BufferState:
     tensor on the ring's device, which sampling reads (the JAX package
     traces ``size`` as a device scalar): a captured update reads it at
     replay time, so :func:`~..buffer.replay.push` updates it in place
-    and every ``BufferState`` of one ring shares that one tensor."""
+    and every ``BufferState`` of one ring shares that one tensor.
+
+    A population's rings are one ``BufferState`` whose leaves are ``(P,
+    capacity, ...)`` (:attr:`members` is ``P``): the members push in
+    lockstep, so one cursor serves them all."""
 
     data: Batch
     ptr: int  # next write slot
@@ -100,7 +104,13 @@ class BufferState:
 
     @property
     def capacity(self) -> int:
-        return self.data.rewards.shape[0]
+        return self.data.rewards.shape[-1]
+
+    @property
+    def members(self) -> int | None:
+        """``P`` for a population's stacked rings, else None."""
+        rewards = self.data.rewards
+        return rewards.shape[0] if rewards.dim() == 2 else None
 
     @property
     def visual(self) -> bool:
@@ -123,16 +133,25 @@ class BufferState:
         whose entry is missing or of another shape or dtype gets one of
         the ring's shape, the rows are copied into it, and the
         snapshot's leaf is a tensor over the first ``size`` rows of its
-        storage, so ``torch.save`` writes those rows alone. The copy is
+        storage, so ``torch.save`` writes those rows alone. A
+        population's leaf is ``(P, size, ...)``, rows ``[0, size)`` of
+        every member, in a host buffer of exactly that shape. The copy is
         complete when this returns."""
         keep = host is not None
         host = host if keep else {}
         leaves = {}
         for name, leaf in self.data.named_leaves():
+            shape = leaf.shape
+            if self.members is not None:
+                shape = (shape[0], self.size, *shape[2:])
             buf = host.get(name)
-            if buf is None or buf.shape != leaf.shape or buf.dtype != leaf.dtype:
-                buf = host[name] = torch.empty(leaf.shape, dtype=leaf.dtype,
+            if buf is None or buf.shape != shape or buf.dtype != leaf.dtype:
+                buf = host[name] = torch.empty(shape, dtype=leaf.dtype,
                                                pin_memory=keep and leaf.is_cuda)
+            if self.members is not None:
+                buf.copy_(leaf[:, :self.size], non_blocking=True)
+                leaves[name] = buf
+                continue
             buf[:self.size].copy_(leaf[:self.size], non_blocking=True)
             leaves[name] = _leading_rows(buf, self.size)
         if self.device_size.is_cuda:
@@ -164,7 +183,16 @@ class TrainState:
     place: a captured update reads it at replay time (TD3's policy delay
     is a select on it), as sampling reads ``BufferState.device_size``.
     ``target_actor`` is ``None`` for SAC, as the JAX state's
-    ``target_actor_params``."""
+    ``target_actor_params``. ``hyperparams`` holds per-run
+    hyperparameters as f32 device tensors (``(P,)`` in a population,
+    one value per member), read by the update in place of the config's
+    scalars; ``None`` (the default) uses the config.
+
+    A population's state is this class over member-stacked modules
+    (:mod:`..models.population`): every parameter, Adam moment,
+    ``log_alpha`` and hyperparameter has the member axis first; ``step``
+    and ``device_step`` are the lockstep count, and ``generator`` draws
+    every member's rows and noise in one draw."""
 
     step: int
     actor: nn.Module
@@ -177,6 +205,7 @@ class TrainState:
     generator: torch.Generator
     device_step: torch.Tensor | None = None  # 0-d int64, == step; None: made from step
     target_actor: nn.Module | None = None
+    hyperparams: t.Dict[str, torch.Tensor] | None = None
 
     def __post_init__(self):
         if self.device_step is None:
@@ -205,8 +234,9 @@ class TrainState:
         """A host snapshot of the whole state, for a checkpoint: the
         networks' state dicts (``target_actor`` only when there is one),
         each Adam's (moments and ``step`` tensor), ``log_alpha``, the
-        step count and the device step, and the generator's state (a
-        uint8 tensor) with its device type."""
+        step count and the device step, the generator's state (a
+        uint8 tensor) with its device type, and the hyperparameters when
+        there are any."""
         def host(x):
             return x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x
 
@@ -225,6 +255,8 @@ class TrainState:
             "log_alpha": host(self.log_alpha),
             "generator": self.generator.get_state(),
             "generator_device": self.generator.device.type,
+            **({} if self.hyperparams is None else
+               {"hyperparams": {k: host(v) for k, v in self.hyperparams.items()}}),
         }
 
     def load_state_dict_(self, saved: t.Mapping[str, t.Any]) -> None:
@@ -248,17 +280,26 @@ class TrainState:
         graph_key`, holds them) and the next burst captures anew. A
         snapshot of another model raises (``load_state_dict``'s
         ``RuntimeError``, or ``ValueError`` for an optimizer, or for a
-        target actor present on one side only)."""
+        target actor or hyperparameters present on one side only).
+        Hyperparameters are copied in place."""
         if ("target_actor" in saved) != (self.target_actor is not None):
             raise ValueError(
                 "learner snapshot and state disagree on a target actor (TD3 has "
                 "one, SAC none): a snapshot of another algorithm"
             )
+        saved_hp = saved.get("hyperparams")
+        if (saved_hp is None) != (self.hyperparams is None) or (
+                saved_hp is not None and saved_hp.keys() != self.hyperparams.keys()):
+            raise ValueError(
+                f"learner snapshot hyperparameters {sorted(saved_hp or ())} != the "
+                f"state's {sorted(self.hyperparams or ())}")
         for name in self.module_names():
             getattr(self, name).load_state_dict(saved[name])
         with torch.no_grad():
             self.log_alpha.copy_(saved["log_alpha"])
             self.device_step.copy_(saved.get("device_step", torch.tensor(saved["step"])))
+            for k, v in (saved_hp or {}).items():
+                self.hyperparams[k].copy_(v)
         for name in ("pi_opt", "q_opt", "alpha_opt"):
             _load_adam_(getattr(self, name), saved[name])
         if saved["generator_device"] == self.generator.device.type:
@@ -270,6 +311,37 @@ class TrainState:
                 f"{self.generator.device.type!r} and keeps its own state"
             )
         self.step = int(saved["step"])
+
+
+@dataclasses.dataclass
+class PBTState:
+    """On-device population-based-training bookkeeping (port of the JAX
+    ``PBTState``): ``return_ema`` ``(P,)`` f32, the per-member episode
+    return EMA the exploit ranks on; ``ema_count`` ``(P,)`` int32, the
+    epochs that contributed (a member with none is unranked, and exploit
+    waits until every member is ranked); ``generator``, the stream of
+    the winner picks and the explore factors (the JAX state's key)."""
+
+    return_ema: torch.Tensor
+    ema_count: torch.Tensor
+    generator: torch.Generator
+
+    @classmethod
+    def zeros(cls, members: int, generator: torch.Generator) -> "PBTState":
+        device = generator.device
+        return cls(torch.zeros(members, dtype=torch.float32, device=device),
+                   torch.zeros(members, dtype=torch.int32, device=device), generator)
+
+    def state_dict(self) -> dict:
+        return {"return_ema": self.return_ema.detach().to("cpu", copy=True),
+                "ema_count": self.ema_count.detach().to("cpu", copy=True),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict_(self, saved: t.Mapping[str, t.Any]) -> None:
+        """Restore :meth:`state_dict`'s snapshot in place."""
+        self.return_ema.copy_(saved["return_ema"])
+        self.ema_count.copy_(saved["ema_count"])
+        self.generator.set_state(saved["generator"])
 
 
 def _load_adam_(opt: torch.optim.Optimizer, saved: t.Mapping[str, t.Any]) -> None:

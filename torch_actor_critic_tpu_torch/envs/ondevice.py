@@ -1,5 +1,5 @@
 """On-device environments (port of ``envs/ondevice.py``): batched tensor
-twins of the pendulum tasks that step on the card beside the learner, so
+twins of the pendulum tasks and of the planar cheetah that step on the card beside the learner, so
 the fused loop (:mod:`..sac.ondevice`) collects, pushes and trains with
 no host env in the way.
 
@@ -25,12 +25,15 @@ Registry: the JAX names this port serves (``Pendulum-v1``,
 ``PixelPendulum-v0``, ``PixelPendulumBalance-v0``) and the port's
 no-gymnasium names for the same dynamics (``PendulumNumpy-v1``,
 ``PixelPendulum[Balance]Numpy-v0``), so a run named after a host env the
-card's machine can build is evaluated there by ``run_agent``.
+card's machine can build is evaluated there by ``run_agent``; and
+``HalfCheetah-v3/-v4/-v5`` and ``cheetah-run-jax`` for the cheetah twin
+(surrogate dynamics, see :class:`CheetahRunTorch`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import typing as t
 
@@ -38,6 +41,8 @@ import torch
 
 from torch_actor_critic_tpu_torch.core.types import MultiObservation
 from torch_actor_critic_tpu_torch.envs.pixel_pendulum import SIZE, render_rod_torch
+
+logger = logging.getLogger(__name__)
 
 
 def tree_map(fn, x):
@@ -130,6 +135,26 @@ class EnvState:
         captured acting step holds their addresses)."""
         for dst, src in zip(self.leaves(), other.leaves(), strict=True):
             dst.copy_(src)
+
+    def state_dict(self) -> dict:
+        """A host snapshot for a checkpoint: every leaf, in
+        :meth:`leaves`' order, and the reset generator's state."""
+        return {"leaves": [x.detach().to("cpu", copy=True) for x in self.leaves()],
+                "rng": None if self.rng is None else self.rng.get_state()}
+
+    def load_state_dict_(self, saved: t.Mapping[str, t.Any]) -> None:
+        """Restore :meth:`state_dict`'s snapshot in place (a captured
+        acting step holds these tensors and this generator)."""
+        leaves = self.leaves()
+        if len(leaves) != len(saved["leaves"]):
+            raise ValueError(f"env snapshot holds {len(saved['leaves'])} leaves, "
+                             f"the state {len(leaves)}")
+        for dst, src in zip(leaves, saved["leaves"]):
+            if dst.shape != src.shape:
+                raise ValueError(f"env snapshot leaf {tuple(src.shape)} != {tuple(dst.shape)}")
+            dst.copy_(src)
+        if self.rng is not None and saved["rng"] is not None:
+            self.rng.set_state(saved["rng"])
 
 
 @dataclasses.dataclass
@@ -323,6 +348,168 @@ class PixelPendulumBalanceTorch(PixelPendulumTorch):
         return _uniform_pose(n, generator, device, 0.15 * math.pi, 0.2)
 
 
+class CheetahRunTorch:
+    """Planar cheetah locomotion on the card (the JAX package's
+    ``CheetahRunJax``), interface-identical to gymnasium's
+    ``HalfCheetah``: ``qpos`` = [x, z, pitch, bthigh, bshin, bfoot,
+    fthigh, fshin, ffoot] (9), ``qvel`` the matching rates (9); obs
+    ``concat(qpos[1:], qvel)`` (17); 6 joint torques in [-1, 1]; reward
+    ``dx / dt - 0.1 ||u||^2``; dt 0.05 as 5 substeps of 0.01; never
+    terminates, truncates at 1000 steps.
+
+    The dynamics are JAX's surrogate, not MuJoCo: torque-driven
+    spring-damper joints with soft range limits, a sigmoid contact weight
+    per foot from the leg kinematics, tanh stick-slip friction, a ±25
+    velocity clip and semi-implicit Euler. Shapes and throughput carry
+    over to the real task; returns do not. ``inner`` is ``(qpos, qvel)``,
+    each ``(n, 9)``; a reset pose is ``(n, 16)``: 7 joint and pitch
+    offsets uniform in ±0.1, then 9 velocities, normals × 0.1."""
+
+    obs_dim = 17
+    act_dim = 6
+    act_limit = 1.0
+    max_episode_steps = 1000
+
+    dt = 0.05
+    n_substeps = 5
+    gravity = 9.81
+    mass = 14.0
+
+    # Per joint, [bthigh, bshin, bfoot, fthigh, fshin, ffoot] (JAX's values).
+    gear = (130.0, 100.0, 90.0, 130.0, 100.0, 70.0)
+    joint_k = 100.0
+    joint_d = 12.0
+    joint_range = (1.05, 1.1, 0.8, 1.0, 1.2, 0.9)
+
+    z_rest = 0.6
+    ground_k = 4000.0
+    ground_d = 100.0
+    friction_mu = 0.8
+    slip_v0 = 0.5
+    pitch_k = 40.0
+    pitch_d = 6.0
+
+    @classmethod
+    def sample_pose(cls, n: int, generator: torch.Generator | None, device=None) -> torch.Tensor:
+        """``(n, 16)`` reset poses: ``U(±0.1)`` offsets of ``qpos[2:]``,
+        then ``0.1 N(0, 1)`` velocities."""
+        u = torch.rand((n, 7), generator=generator, device=device)
+        v = torch.randn((n, 9), generator=generator, device=device)
+        return torch.cat([u * 0.2 - 0.1, 0.1 * v], dim=-1)
+
+    @classmethod
+    def _obs(cls, qpos, qvel):
+        return torch.cat([qpos[:, 1:], qvel], dim=-1)
+
+    @classmethod
+    def _from_pose(cls, pose: torch.Tensor) -> EnvState:
+        n = pose.shape[0]
+        head = torch.zeros((n, 2), dtype=torch.float32, device=pose.device)
+        head[:, 1] = cls.z_rest
+        qpos = torch.cat([head, pose[:, :7]], dim=-1)
+        qvel = pose[:, 7:].contiguous()
+        return EnvState(
+            inner=(qpos, qvel), obs=cls._obs(qpos, qvel),
+            step_count=torch.zeros(n, dtype=torch.int32, device=pose.device),
+            episode_return=torch.zeros(n, dtype=torch.float32, device=pose.device),
+        )
+
+    @classmethod
+    def reset(cls, n: int, generator: torch.Generator | None = None, device=None,
+              pose: torch.Tensor | None = None) -> EnvState:
+        if pose is None:
+            pose = cls.sample_pose(n, generator, device)
+        state = cls._from_pose(pose)
+        state.rng = generator
+        return state
+
+    _consts: t.ClassVar[dict] = {}  # (gear, joint_range) by device, made outside any capture
+
+    @classmethod
+    def _gear_and_range(cls, device: torch.device) -> t.Tuple[torch.Tensor, torch.Tensor]:
+        """The per-joint constants as f32 tensors on ``device``, made once
+        (a captured step must not copy from the host)."""
+        key = str(device)
+        if key not in cls._consts:
+            cls._consts[key] = tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                                     for v in (cls.gear, cls.joint_range))
+        return cls._consts[key]
+
+    @classmethod
+    def _foot_heights(cls, qpos: torch.Tensor) -> torch.Tensor:
+        """``(n, 2)`` back and front foot clearance: thigh and shin
+        flexion shorten the leg, the ankle retracts the foot."""
+        z, pitch = qpos[:, 1], qpos[:, 2]
+        bthigh, bshin, bfoot = qpos[:, 3], qpos[:, 4], qpos[:, 5]
+        fthigh, fshin, ffoot = qpos[:, 6], qpos[:, 7], qpos[:, 8]
+        h_back = (z - cls.z_rest * torch.cos(bthigh + 0.5 * bshin + 0.3 * pitch)
+                  + 0.25 * (1.0 - torch.cos(bfoot)))
+        h_front = (z - cls.z_rest * torch.cos(fthigh + 0.5 * fshin - 0.3 * pitch)
+                   + 0.25 * (1.0 - torch.cos(ffoot)))
+        return torch.stack([h_back, h_front], dim=-1)
+
+    @classmethod
+    def _substep(cls, qpos, qvel, u, h: float, gear, joint_range):
+        pitch = qpos[:, 2]
+        joints = qpos[:, 3:]
+        vx, vz, pitch_dot = qvel[:, 0], qvel[:, 1], qvel[:, 2]
+        joint_vel = qvel[:, 3:]
+
+        over = torch.clamp_min(torch.abs(joints) - joint_range, 0.0)
+        limit_torque = -300.0 * over * torch.sign(joints)
+        joint_acc = gear * u - cls.joint_k * joints - cls.joint_d * joint_vel + limit_torque
+
+        foot_h = cls._foot_heights(qpos)
+        contact = torch.sigmoid(-foot_h / 0.03)
+        penetration = torch.clamp_min(-foot_h, 0.0)
+        normal = contact * (cls.ground_k * penetration - cls.ground_d * vz[:, None])
+        normal = torch.clamp_min(normal, 0.0)
+
+        combo_vel = torch.stack([
+            joint_vel[:, 0] + 0.5 * joint_vel[:, 1] + 0.3 * pitch_dot,
+            joint_vel[:, 3] + 0.5 * joint_vel[:, 4] - 0.3 * pitch_dot,
+        ], dim=-1)
+        combo_ang = torch.stack([
+            joints[:, 0] + 0.5 * joints[:, 1] + 0.3 * pitch,
+            joints[:, 3] + 0.5 * joints[:, 4] - 0.3 * pitch,
+        ], dim=-1)
+        foot_vx = vx[:, None] + cls.z_rest * torch.cos(combo_ang) * combo_vel
+        f_x = torch.sum(-cls.friction_mu * normal * torch.tanh(foot_vx / cls.slip_v0), dim=-1)
+        acc_x = f_x / cls.mass
+        acc_z = -cls.gravity + torch.sum(normal, dim=-1) / cls.mass
+        acc_pitch = (0.08 * (cls.gear[0] * u[:, 0] + cls.gear[3] * u[:, 3])
+                     - cls.pitch_k * pitch - cls.pitch_d * pitch_dot)
+
+        acc = torch.cat([torch.stack([acc_x, acc_z, acc_pitch], dim=-1), joint_acc], dim=-1)
+        qvel = torch.clamp(acc * h + qvel, -25.0, 25.0)
+        return qpos + h * qvel, qvel  # semi-implicit Euler
+
+    @classmethod
+    def step(cls, state: EnvState, action: torch.Tensor, pose: torch.Tensor | None = None):
+        qpos, qvel = state.inner
+        u = torch.clamp(action, -cls.act_limit, cls.act_limit)
+        x_before = qpos[:, 0]
+        h = cls.dt / cls.n_substeps
+        gear, joint_range = cls._gear_and_range(u.device)
+        for _ in range(cls.n_substeps):
+            qpos, qvel = cls._substep(qpos, qvel, u, h, gear, joint_range)
+        reward = (qpos[:, 0] - x_before) / cls.dt - 0.1 * torch.sum(u**2, dim=-1)
+
+        step_count = state.step_count + 1
+        ended = step_count >= cls.max_episode_steps  # truncation only
+        stepped = EnvState(
+            inner=(qpos, qvel), obs=cls._obs(qpos, qvel), step_count=step_count,
+            episode_return=state.episode_return + reward, rng=state.rng,
+        )
+        if pose is None:
+            pose = cls.sample_pose(qpos.shape[0], state.rng, qpos.device)
+        next_state = select(ended, cls._from_pose(pose), stepped)
+        out = StepOut(next_obs=stepped.obs, reward=reward,
+                      terminated=torch.zeros_like(reward), ended=ended,
+                      final_return=stepped.episode_return)
+        return next_state, out
+
+
 ON_DEVICE_ENVS = {
     "Pendulum-v1": PendulumTorch,
     "PendulumNumpy-v1": PendulumTorch,
@@ -330,15 +517,19 @@ ON_DEVICE_ENVS = {
     "PixelPendulumNumpy-v0": PixelPendulumTorch,
     "PixelPendulumBalance-v0": PixelPendulumBalanceTorch,
     "PixelPendulumBalanceNumpy-v0": PixelPendulumBalanceTorch,
+    "HalfCheetah-v3": CheetahRunTorch,
+    "HalfCheetah-v4": CheetahRunTorch,
+    "HalfCheetah-v5": CheetahRunTorch,
+    "cheetah-run-jax": CheetahRunTorch,
 }
 
 # Twins the JAX package has and this port does not yet, by what they wait for.
-NOT_PORTED_ENVS = {
-    **dict.fromkeys(("HalfCheetah-v3", "HalfCheetah-v4", "HalfCheetah-v5", "cheetah-run-jax"),
-                    "the CheetahRun twin"),
-    **dict.fromkeys(("multi-pendulum-2", "multi-pendulum-4", "hurdle-runner",
-                     "pendulum-multitask"), "the scenario envs"),
-}
+NOT_PORTED_ENVS = dict.fromkeys(
+    ("multi-pendulum-2", "multi-pendulum-4", "hurdle-runner", "pendulum-multitask"),
+    "the scenario envs")
+
+# Names whose twin's dynamics are a surrogate of the env they answer to.
+_SURROGATE_DYNAMICS = {"HalfCheetah-v3", "HalfCheetah-v4", "HalfCheetah-v5"}
 
 
 def known_on_device_envs() -> t.List[str]:
@@ -348,13 +539,22 @@ def known_on_device_envs() -> t.List[str]:
 def get_on_device_env(name: str):
     """The twin of ``name``; None when it has none. A name whose twin the
     JAX package has and the port does not yet raises
-    ``NotImplementedError`` naming what it waits for."""
+    ``NotImplementedError`` naming what it waits for. A gymnasium
+    ``HalfCheetah`` name resolves to :class:`CheetahRunTorch` with a
+    warning: its dynamics are a surrogate, so its returns are not
+    MuJoCo's."""
     if name in NOT_PORTED_ENVS:
         raise NotImplementedError(
             f"the on-device twin of {name!r} is not ported yet ({NOT_PORTED_ENVS[name]}); "
             f"ported twins: {known_on_device_envs()}"
         )
-    return ON_DEVICE_ENVS.get(name)
+    env = ON_DEVICE_ENVS.get(name)
+    if name in _SURROGATE_DYNAMICS:
+        logger.warning(
+            "on-device env for %r uses SURROGATE dynamics (%s): throughput comparisons "
+            "are valid, return values are NOT comparable to MuJoCo %s. Use the host "
+            "loop (on_device=False) for physics-parity returns.", name, env.__name__, name)
+    return env
 
 
 def history_env(base_cls, horizon: int):

@@ -95,46 +95,53 @@ class MLP(nn.Module):
 
 class StackedDense(nn.Module):
     """``num_qs`` :class:`Dense` layers in one: ``weight (Q, out, in)``,
-    ``bias (Q, out)``, float32, the products in ``dtype``.
+    ``bias (Q, out)``, float32, the products in ``dtype``. ``num_qs``
+    may be a tuple of member axes, as a population's critic ensemble
+    ``(P, Q)`` is: ``weight (P, Q, out, in)``, one batched product over
+    all ``P·Q`` members.
 
-    ``forward`` takes a stacked ``(Q, ..., in)`` input (member ``i``'s
-    rows through member ``i``'s weights, one batched product) or one
-    shared ``(N, in)`` input that every member reads (``in_axes=None``
+    ``forward`` takes a stacked ``(*members, ..., in)`` input (member
+    ``i``'s rows through member ``i``'s weights, one batched product) or
+    one shared ``(N, in)`` input that every member reads (``in_axes=None``
     under ``vmap``: one product against all members' weights at once);
-    either returns ``(Q, ..., out)``. Uninitialised until
+    either returns ``(*members, ..., out)``. Uninitialised until
     :func:`stack_members_` fills it.
     """
 
     def __init__(
-        self, num_qs: int, in_features: int, out_features: int,
+        self, num_qs: int | t.Sequence[int], in_features: int, out_features: int,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(num_qs, out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(num_qs, out_features))
+        members = (num_qs,) if isinstance(num_qs, int) else tuple(num_qs)
+        self.weight = nn.Parameter(torch.empty(*members, out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(*members, out_features))
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        w, b = self.weight.to(dt), self.bias.to(dt)
-        q, n_out, n_in = w.shape
+        *lead, n_out, n_in = self.weight.shape
+        q = math.prod(lead)
+        w = self.weight.to(dt).reshape(q, n_out, n_in)
+        b = self.bias.to(dt).reshape(q, n_out)
         if x.dim() == 2:  # shared: (N, in) @ (in, Q*out), viewed as (Q, N, out)
             y = F.linear(x.to(dt), w.reshape(q * n_out, n_in), b.reshape(q * n_out))
-            return y.unflatten(-1, (q, n_out)).transpose(0, 1)
-        if x.shape[0] != q:
-            raise ValueError(f"stacked input {tuple(x.shape)} has no leading axis of {q}")
+            return y.unflatten(-1, (q, n_out)).transpose(0, 1).reshape(*lead, -1, n_out)
+        if list(x.shape[:len(lead)]) != lead:
+            raise ValueError(f"stacked input {tuple(x.shape)} has no leading axis (or axes) {tuple(lead)}")
         y = torch.baddbmm(b.unsqueeze(1), x.to(dt).reshape(q, -1, n_in), w.transpose(1, 2))
         return y.reshape(*x.shape[:-1], n_out)
 
 
 class StackedMLP(nn.Module):
-    """:class:`MLP` over ``num_qs`` members: ``layers`` are
-    :class:`StackedDense`; the first takes a shared ``(N, in)`` input or
-    a stacked one, the output is ``(Q, N, out)``."""
+    """:class:`MLP` over ``num_qs`` members (an int or a tuple of member
+    axes): ``layers`` are :class:`StackedDense`; the first takes a
+    shared ``(N, in)`` input or a stacked one, the output is ``(Q, N,
+    out)``."""
 
     def __init__(
         self,
-        num_qs: int,
+        num_qs: int | t.Sequence[int],
         in_features: int,
         hidden_sizes: t.Sequence[int],
         activate_final: bool = True,
@@ -153,7 +160,9 @@ class StackedMLP(nn.Module):
 
 def stack_members_(stacked: nn.Module, members: t.Sequence[nn.Module]) -> None:
     """Copy each member's parameters into slice ``i`` of ``stacked``'s
-    parameter of the same name. Every name must match both ways."""
+    parameter of the same name. Every name must match both ways. A
+    member may itself be stacked (a population stacks whole critic
+    ensembles)."""
     named = [dict(m.named_parameters()) for m in members]
     params = dict(stacked.named_parameters())
     for i, member in enumerate(named):

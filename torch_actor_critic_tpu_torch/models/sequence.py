@@ -271,28 +271,35 @@ class SequenceCritic(nn.Module):
         return q.squeeze(0) if unbatched else q
 
 
+def _members(num_qs: int | t.Sequence[int]) -> t.Tuple[int, ...]:
+    return (num_qs,) if isinstance(num_qs, int) else tuple(num_qs)
+
+
 class StackedLayerNorm(nn.Module):
     """``num_qs`` Flax LayerNorms (eps 1e-6, f32 statistics and output)
-    over a ``(Q, ..., d)`` input; ``weight``/``bias`` are ``(Q, d)``."""
+    over a ``(*members, ..., d)`` input; ``weight``/``bias`` are
+    ``(*members, d)`` (``num_qs`` an int or a tuple of member axes)."""
 
-    def __init__(self, num_qs: int, d: int):
+    def __init__(self, num_qs: int | t.Sequence[int], d: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(num_qs, d))
-        self.bias = nn.Parameter(torch.zeros(num_qs, d))
+        self.weight = nn.Parameter(torch.ones(*_members(num_qs), d))
+        self.bias = nn.Parameter(torch.zeros(*_members(num_qs), d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        lead = self.weight.shape[:-1]
+        shape = (*lead,) + (1,) * (x.dim() - len(lead) - 1) + (x.shape[-1],)
         y = F.layer_norm(x.float(), x.shape[-1:], eps=FLAX_LN_EPS)
         return torch.addcmul(self.bias.view(shape), y, self.weight.view(shape))
 
 
 class StackedMultiHeadAttention(nn.Module):
-    """:class:`MultiHeadAttention` over ``num_qs`` members: ``(Q, B, T,
-    D)`` in and out, projections :class:`StackedDense`, and ONE
-    ``attention_fn`` call on ``(Q·B, H, T, d)``."""
+    """:class:`MultiHeadAttention` over ``num_qs`` members: ``(*members,
+    B, T, D)`` in and out, projections :class:`StackedDense`, and ONE
+    ``attention_fn`` call on ``(Q·B, H, T, d)`` (a population's ``(P·Q·B,
+    H, T, d)``)."""
 
     def __init__(
-        self, num_qs: int, d_model: int, num_heads: int,
+        self, num_qs: int | t.Sequence[int], d_model: int, num_heads: int,
         attention_fn: AttentionFn = default_attention,
         dtype: torch.dtype = torch.float32,
     ):
@@ -306,23 +313,23 @@ class StackedMultiHeadAttention(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, b, s, d_model = x.shape
+        s, d_model = x.shape[-2:]
         hd = d_model // self.num_heads
 
-        def split(y):  # (Q, B, T, D) -> (Q·B, H, T, d), a view
-            return y.reshape(q * b, s, self.num_heads, hd).transpose(1, 2)
+        def split(y):  # (..., B, T, D) -> (Q·B, H, T, d), a view
+            return y.reshape(-1, s, self.num_heads, hd).transpose(1, 2)
 
         out = self.attention_fn(
             split(self.q(x)), split(self.k(x)), split(self.v(x)), causal=True
         )
-        return self.o(out.transpose(1, 2).reshape(q, b, s, d_model))
+        return self.o(out.transpose(1, 2).reshape(x.shape))
 
 
 class StackedTransformerBlock(nn.Module):
     """:class:`TransformerBlock` over ``num_qs`` members."""
 
     def __init__(
-        self, num_qs: int, d_model: int, num_heads: int, mlp_ratio: int = 4,
+        self, num_qs: int | t.Sequence[int], d_model: int, num_heads: int, mlp_ratio: int = 4,
         attention_fn: AttentionFn = default_attention,
         dtype: torch.dtype = torch.float32,
     ):
@@ -337,12 +344,13 @@ class StackedTransformerBlock(nn.Module):
 
 
 class StackedSequenceTrunk(nn.Module):
-    """:class:`SequenceTrunk` over ``num_qs`` members: a shared ``(B, T,
-    obs_dim)`` history in, ``(Q, B, T, d_model)`` out;
-    ``pos_embedding`` is ``(Q, max_len, d_model)``."""
+    """:class:`SequenceTrunk` over ``num_qs`` members (an int or a tuple
+    of member axes): a shared ``(B, T, obs_dim)`` history or a stacked
+    ``(*members, B, T, obs_dim)`` one in, ``(*members, B, T, d_model)``
+    out; ``pos_embedding`` is ``(*members, max_len, d_model)``."""
 
     def __init__(
-        self, num_qs: int, obs_dim: int, d_model: int = 128, num_heads: int = 4,
+        self, num_qs: int | t.Sequence[int], obs_dim: int, d_model: int = 128, num_heads: int = 4,
         num_layers: int = 2, max_len: int = 512,
         attention_fn: AttentionFn = default_attention,
         dtype: torch.dtype = torch.float32,
@@ -351,7 +359,7 @@ class StackedSequenceTrunk(nn.Module):
         self.max_len = max_len
         self.dtype = dtype
         self.embed = StackedDense(num_qs, obs_dim, d_model, dtype=dtype)
-        self.pos_embedding = nn.Parameter(torch.empty(num_qs, max_len, d_model))
+        self.pos_embedding = nn.Parameter(torch.empty(*_members(num_qs), max_len, d_model))
         self.blocks = nn.ModuleList(
             StackedTransformerBlock(
                 num_qs, d_model, num_heads, attention_fn=attention_fn, dtype=dtype,
@@ -361,14 +369,17 @@ class StackedSequenceTrunk(nn.Module):
         self.ln_f = StackedLayerNorm(num_qs, d_model)
 
     def forward(self, obs_seq: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
-        b, s, obs_dim = obs_seq.shape
+        b, s, obs_dim = obs_seq.shape[-3:]
         if pos_offset + s > self.max_len:
             raise ValueError(
                 f"history length {s} (offset {pos_offset}) exceeds "
                 f"max_len={self.max_len}"
             )
-        x = self.embed(obs_seq.reshape(b * s, obs_dim)).unflatten(1, (b, s))
-        pos = self.pos_embedding[:, None, pos_offset:pos_offset + s]
+        if obs_seq.dim() == 3:  # shared by every member
+            x = self.embed(obs_seq.reshape(b * s, obs_dim)).unflatten(-2, (b, s))
+        else:
+            x = self.embed(obs_seq)
+        pos = self.pos_embedding[..., pos_offset:pos_offset + s, :].unsqueeze(-3)
         # Added in f32, then cast, as SequenceTrunk does.
         x = (x + pos).to(self.dtype)
         for block in self.blocks:

@@ -14,6 +14,13 @@ the acting generator, so two invocations print the same line.
 ``--headless`` is accepted and has no effect (the port does not
 render). Runs on the card unless ``--device cpu`` is given; without a
 card and without that flag it exits non-zero.
+
+A population run (``--population`` > 1) is evaluated one member at a
+time: ``--member i`` (default: the best by the checkpoint's PBT return
+EMA, member 0 without one) is exported beside the run
+(:func:`~.utils.checkpoint.export_member_checkpoint`, under
+``artifacts/member_<i>``, which the serving CLI serves too) and
+evaluated from there; the JSON line names it as ``member``.
 """
 
 from __future__ import annotations
@@ -44,13 +51,20 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument(
         "--device", default=None, help="cuda (default; fails without a card) or cpu"
     )
+    parser.add_argument(
+        "--member", type=int, default=None,
+        help="A population run's member to evaluate (default: the best by its return EMA)",
+    )
     parser.set_defaults(deterministic=True)
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     from torch_actor_critic_tpu_torch.sac.trainer import Trainer
-    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+    from torch_actor_critic_tpu_torch.utils.checkpoint import (
+        Checkpointer,
+        export_member_checkpoint,
+    )
     from torch_actor_critic_tpu_torch.utils.tracking import Tracker
 
     logging.basicConfig(level=logging.INFO)
@@ -59,8 +73,17 @@ def main(argv=None) -> dict:
     params = tracker.params()
     env_name = params.get("environment", "Humanoid-v5")  # the JAX CLI's fallback
     config = SACConfig.from_json(json.dumps(params.get("config", {})))
+    ckpt_dir, member = tracker.artifact_path("checkpoints"), None
+    if config.population > 1:
+        probe = Checkpointer(ckpt_dir).peek_meta()
+        ema = (probe.get("pbt") or {}).get("return_ema")
+        member = args.member if args.member is not None else (
+            max(range(len(ema)), key=ema.__getitem__) if ema else 0)
+        export = tracker.artifact_path(f"member_{member}")
+        export_member_checkpoint(ckpt_dir, export, member=member)
+        ckpt_dir, config = export, config.replace(population=1, pbt_every=0)
     trainer = Trainer(
-        env_name, config, checkpointer=Checkpointer(tracker.artifact_path("checkpoints")),
+        env_name, config, checkpointer=Checkpointer(ckpt_dir),
         seed=params.get("seed", 0), device=args.device,
     )
     try:
@@ -71,6 +94,8 @@ def main(argv=None) -> dict:
         )
     finally:
         trainer.close()
+    if member is not None:
+        metrics["member"] = member
     print(json.dumps(metrics), flush=True)
     return metrics
 

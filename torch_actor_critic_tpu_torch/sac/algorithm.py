@@ -28,7 +28,12 @@ and decoded by the kernel K1); with the reference pipeline and
 ``frame_augment="shift"`` the update shifts the sampled uint8 frames
 itself (:func:`~..ops.augment.augment_batch`).
 
-``dynamic_lr_step`` and the PBT hyperparameters are not ported;
+A state may carry per-run hyperparameters (``TrainState.hyperparams``,
+:meth:`SAC.default_hyperparams`: the two learning rates and the live
+temperature knob) as device tensors that override the config's scalars
+in the update; a population's are ``(P,)``, one value per member. With
+them the Adam steps of actor and critic take their rate from a tensor
+(:func:`dynamic_lr_step`), so one captured update serves every rate.
 ``diagnostics != "off"`` raises.
 """
 
@@ -78,6 +83,49 @@ def _set_grads(params: t.Sequence[torch.Tensor], grads: t.Sequence[torch.Tensor]
     their per-tensor path on the card."""
     for p, g in zip(params, grads):
         p.grad = g if g.stride() == p.stride() else torch.empty_like(p).copy_(g)
+
+
+@torch.no_grad()
+def dynamic_lr_step(opt: torch.optim.Adam, lr: torch.Tensor | None) -> None:
+    """One step of ``opt`` (an Adam) at the rate ``lr``, a device tensor:
+    0-d for one learner, ``(P,)`` for a member-stacked one (each
+    parameter's leading axis is the member axis; the rate broadcasts per
+    member). ``lr=None`` is ``opt.step()`` at the configured rate.
+
+    The JAX package's ``dynamic_lr_step`` replays optax's adam with a
+    traced rate. ``torch.optim.Adam`` takes one rate per parameter group
+    (a capturable one, at most a one-element tensor), so this repeats
+    capturable Adam's arithmetic over the optimizer's own state (created
+    as Adam's first step would, the step count on the parameter's
+    device): ``step += 1``, ``m = lerp(m, g, 1 - b1)``, ``v = b2 v + (1 -
+    b2) g²``, then ``p -= lr / (1 - b1^step) · m / (sqrt(v) / sqrt(1 -
+    b2^step) + eps)``, each on the device, so a CUDA graph holds it and a
+    restored or exploited state is read in place. At the configured rate
+    it equals ``opt.step()`` to float rounding, not bitwise: the rate and
+    the bias corrections are f32 tensors here, host doubles in
+    ``torch.optim.Adam``'s non-capturable step."""
+    if lr is None:
+        _step(opt)
+        return
+    for group in opt.param_groups:
+        b1, b2 = group["betas"]
+        eps = group["eps"]
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            st = opt.state[p]
+            if not st:
+                st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            step, m, v = st["step"], st["exp_avg"], st["exp_avg_sq"]
+            step.add_(1)
+            m.lerp_(p.grad, 1 - b1)
+            v.mul_(b2).addcmul_(p.grad, p.grad, value=1 - b2)
+            rate = lr.reshape(lr.shape + (1,) * (p.dim() - lr.dim()))
+            step_size = rate / (1 - b1 ** step)
+            denom = (v.sqrt() / (1 - b2 ** step).sqrt()).add_(eps)
+            p.sub_(step_size * (m / denom))
 
 
 def make_adam(params, lr: float, device: torch.device) -> torch.optim.Adam:
@@ -175,6 +223,20 @@ class SAC(Learner):
         """``eps`` ``(2, B, act_dim)``: ``(eps_q, eps_pi)``."""
         return {"eps_q": eps[0], "eps_pi": eps[1]}
 
+    def default_hyperparams(self, device=None) -> t.Dict[str, torch.Tensor]:
+        """The PBT-perturbable hyperparameters at their configured values,
+        f32 0-d tensors on ``device``: ``actor_lr``, ``critic_lr``, and
+        ``target_entropy`` when the temperature is learned, ``alpha`` when
+        it is fixed. In ``TrainState.hyperparams`` they override the
+        config's scalars in :meth:`update`."""
+        cfg = self.config
+        hp = {"actor_lr": cfg.lr, "critic_lr": cfg.lr}
+        if cfg.learn_alpha:
+            hp["target_entropy"] = self.target_entropy
+        else:
+            hp["alpha"] = cfg.alpha
+        return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in hp.items()}
+
     def init_state(
         self, actor: nn.Module, critic: nn.Module, generator: torch.Generator
     ) -> TrainState:
@@ -234,7 +296,8 @@ class SAC(Learner):
             eps_pi = torch.randn(
                 batch.actions.shape, generator=gen, device=batch.actions.device
             )
-        alpha = state.log_alpha.detach().exp() if cfg.learn_alpha else cfg.alpha
+        hp = state.hyperparams or {}
+        alpha = state.log_alpha.detach().exp() if cfg.learn_alpha else hp.get("alpha", cfg.alpha)
 
         # --- critic step ---
         q_params = list(state.critic.parameters())
@@ -244,7 +307,7 @@ class SAC(Learner):
             reward_scale=cfg.reward_scale, eps=eps_q,
         )
         _set_grads(q_params, torch.autograd.grad(loss_q, q_params))
-        _step(state.q_opt)
+        dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
 
         # --- actor step, on the updated critic (frozen: grads w.r.t. the
         # actor's parameters only) ---
@@ -258,19 +321,22 @@ class SAC(Learner):
             _set_grads(pi_params, torch.autograd.grad(loss_pi, pi_params))
         finally:
             state.critic.requires_grad_(True)
-        _step(state.pi_opt)
+        dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))
 
         # --- entropy temperature ---
         if cfg.learn_alpha:
             (a_grad,) = torch.autograd.grad(
                 losses.alpha_loss(
-                    state.log_alpha, pi_aux["logp_pi"], self.target_entropy
+                    state.log_alpha, pi_aux["logp_pi"],
+                    hp.get("target_entropy", self.target_entropy),
                 ),
                 [state.log_alpha],
             )
             state.log_alpha.grad = a_grad
             _step(state.alpha_opt)
             alpha_metric = state.log_alpha.detach().exp()
+        elif "alpha" in hp:
+            alpha_metric = hp["alpha"].clone()
         else:
             alpha_metric = torch.full((), cfg.alpha, device=batch.rewards.device)
 
@@ -293,8 +359,8 @@ def graph_key(state: TrainState, buffer_state: BufferState) -> tuple:
     """What a captured update reads and writes, compared by identity
     (:meth:`~.graph.BurstGraph.serves`): the state and its modules (the
     target actor too, for TD3), optimizers, ``log_alpha``, device step
-    and generator; every parameter, module buffer and Adam state tensor;
-    the ring's leaves and device size. A
+    and generator; every parameter, module buffer, Adam state tensor and
+    hyperparameter; the ring's leaves and device size. A
     restore that copies into those tensors
     (:meth:`~..core.types.TrainState.load_state_dict_`,
     :func:`~..buffer.replay.load_buffer_`) keeps the graph; one that
@@ -304,6 +370,7 @@ def graph_key(state: TrainState, buffer_state: BufferState) -> tuple:
     opts = (state.pi_opt, state.q_opt, state.alpha_opt)
     return (
         state, *modules, *opts, state.log_alpha, state.device_step, state.generator,
+        *(state.hyperparams or {}).values(),
         buffer_state.data, buffer_state.device_size, *buffer_state.data.leaves(),
         *(x for m in modules for x in (*m.parameters(), *m.buffers())),
         *(x for opt in opts for st in opt.state.values() for x in st.values()),

@@ -1,0 +1,154 @@
+"""SAC over a population: ``P`` members' learners in one member-stacked
+state, one update for all of them (the learner half of the JAX package's
+``PopulationOnDeviceLoop``, which ``vmap`` s SAC's update over the member
+axis).
+
+The models are :mod:`..models.population`'s, every tensor with the
+member axis first; the burst, its CUDA graph and the replay sampling are
+the solo learner's (:meth:`~.algorithm.Learner.update_burst`; a member
+ring's batch is ``(P, B, ...)``, member ``i``'s rows from its own ring).
+Each member's losses are its own: ``loss_q``, ``loss_pi`` and the
+temperature loss are ``(P,)``, and the gradient is taken of their SUM,
+so member ``i``'s gradient is exactly its own loss's (a mean over
+members would scale every member's gradient by ``1/P``). Adam is
+elementwise, so one Adam over the stacked parameters is ``P`` members'
+Adams; with per-member learning rates (``TrainState.hyperparams``, each
+``(P,)``) the steps go through :func:`~.algorithm.dynamic_lr_step`. The
+update's metrics are ``(P,)`` each.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+import typing as t
+
+import torch
+from torch import nn
+
+from torch_actor_critic_tpu_torch.core.types import Batch, TrainState
+from torch_actor_critic_tpu_torch.ops.polyak import polyak_update_
+from torch_actor_critic_tpu_torch.sac.algorithm import (
+    SAC,
+    Metrics,
+    _set_grads,
+    _step,
+    dynamic_lr_step,
+    make_adam,
+)
+
+
+class PopulationSAC(SAC):
+    """SAC for ``members`` learners over member-stacked models: an actor
+    ``actor(obs (P, B, ...)) -> ((P, B, act), (P, B))`` and a critic
+    ensemble ``critic(obs, action) -> (P, num_qs, B)``."""
+
+    def __init__(self, config, act_dim: int, members: int):
+        if config.algorithm != "sac":
+            raise NotImplementedError("the TD3 population is not ported yet; train SAC members")
+        super().__init__(config, act_dim)
+        self.members = int(members)
+
+    def init_state(self, actor: nn.Module, critic: nn.Module,
+                   generator: torch.Generator) -> TrainState:
+        """:meth:`SAC.init_state` over stacked modules, with ``log_alpha``
+        ``(P,)``."""
+        device = next(critic.parameters()).device
+        log_alpha = torch.full((self.members,), math.log(self.config.alpha),
+                               dtype=torch.float32, device=device, requires_grad=True)
+        lr = self.config.lr
+        return TrainState(
+            step=0, actor=actor, critic=critic,
+            target_critic=copy.deepcopy(critic).requires_grad_(False),
+            pi_opt=make_adam(actor.parameters(), lr, device),
+            q_opt=make_adam(critic.parameters(), lr, device),
+            log_alpha=log_alpha, alpha_opt=make_adam([log_alpha], lr, device),
+            generator=generator,
+        )
+
+    def update(
+        self,
+        state: TrainState,
+        batch: Batch,
+        eps_q: torch.Tensor | None = None,
+        eps_pi: torch.Tensor | None = None,
+    ) -> t.Tuple[TrainState, Metrics]:
+        """One gradient step of every member, in SAC's order (critic,
+        actor on the updated critic, temperature, polyak). The batch is
+        ``(P, B, ...)``; ``eps_q``/``eps_pi`` ``(P, B, act_dim)`` default
+        to one draw each from ``state.generator``."""
+        cfg = self.config
+        gen = state.generator
+        shape, device = batch.actions.shape, batch.actions.device
+        if eps_q is None:
+            eps_q = torch.randn(shape, generator=gen, device=device)
+        if eps_pi is None:
+            eps_pi = torch.randn(shape, generator=gen, device=device)
+        hp = state.hyperparams or {}
+        if cfg.learn_alpha:
+            alpha = state.log_alpha.detach().exp()[:, None]
+        else:
+            alpha = hp["alpha"][:, None] if "alpha" in hp else cfg.alpha
+
+        # --- critic step: each member's sum_i mean((Q_i - backup)^2) ---
+        with torch.no_grad():
+            next_action, next_logp = state.actor(batch.next_states, eps=eps_q)
+            q_target = state.target_critic(batch.next_states, next_action)  # (P, Q, B)
+            backup = cfg.reward_scale * batch.rewards + cfg.gamma * (1.0 - batch.done) * (
+                q_target.amin(dim=1) - alpha * next_logp)
+        q_params = list(state.critic.parameters())
+        q = state.critic(batch.states, batch.actions)
+        loss_q = ((q - backup[:, None, :]) ** 2).mean(dim=-1).sum(dim=-1)  # (P,)
+        _set_grads(q_params, torch.autograd.grad(loss_q.sum(), q_params))
+        dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
+
+        # --- actor step on the updated critic (frozen) ---
+        pi_params = list(state.actor.parameters())
+        pi_obs = batch.next_states if cfg.parity_pi_obs else batch.states
+        state.critic.requires_grad_(False)
+        try:
+            pi, logp_pi = state.actor(pi_obs, eps=eps_pi)
+            q_pi = state.critic(batch.states, pi).amin(dim=1)
+            loss_pi = (alpha * logp_pi - q_pi).mean(dim=-1)  # (P,)
+            _set_grads(pi_params, torch.autograd.grad(loss_pi.sum(), pi_params))
+        finally:
+            state.critic.requires_grad_(True)
+        dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))
+        logp = logp_pi.detach().mean(dim=-1)
+
+        # --- entropy temperature ---
+        if cfg.learn_alpha:
+            target_entropy = hp.get("target_entropy", self.target_entropy)
+            loss_alpha = -state.log_alpha * (logp + target_entropy)
+            (a_grad,) = torch.autograd.grad(loss_alpha.sum(), [state.log_alpha])
+            state.log_alpha.grad = a_grad
+            _step(state.alpha_opt)
+            alpha_metric = state.log_alpha.detach().exp()
+        elif "alpha" in hp:
+            alpha_metric = hp["alpha"].clone()
+        else:
+            alpha_metric = torch.full((self.members,), cfg.alpha, device=device)
+
+        polyak_update_(state.critic.parameters(), state.target_critic.parameters(),
+                       cfg.polyak)
+        state.device_step.add_(1)
+        state.step += 1
+        metrics = {
+            "loss_q": loss_q.detach(), "loss_pi": loss_pi.detach(), "alpha": alpha_metric,
+            "q_mean": q.detach().mean(dim=(1, 2)), "backup_mean": backup.mean(dim=-1),
+            "logp_pi": logp, "entropy": -logp,
+        }
+        return state, metrics
+
+
+def member_tensors(state: TrainState) -> t.Iterator[torch.Tensor]:
+    """Every tensor of a population state with the member axis first:
+    the networks' parameters and buffers, each Adam's moments, and
+    ``log_alpha`` (the Adam step counts are the lockstep 0-d ones)."""
+    for module in state.modules():
+        yield from module.parameters()
+        yield from module.buffers()
+    for opt in (state.pi_opt, state.q_opt, state.alpha_opt):
+        for st in opt.state.values():
+            yield from (v for v in st.values() if v.dim() > 0)
+    yield state.log_alpha

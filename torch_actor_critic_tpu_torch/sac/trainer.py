@@ -112,17 +112,45 @@ NOT_PORTED = (
 )
 
 
-def check_ported(config: SACConfig) -> None:
+# What the fused population (sac/ondevice.py) ports of NOT_PORTED.
+POPULATION_FIELDS = ("population", "pbt_every")
+
+
+def check_ported(config: SACConfig, allow: t.Sequence[str] = ()) -> None:
     """Raise ``NotImplementedError`` naming the first non-default field
-    of :data:`NOT_PORTED`."""
+    of :data:`NOT_PORTED` not in ``allow`` (the fused population's
+    entry point allows :data:`POPULATION_FIELDS`)."""
     defaults = SACConfig()
     for name in NOT_PORTED:
         value = getattr(config, name)
-        if value != getattr(defaults, name):
+        if name in allow or value == getattr(defaults, name):
+            continue
+        if name in POPULATION_FIELDS:
             raise NotImplementedError(
-                f"SACConfig.{name}={value!r} is not ported yet (default "
-                f"{getattr(defaults, name)!r})"
+                f"SACConfig.{name}={value!r}: the host-loop population (PopulationLearner "
+                "with PerMemberNormalizer) is not ported yet; the fused population runs "
+                "with on_device=True (--on-device true)"
             )
+        raise NotImplementedError(
+            f"SACConfig.{name}={value!r} is not ported yet (default "
+            f"{getattr(defaults, name)!r})"
+        )
+
+
+def save_metrics(checkpointer, t_save: float, saved: bool) -> dict:
+    """An epoch's checkpoint seconds, from ``t_save`` (``perf_counter``
+    before the save): ``save_s``, the training thread's time in ``save``
+    less its wait for the write before (the host copies; before saves
+    were asynchronous, ``save_s`` included the write);
+    ``save_wait_s``, that wait for the background write; and
+    ``save_write_s``, the newest finished write's seconds (absent until
+    one has finished)."""
+    wait = checkpointer.last_wait_s if saved else 0.0
+    out = {"save_s": round(time.perf_counter() - t_save - wait, 4),
+           "save_wait_s": round(wait, 4)}
+    if checkpointer.last_write_s is not None:
+        out["save_write_s"] = round(checkpointer.last_write_s, 4)
+    return out
 
 
 def make_learner(config: SACConfig, act_dim: int) -> Learner:
@@ -442,12 +470,10 @@ class Trainer:
             ):
                 self._save_checkpoint(e, step)
                 saved_this_epoch = True
-            # save_s: the training thread's time in save (the host copies,
-            # and the wait for the write before); the write itself runs in
-            # the background, and save_write_s is the newest finished one's
-            last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
-            if self.checkpointer is not None and self.checkpointer.last_write_s is not None:
-                last_metrics["save_write_s"] = round(self.checkpointer.last_write_s, 4)
+            if self.checkpointer is not None:
+                last_metrics.update(save_metrics(self.checkpointer, t_save, saved_this_epoch))
+            else:
+                last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
             if self.tracker is not None:
                 self.tracker.log_metrics(last_metrics, e)
             if on_epoch is not None:

@@ -24,8 +24,11 @@ eager loop runs the same select: no host branch reads the step.
 ``pi_opt``'s state is created at init (zeros, step 0: what Adam's lazy
 init would make), so the pre-step copies the select reads exist from the
 first update on; they are allocated inside each update (from a captured
-graph's pool on replays). ``dynamic_lr_step`` and the PBT
-hyperparameters are not ported; ``diagnostics != "off"`` raises.
+graph's pool on replays). A state's ``hyperparams``
+(:meth:`TD3.default_hyperparams`: the two learning rates and the
+smoothing noise ``target_noise``) override the config's scalars, the
+rates through :func:`~..sac.algorithm.dynamic_lr_step`; the TD3
+population is not ported. ``diagnostics != "off"`` raises.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from torch_actor_critic_tpu_torch.sac.algorithm import (
     Learner,
     Metrics,
     _set_grads,
-    _step,
+    dynamic_lr_step,
     make_adam,
 )
 from torch_actor_critic_tpu_torch.td3 import losses
@@ -76,6 +79,14 @@ class TD3(Learner):
     def burst_noise(self, eps: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         """``eps`` ``(B, act_dim)``: the update's smoothing noise."""
         return {"eps_q": eps}
+
+    def default_hyperparams(self, device=None) -> t.Dict[str, torch.Tensor]:
+        """The PBT-perturbable hyperparameters at their configured values,
+        f32 0-d tensors on ``device``: the two learning rates and the
+        target-policy smoothing noise ``target_noise``."""
+        cfg = self.config
+        hp = {"actor_lr": cfg.lr, "critic_lr": cfg.lr, "target_noise": cfg.target_noise}
+        return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in hp.items()}
 
     def init_state(
         self, actor: nn.Module, critic: nn.Module, generator: torch.Generator
@@ -123,15 +134,16 @@ class TD3(Learner):
             batch = augment_batch(batch, cfg.frame_augment, cfg.augment_pad, generator=gen)
 
         # --- critic step (every update) ---
+        hp = state.hyperparams or {}
         q_params = list(state.critic.parameters())
         loss_q, q_aux = losses.critic_loss(
             state.critic, target_actor=state.target_actor,
             target_critic=state.target_critic, batch=batch, act_limit=act_limit,
-            target_noise=cfg.target_noise, noise_clip=cfg.noise_clip,
+            target_noise=hp.get("target_noise", cfg.target_noise), noise_clip=cfg.noise_clip,
             gamma=cfg.gamma, reward_scale=cfg.reward_scale, eps=eps_q,
         )
         _set_grads(q_params, torch.autograd.grad(loss_q, q_params))
-        _step(state.q_opt)
+        dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
 
         # --- candidate actor step, on the updated critic (frozen) ---
         do_pi = (state.device_step + 1) % cfg.policy_delay == 0
@@ -146,7 +158,7 @@ class TD3(Learner):
             _set_grads(pi_params, torch.autograd.grad(loss_pi, pi_params))
         finally:
             state.critic.requires_grad_(True)
-        _step(state.pi_opt)
+        dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))
 
         # --- the select, then both targets under it ---
         select_(do_pi, held, before, out=held)

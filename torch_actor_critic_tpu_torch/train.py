@@ -23,6 +23,11 @@
     python -m torch_actor_critic_tpu_torch.train --on-device true \
         --environment Pendulum-v1 --history-len 8 [--on-device-envs 16] [--utd 1]
 
+    # a fused population of 32 SAC members with on-device PBT (the
+    # cheetah twin; --history-len 8 on Pendulum-v1 trains the sequence stack)
+    python -m torch_actor_critic_tpu_torch.train --on-device true \
+        --environment HalfCheetah-v5 --population 32 --pbt-every 5 --pbt-quantile 0.25
+
 Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
 true``, ...), built by the JAX CLI's loop. ``--run <id>`` takes the
 config, environment and seed from the run's stored params (the flags
@@ -49,8 +54,13 @@ JAX CLI does, for an env with an on-device twin (``Pendulum-v1``,
 ``PixelPendulum[Balance]-v0`` and the port's ``...Numpy`` names for
 them); another env raises, naming the twins. There the preemption guard
 is not installed and ``--eval-episodes`` is ignored (as in JAX);
-``run_agent`` evaluates the run on the host env. ``--population`` > 1,
-the scenario envs and ``--devices`` > 1 raise ``NotImplementedError``.
+``run_agent`` evaluates the run on the host env. With ``--population N``
+> 1 it routes to the fused population
+(:func:`~.sac.ondevice.train_population_on_device`, per-member metrics
+``loss_q_m0``, ... and, with ``--pbt-every K``, an on-device PBT step
+every K epochs); ``run_agent`` evaluates one member of it. The visual
+and TD3 populations, ``--population`` > 1 without ``--on-device``, the
+scenario envs and ``--devices`` > 1 raise ``NotImplementedError``.
 
 Not ported: ``--devices`` > 1, ``--fsdp``, the profile and trace flags,
 ``--render``.
@@ -207,14 +217,20 @@ def report(epoch: int, metrics: dict) -> None:
 
 
 def train_on_device_cli(args: argparse.Namespace, setup) -> dict:
-    """The ``--on-device true`` path: the fused loop on the run's twin
-    (``setup`` is :func:`run_setup`'s result); prints one JSON line per
-    epoch and the final line."""
-    from torch_actor_critic_tpu_torch.sac.ondevice import train_on_device
+    """The ``--on-device true`` path: the fused loop on the run's twin,
+    or with ``--population`` > 1 the fused population (``setup`` is
+    :func:`run_setup`'s result); prints one JSON line per epoch and the
+    final line."""
+    from torch_actor_critic_tpu_torch.sac.ondevice import (
+        train_on_device,
+        train_population_on_device,
+    )
 
     config, env_name, seed, tracker, checkpointer = setup
-    logger.info("on-device training: %s (run %s)", env_name, tracker.run_id)
-    metrics = train_on_device(
+    logger.info("on-device training: %s (run %s, population %d)", env_name, tracker.run_id,
+                config.population)
+    train_fn = train_population_on_device if config.population > 1 else train_on_device
+    metrics = train_fn(
         env_name, config, tracker=tracker if args.logging else None,
         checkpointer=checkpointer, seed=seed, device=args.device, on_epoch=report,
     )

@@ -11,6 +11,9 @@ port keeps its own layout, one directory per epoch::
                                 # count and the learner generator's state
     <dir>/epoch_<N>/buffer.pt   # BufferState.state_dict(): ring rows [0, size),
                                 # ptr, size (absent with save_buffer=False)
+    <dir>/epoch_<N>/arrays.pt   # save(arrays=): a population's env states,
+                                # acting generator and PBT state (absent
+                                # without them)
     <dir>/epoch_<N>/meta.json   # {"epoch", "ckpt_format", "buffer" (whether
                                 # buffer.pt was written), and the trainer's
                                 # extra: "step", "config", "normalizer",
@@ -33,7 +36,12 @@ leaf, so a large ring costs no new host allocation per save.
 first; a write that fails after the retries raises out of the next
 ``save`` or ``wait``. ``save_buffer=False`` writes no ``buffer.pt``: a
 restore then leaves the live ring as it is (empty in a new process), as
-in JAX.
+in JAX. ``save(arrays=)`` and ``restore(abstract_arrays=)`` carry the
+rest of a run's state, as JAX's do: each named object (an env state
+batch, a :class:`~..core.types.PBTState`, or a ``torch.Generator``) is
+snapshotted by its ``state_dict()`` (a generator by ``get_state()``) and
+restored in place. :func:`export_member_checkpoint` writes one member
+of a population checkpoint as a standalone learner's.
 :meth:`Checkpointer.restore` writes into the live state in place
 (:meth:`~..core.types.TrainState.load_state_dict_`,
 :func:`~..buffer.replay.load_buffer_`): a captured burst's CUDA graph
@@ -70,8 +78,8 @@ from torch_actor_critic_tpu_torch.resilience.retry import call_with_retries
 logger = logging.getLogger(__name__)
 
 __all__ = [
-    "CKPT_FORMAT", "CheckpointFormatError", "Checkpointer", "save_actor",
-    "latest_epoch", "restore_actor_params",
+    "CKPT_FORMAT", "CheckpointFormatError", "Checkpointer", "export_member_checkpoint",
+    "save_actor", "latest_epoch", "restore_actor_params",
 ]
 
 # The full-state layout's version, bumped on any change to state.pt's or
@@ -107,6 +115,19 @@ def _write_meta(out: Path, meta: dict) -> None:
 
 def _load(path: Path):
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _snapshot(obj) -> t.Any:
+    """A host snapshot of a named array object: a generator's state, or
+    the object's ``state_dict()``."""
+    return obj.get_state() if isinstance(obj, torch.Generator) else obj.state_dict()
+
+
+def _restore_(obj, saved) -> None:
+    if isinstance(obj, torch.Generator):
+        obj.set_state(saved)
+    else:
+        obj.load_state_dict_(saved)
 
 
 def _host_copy(state: t.Mapping[str, torch.Tensor]) -> dict:
@@ -216,6 +237,8 @@ class Checkpointer:
         # Seconds the newest finished write took (files, meta and the
         # pruning of old epochs), off the training thread unless ``wait``.
         self.last_write_s: float | None = None
+        # Seconds the newest save blocked on the write before it.
+        self.last_wait_s: float = 0.0
 
     def _retry(self, fn, what: str):
         return call_with_retries(
@@ -232,20 +255,27 @@ class Checkpointer:
         buffer: BufferState | None = None,
         extra: t.Mapping[str, t.Any] | None = None,
         wait: bool = False,
+        arrays: t.Mapping[str, t.Any] | None = None,
     ) -> Path:
         """Write ``epoch``'s full state (and the ring, when given and
-        ``save_buffer``), meta last; then drop the epochs beyond
-        :data:`MAX_TO_KEEP`. Returns the epoch dir.
+        ``save_buffer``; and ``arrays``, named objects with a
+        ``state_dict()`` or generators), meta last; then drop the epochs
+        beyond :data:`MAX_TO_KEEP`. Returns the epoch dir.
 
-        First waits for the save in flight (raising its error). The host
-        copies are complete when this returns; the files are written by
-        a background writer unless ``wait``, which writes them here and
-        raises a failed write's error."""
+        First waits for the save in flight (raising its error; the wait's
+        seconds are :attr:`last_wait_s`). The host copies are complete
+        when this returns; the files are written by a background writer
+        unless ``wait``, which writes them here and raises a failed
+        write's error."""
+        t0 = time.perf_counter()
         self.wait()
+        self.last_wait_s = time.perf_counter() - t0
         files = {"actor.pt": _host_copy(state.actor.state_dict()),
                  "state.pt": state.state_dict()}
         if buffer is not None and self.save_buffer:
             files["buffer.pt"] = buffer.state_dict(host=self._host_ring)
+        if arrays is not None:
+            files["arrays.pt"] = {k: _snapshot(v) for k, v in arrays.items()}
         meta = dict(extra or {}, epoch=int(epoch), ckpt_format=CKPT_FORMAT,
                     buffer="buffer.pt" in files)
         out = _epoch_dir(self.directory, epoch)
@@ -320,9 +350,11 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         return dict(self._meta(epoch), epoch=int(epoch))
 
-    def _read(self, epoch: int, include_buffer: bool) -> t.Tuple[dict, dict | None, dict]:
+    def _read(self, epoch: int, include_buffer: bool,
+              include_arrays: bool = False) -> t.Tuple[dict, dict | None, dict]:
         """``(state dict, ring dict or None, meta)`` of ``epoch``, all on
-        the host; nothing is applied."""
+        the host (with ``include_arrays``, ``arrays.pt`` under the meta's
+        ``_arrays``); nothing is applied."""
         meta = self.peek_meta(epoch)
         found = meta.get("ckpt_format")
         if found != CKPT_FORMAT:
@@ -338,6 +370,10 @@ class Checkpointer:
         if include_buffer and meta.get("buffer", True):
             buffer = self._retry(lambda: self._read_file(out / "buffer.pt"),
                                  what=f"replay restore (epoch {epoch})")
+        if include_arrays:
+            arrays = self._retry(lambda: self._read_file(out / "arrays.pt"),
+                                 what=f"arrays restore (epoch {epoch})")
+            meta = dict(meta, _arrays=arrays)
         return state, buffer, meta
 
     def restore(
@@ -345,13 +381,17 @@ class Checkpointer:
         state: TrainState,
         buffer: BufferState | None = None,
         epoch: int | None = None,
-    ) -> t.Tuple[TrainState, BufferState | None, dict]:
+        abstract_arrays: t.Mapping[str, t.Any] | None = None,
+    ) -> tuple:
         """Restore ``(state, buffer, meta)`` in place: the networks,
         target, Adam states, ``log_alpha``, step count and generator of
         ``state`` (:meth:`~..core.types.TrainState.load_state_dict_`),
         and, when ``buffer`` is given and the epoch holds a ring, the ring
         (:func:`~..buffer.replay.load_buffer_`; an epoch saved with
-        ``save_buffer=False`` leaves ``buffer`` as it is).
+        ``save_buffer=False`` leaves ``buffer`` as it is). With
+        ``abstract_arrays`` (the live objects :meth:`save`'s ``arrays``
+        named), each is restored in place too and the result is a
+        4-tuple ending with them.
 
         ``epoch=None`` takes the newest epoch, falling back past one
         whose meta or files fail to read (a save cut short): losing one
@@ -359,13 +399,14 @@ class Checkpointer:
         never falls back. Every file is read before anything is
         written, so a failed read leaves the live state untouched."""
         include_buffer = buffer is not None
+        include_arrays = abstract_arrays is not None
         if epoch is not None:
-            saved = self._read(epoch, include_buffer)
+            saved = self._read(epoch, include_buffer, include_arrays)
         else:
             saved, last_err = None, None
             for candidate in _valid_epochs(self.directory, self._meta):
                 try:
-                    saved = self._read(candidate, include_buffer)
+                    saved = self._read(candidate, include_buffer, include_arrays)
                     break
                 except CheckpointFormatError:
                     raise
@@ -382,10 +423,18 @@ class Checkpointer:
                     raise last_err
                 raise FileNotFoundError(f"no checkpoints under {self.directory}")
         saved_state, saved_buffer, meta = saved
+        saved_arrays = meta.pop("_arrays", None)
+        if include_arrays and set(saved_arrays) != set(abstract_arrays):
+            raise ValueError(f"checkpoint arrays {sorted(saved_arrays)} != "
+                             f"{sorted(abstract_arrays)}")
         state.load_state_dict_(saved_state)
         if saved_buffer is not None:
             buffer = load_buffer_(buffer, saved_buffer)
-        return state, buffer, meta
+        if not include_arrays:
+            return state, buffer, meta
+        for name, live in abstract_arrays.items():
+            _restore_(live, saved_arrays[name])
+        return state, buffer, meta, abstract_arrays
 
     def restore_actor_params(self, epoch: int | None = None):
         return self._retry(
@@ -399,3 +448,71 @@ class Checkpointer:
     def close(self) -> None:
         """Join the save in flight (raising its error)."""
         self.wait()
+
+
+# The state.pt entries whose tensors carry a population's member axis.
+_MEMBER_MODULES = ("actor", "critic", "target_critic", "target_actor")
+_MEMBER_OPTS = ("pi_opt", "q_opt", "alpha_opt")
+
+
+def member_state_dict(saved: t.Mapping[str, t.Any], member: int) -> dict:
+    """Member ``member``'s standalone learner snapshot from a
+    population's :meth:`~..core.types.TrainState.state_dict`: slice
+    ``member`` of every network tensor, Adam moment and ``log_alpha``
+    (Adam's 0-d ``step``, the step counts and the generator are the
+    population's lockstep ones); the hyperparameters are dropped (a
+    standalone learner reads its config)."""
+    out = {k: v for k, v in saved.items() if k != "hyperparams"}
+    for name in _MEMBER_MODULES:
+        if name in saved:
+            out[name] = {k: v[member].clone() for k, v in saved[name].items()}
+    for name in _MEMBER_OPTS:
+        opt = saved[name]
+        out[name] = {"param_groups": opt["param_groups"],
+                     "state": {i: {k: v[member].clone() if v.dim() else v.clone()
+                                   for k, v in st.items()}
+                               for i, st in opt["state"].items()}}
+    out["log_alpha"] = saved["log_alpha"][member].clone()
+    return out
+
+
+def export_member_checkpoint(
+    src_directory: str | Path,
+    dst_directory: str | Path,
+    member: int | None = None,
+    epoch: int | None = None,
+) -> t.Tuple[int, int]:
+    """Write one member of a population checkpoint as a standalone
+    learner's full-state epoch (``actor.pt``, ``state.pt``,
+    ``meta.json``; no ring) under ``dst_directory``, which the serving
+    CLI, ``run_agent`` and a standalone :meth:`Checkpointer.restore`
+    read. ``member=None`` picks the best member by the checkpoint's PBT
+    return EMA (member 0 when the run kept none). The meta's config has
+    ``population=1`` and ``pbt_every=0``, and ``exported_member`` names
+    the member. Returns ``(member, epoch)``."""
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    src = Checkpointer(src_directory, save_buffer=False)
+    epoch = epoch if epoch is not None else src.latest_epoch()
+    if epoch is None:
+        raise FileNotFoundError(f"no checkpoints under {src.directory}")
+    saved, _, meta = src._read(epoch, include_buffer=False)
+    population = int(meta.get("population", 1))
+    if population < 2:
+        raise ValueError(f"checkpoint at {src.directory} epoch {epoch} is not a population "
+                         f"checkpoint (population={population})")
+    if member is None:
+        ema = (meta.get("pbt") or {}).get("return_ema")
+        member = max(range(population), key=lambda i: ema[i]) if ema else 0
+    if not 0 <= member < population:
+        raise ValueError(f"member {member} out of range for population {population}")
+    state = member_state_dict(saved, member)
+    config = SACConfig.from_json(meta["config"]).replace(population=1, pbt_every=0)
+    out = _epoch_dir(Path(dst_directory), epoch)
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save(state["actor"], out / "actor.pt")
+    torch.save(state, out / "state.pt")
+    _write_meta(out, {"epoch": int(epoch), "ckpt_format": CKPT_FORMAT, "buffer": False,
+                      "config": config.to_json(), "step": meta.get("step", 0),
+                      "exported_member": member, "population": population})
+    return member, int(epoch)

@@ -16,6 +16,12 @@ subtrees, ``ensemble.{i}`` members). Conv kernels ``(kh, kw, in, out)`` become
 state (``mu``/``nu``/``count``) maps through the same names onto
 ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``/``step``. The
 deterministic (TD3) actors have one head, ``Dense_0`` -> ``mu``.
+
+A member-stacked JAX ``TrainState`` (a population's: a leading ``P`` on
+every leaf, hyperparameters included) loads into the port's population
+models (:mod:`.models.population`) by the same names: every leaf keeps
+its member axis, ``log_alpha`` is ``(P,)``, and the lockstep step
+counts (``step``, Adam's ``count``) are read from member 0.
 """
 
 from __future__ import annotations
@@ -30,6 +36,12 @@ from torch_actor_critic_tpu_torch.core.types import TrainState
 from torch_actor_critic_tpu_torch.models import build_actor
 from torch_actor_critic_tpu_torch.models.actor import Actor, DeterministicActor
 from torch_actor_critic_tpu_torch.models.critic import DoubleCritic
+from torch_actor_critic_tpu_torch.models.population import (
+    PopulationActor,
+    PopulationDoubleCritic,
+    PopulationSequenceActor,
+    PopulationSequenceDoubleCritic,
+)
 from torch_actor_critic_tpu_torch.models.sequence import (
     SequenceActor,
     SequenceDoubleCritic,
@@ -133,7 +145,7 @@ def _critic_state(module: nn.Module, p: t.Mapping) -> t.Dict[str, np.ndarray]:
             out.update(_flat(f"{pre}.final", _dense(one["final"])))
         return out
     stacked = p["ensemble"]
-    if isinstance(module, SequenceDoubleCritic):
+    if isinstance(module, (SequenceDoubleCritic, PopulationSequenceDoubleCritic)):
         out = _trunk_state("trunk", stacked["SequenceTrunk_0"])
         out.update(_flat("fc", _dense(stacked["Dense_0"])))
         out.update(_flat("out", _dense(stacked["Dense_1"])))
@@ -142,18 +154,22 @@ def _critic_state(module: nn.Module, p: t.Mapping) -> t.Dict[str, np.ndarray]:
 
 
 # The actors whose Flax tree is ``MLP_0`` (+ ``visual_network``) and Dense heads.
-_MLP_ACTORS = (Actor, VisualActor, DeterministicActor, DeterministicVisualActor)
+_MLP_ACTORS = (Actor, VisualActor, DeterministicActor, DeterministicVisualActor,
+               PopulationActor)
+_SEQUENCE_ACTORS = (SequenceActor, PopulationSequenceActor)
+_CRITICS = (DoubleCritic, SequenceDoubleCritic, VisualDoubleCritic, PopulationDoubleCritic,
+            PopulationSequenceDoubleCritic)
 
 
 def _named_arrays(module: nn.Module, params_tree: t.Mapping) -> t.Dict[str, np.ndarray]:
     """The port's parameter names of ``module`` -> the matching arrays
     of a Flax tree (params, or an optimizer moment of the same shape)."""
     p = params_tree.get("params", params_tree)
-    if isinstance(module, SequenceActor):
+    if isinstance(module, _SEQUENCE_ACTORS):
         return _sequence_actor_state(p)
     if isinstance(module, _MLP_ACTORS):
         return _actor_state(p)
-    if isinstance(module, (DoubleCritic, SequenceDoubleCritic, VisualDoubleCritic)):
+    if isinstance(module, _CRITICS):
         return _critic_state(module, p)
     raise TypeError(f"no Flax param mapping for {type(module).__name__}")
 
@@ -175,7 +191,7 @@ def load_jax_actor_params(module: nn.Module, params_tree: t.Mapping) -> nn.Modul
     """Copy a Flax actor param dict (``{"params": ...}`` or its inner
     dict, numpy leaves) into ``module`` in place; every parameter must
     be covered (strict)."""
-    if not isinstance(module, (SequenceActor, *_MLP_ACTORS)):
+    if not isinstance(module, (*_SEQUENCE_ACTORS, *_MLP_ACTORS)):
         raise TypeError(f"no Flax actor mapping for {type(module).__name__}")
     return _load(module, params_tree)
 
@@ -185,7 +201,7 @@ def load_jax_critic_params(module: nn.Module, params_tree: t.Mapping) -> nn.Modu
     into the port's stacked ensemble in place, the ``ensemble`` subtree's
     num_qs axis as it is (a ``VisualDoubleCritic``'s member ``i`` from
     ``ensemble_{i}``) (strict)."""
-    if not isinstance(module, (DoubleCritic, SequenceDoubleCritic, VisualDoubleCritic)):
+    if not isinstance(module, _CRITICS):
         raise TypeError(f"no Flax critic mapping for {type(module).__name__}")
     return _load(module, params_tree)
 
@@ -206,7 +222,8 @@ def _has_adam_state(opt_state) -> bool:
 
 def _load_adam(opt: torch.optim.Adam, module_or_param, opt_state) -> None:
     adam = _adam_state(opt_state)
-    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    # A population's counts are lockstep: member 0's serves every member.
+    step = torch.tensor(float(np.asarray(adam.count).reshape(-1)[0]), dtype=torch.float32)
     if isinstance(module_or_param, nn.Module):
         mu = _named_arrays(module_or_param, adam.mu)
         nu = _named_arrays(module_or_param, adam.nu)
@@ -229,10 +246,12 @@ def train_state_from_jax(
     """The port's :class:`TrainState` carrying a JAX ``TrainState``
     (numpy leaves): actor, critic and target critic params (and a TD3
     state's target actor), ``log_alpha``, every Adam state and the step
-    (host and device), over the built ``actor``/``critic`` (on their
-    device) and the learner ``sac`` (a SAC or a TD3). A TD3 state's
-    temperature Adam is optax's ``EmptyState``: the port's stays empty.
-    Both sides then start an update from the same state."""
+    (host and device), and the hyperparameters when the JAX state has
+    them, over the built ``actor``/``critic`` (on their device) and the
+    learner ``sac`` (a SAC, a TD3, or a population's SAC over
+    member-stacked modules and a member-stacked JAX state). A TD3
+    state's temperature Adam is optax's ``EmptyState``: the port's stays
+    empty. Both sides then start an update from the same state."""
     state = sac.init_state(actor, critic, generator)
     if (jax_state.target_actor_params is None) != (state.target_actor is None):
         raise ValueError("the JAX state and the learner disagree on a target actor")
@@ -242,13 +261,17 @@ def train_state_from_jax(
     if state.target_actor is not None:
         load_jax_actor_params(state.target_actor, jax_state.target_actor_params)
     with torch.no_grad():
-        state.log_alpha.fill_(float(np.asarray(jax_state.log_alpha)))
+        state.log_alpha.copy_(torch.as_tensor(np.array(jax_state.log_alpha)))
     _load_adam(state.pi_opt, actor, jax_state.pi_opt_state)
     _load_adam(state.q_opt, critic, jax_state.q_opt_state)
     if _has_adam_state(jax_state.alpha_opt_state):
         _load_adam(state.alpha_opt, state.log_alpha, jax_state.alpha_opt_state)
-    state.step = int(np.asarray(jax_state.step))
+    state.step = int(np.asarray(jax_state.step).reshape(-1)[0])
     state.device_step.fill_(state.step)
+    if getattr(jax_state, "hyperparams", None) is not None:
+        state.hyperparams = {
+            k: torch.as_tensor(np.array(v), dtype=torch.float32, device=state.log_alpha.device)
+            for k, v in jax_state.hyperparams.items()}
     return state
 
 
