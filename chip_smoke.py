@@ -664,20 +664,25 @@ def _floor_attention(kernels, attn, shape, gen) -> dict:
 def kernels_per_call(fn, calls: int = 10, attempts: int = 8) -> int:
     """Device kernels launched by one ``fn()``: the kernels of ``calls``
     calls in one ``torch.profiler`` trace over ``calls``, rounded. The
-    profiler on the card now and then drops a whole trace's kernels (the
-    trace is taken again, up to ``attempts`` traces) or a trace's first
-    few (a K3 + K4 call alone came back as one kernel in every trace of
-    a run); one more kernel per call still shows as ``calls`` more."""
+    profiler on the card now and then drops a whole trace's kernels or
+    its end (the trace is taken again, up to ``attempts`` traces) or a
+    trace's first few (a K3 + K4 call alone came back as one kernel in
+    every trace of a run; 14 kernels for 10 backward calls in another):
+    the trace opens with ``trace_lead_in``'s kernels for it to lose and
+    closes with ``trace_tail``, and ``traced_rows`` leaves both out. One
+    more kernel per call still shows as ``calls`` more."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trace_lead_in()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(n for _, _, n in device_kernels(prof))
+            trace_tail()
+        total = sum(n for _, _, n in traced_rows(prof))
         if total:
             if total % calls:
                 print(f"chip_smoke: {total} device kernels in a trace of {calls} calls",
@@ -1644,8 +1649,8 @@ def one_update_default_cudnn(make_sac, state, ring, chunks) -> dict:
                           for s in (st, twin)), strict=True)
         for x, y in [(getattr(st, opt).state[p], getattr(twin, opt).state[q])]
         for k in ("exp_avg", "exp_avg_sq") if k in y)
-    metrics = max((abs(float(m_graph[k]) - float(m_eager[k])) / max(1.0, abs(float(m_eager[k])))
-                   for k in m_eager))
+    metrics = max(((m_graph[k] - m_eager[k]).abs() / m_eager[k].abs().clamp(min=1.0)).max().item()
+                  for k in m_eager)
     row = {**gaps, "adam_moments_rel": moments, "metrics_rel": metrics,
            "captures": sac.graph_captures}
     check(row["captures"] == 1 and gaps["params"] <= 1e-4 and gaps["log_alpha"] <= 1e-6
@@ -3188,7 +3193,7 @@ def _population_loop(args, seed: int, buffer: int, members: int | None = None, p
     from torch_actor_critic_tpu_torch import train as train_cli
     from torch_actor_critic_tpu_torch.envs.ondevice import get_on_device_env, history_env
     from torch_actor_critic_tpu_torch.sac.ondevice import PopulationOnDeviceLoop
-    from torch_actor_critic_tpu_torch.sac.population import PopulationSAC
+    from torch_actor_critic_tpu_torch.sac.population import make_population_learner
 
     cfg = train_cli.config_from_args(train_cli.parse_arguments(
         [*args, "--seed", str(seed)])).replace(on_device=True, buffer_size=buffer)
@@ -3198,7 +3203,7 @@ def _population_loop(args, seed: int, buffer: int, members: int | None = None, p
     if cfg.history_len > 1:
         env = history_env(env, cfg.history_len)
     p = cfg.population
-    return cfg, PopulationOnDeviceLoop(PopulationSAC(cfg, env.act_dim, p), env, p,
+    return cfg, PopulationOnDeviceLoop(make_population_learner(cfg, env.act_dim, p), env, p,
                                        n_envs=cfg.on_device_envs, pbt=pbt, device="cuda")
 
 
@@ -3258,16 +3263,19 @@ def member_vs_solo(seed: int) -> dict:
             "max_ring_gap": ring_gap, "loss_q_gap": loss_gap, "tol": 1e-4}
 
 
-def _population_counts(loop, parts, steps, kernels, what):
+def _population_counts(loop, parts, steps, kernels, what, per_step=None, per_update=None):
     """A traced ``steps``-step epoch (both graphs captured in it): its
-    device launches, which must be exactly L K2 per acting step and 5L
-    K2, 2L K3, 2L K4 per update whatever P; and the wrappers' (one
-    warm-up and one capture of each graph)."""
+    device launches, which must be exactly ``per_step`` of each kernel per
+    acting step and ``per_update`` per update whatever P (by default the
+    sequence cell's: L K2 per acting step, 5L K2, 2L K3, 2L K4 per
+    update); and the wrappers' (one warm-up and one capture of each
+    graph)."""
     cfg = loop.sac.config
     layers = cfg.seq_num_layers
-    per_step = {"flash_fwd": layers}
-    per_update = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
-                  "flash_bwd_dkv": 2 * layers, "pixel_gather": 0}
+    per_step = {"flash_fwd": layers} if per_step is None else per_step
+    per_update = per_update or {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                                "flash_bwd_dkv": 2 * layers}
+    per_update = {k: per_update.get(k, 0) for k in KERNEL_SYMBOLS}
     kernels.reset_launch_counts()
     (parts, m), launches, busy_ms, wall_ms, cost = traced_run(
         lambda: (lambda out: (out[:4], out[4]))(
@@ -3282,8 +3290,7 @@ def _population_counts(loop, parts, steps, kernels, what):
     check(bool(torch.isfinite(m["loss_q"]).all()), f"{what}: losses {m['loss_q']}")
     return parts, m, {"population": loop.members, "steps": steps, "updates": updates,
                       "launches": launches, "wrapper_launches": wrapped,
-                      "per_update": {k: per_update[k] for k in ("flash_fwd", "flash_bwd_dq",
-                                                                "flash_bwd_dkv")},
+                      "per_update": {k: n for k, n in per_update.items() if n},
                       "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                       "device_idle_share": 1.0 - busy_ms / wall_ms,
                       "device_kernels": cost["device_kernels"]}
@@ -3504,6 +3511,517 @@ def population_in_a_child(seed: int) -> dict:
     return json.loads(lines[-1])["population_launches"]
 
 
+# The host-loop populations, the pixel populations and the TD3 population:
+# the sequence stack at SACConfig's widths (d_model 64, 4 heads, 2 layers,
+# history 16, batch 64) with 4 members; the pixel recipe's with 4 members on
+# the host loop and 8 on the fused loop; flat TD3 with 8 members and PBT.
+# Rings hold the CLI's FUSED_RING rows per member, except where a check
+# clones a pixel ring: a clone of the fused pixel population's 8 rings
+# would not fit beside them in the card's 80 GB, and the host pixel
+# population's member-vs-solo check ran out of memory at 10^6 rows (72.58
+# of 79.18 GiB allocated on an NVIDIA H100 80GB HBM3, 700.00 W), so both
+# check on CHECK_RING rows (the fused one trains, traces and times on
+# FUSED_RING rows first).
+FUSED_RING = 10**6
+CHECK_RING = 20_000
+HOST_POP = 4
+HOST_SEQ_ARGS = ["--environment", TRAIN_ENV, "--history-len", "16",
+                 "--population", str(HOST_POP)]
+HOST_PIXEL_ARGS = [*VISUAL_ARGS, "--population", str(HOST_POP),
+                   "--buffer-size", str(CHECK_RING)]
+PIXEL_POP_ARGS = [*VISUAL_ARGS, "--on-device", "true", "--population", "8"]
+TD3_POP_ARGS = ["--environment", TRAIN_ENV, "--on-device", "true", "--algorithm", "td3",
+                "--population", "8", "--pbt-every", "1", "--pbt-quantile", "0.25"]
+# K2-K4 at the host sequence population's folds: the acting batch P·1, the
+# update batch P·64, the critics' fold P·Q·64 (heads 4, history 16, d 16).
+HOST_POP_ACT_SHAPE = (HOST_POP, 4, 16, 16)
+HOST_POP_SHAPE = (HOST_POP * 64, 4, 16, 16)
+HOST_POP_CRITIC_SHAPE = (HOST_POP * 2 * 64, 4, 16, 16)
+# K1 at the fused pixel population's fold: 8 members' full 10^6-row rings as
+# one (8·10^6, 32, 32, 3) ring, 8·64 rows, both frame leaves in one launch.
+FOLD_MEMBERS, FOLD_CAPACITY, FOLD_BATCH = 8, 10**6, 64
+
+
+def pixel_fold_row(pixels, seed: int, iters: int = 200) -> dict:
+    """K1 at the member fold (``member_frame_gather_pair``: ``FOLD_MEMBERS``
+    rings of ``FOLD_CAPACITY`` rows viewed as one, ``FOLD_MEMBERS·64``
+    rows, both leaves, shifted, normalized, f32) against the plain
+    version on the folded ring at the folded rows: bitwise, with times
+    and the bound."""
+    from torch_actor_critic_tpu_torch.buffer.replay import fold_member_rows
+    from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    p, cap, b = FOLD_MEMBERS, FOLD_CAPACITY, FOLD_BATCH
+    rings = [torch.randint(0, 256, (p, cap, 32, 32, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8) for _ in range(2)]
+    draws = []
+    for i in range(iters):
+        idx = torch.randint(0, cap, (p, b), generator=gen, device="cuda")
+        if i == 0:
+            idx[:, 0] = 0  # each member's first row: the fold's member boundaries
+            idx[:, 1] = cap - 1
+        draws.append((fold_member_rows(idx, cap),
+                      [shift_offsets(p * b, PIXEL_PAD, gen, "cuda") for _ in range(2)]))
+    kw = dict(pad=PIXEL_PAD, normalize=True, out_dtype=torch.float32)
+    folded = [r.reshape(p * cap, 32, 32, 3) for r in rings]
+
+    def kernel(i):
+        rows, offs = draws[i % iters]
+        return pixels.member_frame_gather_pair(rings, rows, offs, **kw)
+
+    def plain(i):
+        rows, offs = draws[i % iters]
+        return tuple(pixels.gather_frames_reference(r, rows, o, **kw).reshape(p, b, 32, 32, 3)
+                     for r, o in zip(folded, offs))
+
+    got, want = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    for leaf, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == (p, b, 32, 32, 3) and torch.equal(g, w),
+              f"pixel_gather at the member fold, leaf {leaf}: kernel != plain version")
+    turn = iter(range(10 ** 9))
+    bound_ms, bound_by = pixel_bound(p * b, (32, 32, 3), 1, torch.float32, True, 2)
+    row = {"phase": "kernel_vs_plain", "kernel": "pixel_gather", "case": "member_fold_pair",
+           "ring": [p * cap, 32, 32, 3], "members": p, "batch": p * b, "leaves": 2,
+           "bitwise_equal": True, "max_abs_err": 0.0,
+           "kernel_ms": device_ms(lambda: kernel(next(turn)), iters, "pixel_gather_kernel"),
+           "plain_ms": device_ms(lambda: plain(next(turn)), iters),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": [p * b, 32, 32, 3]}
+    emit(row)
+    del rings, folded, draws, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def _solo_from_member(learner_cfg, state, member: int, obs_shape, act_dim, act_limit):
+    """A lone learner (SAC or TD3) holding member ``member``'s slice of a
+    population state: networks, targets, Adam states, ``log_alpha``."""
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.sac.trainer import make_learner
+    from torch_actor_critic_tpu_torch.utils.checkpoint import member_state_dict
+
+    cfg = learner_cfg.replace(population=1, pbt_every=0)
+    solo_learner = make_learner(cfg, act_dim)
+    actor, critic = build_models(cfg, obs_shape, act_dim, act_limit)
+    solo = solo_learner.init_state(actor.cuda(), critic.cuda(),
+                                   torch.Generator(device="cuda"))
+    solo.load_state_dict_(member_state_dict(state.state_dict(), member))
+    if state.hyperparams is not None:
+        solo.hyperparams = {k: v[member].clone() for k, v in state.hyperparams.items()}
+    return solo_learner, solo
+
+
+def burst_member_vs_solo(learner, state, ring, obs_shape, act_dim, act_limit, seed: int,
+                         member: int = 1, updates: int = 20) -> dict:
+    """Member ``member`` of a population burst against a lone learner given
+    its weights, its ring's rows and its slice of the burst's draws (rows,
+    update noise, shifts): one push of a sampled chunk and ``updates``
+    updates from clones; every parameter within 1e-4, the losses within
+    1e-4·max(1, |solo|)."""
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+    from torch_actor_critic_tpu_torch.core.types import BufferState
+
+    cfg = learner.config
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    pop, buf = state.clone(), ring.clone()
+    p, b, n = learner.members, cfg.batch_size, 50
+    chunk = sample(buf, n, generator=gen)
+    solo_learner, solo = _solo_from_member(cfg, pop, member, obs_shape, act_dim, act_limit)
+    # The member's ring as a lone one, at the population's cursor.
+    solo_ring = BufferState(buf.data.map(lambda x: x[member].clone()), buf.ptr, buf.size,
+                            buf.device_size.clone())
+    size = min(buf.size + n, buf.capacity)
+    indices = (torch.rand((updates, p, b), generator=gen, device="cuda") * size).long()
+    td3 = cfg.algorithm == "td3"
+    eps = torch.randn((updates, *(() if td3 else (2,)), p, b, act_dim), generator=gen,
+                      device="cuda")
+    fused = cfg.pixel_pipeline == "fused" and buf.visual
+    offsets = (torch.randint(0, 2 * cfg.augment_pad + 1, (updates, 2, p, b, 2), generator=gen,
+                             device="cuda") if fused and cfg.frame_augment == "shift" else None)
+    pop, buf, m = learner.update_burst(pop, buf, chunk, updates, indices=indices, eps=eps,
+                                       offsets=offsets)
+    solo, solo_ring, sm = solo_learner.update_burst(
+        solo, solo_ring, chunk.map(lambda x: x[member]), updates,
+        indices=indices[:, member], eps=eps[:, member] if td3 else eps[:, :, member],
+        offsets=None if offsets is None else offsets[:, :, member])
+    torch.cuda.synchronize()
+    gaps, kbias = {}, 0.0
+    for mod in pop.module_names():
+        mine = dict(getattr(solo, mod).named_parameters())
+        gaps[mod] = 0.0
+        for name, t_ in getattr(pop, mod).named_parameters():
+            e = (t_.detach()[member] - mine[name].detach()).abs().max().item()
+            if name.endswith("attn.k.bias"):  # zero gradient in exact arithmetic
+                kbias = max(kbias, e)
+            else:
+                gaps[mod] = max(gaps[mod], e)
+    loss_gap = max(abs(float(m[k][member]) - float(sm[k])) / max(1.0, abs(float(sm[k])))
+                   for k in ("loss_q", "loss_pi"))
+    check(max(gaps.values()) <= 1e-4 and loss_gap <= 1e-4 and kbias <= 2 * cfg.lr * updates,
+          f"member {member} vs a lone learner: params {gaps}, key biases {kbias}, "
+          f"losses {loss_gap}")
+    return {"population": p, "member": member, "updates": updates, "max_param_gap": gaps,
+            "max_key_bias_gap": kbias, "loss_rel_gap": loss_gap, "tol": 1e-4,
+            "key_bias_tol": 2 * cfg.lr * updates}
+
+
+def _host_population_run(kernels, args, what: str, per_step: dict, per_update: dict,
+                         steps: int, start: int, runs: str):
+    """``train.build_trainer`` on ``args`` (one epoch of ``steps`` lockstep
+    steps, ``start`` random), traced: every policy step of all members
+    launched exactly ``per_step`` of each kernel (the wrappers' count,
+    less the warm-up and captured updates') and every update exactly
+    ``per_update`` (the device's count through the graphs against the
+    wrappers'); returns the trainer and the run's row."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.sac.graph import WARMUP_UPDATES
+
+    cli = train_cli.parse_arguments([*args, "--device", "cuda", "--epochs", "1",
+                                     "--steps-per-epoch", str(steps), "--start-steps",
+                                     str(start), "--update-after", str(start),
+                                     "--runs-root", runs])
+
+    def drive():
+        trainer, _ = train_cli.build_trainer(cli)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train()
+        torch.cuda.synchronize()
+        return trainer, metrics, time.perf_counter() - t0, dict(kernels.launch_counts)
+
+    (trainer, metrics, train_s, wrapped), launches = traced(
+        drive, what, discard=lambda out: out[0].close())
+    cfg = trainer.config
+    p = trainer.population
+    updates = trainer.state.step
+    check(updates == (steps - start) // cfg.update_every * cfg.updates_per_window
+          and trainer.sac.graph_captures == 1,
+          f"{what}: {updates} updates, {trainer.sac.graph_captures} captures")
+    keys = {"loss_q", "loss_pi", *(f"reward_m{i}" for i in range(p))}
+    check(keys <= set(metrics) and all(math.isfinite(metrics[k]) for k in keys),
+          f"{what}: metrics {metrics}")
+    # The eager launches: acting (one stacked forward a lockstep step for
+    # all members), then each capture's warm-up and recorded update.
+    recorded = trainer.sac.graph_captures * (WARMUP_UPDATES + 1)
+    want_wrapped = {k: per_step.get(k, 0) * (steps - start) + recorded * n
+                    for k, n in per_update.items()}
+    check({k: wrapped.get(k, 0) for k in per_update} == want_wrapped,
+          f"{what}: wrapper launches {wrapped} != {want_wrapped} ({steps - start} policy "
+          f"steps of {per_step}, {recorded} eager updates)")
+    check_through_graphs(what, launches, wrapped, per_update, updates,
+                         trainer.sac.graph_captures)
+    row = {"population": p, "steps": steps, "updates": updates, "train_s": train_s,
+           "ring_rows_per_member": trainer.buffer.capacity,
+           "ring_bytes": sum(x.nbytes for _, x in trainer.buffer.data.named_leaves()),
+           "epoch_grad_steps_per_sec": metrics["grad_steps_per_sec"],
+           "epoch_env_steps_per_sec": metrics["env_steps_per_sec"],
+           "launches": launches, "wrapper_launches": wrapped,
+           "per_step": per_step, "per_update": per_update,
+           "rewards": [metrics[f"reward_m{i}"] for i in range(p)]}
+    return trainer, row
+
+
+def _captured_burst_rate(learner, state, ring, seed: int, per: int) -> float:
+    """Updates per second of a captured ``per``-update burst alone, from
+    clones (four timed after one that captures)."""
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    st, buf = state.clone(), ring.clone()
+    chunk = sample(buf, 50, generator=gen)
+    st, buf, _ = learner.update_burst(st, buf, chunk, per)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        st, buf, _ = learner.update_burst(st, buf, chunk, per)
+    torch.cuda.synchronize()
+    return 4 * per / (time.perf_counter() - t0)
+
+
+def host_populations(seed: int, kernels, smi: str) -> tuple:
+    """The host-loop populations through the CLI's builders: the sequence
+    stack (P = 4, history 16: exactly 10 K2 and 4 K3 / 4 K4 per update
+    and 2 K2 per policy step for all members) and the pixel recipe (P = 4:
+    exactly 1 K1 per update, none acting), each traced through its graphs, its captured burst against
+    the eager one from clones (the pixel one on cuDNN's deterministic
+    algorithms), a member against a lone learner, bursts of alternating
+    sizes replaying one graph, an in-place restore under the graph with
+    no capture, ``evaluate()``'s ``per_member``; gradient steps per second
+    at P = 4 against the solo host trainer (P = 1). Returns the row and
+    the traced launches."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+    from torch_actor_critic_tpu_torch.sac.population import make_population_learner
+
+    out, launches = {}, {}
+    runs = tempfile.mkdtemp(prefix="tac_chip_host_population_")
+    try:
+        for name, args, per_step, per_update, steps, start in (
+                ("sequence", HOST_SEQ_ARGS, {"flash_fwd": 2},
+                 {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}, 300, 100),
+                ("pixel", HOST_PIXEL_ARGS, {}, {"pixel_gather": 1}, 600, 200)):
+            trainer, row = _host_population_run(kernels, [*args, "--seed", str(seed)],
+                                                f"host population {name}", per_step,
+                                                per_update, steps, start, runs)
+            for k, v in row["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            cfg, act_dim = trainer.config, trainer.pool.act_dim
+            gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+            row["captured_vs_eager"] = compare_bursts(
+                lambda: make_population_learner(cfg, act_dim, HOST_POP), trainer.state,
+                trainer.buffer, [sample(trainer.buffer, cfg.update_every, generator=gen)
+                                 for _ in range(2)], cfg.updates_per_window,
+                cudnn_deterministic=name == "pixel")
+            row["member_vs_solo"] = burst_member_vs_solo(
+                trainer.sac, trainer.state, trainer.buffer, trainer.obs_shape, act_dim,
+                trainer.pool.act_limit, seed)
+            # Alternating burst sizes replay the graph captured for the larger.
+            chunk = sample(trainer.buffer, cfg.update_every, generator=gen)
+            for n in (50, 20, 50, 20):
+                trainer.state, trainer.buffer, m = trainer.sac.update_burst(
+                    trainer.state, trainer.buffer, chunk, n)
+            torch.cuda.synchronize()
+            check(trainer.sac.graph_captures == 1 and bool(torch.isfinite(m["loss_q"]).all()),
+                  f"host population {name}: {trainer.sac.graph_captures} captures after "
+                  "bursts of 50 and 20")
+            if name == "sequence":
+                # Restored in place under the graph (the checkpoint's learner,
+                # rings, normalizer and acting generator), the same burst twice:
+                # bitwise, no new capture. (The pixel update's default cuDNN
+                # convolutions are not bitwise run to run.)
+                trainer.checkpointer.wait()
+                snaps = []
+                for _ in range(2):
+                    trainer.restore()
+                    trainer.state, trainer.buffer, _ = trainer.sac.update_burst(
+                        trainer.state, trainer.buffer, chunk, cfg.updates_per_window)
+                    torch.cuda.synchronize()
+                    snaps.append(learner_snapshot(trainer))
+                diff = bitwise_diff(*snaps)
+                check(not diff and trainer.sac.graph_captures == 1,
+                      f"host population {name}: restore under the graph differs at "
+                      f"{diff[:8]}, {trainer.sac.graph_captures} captures")
+                row["restore_under_graph"] = {"bitwise": True, "captures": 1}
+            ev = trainer.evaluate(episodes=1, seed=seed)
+            check(len(ev["per_member"]) == HOST_POP and math.isfinite(ev["ep_ret_mean"]),
+                  f"host population {name}: evaluate {ev}")
+            row["evaluate"] = ev
+            row["burst_updates_per_sec"] = _captured_burst_rate(
+                trainer.sac, trainer.state, trainer.buffer, seed, cfg.updates_per_window)
+            row["burst_grad_steps_per_sec"] = row["burst_updates_per_sec"] * HOST_POP
+            trainer.close()
+            del trainer
+            torch.cuda.empty_cache()
+            # The solo host trainer (P = 1) at the same config.
+            solo_args = [a for a in args if a not in ("--population", str(HOST_POP))]
+            solo, _ = train_cli.build_trainer(train_cli.parse_arguments(
+                [*solo_args, "--seed", str(seed), "--device", "cuda", "--epochs", "1",
+                 "--steps-per-epoch", str(steps), "--start-steps", str(start),
+                 "--update-after", str(start), "--runs-root", runs]))
+            seen = solo.train()
+            row["solo"] = {"epoch_grad_steps_per_sec": seen["grad_steps_per_sec"],
+                           "epoch_env_steps_per_sec": seen["env_steps_per_sec"],
+                           "burst_updates_per_sec": _captured_burst_rate(
+                               solo.sac, solo.state, solo.buffer, seed,
+                               solo.config.updates_per_window)}
+            solo.close()
+            del solo
+            torch.cuda.empty_cache()
+            print(f"host population {name} P={HOST_POP}: "
+                  f"{row['epoch_grad_steps_per_sec']:.1f} grad steps/s (epoch, x P), "
+                  f"{row['burst_grad_steps_per_sec']:.1f} (captured burst, x P); solo "
+                  f"{row['solo']['epoch_grad_steps_per_sec']:.1f} / "
+                  f"{row['solo']['burst_updates_per_sec']:.1f} ({smi})", flush=True)
+            out[name] = row
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    return out, launches
+
+
+def _rate_row(loop, p: int, dt: float, updates: int) -> dict:
+    return {"population": p, "seconds": dt, "grad_steps_per_sec": updates * p / dt,
+            "env_steps_per_sec": 1000 * loop.n_envs * p / dt}
+
+
+def _fused_rates(args, seed: int, warmup: int, members=(1, 8)) -> dict:
+    """Untraced fused-population epochs at each P of ``members`` on
+    ``FUSED_RING``-row rings: after a warm-up and one 1000-step epoch
+    (which captures), one timed 1000-step epoch: aggregate gradient and
+    env steps per second (both × P)."""
+    out = {}
+    for p in members:
+        torch.cuda.empty_cache()
+        cfg, loop = _population_loop(args, seed, FUSED_RING, members=p)
+        parts = loop.init(seed, FUSED_RING)[:4]
+        parts = loop.epoch(*parts, steps=warmup, update_every=50, warmup=True)[:4]
+        parts = loop.epoch(*parts, steps=1000, update_every=50)[:4]
+        parts, m, dt = _timed_epoch(loop, parts, 1000)
+        check(bool(torch.isfinite(m["loss_q"]).all()), f"fused rates P={p}: {m['loss_q']}")
+        out[f"P{p}"] = _rate_row(loop, p, dt, 1000 // 50 * cfg.updates_per_window)
+        del loop, parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
+    """The pixel recipe's fused population (P = 8, the balance twin) on
+    ``FUSED_RING``-row rings: a traced 1000-step epoch with exactly 1 K1
+    per update for all members (none per acting step), then a timed one
+    (the P = 8 rate; P = 1 from :func:`_fused_rates`); on
+    ``CHECK_RING``-row rings, captured against eager epochs on cuDNN's
+    deterministic algorithms and a member against a lone learner."""
+    from torch_actor_critic_tpu_torch.sac.ondevice import _SpecView
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, loop = _population_loop(PIXEL_POP_ARGS, seed, FUSED_RING)
+    parts = loop.init(seed, FUSED_RING)[:4]
+    ring_bytes = sum(x.nbytes for _, x in parts[1].data.named_leaves())
+    parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
+    parts, m, traced_row = _population_counts(loop, parts, 1000, kernels,
+                                              "fused pixel population P=8", per_step={},
+                                              per_update={"pixel_gather": 1})
+    parts, m, dt = _timed_epoch(loop, parts, 1000)
+    check(bool(torch.isfinite(m["loss_q"]).all()), f"fused pixel P=8: {m['loss_q']}")
+    rates = {"P8": _rate_row(loop, 8, dt, 1000 // 50 * cfg.updates_per_window)}
+    row = {"population": 8, "ring_rows_per_member": FUSED_RING, "ring_bytes": ring_bytes,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "check_ring_rows_per_member": CHECK_RING, "traced_epoch": traced_row}
+    del loop, parts
+    rates.update(_fused_rates(PIXEL_POP_ARGS, seed, 1000, members=(1,)))
+    row["rates"] = rates
+    cfg, loop = _population_loop(PIXEL_POP_ARGS, seed, CHECK_RING)
+    parts = loop.init(seed, CHECK_RING)[:4]
+    parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
+    spec = _SpecView(loop.env)
+    row["member_vs_solo"] = burst_member_vs_solo(loop.sac, parts[0], parts[1], spec.obs_shape,
+                                                 spec.act_dim, spec.act_limit, seed)
+    row["captured_vs_eager"] = ondevice_captured_vs_eager(
+        lambda: _population_loop(PIXEL_POP_ARGS, seed, CHECK_RING)[1], parts,
+        cudnn_deterministic=True)
+    del loop, parts
+    torch.cuda.empty_cache()
+    print(f"fused pixel population: {rates['P8']['grad_steps_per_sec']:.1f} grad "
+          f"steps/s at P=8 (x P), {rates['P1']['grad_steps_per_sec']:.1f} at P=1, rings "
+          f"{ring_bytes / 2**30:.2f} GiB, peak {row['max_memory_allocated_bytes'] / 2**30:.2f} "
+          f"GiB ({smi})", flush=True)
+    return row, traced_row["launches"]
+
+
+def fused_td3_population(seed: int, smi: str) -> dict:
+    """The fused TD3 population with PBT (P = 8, the pendulum twin, rings
+    of the CLI's default ``FUSED_RING`` rows) through ``train.main``: two
+    1000-step epochs, a PBT step after each, each checked in place
+    (:class:`PBTChecks`: the target actor among the member tensors,
+    ``target_noise`` among the hyperparameters), at least one exploit;
+    captured against eager epochs, a member against a lone learner, the
+    rates at P = 1 and 8."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.sac.ondevice import PopulationOnDeviceLoop, _SpecView
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_td3_population_")
+    try:
+        t0 = time.perf_counter()
+        with PBTChecks(PopulationOnDeviceLoop, 1.25) as pbt:
+            final = train_cli.main([*TD3_POP_ARGS, "--epochs", "2", "--steps-per-epoch", "1000",
+                                    "--no-save-buffer", "--runs-root", runs,
+                                    "--seed", str(seed)])
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    losses = [final[f"loss_q_m{i}"] for i in range(8)]
+    check(all(math.isfinite(x) for x in losses), f"TD3 population losses {losses}")
+    check(len(pbt.steps) == 2 and any(s["exploited"] for s in pbt.steps),
+          f"TD3 population PBT steps {pbt.steps}")
+    row = {"population": 8, "ring_rows_per_member": FUSED_RING, "seconds": seconds,
+           "pbt_steps": pbt.steps,
+           "final": {k: final[k] for k in ("loss_q", "loss_pi", "reward", "episodes",
+                                           "grad_steps_per_sec", "pbt_exploits")}}
+    cfg, loop = _population_loop(TD3_POP_ARGS, seed, FUSED_RING, pbt=True)
+    parts = loop.init(seed, FUSED_RING)[:4]
+    parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
+    check("target_noise" in parts[0].hyperparams and parts[0].target_actor is not None,
+          "TD3 population: no target_noise hyperparameter or target actor")
+    spec = _SpecView(loop.env)
+    row["member_vs_solo"] = burst_member_vs_solo(loop.sac, parts[0], parts[1], spec.obs_shape,
+                                                 spec.act_dim, spec.act_limit, seed)
+    row["captured_vs_eager"] = ondevice_captured_vs_eager(
+        lambda: _population_loop(TD3_POP_ARGS, seed, FUSED_RING, pbt=True)[1], parts,
+        cudnn_deterministic=False)
+    del loop, parts
+    row["rates"] = _fused_rates(TD3_POP_ARGS, seed, 1000)
+    print(f"fused TD3 population: {row['rates']['P8']['grad_steps_per_sec']:.1f} grad steps/s "
+          f"at P=8 (x P), {row['rates']['P1']['grad_steps_per_sec']:.1f} at P=1 ({smi})",
+          flush=True)
+    return row
+
+
+def phase_populations(seed: int, kernels, attn, pixels, smi: str) -> dict:
+    """The host-loop, pixel and TD3 populations:
+
+    - K2 at the host sequence population's folds (acting (4, 4, 16, 16),
+      update (256, ...), critics (512, ...)), K3/K4 at the update and
+      critics' folds, against their plain versions; K1 at the fused pixel
+      population's member fold, bitwise;
+    - the host-loop populations (:func:`host_populations`);
+    - the fused pixel population (:func:`fused_pixel_population`);
+    - the fused TD3 population with PBT (:func:`fused_td3_population`).
+
+    Returns the traced launches of the host populations and the fused
+    pixel one."""
+    row = {"phase": "populations", "card": smi, "seconds": {}}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        row["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    fwd = phase_kernel_vs_plain(attn, seed, None, cases=[
+        (HOST_POP_ACT_SHAPE, True, torch.float32, 100, "views"),
+        (HOST_POP_SHAPE, True, torch.float32, 100, "views"),
+        (HOST_POP_CRITIC_SHAPE, True, torch.float32, 100, "views"),
+    ])
+    bwd = phase_bwd_vs_plain(attn, seed, None, cases=[
+        (HOST_POP_SHAPE, True, torch.float32, 100, "views"),
+        (HOST_POP_CRITIC_SHAPE, True, torch.float32, 100, "views"),
+    ])
+    row["kernels_host_population"] = {"flash_fwd_act": fwd["shape"],
+                                      "flash_bwd": bwd["flash_bwd_dq"]["shape"]}
+    row["pixel_fold"] = pixel_fold_row(pixels, seed)
+    lap("kernel_rows")
+    row["host"], launches = host_populations(seed, kernels, smi)
+    lap("host")
+    row["fused_pixel"], pixel_launches = fused_pixel_population(seed, kernels, smi)
+    launches["pixel_gather"] = launches.get("pixel_gather", 0) + pixel_launches["pixel_gather"]
+    lap("fused_pixel")
+    torch.cuda.empty_cache()
+    row["fused_td3"] = fused_td3_population(seed, smi)
+    lap("fused_td3")
+    row["seconds"]["phase"] = time.perf_counter() - t_phase
+    row["launches"] = launches
+    emit(row)
+    return launches
+
+
+def populations_in_a_child(seed: int) -> dict:
+    """``phase_populations`` in a process of its own
+    (``--populations-phase``); returns the launches its last line
+    reports."""
+    torch.cuda.empty_cache()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--populations-phase", "--seed", str(seed)],
+        capture_output=True, text=True, timeout=600,
+    )
+    sys.stderr.write(res.stderr)
+    lines = res.stdout.splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(res.returncode == 0 and lines, f"the populations phase exited {res.returncode}")
+    return json.loads(lines[-1])["populations_launches"]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3511,6 +4029,8 @@ def main(argv=None) -> int:
                    help="Run only the on_device phase (the smoke starts it so, in a child)")
     p.add_argument("--population-phase", action="store_true",
                    help="Run only the population phase (the smoke starts it so, in a child)")
+    p.add_argument("--populations-phase", action="store_true",
+                   help="Run only the populations phase (the smoke starts it so, in a child)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU only",
@@ -3528,6 +4048,10 @@ def main(argv=None) -> int:
     if args.population_phase:
         launches = phase_population(args.seed, _kernels, attn, nvidia_smi())
         emit({"population_launches": launches})
+        return 0
+    if args.populations_phase:
+        launches = phase_populations(args.seed, _kernels, attn, pixels, nvidia_smi())
+        emit({"populations_launches": launches})
         return 0
     seconds, t_start = {}, time.perf_counter()
 
@@ -3556,7 +4080,10 @@ def main(argv=None) -> int:
     td3_launches = timed("train_td3", phase_train_td3, args.seed, _kernels, smi)
     ondevice_launches = timed("on_device", on_device_in_a_child, args.seed)
     population_launches = timed("population", population_in_a_child, args.seed)
+    populations_launches = timed("populations", populations_in_a_child, args.seed)
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
+    for k, v in populations_launches.items():
+        population_launches[k] = population_launches.get(k, 0) + v
     fwd_launches = (serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]
                     + ondevice_launches["flash_fwd"] + population_launches["flash_fwd"])
     rows = [
@@ -3572,7 +4099,8 @@ def main(argv=None) -> int:
          bwd_rows["flash_bwd_dkv"]),
         ("pixel_gather", "pixels.cu", "torch_actor_critic_tpu/ops/pixels.py:261",
          visual_launches["pixel_gather"] + resume_launches["pixel_gather"]
-         + td3_launches["pixel_gather"] + ondevice_launches["pixel_gather"], pixel_row),
+         + td3_launches["pixel_gather"] + ondevice_launches["pixel_gather"]
+         + population_launches.get("pixel_gather", 0), pixel_row),
     ]
     emit({"kernels": [
         {

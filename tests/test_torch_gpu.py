@@ -1355,3 +1355,195 @@ def test_an_exploit_under_the_graphs_is_seen_by_the_next_replay(cuda):
     torch.cuda.synchronize()
     assert loop.act_captures == 2 and loop.sac.graph_captures == 1
     assert _diff(_ondevice_snapshot(*got, [m]), _ondevice_snapshot(*want, [wm])) == []
+
+
+# ------------------------------- the host, pixel and TD3 populations
+
+PIXEL_SMALL = dict(filters=(8, 16), kernel_sizes=(4, 3), strides=(2, 2), cnn_dense_size=32,
+                   cnn_features=8, normalize_pixels=True, frame_augment="shift",
+                   pixel_pipeline="fused", hidden_sizes=(64, 64), batch_size=32)
+HOST_POPULATION_CASES = {
+    # name: (config overrides, observation shape: a flat dim, a history, or pixels)
+    "sequence": (dict(ONDEVICE_CASES["sequence"], history_len=8), (8, 3)),
+    "pixel": (PIXEL_SMALL, "pixel"),
+    "td3": (dict(algorithm="td3", hidden_sizes=(64, 64), batch_size=32), (3,)),
+}
+
+
+def _host_population(cuda, name, members=3):
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+    from torch_actor_critic_tpu_torch.parallel.population import PopulationLearner
+    from torch_actor_critic_tpu_torch.sac.population import make_population_learner
+
+    over, shape = HOST_POPULATION_CASES[name]
+    if shape == "pixel":
+        shape = MultiObservation(features=(1,), frame=(32, 32, 3))
+    cfg = SACConfig(update_every=10, population=members, **over)
+    learner = PopulationLearner(make_population_learner(cfg, 1, members), members)
+    state = learner.init_state(0, shape, 1, 2.0, torch.device(cuda))
+    ring = learner.init_buffer(500, shape, 1, torch.device(cuda))
+    return learner, state, ring, shape
+
+
+def _host_chunk(shape, members, n, seed):
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+
+    g = torch.Generator().manual_seed(seed)
+
+    def obs():
+        if isinstance(shape, MultiObservation):
+            return MultiObservation(torch.randn((members, n, 1), generator=g),
+                                    torch.randint(0, 256, (members, n, 32, 32, 3), generator=g,
+                                                  dtype=torch.uint8))
+        return torch.randn((members, n, *shape), generator=g)
+
+    return Batch(obs(), torch.rand((members, n, 1), generator=g) * 4 - 2,
+                 torch.randn((members, n), generator=g), obs(),
+                 (torch.rand((members, n), generator=g) < 0.1).float()).map(
+        lambda x: x.to("cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(HOST_POPULATION_CASES))
+def test_captured_host_population_bursts_equal_the_eager_bursts_bitwise(cuda, name):
+    """A ``PopulationLearner`` of 3 (sequence, pixel, TD3): three bursts
+    of 20 updates as CUDA graph replays against the eager bursts from
+    one state, to the bit (the pixel one on cuDNN's deterministic
+    algorithms); one capture; then bursts of 10 and 20 replay that graph."""
+    from torch_actor_critic_tpu_torch.buffer.replay import push
+
+    learner, state, ring, shape = _host_population(cuda, name)
+    ring = push(ring, _host_chunk(shape, 3, 40, 0))
+    chunks = [_host_chunk(shape, 3, 10, i + 1) for i in range(3)]
+    runs, saved = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for eager in (True, False):
+            pop = _host_population(cuda, name)[0].learner
+            st, buf = state.clone(), ring.clone()
+            metrics = []
+            for chunk in chunks:
+                st, buf, m = pop.update_burst(st, buf, chunk, 20, eager=eager)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            runs[eager] = {"state": st.state_dict(), "ring": buf.state_dict(),
+                           "metrics": [{k: v.cpu() for k, v in m.items()} for m in metrics]}
+            if not eager:
+                assert pop.graph_captures == 1
+                for n in (10, 20, 10):
+                    st, buf, m = pop.update_burst(st, buf, chunks[0], n)
+                assert pop.graph_captures == 1 and bool(torch.isfinite(m["loss_q"]).all())
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert _diff(runs[False], runs[True]) == []
+    assert runs[False]["state"]["step"] == 60
+
+
+@pytest.mark.gpu
+def test_member_fold_gathers_every_member_in_one_launch_bitwise(cuda):
+    """K1 over 4 member rings folded into one: one launch for both leaves
+    of every member, bitwise each member's plain gather of its own ring;
+    a frame stack raises."""
+    from torch_actor_critic_tpu_torch.buffer.replay import fold_member_rows
+    from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+    from torch_actor_critic_tpu_torch.ops.pixels import (
+        gather_frames_reference,
+        member_frame_gather_pair,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rings = [torch.randint(0, 256, (4, 300, 32, 32, 3), generator=g, device=cuda,
+                           dtype=torch.uint8) for _ in range(2)]
+    idx = torch.randint(0, 300, (4, 64), generator=g, device=cuda)
+    idx[:, 0], idx[:, 1] = 0, 299
+    offs = [shift_offsets(4 * 64, 4, g, cuda) for _ in range(2)]
+    _kernels.reset_launch_counts()
+    got = member_frame_gather_pair(rings, fold_member_rows(idx, 300), offs, pad=4,
+                                   normalize=True)
+    assert _kernels.launch_counts["pixel_gather"] == 1
+    for leaf in range(2):
+        for i in range(4):
+            want = gather_frames_reference(rings[leaf][i], idx[i],
+                                           offs[leaf].reshape(4, 64, 2)[i], 4, True)
+            assert torch.equal(got[leaf][i], want)
+    with pytest.raises(ValueError, match="previous member"):
+        member_frame_gather_pair(rings, fold_member_rows(idx, 300), offs, frame_stack=2)
+
+
+def _pixel_or_td3_loop(cuda, name, members, pbt=False):
+    from torch_actor_critic_tpu_torch.envs.ondevice import PendulumTorch, PixelPendulumTorch
+    from torch_actor_critic_tpu_torch.sac.ondevice import PopulationOnDeviceLoop
+    from torch_actor_critic_tpu_torch.sac.population import make_population_learner
+
+    over, _ = HOST_POPULATION_CASES[name]
+    env = PixelPendulumTorch if name == "pixel" else PendulumTorch
+    cfg = SACConfig(update_every=10, population=members, on_device=True,
+                    pbt_every=1 if pbt else 0, **over)
+    return PopulationOnDeviceLoop(make_population_learner(cfg, 1, members), env, members,
+                                  n_envs=4, pbt=pbt, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pixel", "td3"])
+def test_captured_pixel_and_td3_population_epochs_equal_the_eager_epochs(cuda, name):
+    """A fused pixel or TD3 population of 3 with PBT hyperparameters: a
+    warm-up and two trained epochs as CUDA graph replays against the same
+    epochs run eagerly, from one state, to the bit (cuDNN deterministic);
+    one capture of each graph; then a PBT exploit in place (the target
+    actor and ``target_noise`` too) seen by the next replay."""
+    loop = _pixel_or_td3_loop(cuda, name, 3, pbt=True)
+    state, ring, es, act_gen, ps = loop.init(0, buffer_capacity=500)
+    runs, saved = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for eager in (True, False):
+            loop = _pixel_or_td3_loop(cuda, name, 3, pbt=True)
+            parts = (state.clone(), ring.clone(), es.clone(), _gen_clone(act_gen))
+            metrics = []
+            for steps, warmup in ((20, True), (30, False), (30, False)):
+                *parts, m = loop.epoch(*parts, steps=steps, update_every=10, warmup=warmup,
+                                       eager=eager)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            runs[eager] = _ondevice_snapshot(*parts, metrics)
+            if not eager:
+                assert loop.act_captures == 2 and loop.sac.graph_captures == 1
+                captured = parts
+        assert _diff(runs[False], runs[True]) == []
+        st = captured[0]
+        ps.return_ema.copy_(torch.tensor([0.0, 10.0, 5.0], device=cuda))
+        ps.ema_count.fill_(1)
+        ev = loop.pbt_step(st, ps)
+        assert ev["exploited"].tolist() == [True, False, False]
+        for mod in st.modules():
+            for x in mod.parameters():
+                assert torch.equal(x[0], x[1])
+        *_, m = loop.epoch(*captured, steps=20, update_every=10)
+        torch.cuda.synchronize()
+        assert loop.act_captures == 2 and loop.sac.graph_captures == 1
+        assert bool(torch.isfinite(m["loss_q"]).all())
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.gpu
+def test_host_population_trains_resumes_and_evaluates_on_the_card(cuda, tmp_path):
+    """``Trainer`` with ``population=3`` on the card: an epoch, a restore
+    in place under the captured graph, another epoch with no new
+    capture; ``evaluate`` per member."""
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    cfg = SACConfig(**{**RESUME_CFG, "epochs": 1, "population": 3,
+                       "normalize_observations": True})
+    tr = Trainer("PendulumNumpy-v1", cfg, device=cuda, checkpointer=Checkpointer(tmp_path))
+    try:
+        tr.train()
+        assert tr.sac.graph_captures == 1
+        tr.restore()
+        m = tr.train()
+        assert tr.sac.graph_captures == 1 and {"reward_m0", "reward_m2"} <= set(m)
+        ev = tr.evaluate(episodes=1, seed=0)
+        assert len(ev["per_member"]) == 3
+    finally:
+        tr.close()

@@ -697,13 +697,13 @@ def test_on_device_no_save_buffer_resumes_with_an_empty_ring(tmp_path, monkeypat
 
 @pytest.mark.parametrize("argv,err,match", [
     (["--environment", "Walker2d-v4"], ValueError, "PixelPendulumBalance-v0"),
-    # The cheetah twin trains; its TD3 population waits, naming the twin.
-    (["--environment", "HalfCheetah-v5", "--population", "2", "--algorithm", "td3"],
-     NotImplementedError, "CheetahRun"),
+    # The cheetah twin's TD3 population trains; TD3 with a history raises, as in JAX.
+    (["--environment", "HalfCheetah-v5", "--population", "2", "--algorithm", "td3",
+      "--history-len", "4"], ValueError, "flat and visual"),
     (["--environment", "multi-pendulum-4"], NotImplementedError, "scenario"),
-    # The fused population trains; its visual stack waits.
-    (["--environment", "PixelPendulumNumpy-v0", "--population", "2"], NotImplementedError,
-     "population"),
+    # The pixel population trains; the default conv stack does not fit its 32x32 frames.
+    (["--environment", "PixelPendulumNumpy-v0", "--population", "2"], ValueError,
+     "reduces a 32x32 frame to nothing"),
     (["--environment", "Pendulum-v1", "--devices", "2"], NotImplementedError, "--devices"),
 ])
 def test_on_device_cli_raises_for_what_it_does_not_run(tmp_path, argv, err, match):

@@ -45,7 +45,8 @@ import pytest
 import torch
 
 from torch_actor_critic_tpu.diagnostics.ingraph import split_member_metrics as j_split
-from torch_actor_critic_tpu.envs.ondevice import CheetahRunJax, PendulumJax
+from torch_actor_critic_tpu.core.types import MultiObservation as JMultiObservation
+from torch_actor_critic_tpu.envs.ondevice import CheetahRunJax, PendulumJax, PixelPendulumJax
 from torch_actor_critic_tpu.envs.ondevice import EnvState as JEnvState
 from torch_actor_critic_tpu.envs.ondevice import history_env as j_history_env
 from torch_actor_critic_tpu.sac.ondevice import PBTState as JPBTState
@@ -57,13 +58,14 @@ from torch_actor_critic_tpu.utils.config import SACConfig as JSACConfig
 from torch_actor_critic_tpu_torch import run_agent
 from torch_actor_critic_tpu_torch import train as train_mod
 from torch_actor_critic_tpu_torch.buffer import replay
-from torch_actor_critic_tpu_torch.core.types import Batch, PBTState
+from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation, PBTState
 from torch_actor_critic_tpu_torch.diagnostics.ingraph import split_member_metrics
 from torch_actor_critic_tpu_torch.envs import ondevice as tenv
 from torch_actor_critic_tpu_torch.envs.ondevice import (
     CheetahRunTorch,
     EnvState,
     PendulumTorch,
+    PixelPendulumTorch,
     history_env,
 )
 from torch_actor_critic_tpu_torch.models import build_models
@@ -74,7 +76,7 @@ from torch_actor_critic_tpu_torch.sac.ondevice import (
     PopulationOnDeviceLoop,
     train_population_on_device,
 )
-from torch_actor_critic_tpu_torch.sac.population import PopulationSAC
+from torch_actor_critic_tpu_torch.sac.population import PopulationSAC, make_population_learner
 from torch_actor_critic_tpu_torch.sac.trainer import make_learner
 from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer, export_member_checkpoint
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
@@ -85,6 +87,12 @@ LR = 3e-4
 N_ENVS, UPDATE_EVERY, STEPS, BATCH, CAPACITY = 3, 5, 10, 8, 50
 HIDDEN = (16, 16)
 SEQ = dict(history_len=4, seq_d_model=16, seq_num_heads=2, seq_num_layers=1)
+PIXEL = dict(filters=(8, 16), kernel_sizes=(4, 3), strides=(2, 2), cnn_dense_size=32,
+             cnn_features=8, normalize_pixels=True, frame_augment="shift",
+             pixel_pipeline="fused")
+PAD = 4
+# A rendered frame may differ from JAX's by one count in a few pixels.
+FRAME_COUNTS, FRAME_SHARE = 1, 1e-3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -270,12 +278,12 @@ def _jax_learner(over):
     return j_make_learner(cfg, actor_def, critic_def, 1), env
 
 
-def _port_population(over, p, jax_state, pbt=False):
+def _port_population(over, p, jax_state, pbt=False, base=PendulumTorch):
     cfg = SACConfig(batch_size=BATCH, hidden_sizes=HIDDEN, **over)
-    env = (history_env(PendulumTorch, over["history_len"]) if "history_len" in over
-           else PendulumTorch)
-    shape = getattr(env, "obs_shape", (env.obs_dim,))
-    learner = PopulationSAC(cfg, 1, p)
+    env = history_env(base, over["history_len"]) if "history_len" in over else base
+    shape = env.obs_spec() if hasattr(env, "obs_spec") else getattr(env, "obs_shape",
+                                                                     (env.obs_dim,))
+    learner = make_population_learner(cfg, 1, p)
     actor, critic = build_population_models(cfg, shape, 1, 2.0,
                                             [torch.Generator() for _ in range(p)])
     jts = jax_state.replace(rng=jax.random.key_data(jax_state.rng))
@@ -405,18 +413,18 @@ def test_stacked_gradients_and_moments_equal_each_members_solo_update(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_pbt_state(p):
-    over = dict(population=p, on_device=True, pbt_every=1)
+def _jax_pbt_state(p, algorithm="sac"):
+    over = dict(population=p, on_device=True, pbt_every=1, algorithm=algorithm)
     jsac, jenv = _jax_learner(over)
     return JPopulationLoop(jsac, jenv, p, n_envs=2, pbt=True).init(jax.random.key(7), 16)[0]
 
 
-def _pbt_loop(p, quantile):
+def _pbt_loop(p, quantile, algorithm="sac"):
     over = dict(population=p, on_device=True, pbt_every=1, pbt_quantile=quantile,
-                pbt_perturb=1.25)
+                pbt_perturb=1.25, algorithm=algorithm)
     jsac, jenv = _jax_learner(over)
     jpop = JPopulationLoop(jsac, jenv, p, n_envs=2, pbt=True)
-    jts = _jax_pbt_state(p)
+    jts = _jax_pbt_state(p, algorithm)
     learner, state, env = _port_population(over, p, jts)
     loop = PopulationOnDeviceLoop(learner, env, p, n_envs=2, pbt=True, device="cpu")
     # Distinct Adam moments per member, so a copy shows.
@@ -432,13 +440,18 @@ PBT_CASES = {
     "one-each-end": (4, 0.25, [0.0, 10.0, 5.0, 3.0], [1, 1, 1, 1]),
     "half": (4, 0.5, [2.0, -1.0, 7.0, 7.0], [2, 1, 3, 1]),
     "gated": (3, 0.34, [0.0, 5.0, 1.0], [1, 0, 1]),
+    # TD3 members: the target actor is copied, target_noise perturbed.
+    "td3-half": (4, 0.5, [2.0, -1.0, 7.0, 7.0], [2, 1, 3, 1]),
 }
 
 
 @pytest.mark.parametrize("name", list(PBT_CASES))
 def test_pbt_step_matches_jax(name):
     p, quantile, ema, count = PBT_CASES[name]
-    jpop, jts, loop, state = _pbt_loop(p, quantile)
+    algorithm = "td3" if name.startswith("td3") else "sac"
+    jpop, jts, loop, state = _pbt_loop(p, quantile, algorithm)
+    if algorithm == "td3":
+        assert set(state.hyperparams) == {"actor_lr", "critic_lr", "target_noise"}
     key = jax.random.key(8)
     jps = JPBTState(return_ema=jnp.array(ema, jnp.float32),
                     ema_count=jnp.array(count, jnp.int32), rng=key)
@@ -467,7 +480,8 @@ def test_pbt_step_matches_jax(name):
                 assert torch.equal(now[i], old[s]), f"{name_}.{n} member {i}"
         want = _named_arrays(getattr(state, name_), _np(getattr(
             jnew, {"actor": "actor_params", "critic": "critic_params",
-                   "target_critic": "target_critic_params"}[name_])))
+                   "target_critic": "target_critic_params",
+                   "target_actor": "target_actor_params"}[name_])))
         for n, now in getattr(state, name_).named_parameters():
             np.testing.assert_array_equal(now.detach().numpy(), want[n])
     for opt in ("pi_opt", "q_opt", "alpha_opt"):
@@ -518,11 +532,20 @@ LOOPS = {
     # name: (config overrides, JAX base env, port base env, start step counts)
     "flat": (dict(), PendulumJax, PendulumTorch, [[193, 0, 188], [0, 190, 195]]),
     "history": (SEQ, PendulumJax, PendulumTorch, [[0, 193, 188], [194, 0, 0]]),
+    "pixel": (dict(PIXEL, learn_alpha=True), PixelPendulumJax, PixelPendulumTorch,
+              [[193, 0, 188], [0, 190, 195]]),
+    "td3": (dict(algorithm="td3", policy_delay=2), PendulumJax, PendulumTorch,
+            [[0, 193, 188], [194, 0, 0]]),
 }
 
 
-def _jax_poses(rng):
-    th, thd = jax.vmap(PendulumJax.reset)(rng).inner
+def _jax_poses(rng, base=PendulumJax):
+    """Each env's next reset pose as JAX's step draws it from the env's
+    key (a pixel twin from ``fold_in(rng, 0x9A1)``)."""
+    if issubclass(base, PixelPendulumJax):
+        th, thd = jax.vmap(lambda r: base._sample_pose(jax.random.fold_in(r, 0x9A1)))(rng)
+    else:
+        th, thd = jax.vmap(base.reset)(rng).inner
     return np.stack([np.asarray(th), np.asarray(thd)], axis=-1)
 
 
@@ -535,24 +558,49 @@ def _act_noise(key, warmup):
     return np.stack(out)
 
 
-def _burst_draws(rng, sizes, num_updates):
-    indices, eps = [], []
+def _burst_draws(rng, sizes, num_updates, algorithm="sac", fused=False):
+    """A member's rows, update noise and (fused) shifts of each window, as
+    JAX's burst draws them from the member's key."""
+    indices, eps, offsets = [], [], []
     for size in sizes:
-        wi, we = [], []
+        wi, we, wo = [], [], []
         for _ in range(num_updates):
-            rng, k_idx = jax.random.split(rng)
+            rng, sample_key = jax.random.split(rng)
+            k_idx = sample_key
+            if fused:
+                k_idx, k_s, k_n = jax.random.split(sample_key, 3)
+                wo.append(np.stack([np.asarray(jax.random.randint(k, (BATCH, 2), 0, 2 * PAD + 1))
+                                    for k in (k_s, k_n)]))
             wi.append(np.asarray(jax.random.randint(k_idx, (BATCH,), 0, size)))
-            rng, key_q, key_pi = jax.random.split(rng, 3)
-            we.append(np.stack([np.asarray(jax.random.normal(k, (BATCH, 1)))
-                                for k in (key_q, key_pi)]))
+            if algorithm == "td3":
+                rng, key_q = jax.random.split(rng)
+                we.append(np.asarray(jax.random.normal(key_q, (BATCH, 1))))
+            else:
+                rng, key_q, key_pi = jax.random.split(rng, 3)
+                we.append(np.stack([np.asarray(jax.random.normal(k, (BATCH, 1)))
+                                    for k in (key_q, key_pi)]))
         indices.append(np.stack(wi))
         eps.append(np.stack(we))
-    return np.stack(indices), np.stack(eps)
+        offsets.append(np.stack(wo) if wo else None)
+    return np.stack(indices), np.stack(eps), (np.stack(offsets) if fused else None)
 
 
 def _flat_members(x):
+    if isinstance(x, JMultiObservation):
+        return MultiObservation(_flat_members(x.features), _flat_members(x.frame))
     x = np.asarray(x)
     return torch.from_numpy(np.array(x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])))
+
+
+def _assert_close_or_frames(got, want, what):
+    """Floats to the epoch's tolerance; uint8 frames within a count in a
+    few pixels (the twins' renders), integers exactly."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype == np.uint8:
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert d.max(initial=0) <= FRAME_COUNTS and (d > 0).mean() <= FRAME_SHARE, what
+    else:
+        _close(got, want, what, atol=1e-5, rtol=1e-5)
 
 
 def _port_env(jes) -> EnvState:
@@ -568,8 +616,9 @@ def _port_env(jes) -> EnvState:
 def _jax_env_leaves(jes) -> list:
     inner = (_jax_env_leaves(jes.inner) if isinstance(jes.inner, JEnvState)
              else [_flat_members(x) for x in jes.inner])
-    return [*inner, _flat_members(jes.obs), _flat_members(jes.step_count),
-            _flat_members(jes.episode_return)]
+    obs = _flat_members(jes.obs)
+    obs = [obs.features, obs.frame] if isinstance(obs, MultiObservation) else [obs]
+    return [*inner, *obs, _flat_members(jes.step_count), _flat_members(jes.episode_return)]
 
 
 def _set_counts(jes, counts):
@@ -580,9 +629,9 @@ def _set_counts(jes, counts):
     return jes
 
 
-def _member_draws(jkeys, jrng_env, p, warmup):
+def _member_draws(jkeys, jrng_env, p, warmup, base=PendulumJax):
     noise = np.stack([_act_noise(jkeys[i], warmup) for i in range(p)], axis=1)
-    poses = np.concatenate([_jax_poses(jrng_env[i]) for i in range(p)])
+    poses = np.concatenate([_jax_poses(jrng_env[i], base) for i in range(p)])
     return _t(noise), _t(np.broadcast_to(poses, (STEPS, *poses.shape)))
 
 
@@ -590,6 +639,9 @@ def _assert_rows(ring, jbuf, size, what):
     for (name, got), want in zip(ring.data.named_leaves(),
                                  jax.tree_util.tree_leaves(jbuf.data), strict=True):
         got, want = got[:, :size].numpy(), np.asarray(want)[:, :size]
+        if got.dtype == np.uint8:
+            _assert_close_or_frames(got, want, f"{what} {name}")
+            continue
         assert np.all(np.abs(got - want) <= 1e-5 * np.maximum(1.0, np.abs(want))), \
             f"{what} {name}: {np.abs(got - want).max()}"
 
@@ -604,25 +656,27 @@ def _assert_metrics(m, jm, what):
 def test_population_epoch_matches_jax(name):
     """A warm-up and a trained epoch (two windows each) of a population
     of 2 against JAX's ``PopulationOnDeviceLoop.epoch``, each member's
-    draws rebuilt from its keys and injected."""
+    draws rebuilt from its keys and injected: flat, history and pixel
+    SAC (frames gathered by the member fold, shifted) and flat TD3."""
     over, jbase, tbase, counts = LOOPS[name]
     p = 2
     jcfg = JSACConfig(batch_size=BATCH, update_every=UPDATE_EVERY, hidden_sizes=HIDDEN,
                       population=p, on_device=True, **over)
-    jenv = j_history_env(jbase, over["history_len"]) if over else jbase
+    jenv = j_history_env(jbase, over["history_len"]) if "history_len" in over else jbase
     actor_def, critic_def = j_build_models(jcfg, JSpecView(jenv))
     jsac = j_make_learner(jcfg, actor_def, critic_def, 1)
     jpop = JPopulationLoop(jsac, jenv, p, n_envs=N_ENVS)
     jts, jbuf, jes, jkeys, _ = jpop.init(jax.random.key(0), buffer_capacity=CAPACITY)
     jes = _set_counts(jes, counts)
     learner, state, env = _port_population(
-        dict(population=p, on_device=True, update_every=UPDATE_EVERY, **over), p, jts)
+        dict(population=p, on_device=True, update_every=UPDATE_EVERY, **over), p, jts,
+        base=tbase)
     loop = PopulationOnDeviceLoop(learner, env, p, n_envs=N_ENVS, device="cpu")
     _, ring, _, act_gen, _ = loop.init(0, CAPACITY)
     es = _port_env(jes)
     jrng_env = jes.inner.rng if isinstance(jes.inner, JEnvState) else jes.rng
 
-    noise, poses = _member_draws(jkeys, jrng_env, p, warmup=True)
+    noise, poses = _member_draws(jkeys, jrng_env, p, warmup=True, base=jbase)
     jts, jbuf, jes1, jkeys, jm = jpop.epoch(jts, jbuf, jes, jkeys, steps=STEPS,
                                             update_every=UPDATE_EVERY, warmup=True)
     state, ring, es, act_gen, m = loop.epoch(state, ring, es, act_gen, steps=STEPS,
@@ -634,27 +688,34 @@ def test_population_epoch_matches_jax(name):
     _assert_rows(ring, jbuf, size, "warm-up ring")
     _assert_metrics(m, jm, "warm-up")
     for i, (a, b) in enumerate(zip(es.leaves(), _jax_env_leaves(jes1), strict=True)):
-        _close(a, b, f"warm-up env leaf {i}", atol=1e-5, rtol=1e-5)
+        _assert_close_or_frames(a, b, f"warm-up env leaf {i}")
 
     jrng_env = jes1.inner.rng if isinstance(jes1.inner, JEnvState) else jes1.rng
-    noise, poses = _member_draws(jkeys, jrng_env, p, warmup=False)
+    noise, poses = _member_draws(jkeys, jrng_env, p, warmup=False, base=jbase)
     per = learner.config.updates_per_window
     sizes = [min(size + (w + 1) * UPDATE_EVERY * N_ENVS, CAPACITY)
              for w in range(STEPS // UPDATE_EVERY)]
-    draws = [_burst_draws(jts.rng[i], sizes, per) for i in range(p)]
+    fused = jcfg.pixel_pipeline == "fused"
+    draws = [_burst_draws(jts.rng[i], sizes, per, jcfg.algorithm, fused) for i in range(p)]
     indices = _t(np.stack([d[0] for d in draws], axis=2))  # (W, K, P, B)
-    eps = _t(np.stack([d[1] for d in draws], axis=3))  # (W, K, 2, P, B, 1)
+    # (W, K, [2,] P, B, 1): the member axis before the batch's
+    eps = _t(np.stack([d[1] for d in draws], axis=-3))
+    offsets = _t(np.stack([d[2] for d in draws], axis=3)) if fused else None  # (W, K, 2, P, B, 2)
     jts, jbuf, jes2, jkeys, jm = jpop.epoch(jts, jbuf, jes1, jkeys, steps=STEPS,
                                             update_every=UPDATE_EVERY)
     state, ring, es, act_gen, m = loop.epoch(state, ring, es, act_gen, steps=STEPS,
                                              update_every=UPDATE_EVERY, noise=noise,
-                                             poses=poses, indices=indices, eps=eps)
+                                             poses=poses, indices=indices, eps=eps,
+                                             offsets=offsets)
     assert ring.size == CAPACITY and np.all(np.asarray(jbuf.ptr) == ring.ptr)
     _assert_rows(ring, jbuf, CAPACITY, "trained ring")
     _assert_metrics(m, jm, "trained")
     updates = per * STEPS // UPDATE_EVERY
-    for mod, tree in (("actor", jts.actor_params), ("critic", jts.critic_params),
-                      ("target_critic", jts.target_critic_params)):
+    pairs = [("actor", jts.actor_params), ("critic", jts.critic_params),
+             ("target_critic", jts.target_critic_params)]
+    if state.target_actor is not None:
+        pairs.append(("target_actor", jts.target_actor_params))
+    for mod, tree in pairs:
         module = getattr(state, mod)
         want = _named_arrays(module, _np(tree))
         for n, t_ in module.named_parameters():
@@ -909,19 +970,105 @@ def test_cli_routes_the_population_and_run_agent_evaluates_a_member(tmp_path, ca
 
 @pytest.mark.parametrize("argv,match", [
     (["--environment", "Pendulum-v1", "--population", "2"], "host-loop population"),
-    (["--environment", "PixelPendulumNumpy-v0", "--population", "2", "--on-device", "true"],
+    (["--environment", "PixelPendulumNumpy-v0", "--population", "2", "--on-device", "true",
+      "--filters", "8,16", "--kernel-sizes", "4,3", "--strides", "2,2", "--cnn-dense-size", "16",
+      "--cnn-features", "4", "--frame-augment", "shift", "--pixel-pipeline", "fused"],
      "visual"),
     (["--environment", "PendulumNumpy-v1", "--population", "2", "--on-device", "true",
       "--algorithm", "td3"], "TD3 population"),
 ])
 def test_populations_not_ported_raise(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_mod.main([*argv, "--runs-root", str(tmp_path), "--device", "cpu", "--epochs", "1",
-                        "--steps-per-epoch", "20", "--update-every", "10", "--hidden-sizes",
-                        "8", "--buffer-size", "100"])
+    """The three populations this test once pinned as refused — the
+    host-loop one, the visual fused one and the TD3 fused one (``match``
+    names each) — now train through the CLI, one epoch each, every
+    member's loss finite; the member axis over a mesh still raises."""
+    final = train_mod.main([*argv, "--runs-root", str(tmp_path), "--device", "cpu", "--epochs",
+                            "1", "--steps-per-epoch", "20", "--update-every", "10",
+                            "--start-steps", "10", "--update-after", "10", "--hidden-sizes",
+                            "8", "--buffer-size", "100", "--batch-size", "8",
+                            *(["--on-device-envs", "2"] if "--on-device" in argv else [])])
+    if match == "host-loop population":
+        assert {"reward_m0", "reward_m1"} <= set(final) and np.isfinite(final["loss_q"])
+    else:
+        assert all(np.isfinite(final[f"loss_q_m{i}"]) for i in range(2)), final
     with pytest.raises(NotImplementedError, match="mesh"):
         PopulationOnDeviceLoop(PopulationSAC(SACConfig(), 1, 2), PendulumTorch, 2, mesh=object(),
                                device="cpu")
+
+
+MODEL_CASES = {
+    # name: (config overrides, observation shape)
+    "visual-sac": (dict(PIXEL), MultiObservation(features=(1,), frame=(32, 32, 3))),
+    "visual-td3": (dict(PIXEL, algorithm="td3"), MultiObservation(features=(1,),
+                                                                   frame=(32, 32, 3))),
+    "flat-td3": (dict(algorithm="td3"), (3,)),
+}
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
+def test_stacked_models_equal_each_members_own(name):
+    """Member ``i`` of the stacked actor and critic (grouped convolutions,
+    per-member flatten, unrolled visual critics) computes what
+    ``build_models``' member ``i`` computes on its slice: on uint8 frames
+    (acting) and decoded float frames (the fused pipeline)."""
+    over, shape = MODEL_CASES[name]
+    cfg = SACConfig(hidden_sizes=HIDDEN, **over)
+    gens = [torch.Generator().manual_seed(10 + i) for i in range(3)]
+    actor, critic = build_population_models(cfg, shape, 1, 2.0, gens)
+    singles = [build_models(cfg, shape, 1, 2.0, generator=torch.Generator().manual_seed(10 + i))
+               for i in range(3)]
+    rng = np.random.default_rng(2)
+    if isinstance(shape, MultiObservation):
+        frames = rng.integers(0, 256, (3, 5, 32, 32, 3), dtype=np.uint8)
+        inputs = [MultiObservation(_t(rng.standard_normal((3, 5, 1)).astype(np.float32)), f)
+                  for f in (_t(frames), _t(frames).float() / 255.0)]
+    else:
+        inputs = [_t(rng.standard_normal((3, 5, 3)).astype(np.float32))]
+    act = _t(rng.uniform(-2, 2, (3, 5, 1)).astype(np.float32))
+    eps = _t(rng.standard_normal((3, 5, 1)).astype(np.float32))
+    for obs in inputs:
+        with torch.no_grad():
+            a, _ = actor(obs, eps=eps, with_logprob=False)
+            q = critic(obs, act)
+            assert a.shape == (3, 5, 1) and q.shape == (3, cfg.num_qs, 5)
+            for i, (sa, sc) in enumerate(singles):
+                one = (MultiObservation(obs.features[i], obs.frame[i])
+                       if isinstance(obs, MultiObservation) else obs[i])
+                _close(a[i], sa(one, eps=eps[i], with_logprob=False)[0], f"actor {i}",
+                       atol=1e-6, rtol=1e-5)
+                _close(q[i], sc(one, act[i]), f"critic {i}", atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--algorithm", "td3", "--environment", "PendulumNumpy-v1"],
+    ["--environment", "PixelPendulumNumpy-v0", "--filters", "8,16", "--kernel-sizes", "4,3",
+     "--strides", "2,2", "--cnn-dense-size", "16", "--cnn-features", "4", "--frame-augment",
+     "shift", "--pixel-pipeline", "fused"],
+], ids=["td3", "pixel"])
+def test_td3_and_pixel_population_members_export_and_evaluate(tmp_path, capsys, extra):
+    """A fused TD3 or pixel population with PBT trains through the CLI;
+    ``run_agent --member 1`` exports member 1 (a TD3 member with its
+    target actor) and evaluates it on the host env; the export restores
+    into a standalone learner equal to the population's slice."""
+    train_mod.main([*extra, "--on-device", "true", "--population", "3", "--pbt-every", "1",
+                    "--runs-root", str(tmp_path), "--device", "cpu", "--epochs", "2",
+                    "--steps-per-epoch", "20", "--update-every", "10", "--start-steps", "10",
+                    "--hidden-sizes", "8", "--buffer-size", "100", "--batch-size", "8",
+                    "--on-device-envs", "2"])
+    (run_dir,) = (tmp_path / "Default").iterdir()
+    capsys.readouterr()
+    out = run_agent.main(["--run", run_dir.name, "--runs-root", str(tmp_path), "--episodes",
+                          "1", "--seed", "0", "--device", "cpu", "--member", "1"])
+    assert out["member"] == 1 and np.isfinite(out["ep_ret_mean"])
+    saved = torch.load(run_dir / "artifacts" / "checkpoints" / "epoch_1" / "state.pt",
+                       weights_only=True)
+    exported = torch.load(run_dir / "artifacts" / "member_1" / "epoch_1" / "state.pt",
+                          weights_only=True)
+    td3 = "td3" in extra
+    assert ("target_actor" in exported) == td3
+    for mod in ("actor", "critic", "target_critic", *(("target_actor",) if td3 else ())):
+        for k, v in exported[mod].items():
+            assert torch.equal(v, saved[mod][k][1]), f"{mod}.{k}"
 
 
 def test_population_raises_naming_the_diverged_members():

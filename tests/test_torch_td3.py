@@ -308,6 +308,47 @@ def test_losses_match_jax(target_noise, noise_clip):
                                atol=1e-5, rtol=1e-5)
 
 
+def test_losses_over_a_member_axis_are_each_members_own():
+    """The losses over member-stacked models (a population's ``(P, num_qs,
+    B)`` critic): ``(P,)`` losses and metrics, member ``i``'s computed with
+    its own ``target_noise`` exactly as with that value given to all; a
+    0-d ``target_noise`` tensor gives the float's loss."""
+    from torch_actor_critic_tpu_torch.models.population import build_population_models
+
+    p = 3
+    cfg = SACConfig(algorithm="td3", hidden_sizes=(32, 32), population=p)
+    actor, critic = build_population_models(
+        cfg, (OBS_DIM,), ACT_DIM, ACT_LIMIT, [torch.Generator().manual_seed(i) for i in range(p)])
+    target_actor, target_critic = build_population_models(
+        cfg, (OBS_DIM,), ACT_DIM, ACT_LIMIT,
+        [torch.Generator().manual_seed(10 + i) for i in range(p)])
+    rng = np.random.default_rng(11)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    batch = Batch(f32(p, BATCH, OBS_DIM), f32(p, BATCH, ACT_DIM).clamp(-ACT_LIMIT, ACT_LIMIT),
+                  f32(p, BATCH), f32(p, BATCH, OBS_DIM),
+                  torch.from_numpy((rng.random((p, BATCH)) < 0.2).astype(np.float32)))
+    eps = f32(p, BATCH, ACT_DIM)
+    kw = dict(target_actor=target_actor, target_critic=target_critic, batch=batch,
+              act_limit=ACT_LIMIT, noise_clip=0.5, gamma=0.99, reward_scale=1.5, eps=eps)
+    noise = torch.tensor([0.0, 0.2, 0.7])
+    loss, aux = losses.critic_loss(critic, target_noise=noise, **kw)
+    assert loss.shape == aux["q_mean"].shape == aux["backup_mean"].shape == (p,)
+    for i in range(p):
+        each, each_aux = losses.critic_loss(critic, target_noise=float(noise[i]), **kw)
+        assert torch.equal(loss[i], each[i])
+        assert torch.equal(aux["backup_mean"][i], each_aux["backup_mean"][i])
+    same, _ = losses.critic_loss(critic, target_noise=torch.tensor(0.2), **kw)
+    assert torch.equal(same, losses.critic_loss(critic, target_noise=0.2, **kw)[0])
+    loss_pi, aux_pi = losses.actor_loss(actor, critic=critic, batch=batch)
+    pi, _ = actor(batch.states, deterministic=True, with_logprob=False)
+    want = -critic(batch.states, pi)[:, 0].mean(dim=-1)
+    assert loss_pi.shape == aux_pi["q_pi_mean"].shape == (p,)
+    assert torch.equal(loss_pi, want)
+
+
 # -------------------------------------------------------------- update
 
 

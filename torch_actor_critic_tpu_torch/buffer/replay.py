@@ -23,7 +23,10 @@ striped variant is not ported.
 A population's rings (``members=P`` at init) are one ring of ``(P,
 capacity, ...)`` leaves: a chunk ``(P, n, ...)`` is pushed at one cursor
 for every member (they push in lockstep), and a batch is ``(P, B)``
-rows, each member's drawn from its own ring. :func:`estimate_buffer_bytes`
+rows, each member's drawn from its own ring; a visual population's
+frames are gathered for every member by one call of
+:func:`~..ops.pixels.member_frame_gather_pair` (one K1 launch over the
+member-folded ring). :func:`estimate_buffer_bytes`
 and :func:`warn_if_buffer_exceeds_hbm` size a ring before it is made.
 """
 
@@ -37,7 +40,10 @@ import torch
 
 from torch_actor_critic_tpu_torch.core.types import Batch, BufferState, MultiObservation
 from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
-from torch_actor_critic_tpu_torch.ops.pixels import fused_frame_gather_pair
+from torch_actor_critic_tpu_torch.ops.pixels import (
+    fused_frame_gather_pair,
+    member_frame_gather_pair,
+)
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -112,25 +118,24 @@ def init_visual_replay_buffer(
     frame_shape: t.Sequence[int],
     act_dim: int,
     device: torch.device | str | None = None,
+    members: int | None = None,
 ) -> BufferState:
     """An empty mixed-observation ring: f32 ``(feature_dim,)`` features
     and **uint8** ``frame_shape`` (H, W, C) frames, on ``device``
-    (``None``: the card; raises without one)."""
+    (``None``: the card; raises without one); with ``members=P``, a
+    population's ``(P, capacity, ...)`` rings."""
     device = resolve_device(device)
+    lead = (capacity,) if members is None else (members, capacity)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((*lead, *shape), dtype=dtype, device=device)
 
     def obs():
-        return MultiObservation(
-            features=torch.zeros((capacity, feature_dim), dtype=torch.float32, device=device),
-            frame=torch.zeros((capacity, *frame_shape), dtype=torch.uint8, device=device),
-        )
+        return MultiObservation(features=zeros(feature_dim),
+                                frame=zeros(*frame_shape, dtype=torch.uint8))
 
-    data = Batch(
-        states=obs(),
-        actions=torch.zeros((capacity, act_dim), dtype=torch.float32, device=device),
-        rewards=torch.zeros((capacity,), dtype=torch.float32, device=device),
-        next_states=obs(),
-        done=torch.zeros((capacity,), dtype=torch.float32, device=device),
-    )
+    data = Batch(states=obs(), actions=zeros(act_dim), rewards=zeros(),
+                 next_states=obs(), done=zeros())
     return BufferState(data=data, ptr=0, size=0, device_size=_zero_size(device))
 
 
@@ -208,6 +213,21 @@ def draw_rows(state: BufferState, batch_size: int, generator: torch.Generator) -
     return torch.minimum((u * state.device_size).long(), state.device_size - 1)
 
 
+def fold_member_rows(indices: torch.Tensor, capacity: int) -> torch.Tensor:
+    """A population's rows ``(P, B)`` (member ``i``'s rows of its own
+    ring) as rows of the member-folded ``(P·capacity, ...)`` view of its
+    rings: ``i·capacity + indices[i]``, flattened to ``(P·B,)``."""
+    p = indices.shape[0]
+    return (indices + torch.arange(p, device=indices.device)[:, None] * capacity).reshape(-1)
+
+
+def _take_folded(ring: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Member-stacked ``ring`` ``(P, capacity, ...)`` at folded ``rows``:
+    ``(P, B, ...)``."""
+    return ring.reshape(-1, *ring.shape[2:]).index_select(0, rows).reshape(
+        ring.shape[0], -1, *ring.shape[2:])
+
+
 def _indices(state: BufferState, batch_size: int, generator, indices) -> torch.Tensor:
     if (generator is None) == (indices is None):
         raise ValueError("sample: pass exactly one of generator / indices")
@@ -232,11 +252,8 @@ def sample(
     indices = _indices(state, batch_size, generator, indices)
     if state.members is None:
         return state.data.map(lambda ring: ring.index_select(0, indices))
-    p, cap = state.members, state.capacity
-    flat = (indices + torch.arange(p, device=indices.device)[:, None] * cap).reshape(-1)
-    return state.data.map(
-        lambda ring: ring.reshape(p * cap, *ring.shape[2:]).index_select(0, flat)
-        .reshape(p, -1, *ring.shape[2:]))
+    rows = fold_member_rows(indices, state.capacity)
+    return state.data.map(lambda ring: _take_folded(ring, rows))
 
 
 def sample_fused_visual(
@@ -261,7 +278,13 @@ def sample_fused_visual(
     Draws from ``generator``: the rows, then (with a shift) the states'
     and the next states' offsets. Test hooks: ``indices`` ``(B,)`` and
     ``offsets`` ``(2, B, 2)`` replace the draws (the JAX package splits
-    its key three ways instead: rows, state shift, next-state shift)."""
+    its key three ways instead: rows, state shift, next-state shift).
+
+    A population's rings give ``(P, B, ...)`` leaves: rows ``(P, B)``
+    (one draw), offsets ``(P·B, 2)`` per leaf (one draw each; hook
+    ``(2, P, B, 2)``), and both frame leaves of every member gathered by
+    one :func:`~..ops.pixels.member_frame_gather_pair` call, every leaf
+    at the same folded rows (:func:`fold_member_rows`)."""
     if not state.visual:
         raise ValueError(
             "sample_fused_visual needs a MultiObservation (frame) buffer; got "
@@ -275,15 +298,23 @@ def sample_fused_visual(
     elif offsets is None:
         if generator is None:
             raise ValueError("sample_fused_visual: a shift needs offsets or a generator")
-        offs = tuple(shift_offsets(batch_size, pad, generator, idx.device) for _ in range(2))
+        offs = tuple(shift_offsets(idx.numel(), pad, generator, idx.device) for _ in range(2))
     else:
-        offs = (offsets[0].to(idx.device), offsets[1].to(idx.device))
+        offs = tuple(offsets[i].to(idx.device).reshape(-1, 2) for i in range(2))
     d = state.data
+    if state.members is None:
+        def take(ring):
+            return ring.index_select(0, idx)
 
-    def take(ring):
-        return ring.index_select(0, idx)
+        gather = fused_frame_gather_pair
+    else:
+        idx = fold_member_rows(idx, state.capacity)
 
-    frames = fused_frame_gather_pair(
+        def take(ring):
+            return _take_folded(ring, idx)
+
+        gather = member_frame_gather_pair
+    frames = gather(
         (d.states.frame, d.next_states.frame), idx, offs, pad=pad,
         normalize=normalize, out_dtype=out_dtype,
     )

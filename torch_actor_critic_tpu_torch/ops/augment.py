@@ -56,12 +56,13 @@ def augment_batch(
     """``mode="shift"``: random-shift ``states.frame`` and
     ``next_states.frame`` with independent offsets (DrQ's K=M=1), from
     ``offsets`` ``(2, B, 2)`` when given, else two draws from
-    ``generator``. ``"none"`` and non-visual batches pass through."""
+    ``generator`` (a population's ``(P, B)`` batch: ``(2, P·B, 2)``).
+    ``"none"`` and non-visual batches pass through."""
     if mode == "none" or not isinstance(batch.states, MultiObservation):
         return batch
     if mode != "shift":
         raise ValueError(f"unknown frame_augment mode {mode!r}")
-    n = batch.rewards.shape[0]
+    n = batch.rewards.numel()
     if offsets is None:
         dev = batch.rewards.device
         offsets = torch.stack([shift_offsets(n, pad, generator, dev) for _ in range(2)])

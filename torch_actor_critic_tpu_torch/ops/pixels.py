@@ -21,6 +21,14 @@ For example ``b``, stack slot ``s``, row ``y``, column ``x``, channel
   the card's 227 KB of it.)
 - :func:`fused_frame_gather_pair` — the same for a batch's two frame
   leaves (states, next states) at the same rows: one launch for both.
+- :func:`member_frame_gather_pair` — a population's: its ``(P,
+  capacity, ...)`` member rings viewed as one ``(P·capacity, ...)``
+  ring, gathered at rows of that view (member ``i``'s at ``i·capacity +
+  local``, folded by ``buffer.replay.fold_member_rows``), so one launch
+  gathers both leaves of every member (``B' = P·B``). The folded ring
+  wraps at the folded capacity, so a stacked gather would read the
+  previous member's ring: it takes ``frame_stack=1`` only (what training
+  gathers).
 
 Bit contract: the kernel and the plain version agree bitwise for every
 (out_dtype, normalize, augment, frame_stack). The divide is IEEE
@@ -202,3 +210,42 @@ def fused_frame_gather_pair(
             for ring, offs in zip(rings, offsets)
         )
     return tuple(_launch(rings, idx, offsets, pad, normalize, out_dtype, frame_stack))
+
+
+def member_frame_gather_pair(
+    rings: t.Sequence[torch.Tensor],
+    rows: torch.Tensor,
+    offsets: t.Sequence[torch.Tensor | None] | None = None,
+    pad: int = 4,
+    normalize: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+    frame_stack: int = 1,
+) -> t.Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_frame_gather_pair` of a population's two member-stacked
+    frame leaves ``(P, capacity, H, W, C)``: the rings folded to one
+    ``(P·capacity, H, W, C)`` ring and gathered at ``rows`` ``(P·B,)``,
+    rows of the folded ring (member ``i``'s ``B`` rows from its own ring,
+    :func:`~..buffer.replay.fold_member_rows`), in ONE call (one launch
+    of K1 on the card), each leaf with its shifts ``offsets`` ``(P·B,
+    2)`` or ``(P, B, 2)`` (``None``: no shift). Returns ``(P, B, H, W,
+    C)`` per leaf. ``frame_stack > 1`` raises ``ValueError``: the folded
+    ring wraps at ``P·capacity``, so member ``i``'s first rows would
+    stack frames of member ``i - 1``."""
+    if frame_stack != 1:
+        raise ValueError(
+            f"member_frame_gather_pair: frame_stack={frame_stack} on a member-folded ring; "
+            "its rows wrap at the folded capacity, so a stack would cross into the previous "
+            "member's ring (training gathers with frame_stack=1)")
+    rings = tuple(rings)
+    if (any(r.dim() != 5 for r in rings) or rows.dim() != 1
+            or rows.numel() % rings[0].shape[0]):
+        raise ValueError(
+            "member_frame_gather_pair: rings must be (P, capacity, H, W, C) and rows (P·B,); "
+            f"got {[tuple(r.shape) for r in rings]} and {tuple(rows.shape)}")
+    p, capacity = rings[0].shape[:2]
+    offsets = (None, None) if offsets is None else tuple(offsets)
+    folded = fused_frame_gather_pair(
+        [r.reshape(p * capacity, *r.shape[2:]) for r in rings], rows,
+        [None if o is None else o.reshape(-1, 2) for o in offsets],
+        pad=pad, normalize=normalize, out_dtype=out_dtype)
+    return tuple(x.reshape(p, -1, *x.shape[1:]) for x in folded)

@@ -15,12 +15,17 @@ the acting generator, so two invocations print the same line.
 render). Runs on the card unless ``--device cpu`` is given; without a
 card and without that flag it exits non-zero.
 
-A population run (``--population`` > 1) is evaluated one member at a
-time: ``--member i`` (default: the best by the checkpoint's PBT return
-EMA, member 0 without one) is exported beside the run
+A fused population run (``--on-device true --population`` > 1, SAC or
+TD3, flat, history or pixel) is evaluated one member at a time:
+``--member i`` (default: the best by the checkpoint's PBT return EMA,
+member 0 without one) is exported beside the run
 (:func:`~.utils.checkpoint.export_member_checkpoint`, under
 ``artifacts/member_<i>``, which the serving CLI serves too) and
-evaluated from there; the JSON line names it as ``member``.
+evaluated from there; the JSON line names it as ``member``. A host-loop
+population run (``--population`` > 1 without ``--on-device``) is
+evaluated as the JAX CLI evaluates it: every member on its own env, the
+JSON line with ``per_member`` returns (its checkpoint is no population
+export's source, as JAX's is not).
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ def main(argv=None) -> dict:
     env_name = params.get("environment", "Humanoid-v5")  # the JAX CLI's fallback
     config = SACConfig.from_json(json.dumps(params.get("config", {})))
     ckpt_dir, member = tracker.artifact_path("checkpoints"), None
-    if config.population > 1:
+    if config.population > 1 and config.on_device:
         probe = Checkpointer(ckpt_dir).peek_meta()
         ema = (probe.get("pbt") or {}).get("return_ema")
         member = args.member if args.member is not None else (

@@ -172,13 +172,14 @@ class Learner:
         A ring on the card runs as a CUDA graph (:mod:`.graph`); a CPU
         ring, a burst given a test hook (``indices``/``eps``/``offsets``,
         see :func:`run_update_burst`), or ``eager=True`` takes the eager
-        loop. The graph is captured once per (state, ring,
-        ``num_updates``) and replayed across bursts; another key
-        (:func:`graph_key`: those objects and every tensor of them the
-        update reads or writes) captures anew (``graph_captures``
-        counts). A failed capture or
-        replay raises, with ``state.step`` counting the updates that
-        ran."""
+        loop. The graph is captured once per (state, ring) and replayed
+        across bursts of up to the ``num_updates`` it was captured for
+        (a larger burst captures again, for its size; alternating sizes
+        then replay that one graph); another key (:func:`graph_key`:
+        those objects and every tensor of them the update reads or
+        writes) captures anew (``graph_captures`` counts). A failed
+        capture or replay raises, with ``state.step`` counting the
+        updates that ran."""
         hooked = indices is not None or eps is not None or offsets is not None
         if eager or hooked or buffer_state.data.rewards.device.type != "cuda":
             return run_update_burst(
@@ -196,7 +197,7 @@ class Learner:
                 key, num_updates, state.generator,
             )
         try:
-            metrics = graph.run()
+            metrics = graph.run(num_updates)
         finally:
             state.step = step + graph.ran  # the capture counted a step it did not run
         if graph is not self.graph:

@@ -69,18 +69,22 @@ class MetricStack:
             self.rows[k].index_copy_(0, self.step, v.unsqueeze(0))
         self.step.add_(1)
 
-    def reduce(self) -> t.Dict[str, torch.Tensor]:
-        """The burst's metrics, reduced by key suffix into new tensors:
-        the eager loop's reduction of the same stacked values."""
-        return reduce_burst_metrics(self.rows)
+    def reduce(self, rows: int | None = None) -> t.Dict[str, torch.Tensor]:
+        """The burst's metrics (its first ``rows`` rows, all by default),
+        reduced by key suffix into new tensors: the eager loop's reduction
+        of the same stacked values."""
+        return reduce_burst_metrics(
+            self.rows if rows is None else {k: v[:rows] for k, v in self.rows.items()})
 
 
 class BurstGraph:
     """``step_fn(stack)`` captured once and replayed for each of
     ``num_updates`` updates a burst. ``key`` holds the objects the
     capture read (state, modules, optimizers, ring): the graph serves a
-    burst only over those same objects (:meth:`serves`). ``generators``
-    (one or several) are those the step draws from."""
+    burst only over those same objects (:meth:`serves`), of at most
+    ``num_updates`` updates (its metric stack's rows), so bursts of
+    alternating sizes replay one graph. ``generators`` (one or several)
+    are those the step draws from."""
 
     def __init__(
         self,
@@ -103,23 +107,28 @@ class BurstGraph:
         self._step_fn = step_fn
 
     def serves(self, key: t.Sequence[object], num_updates: int) -> bool:
-        return (num_updates == self.num_updates and len(key) == len(self.key)
+        return (num_updates <= self.num_updates and len(key) == len(self.key)
                 and all(a is b for a, b in zip(key, self.key)))
 
-    def run(self) -> t.Dict[str, torch.Tensor]:
-        """One burst (:meth:`play`); returns the reduced metrics."""
-        self.play()
-        return self.stack.reduce()
+    def run(self, num_updates: int | None = None) -> t.Dict[str, torch.Tensor]:
+        """One burst of ``num_updates`` steps (:meth:`play`); returns the
+        reduced metrics."""
+        self.play(num_updates)
+        return self.stack.reduce(self.ran)
 
-    def play(self) -> None:
+    def play(self, num_updates: int | None = None) -> None:
         """The counter reset, the warm-up and the capture if there is no
-        graph yet, then a replay for every other step; the stack's rows
-        hold what each step wrote."""
+        graph yet, then a replay for every other step, ``num_updates``
+        steps in all (at most the stack's rows; all of them by default);
+        the stack's rows hold what each step wrote."""
+        n = self.num_updates if num_updates is None else num_updates
+        if not WARMUP_UPDATES <= n <= self.num_updates:
+            raise ValueError(f"a burst of {n} steps on a graph of {self.num_updates} rows")
         self.stack.step.zero_()
         self.ran = 0
         if self.graph is None:
             self._capture()
-        while self.ran < self.num_updates:
+        while self.ran < n:
             self.graph.replay()
             self.ran += 1
 

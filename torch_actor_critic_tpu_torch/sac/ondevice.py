@@ -24,9 +24,11 @@ chunk has a fixed size. A failed capture raises; nothing falls back.
 
 A population (:class:`PopulationOnDeviceLoop`, ``--population N``) is
 the same loop with the member axis in every tensor: ``N`` members'
-member-stacked learner (:class:`~.population.PopulationSAC`), rings
-``(N, capacity, ...)``, and one env batch of ``N·n_envs`` twins (member
-``i``'s envs are rows ``i·n_envs`` on), so one captured acting step and
+member-stacked learner (:class:`~.population.PopulationSAC` or
+:class:`~.population.PopulationTD3`), rings ``(N, capacity, ...)`` (a
+pixel twin's frames uint8, gathered for every member by one K1 launch
+over the member-folded ring), and one env batch of ``N·n_envs`` twins
+(member ``i``'s envs are rows ``i·n_envs`` on), so one captured acting step and
 one captured update advance every member; each attention layer is one
 kernel launch for the whole population. Members share no state: a
 member's draws are its slice of one population-wide draw (from the
@@ -36,9 +38,9 @@ hyperparameters (``TrainState.hyperparams``, ``(N,)``) start jittered
 and :meth:`PopulationOnDeviceLoop.pbt_step` runs the exploit/explore
 step on the device, in place, into the tensors the graphs hold.
 
-Not ported: the mesh (``mesh`` raises), the visual and TD3 populations,
-the scenario loop, the cost-model telemetry and the ``pbt`` telemetry
-events (they wait for the telemetry module).
+Not ported: the mesh (``mesh`` raises), the scenario loop, the
+cost-model telemetry and the ``pbt`` telemetry events (they wait for the
+telemetry module).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from torch_actor_critic_tpu_torch.core.types import (
     MultiObservation,
     PBTState,
     TrainState,
+    tree_map,
 )
 from torch_actor_critic_tpu_torch.diagnostics.ingraph import split_member_metrics
 from torch_actor_critic_tpu_torch.envs.ondevice import (
@@ -72,9 +75,13 @@ from torch_actor_critic_tpu_torch.envs.ondevice import (
 )
 from torch_actor_critic_tpu_torch.models import build_models
 from torch_actor_critic_tpu_torch.models.population import build_population_models
-from torch_actor_critic_tpu_torch.sac.algorithm import SAC, Learner
+from torch_actor_critic_tpu_torch.sac.algorithm import Learner
 from torch_actor_critic_tpu_torch.sac.graph import BurstGraph, MetricStack
-from torch_actor_critic_tpu_torch.sac.population import PopulationSAC, member_tensors
+from torch_actor_critic_tpu_torch.sac.population import (
+    make_population_learner,
+    member_seed,
+    member_tensors,
+)
 from torch_actor_critic_tpu_torch.sac.trainer import (
     POPULATION_FIELDS,
     check_ported,
@@ -206,10 +213,13 @@ class OnDeviceLoop:
 
     # ----------------------------------------------------------------- epoch
 
-    def _members(self, x: torch.Tensor) -> torch.Tensor:
-        """An env-batch tensor ``(P·n_envs, ...)`` as ``(P, n_envs, ...)``
-        in a population; as it is otherwise."""
-        return x if self.members is None else x.reshape(self.members, -1, *x.shape[1:])
+    def _members(self, x):
+        """An env-batch tensor ``(P·n_envs, ...)`` (or each leaf of a
+        :class:`MultiObservation`) as ``(P, n_envs, ...)`` in a
+        population; as it is otherwise."""
+        if self.members is None:
+            return x
+        return tree_map(lambda v: v.reshape(self.members, -1, *v.shape[1:]), x)
 
     def _per_member_sum(self, x: torch.Tensor) -> torch.Tensor:
         return x.sum() if self.members is None else self._members(x).sum(dim=-1)
@@ -344,12 +354,6 @@ class OnDeviceLoop:
         return state, ring, env_states, act_gen, metrics
 
 
-def member_seed(seed: int, member: int) -> int:
-    """The model-init seed of a population's member ``member``: member 0
-    is initialised as a lone loop seeded ``seed`` is."""
-    return seed * 65_536 + member
-
-
 class PopulationOnDeviceLoop(OnDeviceLoop):
     """``n_members`` complete fused training runs advanced by one loop
     (the JAX package's ``PopulationOnDeviceLoop``): every tensor carries
@@ -360,7 +364,7 @@ class PopulationOnDeviceLoop(OnDeviceLoop):
     ``pbt=True`` the hyperparameters are per member and
     :meth:`pbt_step` exploits and explores on the device."""
 
-    def __init__(self, sac: PopulationSAC, env_cls, n_members: int, n_envs: int = 16,
+    def __init__(self, sac: Learner, env_cls, n_members: int, n_envs: int = 16,
                  pbt: bool = False, mesh=None, device: str | torch.device | None = None):
         if n_members < 1:
             raise ValueError(f"n_members must be >= 1, got {n_members}")
@@ -391,7 +395,13 @@ class PopulationOnDeviceLoop(OnDeviceLoop):
                                                 spec.act_limit, gens)
         state = self.sac.init_state(actor.to(dev), critic.to(dev),
                                     torch.Generator(device=dev).manual_seed(seed + 1))
-        ring = init_replay_buffer(buffer_capacity, spec.obs_shape, spec.act_dim, dev, members=p)
+        if isinstance(spec.obs_shape, MultiObservation):
+            (features,) = spec.obs_shape.features
+            ring = init_visual_replay_buffer(buffer_capacity, features, spec.obs_shape.frame,
+                                             spec.act_dim, dev, members=p)
+        else:
+            ring = init_replay_buffer(buffer_capacity, spec.obs_shape, spec.act_dim, dev,
+                                      members=p)
         env_gen = torch.Generator(device=dev).manual_seed(seed + 3)
         env_states = self.env.reset(p * self.n_envs, generator=env_gen, device=dev)
         act_gen = torch.Generator(device=dev).manual_seed(seed + 2)
@@ -482,8 +492,8 @@ class PopulationOnDeviceLoop(OnDeviceLoop):
     # ----------------------------------------------------------- extraction
 
     def extract_member(self, state: TrainState, member: int) -> TrainState:
-        """Member ``member``'s standalone SAC state, on the population's
-        device: its slice of the networks, targets, ``log_alpha`` and
+        """Member ``member``'s standalone SAC or TD3 state, on the
+        population's device: its slice of the networks, targets, ``log_alpha`` and
         Adam states (:func:`~..utils.checkpoint.member_state_dict`), its
         hyperparameters (0-d), the step counts, and a new generator at
         the population's state. A lone :class:`OnDeviceLoop`, the
@@ -491,7 +501,7 @@ class PopulationOnDeviceLoop(OnDeviceLoop):
         spec = _SpecView(self.env)
         actor, critic = build_models(self.sac.config, spec.obs_shape, spec.act_dim,
                                      spec.act_limit)
-        solo = SAC(self.sac.config, spec.act_dim).init_state(
+        solo = make_learner(self.sac.config, spec.act_dim).init_state(
             actor.to(self.device), critic.to(self.device),
             torch.Generator(device=state.generator.device))
         solo.load_state_dict_(member_state_dict(state.state_dict(), member))
@@ -620,14 +630,10 @@ def train_population_on_device(
             f"{env_name!r} has no on-device twin; on-device training supports "
             f"{known_on_device_envs()}"
         )
-    if config.algorithm != "sac":
-        raise NotImplementedError(
-            f"the TD3 population is not ported yet ({env_name} -> {env_cls.__name__}); "
-            "train SAC members")
     if config.history_len > 1:
         env_cls = history_env(env_cls, config.history_len)
     p = config.population
-    learner = PopulationSAC(config, env_cls.act_dim, p)
+    learner = make_population_learner(config, env_cls.act_dim, p)
     loop = PopulationOnDeviceLoop(learner, env_cls, p, n_envs=config.on_device_envs,
                                   pbt=config.pbt_every > 0, mesh=mesh, device=device)
     state, ring, env_states, act_gen, pbt_state = loop.init(seed, config.buffer_size)

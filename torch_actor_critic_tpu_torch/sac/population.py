@@ -15,6 +15,14 @@ elementwise, so one Adam over the stacked parameters is ``P`` members'
 Adams; with per-member learning rates (``TrainState.hyperparams``, each
 ``(P,)``) the steps go through :func:`~.algorithm.dynamic_lr_step`. The
 update's metrics are ``(P,)`` each.
+
+:class:`PopulationTD3` is TD3's update over member-stacked deterministic
+actors, their target actors and critics: its losses ``(P,)``, the
+smoothing noise ``target_noise`` a ``(P,)`` hyperparameter broadcast per
+member, and the policy delay one select on the shared lockstep
+``device_step``, as under JAX's ``vmap``. :func:`make_population_learner`
+picks one of the two from the config, and :func:`member_seed` seeds
+member ``i``'s models.
 """
 
 from __future__ import annotations
@@ -27,15 +35,31 @@ import torch
 from torch import nn
 
 from torch_actor_critic_tpu_torch.core.types import Batch, TrainState
+from torch_actor_critic_tpu_torch.ops.augment import augment_batch
 from torch_actor_critic_tpu_torch.ops.polyak import polyak_update_
 from torch_actor_critic_tpu_torch.sac.algorithm import (
     SAC,
+    Learner,
     Metrics,
     _set_grads,
     _step,
     dynamic_lr_step,
     make_adam,
 )
+from torch_actor_critic_tpu_torch.td3.algorithm import TD3
+
+
+def member_seed(seed: int, member: int) -> int:
+    """The model-init seed of a population's member ``member``: member 0
+    is initialised as a lone learner seeded ``seed`` is."""
+    return seed * 65_536 + member
+
+
+def make_population_learner(config, act_dim: int, members: int) -> Learner:
+    """:class:`PopulationTD3` for ``algorithm="td3"``, else
+    :class:`PopulationSAC`: ``members`` learners in one."""
+    cls = PopulationTD3 if config.algorithm == "td3" else PopulationSAC
+    return cls(config, act_dim, members)
 
 
 class PopulationSAC(SAC):
@@ -45,7 +69,8 @@ class PopulationSAC(SAC):
 
     def __init__(self, config, act_dim: int, members: int):
         if config.algorithm != "sac":
-            raise NotImplementedError("the TD3 population is not ported yet; train SAC members")
+            raise ValueError(f"PopulationSAC trains SAC members, not {config.algorithm!r}; "
+                             "make_population_learner picks the learner")
         super().__init__(config, act_dim)
         self.members = int(members)
 
@@ -76,10 +101,17 @@ class PopulationSAC(SAC):
         """One gradient step of every member, in SAC's order (critic,
         actor on the updated critic, temperature, polyak). The batch is
         ``(P, B, ...)``; ``eps_q``/``eps_pi`` ``(P, B, act_dim)`` default
-        to one draw each from ``state.generator``."""
+        to one draw each from ``state.generator``. Frames of the reference
+        pixel pipeline are shifted here, as :meth:`SAC.update` does (the
+        offsets drawn after the noise, ``(P·B, 2)`` per leaf)."""
         cfg = self.config
         gen = state.generator
         shape, device = batch.actions.shape, batch.actions.device
+        if cfg.frame_augment != "none" and cfg.pixel_pipeline != "fused":
+            eps_q, eps_pi = (e if e is not None else torch.randn(shape, generator=gen,
+                                                                 device=device)
+                             for e in (eps_q, eps_pi))
+            batch = augment_batch(batch, cfg.frame_augment, cfg.augment_pad, generator=gen)
         if eps_q is None:
             eps_q = torch.randn(shape, generator=gen, device=device)
         if eps_pi is None:
@@ -141,10 +173,38 @@ class PopulationSAC(SAC):
         return state, metrics
 
 
+class PopulationTD3(TD3):
+    """TD3 for ``members`` learners over member-stacked models: a
+    deterministic actor ``actor(obs (P, B, ...)) -> ((P, B, act), None)``,
+    its target, and a critic ensemble ``(P, num_qs, B)``. :meth:`TD3.update`
+    as it is: its losses (:mod:`~..td3.losses`, over the leading member
+    axis) and their metrics are ``(P,)``, ``target_noise`` one per member;
+    the policy delay selects on the shared ``device_step``, so every
+    member applies or skips its actor step at the same update."""
+
+    def __init__(self, config, act_dim: int, members: int):
+        if config.algorithm != "td3":
+            raise ValueError(f"PopulationTD3 trains TD3 members, not {config.algorithm!r}; "
+                             "make_population_learner picks the learner")
+        super().__init__(config, act_dim)
+        self.members = int(members)
+
+    def init_state(self, actor: nn.Module, critic: nn.Module,
+                   generator: torch.Generator) -> TrainState:
+        """:meth:`TD3.init_state` over stacked modules, with its inert
+        ``log_alpha`` ``(P,)``, as the JAX population's."""
+        state = super().init_state(actor, critic, generator)
+        device = state.log_alpha.device
+        state.log_alpha = torch.zeros((self.members,), dtype=torch.float32, device=device)
+        state.alpha_opt = make_adam([state.log_alpha], self.config.lr, device)
+        return state
+
+
 def member_tensors(state: TrainState) -> t.Iterator[torch.Tensor]:
     """Every tensor of a population state with the member axis first:
-    the networks' parameters and buffers, each Adam's moments, and
-    ``log_alpha`` (the Adam step counts are the lockstep 0-d ones)."""
+    the networks' parameters and buffers (a TD3 target actor's too),
+    each Adam's moments, and ``log_alpha`` (the Adam step counts are the
+    lockstep 0-d ones)."""
     for module in state.modules():
         yield from module.parameters()
         yield from module.buffers()

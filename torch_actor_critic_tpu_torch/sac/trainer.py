@@ -53,9 +53,24 @@ decodes them), and ``pixel_pipeline="fused"`` samples through the
 kernel K1. ``frame_augment``/``pixel_pipeline`` on a non-visual env
 raise ``ValueError`` at construction, as in JAX.
 
+``population = P > 1`` trains ``P`` independent members in lockstep, as
+the JAX trainer's population mode: one env per member (env ``i`` seeded
+as JAX seeds slot ``i``), one member-stacked learner
+(:class:`~..parallel.population.PopulationLearner` over
+:class:`~.population.PopulationSAC` or :class:`~.population.PopulationTD3`:
+one burst, one CUDA graph, for every member), rings ``(P, capacity,
+...)``, member ``i`` acting on row ``i`` through the stacked actor, a
+:class:`~..utils.normalize.PerMemberNormalizer` on flat observations
+(visual and history observations run unnormalized, with JAX's warning),
+``reward_m{i}`` per member in each epoch's metrics, ``grad_steps`` ×
+``P``, and :meth:`Trainer.evaluate` returning each member's returns
+(``per_member``). Its checkpoints hold what JAX's do: the stacked
+learner, the member rings, the normalizer and the acting generator.
+
 Config fields this slice does not implement raise
 ``NotImplementedError`` naming the field when they are not at their
-defaults (:data:`NOT_PORTED`). ``on_device`` selects the fused loop
+defaults (:data:`NOT_PORTED`); ``pbt_every`` raises here (PBT runs over
+the fused population). ``on_device`` selects the fused loop
 (:mod:`.ondevice`) in the train CLI; the host trainer ignores it, as
 JAX's does.
 
@@ -82,18 +97,21 @@ from torch_actor_critic_tpu_torch.buffer.replay import (
 from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation, tree_map
 from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool, stack_obs
 from torch_actor_critic_tpu_torch.models import build_models
+from torch_actor_critic_tpu_torch.parallel.population import PopulationLearner
 from torch_actor_critic_tpu_torch.resilience.preemption import Preempted, PreemptionGuard
 from torch_actor_critic_tpu_torch.resilience.sentinel import (
     DivergenceSentinel,
     TrainingDiverged,
 )
 from torch_actor_critic_tpu_torch.sac.algorithm import SAC, Learner
+from torch_actor_critic_tpu_torch.sac.population import make_population_learner
 from torch_actor_critic_tpu_torch.td3 import TD3
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
 from torch_actor_critic_tpu_torch.utils.normalize import (
     FeaturesNormalizer,
     IdentityNormalizer,
+    PerMemberNormalizer,
     WelfordNormalizer,
 )
 
@@ -112,24 +130,26 @@ NOT_PORTED = (
 )
 
 
-# What the fused population (sac/ondevice.py) ports of NOT_PORTED.
+# What the fused population (sac/ondevice.py) ports of NOT_PORTED; the
+# host trainer's population allows the first.
 POPULATION_FIELDS = ("population", "pbt_every")
 
 
 def check_ported(config: SACConfig, allow: t.Sequence[str] = ()) -> None:
     """Raise ``NotImplementedError`` naming the first non-default field
     of :data:`NOT_PORTED` not in ``allow`` (the fused population's
-    entry point allows :data:`POPULATION_FIELDS`)."""
+    entry point allows :data:`POPULATION_FIELDS`, the host trainer
+    ``population``)."""
     defaults = SACConfig()
     for name in NOT_PORTED:
         value = getattr(config, name)
         if name in allow or value == getattr(defaults, name):
             continue
-        if name in POPULATION_FIELDS:
+        if name == "pbt_every":
             raise NotImplementedError(
-                f"SACConfig.{name}={value!r}: the host-loop population (PopulationLearner "
-                "with PerMemberNormalizer) is not ported yet; the fused population runs "
-                "with on_device=True (--on-device true)"
+                f"SACConfig.pbt_every={value!r}: PBT exploit/explore runs in-graph over the "
+                "fused population loop (on_device=True, --on-device true); the host-loop "
+                "population trains N fixed-hyperparam seeds"
             )
         raise NotImplementedError(
             f"SACConfig.{name}={value!r} is not ported yet (default "
@@ -162,10 +182,11 @@ def make_learner(config: SACConfig, act_dim: int) -> Learner:
 
 
 class Trainer:
-    """SAC or TD3 on one device with one host env. Per-run seeds: model init
-    from ``seed``, the learner's generator from ``seed + 1``, acting from
-    ``seed + 2``; the env at epoch ``e`` resets with
-    :meth:`_epoch_seed`."""
+    """SAC or TD3 on one device with one host env, or with one env per
+    member of a ``population``. Per-run seeds: model init from ``seed``
+    (a population's member ``i`` from ``member_seed(seed, i)``), the
+    learner's generator from ``seed + 1``, acting from ``seed + 2``; env
+    ``i`` at epoch ``e`` resets with :meth:`_epoch_seed`."""
 
     def __init__(
         self,
@@ -178,27 +199,43 @@ class Trainer:
         preemption: PreemptionGuard | None = None,
     ):
         self.config = config or SACConfig()
-        check_ported(self.config)
+        check_ported(self.config, allow=("population",))
         self.device = resolve_device(device)
         self.env_name = env_name
         self.seed = seed
         self.tracker = tracker
         self.checkpointer = checkpointer
         cfg = self.config
+        # One env per population member (env i is member i).
+        self.population = cfg.population
         pool_name = (
             f"{env_name}|history:{cfg.history_len}" if cfg.history_len > 1 else env_name
         )
-        self.pool = make_env_pool(pool_name, 1, base_seed=seed, parallel=cfg.parallel_envs)
+        self.pool = make_env_pool(pool_name, self.population, base_seed=seed,
+                                  parallel=cfg.parallel_envs)
         spec = self.pool.obs_spec
         obs_shape = (
             spec.map(lambda leaf: tuple(leaf.shape))
             if isinstance(spec, MultiObservation) else tuple(spec.shape)
         )
         self.obs_shape = obs_shape
-        if cfg.normalize_observations and isinstance(spec, MultiObservation):
-            self.normalizer = FeaturesNormalizer(spec.features.shape[0])
-        elif cfg.normalize_observations and len(spec.shape) == 1:
+        visual = isinstance(spec, MultiObservation)
+        flat = not visual and len(spec.shape) == 1
+        if cfg.normalize_observations and flat and self.population > 1:
+            # One estimate per member: pooling would couple the members
+            # through their input scaling.
+            self.normalizer = PerMemberNormalizer(self.population, spec.shape[0])
+        elif cfg.normalize_observations and flat:
             self.normalizer = WelfordNormalizer(spec.shape[0])
+        elif cfg.normalize_observations and self.population > 1:
+            logger.warning(
+                "normalize_observations=True ignored for population > 1 with obs spec %s: "
+                "only flat observations have a per-member normalizer; running unnormalized",
+                obs_shape,
+            )
+            self.normalizer = IdentityNormalizer()
+        elif cfg.normalize_observations and visual:
+            self.normalizer = FeaturesNormalizer(spec.features.shape[0])
         else:
             # History stacks run unnormalized (windows replay PAST
             # observations; normalizing them with later statistics leaks).
@@ -208,17 +245,28 @@ class Trainer:
                     "stack, which runs unnormalized", tuple(spec.shape),
                 )
             self.normalizer = IdentityNormalizer()
-        self.sac = make_learner(cfg, self.pool.act_dim)
-        actor, critic = build_models(
-            cfg, obs_shape, self.pool.act_dim, self.pool.act_limit,
-            generator=torch.Generator().manual_seed(seed),
-        )
-        self.state = self.sac.init_state(
-            actor.to(self.device), critic.to(self.device),
-            torch.Generator(device=self.device).manual_seed(seed + 1),
-        )
+        act_dim = self.pool.act_dim
+        self.dp: PopulationLearner | None = None
+        if self.population > 1:
+            self.sac = make_population_learner(cfg, act_dim, self.population)
+            self.dp = PopulationLearner(self.sac, self.population)
+            self.state = self.dp.init_state(seed, obs_shape, act_dim, self.pool.act_limit,
+                                            self.device)
+        else:
+            self.sac = make_learner(cfg, act_dim)
+            actor, critic = build_models(
+                cfg, obs_shape, act_dim, self.pool.act_limit,
+                generator=torch.Generator().manual_seed(seed),
+            )
+            self.state = self.sac.init_state(
+                actor.to(self.device), critic.to(self.device),
+                torch.Generator(device=self.device).manual_seed(seed + 1),
+            )
         self._act_gen = torch.Generator(device=self.device).manual_seed(seed + 2)
-        if isinstance(obs_shape, MultiObservation):
+        if self.dp is not None:
+            # Each member owns a full buffer_size ring.
+            self.buffer = self.dp.init_buffer(cfg.buffer_size, obs_shape, act_dim, self.device)
+        elif isinstance(obs_shape, MultiObservation):
             self.buffer = init_visual_replay_buffer(
                 cfg.buffer_size, obs_shape.features[0], obs_shape.frame,
                 self.pool.act_dim, self.device,
@@ -234,10 +282,17 @@ class Trainer:
 
     # ------------------------------------------------------------ helpers
 
-    def _epoch_seed(self, epoch: int) -> int:
-        """Env seed at the start of ``epoch``: a pure function of (run
-        seed, epoch)."""
-        return self.seed + 1_000_003 * epoch
+    def _epoch_seed(self, epoch: int, i: int = 0) -> int:
+        """Env ``i``'s seed at the start of ``epoch``: a pure function of
+        (run seed, epoch, env), as the JAX trainer's."""
+        return self.seed + 1_000_003 * epoch + 10_000 * i
+
+    def _normalize(self, x, update: bool, member: int) -> t.Any:
+        """Env ``member``'s observation through the normalizer (its own
+        statistics in a population)."""
+        if self.population > 1:
+            return self.normalizer.normalize(x, update=update, member=member)
+        return self.normalizer.normalize(x, update=update)
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """A host array on the device: uint8 frames stay uint8 (4x fewer
@@ -250,26 +305,31 @@ class Trainer:
 
     @torch.inference_mode()
     def _policy_actions(self, obs_batch, deterministic: bool = False) -> np.ndarray:
-        """Actions for a batch of observations (array or
-        :class:`MultiObservation` of arrays)."""
+        """Actions, one row per env, for a batch of the envs' observations
+        (array or :class:`MultiObservation` of arrays); in a population
+        member ``i`` acts on row ``i``."""
         obs = tree_map(self._to_device, obs_batch)
-        action, _ = self.state.actor(
-            obs, generator=None if deterministic else self._act_gen,
-            deterministic=deterministic, with_logprob=False,
-        )
+        if self.dp is not None:
+            action = self.dp.select_action(self.state, obs, self._act_gen, deterministic)
+        else:
+            action, _ = self.state.actor(
+                obs, generator=None if deterministic else self._act_gen,
+                deterministic=deterministic, with_logprob=False,
+            )
         return action.cpu().numpy()
 
-    def _place_chunk(self, staging: t.List[tuple]) -> Batch:
-        """Stack one window of staged transitions into a chunk on the
-        device, each leaf in its own dtype (frames uint8)."""
+    def _place_chunk(self, staging: t.List[t.List[tuple]]) -> Batch:
+        """Stack one window of each env's staged transitions into a chunk
+        on the device, each leaf in its own dtype (frames uint8): ``(window,
+        ...)`` leaves, a population's ``(P, window, ...)``."""
 
-        def field(i):
-            return tree_map(self._to_device, stack_obs([tr[i] for tr in staging]))
+        def field(k):
+            per_env = [stack_obs([tr[k] for tr in env_staging]) for env_staging in staging]
+            return per_env[0] if self.dp is None else stack_obs(per_env)
 
-        return Batch(
-            states=field(0), actions=field(1), rewards=field(2),
-            next_states=field(3), done=field(4),
-        )
+        chunk = Batch(states=field(0), actions=field(1), rewards=field(2),
+                      next_states=field(3), done=field(4))
+        return chunk.map(self._to_device)
 
     # --------------------------------------------------------- resilience
 
@@ -355,14 +415,17 @@ class Trainer:
         # it again would break the bitwise resume. (The JAX trainer counts
         # it twice.)
         counted = self._resume_step == self.start_epoch * cfg.steps_per_epoch
-        obs = self.normalizer.normalize(self.pool.reset_at(
-            0, seed=self._epoch_seed(self.start_epoch if cfg.epoch_reseed else 0)
-        ), update=not counted)
-        ep_ret, ep_len = 0.0, 0
-        staging: t.List[tuple] = []
+        n = self.population
+        start_seed_epoch = self.start_epoch if cfg.epoch_reseed else 0
+        obs = [self._normalize(self.pool.reset_at(i, seed=self._epoch_seed(start_seed_epoch, i)),
+                               update=not counted, member=i) for i in range(n)]
+        ep_ret, ep_len = [0.0] * n, [0] * n
+        staging: t.List[t.List[tuple]] = [[] for _ in range(n)]
         last_metrics: dict = {}
         episode_rewards: list = []
         episode_lengths: list = []
+        # A population's per-member returns: its P learning curves.
+        member_rewards: t.List[list] = [[] for _ in range(n)]
         last_epoch = self.start_epoch + cfg.epochs - 1
 
         t_epoch = time.time()
@@ -371,34 +434,37 @@ class Trainer:
             losses_pi: t.List[torch.Tensor] = []
             for t_ in range(cfg.steps_per_epoch):
                 if step < cfg.start_steps:
-                    action = self.pool.sample_actions()[0]
+                    actions = self.pool.sample_actions()
                 else:
-                    action = self._policy_actions(stack_obs([obs]))[0]
+                    actions = self._policy_actions(stack_obs(obs))
                 epoch_ended = t_ == cfg.steps_per_epoch - 1
-                next_obs, reward, terminated, truncated = self.pool.step_at(0, action)
-                next_obs = self.normalizer.normalize(next_obs, update=True)
-                ep_len += 1
-                ep_ret += reward
-                # max_ep_len bypass: an episode cut by the length cap is a
-                # truncation, so the bootstrap is not zeroed.
-                hit_cap = ep_len >= cfg.max_ep_len
-                done_for_buffer = np.float32(terminated and not hit_cap)
-                staging.append((obs, action, np.float32(reward), next_obs, done_for_buffer))
-                if terminated or truncated or hit_cap or epoch_ended:
-                    episode_rewards.append(float(ep_ret))
-                    episode_lengths.append(ep_len)
-                    reset_seed = (
-                        self._epoch_seed(e + 1) if epoch_ended and cfg.epoch_reseed else None
-                    )
-                    next_obs = self.normalizer.normalize(
-                        self.pool.reset_at(0, seed=reset_seed), update=True)
-                    ep_ret, ep_len = 0.0, 0
-                obs = next_obs
+                for i in range(n):
+                    next_obs, reward, terminated, truncated = self.pool.step_at(i, actions[i])
+                    next_obs = self._normalize(next_obs, update=True, member=i)
+                    ep_len[i] += 1
+                    ep_ret[i] += reward
+                    # max_ep_len bypass: an episode cut by the length cap is
+                    # a truncation, so the bootstrap is not zeroed.
+                    hit_cap = ep_len[i] >= cfg.max_ep_len
+                    done_for_buffer = np.float32(terminated and not hit_cap)
+                    staging[i].append((obs[i], actions[i], np.float32(reward), next_obs,
+                                       done_for_buffer))
+                    if terminated or truncated or hit_cap or epoch_ended:
+                        episode_rewards.append(float(ep_ret[i]))
+                        episode_lengths.append(ep_len[i])
+                        member_rewards[i].append(float(ep_ret[i]))
+                        reset_seed = (self._epoch_seed(e + 1, i)
+                                      if epoch_ended and cfg.epoch_reseed else None)
+                        next_obs = self._normalize(self.pool.reset_at(i, seed=reset_seed),
+                                                   update=True, member=i)
+                        ep_ret[i], ep_len[i] = 0.0, 0
+                    obs[i] = next_obs
 
                 window_full = (step + 1) % cfg.update_every == 0
                 if window_full:
                     chunk = self._place_chunk(staging)
-                    del staging[:]
+                    for env_staging in staging:
+                        del env_staging[:]
                     if step > cfg.update_after:
                         self.state, self.buffer, m = self.sac.update_burst(
                             self.state, self.buffer, chunk, cfg.updates_per_window
@@ -424,7 +490,8 @@ class Trainer:
 
             self._synchronize()
             dt = time.time() - t_epoch
-            grad_steps = len(losses_q) * cfg.updates_per_window
+            # Every member's updates count.
+            grad_steps = len(losses_q) * cfg.updates_per_window * self.population
             rew = np.asarray(episode_rewards, np.float64)
             last_metrics = {
                 "episode_length": float(np.mean(episode_lengths)) if episode_lengths else 0.0,
@@ -434,9 +501,15 @@ class Trainer:
                 "reward_max": float(rew.max()) if rew.size else 0.0,
                 "loss_q": float(torch.stack(losses_q).mean()) if losses_q else 0.0,
                 "loss_pi": float(torch.stack(losses_pi).mean()) if losses_pi else 0.0,
-                "env_steps_per_sec": cfg.steps_per_epoch / dt,
+                "env_steps_per_sec": cfg.steps_per_epoch * n / dt,  # every env's steps
                 "grad_steps_per_sec": grad_steps / dt,
             }
+            if self.population > 1:
+                # Per-member epoch-mean returns: the P learning curves.
+                for i, rewards in enumerate(member_rewards):
+                    if rewards:
+                        last_metrics[f"reward_m{i}"] = float(np.mean(rewards))
+                member_rewards = [[] for _ in range(n)]
             # Divergence sentinel: one all-finite pass over the learner
             # state, the ring and this epoch's losses, BEFORE anything is
             # saved, so every checkpoint on disk is sentinel-validated and
@@ -519,11 +592,14 @@ class Trainer:
     ) -> dict:
         """Rollouts of the current policy. Episode ``i`` resets with
         ``seed + i``, and the acting generator is re-seeded from ``seed``
-        for the evaluation (then restored)."""
+        for the evaluation (then restored). A population evaluates every
+        member (:meth:`_evaluate_population`)."""
         saved = self._act_gen
         if seed is not None:
             self._act_gen = torch.Generator(device=self.device).manual_seed(seed)
         try:
+            if self.dp is not None:
+                return self._evaluate_population(episodes, deterministic, seed)
             returns, lengths = [], []
             for i in range(episodes):
                 obs = self.normalizer.normalize(
@@ -545,6 +621,48 @@ class Trainer:
             "ep_ret_mean": float(np.mean(returns)),
             "ep_ret_std": float(np.std(returns)),
             "ep_len_mean": float(np.mean(lengths)),
+        }
+
+    def _evaluate_population(self, episodes: int, deterministic: bool,
+                             seed: int | None) -> dict:
+        """Member ``i``'s policy rolls out ``episodes`` episodes on env
+        ``i``; episode ``j`` resets every member's env with ``seed + j``
+        (the same env realizations across members, so their differences
+        measure the policies). A finished member's row stays in the
+        batch and its action is dropped. Returns the aggregate stats and
+        ``per_member`` mean/std, as the JAX trainer's."""
+        n = self.population
+        member_returns: t.List[list] = [[] for _ in range(n)]
+        member_lengths: t.List[list] = [[] for _ in range(n)]
+        obs = [self._normalize(self.pool.reset_at(i, seed=seed), update=False, member=i)
+               for i in range(n)]
+        rets, lens, ep_idx = [0.0] * n, [0] * n, [0] * n
+        while any(idx < episodes for idx in ep_idx):
+            actions = self._policy_actions(stack_obs(obs), deterministic)
+            for i in range(n):
+                if ep_idx[i] >= episodes:
+                    continue
+                o, r, terminated, truncated = self.pool.step_at(i, actions[i])
+                obs[i] = self._normalize(o, update=False, member=i)
+                rets[i] += r
+                lens[i] += 1
+                if terminated or truncated or lens[i] >= self.config.max_ep_len:
+                    member_returns[i].append(rets[i])
+                    member_lengths[i].append(lens[i])
+                    ep_idx[i] += 1
+                    if ep_idx[i] < episodes:
+                        ep_seed = None if seed is None else seed + ep_idx[i]
+                        obs[i] = self._normalize(self.pool.reset_at(i, seed=ep_seed),
+                                                 update=False, member=i)
+                        rets[i], lens[i] = 0.0, 0
+        all_returns = [r for m in member_returns for r in m]
+        all_lengths = [x for m in member_lengths for x in m]
+        return {
+            "ep_ret_mean": float(np.mean(all_returns)),
+            "ep_ret_std": float(np.std(all_returns)),
+            "ep_len_mean": float(np.mean(all_lengths)),
+            "per_member": [{"ep_ret_mean": float(np.mean(m)), "ep_ret_std": float(np.std(m))}
+                           for m in member_returns],
         }
 
     def close(self) -> None:

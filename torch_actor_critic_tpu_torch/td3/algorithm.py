@@ -27,8 +27,10 @@ first update on; they are allocated inside each update (from a captured
 graph's pool on replays). A state's ``hyperparams``
 (:meth:`TD3.default_hyperparams`: the two learning rates and the
 smoothing noise ``target_noise``) override the config's scalars, the
-rates through :func:`~..sac.algorithm.dynamic_lr_step`; the TD3
-population is not ported. ``diagnostics != "off"`` raises.
+rates through :func:`~..sac.algorithm.dynamic_lr_step`. The TD3
+population (:class:`~..sac.population.PopulationTD3`) is this update
+over member-stacked models: :mod:`.losses` gives it ``(P,)`` losses, and
+the gradient is taken of their sum. ``diagnostics != "off"`` raises.
 """
 
 from __future__ import annotations
@@ -126,7 +128,6 @@ class TD3(Learner):
         after the noise); fused frames arrive shifted."""
         cfg = self.config
         gen = state.generator
-        act_limit = state.actor.act_limit
         if eps_q is None:
             eps_q = torch.randn(batch.actions.shape, generator=gen,
                                 device=batch.actions.device)
@@ -138,11 +139,11 @@ class TD3(Learner):
         q_params = list(state.critic.parameters())
         loss_q, q_aux = losses.critic_loss(
             state.critic, target_actor=state.target_actor,
-            target_critic=state.target_critic, batch=batch, act_limit=act_limit,
+            target_critic=state.target_critic, batch=batch, act_limit=state.actor.act_limit,
             target_noise=hp.get("target_noise", cfg.target_noise), noise_clip=cfg.noise_clip,
             gamma=cfg.gamma, reward_scale=cfg.reward_scale, eps=eps_q,
         )
-        _set_grads(q_params, torch.autograd.grad(loss_q, q_params))
+        _set_grads(q_params, torch.autograd.grad(loss_q.sum(), q_params))
         dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
 
         # --- candidate actor step, on the updated critic (frozen) ---
@@ -155,7 +156,7 @@ class TD3(Learner):
         state.critic.requires_grad_(False)
         try:
             loss_pi, pi_aux = losses.actor_loss(state.actor, critic=state.critic, batch=batch)
-            _set_grads(pi_params, torch.autograd.grad(loss_pi, pi_params))
+            _set_grads(pi_params, torch.autograd.grad(loss_pi.sum(), pi_params))
         finally:
             state.critic.requires_grad_(True)
         dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))

@@ -5,6 +5,11 @@ smoothing noise is an explicit ``eps`` (the tests inject JAX's normals)
 or is drawn from an explicit ``generator``. The backup is computed under
 ``no_grad`` (the JAX ``stop_gradient``); gradients are taken by the
 caller with respect to one network's parameters only.
+
+Both losses take leading axes before the ensemble's: a solo critic's
+``(num_qs, B)`` gives 0-d losses, a population's ``(P, num_qs, B)``
+gives ``(P,)`` ones (each member's own), with ``target_noise`` a float,
+a 0-d tensor or one value per member.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ def critic_loss(
     target_critic: nn.Module,
     batch: Batch,
     act_limit: float,
-    target_noise: float,
+    target_noise: float | torch.Tensor,
     noise_clip: float,
     gamma: float,
     reward_scale: float,
@@ -36,7 +41,8 @@ def critic_loss(
     ±noise_clip * act_limit), ±act_limit)``, ``backup = reward_scale * r
     + gamma * (1 - done) * min_i Q_targ_i(s', a')``, ``loss = sum_i
     mean((Q_i(s, a) - backup)^2)``. ``eps`` (standard normal, the
-    action's shape) or a draw from ``generator``."""
+    action's shape) or a draw from ``generator``. A ``(P,)``
+    ``target_noise`` scales member ``i``'s noise by its own value."""
     with torch.no_grad():
         next_action, _ = target_actor(
             batch.next_states, deterministic=True, with_logprob=False
@@ -44,6 +50,9 @@ def critic_loss(
         if eps is None:
             eps = torch.randn(next_action.shape, generator=generator,
                               device=next_action.device)
+        if isinstance(target_noise, torch.Tensor):
+            target_noise = target_noise.reshape(
+                target_noise.shape + (1,) * (eps.dim() - target_noise.dim()))
         noise = torch.clamp(
             target_noise * act_limit * eps,
             -noise_clip * act_limit,
@@ -52,11 +61,11 @@ def critic_loss(
         next_action = torch.clamp(next_action + noise, -act_limit, act_limit)
         q_target = target_critic(batch.next_states, next_action)
         backup = reward_scale * batch.rewards + gamma * (1.0 - batch.done) * (
-            q_target.amin(dim=0)
+            q_target.amin(dim=-2)
         )
-    q = critic(batch.states, batch.actions)  # (num_qs, B)
-    loss = ((q - backup[None, :]) ** 2).mean(dim=-1).sum()
-    aux = {"q_mean": q.detach().mean(), "backup_mean": backup.mean()}
+    q = critic(batch.states, batch.actions)  # (..., num_qs, B)
+    loss = ((q - backup.unsqueeze(-2)) ** 2).mean(dim=-1).sum(dim=-1)
+    aux = {"q_mean": q.detach().mean(dim=(-2, -1)), "backup_mean": backup.mean(dim=-1)}
     return loss, aux
 
 
@@ -71,6 +80,6 @@ def actor_loss(
     policy objective). The caller differentiates with respect to the
     actor's parameters only."""
     pi, _ = actor(batch.states, deterministic=True, with_logprob=False)
-    q_pi = critic(batch.states, pi)[0]  # (B,)
-    loss = -q_pi.mean()
-    return loss, {"q_pi_mean": q_pi.detach().mean()}
+    q_pi = critic(batch.states, pi).select(-2, 0)  # (..., B)
+    loss = -q_pi.mean(dim=-1)
+    return loss, {"q_pi_mean": q_pi.detach().mean(dim=-1)}

@@ -24,9 +24,16 @@
         --environment Pendulum-v1 --history-len 8 [--on-device-envs 16] [--utd 1]
 
     # a fused population of 32 SAC members with on-device PBT (the
-    # cheetah twin; --history-len 8 on Pendulum-v1 trains the sequence stack)
+    # cheetah twin; --history-len 8 on Pendulum-v1 trains the sequence stack,
+    # PixelPendulum[Balance]-v0 the visual one; --algorithm td3 TD3 members)
     python -m torch_actor_critic_tpu_torch.train --on-device true \
         --environment HalfCheetah-v5 --population 32 --pbt-every 5 --pbt-quantile 0.25
+
+    # a host-loop population: 4 members, one host env each, one learner
+    # burst for all of them (--history-len 16 the sequence members; a pixel
+    # env the visual ones; --algorithm td3 TD3 members)
+    python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
+        --population 4
 
 Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
 true``, ...), built by the JAX CLI's loop. ``--run <id>`` takes the
@@ -58,9 +65,12 @@ is not installed and ``--eval-episodes`` is ignored (as in JAX);
 > 1 it routes to the fused population
 (:func:`~.sac.ondevice.train_population_on_device`, per-member metrics
 ``loss_q_m0``, ... and, with ``--pbt-every K``, an on-device PBT step
-every K epochs); ``run_agent`` evaluates one member of it. The visual
-and TD3 populations, ``--population`` > 1 without ``--on-device``, the
-scenario envs and ``--devices`` > 1 raise ``NotImplementedError``.
+every K epochs); ``run_agent`` evaluates one member of it. Without
+``--on-device``, ``--population N`` > 1 trains N members in the host
+trainer (one env each; per-member metrics ``reward_m0``, ...;
+``--eval-episodes`` reports each member under ``per_member``), as the
+JAX CLI does; ``--pbt-every`` there raises ``ValueError``, as in JAX.
+The scenario envs and ``--devices`` > 1 raise ``NotImplementedError``.
 
 Not ported: ``--devices`` > 1, ``--fsdp``, the profile and trace flags,
 ``--render``.
@@ -213,6 +223,9 @@ def build_trainer(args: argparse.Namespace, preemption=None, setup=None):
 
 
 def report(epoch: int, metrics: dict) -> None:
+    """One JSON line per epoch; a population's member curves
+    (``reward_m{i}``, and the fused one's ``loss_q_m{i}``, ...) are keys
+    of it."""
     print(json.dumps({"epoch": epoch, **metrics}), flush=True)
 
 

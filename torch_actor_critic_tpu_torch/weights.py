@@ -21,7 +21,11 @@ A member-stacked JAX ``TrainState`` (a population's: a leading ``P`` on
 every leaf, hyperparameters included) loads into the port's population
 models (:mod:`.models.population`) by the same names: every leaf keeps
 its member axis, ``log_alpha`` is ``(P,)``, and the lockstep step
-counts (``step``, Adam's ``count``) are read from member 0.
+counts (``step``, Adam's ``count``) are read from member 0. A
+member-stacked conv kernel ``(P, kh, kw, in, out)`` becomes the grouped
+:class:`~.models.population.StackedConv`'s ``(P, out, in, kh, kw)``; a
+TD3 population's target actor and both Adams' moments load by the same
+names.
 """
 
 from __future__ import annotations
@@ -38,9 +42,13 @@ from torch_actor_critic_tpu_torch.models.actor import Actor, DeterministicActor
 from torch_actor_critic_tpu_torch.models.critic import DoubleCritic
 from torch_actor_critic_tpu_torch.models.population import (
     PopulationActor,
+    PopulationDeterministicActor,
+    PopulationDeterministicVisualActor,
     PopulationDoubleCritic,
     PopulationSequenceActor,
     PopulationSequenceDoubleCritic,
+    PopulationVisualActor,
+    PopulationVisualDoubleCritic,
 )
 from torch_actor_critic_tpu_torch.models.sequence import (
     SequenceActor,
@@ -93,13 +101,17 @@ def _actor_state(p: t.Mapping) -> t.Dict[str, np.ndarray]:
 
 
 def _cnn_state(prefix: str, cnn: t.Mapping) -> t.Dict[str, np.ndarray]:
-    """A Flax ``SimpleCNN``: ``conv_{i}`` kernels ``(kh, kw, in, out)``
-    -> ``(out, in, kh, kw)``, then the two wrapped Dense layers."""
+    """A Flax ``SimpleCNN``: ``conv_{i}`` kernels ``(..., kh, kw, in,
+    out)`` -> ``(..., out, in, kh, kw)`` (leading member axes kept), then
+    the two wrapped Dense layers."""
     out: t.Dict[str, np.ndarray] = {}
     n_convs = sum(1 for k in cnn if k.startswith("conv_"))
     for i in range(n_convs):
         conv = cnn[f"conv_{i}"]
-        out[f"{prefix}.convs.{i}.weight"] = np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
+        kernel = np.asarray(conv["kernel"])
+        lead = tuple(range(kernel.ndim - 4))
+        out[f"{prefix}.convs.{i}.weight"] = kernel.transpose(
+            *lead, *(len(lead) + a for a in (3, 2, 0, 1)))
         out[f"{prefix}.convs.{i}.bias"] = np.asarray(conv["bias"])
     out.update(_flat(f"{prefix}.dense", _dense(cnn["Dense_0"])))
     out.update(_flat(f"{prefix}.out", _dense(cnn["Dense_1"])))
@@ -136,7 +148,7 @@ def _critic_state(module: nn.Module, p: t.Mapping) -> t.Dict[str, np.ndarray]:
     ``p``: its ``ensemble`` subtree already carries the stacked
     critics' num_qs axis; a visual ensemble is unrolled into
     ``ensemble_{i}`` subtrees."""
-    if isinstance(module, VisualDoubleCritic):
+    if isinstance(module, (VisualDoubleCritic, PopulationVisualDoubleCritic)):
         out: t.Dict[str, np.ndarray] = {}
         for i in range(len(module.ensemble)):
             pre, one = f"ensemble.{i}", p[f"ensemble_{i}"]
@@ -155,10 +167,11 @@ def _critic_state(module: nn.Module, p: t.Mapping) -> t.Dict[str, np.ndarray]:
 
 # The actors whose Flax tree is ``MLP_0`` (+ ``visual_network``) and Dense heads.
 _MLP_ACTORS = (Actor, VisualActor, DeterministicActor, DeterministicVisualActor,
-               PopulationActor)
+               PopulationActor, PopulationDeterministicActor, PopulationVisualActor,
+               PopulationDeterministicVisualActor)
 _SEQUENCE_ACTORS = (SequenceActor, PopulationSequenceActor)
 _CRITICS = (DoubleCritic, SequenceDoubleCritic, VisualDoubleCritic, PopulationDoubleCritic,
-            PopulationSequenceDoubleCritic)
+            PopulationSequenceDoubleCritic, PopulationVisualDoubleCritic)
 
 
 def _named_arrays(module: nn.Module, params_tree: t.Mapping) -> t.Dict[str, np.ndarray]:
