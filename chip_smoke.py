@@ -1,5 +1,6 @@
 """GPU smoke of the PyTorch port: build, check and time its kernels,
-serve the sequence policy over HTTP through the port's CLI path, train
+serve the sequence policy over HTTP through the port's CLI path (graphs,
+tiers, the pixel recipe, a two-worker fleet), train
 it with SAC through the train CLI's path, then train the visual (pixel)
 policy through the same path and run visual bursts at full width, then
 preempt, resume, roll back and evaluate training runs from full-state
@@ -46,12 +47,33 @@ or of the JAX package. Phases, one JSON line each:
    history 16, obs 3, act 1, act_limit 2.0, f32, max_batch 64) from
    ``--seed``, saved as a port checkpoint and served by the CLI's own
    ``build_server`` on 127.0.0.1:0: /act with 1, 3 and 64 rows and one
-   unbatched history, deterministic and sampled; every action finite and
-   within the limit, deterministic actions equal to the same weights'
-   plain-attention forward on the card (1e-4), the flash launch count
-   at least num_layers x forwards; /metrics latency and rate; then 16
-   64-row requests under ``torch.profiler`` (wall vs device-busy time per
-   request, top kernels) and the engine's forward alone (host wall time);
+   unbatched history, deterministic and sampled, then 16 64-row
+   requests, the server's startup and all these under one device trace;
+   every (bucket, deterministic) forward one CUDA graph captured at
+   warmup (2 x buckets captures, none live, 2L K2 launches per capture
+   through the wrappers and none per served request; on the device L
+   for each capture's warm-up, warmup replay and served forward);
+   every action finite and within the limit, deterministic actions
+   equal to the same weights' plain-attention forward on the card
+   (1e-4); captured == eager
+   bitwise at every bucket, deterministic and sampled from one generator
+   state; a reload under traffic (a batch held at the engine's door
+   answers on its old weights bitwise, nothing recaptured, no request
+   lost); the engine's host time per 64-row forward and /act p50/p99,
+   eager against captured; 16 64-row requests under ``torch.profiler``
+   (wall vs device-busy time per request, top kernels); the bf16 tier
+   (K2 in bf16 at (64, 4, 16, 16) on the model's views against its
+   plain version, 2e-2; served actions within 2e-2 of f32's and not
+   bitwise them) and the int8 tier (actions equal to the dequantized
+   f32 forward, 1e-4; params bytes on the card under a third of
+   f32's), each through the CLI's ``--serve-precision`` on one engine
+   at the tier, its startup and 17 64-row forwards traced as above; the
+   pixel recipe through ``--run`` on a run saved as the train CLI lays
+   one out (``{"features", "frame"}`` requests equal to the actor's own
+   forward, 1e-4); ``--fleet 2`` on the one card (64 routed requests, a
+   rolling /reload under traffic, the router's /metrics totals equal to
+   the workers' sum, a worker killed under traffic with no request
+   lost, SIGTERM exit 0);
 5. train — the same policy and its twin sequence critic (one stacked
    ensemble) at SACConfig's widths (batch 64, update_every 50), trained
    through the train CLI's ``build_trainer`` on
@@ -204,9 +226,11 @@ on the model's views; K1's row is ``train_pair``, what the main path
 launches, with the launches of train_visual, the visual resume,
 train_td3's visual run and the on-device pixel cell; K2-K4's include
 the population's traced sequence epoch; every ``launches`` is counted
-in the main path's runs: serving's by the wrappers, as it runs no graph,
-training's, the resumed runs' and the on-device epochs' from their
-device traces),
+in the main path's runs from device traces: serving's (f32 and int8
+tiers) over each server's startup and traced forwards, training's, the
+resumed runs' and the on-device epochs'; ``flash_fwd_bf16`` is K2 in
+bf16 at the bf16 serving tier's shape, with that tier's traced
+launches),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is non-zero and the last line is not printed.
@@ -225,6 +249,7 @@ import tempfile
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 # H100 SXM, f32-accurate products: 3xTF32 on the tensor cores (three TF32
@@ -983,46 +1008,448 @@ def profile_requests(address, rng, history, obs_dim, n=16) -> dict:
     }
 
 
-def phase_serve(seed: int, kernels) -> int:
-    """Drive the CLI's serving path; returns the flash launches counted
-    from server start to the last answered request."""
-    import numpy as np
+SERVE_TRACED = 16  # 64-row requests in the serving trace
+SERVE_TIMED = 300  # 64-row requests per mode for /act p50/p99
 
+
+def _serve_args(extra) -> list:
+    return ["--host", "127.0.0.1", "--port", "0", "--device", "cuda",
+            "--poll-interval", "0", *extra]
+
+
+def _plain_sequence(config, actor, state=None):
+    """The served sequence actor with plain attention, on the card."""
     from torch_actor_critic_tpu_torch.models import build_actor
     from torch_actor_critic_tpu_torch.models.sequence import plain_attention
-    from torch_actor_critic_tpu_torch.serve.__main__ import (
-        build_server,
-        parse_arguments,
+
+    plain = build_actor(config, (16, 3), 1, 2.0)
+    for blk in plain.trunk.blocks:
+        blk.attn.attention_fn = plain_attention
+    plain.load_state_dict(actor.state_dict() if state is None else state)
+    return plain.to("cuda").eval()
+
+
+def _latencies(address, body, n: int) -> dict:
+    """``n`` sequential requests: the client's wall time of each (JSON
+    and HTTP included) and the server's own latency of these requests
+    (its histogram's counts before and after, the difference's p50 and
+    p99: submit to answer, the batcher and the engine)."""
+    from torch_actor_critic_tpu_torch.telemetry.histogram import FixedBucketHistogram
+
+    def hist():
+        snap = json.loads(urllib.request.urlopen(address + "/metrics", timeout=60).read())
+        return snap["latency_hist"]
+
+    before, lat = hist()["counts"], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        post(address + "/act", body)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    after = hist()
+    server = FixedBucketHistogram()
+    # The lifetime min and max bound these requests' own: the estimate
+    # clamps to them only in the under- and overflow buckets.
+    server.merge_counts([a - b for a, b in zip(after["counts"], before)],
+                        vmin=after["min"], vmax=after["max"])
+    p50, p99 = server.percentiles((50, 99))
+    return {"requests": n, "client_p50_ms": statistics.median(lat),
+            "client_p99_ms": sorted(lat)[min(n - 1, int(0.99 * n))],
+            "server_p50_ms": p50, "server_p99_ms": p99}
+
+
+def _serve_traced(kernels, args, drive, what: str) -> tuple:
+    """The CLI's server built, started and driven (``drive(server)``)
+    under ONE device trace: its warm-up captures and every served
+    forward. Returns ``(server, info, drive's result, wrapped, device,
+    forwards)``: the K2 wrapper launches at start (each capture's eager
+    warm-up and recorded forward), the K2 launches the trace counted
+    and the forwards the server ran."""
+    from torch_actor_critic_tpu_torch.serve.__main__ import build_server
+
+    def run():
+        kernels.reset_launch_counts()
+        server, info = build_server(args)  # registers, captures every (bucket, det)
+        server.start()
+        wrapped = kernels.launch_counts["flash_fwd"]
+        return server, info, drive(server), wrapped
+
+    def discard(out):
+        out[0].close()
+        out[0].registry.close()
+
+    (server, info, driven, wrapped), counted = traced(run, what, discard=discard)
+    snap = json.loads(urllib.request.urlopen(server.address + "/metrics", timeout=60).read())
+    return server, info, driven, wrapped, counted.get("flash_fwd", 0), snap["batches_total"]
+
+
+def _check_served_launches(what, engine, layers, wrapped, device, forwards, want_forwards):
+    """Each capture: one eager warm-up forward and the recorded one
+    through the wrappers; on the device the warm-up, then one replay per
+    warmed pair and per served forward: L K2 each."""
+    n_pairs = 2 * len(engine.buckets)
+    check(wrapped == 2 * layers * n_pairs,
+          f"{what}: warm-up K2 wrapper launches {wrapped} != {2 * layers * n_pairs}")
+    check(forwards == want_forwards, f"{what}: {forwards} forwards, expected {want_forwards}")
+    check(device == layers * (2 * n_pairs + forwards),
+          f"{what}: {device} K2 launches traced over {n_pairs} captures and {forwards} "
+          f"served forwards, expected exactly {layers} a forward")
+
+
+def _graphs_vs_eager(engine, params, rng) -> dict:
+    """Every bucket's captured graph against the eager forward, bitwise,
+    deterministic and sampled (one generator state for both)."""
+    gen = engine.generator
+    checked = 0
+    for bucket in engine.buckets:
+        for rows in sorted({max(1, bucket - 1), bucket}):
+            obs = rng.standard_normal((rows, 16, 3)).astype("float32")
+            got = engine.act(params, obs)
+            want = engine.forward_eager(params, obs)
+            check(bool((got == want).all()), f"bucket {bucket}: captured != eager (deterministic)")
+            state = gen.get_state()
+            got = engine.act(params, obs, gen, deterministic=False)
+            after = gen.get_state()
+            gen.set_state(state)
+            want = engine.forward_eager(params, obs, gen, deterministic=False)
+            check(bool((got == want).all()), f"bucket {bucket}: captured != eager (sampled)")
+            check(torch.equal(after, gen.get_state()),
+                  f"bucket {bucket}: the sampled graph left the generator elsewhere")
+            checked += 2
+    return {"buckets": list(engine.buckets), "pairs_checked": checked}
+
+
+def _reload_under_traffic(server, ckpt, config, seed, rng, obs64) -> dict:
+    """Hold the engine's door on one dispatched batch, publish and reload
+    a new epoch while clients keep sending, then open it: the held batch
+    answers on its old weights bitwise, later ones on the new; nothing is
+    captured anew and no request fails."""
+    import threading
+
+    from torch_actor_critic_tpu_torch.models import build_actor
+    from torch_actor_critic_tpu_torch.utils.checkpoint import save_actor
+
+    engine, old, gen0 = server.registry.acquire()
+    stats0, graphs0 = engine.compile_stats(), engine.graph_count()
+    copies0 = engine.param_copies_total
+    want_old = engine.forward_eager(old, obs64)
+    new_actor = build_actor(config, (16, 3), 1, 2.0,
+                            generator=torch.Generator().manual_seed(seed + 1))
+    save_actor(ckpt, 2, new_actor, config)
+    release, entered = threading.Event(), threading.Event()
+    real_act = engine.act
+
+    def held(*a, **k):
+        if not entered.is_set():
+            entered.set()
+            release.wait(60)
+        return real_act(*a, **k)
+
+    errors, answered, stop = [], [0], threading.Event()
+
+    def traffic():
+        body = {"obs": rng.standard_normal((8, 16, 3)).astype("float32").tolist()}
+        while not stop.is_set():
+            try:
+                post(server.address + "/act", body)
+                answered[0] += 1
+            except Exception as e:  # noqa: BLE001 — counted, checked below
+                errors.append(repr(e)[:200])
+
+    engine.act = held
+    try:
+        fut = server.batcher.submit(obs64)
+        check(entered.wait(60), "the held batch never reached the engine")
+        clients = [threading.Thread(target=traffic) for _ in range(2)]
+        for th in clients:
+            th.start()
+        reload = post(server.address + "/reload", {})
+        check(reload["reload"]["default"]["status"] == "ok", f"reload: {reload}")
+        release.set()
+        res = fut.result(timeout=60)
+        time.sleep(0.3)
+        stop.set()
+        for th in clients:
+            th.join(timeout=60)
+    finally:
+        release.set()
+        stop.set()
+        engine.act = real_act
+    check(res.generation == gen0, f"held batch generation {res.generation} != {gen0}")
+    check(bool((res.action == want_old).all()), "the held batch did not answer on its old weights")
+    _, new, gen1 = server.registry.acquire()
+    fresh = server.client.act(obs64)
+    check(fresh.generation == gen1 == gen0 + 1, "the reload did not reach the engine")
+    check(bool((fresh.action == engine.forward_eager(new, obs64)).all()),
+          "after the reload: captured != eager on the new weights")
+    check(not errors, f"requests failed across the reload: {errors[:3]}")
+    check(engine.compile_stats() == stats0 and engine.graph_count() == graphs0,
+          "the reload captured anew")
+    return new_actor, {"answered_during": answered[0], "errors": len(errors),
+                       "param_copies": engine.param_copies_total - copies0,
+                       "captures": engine.compile_stats()["compiles_total"]}
+
+
+def _tiers(kernels, attn, ckpt, config, actor, seed, rng, f32_actions, obs64, smi) -> dict:
+    """The bf16 and int8 tiers, each served by the CLI's server under a
+    device trace (startup and SERVE_TRACED 64-row forwards, exactly L K2
+    each): bf16's K2 runs in bf16 (row held to its plain version;
+    actions within 2e-2 of f32's, not bitwise them); int8's actions
+    equal the forward on the dequantized f32 weights, its params under
+    a third of f32's bytes on the device."""
+    from torch_actor_critic_tpu_torch.serve.__main__ import parse_arguments
+    from torch_actor_critic_tpu_torch.serve.sharded import dequantize_params, quantize_params
+
+    layers = config.seq_num_layers
+    body = {"obs": obs64.tolist(), "deterministic": True}
+    out = {}
+    bf16_row = phase_kernel_vs_plain(attn, seed, None, cases=[
+        (SERVE_SHAPE, True, torch.bfloat16, 200, "views")])
+
+    def drive(server):
+        got = np.asarray(post(server.address + "/act", body)["action"], dtype=np.float32)
+        for _ in range(SERVE_TRACED):
+            post(server.address + "/act", body)
+        return got
+
+    for precision in ("bf16", "int8"):
+        args = parse_arguments(_serve_args([
+            "--ckpt-dir", ckpt, "--obs-dim", "3", "--act-dim", "1", "--act-limit", "2.0",
+            "--seed", str(seed), "--serve-precision", precision]))
+        server, _, got, wrapped, device, forwards = _serve_traced(
+            kernels, args, drive, f"serve {precision}")
+        try:
+            engine = server.registry.acquire()[0]
+            check(engine.precision == precision, f"{precision}: engine at {engine.precision}")
+            snap = json.loads(urllib.request.urlopen(server.address + "/metrics", timeout=60).read())
+            check("fleet" not in snap, f"{precision}: a one-card tier went through a fleet")
+            check(snap["live_compiles"] == 0 and snap["compiles_total"] == 2 * len(engine.buckets),
+                  f"{precision}: captures {snap['compiles']}")
+            _check_served_launches(f"serve {precision}", engine, layers, wrapped, device,
+                                   forwards, SERVE_TRACED + 1)
+            placed = snap["sharding"]["per_replica"][0]["slot_bytes"]["default"]
+            f32_bytes = sum(v.numel() * v.element_size() for v in actor.state_dict().values())
+            row = {"precision": precision, "placed_bytes": placed, "f32_bytes": f32_bytes,
+                   "launches": device, "forwards_traced": forwards,
+                   "k2_per_forward_traced": (device - layers * 2 * 2 * len(engine.buckets))
+                   / forwards, "captures": snap["compiles_total"]}
+            if precision == "bf16":
+                gap = float(np.abs(got - f32_actions).max())
+                check(gap <= 2e-2 and not np.array_equal(got, f32_actions),
+                      f"bf16 tier vs f32: max gap {gap} (bitwise: {np.array_equal(got, f32_actions)})")
+                row["max_abs_vs_f32"] = gap
+                row["latency"] = _latencies(server.address, body, SERVE_TIMED // 3)
+            else:
+                deq = dequantize_params(quantize_params(
+                    {k: v.cuda() for k, v in actor.state_dict().items()}))
+                plain = _plain_sequence(config, actor, {k: v.cpu() for k, v in deq.items()})
+                with torch.inference_mode():
+                    want, _ = plain(torch.from_numpy(obs64).cuda(), deterministic=True)
+                err = float(np.abs(got - want.cpu().numpy()).max())
+                check(err <= 1e-4, f"int8 tier vs the dequantized f32 forward: {err}")
+                check(placed < f32_bytes / 3, f"int8 placed {placed} B, f32 {f32_bytes} B")
+                row["max_abs_vs_dequantized"] = err
+            row["nvidia_smi"] = smi
+            emit({"phase": "serve_tier", **row})
+            out[precision] = row
+        finally:
+            server.close()
+            server.registry.close()
+    out["bf16_row"] = bf16_row
+    return out
+
+
+def _pixel_run(seed, root) -> tuple:
+    """A pixel-recipe run saved as the train CLI lays one out."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+    from torch_actor_critic_tpu_torch.models import build_actor
+    from torch_actor_critic_tpu_torch.utils.checkpoint import save_actor
+    from torch_actor_critic_tpu_torch.utils.tracking import Tracker
+
+    cfg = train_cli.config_from_args(train_cli.parse_arguments(VISUAL_ARGS))
+    tracker = Tracker(run_id="pixel", root=root)
+    tracker.log_params({"environment": VISUAL_ENV, "config": json.loads(cfg.to_json()),
+                        "seed": seed})
+    actor = build_actor(cfg, MultiObservation((1,), (32, 32, 3)), 1, 2.0,
+                        generator=torch.Generator().manual_seed(seed + 7))
+    save_actor(tracker.artifact_path("checkpoints"), 1, actor, cfg)
+    return actor, cfg
+
+
+def _visual_run(seed, rng, root) -> dict:
+    """``serve --run`` on a pixel-recipe run: ``{"features", "frame"}``
+    requests answered as the actor's own eager forward answers (1e-4)."""
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+    from torch_actor_critic_tpu_torch.serve.__main__ import build_server, parse_arguments
+
+    actor, cfg = _pixel_run(seed, root)
+    server, info = build_server(parse_arguments(_serve_args(
+        ["--run", "pixel", "--runs-root", root, "--seed", str(seed)])))
+    server.start()
+    try:
+        engine = server.registry.acquire()[0]
+        check(engine.graph_count() == 2 * len(engine.buckets), "visual: not every pair captured")
+        ref = actor.to("cuda").eval()
+        errs = []
+        for rows in (1, 5, 64):
+            feats = rng.standard_normal((rows, 1)).astype(np.float32)
+            frames = rng.integers(0, 256, (rows, 32, 32, 3), dtype=np.uint8)
+            got = np.asarray(post(server.address + "/act", {"obs": {
+                "features": feats.tolist(), "frame": frames.tolist()}})["action"],
+                dtype=np.float32)
+            with torch.inference_mode():
+                want, _ = ref(MultiObservation(torch.from_numpy(feats).cuda(),
+                                               torch.from_numpy(frames).cuda()),
+                              deterministic=True, with_logprob=False)
+            errs.append(float(np.abs(got - want.cpu().numpy()).max()))
+            check(errs[-1] <= 1e-4, f"visual --run vs the actor's forward ({rows} rows): {errs[-1]}")
+        row = {"phase": "serve_visual_run", "slot": info, "max_abs_err": max(errs),
+               "config": {"filters": list(cfg.filters), "cnn_dense_size": cfg.cnn_dense_size,
+                          "cnn_features": cfg.cnn_features, "hidden_sizes": list(cfg.hidden_sizes)}}
+        emit(row)
+        return row
+    finally:
+        server.close()
+        server.registry.close()
+
+
+def _fleet(ckpt, config, seed, rng) -> dict:
+    """``serve --fleet 2`` on the one card: routed requests, a rolling
+    reload under traffic, the router's /metrics totals against the
+    workers' own, a worker killed under traffic with no request lost,
+    and SIGTERM rolling the fleet down with exit 0."""
+    import signal
+    import threading
+
+    from torch_actor_critic_tpu_torch.models import build_actor
+    from torch_actor_critic_tpu_torch.utils.checkpoint import save_actor
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ready: dict = {}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch_actor_critic_tpu_torch.serve", "--ckpt-dir", ckpt,
+         "--obs-dim", "3", "--act-dim", "1", "--act-limit", "2.0", "--port", "0",
+         "--poll-interval", "0", "--fleet", "2", "--router-poll", "0.2"],
+        cwd=here, stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=here),
     )
+    try:
+        t0 = time.perf_counter()
+        ready = json.loads(proc.stdout.readline())
+        up_s = time.perf_counter() - t0
+        router = ready["router"]
+        body = {"obs": rng.standard_normal((8, 16, 3)).astype("float32").tolist()}
+        errors, answered, stop = [], [0], threading.Event()
+
+        def traffic(n=None):
+            done = 0
+            while (n is None and not stop.is_set()) or (n is not None and done < n):
+                try:
+                    out = post(router + "/act", body)
+                    check(len(out["action"]) == 8, "fleet: wrong answer shape")
+                    answered[0] += 1
+                except Exception as e:  # noqa: BLE001 — counted, checked below
+                    errors.append(repr(e)[:200])
+                done += 1
+
+        herd = [threading.Thread(target=traffic, args=(16,)) for _ in range(4)]
+        for th in herd:
+            th.start()
+        for th in herd:
+            th.join(timeout=120)
+        check(answered[0] == 64 and not errors, f"fleet: 64 routed, {answered[0]} answered, {errors[:3]}")
+        save_actor(ckpt, 3, build_actor(config, (16, 3), 1, 2.0,
+                                        generator=torch.Generator().manual_seed(seed + 3)), config)
+        herd = [threading.Thread(target=traffic) for _ in range(2)]
+        for th in herd:
+            th.start()
+        rolled = post(router + "/reload", {})["reload"]
+        time.sleep(0.5)
+        stop.set()
+        for th in herd:
+            th.join(timeout=120)
+        check(set(rolled) == {"w0", "w1"} and all(
+            s["readmitted"] and s["reload"]["default"]["status"] == "ok" and
+            s["reload"]["default"]["epoch"] == 3 for s in rolled.values()),
+            f"rolling reload: {rolled}")
+        check(not errors, f"fleet: requests lost in the rolling reload: {errors[:3]}")
+        agg = json.loads(urllib.request.urlopen(router + "/metrics", timeout=60).read())
+        per = [json.loads(urllib.request.urlopen(a + "/metrics", timeout=60).read())
+               for a in ready["workers"].values()]
+        for key in ("responses_total", "requests_total", "batches_total"):
+            check(agg[key] == sum(p[key] for p in per),
+                  f"fleet /metrics {key}: {agg[key]} != {[p[key] for p in per]}")
+        before_kill = answered[0]
+        stop.clear()
+        herd = [threading.Thread(target=traffic) for _ in range(3)]
+        for th in herd:
+            th.start()
+        time.sleep(0.3)
+        os.kill(ready["pids"][0], signal.SIGKILL)
+        time.sleep(1.0)
+        stop.set()
+        for th in herd:
+            th.join(timeout=120)
+        check(not errors, f"fleet: requests lost when a worker died: {errors[:3]}")
+        health = json.loads(urllib.request.urlopen(router + "/healthz", timeout=60).read())
+        check(health["admitted_workers"] == 1, f"fleet: dead worker still admitted: {health}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"fleet: exit code {rc} after SIGTERM")
+        row = {"phase": "serve_fleet", "workers": 2, "startup_s": up_s,
+               "answered_total": answered[0], "answered_after_kill": answered[0] - before_kill,
+               "lost": len(errors), "rolling_reload": {k: v["readmitted"] for k, v in rolled.items()},
+               "aggregate_responses_total": agg["responses_total"],
+               "workers_responses_total": [p["responses_total"] for p in per], "exit_code": rc}
+        emit(row)
+        return row
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        for pid in ready.get("pids", []):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        proc.stdout.close()
+
+
+def phase_serve(seed: int, kernels, attn, smi: str) -> dict:
+    """The serving plane through the CLI's ``build_server``: every
+    (bucket, deterministic) forward one CUDA graph captured at warmup,
+    served requests against the plain forward, the startup and the
+    served forwards under one device trace (exactly L K2 launches a
+    forward), captured == eager at every bucket, a reload under
+    traffic, eager against captured host and /act times, the bf16 and
+    int8 tiers, the pixel recipe through ``--run`` and ``--fleet 2``.
+    Returns the traced K2 launches of the f32 (with int8) and bf16
+    serving paths and the bf16 K2 row."""
+    from torch_actor_critic_tpu_torch.models import build_actor
+    from torch_actor_critic_tpu_torch.serve.__main__ import parse_arguments
     from torch_actor_critic_tpu_torch.utils.checkpoint import save_actor
     from torch_actor_critic_tpu_torch.utils.config import SACConfig
 
     history, obs_dim, act_dim, act_limit = 16, 3, 1, 2.0
     config = SACConfig(history_len=history)  # seq widths: 64 / 4 heads / 2 layers
+    layers = config.seq_num_layers
     actor = build_actor(config, (history, obs_dim), act_dim, act_limit,
                         generator=torch.Generator().manual_seed(seed))
     ckpt = tempfile.mkdtemp(prefix="tac_chip_smoke_")
+    runs = tempfile.mkdtemp(prefix="tac_chip_runs_")
+    rng = np.random.default_rng(seed)
     try:
         save_actor(ckpt, 1, actor, config)
-        args = parse_arguments([
+        args = parse_arguments(_serve_args([
             "--ckpt-dir", ckpt, "--obs-dim", str(obs_dim),
-            "--act-dim", str(act_dim), "--act-limit", str(act_limit),
-            "--host", "127.0.0.1", "--port", "0", "--device", "cuda",
-            "--poll-interval", "0", "--seed", str(seed),
-        ])
-        kernels.reset_launch_counts()
-        server, info = build_server(args)  # registers + warms every bucket
-        server.start()
-        try:
-            at_start = kernels.launch_counts["flash_fwd"]
-            rng = np.random.default_rng(seed)
-            plain = build_actor(config, (history, obs_dim), act_dim, act_limit)
-            for blk in plain.trunk.blocks:
-                blk.attn.attention_fn = plain_attention
-            plain.load_state_dict(actor.state_dict())
-            plain = plain.to("cuda").eval()
-            requests = []
-            lat = []
+            "--act-dim", str(act_dim), "--act-limit", str(act_limit), "--seed", str(seed)]))
+        plain = _plain_sequence(config, actor)
+        obs64 = rng.standard_normal((64, history, obs_dim)).astype(np.float32)
+        body = {"obs": obs64.tolist(), "deterministic": True}
+
+        def drive(server):
+            """The checked requests, then SERVE_TRACED 64-row ones."""
+            requests, lat = [], []
             for rows in (1, 3, 64, None):
                 obs = rng.standard_normal(
                     (history, obs_dim) if rows is None else (rows, history, obs_dim)
@@ -1046,55 +1473,78 @@ def phase_serve(seed: int, kernels) -> int:
                         check(err <= 1e-4, f"served vs plain forward: {err}")
                     requests.append({"rows": rows, "deterministic": det,
                                      "max_abs_err_vs_plain": err})
-            launches_requests = kernels.launch_counts["flash_fwd"] - at_start
+            for _ in range(SERVE_TRACED):
+                post(server.address + "/act", body)
+            return requests, lat
+
+        # The main path: startup (every capture) and the served forwards,
+        # their K2 launches counted from one device trace.
+        server, info, (requests, lat), at_start, launches, forwards = _serve_traced(
+            kernels, args, drive, "serve")
+        try:
+            engine, params, _ = server.registry.acquire()
+            n_pairs = 2 * len(engine.buckets)
+            stats = engine.compile_stats()
+            check(engine.graphed and engine.graph_count() == n_pairs
+                  and stats["compiles_total"] == n_pairs and stats["live_compiles"] == 0,
+                  f"warmup captured {engine.graph_count()} graphs, stats {stats}")
+            check(kernels.launch_counts["flash_fwd"] == at_start,
+                  "a served request launched K2 outside its graph")
+            _check_served_launches("serve", engine, layers, at_start, launches, forwards,
+                                   len(requests) + SERVE_TRACED)
+            versus = _graphs_vs_eager(engine, params, rng)
+            profile = profile_requests(server.address, rng, history, obs_dim)
+            host = {}
+            for mode, fn in (("captured", engine.act), ("eager", engine.forward_eager)):
+                ms = []
+                for _ in range(50):
+                    t0 = time.perf_counter()
+                    fn(params, obs64)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                host[mode] = statistics.median(ms)
+            latency = {"captured": _latencies(server.address, body, SERVE_TIMED)}
+            real_act = engine.act
+            engine.act = engine.forward_eager  # the eager engine, for the comparison alone
+            try:
+                latency["eager"] = _latencies(server.address, body, SERVE_TIMED)
+            finally:
+                engine.act = real_act
+            latency["captured_again"] = _latencies(server.address, body, SERVE_TIMED)
+            served_actor, reload = _reload_under_traffic(server, ckpt, config, seed, rng, obs64)
+            # The tiers below serve the newest epoch, the reload's.
+            f32_actions = np.asarray(post(server.address + "/act", body)["action"],
+                                     dtype=np.float32)
             metrics = json.loads(urllib.request.urlopen(
                 server.address + "/metrics", timeout=60).read())
-            forwards = metrics["batches_total"]
-            layers = config.seq_num_layers
-            check(launches_requests >= layers * forwards,
-                  f"flash launches {launches_requests} < {layers} x {forwards} forwards")
             check(metrics["errors_total"] == 0, "serving errors")
-            before = kernels.launch_counts["flash_fwd"]
-            profile = profile_requests(server.address, rng, history, obs_dim)
-            check(kernels.launch_counts["flash_fwd"] - before
-                  >= layers * profile["requests"],
-                  "profiled requests did not run the flash kernel")
-            # The engine's forward alone (no HTTP, JSON or queue): host
-            # wall time of one padded 64-row deterministic act().
-            engine, params, _ = server.registry.acquire()
-            obs64 = rng.standard_normal((64, history, obs_dim)).astype(np.float32)
-            act_ms = []
-            for _ in range(20):
-                t0 = time.perf_counter()
-                engine.act(params, obs64, deterministic=True)
-                act_ms.append((time.perf_counter() - t0) * 1e3)
-            from torch.profiler import ProfilerActivity, profile as tprofile
-
-            with tprofile(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    engine.act(params, obs64, deterministic=True)
-            act_host_ops = host_ops(prof, 10)
-            launches = kernels.launch_counts["flash_fwd"]
+            check(metrics["live_compiles"] == 0, f"live captures: {metrics['live_compiles']}")
             emit({
                 "phase": "serve", "slot": info, "requests": requests,
-                "forwards": forwards, "flash_launches_total": launches,
-                "flash_launches_warmup": at_start,
-                "flash_launches_requests": launches_requests,
+                "graphs": engine.graph_count(), "compile_stats": engine.compile_stats(),
+                "forwards": metrics["batches_total"], "flash_launches_traced": launches,
+                "flash_wrapper_launches_warmup": at_start, "traced_forwards": forwards,
+                "graphs_vs_eager": versus,
+                "reload_under_traffic": reload,
                 "p50_ms": metrics.get("p50_ms"), "p99_ms": metrics.get("p99_ms"),
-                "requests_per_sec": metrics.get("requests_per_sec"),
                 "client_median_ms": statistics.median(lat),
                 "live_compiles": metrics["live_compiles"],
                 "profile_64_rows_deterministic": profile,
-                "engine_act_64_rows_median_ms": statistics.median(act_ms),
-                "engine_act_host_ops": act_host_ops,
+                "engine_host_ms_64_rows": host, "act_64_rows": latency,
+                "bucket_forward": metrics.get("bucket_forward"), "nvidia_smi": smi,
             })
         finally:
             closed = server.close()
             check(closed["server_thread_stopped"], "server thread did not stop")
+            server.registry.close()
+        tiers = _tiers(kernels, attn, ckpt, config, served_actor, seed, rng, f32_actions,
+                       obs64, smi)
+        _visual_run(seed, rng, runs)
+        _fleet(ckpt, config, seed, rng)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    return launches
+        shutil.rmtree(runs, ignore_errors=True)
+    return {"flash_fwd": launches + tiers["int8"]["launches"],
+            "flash_fwd_bf16": tiers["bf16"]["launches"], "bf16_row": tiers["bf16_row"]}
 
 
 def _param_gap(a, b) -> tuple:
@@ -4070,7 +4520,8 @@ def main(argv=None) -> int:
     bwd_rows = timed("bwd_vs_plain", phase_bwd_vs_plain, attn, args.seed, critic_qkv)
     del critic_qkv
     pixel_row = timed("pixel_vs_plain", phase_pixel_vs_plain, pixels, args.seed)["train_pair"]
-    serve_launches = timed("serve", phase_serve, args.seed, _kernels)
+    serve = timed("serve", phase_serve, args.seed, _kernels, attn, smi)
+    serve_launches = serve["flash_fwd"]
     check(serve_launches > 0, "the serving path launched no flash_fwd kernel")
     train_launches = timed("train", phase_train, args.seed, _kernels)
     timed("graph_push", phase_graph_push, args.seed)
@@ -4089,6 +4540,9 @@ def main(argv=None) -> int:
     rows = [
         ("flash_fwd", "flash_fwd.cu", "torch_actor_critic_tpu/ops/attention.py:428",
          fwd_launches, serve_row),
+        # K2 in bf16 at the bf16 serving tier's shape: that tier's served forwards.
+        ("flash_fwd_bf16", "flash_fwd.cu", "torch_actor_critic_tpu/ops/attention.py:428",
+         serve["flash_fwd_bf16"], serve["bf16_row"]),
         ("flash_bwd_dq", "flash_bwd.cu", "torch_actor_critic_tpu/ops/attention.py:611",
          train_launches["flash_bwd_dq"] + resume_launches["flash_bwd_dq"]
          + ondevice_launches["flash_bwd_dq"] + population_launches["flash_bwd_dq"],

@@ -26,7 +26,8 @@ are held to 2·lr, and the updated networks' outputs to 1e-4.
 A burst captured as a CUDA graph equals the eager burst from one cloned
 state to the bit; the visual one runs both on cuDNN's deterministic
 algorithms, as its default convolution backward is not bitwise run to
-run.
+run. The serving engine's graphs (one per bucket and mode) equal its
+eager forward to the bit, the sampled ones from one generator state.
 """
 
 import math
@@ -168,7 +169,13 @@ def test_gpu_engine_serves_through_the_kernel(cuda):
     obs = np.random.default_rng(0).standard_normal((5, 16, 3)).astype(np.float32)
     before = _kernels.launch_counts["flash_fwd"]
     got = eng.act(params, obs, deterministic=True)
-    assert _kernels.launch_counts["flash_fwd"] == before + cfg.seq_num_layers
+    # The first act captures its bucket's graph: the wrapper counts the
+    # eager warm-up's launches and the capture's; a replay calls none.
+    assert _kernels.launch_counts["flash_fwd"] == before + 2 * cfg.seq_num_layers
+    eng.act(params, obs, deterministic=True)
+    assert _kernels.launch_counts["flash_fwd"] == before + 2 * cfg.seq_num_layers
+    rows = dict(_device_kernels(lambda: eng.act(params, obs, deterministic=True)))
+    assert sum(n for key, n in rows.items() if "flash_fwd_kernel" in key) == cfg.seq_num_layers
     with torch.inference_mode():
         want, _ = plain(torch.from_numpy(obs).to(cuda), deterministic=True)
     np.testing.assert_allclose(got, want.cpu().numpy(), atol=1e-4, rtol=0)
@@ -1547,3 +1554,229 @@ def test_host_population_trains_resumes_and_evaluates_on_the_card(cuda, tmp_path
         assert len(ev["per_member"]) == 3
     finally:
         tr.close()
+
+
+# ----------------------------------------------------- the serving plane
+
+SERVE_CFG = SACConfig(history_len=16)
+
+
+def _served_actor(seed=0):
+    return build_actor(SERVE_CFG, (16, 3), 1, 2.0, generator=torch.Generator().manual_seed(seed))
+
+
+def _serve_obs(n, seed=0):
+    return np.random.default_rng(seed).standard_normal((n, 16, 3)).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_engine_graphs_equal_eager_at_every_bucket(cuda):
+    """Every (bucket, deterministic) forward is one captured graph, taken
+    at warmup; each replay equals the eager forward bitwise, the sampled
+    ones from one generator state (which both leave where they found it
+    plus one forward's draws)."""
+    eng = PolicyEngine(_served_actor(), ObsSpec((16, 3)), max_batch=64, device=cuda)
+    params = eng.prepare_params(_served_actor().state_dict())
+    warmed = eng.warmup(params)
+    stats = eng.compile_stats()
+    assert len(warmed) == 2 * len(eng.buckets) == eng.graph_count()
+    assert stats["compiles_total"] == 2 * len(eng.buckets) and stats["live_compiles"] == 0
+    gen = eng.generator
+    for i, bucket in enumerate(eng.buckets):
+        for rows in sorted({max(1, bucket - 1), bucket}):
+            obs = _serve_obs(rows, seed=10 * i + rows)
+            np.testing.assert_array_equal(
+                eng.act(params, obs), eng.forward_eager(params, obs))
+            state = gen.get_state()
+            got = eng.act(params, obs, gen, deterministic=False)
+            after = gen.get_state()
+            gen.set_state(state)
+            want = eng.forward_eager(params, obs, gen, deterministic=False)
+            np.testing.assert_array_equal(got, want)
+            assert torch.equal(after, gen.get_state())
+    assert eng.compile_stats() == stats and eng.graph_count() == 2 * len(eng.buckets)
+    # Any other generator lends its state to the replay: the same draws
+    # as the engine's own from that state, and it advances as they do.
+    other = torch.Generator(device=cuda)
+    state = gen.get_state()
+    other.set_state(state)
+    obs = _serve_obs(3, seed=99)
+    lent = eng.act(params, obs, other, deterministic=False)
+    gen.set_state(state)
+    np.testing.assert_array_equal(lent, eng.act(params, obs, gen, deterministic=False))
+    assert torch.equal(other.get_state(), gen.get_state())
+
+
+@pytest.mark.gpu
+def test_engine_reload_keeps_graphs_and_inflight_batch_keeps_old_weights(cuda):
+    """A hot-reload swap captures nothing; a batch the batcher dispatched
+    before the swap (its engine call held at the door) is answered on
+    the weights it acquired, bitwise, and the next on the new ones."""
+    import threading
+
+    from torch_actor_critic_tpu_torch.serve import MicroBatcher, ModelRegistry
+
+    reg = ModelRegistry(device=cuda)
+    reg.register("default", _served_actor(0), ObsSpec((16, 3)),
+                 params=_served_actor(0).state_dict(), max_batch=64)
+    engine, old, _ = reg.acquire()
+    captures = engine.compile_stats()["compiles_total"]
+    obs = _serve_obs(7, seed=3)
+    want_old = engine.forward_eager(old, obs)
+    release, entered = threading.Event(), threading.Event()
+    real_act = engine.act
+
+    def held(*a, **k):
+        entered.set()
+        release.wait(30)
+        return real_act(*a, **k)
+
+    engine.act = held
+    with MicroBatcher(reg, max_batch=64) as mb:
+        fut = mb.submit(obs)
+        assert entered.wait(30)
+        reg.swap("default", _served_actor(5).state_dict())
+        release.set()
+        res = fut.result(timeout=60)
+        engine.act = real_act
+        assert res.generation == 0
+        np.testing.assert_array_equal(res.action, want_old)
+        _, new, gen = reg.acquire()
+        res2 = mb.act(obs, timeout=60)
+        assert gen == res2.generation == 1
+        np.testing.assert_array_equal(res2.action, engine.forward_eager(new, obs))
+        assert not np.array_equal(res2.action, want_old)
+    assert engine.compile_stats()["compiles_total"] == captures
+    assert engine.compile_stats()["live_compiles"] == 0
+    reg.close()
+
+
+@pytest.mark.gpu
+def test_sampled_serving_on_every_slot_and_after_a_replacement(cuda):
+    """One batcher generator serves sampled requests to two slots, each
+    engine's graphs borrowing its state; a slot re-registered with
+    ``replace=True`` (a new engine, a new engine generator) still serves
+    them. Each answer equals the eager forward from the state the
+    batcher's generator held before it."""
+    from torch_actor_critic_tpu_torch.serve import MicroBatcher, ModelRegistry
+
+    reg = ModelRegistry(device=cuda)
+    for name, seed in (("default", 0), ("canary", 1)):
+        reg.register(name, _served_actor(seed), ObsSpec((16, 3)),
+                     params=_served_actor(seed).state_dict(), max_batch=64)
+    obs = _serve_obs(5, seed=4)
+    mirror = torch.Generator(device=cuda).manual_seed(3)  # the batcher's stream
+    with MicroBatcher(reg, max_batch=64, seed=3) as mb:
+        for step, slot in enumerate(("default", "canary", "default", "replaced", "canary")):
+            if slot == "replaced":
+                slot = "default"
+                reg.register(slot, _served_actor(2), ObsSpec((16, 3)),
+                             params=_served_actor(2).state_dict(), max_batch=64,
+                             replace=True)
+            engine, params, _ = reg.acquire(slot)
+            want = engine.forward_eager(params, obs, mirror, deterministic=False)
+            got = mb.act(obs, deterministic=False, slot=slot, timeout=60)
+            np.testing.assert_array_equal(got.action, want, err_msg=f"request {step}")
+            assert torch.equal(torch.tensor(mb.export_key(), dtype=torch.uint8),
+                               mirror.get_state())
+        assert reg.compile_stats()["live_compiles"] == 0
+    reg.close()
+
+
+@pytest.mark.gpu
+def test_flash_bf16_on_the_serving_views(cuda):
+    """K2 in bf16 at the bf16 tier's serving shape, on the model's split
+    views: one kernel, within 2e-2 of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn((64, 16, 64), generator=gen, device=cuda).to(torch.bfloat16)
+               .reshape(64, 16, 4, 16).transpose(1, 2) for _ in range(3))
+    out = tattn.flash_attention_forward(q, k, v, True)
+    ref = tattn.reference_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    rows = _device_kernels(lambda: tattn.flash_attention_forward(q, k, v, True))
+    assert len(rows) == 1 and "flash_fwd_kernel" in rows[0][0], rows
+
+
+@pytest.mark.gpu
+def test_precision_tiers_on_the_card(cuda):
+    """bf16: K2 runs in bf16 inside the graphs, actions within 2e-2 of
+    f32 and not bitwise them. int8: equal to the forward on the
+    dequantized f32 weights (1e-4), under a third of f32's bytes."""
+    from torch_actor_critic_tpu_torch.serve.sharded import dequantize_params
+
+    actor = _served_actor(1)
+    state = actor.state_dict()
+    obs = _serve_obs(64, seed=9)
+    f32 = PolicyEngine(actor, ObsSpec((16, 3)), max_batch=64, device=cuda)
+    p32 = f32.prepare_params(state)
+    a32 = f32.act(p32, obs)
+    bf16 = PolicyEngine(actor, ObsSpec((16, 3)), precision="bf16", max_batch=64,
+                        device=cuda)
+    p16, _ = bf16.place_params(state)
+    seen = []
+    real = tattn.flash_attention_forward
+
+    def spy(q, *a, **k):
+        seen.append(q.dtype)
+        return real(q, *a, **k)
+
+    tattn.flash_attention_forward = spy
+    try:
+        a16 = bf16.act(p16, obs)
+    finally:
+        tattn.flash_attention_forward = real
+    assert seen and set(seen) == {torch.bfloat16}
+    assert np.abs(a16 - a32).max() <= 2e-2 and not np.array_equal(a16, a32)
+    i8 = PolicyEngine(actor, ObsSpec((16, 3)), precision="int8", max_batch=64,
+                      device=cuda)
+    p8, nbytes8 = i8.place_params(state)
+    _, nbytes32 = f32.place_params(state)
+    assert nbytes8 < nbytes32 / 3
+    a8 = i8.act(p8, obs)
+    deq = PolicyEngine(actor, ObsSpec((16, 3)), max_batch=64, device=cuda)
+    np.testing.assert_allclose(a8, deq.act(dequantize_params(p8), obs), atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_fleet_of_two_workers_on_the_card(cuda, tmp_path):
+    """``serve --fleet 2`` on the one card: the router answers, both
+    workers serve, SIGTERM rolls the fleet down with exit 0."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+    from urllib import request as urlreq
+
+    from torch_actor_critic_tpu_torch.utils.checkpoint import save_actor
+
+    save_actor(tmp_path, 1, _served_actor(), SERVE_CFG)
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch_actor_critic_tpu_torch.serve", "--ckpt-dir",
+         str(tmp_path), "--obs-dim", "3", "--act-dim", "1", "--act-limit", "2.0",
+         "--port", "0", "--poll-interval", "0", "--fleet", "2", "--router-poll", "0.2"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+        stdout=subprocess.PIPE, text=True,
+    )
+    try:
+        ready = json.loads(proc.stdout.readline())
+        for _ in range(8):
+            req = urlreq.Request(
+                ready["router"] + "/act",
+                data=json.dumps({"obs": _serve_obs(4).tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            out = json.loads(urlreq.urlopen(req, timeout=60).read())
+            assert np.asarray(out["action"]).shape == (4, 1)
+        snap = json.loads(urlreq.urlopen(ready["router"] + "/metrics", timeout=60).read())
+        assert snap["responses_total"] == 8 and snap["workers_reporting"] == 2
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()

@@ -6,6 +6,12 @@
   modes), admission control and deadlines;
 - :mod:`.registry` — model slots with validated checkpoint hot-reload;
 - :mod:`.server` — the stdlib HTTP frontend and the in-process client;
+- :mod:`.fleet` — engine-per-device replication behind one admission
+  layer, least-loaded and breaker-gated;
+- :mod:`.sharded` — what the f32/bf16/int8 precision tiers do to the
+  params and the module (an engine's ``precision``; sub-meshes above
+  1x1 are not ported);
+- :mod:`.router` — the multi-process fleet router (``--fleet N``);
 - :mod:`.metrics`, :mod:`.admission`, :mod:`.breaker` — copied from the
   JAX package, which has no JAX in them.
 
@@ -23,10 +29,16 @@ from torch_actor_critic_tpu_torch.serve.engine import (  # noqa: F401
     ObsSpec,
     PolicyEngine,
 )
-from torch_actor_critic_tpu_torch.serve.metrics import ServeMetrics  # noqa: F401
+from torch_actor_critic_tpu_torch.serve.fleet import EngineFleet  # noqa: F401
+from torch_actor_critic_tpu_torch.serve.metrics import (  # noqa: F401
+    ServeMetrics,
+    aggregate_snapshots,
+)
 from torch_actor_critic_tpu_torch.serve.registry import ModelRegistry  # noqa: F401
+from torch_actor_critic_tpu_torch.serve.router import FleetRouter  # noqa: F401
 from torch_actor_critic_tpu_torch.serve.server import (  # noqa: F401
     PolicyClient,
     PolicyServer,
     install_drain_handler,
 )
+from torch_actor_critic_tpu_torch.serve.sharded import PRECISIONS  # noqa: F401

@@ -1,21 +1,43 @@
 """Policy-inference service CLI of the port (counterpart of ``serve.py``).
 
+Two ways to point it at a model:
+
+    # a tracked training run (<runs-root>/<experiment>/<run_id>, as the
+    # port's train CLI writes it): env and config are read from the run
+    python -m torch_actor_critic_tpu_torch.serve --run <id> \\
+        [--experiment Default] [--runs-root runs]
+
+    # a bare port checkpoint dir + explicit flat-obs geometry
     python -m torch_actor_critic_tpu_torch.serve --ckpt-dir DIR \\
-        --obs-dim 3 --act-dim 1 --act-limit 2.0 --port 0 [--device cuda|cpu]
+        --obs-dim 3 --act-dim 1 --act-limit 2.0
 
 Serves the newest epoch of a port actor checkpoint
 (:mod:`torch_actor_critic_tpu_torch.utils.checkpoint`) over HTTP, with
 hot-reload polling, and prints ``{"serving": <url>, "slots": ...}`` on
 one line once it accepts requests. The model geometry comes from the
-checkpoint's stored config, as the trainer builds it: a config with
-``history_len > 1`` is a sequence policy served over ``(history_len,
-obs_dim)`` observations, one with ``algorithm="td3"`` TD3's
-deterministic actor (sampled requests add its exploration noise). SIGTERM drains (answers every accepted request)
-and exits 0.
+checkpoint's stored config, as the trainer builds it: ``history_len >
+1`` is a sequence policy over ``(history_len, obs_dim)`` observations,
+``algorithm="td3"`` TD3's deterministic actor, and a run on a pixel env
+the visual actor over ``{"features", "frame"}`` observations (its spec
+from one throwaway env of the port's own pool). SIGTERM drains (answers
+every accepted request) and exits 0.
 
-The single-process subset of ``serve.py``'s flags; ``--run``, fleets,
-sub-meshes, precision tiers, warm starts, the flywheel and trace export
-are not ported yet. Runs on the GPU unless ``--device cpu`` is given.
+``--devices N`` (or ``all``) serves N engine replicas in this process
+behind one admission layer (:mod:`.fleet`; on the CPU the N replicas
+share the one host device); ``--serve-precision bf16|int8`` builds
+every engine at that precision tier (:mod:`.sharded`); ``--submesh``
+takes only ``1x1``; ``--fleet N``
+spawns N worker processes on ephemeral ports and fronts them with the
+health-gated router (:mod:`.router`) on ``--port``; ``--trace-export
+PATH`` writes the request spans (or the router's hops) as a Perfetto
+trace at exit. Runs on the GPU unless ``--device cpu`` is given; the
+workers of ``--fleet`` share the card.
+
+Not ported, and refused with ``NotImplementedError`` naming their
+ROADMAP queue: sub-meshes larger than 1x1 (queue 6), the transition
+flywheel ``--log-transitions`` (queue 7), ``--obs``, ``--elastic``,
+``--slo-config`` (queue 9), ``--warm-start``, ``--compile-cache``,
+``--warm-pool`` (queue 10), and ``--sanitize``.
 """
 
 from __future__ import annotations
@@ -23,17 +45,26 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
+import typing as t
 
 logger = logging.getLogger("serve")
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser("Batched policy-inference service (PyTorch port).")
     src = p.add_argument_group("model source")
-    src.add_argument("--ckpt-dir", type=str, required=True,
-                     help="Port actor checkpoint dir (epoch_<N>/actor.pt + meta.json)")
-    src.add_argument("--obs-dim", type=int, required=True)
-    src.add_argument("--act-dim", type=int, required=True)
+    src.add_argument("--run", type=str, default=None,
+                     help="Tracked run id to serve (reads env + config)")
+    src.add_argument("--experiment", default="Default")
+    src.add_argument("--runs-root", default="runs")
+    src.add_argument("--ckpt-dir", type=str, default=None,
+                     help="Port actor checkpoint dir (epoch_<N>/actor.pt + "
+                          "meta.json); needs --obs-dim/--act-dim")
+    src.add_argument("--obs-dim", type=int, default=None)
+    src.add_argument("--act-dim", type=int, default=None)
     src.add_argument("--act-limit", type=float, default=1.0)
     srv = p.add_argument_group("serving")
     srv.add_argument("--device", default=None,
@@ -44,6 +75,18 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     srv.add_argument("--max-wait-ms", type=float, default=2.0)
     srv.add_argument("--batch-mode", choices=("continuous", "group"),
                      default="continuous")
+    srv.add_argument("--devices", default="1",
+                     help="Engine replicas in THIS process: an int or "
+                          "'all' (one per visible card) behind a shared "
+                          "admission layer and least-loaded dispatch")
+    srv.add_argument("--submesh", default="1x1", metavar="TPxFSDP",
+                     help="Devices per replica; only 1x1 is ported")
+    srv.add_argument("--serve-precision", choices=("f32", "bf16", "int8"),
+                     default="f32",
+                     help="Numeric serving tier: f32 is bitwise the "
+                          "single-device engine; bf16 computes at bf16 "
+                          "width; int8 serves per-channel weight-"
+                          "quantized params (dequantized in the graph)")
     srv.add_argument("--buckets", type=str, default=None,
                      help="Comma-separated bucket sizes (default: powers "
                           "of two from 2 up to max-batch)")
@@ -51,8 +94,32 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                      help="Checkpoint hot-reload poll seconds (0 = off)")
     srv.add_argument("--seed", type=int, default=0,
                      help="Seed of the sampled-action generator")
-    srv.add_argument("--request-timeout", type=float, default=30.0)
-    srv.add_argument("--act-timeout", type=float, default=30.0)
+    srv.add_argument("--sanitize", choices=("off", "on"), default="off",
+                     help="Not ported (the JAX transfer guard)")
+    srv.add_argument("--request-timeout", type=float, default=30.0,
+                     help="Per-connection socket timeout in seconds")
+    srv.add_argument("--act-timeout", type=float, default=30.0,
+                     help="Max seconds to wait on the batcher before "
+                          "answering 503 + Retry-After (also the request "
+                          "deadline)")
+    srv.add_argument("--trace-export", metavar="PATH", default=None,
+                     help="Write a Perfetto (chrome://tracing) trace of the "
+                          "per-request spans (router hops under --fleet) to "
+                          "PATH at exit")
+    aot = p.add_argument_group("cold start (not ported)")
+    aot.add_argument("--warm-start", metavar="DIR", default=None)
+    aot.add_argument("--compile-cache", metavar="DIR", default=None)
+    flt = p.add_argument_group("fleet (multi-process)")
+    flt.add_argument("--fleet", type=int, default=0,
+                     help="Spawn N worker processes and front them with the "
+                          "health-gated fleet router on --port")
+    flt.add_argument("--router-poll", type=float, default=1.0,
+                     help="Fleet membership /healthz poll interval seconds")
+    flt.add_argument("--warm-pool", type=int, default=0, help="Not ported")
+    flt.add_argument("--obs", action="store_true", help="Not ported")
+    flt.add_argument("--slo-config", metavar="PATH", default=None, help="Not ported")
+    flt.add_argument("--elastic", choices=("off", "on"), default="off",
+                     help="Not ported")
     ovl = p.add_argument_group("overload & degradation")
     ovl.add_argument("--queue-capacity", type=int, default=1024)
     ovl.add_argument("--breaker-threshold", type=int, default=5)
@@ -60,12 +127,47 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     ovl.add_argument("--reload-retries", type=int, default=1)
     ovl.add_argument("--reload-retry-backoff", type=float, default=0.5)
     ovl.add_argument("--drain-timeout", type=float, default=30.0)
+    fwl = p.add_argument_group("data flywheel (not ported)")
+    fwl.add_argument("--log-transitions", metavar="DIR", default=None)
     return p.parse_args(argv)
 
 
+_NOT_PORTED = (
+    ("log_transitions", None, "--log-transitions (the transition flywheel, "
+     "replay/diskstore.py)", 7),
+    ("warm_start", None, "--warm-start (warm-start bundles)", 10),
+    ("compile_cache", None, "--compile-cache", 10),
+    ("warm_pool", 0, "--warm-pool (pre-forked warm spares)", 10),
+    ("obs", False, "--obs (the run-wide observability plane)", 9),
+    ("slo_config", None, "--slo-config", 9),
+    ("elastic", "off", "--elastic (SLO-driven autoscaling)", 9),
+    ("sanitize", "off", "--sanitize (the JAX transfer guard)", None),
+)
+
+
+def check_ported(args: argparse.Namespace) -> t.Tuple[int, int]:
+    """Refuse what the port does not serve; returns the sub-mesh."""
+    from torch_actor_critic_tpu_torch.serve.sharded import check_submesh
+
+    for name, off, what, queue in _NOT_PORTED:
+        if getattr(args, name) != off:
+            where = f" (ROADMAP queue {queue})" if queue else ""
+            raise NotImplementedError(f"{what} is not ported{where}")
+    try:
+        submesh = tuple(int(x) for x in args.submesh.lower().split("x"))
+        if len(submesh) != 2:
+            raise ValueError
+    except ValueError:
+        raise SystemExit(
+            f"--submesh wants TPxFSDP (e.g. 1x1), got {args.submesh!r}"
+        ) from None
+    return check_submesh(submesh)
+
+
 def obs_spec_for(config, obs_dim: int):
-    """The served observation spec: ``(history_len, obs_dim)`` for a
-    sequence policy (``history_len > 1``), else ``(obs_dim,)``."""
+    """The served observation spec of a bare checkpoint: ``(history_len,
+    obs_dim)`` for a sequence policy (``history_len > 1``), else
+    ``(obs_dim,)``."""
     import numpy as np
 
     from torch_actor_critic_tpu_torch.serve.engine import ObsSpec
@@ -76,25 +178,79 @@ def obs_spec_for(config, obs_dim: int):
     return ObsSpec(shape, np.float32)
 
 
-def build_server(args: argparse.Namespace):
+def resolve_model(args: argparse.Namespace):
+    """``(actor_def, obs_spec, act_dim, act_limit, ckpt_dir)`` from the
+    CLI's model source (JAX ``serve.py`` ``_resolve_model``)."""
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+    from torch_actor_critic_tpu_torch.models import build_actor
+    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    if args.run is not None:
+        from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool
+        from torch_actor_critic_tpu_torch.utils.tracking import Tracker
+
+        tracker = Tracker.load(args.run, experiment=args.experiment, root=args.runs_root)
+        params = tracker.params()
+        env_name = params.get("environment", "Humanoid-v5")
+        config = SACConfig.from_json(json.dumps(params.get("config", {})))
+        if config.history_len > 1:
+            # The trainer's own wrapping: a sequence run is served over
+            # (history_len, obs_dim) windows.
+            env_name = f"{env_name}|history:{config.history_len}"
+        # One throwaway env for its specs; closed before serving.
+        pool = make_env_pool(env_name, 1, base_seed=0)
+        try:
+            obs_spec, act_dim, act_limit = pool.obs_spec, pool.act_dim, pool.act_limit
+        finally:
+            pool.close()
+        ckpt_dir = str(tracker.artifact_path("checkpoints"))
+        logger.info("serving run %s (%s)", args.run, env_name)
+    else:
+        if args.ckpt_dir is None:
+            raise SystemExit("pass --run or --ckpt-dir (see --help)")
+        if args.obs_dim is None or args.act_dim is None:
+            raise SystemExit("--ckpt-dir needs --obs-dim and --act-dim")
+        meta = Checkpointer(args.ckpt_dir).peek_meta()
+        config = (
+            SACConfig.from_json(meta["config"]) if meta.get("config") else SACConfig()
+        )
+        obs_spec = obs_spec_for(config, args.obs_dim)
+        act_dim, act_limit, ckpt_dir = args.act_dim, args.act_limit, args.ckpt_dir
+    shapes = (obs_spec.map(lambda s: tuple(s.shape))
+              if isinstance(obs_spec, MultiObservation) else tuple(obs_spec.shape))
+    actor_def = build_actor(config, shapes, act_dim, act_limit)
+    return actor_def, obs_spec, act_dim, act_limit, ckpt_dir
+
+
+def _devices(args, device_type: str):
+    """``--devices`` as the server's ``devices``: None for one replica;
+    on the CPU, N replicas of the one host device."""
+    from torch_actor_critic_tpu_torch.serve.fleet import local_devices
+
+    have = local_devices(device_type)
+    n = len(have) if args.devices == "all" else int(args.devices)
+    if n < 1:
+        raise SystemExit(f"--devices must be >= 1, got {n}")
+    if device_type == "cpu":
+        return [have[0]] * n if n > 1 else None
+    if n > len(have):
+        raise SystemExit(f"--devices {n}: only {len(have)} {device_type} device(s)")
+    return n if n > 1 else None
+
+
+def build_server(args: argparse.Namespace, span_log=None):
     """Registry + warmed slot + (not yet started) server from parsed
     CLI args: the path :func:`main` serves, shared with smoke scripts.
     Returns ``(server, info)``."""
-    from torch_actor_critic_tpu_torch.models import build_actor
     from torch_actor_critic_tpu_torch.serve import (
         CircuitBreaker,
         ModelRegistry,
         PolicyServer,
     )
-    from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
-    from torch_actor_critic_tpu_torch.utils.config import SACConfig
 
-    meta = Checkpointer(args.ckpt_dir).peek_meta()
-    config = (
-        SACConfig.from_json(meta["config"]) if meta.get("config") else SACConfig()
-    )
-    obs_spec = obs_spec_for(config, args.obs_dim)
-    actor_def = build_actor(config, obs_spec.shape, args.act_dim, args.act_limit)
+    check_ported(args)
+    actor_def, obs_spec, _, _, ckpt_dir = resolve_model(args)
     buckets = (
         [int(b) for b in args.buckets.split(",")] if args.buckets else None
     )
@@ -102,14 +258,20 @@ def build_server(args: argparse.Namespace):
         reload_retries=args.reload_retries,
         reload_retry_backoff_s=args.reload_retry_backoff,
         device=args.device,
+        precision=args.serve_precision,
     )
+    devices = _devices(args, registry.device.type)
     info = registry.register(
         "default", actor_def, obs_spec,
-        ckpt_dir=args.ckpt_dir, max_batch=args.max_batch, buckets=buckets,
+        ckpt_dir=ckpt_dir, max_batch=args.max_batch, buckets=buckets,
         breaker=CircuitBreaker(
             fail_threshold=args.breaker_threshold,
             cooldown_s=args.breaker_cooldown,
         ),
+        # The fleet's replicas serve every forward (and warm their own
+        # buckets); warming the registry's engine too would capture
+        # graphs nothing replays.
+        warmup=devices is None,
     )
     if args.poll_interval > 0:
         registry.start_polling(args.poll_interval)
@@ -120,23 +282,193 @@ def build_server(args: argparse.Namespace):
         request_timeout_s=args.request_timeout,
         act_timeout_s=args.act_timeout,
         capacity=args.queue_capacity,
+        span_log=span_log,
         mode=args.batch_mode,
+        devices=devices,
     )
     return server, info
+
+
+# ------------------------------------------------------------------ fleet
+
+
+def _worker_argv(argv):
+    """One fleet worker's argv: the parent's args minus the fleet flags
+    and the trace export (the router writes its own), with an ephemeral
+    port (each worker prints its address; the parent reads it back)."""
+    import sys
+
+    src = list(sys.argv[1:] if argv is None else argv)
+    take_value = ("--fleet", "--port", "--router-poll", "--trace-export")
+    out, skip = [], False
+    for a in src:
+        if skip:
+            skip = False
+            continue
+        if a in take_value:
+            skip = True
+            continue
+        if a.split("=", 1)[0] in take_value:
+            continue
+        out.append(a)
+    return out + ["--port", "0"]
+
+
+def _await_worker_ready(proc, idx: int, timeout_s: float = 300.0) -> str:
+    """The worker's serving address from its startup JSON line; raises
+    RuntimeError if it dies or stays silent past the deadline. A daemon
+    thread then keeps draining its stdout (a full pipe would wedge it)."""
+    import threading
+    import time
+
+    address, deadline = None, time.time() + timeout_s
+    while time.time() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"fleet worker {idx} exited rc={proc.returncode} "
+                    "before becoming ready"
+                )
+            time.sleep(0.1)
+            continue
+        if line.startswith("{"):
+            try:
+                address = json.loads(line)["serving"]
+                break
+            except (json.JSONDecodeError, KeyError):
+                continue
+    if address is None:
+        raise RuntimeError(f"fleet worker {idx} never printed its address")
+
+    def _pump(stream=proc.stdout, i=idx):
+        for out_line in stream:
+            logger.debug("worker %d: %s", i, out_line.rstrip())
+
+    threading.Thread(target=_pump, daemon=True).start()
+    return address
+
+
+def _spawn_worker(argv):
+    """One worker: ``python -m torch_actor_critic_tpu_torch.serve`` on an
+    ephemeral port."""
+    import subprocess
+    import sys
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch_actor_critic_tpu_torch.serve"]
+        + _worker_argv(argv),
+        stdout=subprocess.PIPE, stderr=None, text=True, cwd=_REPO,
+    )
+
+
+def run_fleet(args, argv) -> None:
+    """``--fleet N``: spawn N workers, front them with the router.
+
+    Each worker is a full serving process (own engines, drain, breaker
+    and reload machinery); the router owns membership and rolling
+    reload. SIGTERM to THIS process rolls the fleet down: the workers
+    get SIGTERM (their drain answers everything accepted), then the
+    router stops. A worker dying on its own is not fatal: membership
+    ejects it and the others keep serving."""
+    import signal
+    import subprocess
+    import threading
+
+    from torch_actor_critic_tpu_torch.serve.router import FleetRouter
+
+    check_ported(args)
+    workers = [_spawn_worker(argv) for _ in range(args.fleet)]
+    try:
+        addresses = [_await_worker_ready(proc, i) for i, proc in enumerate(workers)]
+    except BaseException:
+        for proc in workers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        raise
+    logger.info("fleet up: %d workers %s", len(addresses), addresses)
+    span_log = None
+    if args.trace_export:
+        from torch_actor_critic_tpu_torch.telemetry.traceview import RequestSpanLog
+
+        span_log = RequestSpanLog()
+    router = FleetRouter(
+        addresses, host=args.host, port=args.port,
+        poll_interval_s=args.router_poll,
+        request_timeout_s=args.request_timeout,
+        span_log=span_log,
+    )
+    router.poll_once()
+
+    def _teardown(signum=None, frame=None):
+        logger.info("fleet teardown: draining %d workers", len(workers))
+        for proc in workers:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in workers:
+            try:
+                proc.wait(timeout=args.drain_timeout + 30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        router._httpd.shutdown()
+
+    signal.signal(signal.SIGTERM, lambda s, f: threading.Thread(
+        target=_teardown, daemon=True).start())
+    print(json.dumps({
+        "router": router.address,
+        "workers": {f"w{i}": a for i, a in enumerate(addresses)},
+        "pids": [proc.pid for proc in workers],
+    }), flush=True)
+    try:
+        router.serve_forever()
+    finally:
+        _teardown()
+        if span_log is not None:
+            from torch_actor_critic_tpu_torch.telemetry.traceview import (
+                export_trace,
+                router_hop_events,
+            )
+
+            summary = export_trace(
+                args.trace_export, router_hop_events(span_log.records()))
+            logger.info("router trace exported to %s (%d hop spans)",
+                        summary["path"], summary["router_spans"])
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_arguments(argv)
+    if args.fleet and args.fleet > 0:
+        run_fleet(args, argv)
+        return
     from torch_actor_critic_tpu_torch.serve import install_drain_handler
 
-    server, info = build_server(args)
+    span_log = None
+    if args.trace_export:
+        from torch_actor_critic_tpu_torch.telemetry.traceview import RequestSpanLog
+
+        span_log = RequestSpanLog()
+    server, info = build_server(args, span_log=span_log)
     logger.info("model loaded: %s", info)
     install_drain_handler(server, flush_timeout_s=args.drain_timeout)
     print(json.dumps({
         "serving": server.address, "slots": server.registry.slots(),
     }), flush=True)
-    server.serve_forever()
+    try:
+        server.serve_forever()
+    finally:
+        if span_log is not None:
+            from torch_actor_critic_tpu_torch.telemetry.traceview import (
+                export_trace,
+                serve_request_events,
+            )
+
+            summary = export_trace(
+                args.trace_export, serve_request_events(span_log.records()))
+            logger.info("trace exported to %s (%d request spans)",
+                        summary["path"], summary["serve_spans"])
 
 
 if __name__ == "__main__":

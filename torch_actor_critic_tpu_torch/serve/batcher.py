@@ -1,10 +1,13 @@
 """Thread-safe micro-batching queue in front of the policy engine.
 
-Port of ``serve/batcher.py``: the same grouping, admission, deadline and
-breaker semantics. Observations are plain numpy arrays (the port serves
-flat and history observations; no pytrees yet), and the sampled-action
-stream is one ``torch.Generator`` on the engine's device, seeded from
-``seed`` and saved/restored through :meth:`MicroBatcher.export_key` /
+Port of ``serve/batcher.py``: the same grouping, admission, deadline,
+breaker and per-request span semantics. An observation is a numpy
+array (flat or history) or a :class:`MultiObservation` of two (a visual
+slot's features and uint8 frame), batched along the leading axis of
+every leaf. The sampled-action stream is one ``torch.Generator`` on the
+engine's device, seeded from ``seed`` at first use (it serves every
+slot; a graphed engine borrows its state for each sampled replay) and
+saved/restored through :meth:`MicroBatcher.export_key` /
 :meth:`MicroBatcher.import_key` (``get_state``/``set_state``).
 
 The server-side dynamic-batching pattern (TorchBeast, arXiv:1910.03552;
@@ -85,13 +88,31 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from torch_actor_critic_tpu_torch.core.types import MultiObservation
 from torch_actor_critic_tpu_torch.serve.admission import (
     BreakerOpenError,
     ShedError,
 )
+from torch_actor_critic_tpu_torch.serve.engine import obs_rows
 from torch_actor_critic_tpu_torch.serve.metrics import ServeMetrics
 
 __all__ = ["MicroBatcher", "ActResult"]
+
+
+def _concat(obs_list):
+    """Requests' observations joined along the batch axis, leaf by leaf."""
+    if isinstance(obs_list[0], MultiObservation):
+        return MultiObservation(
+            np.concatenate([o.features for o in obs_list], axis=0),
+            np.concatenate([o.frame for o in obs_list], axis=0),
+        )
+    return np.concatenate(obs_list, axis=0)
+
+
+def _slice(obs, lo: int, hi: int):
+    if isinstance(obs, MultiObservation):
+        return MultiObservation(obs.features[lo:hi], obs.frame[lo:hi])
+    return obs[lo:hi]
 
 
 class ActResult(t.NamedTuple):
@@ -112,10 +133,13 @@ class ActResult(t.NamedTuple):
 class _Request:
     __slots__ = (
         "obs", "rows", "slot", "deterministic", "future", "t_enq",
-        "deadline",
+        "deadline", "request_id", "t_collect",
     )
 
-    def __init__(self, obs, rows, slot, deterministic, deadline_s=None):
+    def __init__(
+        self, obs, rows, slot, deterministic, deadline_s=None,
+        request_id=None,
+    ):
         self.obs = obs
         self.rows = rows
         self.slot = slot
@@ -127,6 +151,10 @@ class _Request:
         self.deadline = (
             self.t_enq + deadline_s if deadline_s is not None else None
         )
+        # Correlation id for the per-request trace span and the shed/
+        # breaker records (the HTTP frontend's X-Request-Id).
+        self.request_id = request_id
+        self.t_collect: float | None = None
 
 
 class MicroBatcher:
@@ -153,6 +181,7 @@ class MicroBatcher:
         metrics: ServeMetrics | None = None,
         seed: int = 0,
         capacity: int = 1024,
+        span_log=None,
         mode: str = "continuous",
     ):
         if max_batch < 1:
@@ -169,6 +198,10 @@ class MicroBatcher:
         self.capacity = int(capacity)
         self.mode = mode
         self.metrics = metrics if metrics is not None else ServeMetrics()
+        # Optional per-request span recording
+        # (telemetry.traceview.RequestSpanLog): every instrumentation
+        # point below is one `is not None` check when detached.
+        self.span_log = span_log
         self._seed = int(seed)
         # Created on the first sampled group, on that engine's device;
         # a state imported before then is applied at creation.
@@ -203,6 +236,7 @@ class MicroBatcher:
         deterministic: bool = True,
         slot: str = "default",
         deadline_s: float | None = None,
+        request_id: str | None = None,
     ) -> Future:
         """Enqueue one request; returns a Future resolving to
         :class:`ActResult`. ``obs`` is a single observation or a
@@ -214,18 +248,23 @@ class MicroBatcher:
         at the measured service rate, and purged (future failed, never
         dispatched) if it expires while queued. Admission failures
         raise :class:`~torch_actor_critic_tpu_torch.serve.admission.ShedError`
-        with a machine-readable reason."""
+        with a machine-readable reason. ``request_id`` threads through
+        the per-request trace span and shed records."""
         engine, _, _ = self.registry.acquire(slot)  # validates slot name
         breaker = self.registry.breaker(slot)
         if breaker is not None and not breaker.admits():
             # Fail fast while the slot's engine is tripped open: no
             # queue slot, no accelerator work, a concrete retry hint.
             self.metrics.record_shed("breaker_open")
+            self._note_shed(request_id, slot, "breaker_open")
             raise BreakerOpenError(
                 slot, breaker.retry_after_s(), breaker.state
             )
         obs, rows, batched = self._ensure_batched(engine, obs)
-        req = _Request(obs, rows, slot, bool(deterministic), deadline_s)
+        req = _Request(
+            obs, rows, slot, bool(deterministic), deadline_s,
+            request_id=request_id,
+        )
         outer: Future = Future()
 
         def _copy(f: Future):
@@ -249,6 +288,7 @@ class MicroBatcher:
                 )
             if len(self._queue) >= self.capacity:
                 self.metrics.record_shed("queue_full")
+                self._note_shed(request_id, slot, "queue_full")
                 raise ShedError(
                     "queue_full",
                     f"admission queue is at capacity "
@@ -265,6 +305,7 @@ class MicroBatcher:
                 ) * self._ema_row_s
                 if est_wait > deadline_s:
                     self.metrics.record_shed("deadline_infeasible")
+                    self._note_shed(request_id, slot, "deadline_infeasible")
                     raise ShedError(
                         "deadline_infeasible",
                         f"deadline of {deadline_s:.3f}s cannot be met: "
@@ -285,14 +326,26 @@ class MicroBatcher:
         deterministic: bool = True,
         slot: str = "default",
         timeout: float | None = 30.0,
+        request_id: str | None = None,
     ) -> ActResult:
         """Blocking :meth:`submit`. The timeout doubles as the request
         deadline: a caller that stops waiting leaves no orphan behind —
         its queued request is purged at group-collection time instead
         of burning a forward on an answer nobody reads."""
-        return self.submit(obs, deterministic, slot, deadline_s=timeout).result(
-            timeout=timeout
-        )
+        return self.submit(
+            obs, deterministic, slot, deadline_s=timeout,
+            request_id=request_id,
+        ).result(timeout=timeout)
+
+    def _note_shed(self, request_id, slot, reason):
+        """One submit-time shed into the span log (when attached)."""
+        if self.span_log is None:
+            return
+        now = time.perf_counter()
+        self.span_log.record({
+            "request_id": request_id, "slot": slot, "rows": 0,
+            "t_enq": now, "t_done": now, "outcome": reason,
+        })
 
     def _est_backlog_wait_locked(self) -> float | None:
         """Estimated seconds to drain the current queue (None until the
@@ -303,24 +356,48 @@ class MicroBatcher:
 
     def _ensure_batched(self, engine, obs):
         """(batched_obs, n_rows, was_batched) — an unbatched observation
-        (ndim == spec ndim) gains a leading axis of 1."""
-        obs = np.asarray(obs)
-        spec_ndim = len(engine.obs_spec.shape)
-        if tuple(obs.shape[obs.ndim - spec_ndim:]) != engine.obs_spec.shape:
-            # A malformed request is a client error (HTTP 400), never an
-            # engine fault that would count toward the breaker.
+        (leaf ndim == spec ndim) gains a leading axis of 1. Every leaf's
+        trailing shape is checked against the slot's spec: a malformed
+        request is a client error (HTTP 400), never an engine fault that
+        would count toward the breaker."""
+        spec = engine.obs_spec
+        visual = isinstance(spec, MultiObservation)
+        if visual != isinstance(obs, MultiObservation):
             raise ValueError(
-                f"observation shape {obs.shape} does not end in the slot's "
-                f"observation shape {engine.obs_spec.shape}"
+                f"observation {type(obs).__name__} does not match the slot's "
+                f"{'visual' if visual else 'flat'} observation spec"
             )
-        if obs.ndim == spec_ndim:
-            return obs[None], 1, False
-        if obs.ndim == spec_ndim + 1:
-            return obs, int(obs.shape[0]), True
-        raise ValueError(
-            f"observation rank {obs.ndim} matches neither the spec rank "
-            f"{spec_ndim} (single) nor {spec_ndim + 1} (batched)"
-        )
+        if visual:
+            leaves = [np.asarray(obs.features), np.asarray(obs.frame)]
+            specs = [spec.features, spec.frame]
+        else:
+            leaves, specs = [np.asarray(obs)], [spec]
+        batched = None
+        for leaf, s in zip(leaves, specs):
+            spec_ndim = len(s.shape)
+            if tuple(leaf.shape[leaf.ndim - spec_ndim:]) != tuple(s.shape):
+                raise ValueError(
+                    f"observation shape {leaf.shape} does not end in the "
+                    f"slot's observation shape {tuple(s.shape)}"
+                )
+            if leaf.ndim not in (spec_ndim, spec_ndim + 1):
+                raise ValueError(
+                    f"observation rank {leaf.ndim} matches neither the spec "
+                    f"rank {spec_ndim} (single) nor {spec_ndim + 1} (batched)"
+                )
+            this = leaf.ndim == spec_ndim + 1
+            if batched is not None and this != batched:
+                raise ValueError("observation leaves disagree on the batch axis")
+            batched = this
+        if not batched:
+            leaves = [leaf[None] for leaf in leaves]
+        if visual:
+            out = MultiObservation(*leaves)
+            if obs_rows(out) != len(out.frame):
+                raise ValueError("observation leaves disagree on the batch size")
+        else:
+            out = leaves[0]
+        return out, obs_rows(out), batched
 
     # ----------------------------------------------------------- dispatch
 
@@ -357,6 +434,12 @@ class MicroBatcher:
         self._queue.extend(live)
         self.metrics.record_expired(len(expired))
         for r in expired:
+            if self.span_log is not None:
+                self.span_log.record({
+                    "request_id": r.request_id, "slot": r.slot,
+                    "rows": r.rows, "t_enq": r.t_enq, "t_done": now,
+                    "outcome": "expired",
+                })
             if not r.future.done():
                 r.future.set_exception(ShedError(
                     "expired",
@@ -387,6 +470,10 @@ class MicroBatcher:
                 group = self._collect_boundary_locked()
             if group:
                 self._inflight_rows += sum(r.rows for r in group)
+                if self.span_log is not None:
+                    t_collect = time.perf_counter()
+                    for r in group:
+                        r.t_collect = t_collect
             return group
 
     @staticmethod
@@ -538,10 +625,18 @@ class MicroBatcher:
             err = BreakerOpenError(
                 slot_name, breaker.retry_after_s(), breaker.state
             )
+            now = time.perf_counter()
             for r in group:
                 if not r.future.done():
                     r.future.set_exception(err)
                 self.metrics.record_shed("breaker_open")
+                if self.span_log is not None:
+                    self.span_log.record({
+                        "request_id": r.request_id, "slot": r.slot,
+                        "rows": r.rows, "t_enq": r.t_enq,
+                        "t_collect": r.t_collect, "t_done": now,
+                        "outcome": "breaker_open",
+                    })
             return
         try:
             engine, params, generation = self.registry.acquire(slot_name)
@@ -549,7 +644,7 @@ class MicroBatcher:
             det = group[0].deterministic
             obs = group[0].obs
             if len(group) > 1:
-                obs = np.concatenate([r.obs for r in group], axis=0)
+                obs = _concat([r.obs for r in group])
             total = sum(r.rows for r in group)
             # Chunk and run one padded forward per chunk. The chunk
             # size honors BOTH ceilings: the batcher's max_batch (only
@@ -560,16 +655,22 @@ class MicroBatcher:
             chunk_rows = min(self.max_batch, engine.max_batch)
             outs = []
             t_fwd = time.perf_counter()
+            group_bucket = engine.bucket_for(min(chunk_rows, total))
             for lo in range(0, total, chunk_rows):
-                chunk = obs[lo:lo + chunk_rows]
+                chunk = _slice(obs, lo, lo + chunk_rows)
                 n = min(chunk_rows, total - lo)
+                t_chunk = time.perf_counter()
                 outs.append(engine.act(
                     params, chunk,
                     None if det else self._next_key(engine),
                     deterministic=det,
                 ))
-                self.metrics.record_batch(rows=n, bucket=engine.bucket_for(n))
-            self._note_service_rate(time.perf_counter() - t_fwd, total)
+                self.metrics.record_batch(
+                    rows=n, bucket=engine.bucket_for(n),
+                    dur_s=time.perf_counter() - t_chunk,
+                )
+            t_fwd_end = time.perf_counter()
+            self._note_service_rate(t_fwd_end - t_fwd, total)
             action = outs[0] if len(outs) == 1 else np.concatenate(outs, 0)
             done_t = time.perf_counter()
             lo = 0
@@ -578,6 +679,15 @@ class MicroBatcher:
                     ActResult(action[lo:lo + r.rows], generation, epoch)
                 )
                 self.metrics.record_done((done_t - r.t_enq) * 1e3)
+                if self.span_log is not None:
+                    self.span_log.record({
+                        "request_id": r.request_id, "slot": r.slot,
+                        "rows": r.rows, "bucket": group_bucket,
+                        "generation": generation, "t_enq": r.t_enq,
+                        "t_collect": r.t_collect, "t_dispatch": t_fwd,
+                        "t_forward_end": t_fwd_end, "t_done": done_t,
+                        "outcome": "ok",
+                    })
                 lo += r.rows
             if breaker is not None:
                 breaker.record_success()
@@ -590,10 +700,19 @@ class MicroBatcher:
                 # and non-finite action outputs count toward the trip
                 # threshold; malformed requests / unknown slots do not.
                 breaker.record_failure(e)
+            now = time.perf_counter()
             for r in group:
                 if not r.future.done():
                     r.future.set_exception(e)
                 self.metrics.record_error()
+                if self.span_log is not None:
+                    self.span_log.record({
+                        "request_id": r.request_id, "slot": r.slot,
+                        "rows": r.rows, "t_enq": r.t_enq,
+                        "t_collect": r.t_collect, "t_done": now,
+                        "outcome": "error",
+                    })
+
     def _note_service_rate(self, dt_s: float, rows: int):
         """Fold one group's measured seconds-per-row into the EMA the
         submit-time deadline-feasibility check reads."""

@@ -12,8 +12,11 @@ requests/sec over the window between snapshots (falling back to the
 lifetime rate on the first call).
 
 Port note: copied from the JAX package without its cost roofline
-(``cost_snapshot``, which reads XLA cost analyses) and without the
-fleet aggregate (``aggregate_snapshots``); both wait for later slices.
+(``cost_snapshot``, which reads XLA cost analyses). The per-bucket
+forward times ``record_batch`` takes are kept (``bucket_times``) for
+it. :func:`aggregate_snapshots` folds the JAX package's
+``obs/merge.aggregate_snapshots`` (with the serving key set) into this
+module.
 """
 
 from __future__ import annotations
@@ -24,7 +27,17 @@ import typing as t
 
 from torch_actor_critic_tpu_torch.telemetry.histogram import FixedBucketHistogram
 
-__all__ = ["ServeMetrics"]
+__all__ = ["ServeMetrics", "aggregate_snapshots"]
+
+# Monotonic counters a fleet aggregate sums over its CURRENT workers:
+# a worker that restarted resets its own counters, so the fleet total
+# reflects the live processes and never double-counts a dead one.
+_SUM_KEYS = (
+    "requests_total", "responses_total", "errors_total", "batches_total",
+    "queue_depth", "sheds_total", "shed_expired_total",
+    "compiles_total", "live_compiles",
+    "reload_transfer_bytes_total", "param_placements_total",
+)
 
 
 class ServeMetrics:
@@ -49,6 +62,10 @@ class ServeMetrics:
         self._responses_at_snapshot = 0  # guarded-by: _lock
         self._snapshots_taken = 0  # guarded-by: _lock
         self._latency = FixedBucketHistogram()  # guarded-by: _lock
+        # Per-bucket measured forward time (the engine calls'
+        # durations the dispatcher reports; also the seconds-per-row
+        # EMA the fleet scores replicas with).
+        self._bucket_time: t.Dict[int, t.Dict[str, float]] = {}  # guarded-by: _lock
         # Params-placement accounting (sub-mesh serving,
         # docs/SERVING.md "Sharded serving & precision tiers"): bytes
         # actually moved by generation-/precision-keyed device_puts —
@@ -64,10 +81,17 @@ class ServeMetrics:
             self.requests_total += 1
             self.queue_depth = depth
 
-    def record_batch(self, rows: int, bucket: int):
+    def record_batch(self, rows: int, bucket: int, dur_s: float = 0.0):
         with self._lock:
             self.batches_total += 1
             self.rows_total += rows
+            if dur_s > 0.0:
+                agg = self._bucket_time.setdefault(
+                    bucket, {"calls": 0, "rows": 0, "total_s": 0.0}
+                )
+                agg["calls"] += 1
+                agg["rows"] += rows
+                agg["total_s"] += dur_s
             self.padded_rows_total += bucket
 
     def record_done(self, latency_ms: float):
@@ -178,3 +202,70 @@ class ServeMetrics:
             out["latency_hist"] = self._latency.raw_counts()
         return out
 
+    def bucket_times(self) -> t.Dict[str, t.Dict[str, float]]:
+        """Per-bucket engine calls, rows and cumulative seconds."""
+        with self._lock:
+            return {f"b{b}": dict(agg) for b, agg in sorted(self._bucket_time.items())}
+
+
+def aggregate_snapshots(
+    workers: t.Mapping[str, t.Optional[t.Mapping[str, t.Any]]],
+) -> t.Dict[str, t.Any]:
+    """Fold per-worker ``/metrics`` snapshots into one fleet view.
+
+    Counters are summed over the CURRENT snapshots and every input is
+    kept, per-worker-labelled, under ``workers`` — a worker that
+    restarted resets its own counters, so the totals can never
+    double-count a dead incarnation. ``requests_per_sec`` is the sum of
+    the workers' window rates (rates of disjoint streams add). Latency
+    percentiles come from merging every worker's raw bucket counts into
+    one :class:`FixedBucketHistogram` — the histogram one process would
+    have built from all the samples. A worker whose snapshot failed
+    (``None``) appears as ``{"unreachable": true}`` and contributes
+    nothing; a histogram that fails to merge is recorded as
+    ``latency_merge_error``, never raised."""
+    label_keys = _SUM_KEYS + (
+        "requests_per_sec", "shed_by_reason", "uptime_s",
+        "p50_ms", "p99_ms", "queue_capacity", "draining",
+    )
+    out: t.Dict[str, t.Any] = {k: 0 for k in _SUM_KEYS}
+    out["shed_by_reason"] = {}
+    out["requests_per_sec"] = 0.0
+    per_worker: t.Dict[str, t.Any] = {}
+    merged = FixedBucketHistogram()
+    merge_error = None
+    for name, snap in workers.items():
+        if snap is None:
+            per_worker[name] = {"unreachable": True}
+            continue
+        per_worker[name] = {k: snap.get(k) for k in label_keys if k in snap}
+        for k in _SUM_KEYS:
+            v = snap.get(k)
+            if isinstance(v, (int, float)):
+                out[k] = out.get(k, 0) + int(v)
+        for reason, n in (snap.get("shed_by_reason") or {}).items():
+            out["shed_by_reason"][reason] = out["shed_by_reason"].get(reason, 0) + int(n)
+        rv = snap.get("requests_per_sec")
+        if isinstance(rv, (int, float)):
+            out["requests_per_sec"] = round(out["requests_per_sec"] + float(rv), 2)
+        hist = snap.get("latency_hist")
+        if hist is not None:
+            try:
+                merged.merge_raw(hist)
+            except (ValueError, KeyError, TypeError) as e:
+                merge_error = repr(e)[:200]
+    if merged.count:
+        p50, p95, p99 = merged.percentiles((50, 95, 99))
+        out.update(
+            mean_ms=round(merged.mean, 3), p50_ms=round(p50, 3),
+            p95_ms=round(p95, 3), p99_ms=round(p99, 3),
+            max_ms=round(merged.max, 3),
+        )
+    out["latency_hist"] = merged.raw_counts()
+    if merge_error is not None:
+        out["latency_merge_error"] = merge_error
+    out["workers"] = per_worker
+    out["workers_reporting"] = sum(
+        1 for v in per_worker.values() if not v.get("unreachable")
+    )
+    return out

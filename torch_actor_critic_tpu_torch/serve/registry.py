@@ -5,8 +5,11 @@ swaps, per-slot breakers and polling. It reads the port's own actor
 checkpoints (:mod:`torch_actor_critic_tpu_torch.utils.checkpoint`:
 ``epoch_<N>/actor.pt`` + ``meta.json``) — Orbax is JAX and cannot be
 read here. Every engine it builds runs on the registry's ``device``
-(``cuda`` unless the caller names the CPU); params are placed there at
-register and reload time through ``engine.prepare_params``. The
+(``cuda`` unless the caller names the CPU) at the registry's
+``precision`` tier (:mod:`.sharded`); params are placed there at
+register and reload time through ``engine.place_params`` (the int8
+tier quantizes then), and the bytes placed feed ``/metrics``
+``sharding`` (:meth:`ModelRegistry.sharding_stats`). The
 sharded-restore and warm-start-bundle hooks are not ported.
 
 A serving process holds one or more named **slots** (e.g. ``default``,
@@ -56,7 +59,8 @@ import typing as t
 from torch_actor_critic_tpu_torch.resilience.retry import call_with_retries
 from torch_actor_critic_tpu_torch.resilience.sentinel import tree_all_finite
 from torch_actor_critic_tpu_torch.serve.breaker import CircuitBreaker
-from torch_actor_critic_tpu_torch.serve.engine import PolicyEngine
+from torch_actor_critic_tpu_torch.serve.engine import PolicyEngine, param_leaves
+from torch_actor_critic_tpu_torch.serve.sharded import PRECISIONS
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -88,8 +92,14 @@ class ModelRegistry:
         reload_retry_backoff_s: float = 0.5,
         sleep: t.Callable[[float], None] = time.sleep,
         device=None,
+        precision: str = "f32",
     ):
+        if precision not in PRECISIONS:
+            raise ValueError(
+                f"precision must be one of {PRECISIONS}, got {precision!r}"
+            )
         self.device = resolve_device(device)
+        self.precision = precision
         self._slots: t.Dict[str, _Slot] = {}  # guarded-by: _lock
         self._lock = threading.Lock()
         self._poller: threading.Thread | None = None  # guarded-by: _lock
@@ -151,7 +161,7 @@ class ModelRegistry:
             )
         engine = PolicyEngine(
             actor_def, obs_spec, max_batch=max_batch, buckets=buckets,
-            device=self.device,
+            device=self.device, precision=self.precision,
         )
         checkpointer = None
         epoch = None
@@ -289,6 +299,30 @@ class ModelRegistry:
                 s.get("bundle_compiles", 0) for s in slots.values()
             ),
             "slots": slots,
+        }
+
+    def sharding_stats(self) -> dict:
+        """The ``/metrics`` ``sharding`` section of a one-engine server:
+        the tier, and the bytes each slot's params hold on the device
+        (int8 weights as int8)."""
+        with self._lock:
+            items = list(self._slots.items())
+        slot_bytes = {}
+        for name, slot in items:
+            with slot.lock:
+                params = slot.state[0]
+            slot_bytes[name] = sum(
+                x.numel() * x.element_size() for x in param_leaves(params)
+            )
+        return {
+            "submesh": {"tp": 1, "fsdp": 1},
+            "devices_per_replica": 1,
+            "replicas": 1,
+            "precision": self.precision,
+            "per_replica": [{
+                "replica": 0, "devices": [str(self.device)],
+                "slot_bytes": slot_bytes,
+            }],
         }
 
     # ----------------------------------------------------- circuit breaker

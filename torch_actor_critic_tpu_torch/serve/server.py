@@ -1,11 +1,12 @@
 """JSON frontends over the batcher: in-process client and HTTP server.
 
-Port of ``serve/server.py``, single device: ``/act``, ``/healthz``,
-``/metrics``, ``/reload`` and the SIGTERM drain. Not ported yet: the
-engine-per-device fleet (``devices > 1``), sub-mesh/precision tiers, the
-transition flywheel (``/outcome``), per-request span logs, the XLA
-watchdog and cost sections of ``/metrics``, and visual (pytree)
-observations.
+Port of ``serve/server.py``: ``/act`` (flat, history and visual
+observations), ``/healthz``, ``/metrics`` (with the ``fleet`` and
+``sharding`` sections), ``/reload``, the SIGTERM drain, per-request
+span logs (``span_log``), and the engine fleet (``devices``;
+:mod:`.fleet`); the precision tier is the registry's. Not ported:
+the transition flywheel (``/outcome``, ROADMAP queue 7) and the XLA
+watchdog and cost sections of ``/metrics`` (queue 9).
 
 :class:`PolicyClient` is the zero-copy path for tests, benchmarks and
 co-located actors: observations go straight into the micro-batching
@@ -53,6 +54,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from torch_actor_critic_tpu_torch.core.types import MultiObservation
 from torch_actor_critic_tpu_torch.serve.admission import (
     SUBMIT_SHED_REASONS,
     ShedError,
@@ -136,21 +138,26 @@ class PolicyClient:
             return self._act_http(
                 obs, deterministic, slot, timeout, request_id
             )
-        return self._act_inprocess(obs, deterministic, slot, timeout)
+        return self._act_inprocess(
+            obs, deterministic, slot, timeout, request_id
+        )
 
     def act_async(
         self, obs: t.Any, deterministic: bool = True, slot: str = "default",
+        request_id: str | None = None,
     ):
         if self.url is not None:
             raise RuntimeError(
                 "act_async is in-process only; HTTP mode callers run "
                 "act() on their own threads"
             )
-        return self.batcher.submit(obs, deterministic, slot)
+        return self.batcher.submit(
+            obs, deterministic, slot, request_id=request_id
+        )
 
     # ----------------------------------------------------- in-process mode
 
-    def _act_inprocess(self, obs, deterministic, slot, timeout):
+    def _act_inprocess(self, obs, deterministic, slot, timeout, request_id):
         """In-process ``act`` with the SAME bounded, deadline-aware
         retry/backoff contract as HTTP mode: a structured rejection
         (``ShedError`` — queue full, breaker open, draining, expired)
@@ -176,7 +183,8 @@ class PolicyClient:
                 )
             try:
                 return self.batcher.act(
-                    obs, deterministic, slot, timeout=remaining
+                    obs, deterministic, slot,
+                    timeout=remaining, request_id=request_id,
                 )
             except ShedError as e:
                 if attempt >= self.retries:
@@ -202,7 +210,13 @@ class PolicyClient:
         import urllib.error as urlerr
         import urllib.request as urlreq
 
-        raw_obs = np.asarray(obs).tolist()
+        if isinstance(obs, MultiObservation):
+            raw_obs: t.Any = {
+                "features": np.asarray(obs.features).tolist(),
+                "frame": np.asarray(obs.frame).tolist(),
+            }
+        else:
+            raw_obs = np.asarray(obs).tolist()
         body = json.dumps({
             "obs": raw_obs, "deterministic": bool(deterministic),
             "model": slot,
@@ -291,12 +305,25 @@ class PolicyClient:
 
 
 def _parse_obs(raw, obs_spec):
-    """JSON observation -> numpy array of ``obs_spec``'s dtype: a
-    (nested) list, one observation or a batch of them."""
+    """JSON observation -> numpy observation of ``obs_spec``'s dtypes.
+
+    Flat and history slots take a plain (nested) list, one observation
+    or a batch of them; visual slots take ``{"features": ...,
+    "frame": ...}`` (frames as uint8 nested lists). A dict sent to a
+    flat slot, or a list to a visual one, is refused (``ValueError``:
+    HTTP 400)."""
+    if isinstance(obs_spec, MultiObservation):
+        if not isinstance(raw, dict) or set(raw) != {"features", "frame"}:
+            raise ValueError(
+                'visual slot expects obs {"features": [...], "frame": [...]}'
+            )
+        return MultiObservation(
+            features=np.asarray(raw["features"], dtype=obs_spec.features.dtype),
+            frame=np.asarray(raw["frame"], dtype=obs_spec.frame.dtype),
+        )
     if isinstance(raw, dict):
         raise ValueError(
-            "visual (pytree) observations are not served by the port yet; "
-            "send obs as a (nested) list"
+            "flat slot expects obs as a (nested) list, got an object"
         )
     return np.asarray(raw, dtype=obs_spec.dtype)
 
@@ -322,9 +349,15 @@ class PolicyServer:
         act_timeout_s: float = 30.0,
         extra_snapshot: t.Callable[[], dict] | None = None,
         capacity: int = 1024,
+        span_log=None,
         mode: str = "continuous",
+        devices: t.Sequence | int | None = None,
     ):
         self.registry = registry
+        # Per-request trace spans (telemetry.traceview.RequestSpanLog):
+        # attached by --trace-export; None costs one pointer check per
+        # request in the batcher.
+        self.span_log = span_log
         # Co-located processes (a trainer serving its own policy, a
         # custom health exporter) merge their own snapshot into
         # /metrics under their own keys.
@@ -337,10 +370,29 @@ class PolicyServer:
         self.request_timeout_s = float(request_timeout_s)
         self.act_timeout_s = float(act_timeout_s)
         self.metrics = metrics if metrics is not None else ServeMetrics()
-        self.batcher = MicroBatcher(
-            registry, max_batch=max_batch, max_wait_ms=max_wait_ms,
-            metrics=self.metrics, seed=seed, capacity=capacity, mode=mode,
-        )
+        # devices=None (or 1) keeps the single-device batcher; an int
+        # > 1 or an explicit device list builds an EngineFleet — one
+        # engine replica per device behind this server's one admission
+        # layer (serve/fleet.py), which duck-types the batcher. The
+        # precision tier is the registry's engines' own, on either path.
+        if devices is not None and not (
+            isinstance(devices, int) and devices <= 1
+        ):
+            from torch_actor_critic_tpu_torch.serve.fleet import EngineFleet
+
+            self.batcher: t.Any = EngineFleet(
+                registry, devices=devices, max_batch=max_batch,
+                max_wait_ms=max_wait_ms, metrics=self.metrics,
+                seed=seed, capacity=capacity, span_log=span_log,
+                mode=mode,
+            )
+            self.batcher.warmup()
+        else:
+            self.batcher = MicroBatcher(
+                registry, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                metrics=self.metrics, seed=seed, capacity=capacity,
+                span_log=span_log, mode=mode,
+            )
         # retries=0: the frontend must surface sheds to remote clients
         # immediately (THEY own retry policy); a retrying internal
         # client would double-count sheds and sit on handler threads.
@@ -410,6 +462,24 @@ class PolicyServer:
                     snap["queue_capacity"] = server.batcher.capacity
                     snap["draining"] = server.draining
                     snap["breakers"] = server.registry.breaker_stats()
+                    # Measured engine time per bucket (the dispatcher's
+                    # per-call durations).
+                    snap["bucket_forward"] = server.metrics.bucket_times()
+                    # Engine-per-device fleet view (serve/fleet.py):
+                    # per-replica load/EMA/dispatch share, breaker
+                    # states and compile (capture) accounting.
+                    if hasattr(server.batcher, "replica_stats"):
+                        snap["fleet"] = {
+                            "replicas": server.batcher.replica_stats(),
+                            "compiles": server.batcher.compile_stats(),
+                        }
+                    # Precision-tier view (serve/sharded.py): sub-mesh
+                    # shape (1x1), tier, per-replica params bytes.
+                    snap["sharding"] = (
+                        server.batcher
+                        if hasattr(server.batcher, "sharding_stats")
+                        else server.registry
+                    ).sharding_stats()
                     if server.extra_snapshot is not None:
                         try:
                             snap.update(server.extra_snapshot())
