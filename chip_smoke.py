@@ -238,8 +238,13 @@ code is non-zero and the last line is not printed.
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
+import itertools
 import json
+import logging
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -477,13 +482,14 @@ def launches_by_symbol(rows) -> dict:
             for name, sym in KERNEL_SYMBOLS.items()}
 
 
-def traced(fn, what: str, discard=None, attempts: int = 3):
+def traced(fn, what: str, discard=None, attempts: int = 3, on_trace=None):
     """``fn()`` under ``torch.profiler``, between ``trace_lead_in`` and
     ``trace_tail``; returns its result and the kernels' launches the
     trace saw (``launches_by_symbol``). A trace with no device kernel at
     all (the card's profiler now and then drops all of a trace's) or
     without the tail's is not read: ``discard(result)`` runs, then
-    ``fn()`` again, up to ``attempts`` times."""
+    ``fn()`` again, up to ``attempts`` times. ``on_trace(prof)`` reads
+    the trace that was kept."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, attempts + 1):
@@ -494,6 +500,8 @@ def traced(fn, what: str, discard=None, attempts: int = 3):
             trace_tail()
         rows = traced_rows(prof)
         if rows:
+            if on_trace is not None:
+                on_trace(prof)
             return out, launches_by_symbol(rows)
         print(f"chip_smoke: {what}: trace {attempt} of {attempts} held no device kernel "
               "or lost its end",
@@ -2032,21 +2040,47 @@ BITWISE = {"params": 0.0, "adam": 0.0, "log_alpha": 0.0, "same_generator": True,
            "same_step": True}
 
 
-def compare_bursts(make_sac, state, ring, chunks, per: int,
-                   cudnn_deterministic: bool = False) -> dict:
+def package_cudnn() -> dict:
+    """The cuDNN setting the port's package sets on import (deterministic
+    algorithms, no benchmark), checked in force: every visual run here is
+    bitwise run to run on it, without the smoke setting it."""
+    got = {"deterministic": torch.backends.cudnn.deterministic,
+           "benchmark": torch.backends.cudnn.benchmark}
+    check(got == {"deterministic": True, "benchmark": False},
+          f"the package's cuDNN setting is not in force: {got}")
+    return got
+
+
+@contextlib.contextmanager
+def default_cudnn():
+    """cuDNN's default algorithms (not deterministic), for the rows that
+    show what they gave before the package selected the deterministic
+    ones; the package's setting is back on exit."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def compare_bursts(make_sac, state, ring, chunks, per: int, eager_twice: bool = False,
+                   with_default_cudnn: bool = False) -> dict:
     """From clones of one learner state and ring (``TrainState.clone``,
     ``BufferState.clone``: modules, target, Adam states with their device
     steps, log α, the generator; the ring with its device size),
     ``len(chunks)`` bursts of ``per`` updates as CUDA graph replays (the
     first: 1 warm-up update, the capture, per - 1 replays; the next all
-    replays) and through the eager loop (``eager=True``). Fails unless
-    every parameter, Adam moment and step, log α, the generator's state,
-    the step count and every burst metric agree to the bit, with one
-    capture. ``cudnn_deterministic``: both run on cuDNN's deterministic
-    algorithms, as its default convolution backward may sum in another
-    order run to run; the row then also holds two eager runs under the
-    default against each other, and one replayed update under the
-    default against one eager update (``one_update_default_cudnn``)."""
+    replays) and through the eager loop (``eager=True``), on the
+    package's cuDNN setting (``package_cudnn``). Fails unless every
+    parameter, Adam moment and step, log α, the generator's state, the
+    step count and every burst metric agree to the bit, with one capture.
+    ``eager_twice``: two eager runs against each other too, to the bit (a
+    visual update's convolution backward is bitwise run to run on the
+    package's setting only). ``with_default_cudnn``: the row also holds
+    what cuDNN's default algorithms give, two eager runs against each
+    other and one replayed update against one eager update
+    (``one_update_default_cudnn``)."""
     def run(eager):
         sac, st, buf = make_sac(), state.clone(), ring.clone()
         metrics = []
@@ -2056,24 +2090,53 @@ def compare_bursts(make_sac, state, ring, chunks, per: int,
         torch.cuda.synchronize()
         return st, metrics, sac.graph_captures
 
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = cudnn_deterministic
-    try:
-        eager, m_eager, _ = run(True)
-        graph, m_graph, captures = run(False)
-    finally:
-        torch.backends.cudnn.deterministic = saved
+    cudnn = package_cudnn()
+    eager, m_eager, _ = run(True)
+    graph, m_graph, captures = run(False)
     gaps = _learner_gaps(graph, eager)
-    row = {"bursts": len(chunks), "updates_per_burst": per,
-           "cudnn_deterministic": cudnn_deterministic, "captures": captures, **gaps,
+    row = {"bursts": len(chunks), "updates_per_burst": per, "cudnn": cudnn,
+           "captures": captures, **gaps,
            "metrics_bitwise": all(torch.equal(g[k], e[k])
                                   for g, e in zip(m_graph, m_eager) for k in e)}
     check(captures == 1 and gaps == BITWISE and row["metrics_bitwise"],
           f"captured vs eager burst from one state: {row}")
-    if cudnn_deterministic:
-        row["eager_vs_eager_default_cudnn"] = _learner_gaps(run(True)[0], run(True)[0])
-        row["one_update_default_cudnn"] = one_update_default_cudnn(make_sac, state, ring, chunks)
+    if eager_twice:
+        row["eager_vs_eager"] = _learner_gaps(eager, run(True)[0])
+        check(row["eager_vs_eager"] == BITWISE,
+              f"two eager bursts from one state on the package's cuDNN setting: {row}")
+    if with_default_cudnn:
+        with default_cudnn():
+            row["eager_vs_eager_default_cudnn"] = _learner_gaps(run(True)[0], run(True)[0])
+            row["one_update_default_cudnn"] = one_update_default_cudnn(make_sac, state, ring,
+                                                                       chunks)
     return row
+
+
+def cudnn_cost(make_sac, state, ring, chunk, per: int, n_bursts: int = 4) -> dict:
+    """Captured-burst gradient steps per second on the package's cuDNN
+    setting against cuDNN's default algorithms, from clones of one state:
+    each run captures its own graph (cuDNN picks its algorithms at the
+    capture) and times ``n_bursts`` bursts of ``per`` updates, in the
+    order package, default, default, package; each setting reports the
+    mean of its two runs."""
+    def rate(default: bool) -> float:
+        with default_cudnn() if default else contextlib.nullcontext():
+            sac, st, buf = make_sac(), state.clone(), ring.clone()
+            st, buf, _ = sac.update_burst(st, buf, chunk, per)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_bursts):
+                st, buf, _ = sac.update_burst(st, buf, chunk, per)
+            torch.cuda.synchronize()
+            return n_bursts * per / (time.perf_counter() - t0)
+
+    runs = {"package": [], "default": []}
+    for name in ("package", "default", "default", "package"):
+        runs[name].append(rate(name == "default"))
+    out = {f"{k}_grad_steps_per_sec": statistics.mean(v) for k, v in runs.items()}
+    out["package_over_default"] = (out["package_grad_steps_per_sec"]
+                                   / out["default_grad_steps_per_sec"])
+    return {**out, "runs": runs, "updates_per_burst": per}
 
 
 def one_update_default_cudnn(make_sac, state, ring, chunks) -> dict:
@@ -2315,7 +2378,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
         same = compare_bursts(
             lambda: SAC(cfg, act_dim), trainer.state, trainer.buffer,
             [sample(buf, cfg.update_every, generator=gen) for _ in range(2)], per,
-            cudnn_deterministic=True)
+            eager_twice=True)
         chunk = sample(buf, cfg.update_every, generator=gen)
 
         def burst(eager):
@@ -2323,6 +2386,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
                 trainer.state, trainer.buffer, chunk, per, eager=eager)
             return m
 
+        cost = cudnn_cost(lambda: SAC(cfg, act_dim), trainer.state, trainer.buffer, chunk, per)
         modes = burst_modes(kernels, burst, per, 4, {"pixel_gather": 1})
         check(trainer.sac.graph_captures == 1,
               f"train_visual: {trainer.sac.graph_captures} captures, expected 1")
@@ -2360,7 +2424,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
             "device_kernels_per_update": captured["device_kernels_per_update"],
             "device_idle_share": captured["device_idle_share"],
             "graph_captures": trainer.sac.graph_captures, "captured_vs_eager": same,
-            "bursts": modes, "adam_capturable_vs_plain": adam,
+            "cudnn_cost": cost, "bursts": modes, "adam_capturable_vs_plain": adam,
             "acting_env_steps_per_sec": act_steps_per_s,
         })
         return launches
@@ -2412,7 +2476,9 @@ def phase_visual_burst(seed: int, kernels) -> list:
                                              WALL_ACT_DIM, "cuda"), chunk(2000))
         same = compare_bursts(lambda: SAC(cfg, WALL_ACT_DIM), state, buf,
                               [chunk(burst_len) for _ in range(2)], burst_len,
-                              cudnn_deterministic=True)
+                              eager_twice=True, with_default_cudnn=bsz == 32)
+        cost = cudnn_cost(lambda: SAC(cfg, WALL_ACT_DIM), state, buf, chunk(burst_len),
+                          burst_len)
         chunks = [chunk(burst_len) for _ in range(8)]
         turn = iter(range(10 ** 9))
 
@@ -2440,7 +2506,7 @@ def phase_visual_burst(seed: int, kernels) -> list:
             "device_kernels_per_update": captured["device_kernels_per_update"],
             "device_idle_share": captured["device_idle_share"],
             "graph_captures": sac.graph_captures, "captured_vs_eager": same,
-            "bursts": modes,
+            "cudnn_cost": cost, "bursts": modes,
         }
         emit(row)
         rows.append(row)
@@ -2713,8 +2779,8 @@ def phase_resume(seed: int, kernels, smi: str) -> dict:
 
 def _visual_resume(seed: int, kernels, runs: str):
     """The pixel recipe, 2 epochs of 200 steps uninterrupted against 1
-    epoch, a fresh trainer's ``restore()`` and 1 more (traced), on cuDNN's
-    deterministic algorithms: bitwise, 1 K1 launch per update."""
+    epoch, a fresh trainer's ``restore()`` and 1 more (traced), on the
+    package's cuDNN setting: bitwise, 1 K1 launch per update."""
     from torch_actor_critic_tpu_torch import train as train_cli
     from torch_actor_critic_tpu_torch.sac.trainer import Trainer
     from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
@@ -2726,48 +2792,44 @@ def _visual_resume(seed: int, kernels, runs: str):
             "--update-every", "50", "--buffer-size", "24000", "--runs-root", runs])
         return train_cli.build_trainer(args)[0]
 
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        whole = build(2)
-        whole.train()
+    cudnn = package_cudnn()
+    whole = build(2)
+    whole.train()
+    torch.cuda.synchronize()
+    ref = learner_snapshot(whole)
+    whole.close()
+    first = build(1)
+    first.train()
+    first.close()
+    cfg, directory = first.config, first.checkpointer.directory
+
+    def drive():
+        resumed = Trainer(VISUAL_ENV, cfg, checkpointer=Checkpointer(directory),
+                          seed=seed, device="cuda")
+        start = resumed.restore()
+        restored_step = resumed.state.step
+        kernels.reset_launch_counts()
+        resumed.train()
         torch.cuda.synchronize()
-        ref = learner_snapshot(whole)
-        whole.close()
-        first = build(1)
-        first.train()
-        first.close()
-        cfg, directory = first.config, first.checkpointer.directory
+        return resumed, start, restored_step, dict(kernels.launch_counts)
 
-        def drive():
-            resumed = Trainer(VISUAL_ENV, cfg, checkpointer=Checkpointer(directory),
-                              seed=seed, device="cuda")
-            start = resumed.restore()
-            restored_step = resumed.state.step
-            kernels.reset_launch_counts()
-            resumed.train()
-            torch.cuda.synchronize()
-            return resumed, start, restored_step, dict(kernels.launch_counts)
+    def discard(out):  # a lost trace: its epoch-1 save goes with it
+        out[0].close()
+        shutil.rmtree(directory / "epoch_1")
 
-        def discard(out):  # a lost trace: its epoch-1 save goes with it
-            out[0].close()
-            shutil.rmtree(directory / "epoch_1")
-
-        (resumed, start, restored_step, wrapped), launches = traced(
-            drive, "visual resume", discard=discard)
-        check(start == 1, f"visual resume: restore() -> {start}")
-        updates = resumed.state.step - restored_step
-        diff = bitwise_diff(ref, learner_snapshot(resumed))
-        check(not diff, f"visual resume differs from the uninterrupted run at {diff[:8]}")
-        check(launches["pixel_gather"] == updates,
-              f"visual resume: {launches['pixel_gather']} K1 launches for {updates} updates")
-        check_through_graphs("visual resume", launches, wrapped, {"pixel_gather": 1}, updates,
-                             resumed.sac.graph_captures)
-        captures = resumed.sac.graph_captures
-        resumed.close()
-    finally:
-        torch.backends.cudnn.deterministic = saved
-    return ({"bitwise_vs_uninterrupted": True, "cudnn_deterministic": True, "updates": updates,
+    (resumed, start, restored_step, wrapped), launches = traced(
+        drive, "visual resume", discard=discard)
+    check(start == 1, f"visual resume: restore() -> {start}")
+    updates = resumed.state.step - restored_step
+    diff = bitwise_diff(ref, learner_snapshot(resumed))
+    check(not diff, f"visual resume differs from the uninterrupted run at {diff[:8]}")
+    check(launches["pixel_gather"] == updates,
+          f"visual resume: {launches['pixel_gather']} K1 launches for {updates} updates")
+    check_through_graphs("visual resume", launches, wrapped, {"pixel_gather": 1}, updates,
+                         resumed.sac.graph_captures)
+    captures = resumed.sac.graph_captures
+    resumed.close()
+    return ({"bitwise_vs_uninterrupted": True, "cudnn": cudnn, "updates": updates,
              "pixel_gather_per_update": launches["pixel_gather"] / updates,
              "graph_captures": captures}, launches)
 
@@ -2949,7 +3011,7 @@ def phase_train_td3(seed: int, kernels, smi: str) -> dict:
         row["visual"]["captured_vs_eager"] = compare_bursts(
             lambda: TD3(vcfg, vact), visual.state, visual.buffer,
             [sample(visual.buffer, 50, generator=gen) for _ in range(2)], 25,
-            cudnn_deterministic=True)
+            eager_twice=True)
         vchunk = sample(visual.buffer, 50, generator=gen)
 
         def visual_burst(eager):
@@ -3171,37 +3233,33 @@ def _clone_gen(gen):
     return out
 
 
-def ondevice_captured_vs_eager(make_loop, parts, cudnn_deterministic: bool) -> dict:
+def ondevice_captured_vs_eager(make_loop, parts) -> dict:
     """From clones of one learner state, ring, env batch and acting
     generator, two 100-step epochs (two windows each) with the acting
     steps and the bursts as CUDA graph replays, and the same epochs
-    eagerly: learner, ring, env states, the three generators and the
-    metrics to the bit; one capture of each graph."""
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = cudnn_deterministic
+    eagerly, on the package's cuDNN setting: learner, ring, env states,
+    the three generators and the metrics to the bit; one capture of each
+    graph."""
+    cudnn = package_cudnn()
     runs, captures = {}, None
-    try:
-        for eager in (True, False):
-            loop = make_loop()
-            state, ring, es, act_gen = parts
-            run = (state.clone(), ring.clone(), es.clone(), _clone_gen(act_gen))
-            metrics = []
-            for _ in range(2):
-                *run, m = loop.epoch(*run, steps=100, update_every=50, eager=eager)
-                metrics.append(m)
-            torch.cuda.synchronize()
-            runs[eager] = _ondevice_snapshot(*run, metrics)
-            if not eager:
-                captures = (loop.act_captures, loop.sac.graph_captures)
-            del loop, run
-    finally:
-        torch.backends.cudnn.deterministic = saved
+    for eager in (True, False):
+        loop = make_loop()
+        state, ring, es, act_gen = parts
+        run = (state.clone(), ring.clone(), es.clone(), _clone_gen(act_gen))
+        metrics = []
+        for _ in range(2):
+            *run, m = loop.epoch(*run, steps=100, update_every=50, eager=eager)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        runs[eager] = _ondevice_snapshot(*run, metrics)
+        if not eager:
+            captures = (loop.act_captures, loop.sac.graph_captures)
+        del loop, run
     diff = bitwise_diff(runs[False], runs[True])
     check(not diff and captures == (1, 1),
           f"captured vs eager on-device epochs: differ at {diff[:8]}, captures {captures}")
     return {"epochs": 2, "steps_per_epoch": 100, "bitwise": True,
-            "captures": {"acting": captures[0], "burst": captures[1]},
-            "cudnn_deterministic": cudnn_deterministic}
+            "captures": {"acting": captures[0], "burst": captures[1]}, "cudnn": cudnn}
 
 
 def _timed_epoch(loop, parts, steps: int) -> tuple:
@@ -3419,7 +3477,7 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
             cell["warmup"] = {"steps": n_warmup}
         lap("warmup")
         cell["captured_vs_eager"] = ondevice_captured_vs_eager(
-            make_loop, parts, cudnn_deterministic=name == "pixel")
+            make_loop, parts)
         lap("captured_vs_eager")
 
         kernels.reset_launch_counts()
@@ -3502,22 +3560,21 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
     return totals
 
 
-def on_device_in_a_child(seed: int) -> dict:
-    """``phase_on_device`` in a process of its own (``--on-device-phase``),
-    so its 6 GB pixel ring and its profiler traces start from a fresh
-    CUDA context after the earlier phases; the kernel libraries it loads
-    are those ``phase_build`` left in ``_build/``. Its lines pass through;
-    returns the launches its last line reports."""
+def in_a_child(phase: str, seed: int, timeout: int) -> dict:
+    """Phase ``phase`` in a process of its own (``--<phase>-phase``), so
+    its rings and its profiler traces start from a fresh CUDA context
+    after the earlier phases; the kernel libraries it loads are those
+    ``phase_build`` left in ``_build/``. Its lines pass through; returns
+    the launches its last line reports."""
     torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the child's rings
-    res = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--on-device-phase", "--seed", str(seed)],
-        capture_output=True, text=True, timeout=900,
-    )
+    flag = f"--{phase.replace('_', '-')}-phase"
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), flag, "--seed", str(seed)],
+                         capture_output=True, text=True, timeout=timeout)
     sys.stderr.write(res.stderr)
     lines = res.stdout.splitlines()
     print("\n".join(lines[:-1]), flush=True)
-    check(res.returncode == 0 and lines, f"the on_device phase exited {res.returncode}")
-    return json.loads(lines[-1])["on_device_launches"]
+    check(res.returncode == 0 and lines, f"the {phase} phase exited {res.returncode}")
+    return json.loads(lines[-1])[f"{phase}_launches"]
 
 
 POP_FLAT_ARGS = ["--environment", "HalfCheetah-v5", "--on-device", "true", "--population", "32",
@@ -3906,8 +3963,7 @@ def phase_population(seed: int, kernels, attn, smi: str) -> dict:
     probe = make_loop()
     parts = probe.init(seed, 100_000)[:4]
     parts = probe.epoch(*parts, steps=100, update_every=50, warmup=True)[:4]
-    row["captured_vs_eager"] = ondevice_captured_vs_eager(make_loop, parts,
-                                                          cudnn_deterministic=False)
+    row["captured_vs_eager"] = ondevice_captured_vs_eager(make_loop, parts)
     del probe, parts
     row["member_vs_solo"] = member_vs_solo(seed)
     lap("captured_vs_eager_and_solo")
@@ -3943,22 +3999,6 @@ def phase_population(seed: int, kernels, attn, smi: str) -> dict:
     row["seconds"]["phase"] = time.perf_counter() - t_phase
     emit(row)
     return traced["launches"]
-
-
-def population_in_a_child(seed: int) -> dict:
-    """``phase_population`` in a process of its own
-    (``--population-phase``), as ``on_device_in_a_child``; returns the
-    launches its last line reports."""
-    torch.cuda.empty_cache()
-    res = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--population-phase", "--seed", str(seed)],
-        capture_output=True, text=True, timeout=600,
-    )
-    sys.stderr.write(res.stderr)
-    lines = res.stdout.splitlines()
-    print("\n".join(lines[:-1]), flush=True)
-    check(res.returncode == 0 and lines, f"the population phase exited {res.returncode}")
-    return json.loads(lines[-1])["population_launches"]
 
 
 # The host-loop populations, the pixel populations and the TD3 population:
@@ -4118,13 +4158,14 @@ def burst_member_vs_solo(learner, state, ring, obs_shape, act_dim, act_limit, se
 
 
 def _host_population_run(kernels, args, what: str, per_step: dict, per_update: dict,
-                         steps: int, start: int, runs: str):
+                         steps: int, start: int, runs: str, prepare=None, on_trace=None):
     """``train.build_trainer`` on ``args`` (one epoch of ``steps`` lockstep
     steps, ``start`` random), traced: every policy step of all members
     launched exactly ``per_step`` of each kernel (the wrappers' count,
     less the warm-up and captured updates') and every update exactly
     ``per_update`` (the device's count through the graphs against the
-    wrappers'); returns the trainer and the run's row."""
+    wrappers'); returns the trainer and the run's row. ``prepare(trainer)``
+    runs before the epoch, ``on_trace(prof)`` on the kept trace."""
     from torch_actor_critic_tpu_torch import train as train_cli
     from torch_actor_critic_tpu_torch.sac.graph import WARMUP_UPDATES
 
@@ -4135,6 +4176,8 @@ def _host_population_run(kernels, args, what: str, per_step: dict, per_update: d
 
     def drive():
         trainer, _ = train_cli.build_trainer(cli)
+        if prepare is not None:
+            prepare(trainer)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         metrics = trainer.train()
@@ -4142,7 +4185,7 @@ def _host_population_run(kernels, args, what: str, per_step: dict, per_update: d
         return trainer, metrics, time.perf_counter() - t0, dict(kernels.launch_counts)
 
     (trainer, metrics, train_s, wrapped), launches = traced(
-        drive, what, discard=lambda out: out[0].close())
+        drive, what, discard=lambda out: out[0].close(), on_trace=on_trace)
     cfg = trainer.config
     p = trainer.population
     updates = trainer.state.step
@@ -4212,9 +4255,16 @@ def host_populations(seed: int, kernels, smi: str) -> tuple:
                 ("sequence", HOST_SEQ_ARGS, {"flash_fwd": 2},
                  {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}, 300, 100),
                 ("pixel", HOST_PIXEL_ARGS, {}, {"pixel_gather": 1}, 600, 200)):
-            trainer, row = _host_population_run(kernels, [*args, "--seed", str(seed)],
-                                                f"host population {name}", per_step,
-                                                per_update, steps, start, runs)
+            seen: dict = {}
+            trainer, row = _host_population_run(
+                kernels, [*args, "--seed", str(seed)], f"host population {name}", per_step,
+                per_update, steps, start, runs,
+                on_trace=(lambda prof: seen.update(stream_overlap(prof))) if per_step else None)
+            if per_step:
+                # Without actor_param_lag acting runs on the burst's stream.
+                check(seen["side_stream_flash_fwd"] == 0 and seen["overlap_us"] == 0,
+                      f"host population {name}: K2 off the burst's stream: {seen}")
+                row["overlap"] = seen
             for k, v in row["launches"].items():
                 launches[k] = launches.get(k, 0) + v
             cfg, act_dim = trainer.config, trainer.pool.act_dim
@@ -4223,7 +4273,7 @@ def host_populations(seed: int, kernels, smi: str) -> tuple:
                 lambda: make_population_learner(cfg, act_dim, HOST_POP), trainer.state,
                 trainer.buffer, [sample(trainer.buffer, cfg.update_every, generator=gen)
                                  for _ in range(2)], cfg.updates_per_window,
-                cudnn_deterministic=name == "pixel")
+                eager_twice=name == "pixel")
             row["member_vs_solo"] = burst_member_vs_solo(
                 trainer.sac, trainer.state, trainer.buffer, trainer.obs_shape, act_dim,
                 trainer.pool.act_limit, seed)
@@ -4349,8 +4399,7 @@ def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
     row["member_vs_solo"] = burst_member_vs_solo(loop.sac, parts[0], parts[1], spec.obs_shape,
                                                  spec.act_dim, spec.act_limit, seed)
     row["captured_vs_eager"] = ondevice_captured_vs_eager(
-        lambda: _population_loop(PIXEL_POP_ARGS, seed, CHECK_RING)[1], parts,
-        cudnn_deterministic=True)
+        lambda: _population_loop(PIXEL_POP_ARGS, seed, CHECK_RING)[1], parts)
     del loop, parts
     torch.cuda.empty_cache()
     print(f"fused pixel population: {rates['P8']['grad_steps_per_sec']:.1f} grad "
@@ -4398,8 +4447,7 @@ def fused_td3_population(seed: int, smi: str) -> dict:
     row["member_vs_solo"] = burst_member_vs_solo(loop.sac, parts[0], parts[1], spec.obs_shape,
                                                  spec.act_dim, spec.act_limit, seed)
     row["captured_vs_eager"] = ondevice_captured_vs_eager(
-        lambda: _population_loop(TD3_POP_ARGS, seed, FUSED_RING, pbt=True)[1], parts,
-        cudnn_deterministic=False)
+        lambda: _population_loop(TD3_POP_ARGS, seed, FUSED_RING, pbt=True)[1], parts)
     del loop, parts
     row["rates"] = _fused_rates(TD3_POP_ARGS, seed, 1000)
     print(f"fused TD3 population: {row['rates']['P8']['grad_steps_per_sec']:.1f} grad steps/s "
@@ -4456,20 +4504,390 @@ def phase_populations(seed: int, kernels, attn, pixels, smi: str) -> dict:
     return launches
 
 
-def populations_in_a_child(seed: int) -> dict:
-    """``phase_populations`` in a process of its own
-    (``--populations-phase``); returns the launches its last line
-    reports."""
-    torch.cuda.empty_cache()
-    res = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--populations-phase", "--seed", str(seed)],
-        capture_output=True, text=True, timeout=600,
+# The host env plane: the native parallel env pool (one worker process per
+# env over the futex runtime, built from torch_actor_critic_tpu_torch/native)
+# and acting one window stale on its own stream (actor_param_lag), on the
+# host sequence population (HOST_SEQ_ARGS: P = 4, 300 lockstep steps) and the
+# host pixel population (HOST_PIXEL_ARGS: P = 4, 600 steps); the pools at
+# n = 4 on both envs for POOL_STEPS lockstep steps.
+POOL_STEPS = 200
+# The trainer runs fork their env workers from a forkserver that imported
+# the pool once (phase_host_env_plane preloads it): a spawn imports torch in
+# every worker, ~10 s a pool on the card's machine. The pools check spawns
+# the first pool's workers (the default).
+PARALLEL_ARGS = ["--parallel-envs", "true", "--env-start-method", "forkserver"]
+LAG_ARGS = ["--actor-param-lag", "true"]
+HOST_SEQ_CONFIGS = {"sequential": [], "parallel": PARALLEL_ARGS, "lag": LAG_ARGS,
+                    "parallel_lag": [*PARALLEL_ARGS, *LAG_ARGS]}
+
+
+def compute_app_pids() -> list:
+    """The pids ``nvidia-smi`` lists as holding a compute context on the
+    card (host pids: in a container they need not match its own)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def nvidia_fds(pid: int) -> int:
+    """How many of process ``pid``'s open files are the card's device
+    nodes (``/dev/nvidia*``): a process holding a CUDA context has them
+    open; one that never touched the card has none."""
+    fds, n = f"/proc/{pid}/fd", 0
+    for fd in os.listdir(fds):
+        try:
+            n += os.readlink(os.path.join(fds, fd)).startswith("/dev/nvidia")
+        except FileNotFoundError:  # closed since the listing (the listing's own)
+            pass
+    return n
+
+
+def _step_outputs_equal(a, b) -> bool:
+    """Two pools' outputs (observations, or ``step``'s tuples) equal to the
+    bit, each leaf in its own dtype."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_step_outputs_equal(x, y) for x, y in zip(a, b))
+    if hasattr(a, "frame"):
+        return (_step_outputs_equal(a.features, b.features)
+                and _step_outputs_equal(a.frame, b.frame))
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+def pools_on_the_card(seed: int) -> dict:
+    """For each env (the history-16 pendulum's workers spawned, the
+    default; the pixel twin's forked from the forkserver the trainer runs
+    use, started here): ``make_env_pool(parallel=True)`` returns a
+    ``ParallelEnvPool`` (so the sequential fallback cannot hide a failed
+    build), none of its workers holds a context on the card (none is
+    among ``nvidia-smi``'s compute apps or has a device node open, which
+    the parent has), and it
+    equals the sequential pool step for step, bitwise, over ``POOL_STEPS``
+    lockstep steps of one action sequence; each pool's env steps/s."""
+    from torch_actor_critic_tpu_torch import native
+    from torch_actor_critic_tpu_torch.envs.vec_env import (
+        ParallelEnvPool,
+        SequentialEnvPool,
+        make_env_pool,
     )
-    sys.stderr.write(res.stderr)
-    lines = res.stdout.splitlines()
-    print("\n".join(lines[:-1]), flush=True)
-    check(res.returncode == 0 and lines, f"the populations phase exited {res.returncode}")
-    return json.loads(lines[-1])["populations_launches"]
+
+    t0 = time.perf_counter()
+    check(native.load_runtime() is not None, "the native runtime did not build or load")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {"runtime": {"library": os.path.relpath(native.lib_path(), here),
+                       "build_and_load_s": time.perf_counter() - t0}}
+    for env, method in ((f"{TRAIN_ENV}|history:16", "spawn"), (VISUAL_ENV, "forkserver")):
+        t0 = time.perf_counter()
+        par = make_env_pool(env, HOST_POP, base_seed=seed, parallel=True, start_method=method)
+        start_s = time.perf_counter() - t0
+        seq = SequentialEnvPool(env, HOST_POP, base_seed=seed)
+        try:
+            check(isinstance(par, ParallelEnvPool), f"{env}: make_env_pool gave {type(par)}")
+            on_card = compute_app_pids()
+            fds = {pid: nvidia_fds(pid) for pid in par.pids}
+            check(not set(par.pids) & set(on_card) and not any(fds.values())
+                  and nvidia_fds(os.getpid()) > 0,
+                  f"{env}: env workers {par.pids} hold a context on the card (compute apps "
+                  f"{on_card}, device files open {fds}, the parent's "
+                  f"{nvidia_fds(os.getpid())})")
+            rng = np.random.default_rng(seed)
+            actions = [rng.uniform(-par.act_limit, par.act_limit,
+                                   (HOST_POP, par.act_dim)).astype(np.float32)
+                       for _ in range(POOL_STEPS)]
+            seeds = [seed + 10000 * i for i in range(HOST_POP)]
+            runs = {}
+            for name, pool in (("parallel", par), ("sequential", seq)):
+                first = pool.reset_all(seeds)
+                t0 = time.perf_counter()
+                steps = [pool.step(a) for a in actions]
+                runs[name] = ([first, *steps], POOL_STEPS * HOST_POP / (time.perf_counter() - t0))
+            same = all(_step_outputs_equal(x, y)
+                       for x, y in zip(runs["parallel"][0], runs["sequential"][0]))
+            check(same, f"{env}: the parallel pool differs from the sequential pool")
+            out[env] = {"pool": type(par).__name__, "n": HOST_POP, "steps": POOL_STEPS,
+                        "start_method": method, "start_s": start_s, "worker_pids": par.pids,
+                        "compute_app_pids": on_card, "parent_pid": os.getpid(),
+                        "worker_device_files": fds,
+                        "parent_device_files": nvidia_fds(os.getpid()),
+                        "bitwise_vs_sequential": True,
+                        "parallel_env_steps_per_sec": runs["parallel"][1],
+                        "sequential_env_steps_per_sec": runs["sequential"][1]}
+        finally:
+            par.close()
+            seq.close()
+    return out
+
+
+def stream_overlap(prof) -> dict:
+    """From a trace's raw device events: the K2 kernels on the streams that
+    ran no K3 (the burst's streams run K3: its replays and its capture's
+    warm-up), and how much of their time overlaps the union of the burst
+    streams' kernels. Without the lag acting runs on the burst's stream
+    and nothing can overlap."""
+    from torch.autograd import DeviceType
+
+    by_stream: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        by_stream.setdefault(e.device_resource_id(), []).append(
+            (e.start_ns(), e.start_ns() + e.duration_ns(), e.name()))
+    burst = {sid for sid, evs in by_stream.items()
+             if any(KERNEL_SYMBOLS["flash_bwd_dq"] in name for *_, name in evs)}
+    check(bool(burst), "the trace holds no K3 kernel")
+    union: list = []
+    for a, b, _ in sorted(ev for sid in burst for ev in by_stream[sid]):
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    starts = [a for a, _ in union]
+    acting = [(a, b) for sid, evs in by_stream.items() if sid not in burst
+              for a, b, name in evs if KERNEL_SYMBOLS["flash_fwd"] in name]
+    overlaps = []
+    for a, b in acting:
+        i, ns = max(bisect.bisect_right(starts, a) - 1, 0), 0
+        while i < len(union) and union[i][0] < b:
+            ns += max(0, min(b, union[i][1]) - max(a, union[i][0]))
+            i += 1
+        overlaps.append(ns)
+    return {"streams": len(by_stream), "burst_streams": len(burst),
+            "side_stream_flash_fwd": len(acting),
+            "overlapping_flash_fwd": sum(ns > 0 for ns in overlaps),
+            "overlap_us": sum(overlaps) / 1e3,
+            "side_stream_flash_fwd_us": sum(b - a for a, b in acting) / 1e3}
+
+
+def _actor_tensors(module) -> list:
+    return [t.detach().clone() for t in itertools.chain(module.parameters(), module.buffers())]
+
+
+def _watch_bursts(trainer, actor: bool) -> dict:
+    """Wrap ``trainer``'s bursts: the host's milliseconds in each burst run
+    at once (``burst_ms``: the push and the replays' enqueue) and in each
+    spread burst's ``finish`` at the window's end (``finish_ms``: what was
+    left to enqueue), and, with ``actor``, the actor's parameters as they
+    stand before each burst."""
+    seen = {"pre": [], "burst_ms": [], "finish_ms": []}
+    sac = trainer.sac
+    update_burst, start_burst, finish = sac.update_burst, sac.start_burst, trainer._finish_burst
+
+    def pre():
+        if actor:
+            seen["pre"].append(_actor_tensors(trainer.state.actor))
+
+    def burst(*a, **k):
+        pre()
+        t0 = time.perf_counter()
+        out = update_burst(*a, **k)
+        seen["burst_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def start(*a, **k):
+        pre()
+        return start_burst(*a, **k)
+
+    def finish_burst():
+        t0 = time.perf_counter()
+        m = finish()
+        if m is not None:
+            seen["finish_ms"].append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    sac.update_burst, sac.start_burst, trainer._finish_burst = burst, start, finish_burst
+    return seen
+
+
+def host_sequence_plane(seed: int, kernels, runs: str) -> tuple:
+    """The host sequence population in the four configurations of
+    ``HOST_SEQ_CONFIGS``, each untraced for two epochs: the second epoch's
+    rates (all policy steps, no capture) and the host's time in each
+    burst (``_watch_bursts``). Parallel + lag traced too, for one epoch: 2
+    K2 per policy step, 10 K2 and 4 K3 / 4 K4 per update through the
+    graph; the acting stream's K2 kernels overlap the burst's (the
+    populations phase's trace of the sequential configuration holds
+    none off the burst's stream); the snapshot after the epoch is the
+    actor from before the last burst, bitwise, not the live one; and the
+    untraced run's first epoch leaves the same learner, ring and acting
+    generator, bitwise."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+
+    per_step = {"flash_fwd": 2}
+    per_update = {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    bursts: dict = {}
+    seen: dict = {}
+    trainer, row = _host_population_run(
+        kernels, [*HOST_SEQ_ARGS, *HOST_SEQ_CONFIGS["parallel_lag"], "--seed", str(seed)],
+        "host_env_plane parallel_lag", per_step, per_update, 300, 100, runs,
+        prepare=lambda tr: bursts.update(_watch_bursts(tr, actor=True)),
+        on_trace=lambda prof: seen.update(stream_overlap(prof)))
+    check(type(trainer.pool).__name__ == "ParallelEnvPool",
+          f"host_env_plane parallel_lag: pool {type(trainer.pool).__name__}")
+    check(seen["overlapping_flash_fwd"] > 0 and seen["overlap_us"] > 0,
+          f"host_env_plane parallel_lag: no acting K2 overlapped the burst: {seen}")
+    acting, live = _actor_tensors(trainer._acting), _actor_tensors(trainer.state.actor)
+    same_pre = all(torch.equal(x, y) for x, y in zip(acting, bursts["pre"][-1], strict=True))
+    differs = not all(torch.equal(x, y) for x, y in zip(acting, live, strict=True))
+    check(same_pre and differs, "host_env_plane parallel_lag: the snapshot is "
+          f"{'not ' if not same_pre else ''}the pre-burst actor, "
+          f"{'equal to' if not differs else 'apart from'} the live one")
+    row.update(snapshot={"equals_pre_last_burst": True, "differs_from_live": True,
+                         "bursts": len(bursts["pre"])}, overlap=seen,
+               burst_host_ms={"at_once": bursts["burst_ms"], "finish": bursts["finish_ms"]})
+    launches, keep = dict(row["launches"]), learner_snapshot(trainer)
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    out = {"parallel_lag": {"traced": row}}
+    # Untraced, two epochs: the first is the traced run's (for parallel +
+    # lag, its end state bitwise the traced run's); the second, all policy
+    # steps and no capture, gives the rates.
+    for name, flags in HOST_SEQ_CONFIGS.items():
+        cli = train_cli.parse_arguments([
+            *HOST_SEQ_ARGS, *flags, "--seed", str(seed), "--device", "cuda", "--epochs", "2",
+            "--steps-per-epoch", "300", "--start-steps", "100", "--update-after", "100",
+            "--runs-root", runs])
+        trainer, _ = train_cli.build_trainer(cli)
+        check(type(trainer.pool).__name__ == ("ParallelEnvPool" if "parallel" in name
+                                              else "SequentialEnvPool")
+              and (trainer._acting is not None) == ("lag" in name)
+              and not any(nvidia_fds(pid) for pid in getattr(trainer.pool, "pids", ())),
+              f"host_env_plane {name}: pool {type(trainer.pool).__name__}, or a worker "
+              "holds a device node")
+        bursts = _watch_bursts(trainer, actor=False)
+        first: dict = {}
+        metrics = trainer.train(on_epoch=lambda e, m, first=first, trainer=trainer: first.update(
+            {} if e else {"snapshot": learner_snapshot(trainer), "metrics": m}))
+        torch.cuda.synchronize()
+        row = out.setdefault(name, {})
+        if name == "parallel_lag":
+            diff = bitwise_diff(keep, first["snapshot"])
+            check(not diff, f"host_env_plane {name}: two runs from one seed differ at "
+                            f"{diff[:8]}")
+            row["bitwise_vs_traced_run"] = True
+        row.update(epoch_grad_steps_per_sec=metrics["grad_steps_per_sec"],
+                   epoch_env_steps_per_sec=metrics["env_steps_per_sec"],
+                   first_epoch_grad_steps_per_sec=first["metrics"]["grad_steps_per_sec"],
+                   burst_host_ms={"at_once": bursts["burst_ms"],
+                                  "finish": bursts["finish_ms"]})
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def ring_sizing(trainers_rings: list) -> dict:
+    """On the card, with nothing allocated for them: the warning's verdicts
+    for the host pixel population's rings at the CLI's 10^6 rows per
+    member, P = 4 (none) and P = 8 (warns); and ``nbytes`` of rings this
+    phase allocated against ``estimate_buffer_bytes`` at capacity · P
+    (plus the one device size)."""
+    from torch_actor_critic_tpu_torch.buffer import replay
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+
+    class Seen(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record.getMessage())
+
+    seen = Seen()
+    replay.logger.addHandler(seen)
+    verdicts = {}
+    try:
+        for p in (4, 8):
+            del seen.records[:]
+            replay.warn_if_buffer_exceeds_hbm(10**6 * p, MultiObservation((1,), (32, 32, 3)), 1,
+                                              "cuda", advice="reduce --buffer-size or "
+                                              "--population")
+            verdicts[f"P{p}"] = {
+                "bytes": replay.estimate_buffer_bytes(10**6 * p,
+                                                      MultiObservation((1,), (32, 32, 3)), 1),
+                "warns": bool(seen.records), "message": seen.records[:1]}
+    finally:
+        replay.logger.removeHandler(seen)
+    total = torch.cuda.mem_get_info()[1]
+    check(not verdicts["P4"]["warns"] and verdicts["P8"]["warns"],
+          f"ring warnings at 10^6 rows per member: {verdicts} (card total {total})")
+    rings = []
+    for what, ring, obs_shape, act_dim, members in trainers_rings:
+        want = replay.estimate_buffer_bytes(ring.capacity * members, obs_shape, act_dim) + 8
+        got = replay.nbytes(ring)
+        check(got == want, f"{what}: nbytes {got} != estimate {want}")
+        rings.append({"ring": what, "nbytes": got, "estimate_plus_size": want})
+    return {"card_total_bytes": total, "verdicts": verdicts, "rings": rings}
+
+
+def phase_host_env_plane(seed: int, kernels, smi: str) -> dict:
+    """The host env plane on the card:
+
+    - the native runtime built from the checkout, the parallel pool
+      (``pools_on_the_card``);
+    - the host sequence population in four configurations
+      (``host_sequence_plane``);
+    - the host pixel population with parallel + lag, 600 steps: 1 K1 per
+      update, its rates; two eager updates of it from one state bitwise on
+      the package's cuDNN setting;
+    - ring sizing (``ring_sizing``).
+
+    The trainers' workers fork from a forkserver that has imported the
+    pool (``PARALLEL_ARGS``). Returns the traced launches."""
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+    from torch_actor_critic_tpu_torch.envs import vec_env
+    from torch_actor_critic_tpu_torch.sac.population import make_population_learner
+
+    multiprocessing.get_context("forkserver").set_forkserver_preload([vec_env.__name__])
+    row = {"phase": "host_env_plane", "card": smi, "seconds": {}}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        row["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    row["pools"] = pools_on_the_card(seed)
+    emit({"phase": "host_env_plane.pools", **row["pools"]})
+    lap("pools")
+    runs = tempfile.mkdtemp(prefix="tac_chip_host_env_plane_")
+    try:
+        row["sequence"], launches = host_sequence_plane(seed, kernels, runs)
+        lap("sequence")
+        trainer, pixel = _host_population_run(
+            kernels, [*HOST_PIXEL_ARGS, *PARALLEL_ARGS, *LAG_ARGS, "--seed", str(seed)],
+            "host_env_plane pixel parallel_lag", {}, {"pixel_gather": 1}, 600, 200, runs)
+        for k, v in pixel["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        cfg, act_dim = trainer.config, trainer.pool.act_dim
+        check(type(trainer.pool).__name__ == "ParallelEnvPool" and trainer._acting is not None,
+              f"host_env_plane pixel: pool {type(trainer.pool).__name__}")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+        pixel["eager_updates"] = compare_bursts(
+            lambda: make_population_learner(cfg, act_dim, HOST_POP), trainer.state,
+            trainer.buffer, [sample(trainer.buffer, cfg.update_every, generator=gen)
+                             for _ in range(2)], 1, eager_twice=True)
+        lap("pixel")
+        row["pixel"] = pixel
+        row["ring_sizing"] = ring_sizing([
+            ("host pixel population", trainer.buffer, trainer.obs_shape, act_dim, HOST_POP)])
+        trainer.close()
+        lap("ring_sizing")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    seq = row["sequence"]
+    print("host env plane: host sequence population P=4, untraced epoch grad steps/s (x P) "
+          "/ env steps/s: " + ", ".join(
+              f"{k} {v['epoch_grad_steps_per_sec']:.1f} / {v['epoch_env_steps_per_sec']:.1f}"
+              for k, v in seq.items()) + f"; pixel parallel+lag "
+          f"{pixel['epoch_grad_steps_per_sec']:.1f}; pools (parallel / sequential env steps/s) "
+          + ", ".join(f"{env} {r['parallel_env_steps_per_sec']:.0f} / "
+                      f"{r['sequential_env_steps_per_sec']:.0f}"
+                      for env, r in row["pools"].items() if env != "runtime")
+          + f" ({smi})", flush=True)
+    row["seconds"]["phase"] = time.perf_counter() - t_phase
+    row["launches"] = launches
+    emit(row)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -4481,6 +4899,8 @@ def main(argv=None) -> int:
                    help="Run only the population phase (the smoke starts it so, in a child)")
     p.add_argument("--populations-phase", action="store_true",
                    help="Run only the populations phase (the smoke starts it so, in a child)")
+    p.add_argument("--host-env-plane-phase", action="store_true",
+                   help="Run only the host_env_plane phase (the smoke starts it so, in a child)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU only",
@@ -4502,6 +4922,10 @@ def main(argv=None) -> int:
     if args.populations_phase:
         launches = phase_populations(args.seed, _kernels, attn, pixels, nvidia_smi())
         emit({"populations_launches": launches})
+        return 0
+    if args.host_env_plane_phase:
+        launches = phase_host_env_plane(args.seed, _kernels, nvidia_smi())
+        emit({"host_env_plane_launches": launches})
         return 0
     seconds, t_start = {}, time.perf_counter()
 
@@ -4529,12 +4953,14 @@ def main(argv=None) -> int:
     timed("visual_burst", phase_visual_burst, args.seed, _kernels)
     resume_launches = timed("resume", phase_resume, args.seed, _kernels, smi)
     td3_launches = timed("train_td3", phase_train_td3, args.seed, _kernels, smi)
-    ondevice_launches = timed("on_device", on_device_in_a_child, args.seed)
-    population_launches = timed("population", population_in_a_child, args.seed)
-    populations_launches = timed("populations", populations_in_a_child, args.seed)
+    ondevice_launches = timed("on_device", in_a_child, "on_device", args.seed, 900)
+    population_launches = timed("population", in_a_child, "population", args.seed, 600)
+    populations_launches = timed("populations", in_a_child, "populations", args.seed, 600)
+    plane_launches = timed("host_env_plane", in_a_child, "host_env_plane", args.seed, 400)
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
-    for k, v in populations_launches.items():
-        population_launches[k] = population_launches.get(k, 0) + v
+    for more in (populations_launches, plane_launches):
+        for k, v in more.items():
+            population_launches[k] = population_launches.get(k, 0) + v
     fwd_launches = (serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]
                     + ondevice_launches["flash_fwd"] + population_launches["flash_fwd"])
     rows = [

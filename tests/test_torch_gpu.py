@@ -31,7 +31,7 @@ eager forward to the bit, the sampled ones from one generator state.
 """
 
 import math
-
+import os
 
 import numpy as np
 import pytest
@@ -1780,3 +1780,146 @@ def test_fleet_of_two_workers_on_the_card(cuda, tmp_path):
             proc.kill()
             proc.wait(timeout=30)
         proc.stdout.close()
+
+
+def _compute_app_pids() -> set:
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+@pytest.mark.gpu
+def test_spawned_env_workers_hold_no_cuda_context(cuda):
+    """The parallel pool's workers, spawned by a process that holds a CUDA
+    context, open none of their own (the pool hides every card from
+    them), and step as the sequential pool does, bitwise."""
+    from torch_actor_critic_tpu_torch.envs.vec_env import ParallelEnvPool, SequentialEnvPool
+
+    torch.zeros(1, device=cuda)
+    env = "PendulumNumpy-v1|history:16"
+    par = ParallelEnvPool(env, 2, base_seed=3, timeout_s=120)
+    seq = SequentialEnvPool(env, 2, base_seed=3)
+    def device_files(pid):  # the card's device nodes the process holds open
+        fds, n = f"/proc/{pid}/fd", 0
+        for fd in os.listdir(fds):
+            try:
+                n += os.readlink(os.path.join(fds, fd)).startswith("/dev/nvidia")
+            except FileNotFoundError:  # closed since the listing
+                pass
+        return n
+
+    try:
+        assert not _compute_app_pids() & set(par.pids)
+        assert device_files(os.getpid()) > 0
+        assert [device_files(pid) for pid in par.pids] == [0, 0]
+        np.testing.assert_array_equal(par.reset_all([1, 2]), seq.reset_all([1, 2]))
+        rng = np.random.default_rng(0)
+        for _ in range(20):
+            a = rng.uniform(-2, 2, (2, 1)).astype(np.float32)
+            for x, y in zip(par.step(a), seq.step(a)):
+                np.testing.assert_array_equal(x, y)
+    finally:
+        par.close()
+        seq.close()
+
+
+@pytest.mark.gpu
+def test_lagged_acting_overlaps_the_burst_on_its_own_stream(cuda):
+    """``actor_param_lag`` on the card: a host sequence population's acting
+    K2 kernels run on a stream other than the burst's and overlap the
+    burst's kernels in a device trace; after the epoch the snapshot is the
+    actor from before the last burst, bitwise, not the live one. (A trace
+    the profiler lost is taken again, up to three times.)"""
+    import bisect
+    import itertools
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+
+    def tensors(m):
+        return [t.detach().clone() for t in itertools.chain(m.parameters(), m.buffers())]
+
+    cfg = SACConfig(history_len=16, population=4, epochs=1, steps_per_epoch=200, start_steps=50,
+                    update_after=50, update_every=50, buffer_size=1000, actor_param_lag=True)
+    for _ in range(3):
+        tr = Trainer("PendulumNumpy-v1", cfg, seed=0, device=cuda)
+        pre = []
+
+        def before(fn):
+            def call(*a, **k):
+                pre.append(tensors(tr.state.actor))
+                return fn(*a, **k)
+            return call
+
+        tr.sac.update_burst = before(tr.sac.update_burst)
+        tr.sac.start_burst = before(tr.sac.start_burst)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tr.train()
+                torch.cuda.synchronize()
+            acting, live = tensors(tr._acting), tensors(tr.state.actor)
+            assert all(torch.equal(x, y) for x, y in zip(acting, pre[-1], strict=True))
+            assert not all(torch.equal(x, y) for x, y in zip(acting, live, strict=True))
+        finally:
+            tr.close()
+        streams: dict = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+                streams.setdefault(e.device_resource_id(), []).append(
+                    (e.start_ns(), e.start_ns() + e.duration_ns(), e.name()))
+        # The burst's streams ran K3 (its replays, its capture's warm-up).
+        burst_streams = {s for s, evs in streams.items()
+                         if any("flash_bwd_dq_kernel" in n for *_, n in evs)}
+        if not burst_streams:
+            continue  # a lost trace
+        spans = sorted((a, b) for s in burst_streams for a, b, _ in streams[s])
+        side = [(a, b) for s, evs in streams.items() if s not in burst_streams
+                for a, b, n in evs if "flash_fwd_kernel" in n]
+        assert side
+        starts = [a for a, _ in spans]
+        ends = list(itertools.accumulate((b for _, b in spans), max))
+
+        def overlaps(a, b):  # a burst kernel starts before b and ends after a
+            i = bisect.bisect_left(starts, b)
+            return i > 0 and ends[i - 1] > a
+
+        assert any(overlaps(a, b) for a, b in side)
+        return
+    pytest.fail("three traces held no burst")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(HOST_POPULATION_CASES))
+def test_a_burst_spread_over_a_loop_equals_the_burst_at_once(cuda, name):
+    """``Learner.start_burst``: after one captured burst, a burst of 20
+    replays enqueued a few at a time (``advance``, as the host trainer's
+    acting lag spreads it over a window) and finished equals the same
+    burst through ``update_burst`` from a clone of one state, to the bit;
+    each ``advance`` leaves at most ``INFLIGHT`` replays unfinished."""
+    from torch_actor_critic_tpu_torch.buffer.replay import push
+    from torch_actor_critic_tpu_torch.sac.graph import INFLIGHT
+
+    learner, state, ring, shape = _host_population(cuda, name)
+    pop = learner.learner
+    ring = push(ring, _host_chunk(shape, 3, 40, 0))
+    state, ring, _ = pop.update_burst(state, ring, _host_chunk(shape, 3, 10, 1), 20)
+    chunk = _host_chunk(shape, 3, 10, 2)
+    other = _host_population(cuda, name)[0].learner  # its own graph for the clone
+    st, buf, want = other.update_burst(state.clone(), ring.clone(), chunk, 20)
+    ref = {"state": st.state_dict(), "ring": buf.state_dict()}
+    with pytest.raises(ValueError, match="captures"):
+        pop.start_burst(state, ring, chunk, 40)
+    burst = pop.start_burst(state, ring, chunk, 20)
+    while burst.graph.ran < 20:
+        burst.advance()
+        unfinished = sum(not e.query() for e in burst.graph._inflight)
+        assert unfinished <= INFLIGHT
+    state, ring, got = burst.finish()
+    torch.cuda.synchronize()
+    assert pop.graph_captures == 1 and state.step == 40
+    assert _diff({"state": state.state_dict(), "ring": ring.state_dict()}, ref) == []
+    assert all(torch.equal(got[k], want[k]) for k in want)

@@ -498,15 +498,15 @@ def test_population_resume_is_bitwise(tmp_path, over):
 
 
 def test_population_nan_rolls_back_the_stacked_state_and_rings(tmp_path):
-    """A NaN reward in epoch 1 (the wrapper counts every member's env
-    step: call 150 is member 0's step 50) poisons member 0's ring and,
-    through the burst, the stacked learner: the sentinel rolls every
+    """A NaN reward in epoch 1 (member 0's at lockstep step 50; the
+    wrapper counts the pool's lockstep steps) poisons member 0's ring
+    and, through the burst, the stacked learner: the sentinel rolls every
     member back to epoch 0's checkpoint in place and training goes on."""
     from torch_actor_critic_tpu_torch.resilience.faultinject import FaultyEnvPool
     from torch_actor_critic_tpu_torch.resilience.sentinel import tree_all_finite
 
     tr = _trainer(tmp_path, epochs=4, save_every=1)
-    tr.pool = FaultyEnvPool(tr.pool).nan_rewards_at(150)
+    tr.pool = FaultyEnvPool(tr.pool).nan_rewards_at(50, envs=[0])
     try:
         metrics = tr.train()
         assert tr.sentinel.total_rollbacks == 1 and metrics["rollbacks"] == 1
@@ -541,7 +541,6 @@ def test_cli_trains_a_host_population_resumes_and_evaluates(tmp_path, capsys):
     (["--population", "2", "--pbt-every", "1"], ValueError, "pass --on-device true"),
     (["--population", "2", "--algorithm", "td3", "--history-len", "4"], ValueError,
      "algorithm='td3' supports flat and visual"),
-    (["--population", "2", "--parallel-envs", "true"], NotImplementedError, "parallel_envs"),
 ])
 def test_what_the_host_population_still_refuses(tmp_path, argv, err, match):
     with pytest.raises(err, match=match):

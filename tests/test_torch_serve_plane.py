@@ -793,6 +793,55 @@ def test_router_routes_ejects_killed_worker_and_failover_zero_drops():
         w1.close()
 
 
+def test_router_fails_over_a_response_cut_short_by_a_dying_worker():
+    """A worker killed while it writes an answer leaves the router a
+    truncated response (``IncompleteRead``): the router ejects it and
+    answers from another worker, as for a refused connection."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Dying(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _send(self, body: bytes, length: int):
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(length))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # healthy until it answers an /act
+            body = json.dumps({"status": "ok", "slots": {}}).encode()
+            self._send(body, len(body))
+
+        def do_POST(self):
+            self.rfile.read(int(self.headers["Content-Length"]))
+            self._send(b'{"action": [0.1', 1000)  # then the connection dies
+            self.close_connection = True
+
+    dying = ThreadingHTTPServer(("127.0.0.1", 0), Dying)
+    threading.Thread(target=dying.serve_forever, daemon=True).start()
+    w1 = _worker(params=_state(_flat_actor()))
+    router = FleetRouter([f"http://127.0.0.1:{dying.server_address[1]}", w1.address],
+                         poll_interval_s=30.0)
+    router.poll_once()
+    router.start()
+    try:
+        assert router.membership()["admitted_workers"] == 2
+        for _ in range(2):
+            out = _http(router.address + "/act", {"obs": OBS.tolist()})
+            assert len(out["action"]) == ACT_DIM
+        view = router.membership()
+        assert view["workers"]["w0"]["admitted"] is False
+        assert view["workers"]["w0"]["reason"] == "unreachable"
+        assert router.failovers_total >= 1
+    finally:
+        router.close()
+        w1.close()
+        dying.shutdown()
+        dying.server_close()
+
+
 def test_router_hop_tags_stitch_router_and_worker_spans():
     worker_log = tv.RequestSpanLog()
     w0 = _worker(params=_state(_flat_actor()), span_log=worker_log)

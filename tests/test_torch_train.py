@@ -111,8 +111,6 @@ def test_unported_envs_and_parallel_pool_raise():
         make_env("dm:cheetah:run")
     with pytest.raises(NotImplementedError):
         make_env("DeepMindWallRunner-v0")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make_env_pool("PendulumNumpy-v1", 2, parallel=True)
     pool = make_env_pool("PendulumNumpy-v1|history:3", 2, base_seed=1)
     obs = pool.reset_all([1, 2])
     assert obs.shape == (2, 3, 3) and pool.sample_actions().shape == (2, 1)
@@ -210,8 +208,8 @@ def test_trainer_without_updates_only_fills_the_buffer():
 @pytest.mark.parametrize("field,value", [
     ("diagnostics", "light"), ("ma_critic", "per_agent"),
     ("replay_tiers", "host"), ("telemetry", True), ("obs", True),
-    ("parallel_envs", True), ("decoupled", True), ("emit_bundle", True),
-    ("compile_cache", "/nonexistent"), ("actor_param_lag", True),
+    ("decoupled", True), ("emit_bundle", True),
+    ("compile_cache", "/nonexistent"),
 ])
 def test_unported_config_fields_raise(field, value):
     assert field in NOT_PORTED

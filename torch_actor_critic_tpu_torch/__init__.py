@@ -18,3 +18,9 @@ import torch
 # rounding. PyTorch's matmul default is already False; cuDNN's is True.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# cuDNN's deterministic algorithms, package-wide: its default convolution
+# backward may sum in another order run to run, so two visual updates
+# from one state would differ (up to 5e-3 over 50 updates on an H100).
+# One state gives one trajectory, as in the JAX package.
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False

@@ -27,7 +27,8 @@ rows, each member's drawn from its own ring; a visual population's
 frames are gathered for every member by one call of
 :func:`~..ops.pixels.member_frame_gather_pair` (one K1 launch over the
 member-folded ring). :func:`estimate_buffer_bytes`
-and :func:`warn_if_buffer_exceeds_hbm` size a ring before it is made.
+and :func:`warn_if_buffer_exceeds_hbm` size a ring before it is made,
+:func:`nbytes` measures one that was.
 """
 
 from __future__ import annotations
@@ -63,6 +64,15 @@ def estimate_buffer_bytes(capacity: int, obs_shape, act_dim: int) -> int:
     else:
         obs_bytes = math.prod(obs_shape) * 4
     return capacity * (2 * obs_bytes + act_dim * 4 + 2 * 4)
+
+
+def nbytes(state: BufferState) -> int:
+    """Measured bytes of a live ring's tensors: every leaf of ``data``
+    and the device size, the as-allocated companion to
+    :func:`estimate_buffer_bytes` (which counts the rows alone). A
+    population's ring has one cursor for all members, where the JAX
+    package keeps one per member."""
+    return sum(leaf.nbytes for _, leaf in state.data.named_leaves()) + state.device_size.nbytes
 
 
 def warn_if_buffer_exceeds_hbm(

@@ -91,13 +91,17 @@ class PopulationLearner:
 
     @torch.inference_mode()
     def select_action(self, state: TrainState, obs, generator: torch.Generator | None = None,
-                      deterministic: bool = False) -> torch.Tensor:
+                      deterministic: bool = False,
+                      actor: torch.nn.Module | None = None) -> torch.Tensor:
         """Member ``i``'s policy acts on observation row ``i``: ``obs``
         ``(P, ...)`` on the device goes through the stacked actor as a
         ``(P, 1, ...)`` batch (a sequence member's acting: one K2 launch
         a layer for all members); returns ``(P, act_dim)``. The noise is
-        one ``(P, 1, act_dim)`` draw from ``generator``."""
+        one ``(P, 1, act_dim)`` draw from ``generator``. ``actor``, when
+        given, acts instead of ``state.actor`` (the trainer's acting
+        snapshot under ``actor_param_lag``)."""
         obs = tree_map(lambda x: x[:, None], obs)
-        action, _ = state.actor(obs, generator=None if deterministic else generator,
-                                deterministic=deterministic, with_logprob=False)
+        actor = state.actor if actor is None else actor
+        action, _ = actor(obs, generator=None if deterministic else generator,
+                          deterministic=deterministic, with_logprob=False)
         return action[:, 0]

@@ -34,10 +34,12 @@ __all__ = ["FaultyEnvPool", "make_flaky", "corrupt_checkpoint"]
 class FaultyEnvPool:
     """Protocol-transparent env-pool wrapper with step-scheduled faults.
 
-    The port's trainer drives its one env through ``step_at(0,
-    action)`` and ``reset_at``; step numbering counts ``step_at`` calls
-    on THIS wrapper, starting at 0 — i.e. the trainer's lockstep steps.
-    Every attribute not overridden here proxies to the wrapped pool.
+    Wraps any object implementing the pool protocol
+    (``envs/vec_env.py``); every attribute not overridden here proxies
+    to the wrapped pool, so the trainer cannot tell the difference.
+    Step numbering counts ``step()`` calls on THIS wrapper, starting at
+    0 — i.e. the trainer's lockstep steps (evaluation's ``step_at`` is
+    not counted).
     """
 
     def __init__(self, pool: t.Any):
@@ -51,38 +53,42 @@ class FaultyEnvPool:
         self._before.setdefault(step, []).append(fn)
         return self
 
-    def nan_rewards_at(self, step: int) -> "FaultyEnvPool":
-        """Replace the scheduled step's reward with NaN."""
+    def nan_rewards_at(self, step: int, envs: t.Sequence[int] | None = None) -> "FaultyEnvPool":
+        """Replace the scheduled step's rewards with NaN (all envs by
+        default)."""
 
-        def corrupt(obs, reward, terminated, truncated):
-            return obs, np.float32(np.nan), terminated, truncated
+        def corrupt(obs, rewards, terms, truncs):
+            rewards = np.array(rewards, np.float32)
+            rewards[list(envs) if envs is not None else slice(None)] = np.nan
+            return obs, rewards, terms, truncs
 
         self._corrupt.setdefault(step, []).append(corrupt)
         return self
 
-    def nan_obs_at(self, step: int) -> "FaultyEnvPool":
-        """NaN the scheduled step's next observation (its float leaves;
-        uint8 frames cannot hold NaN)."""
+    def nan_obs_at(self, step: int, envs: t.Sequence[int] | None = None) -> "FaultyEnvPool":
+        """NaN the scheduled step's next observations (their float
+        leaves; uint8 frames cannot hold NaN), all envs by default."""
+        rows = list(envs) if envs is not None else slice(None)
 
         def poison(x):
             x = np.array(x)
             if np.issubdtype(x.dtype, np.floating):
-                x[...] = np.nan
+                x[rows] = np.nan
             return x
 
-        def corrupt(obs, reward, terminated, truncated):
+        def corrupt(obs, rewards, terms, truncs):
             obs = obs.map(poison) if isinstance(obs, MultiObservation) else poison(obs)
-            return obs, reward, terminated, truncated
+            return obs, rewards, terms, truncs
 
         self._corrupt.setdefault(step, []).append(corrupt)
         return self
 
-    def step_at(self, i: int, action):
+    def step(self, actions):
         n = self._step_count
         self._step_count += 1
         for fn in self._before.pop(n, []):
             fn()
-        out = self._pool.step_at(i, action)
+        out = self._pool.step(actions)
         for corrupt in self._corrupt.pop(n, []):
             out = corrupt(*out)
         return out

@@ -155,6 +155,33 @@ class Learner:
         burst's ``eps`` test hook."""
         raise NotImplementedError
 
+    def start_burst(self, state: TrainState, buffer_state: BufferState, chunk: Batch,
+                    num_updates: int) -> "Burst":
+        """:meth:`update_burst` spread over the caller's loop, for a burst
+        that only replays (:meth:`would_capture` is false): pushes the
+        chunk and starts the burst on the graph that serves it
+        (:meth:`~.graph.BurstGraph.start`). The returned :class:`Burst`
+        enqueues its next replays at each ``advance()``; ``finish()``
+        enqueues the rest and returns ``(state, buffer_state, metrics)``
+        as :meth:`update_burst` does."""
+        if self.would_capture(state, buffer_state, num_updates):
+            raise ValueError("this burst captures a graph: run it with update_burst")
+        buffer_state = push(buffer_state, chunk)
+        self.graph.start(num_updates)
+        return Burst(self.graph, state, buffer_state)
+
+    def would_capture(self, state: TrainState, buffer_state: BufferState,
+                      num_updates: int) -> bool:
+        """Whether :meth:`update_burst` of ``num_updates`` updates over
+        ``state`` and ``buffer_state`` would capture a graph: a ring on the
+        card and no graph yet that serves them (a push keeps the ring's
+        tensors, so the key is the same after it). The eager loop never
+        captures."""
+        if buffer_state.data.rewards.device.type != "cuda":
+            return False
+        return self.graph is None or not self.graph.serves(graph_key(state, buffer_state),
+                                                           num_updates)
+
     def update_burst(
         self,
         state: TrainState,
@@ -205,6 +232,28 @@ class Learner:
             self.graph = graph
             self.graph_captures += 1
         return state, buffer_state, metrics
+
+
+class Burst:
+    """A burst in flight (:meth:`Learner.start_burst`): ``state.step``
+    counts the updates enqueued so far."""
+
+    def __init__(self, graph: BurstGraph, state: TrainState, buffer_state: BufferState):
+        self.graph, self.state, self.buffer_state = graph, state, buffer_state
+        self._step = state.step
+
+    def advance(self) -> None:
+        self._enqueue(wait=False)
+
+    def finish(self) -> t.Tuple[TrainState, BufferState, Metrics]:
+        self._enqueue(wait=True)
+        return self.state, self.buffer_state, self.graph.stack.reduce(self.graph.ran)
+
+    def _enqueue(self, wait: bool) -> None:
+        try:
+            self.graph.advance(wait)
+        finally:
+            self.state.step = self._step + self.graph.ran
 
 
 class SAC(Learner):

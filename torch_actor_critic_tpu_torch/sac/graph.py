@@ -25,6 +25,13 @@ reduced metrics are new tensors. A failed capture or replay raises:
 nothing falls back to the eager loop, and the updates that did run stay
 run (:attr:`BurstGraph.ran` counts them).
 
+A burst can also be spread over the caller's loop (:meth:`BurstGraph.
+start`, then :meth:`BurstGraph.advance` as the loop goes): at most
+:data:`INFLIGHT` of its replays are queued on the device at a time, so
+work on another stream (the host trainer's acting under
+``actor_param_lag``) runs between them instead of waiting behind the
+whole burst, and the host is never held by a full launch queue.
+
 The fused on-device loop (:mod:`.ondevice`) holds its acting step in a
 second ``BurstGraph``: one vectorized env step, its transition written
 as row ``step`` of the window chunk (the stack's rows), replayed once per
@@ -38,6 +45,7 @@ them: a device trace (``torch.profiler``) does.
 
 from __future__ import annotations
 
+import collections
 import gc
 import typing as t
 
@@ -46,6 +54,8 @@ import torch
 from torch_actor_critic_tpu_torch.diagnostics.ingraph import reduce_burst_metrics
 
 WARMUP_UPDATES = 1
+# Replays of a spread burst queued on the device at a time (BurstGraph.start).
+INFLIGHT = 2
 
 
 class MetricStack:
@@ -105,6 +115,8 @@ class BurstGraph:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.ran = 0  # updates the last burst ran (warm-up and replays)
         self._step_fn = step_fn
+        self._todo = 0  # the burst's updates
+        self._inflight: t.Deque[torch.cuda.Event] = collections.deque()
 
     def serves(self, key: t.Sequence[object], num_updates: int) -> bool:
         return (num_updates <= self.num_updates and len(key) == len(self.key)
@@ -128,9 +140,38 @@ class BurstGraph:
         self.ran = 0
         if self.graph is None:
             self._capture()
-        while self.ran < n:
+        self._todo = n
+        self.advance(wait=True)
+
+    def start(self, num_updates: int) -> None:
+        """Begin a burst of ``num_updates`` replays of the graph (which must
+        exist: a capture runs in :meth:`play`) that :meth:`advance` enqueues
+        as the caller's loop goes."""
+        if self.graph is None or not 1 <= num_updates <= self.num_updates:
+            raise ValueError(f"cannot spread a burst of {num_updates} steps over "
+                             f"{'no graph' if self.graph is None else self.num_updates}")
+        self.stack.step.zero_()
+        self.ran = 0
+        self._todo = num_updates
+
+    def advance(self, wait: bool = False) -> None:
+        """Enqueue the burst's next replays: while fewer than
+        :data:`INFLIGHT` of them are unfinished on the device, or, with
+        ``wait``, all that are left (the launch queue holds the host when
+        full)."""
+        inflight = self._inflight
+        while self.ran < self._todo:
+            if not wait:
+                while inflight and inflight[0].query():
+                    inflight.popleft()
+                if len(inflight) >= INFLIGHT:
+                    return
             self.graph.replay()
             self.ran += 1
+            if not wait:
+                inflight.append(torch.cuda.Event())
+                inflight[-1].record()
+        inflight.clear()
 
     def _capture(self) -> None:
         device = self.stack.step.device

@@ -200,6 +200,8 @@ class OnDeviceLoop:
                                      spec.act_limit, generator=torch.Generator().manual_seed(seed))
         state = self.sac.init_state(actor.to(dev), critic.to(dev),
                                     torch.Generator(device=dev).manual_seed(seed + 1))
+        warn_if_buffer_exceeds_hbm(buffer_capacity, spec.obs_shape, spec.act_dim, dev,
+                                   advice="reduce buffer_capacity (or history_len)")
         if isinstance(spec.obs_shape, MultiObservation):
             (features,) = spec.obs_shape.features
             ring = init_visual_replay_buffer(buffer_capacity, features, spec.obs_shape.frame,

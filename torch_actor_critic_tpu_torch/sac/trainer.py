@@ -22,6 +22,37 @@ exploration noise, both drawn from the acting generator; evaluation is
 deterministic. ``algorithm="td3"`` takes the flat and visual stacks; a
 history raises ``ValueError``, as in JAX.
 
+The envs step in lockstep, one ``pool.step(actions)`` a step for all of
+them (``parallel_envs`` selects the native parallel pool,
+:class:`~..envs.vec_env.ParallelEnvPool`, one worker process per env),
+and an env whose episode ended is reset alone (``reset_at``).
+
+``actor_param_lag`` acts one update window stale, so the env loop never
+waits for a burst, as the JAX trainer's flag does. The trainer keeps an
+acting snapshot of the actor (for a population, the member-stacked
+actor). Before each burst, once ``step + 1 >= start_steps``, the
+snapshot is refreshed from the **pre-burst** parameters by ``copy_`` on
+the main stream, after the acting stream's last reads, and an event is
+recorded behind the copy. On the card acting then runs on a stream of
+its own that waits on that event and reads only the snapshot, so its
+``.cpu()`` waits for the acting kernels alone; and a burst that only
+replays its graph is spread over the window
+(:meth:`~.algorithm.Learner.start_burst`): each lockstep step enqueues
+its next replays, at most a couple queued on the device at a time, so
+an acting step waits for one replay, not for the whole burst queued
+ahead of it (nor is the host held by a full launch queue, which JAX's
+asynchronous dispatch never is). The window's boundary enqueues what is
+left and takes the burst's state, ring and losses, as do a save, the
+epoch's end, an evaluation and a restore. A burst that captures, and
+every burst on the CPU, runs at once. Without the flag acting reads the
+live parameters on the main stream and every burst runs at once.
+Evaluation and a restore (a rollback too) mark the snapshot stale, so
+the next acting step refreshes it from the current parameters (JAX's
+``_host_params = None``); warm-up acting, which is random, takes no
+snapshot. A lag run's resume is therefore not bitwise with the
+uninterrupted run (the resumed window acts on the post-burst
+parameters), as in JAX.
+
 The resilience path is the JAX trainer's. At each epoch boundary the
 divergence sentinel (``sentinel=True``) runs one all-finite pass over
 the learner state, the replay ring and the epoch's losses; a
@@ -82,6 +113,8 @@ of :meth:`Trainer.train`.
 
 from __future__ import annotations
 
+import copy
+import itertools
 import logging
 import time
 import typing as t
@@ -93,6 +126,7 @@ from torch_actor_critic_tpu_torch.buffer.replay import (
     init_replay_buffer,
     init_visual_replay_buffer,
     push,
+    warn_if_buffer_exceeds_hbm,
 )
 from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation, tree_map
 from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool, stack_obs
@@ -103,7 +137,7 @@ from torch_actor_critic_tpu_torch.resilience.sentinel import (
     DivergenceSentinel,
     TrainingDiverged,
 )
-from torch_actor_critic_tpu_torch.sac.algorithm import SAC, Learner
+from torch_actor_critic_tpu_torch.sac.algorithm import SAC, Burst, Learner, Metrics
 from torch_actor_critic_tpu_torch.sac.population import make_population_learner
 from torch_actor_critic_tpu_torch.td3 import TD3
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
@@ -122,8 +156,8 @@ logger = logging.getLogger(__name__)
 # staging_policy under decoupled, are inert without it, as in JAX.)
 NOT_PORTED = (
     "population",
-    "pbt_every", "ma_critic", "task_embed_dim", "actor_param_lag",
-    "parallel_envs", "decoupled", "serve_url", "actors",
+    "pbt_every", "ma_critic", "task_embed_dim",
+    "decoupled", "serve_url", "actors",
     "elastic", "replay_tiers", "replay_refill", "offline", "telemetry",
     "diagnostics", "sanitize", "compile_cache", "emit_bundle", "obs",
     "obs_scrape", "slo_config",
@@ -212,7 +246,9 @@ class Trainer:
             f"{env_name}|history:{cfg.history_len}" if cfg.history_len > 1 else env_name
         )
         self.pool = make_env_pool(pool_name, self.population, base_seed=seed,
-                                  parallel=cfg.parallel_envs)
+                                  parallel=cfg.parallel_envs, seed_stride=10000,
+                                  timeout_s=cfg.env_timeout_s,
+                                  start_method=cfg.env_start_method)
         spec = self.pool.obs_spec
         obs_shape = (
             spec.map(lambda leaf: tuple(leaf.shape))
@@ -263,18 +299,35 @@ class Trainer:
                 torch.Generator(device=self.device).manual_seed(seed + 1),
             )
         self._act_gen = torch.Generator(device=self.device).manual_seed(seed + 2)
+        # actor_param_lag: the acting snapshot, stale until first refreshed;
+        # on the card, the acting stream and the event behind each refresh.
+        self._acting: torch.nn.Module | None = None
+        self._acting_fresh = False
+        self._act_stream = self._acting_ready = None
+        self._pending: Burst | None = None  # a burst spread over the window
+        if cfg.actor_param_lag:
+            self._acting = copy.deepcopy(self.state.actor).requires_grad_(False)
+            if self.device.type == "cuda":
+                # High priority: an acting step's kernels go ahead of the
+                # burst's waiting ones.
+                self._act_stream = torch.cuda.Stream(self.device, priority=-1)
+                self._acting_ready = torch.cuda.Event()
         if self.dp is not None:
-            # Each member owns a full buffer_size ring.
+            # Each member owns a full buffer_size ring (warned about at
+            # buffer_size · P).
             self.buffer = self.dp.init_buffer(cfg.buffer_size, obs_shape, act_dim, self.device)
-        elif isinstance(obs_shape, MultiObservation):
-            self.buffer = init_visual_replay_buffer(
-                cfg.buffer_size, obs_shape.features[0], obs_shape.frame,
-                self.pool.act_dim, self.device,
-            )
         else:
-            self.buffer = init_replay_buffer(
-                cfg.buffer_size, obs_shape, self.pool.act_dim, self.device
-            )
+            warn_if_buffer_exceeds_hbm(cfg.buffer_size, obs_shape, act_dim, self.device,
+                                       advice="reduce --buffer-size")
+            if isinstance(obs_shape, MultiObservation):
+                self.buffer = init_visual_replay_buffer(
+                    cfg.buffer_size, obs_shape.features[0], obs_shape.frame,
+                    self.pool.act_dim, self.device,
+                )
+            else:
+                self.buffer = init_replay_buffer(
+                    cfg.buffer_size, obs_shape, self.pool.act_dim, self.device
+                )
         self.start_epoch = 0
         self._resume_step: int | None = None
         self.sentinel = DivergenceSentinel(cfg.max_rollbacks) if cfg.sentinel else None
@@ -307,16 +360,69 @@ class Trainer:
     def _policy_actions(self, obs_batch, deterministic: bool = False) -> np.ndarray:
         """Actions, one row per env, for a batch of the envs' observations
         (array or :class:`MultiObservation` of arrays); in a population
-        member ``i`` acts on row ``i``."""
+        member ``i`` acts on row ``i``. Under ``actor_param_lag`` through
+        the acting snapshot (refreshed first if stale), on the card on
+        the acting stream."""
+        if self._acting is None:
+            return self._act(self.state.actor, obs_batch, deterministic)
+        if not self._acting_fresh:
+            self._refresh_acting()
+        if self._act_stream is None:
+            return self._act(self._acting, obs_batch, deterministic)
+        with torch.cuda.stream(self._act_stream):
+            self._act_stream.wait_event(self._acting_ready)
+            return self._act(self._acting, obs_batch, deterministic)
+
+    def _act(self, actor: torch.nn.Module, obs_batch, deterministic: bool) -> np.ndarray:
         obs = tree_map(self._to_device, obs_batch)
         if self.dp is not None:
-            action = self.dp.select_action(self.state, obs, self._act_gen, deterministic)
+            action = self.dp.select_action(self.state, obs, self._act_gen, deterministic,
+                                           actor=actor)
         else:
-            action, _ = self.state.actor(
+            action, _ = actor(
                 obs, generator=None if deterministic else self._act_gen,
                 deterministic=deterministic, with_logprob=False,
             )
         return action.cpu().numpy()
+
+    def _burst(self, chunk: Batch, num_updates: int) -> Metrics | None:
+        """A burst over the staged ``chunk``: under ``actor_param_lag``, on
+        the card, one that only replays is spread over the next window
+        (returns ``None``; :meth:`_finish_burst` takes it back); any other
+        runs now (returns its metrics)."""
+        if (self._acting is None or self.device.type != "cuda"
+                or self.sac.would_capture(self.state, self.buffer, num_updates)):
+            self.state, self.buffer, m = self.sac.update_burst(self.state, self.buffer, chunk,
+                                                               num_updates)
+            return m
+        self._pending = self.sac.start_burst(self.state, self.buffer, chunk, num_updates)
+        self._pending.advance()
+        return None
+
+    def _finish_burst(self) -> Metrics | None:
+        """Enqueue what is left of the spread burst and take its state and
+        ring; returns its metrics (``None`` without one)."""
+        if self._pending is None:
+            return None
+        pending, self._pending = self._pending, None
+        self.state, self.buffer, m = pending.finish()
+        return m
+
+    @torch.no_grad()
+    def _refresh_acting(self) -> None:
+        """``actor_param_lag``: copy the live actor's parameters and
+        buffers into the acting snapshot on the main stream, once the
+        acting stream's reads of it are done, and record the event the
+        acting stream waits on."""
+        if self._act_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._act_stream)
+        live = self.state.actor
+        for dst, src in zip(itertools.chain(self._acting.parameters(), self._acting.buffers()),
+                            itertools.chain(live.parameters(), live.buffers()), strict=True):
+            dst.copy_(src)
+        if self._acting_ready is not None:
+            self._acting_ready.record(torch.cuda.current_stream(self.device))
+        self._acting_fresh = True
 
     def _place_chunk(self, staging: t.List[t.List[tuple]]) -> Batch:
         """Stack one window of each env's staged transitions into a chunk
@@ -357,6 +463,7 @@ class Trainer:
         A checkpoint of another algorithm raises ``ValueError`` before
         any array is read. Returns the checkpoint's meta."""
         self.checkpointer.wait()
+        self._finish_burst()
         meta_probe = self.checkpointer.peek_meta(epoch)
         if meta_probe.get("config"):
             saved_algo = SACConfig.from_json(meta_probe["config"]).algorithm
@@ -368,6 +475,7 @@ class Trainer:
                 )
         self.state, buffer, meta = self.checkpointer.restore(
             self.state, self.buffer if include_buffer else None, epoch=epoch)
+        self._acting_fresh = False  # the next acting step reads the restored actor
         if buffer is not None:
             self.buffer = buffer
         if meta.get("normalizer"):
@@ -428,6 +536,12 @@ class Trainer:
         member_rewards: t.List[list] = [[] for _ in range(n)]
         last_epoch = self.start_epoch + cfg.epochs - 1
 
+        def take(m: Metrics | None) -> None:
+            # A burst's losses: device scalars, read once at epoch end.
+            if m is not None:
+                losses_q.append(m["loss_q"])
+                losses_pi.append(m["loss_pi"])
+
         t_epoch = time.time()
         for e in range(self.start_epoch, last_epoch + 1):
             losses_q: t.List[torch.Tensor] = []
@@ -437,10 +551,17 @@ class Trainer:
                     actions = self.pool.sample_actions()
                 else:
                     actions = self._policy_actions(stack_obs(obs))
+                if self._pending is not None:
+                    self._pending.advance()
                 epoch_ended = t_ == cfg.steps_per_epoch - 1
+                # One lockstep dispatch for every env; then each env's
+                # bookkeeping, and a reset for each episode that ended.
+                next_batch, rewards, terms, truncs = self.pool.step(actions)
                 for i in range(n):
-                    next_obs, reward, terminated, truncated = self.pool.step_at(i, actions[i])
-                    next_obs = self._normalize(next_obs, update=True, member=i)
+                    next_obs = self._normalize(tree_map(lambda x: x[i], next_batch),
+                                               update=True, member=i)
+                    reward = float(rewards[i])
+                    terminated, truncated = bool(terms[i]), bool(truncs[i])
                     ep_len[i] += 1
                     ep_ret[i] += reward
                     # max_ep_len bypass: an episode cut by the length cap is
@@ -465,13 +586,13 @@ class Trainer:
                     chunk = self._place_chunk(staging)
                     for env_staging in staging:
                         del env_staging[:]
+                    take(self._finish_burst())
                     if step > cfg.update_after:
-                        self.state, self.buffer, m = self.sac.update_burst(
-                            self.state, self.buffer, chunk, cfg.updates_per_window
-                        )
-                        # Device scalars; read once at epoch end.
-                        losses_q.append(m["loss_q"])
-                        losses_pi.append(m["loss_pi"])
+                        if self._acting is not None and step + 1 >= cfg.start_steps:
+                            # The next window acts on these pre-burst
+                            # parameters while the burst runs.
+                            self._refresh_acting()
+                        take(self._burst(chunk, cfg.updates_per_window))
                     else:
                         self.buffer = push(self.buffer, chunk)
                 step += 1
@@ -482,12 +603,14 @@ class Trainer:
                 # lossless; the epoch's un-stepped env tail is skipped on
                 # resume.
                 if window_full and self.preemption is not None and self.preemption.urgent:
+                    take(self._finish_burst())
                     if self.checkpointer is not None:
                         self._synchronize()
                         self._save_checkpoint(e, step)
                         self.checkpointer.wait()
                     raise Preempted(epoch=e, urgent=True)
 
+            take(self._finish_burst())
             self._synchronize()
             dt = time.time() - t_epoch
             # Every member's updates count.
@@ -595,6 +718,9 @@ class Trainer:
         for the evaluation (then restored). A population evaluates every
         member (:meth:`_evaluate_population`)."""
         saved = self._act_gen
+        # Evaluation acts on the current parameters, also under the lag.
+        self._finish_burst()
+        self._acting_fresh = False
         if seed is not None:
             self._act_gen = torch.Generator(device=self.device).manual_seed(seed)
         try:

@@ -53,6 +53,7 @@ Entry point: ``python -m torch_actor_critic_tpu_torch.serve --fleet N``
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import threading
@@ -403,9 +404,11 @@ class FleetRouter:
                 # retrying elsewhere would either pile onto a
                 # saturated fleet or repeat a malformed request.
                 return e.code, payload, headers
-            except (urlerr.URLError, OSError) as e:
-                # Connection-level death: eject NOW (the poll thread
-                # would take poll_interval to notice) and fail over.
+            except (urlerr.URLError, OSError, http.client.HTTPException, ValueError) as e:
+                # Connection-level death, a response cut short by it
+                # (IncompleteRead, a truncated JSON body) included: eject
+                # NOW (the poll thread would take poll_interval to
+                # notice) and fail over.
                 with self._lock:
                     self._set_admitted(w, False, "unreachable")
                 self._note_hop(rid, w.name, t0, "unreachable")

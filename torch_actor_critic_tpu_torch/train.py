@@ -35,6 +35,12 @@
     python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
         --population 4
 
+    # the host envs in worker processes of their own (the native parallel
+    # pool), acting one update window stale beside the burst; with or
+    # without --population
+    python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
+        --population 4 --parallel-envs true --actor-param-lag true
+
 Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
 true``, ...), built by the JAX CLI's loop. ``--run <id>`` takes the
 config, environment and seed from the run's stored params (the flags
