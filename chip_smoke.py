@@ -127,8 +127,8 @@ or of the JAX package. Phases, one JSON line each:
 7. train_visual — the JAX package's pixel recipe (conv 16,32 / 4,3 /
    2,2, Dense 128, cnn_features 64, /255, DrQ shift, learned α, fused
    pixel pipeline, hidden 256-256, batch 64, buffer 24000) through
-   ``build_trainer`` on ``PixelPendulumBalanceNumpy-v0`` for 2000 steps,
-   the first 1000 random: 1000 gradient steps. Checks: finite losses,
+   ``build_trainer`` on ``PixelPendulumBalanceNumpy-v0`` for 1000 steps,
+   the first 500 random: 500 gradient steps. Checks: finite losses,
    exactly 1 K1 launch per update (both frame leaves), the checkpoint
    restores, and from one state the gradients (1e-4·max(1, max|g|)) and
    one update (params and outputs 1e-4, log α 1e-6) with K1's frames
@@ -200,11 +200,10 @@ or of the JAX package. Phases, one JSON line each:
    ``--run <id>``;
 12. population — the fused population (``--population N``,
    ``sac/population.py``, ``PopulationOnDeviceLoop``), in a child
-   process of its own: K2 at the folded shapes of a history-8 population
-   of 8 (acting (128, 4, 8, 16), update (512, ...), critics (1024,
-   ...)) and at the critics' fold of 32 (4096, ...), K3/K4 at the
-   update and critics' folds, against their plain versions at the
-   limits of 3; the README's command (the cheetah twin, P = 32, 10^6
+   process of its own: K2, K3 and K4 at the update and critics' folds
+   of a history-8 population of 8 ((512, 4, 8, 16), (1024, ...)) and at
+   the critics' fold of 32 (4096, ...), against their plain versions at
+   the limits of 3; the README's command (the cheetah twin, P = 32, 10^6
    rows per member, ``--pbt-every 1``) through ``train.main`` for two
    1000-step epochs, each PBT step checked in place (an exploited
    member's networks and all its Adam state bitwise its winner's, its
@@ -214,11 +213,19 @@ or of the JAX package. Phases, one JSON line each:
    eager history-8 population epoch, to the bit, and a member against a
    lone ``OnDeviceLoop`` given its weights and draws, to 1e-4; the
    sequence cell (P = 8, history 8, 10^6 rows per member): a traced
-   1000-step epoch whose launches are L K2 per acting step and 5L K2, 2L
+   500-step epoch whose launches are L K2 per acting step and 5L K2, 2L
    K3, 2L K4 per update, the same per update at P = 32, then save, run,
    restore in place under the graphs and run again, bitwise; untraced
-   flat-cell rates and device memory at P = 1, 8, 32, one line each
+   flat-cell rates and device memory at P = 1 and 32, one line each
    with the card.
+
+The populations, host_env_plane and observability phases follow, each
+in a child (their functions' docstrings say what they check); the last,
+the training observability plane: the sequence policy and the fused
+loop at population 1 through ``train.main`` with ``--telemetry true
+--diagnostics full --profile-epochs 1:2 --trace-export``, and the
+diagnostics tiers' captured bursts from one state (bitwise, launches,
+synchronizing calls, steps/s).
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
@@ -257,12 +264,8 @@ import urllib.request
 import numpy as np
 import torch
 
-# H100 SXM, f32-accurate products: 3xTF32 on the tensor cores (three TF32
-# products per f32 product, 495 / 3 TFLOP/s) is faster than the CUDA
-# cores' 67 TFLOP/s, and K2 takes that route.
-H100_F32_FLOPS = 495e12 / 3
-H100_BF16_FLOPS = 989e12    # H100 SXM, bf16 dense tensor cores
-H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# The card every bound is for, as the cost model's peak table names it.
+BOUND_CARD = "H100 SXM"
 
 SERVE_SHAPE = (64, 4, 16, 16)   # max_batch x heads x history x head_dim
 TRAIN_SHAPE = SERVE_SHAPE       # batch_size 64 x heads x history x head_dim
@@ -424,28 +427,21 @@ KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq
 
 
 def trace_lead_in(n: int = 32) -> None:
-    """The start of a trace: ``n`` empty kernels (``csrc/floor.cu``), a
-    synchronize and 20 ms of host sleep. The card's profiler can lose a
-    trace's first kernels (one K1 launch of an eager visual burst's 50,
-    in each of two runs); this gives it kernels to lose, which
-    ``traced_rows`` leaves out."""
-    from torch_actor_critic_tpu_torch.ops import _kernels
+    """``telemetry.profiler.trace_lead_in``: ``n`` empty kernels, a
+    synchronize and 20 ms of sleep at a trace's start (the card's profiler
+    can lose a trace's first kernels; ``traced_rows`` leaves them out)."""
+    from torch_actor_critic_tpu_torch.telemetry import profiler
 
-    fn = _kernels.load("empty")
-    device = torch.device("cuda", torch.cuda.current_device())
-    stream = torch.cuda.current_stream(device).cuda_stream
-    for _ in range(n):
-        _kernels.launch("empty", fn, device, (1, 32, 0, stream), "lead-in")
-    torch.cuda.synchronize()
-    time.sleep(0.02)
+    profiler.trace_lead_in(n)
 
 
 def trace_tail() -> None:
-    """The end of a trace: one spin kernel (``torch.cuda._sleep``) on the
-    current stream after the traced work, and a synchronize. A trace
-    that lost its end lacks it, and ``traced_rows`` then reads nothing."""
-    torch.cuda._sleep(1)
-    torch.cuda.synchronize()
+    """``telemetry.profiler.trace_tail``: one spin kernel and a synchronize
+    at a trace's end; a trace that lost its end lacks the kernel, and
+    ``traced_rows`` then reads nothing."""
+    from torch_actor_critic_tpu_torch.telemetry import profiler
+
+    profiler.trace_tail()
 
 
 def traced_rows(prof):
@@ -460,17 +456,12 @@ def traced_rows(prof):
 
 
 def trace_buffers(mb: int = 1024) -> None:
-    """Lets the profiler (Kineto) keep ``mb`` MB of device records in a
-    trace, where it keeps 128 MB by default and can stop recording past
-    them. A traced 1000-step on-device sequence epoch holds about
-    916,000 kernels, near that default. Kineto holds the size in bytes
-    in a 32-bit int, so ``mb`` stays below 2048 (4096 wraps to 0 MB).
-    Kineto reads the file that ``KINETO_CONFIG`` names when the
-    process's first trace starts; the on-device child inherits it."""
-    conf = os.path.join(tempfile.mkdtemp(prefix="tac_chip_kineto_"), "kineto.conf")
-    with open(conf, "w") as f:
-        f.write(f"ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB={mb}\n")
-    os.environ["KINETO_CONFIG"] = conf
+    """``telemetry.profiler.trace_buffers``: Kineto keeps ``mb`` MB of
+    device records a trace (128 MB by default, near a traced 1000-step
+    on-device sequence epoch's 916,000 kernels); the children inherit it."""
+    from torch_actor_critic_tpu_torch.telemetry import profiler
+
+    profiler.trace_buffers(mb)
 
 
 def launches_by_symbol(rows) -> dict:
@@ -580,13 +571,24 @@ def host_ops(prof, n: int, top: int = 8):
 def attention_bound(shape, causal: bool, dtype) -> tuple:
     """(bound_ms, bound_by): the larger of bytes moved (q, k, v read once,
     o written once) over HBM rate and the two products' FLOPs (only the
-    visible (q, k) pairs under causality) over the dtype's peak."""
+    visible (q, k) pairs under causality) over the dtype's peak; the
+    counts are the cost model's (``costmodel.attention_fwd_work``)."""
+    from torch_actor_critic_tpu_torch.telemetry import costmodel
+
     b, h, t, d = shape
-    nbytes = 4 * b * h * t * d * torch.finfo(dtype).bits // 8
-    pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 4 * d * pairs * b * h
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    flops, nbytes = costmodel.attention_fwd_work((b, h, t, t, d), causal, dtype)
+    return _bound(flops, nbytes, dtype)
+
+
+def _bound(flops: int, nbytes: int, dtype) -> tuple:
+    """(bound_ms, bound_by) at the cost model's BOUND_CARD peaks: bf16
+    on the tensor cores, f32 as 3xTF32 there (the kernels' route, faster
+    than the CUDA cores' f32)."""
+    from torch_actor_critic_tpu_torch.telemetry import costmodel
+
+    card = costmodel.card_peaks(BOUND_CARD)
+    peak = card.bf16 if dtype == torch.bfloat16 else card.f32_3xtf32
+    t_bytes = nbytes / card.hbm_bw * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -856,20 +858,12 @@ def bwd_bound(shape, causal: bool, dtype, kernel: str) -> tuple:
     dk and dv once — and its FLOPs over the dtype's peak: K3 three
     products (s, dO·Vᵀ, ds·K) over the visible (q, k) pairs only under
     causality, plus Δ = rowsum(dO∘O) (2d per row); K4 four (s, pᵀ·dO,
-    dO·Vᵀ, dsᵀ·Q)."""
+    dO·Vᵀ, dsᵀ·Q). The counts are the cost model's
+    (``costmodel.attention_bwd_work``)."""
+    from torch_actor_critic_tpu_torch.telemetry import costmodel
+
     b, h, t, d = shape
-    elt = torch.finfo(dtype).bits // 8
-    rows = b * h * t
-    products = 3 if kernel == "flash_bwd_dq" else 4
-    nbytes = 6 * rows * d * elt + 2 * rows * 4
-    pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 2 * products * d * pairs * b * h
-    if kernel == "flash_bwd_dq":
-        flops += 2 * d * rows
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(*costmodel.attention_bwd_work((b, h, t, t, d), causal, dtype, kernel), dtype)
 
 
 def phase_bwd_vs_plain(attn, seed: int, critic_qkv, cases=None) -> dict:
@@ -1569,9 +1563,10 @@ def _param_gap(a, b) -> tuple:
     return gap, kbias
 
 
-def phase_train(seed: int, kernels) -> dict:
+def phase_train(seed: int, kernels) -> tuple:
     """Train the full-width sequence policy through train.py's own
-    path; returns the kernels' launch counts of that run."""
+    path; returns the kernels' launch counts of that run and the
+    captured burst's device kernels per update."""
     import copy
 
     from torch_actor_critic_tpu_torch import train as train_cli
@@ -1756,7 +1751,7 @@ def phase_train(seed: int, kernels) -> dict:
             "adam_capturable_vs_plain": adam,
             "acting_env_steps_per_sec": act_steps_per_s,
         })
-        return launches
+        return launches, captured["device_kernels_per_update"]
     finally:
         shutil.rmtree(runs, ignore_errors=True)
 
@@ -1847,12 +1842,12 @@ def pixel_bound(batch: int, frame, stack: int, dtype, shift: bool, leaves: int =
     """(bound_ms, "bytes"): per leaf, the uint8 frames read once (B·S·H·W·C),
     its int32 offsets read once and its output written once; the int64 rows
     read once for all leaves; over HBM rate. The kernel does no arithmetic
-    to speak of."""
-    h, w, c = frame
-    elems = batch * stack * h * w * c
-    per_leaf = elems + (8 * batch if shift else 0) + elems * torch.finfo(dtype).bits // 8
-    nbytes = 8 * batch + leaves * per_leaf
-    return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+    to speak of. The count is the cost model's
+    (``costmodel.pixel_gather_work``)."""
+    from torch_actor_critic_tpu_torch.telemetry import costmodel
+
+    _, nbytes = costmodel.pixel_gather_work(batch, frame, stack, dtype, shift, leaves)
+    return nbytes / costmodel.card_peaks(BOUND_CARD).hbm_bw * 1e3, "bytes"
 
 
 def phase_pixel_vs_plain(pixels, seed: int) -> dict:
@@ -2000,8 +1995,10 @@ def profile_burst(burst, per: int, attempts: int = 4) -> dict:
     kern = sorted(((key, us / per / 1e3, calls / per) for key, us, calls in rows),
                   key=lambda x: -x[1])
     busy_ms = sum(k[1] for k in kern) * per
+    launches = launches_by_symbol(rows)
     return {
-        "launches_per_update": {k: n / per for k, n in launches_by_symbol(rows).items()},
+        "launches": launches,
+        "launches_per_update": {k: n / per for k, n in launches.items()},
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels_ms_per_update": [
@@ -2283,7 +2280,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
     try:
         args = train_cli.parse_arguments([
             *VISUAL_ARGS, "--device", "cuda", "--seed", str(seed), "--epochs", "1",
-            "--steps-per-epoch", "2000", "--start-steps", "1000", "--update-after", "1000",
+            "--steps-per-epoch", "1000", "--start-steps", "500", "--update-after", "500",
             "--buffer-size", "24000", "--runs-root", runs,
         ])
 
@@ -2305,7 +2302,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
         for key in ("loss_q", "loss_pi", "reward"):
             check(math.isfinite(metrics[key]), f"train_visual: {key} = {metrics[key]}")
         updates = trainer.state.step
-        check(updates == 1000, f"train_visual: {updates} gradient steps, expected 1000")
+        check(updates == 500, f"train_visual: {updates} gradient steps, expected 500")
         check(wrapped.get("pixel_gather", 0) > 0, "train_visual: K1 never launched by its wrapper")
         check(launches["pixel_gather"] == updates,
               f"train_visual: pixel_gather ran {launches['pixel_gather']} times on the "
@@ -3114,7 +3111,8 @@ ONDEVICE_CELLS = {
     "flat_sac": ["--environment", TRAIN_ENV],
     "flat_td3": ["--environment", TRAIN_ENV, "--algorithm", "td3"],
 }
-ONDEVICE_STEPS = 1000  # the traced and the timed epoch: 1000 acting steps, 1000 updates
+ONDEVICE_STEPS = 1000  # the timed epoch: 1000 acting steps, 1000 updates
+ONDEVICE_TRACED_STEPS = 500  # the traced epoch (half the timed one: the smoke's time limit)
 T8_SHAPE = (64, 4, 8, 16)  # batch 64 x heads x history 8 x head_dim
 T8_ACT_SHAPE = (16, 4, 8, 16)  # the 16 twins' acting forward
 T8_CRITIC_SHAPE = (128, 4, 8, 16)  # num_qs 2 x batch 64, folded
@@ -3387,15 +3385,15 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
       (``mem_get_info``); the warm-up epoch of 1000 uniform steps, traced
       in the sequence cell (it launches no kernel); a captured against
       an eager 100-step epoch from clones, to the bit (the pixel cell on
-      cuDNN's deterministic algorithms); a traced 1000-step epoch whose
+      cuDNN's deterministic algorithms); a traced 500-step epoch whose
       device launches are
       exactly L K2 per acting step and 5L K2 + 2L K3 + 2L K4 per update
       (sequence, L = 2: K2 = 12·S, K3 = K4 = 4·S) or 1 K1 per update
       (pixel), the wrappers having seen one warm-up and one capture of
       each graph, and whose device idle share is 1 - busy / wall of that
-      traced run; the same epoch untraced and timed (env and gradient
-      steps per second, and the traced wall over this one: the
-      profiler's stretch); an epoch under ``torch.cuda.set_sync_debug_mode
+      traced run; a 1000-step epoch untraced and timed (env and gradient
+      steps per second, and the traced wall per step over this one's:
+      the profiler's stretch); an epoch under ``torch.cuda.set_sync_debug_mode
       ("error")``; the captured burst alone and the host ``Trainer``'s
       epoch at the same config; each part's seconds;
     - the async save of the full history-8 ring and ``save_buffer=False``;
@@ -3481,7 +3479,7 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
         lap("captured_vs_eager")
 
         kernels.reset_launch_counts()
-        steps = ONDEVICE_STEPS
+        steps = ONDEVICE_TRACED_STEPS
         (parts, m), launches, busy_ms, wall_ms, trace_cost = traced_run(
             lambda: (lambda out: (out[:4], out[4]))(
                 loop.epoch(*parts, steps=steps, update_every=cfg.update_every)),
@@ -3516,7 +3514,8 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
             "grad_steps_per_sec": updates / dt,
             # the profiler's stretch of the same epoch: its idle share
             # is read from the trace alone (busy time needs the trace)
-            "traced_wall_over_timed": wall_ms / (dt * 1e3),
+            "traced_wall_over_timed": (wall_ms / ONDEVICE_TRACED_STEPS)
+                                      / (dt * 1e3 / ONDEVICE_STEPS),
             "loss_q": float(m["loss_q"]), "reward": float(m["reward"]),
             "episodes": float(m["episodes"]),
         }
@@ -3560,16 +3559,16 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
     return totals
 
 
-def in_a_child(phase: str, seed: int, timeout: int) -> dict:
+def in_a_child(phase: str, seed: int, timeout: int, extra=()) -> dict:
     """Phase ``phase`` in a process of its own (``--<phase>-phase``), so
     its rings and its profiler traces start from a fresh CUDA context
     after the earlier phases; the kernel libraries it loads are those
-    ``phase_build`` left in ``_build/``. Its lines pass through; returns
-    the launches its last line reports."""
+    ``phase_build`` left in ``_build/``; ``extra`` are more arguments.
+    Its lines pass through; returns the launches its last line reports."""
     torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the child's rings
     flag = f"--{phase.replace('_', '-')}-phase"
-    res = subprocess.run([sys.executable, os.path.abspath(__file__), flag, "--seed", str(seed)],
-                         capture_output=True, text=True, timeout=timeout)
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), flag, "--seed", str(seed),
+                          *extra], capture_output=True, text=True, timeout=timeout)
     sys.stderr.write(res.stderr)
     lines = res.stdout.splitlines()
     print("\n".join(lines[:-1]), flush=True)
@@ -3582,10 +3581,13 @@ POP_FLAT_ARGS = ["--environment", "HalfCheetah-v5", "--on-device", "true", "--po
 POP_SEQ_ARGS = ["--environment", TRAIN_ENV, "--on-device", "true", "--history-len", "8",
                 "--population", "8"]
 POP_STEPS = 1000  # a cheetah episode: every member ends one in each 1000-step epoch
-# K2-K4 at the population's folded shapes (P = 8, history 8): the acting
-# batch P·16, the update batch P·64, the critics' fold P·Q·64; and the
-# critics' fold at P = 32 (grid and index range).
-T8_POP_ACT_SHAPE = (8 * 16, 4, 8, 16)
+POP_TRACED_STEPS = 500  # the sequence cell's traced epoch (half an epoch: the time limit)
+# Before a timed epoch, one window captures the acting and burst graphs.
+CAPTURE_STEPS = 50
+# K2-K4 at the population's folded shapes (P = 8, history 8): the update
+# batch P·64, the critics' fold P·Q·64; and the critics' fold at P = 32
+# (grid and index range). (The acting batch P·16, (128, 4, 8, 16), has no
+# row of its own here: it is the on-device critics' shape, checked there.)
 T8_POP_SHAPE = (8 * 64, 4, 8, 16)
 T8_POP_CRITIC_SHAPE = (8 * 2 * 64, 4, 8, 16)
 T8_POP32_CRITIC_SHAPE = (32 * 2 * 64, 4, 8, 16)
@@ -3851,7 +3853,7 @@ def _solo_cheetah_rate(cfg, seed: int) -> dict:
     loop = OnDeviceLoop(SAC(cfg, 6), CheetahRunTorch, n_envs=cfg.on_device_envs, device="cuda")
     parts = loop.init(seed, 10**6)
     parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
-    parts = loop.epoch(*parts, steps=POP_STEPS, update_every=50)[:4]
+    parts = loop.epoch(*parts, steps=CAPTURE_STEPS, update_every=50)[:4]
     parts, _, dt = _timed_epoch(loop, parts, POP_STEPS)
     updates = POP_STEPS // 50 * cfg.updates_per_window
     return {"seconds": dt, "grad_steps_per_sec": updates / dt,
@@ -3861,9 +3863,9 @@ def _solo_cheetah_rate(cfg, seed: int) -> dict:
 
 
 def _population_rates(seed: int, smi: str) -> dict:
-    """Untraced flat-cell epochs at P = 1, 8, 32 (the cheetah twin,
+    """Untraced flat-cell epochs at P = 1 and 32 (the cheetah twin,
     SACConfig's widths, 10^6 rows per member): after a 1000-step warm-up
-    and one 1000-step epoch (which captures), one timed 1000-step epoch:
+    and one window (which captures), one timed 1000-step epoch:
     aggregate env and gradient steps per second (both × P), the captured
     burst's updates per second alone (and at P = 1 the lone loop's
     epoch and burst on the same twin and config), and the
@@ -3872,7 +3874,7 @@ def _population_rates(seed: int, smi: str) -> dict:
     import gc
 
     out = {}
-    for p in (1, 8, 32):
+    for p in (1, 32):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3880,7 +3882,7 @@ def _population_rates(seed: int, smi: str) -> dict:
         cfg, loop = _population_loop(POP_FLAT_ARGS, seed, 10**6, members=p)
         parts = loop.init(seed, 10**6)[:4]
         parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
-        parts = loop.epoch(*parts, steps=POP_STEPS, update_every=50)[:4]
+        parts = loop.epoch(*parts, steps=CAPTURE_STEPS, update_every=50)[:4]
         parts, m, dt = _timed_epoch(loop, parts, POP_STEPS)
         updates = POP_STEPS // 50 * cfg.updates_per_window
         row = {"population": p, "seconds": dt,
@@ -3910,21 +3912,21 @@ def _population_rates(seed: int, smi: str) -> dict:
 def phase_population(seed: int, kernels, attn, smi: str) -> dict:
     """The fused population (``--on-device true --population N``):
 
-    - K2 at the folded shapes of a history-8 population of 8 (acting
-      (128, 4, 8, 16), update (512, ...), critics (1024, ...)) and at the
-      critics' fold of 32 (4096, ...), K3/K4 at the update and critics'
-      folds, against their plain versions at the limits of 3, with times;
+    - K2, K3 and K4 at the update and critics' folds of a history-8
+      population of 8 ((512, 4, 8, 16), (1024, ...)) and at the critics'
+      fold of 32 (4096, ...), against their plain versions at the limits
+      of 3, with times;
     - the README's command at P = 32 on the cheetah twin through
       ``train.main`` with each PBT step checked in place
       (:class:`PBTChecks`; at least one exploit);
     - a captured against an eager history-8 population epoch from clones,
       to the bit, and a member against a lone loop to 1e-4;
     - the sequence cell (P = 8, history 8, 10^6 rows per member): a traced
-      1000-step epoch whose launches are L K2 per acting step and 5L K2,
+      500-step epoch whose launches are L K2 per acting step and 5L K2,
       2L K3, 2L K4 per update, as at P = 32 in a traced 100-step epoch;
       then a save, an epoch, an in-place restore under the graphs and
       the epoch again, bitwise;
-    - untraced flat-cell rates and memory at P = 1, 8, 32.
+    - untraced flat-cell rates and memory at P = 1 and 32.
 
     Returns the sequence cell's traced launches."""
     from torch_actor_critic_tpu_torch.sac.ondevice import warmup_steps
@@ -3938,17 +3940,16 @@ def phase_population(seed: int, kernels, attn, smi: str) -> dict:
         t0 = time.perf_counter()
 
     fwd = phase_kernel_vs_plain(attn, seed, None, cases=[
-        (T8_POP_ACT_SHAPE, True, torch.float32, 50, "views"),
-        (T8_POP_SHAPE, True, torch.float32, 50, "views"),
+        (T8_POP_SHAPE, True, torch.float32, 20, "views"),
         (T8_POP_CRITIC_SHAPE, True, torch.float32, 50, "views"),
         (T8_POP32_CRITIC_SHAPE, True, torch.float32, 20, "views"),
     ])
     bwd = phase_bwd_vs_plain(attn, seed, None, cases=[
-        (T8_POP_SHAPE, True, torch.float32, 50, "views"),
+        (T8_POP_SHAPE, True, torch.float32, 20, "views"),
         (T8_POP_CRITIC_SHAPE, True, torch.float32, 50, "views"),
         (T8_POP32_CRITIC_SHAPE, True, torch.float32, 20, "views"),
     ])
-    row["kernels_t8_population"] = {"flash_fwd_act": fwd["shape"],
+    row["kernels_t8_population"] = {"flash_fwd": fwd["shape"],
                                     "flash_bwd": bwd["flash_bwd_dq"]["shape"]}
     lap("kernel_rows")
     row["flat_cli"] = _population_flat_cli(seed, smi)
@@ -3976,7 +3977,7 @@ def phase_population(seed: int, kernels, attn, smi: str) -> dict:
     parts = loop.epoch(*parts, steps=n_warmup, update_every=cfg.update_every, warmup=True)[:4]
     row["sequence"] = {"population": cfg.population, "ring_rows_per_member": 10**6,
                        "device_bytes_taken_by_init": free0 - torch.cuda.mem_get_info()[0]}
-    parts, m, traced = _population_counts(loop, parts, POP_STEPS, kernels,
+    parts, m, traced = _population_counts(loop, parts, POP_TRACED_STEPS, kernels,
                                           "population sequence P=8")
     row["sequence"]["traced_epoch"] = traced
     lap("sequence_traced")
@@ -4030,6 +4031,7 @@ HOST_POP_CRITIC_SHAPE = (HOST_POP * 2 * 64, 4, 16, 16)
 # K1 at the fused pixel population's fold: 8 members' full 10^6-row rings as
 # one (8·10^6, 32, 32, 3) ring, 8·64 rows, both frame leaves in one launch.
 FOLD_MEMBERS, FOLD_CAPACITY, FOLD_BATCH = 8, 10**6, 64
+PIXEL_POP_TRACED_STEPS = 500
 
 
 def pixel_fold_row(pixels, seed: int, iters: int = 200) -> dict:
@@ -4254,7 +4256,7 @@ def host_populations(seed: int, kernels, smi: str) -> tuple:
         for name, args, per_step, per_update, steps, start in (
                 ("sequence", HOST_SEQ_ARGS, {"flash_fwd": 2},
                  {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}, 300, 100),
-                ("pixel", HOST_PIXEL_ARGS, {}, {"pixel_gather": 1}, 600, 200)):
+                ("pixel", HOST_PIXEL_ARGS, {}, {"pixel_gather": 1}, 400, 200)):
             seen: dict = {}
             trainer, row = _host_population_run(
                 kernels, [*args, "--seed", str(seed)], f"host population {name}", per_step,
@@ -4347,8 +4349,8 @@ def _rate_row(loop, p: int, dt: float, updates: int) -> dict:
 
 def _fused_rates(args, seed: int, warmup: int, members=(1, 8)) -> dict:
     """Untraced fused-population epochs at each P of ``members`` on
-    ``FUSED_RING``-row rings: after a warm-up and one 1000-step epoch
-    (which captures), one timed 1000-step epoch: aggregate gradient and
+    ``FUSED_RING``-row rings: after a warm-up and one window (which
+    captures), one timed 1000-step epoch: aggregate gradient and
     env steps per second (both × P)."""
     out = {}
     for p in members:
@@ -4356,7 +4358,7 @@ def _fused_rates(args, seed: int, warmup: int, members=(1, 8)) -> dict:
         cfg, loop = _population_loop(args, seed, FUSED_RING, members=p)
         parts = loop.init(seed, FUSED_RING)[:4]
         parts = loop.epoch(*parts, steps=warmup, update_every=50, warmup=True)[:4]
-        parts = loop.epoch(*parts, steps=1000, update_every=50)[:4]
+        parts = loop.epoch(*parts, steps=CAPTURE_STEPS, update_every=50)[:4]
         parts, m, dt = _timed_epoch(loop, parts, 1000)
         check(bool(torch.isfinite(m["loss_q"]).all()), f"fused rates P={p}: {m['loss_q']}")
         out[f"P{p}"] = _rate_row(loop, p, dt, 1000 // 50 * cfg.updates_per_window)
@@ -4367,11 +4369,13 @@ def _fused_rates(args, seed: int, warmup: int, members=(1, 8)) -> dict:
 
 def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
     """The pixel recipe's fused population (P = 8, the balance twin) on
-    ``FUSED_RING``-row rings: a traced 1000-step epoch with exactly 1 K1
-    per update for all members (none per acting step), then a timed one
-    (the P = 8 rate; P = 1 from :func:`_fused_rates`); on
-    ``CHECK_RING``-row rings, captured against eager epochs on cuDNN's
-    deterministic algorithms and a member against a lone learner."""
+    ``FUSED_RING``-row rings: a traced 500-step epoch with exactly 1 K1
+    per update for all members (none per acting step), then a timed
+    1000-step one (the P = 8 rate; P = 1 from :func:`_fused_rates`); on
+    ``CHECK_RING``-row rings after a 500-step warm-up, captured against
+    eager epochs on cuDNN's deterministic algorithms and a member against
+    a lone learner. (Half-length traced epoch and warm-up: the smoke's
+    time limit.)"""
     from torch_actor_critic_tpu_torch.sac.ondevice import _SpecView
 
     torch.cuda.empty_cache()
@@ -4380,7 +4384,7 @@ def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
     parts = loop.init(seed, FUSED_RING)[:4]
     ring_bytes = sum(x.nbytes for _, x in parts[1].data.named_leaves())
     parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
-    parts, m, traced_row = _population_counts(loop, parts, 1000, kernels,
+    parts, m, traced_row = _population_counts(loop, parts, PIXEL_POP_TRACED_STEPS, kernels,
                                               "fused pixel population P=8", per_step={},
                                               per_update={"pixel_gather": 1})
     parts, m, dt = _timed_epoch(loop, parts, 1000)
@@ -4394,7 +4398,7 @@ def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
     row["rates"] = rates
     cfg, loop = _population_loop(PIXEL_POP_ARGS, seed, CHECK_RING)
     parts = loop.init(seed, CHECK_RING)[:4]
-    parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
+    parts = loop.epoch(*parts, steps=PIXEL_POP_TRACED_STEPS, update_every=50, warmup=True)[:4]
     spec = _SpecView(loop.env)
     row["member_vs_solo"] = burst_member_vs_solo(loop.sac, parts[0], parts[1], spec.obs_shape,
                                                  spec.act_dim, spec.act_limit, seed)
@@ -4459,10 +4463,10 @@ def fused_td3_population(seed: int, smi: str) -> dict:
 def phase_populations(seed: int, kernels, attn, pixels, smi: str) -> dict:
     """The host-loop, pixel and TD3 populations:
 
-    - K2 at the host sequence population's folds (acting (4, 4, 16, 16),
-      update (256, ...), critics (512, ...)), K3/K4 at the update and
-      critics' folds, against their plain versions; K1 at the fused pixel
-      population's member fold, bitwise;
+    - K2 at the host sequence population's folds (acting (4, 4, 16,
+      16), update (256, ...), critics (512, ...)), K3/K4 at the update
+      and critics' folds, against their plain versions; K1 at the fused
+      pixel population's member fold, bitwise;
     - the host-loop populations (:func:`host_populations`);
     - the fused pixel population (:func:`fused_pixel_population`);
     - the fused TD3 population with PBT (:func:`fused_td3_population`).
@@ -4478,12 +4482,12 @@ def phase_populations(seed: int, kernels, attn, pixels, smi: str) -> dict:
         t0 = time.perf_counter()
 
     fwd = phase_kernel_vs_plain(attn, seed, None, cases=[
-        (HOST_POP_ACT_SHAPE, True, torch.float32, 100, "views"),
+        (HOST_POP_ACT_SHAPE, True, torch.float32, 20, "views"),
         (HOST_POP_SHAPE, True, torch.float32, 100, "views"),
         (HOST_POP_CRITIC_SHAPE, True, torch.float32, 100, "views"),
     ])
     bwd = phase_bwd_vs_plain(attn, seed, None, cases=[
-        (HOST_POP_SHAPE, True, torch.float32, 100, "views"),
+        (HOST_POP_SHAPE, True, torch.float32, 20, "views"),
         (HOST_POP_CRITIC_SHAPE, True, torch.float32, 100, "views"),
     ])
     row["kernels_host_population"] = {"flash_fwd_act": fwd["shape"],
@@ -4508,7 +4512,7 @@ def phase_populations(seed: int, kernels, attn, pixels, smi: str) -> dict:
 # env over the futex runtime, built from torch_actor_critic_tpu_torch/native)
 # and acting one window stale on its own stream (actor_param_lag), on the
 # host sequence population (HOST_SEQ_ARGS: P = 4, 300 lockstep steps) and the
-# host pixel population (HOST_PIXEL_ARGS: P = 4, 600 steps); the pools at
+# host pixel population (HOST_PIXEL_ARGS: P = 4, 400 steps); the pools at
 # n = 4 on both envs for POOL_STEPS lockstep steps.
 POOL_STEPS = 200
 # The trainer runs fork their env workers from a forkserver that imported
@@ -4826,7 +4830,7 @@ def phase_host_env_plane(seed: int, kernels, smi: str) -> dict:
       (``pools_on_the_card``);
     - the host sequence population in four configurations
       (``host_sequence_plane``);
-    - the host pixel population with parallel + lag, 600 steps: 1 K1 per
+    - the host pixel population with parallel + lag, 400 steps: 1 K1 per
       update, its rates; two eager updates of it from one state bitwise on
       the package's cuDNN setting;
     - ring sizing (``ring_sizing``).
@@ -4855,7 +4859,7 @@ def phase_host_env_plane(seed: int, kernels, smi: str) -> dict:
         lap("sequence")
         trainer, pixel = _host_population_run(
             kernels, [*HOST_PIXEL_ARGS, *PARALLEL_ARGS, *LAG_ARGS, "--seed", str(seed)],
-            "host_env_plane pixel parallel_lag", {}, {"pixel_gather": 1}, 600, 200, runs)
+            "host_env_plane pixel parallel_lag", {}, {"pixel_gather": 1}, 400, 200, runs)
         for k, v in pixel["launches"].items():
             launches[k] = launches.get(k, 0) + v
         cfg, act_dim = trainer.config, trainer.pool.act_dim
@@ -4890,6 +4894,391 @@ def phase_host_env_plane(seed: int, kernels, smi: str) -> dict:
     return launches
 
 
+OBS_ARGS = ["--environment", TRAIN_ENV, "--history-len", "16"]
+OBS_STEPS, OBS_BURST = 100, 50  # an epoch's steps; a burst's updates (update_every 50)
+# Warm-up and the first update: the run's first window only pushes.
+OBS_START = ["--start-steps", str(OBS_BURST), "--update-after", str(OBS_BURST)]
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _chrome_kernels(path: str) -> dict:
+    """Each hand-written kernel's device launches in a Chrome trace that
+    ``telemetry.profiler`` wrote (opened by the lead-in's empty kernels,
+    closed by the tail's spin kernel), found by its symbol; ``None``
+    when the trace lost its end."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    if not any("spin_kernel" in n for n in names):
+        return None
+    return {k: sum(sym in n for n in names) for k, sym in KERNEL_SYMBOLS.items()}
+
+
+def _observed_run(seed: int, smi: str) -> tuple:
+    """``train --telemetry true --diagnostics full --profile-epochs 1:2
+    --trace-export`` through ``train.main``: the sequence policy, 3 epochs
+    of OBS_STEPS steps, bursts of OBS_BURST updates. Checks the run's
+    ``telemetry.jsonl`` (every epoch's eight phases and the card's memory
+    watermarks, one cost event per update epoch with FLOPs > 0 and MFU in
+    (0, 1], the |TD| histogram counting every update's batch and heads),
+    the watchdog (the burst's one capture, none after epoch 1), the trace
+    of epoch 1 (exactly its K2-K4 launches) and the timeline (training
+    and compile lanes). Returns the row and epoch 1's traced launches."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.telemetry import PHASES, get_cost_registry
+    from torch_actor_critic_tpu_torch.telemetry.traceview import TRAIN_PID, XLA_PID
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_obs_")
+    try:
+        timeline = os.path.join(runs, "timeline.json")
+        t0 = time.perf_counter()
+        train_cli.main([*OBS_ARGS, "--seed", str(seed), "--epochs", "3",
+                        "--steps-per-epoch", str(OBS_STEPS), *OBS_START,
+                        "--update-every", str(OBS_BURST),
+                        "--telemetry", "true", "--diagnostics", "full",
+                        "--profile-epochs", "1:2", "--trace-export", timeline,
+                        "--runs-root", runs, "--no-save-buffer", "--no-preemption-guard"])
+        seconds = time.perf_counter() - t0
+        (run_dir,) = [os.path.join(runs, "Default", d)
+                      for d in os.listdir(os.path.join(runs, "Default"))]
+        with open(os.path.join(run_dir, "telemetry.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        epochs = [e for e in events if e["type"] == "epoch"]
+        check(len(epochs) == 3 and all(set(e["phases"]) == set(PHASES) for e in epochs),
+              f"observability: epoch events' phases {[sorted(e['phases']) for e in epochs]}")
+        check(all((e.get("memory") or {}).get("peak_bytes_in_use_max", 0) > 0 for e in epochs),
+              f"observability: memory watermarks {[e.get('memory') for e in epochs]}")
+        costs = [e for e in events if e["type"] == "cost"]
+        rl = [c["programs"]["train/update_burst"] for c in costs]
+        check(len(costs) == 3 and all(r["flops_per_call"] > 0 and 0 < r["mfu"] <= 1 for r in rl),
+              f"observability: cost events {rl}")
+        updates = sum(int(e["grad_steps"]) for e in epochs)
+        diags = [e for e in events if e["type"] == "diagnostics"]
+        td = diags[-1]["td_hist"]["td_abs_count"]
+        want_updates = (3 * OBS_STEPS // OBS_BURST - 1) * OBS_BURST
+        check(len(diags) == 3 and updates == want_updates and td == updates * 64 * 2,
+              f"observability: {updates} updates, |TD| count {td}")
+        captures = [m["watchdog_captures"] for m in metrics]
+        check(captures == [1, 1, 1] and metrics[-1]["watchdog_live_captures"] == 1,
+              f"observability: watchdog captures by epoch {captures}")
+        check(not [e for e in events if e["type"] == "recompile_anomaly"],
+              "observability: a recompile anomaly in a steady run")
+        trace = os.path.join(run_dir, "trace", "trace_epochs_1_2.json")
+        traced = _chrome_kernels(trace)
+        layers = 2
+        per_epoch = OBS_STEPS // OBS_BURST * OBS_BURST
+        want = {"flash_fwd": layers * OBS_STEPS + 5 * layers * per_epoch,
+                "flash_bwd_dq": 2 * layers * per_epoch, "flash_bwd_dkv": 2 * layers * per_epoch,
+                "pixel_gather": 0}
+        check(traced == want, f"observability: epoch 1's trace launches {traced} != {want}")
+        with open(timeline) as f:
+            spans = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "B"]
+        lanes = {"train": sum(e["pid"] == TRAIN_PID for e in spans),
+                 "compile": sorted({e["name"] for e in spans if e["pid"] == XLA_PID})}
+        check(lanes["train"] > 0 and lanes["compile"] == ["compile train/burst"],
+              f"observability: timeline lanes {lanes}")
+        update = get_cost_registry().get("train/update")
+        check(update["kernels"] == {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                                    "flash_bwd_dkv": 2 * layers},
+              f"observability: the counted update saw {update['kernels']}")
+        row = {"seconds": seconds, "updates": updates, "td_abs_count": td,
+               "watchdog_captures_by_epoch": captures, "epoch1_trace_launches": traced,
+               "trace_bytes": os.path.getsize(trace), "timeline_lanes": lanes,
+               "epoch_phases_s": [{k: v["total_s"] for k, v in e["phases"].items()}
+                                  for e in epochs],
+               "attribution": [e["attribution"] for e in epochs],
+               "memory": epochs[-1]["memory"],
+               "cost": {"update": {k: update[k] for k in (
+                   "flops", "bytes_accessed", "aten_flops", "kernel_flops", "aten_bytes",
+                   "kernel_bytes", "ops", "kernels")},
+                   "burst_roofline_by_epoch": rl, "card": smi}}
+        return row, dict(traced)
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+def _observed_fused_run(seed: int) -> tuple:
+    """The fused loop at population 1 (history 8, the pendulum twin)
+    through ``train.main`` with ``--telemetry true --diagnostics full
+    --profile-epochs 1:2 --trace-export``: 2 epochs of 100 steps, bursts
+    of 50 updates. Checks one ``cost`` event per epoch (FLOPs > 0, MFU in
+    (0, 1]), the |TD| histogram over every update's batch and heads, the
+    watchdog's three captures (the acting step's warm-up and trained
+    graphs, the burst's), each epoch's launch, read and save phases, and
+    epoch 1's trace: exactly its K2-K4 launches. Returns the row and the
+    traced launches."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_obs_fused_")
+    steps, burst, layers = 100, 50, 2
+    get_watchdog().reset()  # the process's counts: this run's captures only
+    try:
+        timeline = os.path.join(runs, "timeline.json")
+        t0 = time.perf_counter()
+        train_cli.main(["--environment", TRAIN_ENV, "--on-device", "true", "--history-len", "8",
+                        "--seed", str(seed), "--epochs", "2", "--steps-per-epoch", str(steps),
+                        "--start-steps", str(burst), "--update-every", str(burst),
+                        "--buffer-size", "100000", "--telemetry", "true",
+                        "--diagnostics", "full", "--profile-epochs", "1:2",
+                        "--trace-export", timeline, "--runs-root", runs, "--no-save-buffer"])
+        seconds = time.perf_counter() - t0
+        (run_dir,) = [os.path.join(runs, "Default", d)
+                      for d in os.listdir(os.path.join(runs, "Default"))]
+        with open(os.path.join(run_dir, "telemetry.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        epochs = [e for e in events if e["type"] == "epoch"]
+        check(len(epochs) == 2 and all({"burst_dispatch", "drain", "checkpoint"}
+                                       <= set(e["phases"]) for e in epochs)
+              and all((e.get("memory") or {}).get("peak_bytes_in_use_max", 0) > 0
+                      for e in epochs),
+              f"observability fused: epoch events {epochs}")
+        rl = [c["programs"]["train/ondevice_epoch"] for c in events if c["type"] == "cost"]
+        check(len(rl) == 2 and all(r["flops_per_call"] > 0 and 0 < r["mfu"] <= 1 for r in rl),
+              f"observability fused: cost events {rl}")
+        diags = [e for e in events if e["type"] == "diagnostics"]
+        td = diags[-1]["td_hist"]["td_abs_count"]
+        check(td == 2 * steps * 64 * 2, f"observability fused: |TD| count {td}")
+        captures = [m["watchdog_captures"] for m in metrics]
+        check(captures == [3, 3], f"observability fused: watchdog captures {captures}")
+        traced = _chrome_kernels(os.path.join(run_dir, "trace", "trace_epochs_1_2.json"))
+        want = {"flash_fwd": layers * steps + 5 * layers * steps,
+                "flash_bwd_dq": 2 * layers * steps, "flash_bwd_dkv": 2 * layers * steps,
+                "pixel_gather": 0}
+        check(traced == want, f"observability fused: epoch 1's trace {traced} != {want}")
+        row = {"seconds": seconds, "td_abs_count": td, "watchdog_captures_by_epoch": captures,
+               "epoch1_trace_launches": traced, "epoch_roofline": rl,
+               "epoch_phases_s": [{k: v["total_s"] for k, v in e["phases"].items()}
+                                  for e in epochs]}
+        return row, dict(traced)
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+def _tier_trainers(seed: int) -> tuple:
+    """One sequence trainer per diagnostics tier from one seed (so one
+    initial state, ring and env stream), each trained 2 epochs of
+    OBS_STEPS steps; the second epoch runs under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and its synchronizing
+    calls are counted. Returns the trainers and the counts by tier."""
+    import warnings
+
+    from torch_actor_critic_tpu_torch import train as train_cli
+
+    trainers, syncs = {}, {}
+    runs = tempfile.mkdtemp(prefix="tac_chip_obs_tiers_")
+    for tier in ("off", "light", "full"):
+        args = train_cli.parse_arguments([
+            *OBS_ARGS, "--seed", str(seed), "--epochs", "2", "--steps-per-epoch",
+            str(OBS_STEPS), *OBS_START, "--update-every", str(OBS_BURST),
+            "--diagnostics", tier, "--runs-root", runs,
+            "--no-save-buffer"])
+        trainer, _ = train_cli.build_trainer(args)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+
+            def on_epoch(e, m):
+                if e == 0:
+                    caught.clear()
+                    torch.cuda.set_sync_debug_mode("warn")
+            try:
+                trainer.train(on_epoch=on_epoch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                # The env pool goes, and the watchdog's steady regime with it
+                # (the next tier's trainer captures its own burst); the
+                # learner, its graph and its ring stay for the bursts.
+                trainer.close()
+        syncs[tier] = sum(SYNC_WARNING in str(w.message) for w in caught)
+        trainers[tier] = trainer
+    shutil.rmtree(runs, ignore_errors=True)
+    return trainers, syncs
+
+
+def _tier_bursts(kernels, trainers, seed: int, captured_per_update: float) -> dict:
+    """Captured bursts of OBS_BURST updates on each tier's trainer (one
+    state and ring: the trainers ran the same bitwise), timed in turns,
+    then one profiled each: device kernels per update (``off`` equal to
+    the train phase's captured burst), K2-K4 launches per update the same
+    at every tier, the parameters bitwise the same after."""
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+
+    chunks = {}
+    for tier, tr in trainers.items():
+        gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+        chunks[tier] = sample(tr.buffer, OBS_BURST, generator=gen)
+
+    def burst(tier):
+        tr = trainers[tier]
+        tr.state, tr.buffer, m = tr.sac.update_burst(tr.state, tr.buffer, chunks[tier],
+                                                     OBS_BURST)
+        return m
+
+    times = {tier: [] for tier in trainers}
+    for _ in range(4):
+        for tier in trainers:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            burst(tier)
+            torch.cuda.synchronize()
+            times[tier].append(time.perf_counter() - t0)
+    # Compared before the profiled bursts, which a lost trace repeats.
+    for tier in trainers:
+        gaps = _learner_gaps(trainers[tier].state, trainers["off"].state)
+        check(gaps == BITWISE, f"observability {tier}: learner vs off's {gaps}")
+    rows = {}
+    for tier in trainers:
+        profiled = profile_burst(lambda: burst(tier), OBS_BURST)
+        rows[tier] = {
+            "grad_steps_per_sec": OBS_BURST / statistics.median(times[tier]),
+            "device_kernels_per_update": profiled["device_kernels_per_update"],
+            "launches_per_update": profiled["launches_per_update"],
+            "device_busy_ms_per_update": profiled["device_busy_ms"] / OBS_BURST,
+            "graph_captures": trainers[tier].sac.graph_captures,
+        }
+    off = rows["off"]
+    for tier, r in rows.items():
+        r["rate_vs_off"] = r["grad_steps_per_sec"] / off["grad_steps_per_sec"]
+        check(r["launches_per_update"] == off["launches_per_update"]
+              and r["graph_captures"] == 1,
+              f"observability {tier}: K1-K4 per update {r['launches_per_update']} vs off's "
+              f"{off['launches_per_update']}, captures {r['graph_captures']}")
+    check(off["device_kernels_per_update"] == captured_per_update,
+          f"observability: off's {off['device_kernels_per_update']} device kernels per update "
+          f"!= the train phase's captured burst's {captured_per_update}")
+    check(rows["light"]["rate_vs_off"] >= 0.90 and rows["full"]["rate_vs_off"] >= 0.85,
+          f"observability: captured rates vs off {[r['rate_vs_off'] for r in rows.values()]}")
+    return rows
+
+
+def _visual_tiers(kernels, seed: int) -> dict:
+    """One captured burst of the pixel recipe (K1 through the fused
+    pipeline) at ``off`` and ``full`` from one state and ring: K1 once
+    per update in each, the parameters bitwise the same after, and the
+    synchronizing calls of the bursts the same."""
+    import warnings
+
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.buffer.replay import init_visual_replay_buffer, push
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg = train_cli.config_from_args(train_cli.parse_arguments(VISUAL_ARGS))
+    features, frame, act_dim = 1, (32, 32, 3), 1  # PixelPendulumBalanceNumpy-v0
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+
+    def chunk(n):
+        def obs():
+            return MultiObservation(
+                torch.randn((n, features), generator=gen, device="cuda"),
+                torch.randint(0, 256, (n, *frame), generator=gen, device="cuda",
+                              dtype=torch.uint8))
+        return Batch(states=obs(), actions=torch.rand((n, act_dim), generator=gen,
+                                                      device="cuda") * 4 - 2,
+                     rewards=torch.randn(n, generator=gen, device="cuda"), next_states=obs(),
+                     done=torch.zeros(n, device="cuda"))
+
+    actor, critic = build_models(cfg, MultiObservation((features,), frame), act_dim, 2.0,
+                                 generator=torch.Generator().manual_seed(seed))
+    state = SAC(cfg, act_dim).init_state(actor.cuda(), critic.cuda(),
+                                         torch.Generator(device="cuda").manual_seed(seed + 1))
+    ring = push(init_visual_replay_buffer(20_000, features, frame, act_dim, "cuda"), chunk(2000))
+    chunks = [chunk(OBS_BURST) for _ in range(3)]
+    rows, runs = {}, {}
+    for tier in ("off", "full"):
+        sac = SAC(cfg.replace(diagnostics=tier), act_dim)
+        st, buf = state.clone(), ring.clone()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            st, buf, _ = sac.update_burst(st, buf, chunks[0], OBS_BURST)  # captures
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st, buf, m = sac.update_burst(st, buf, chunks[1], OBS_BURST)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        runs[tier] = {"sac": sac, "st": st, "buf": buf}
+        rows[tier] = {"burst_syncs": sum(SYNC_WARNING in str(w.message) for w in caught),
+                      "metrics_finite": all(bool(torch.isfinite(v).all()) for v in m.values())}
+        check(rows[tier]["metrics_finite"], f"observability visual {tier}: metrics {m}")
+    # Compared before the profiled bursts, which a lost trace repeats.
+    gaps = _learner_gaps(runs["full"]["st"], runs["off"]["st"])
+    for tier, run in runs.items():
+        def burst():
+            run["st"], run["buf"], _ = run["sac"].update_burst(run["st"], run["buf"],
+                                                               chunks[2], OBS_BURST)
+        profiled = profile_burst(burst, OBS_BURST)
+        rows[tier].update(launches_per_update=profiled["launches_per_update"],
+                          traced_launches=profiled["launches"],
+                          device_kernels_per_update=profiled["device_kernels_per_update"],
+                          graph_captures=run["sac"].graph_captures)
+        check(profiled["launches_per_update"]["pixel_gather"] == 1
+              and run["sac"].graph_captures == 1,
+              f"observability visual {tier}: {rows[tier]}")
+    check(gaps == BITWISE and rows["full"]["burst_syncs"] == rows["off"]["burst_syncs"]
+          and rows["full"]["launches_per_update"] == rows["off"]["launches_per_update"],
+          f"observability visual: full vs off {gaps}, {rows}")
+    return rows
+
+
+def phase_observability(seed: int, kernels, smi: str, captured_per_update: float) -> dict:
+    """The training observability plane on the card (in a child):
+
+    - ``train --telemetry true --diagnostics full --profile-epochs 1:2
+      --trace-export`` through ``train.main`` on the host trainer
+      (:func:`_observed_run`) and on the fused loop at population 1
+      (:func:`_observed_fused_run`);
+    - tier A/B on one state and ring: sequence trainers at ``off``,
+      ``light`` and ``full`` from one seed, their second epoch's
+      synchronizing calls the same, then captured 50-update bursts
+      (:func:`_tier_bursts`), and the pixel recipe's captured burst at
+      ``off`` and ``full`` (:func:`_visual_tiers`);
+    - the cost registry's sequence update: FLOPs, bytes and MFU against
+      the card's peak (in the run's row).
+
+    Returns the two runs' epoch-1 traced launches (K2-K4) and the visual
+    bursts' profiled K1 launches."""
+    row = {"phase": "observability", "card": smi, "seconds": {}}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        row["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    row["run"], launches = _observed_run(seed, smi)
+    lap("run")
+    row["fused_run"], fused = _observed_fused_run(seed)
+    for k, v in fused.items():
+        launches[k] += v
+    lap("fused_run")
+    trainers, syncs = _tier_trainers(seed)
+    check(len(set(syncs.values())) == 1, f"observability: synchronizing calls by tier {syncs}")
+    row["epoch_syncs_by_tier"] = syncs
+    row["sequence_bursts"] = _tier_bursts(kernels, trainers, seed, captured_per_update)
+    del trainers
+    lap("sequence_tiers")
+    row["visual_bursts"] = _visual_tiers(kernels, seed)
+    launches["pixel_gather"] = launches.get("pixel_gather", 0) + sum(
+        r["traced_launches"]["pixel_gather"] for r in row["visual_bursts"].values())
+    lap("visual_tiers")
+    row["seconds"]["phase"] = time.perf_counter() - t_phase
+    emit(row)
+    rates = {k: round(v["rate_vs_off"], 3) for k, v in row["sequence_bursts"].items()}
+    update = row["run"]["cost"]["update"]
+    print(f"observability: captured sequence burst rate vs off {rates}; update "
+          f"{update['flops'] / 1e9:.4f} GFLOPs, {update['bytes_accessed'] / 1e6:.2f} MB "
+          f"(counted), burst MFU {row['run']['cost']['burst_roofline_by_epoch'][-1]['mfu']} "
+          f"({smi})", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4901,6 +5290,11 @@ def main(argv=None) -> int:
                    help="Run only the populations phase (the smoke starts it so, in a child)")
     p.add_argument("--host-env-plane-phase", action="store_true",
                    help="Run only the host_env_plane phase (the smoke starts it so, in a child)")
+    p.add_argument("--observability-phase", action="store_true",
+                   help="Run only the observability phase (the smoke starts it so, in a child)")
+    p.add_argument("--captured-kernels-per-update", type=float, default=None,
+                   help="The train phase's captured burst's device kernels per update, which "
+                   "the observability phase's off tier must equal")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU only",
@@ -4927,6 +5321,11 @@ def main(argv=None) -> int:
         launches = phase_host_env_plane(args.seed, _kernels, nvidia_smi())
         emit({"host_env_plane_launches": launches})
         return 0
+    if args.observability_phase:
+        launches = phase_observability(args.seed, _kernels, nvidia_smi(),
+                                       args.captured_kernels_per_update)
+        emit({"observability_launches": launches})
+        return 0
     seconds, t_start = {}, time.perf_counter()
 
     def timed(name, fn, *a):
@@ -4947,7 +5346,7 @@ def main(argv=None) -> int:
     serve = timed("serve", phase_serve, args.seed, _kernels, attn, smi)
     serve_launches = serve["flash_fwd"]
     check(serve_launches > 0, "the serving path launched no flash_fwd kernel")
-    train_launches = timed("train", phase_train, args.seed, _kernels)
+    train_launches, captured_per_update = timed("train", phase_train, args.seed, _kernels)
     timed("graph_push", phase_graph_push, args.seed)
     visual_launches = timed("train_visual", phase_train_visual, args.seed, _kernels)
     timed("visual_burst", phase_visual_burst, args.seed, _kernels)
@@ -4957,8 +5356,10 @@ def main(argv=None) -> int:
     population_launches = timed("population", in_a_child, "population", args.seed, 600)
     populations_launches = timed("populations", in_a_child, "populations", args.seed, 600)
     plane_launches = timed("host_env_plane", in_a_child, "host_env_plane", args.seed, 400)
+    observed_launches = timed("observability", in_a_child, "observability", args.seed, 300,
+                              ["--captured-kernels-per-update", repr(captured_per_update)])
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
-    for more in (populations_launches, plane_launches):
+    for more in (populations_launches, plane_launches, observed_launches):
         for k, v in more.items():
             population_launches[k] = population_launches.get(k, 0) + v
     fwd_launches = (serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]

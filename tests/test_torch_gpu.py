@@ -1923,3 +1923,122 @@ def test_a_burst_spread_over_a_loop_equals_the_burst_at_once(cuda, name):
     assert pop.graph_captures == 1 and state.step == 40
     assert _diff({"state": state.state_dict(), "ring": ring.state_dict()}, ref) == []
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BURST_CASES))
+def test_captured_full_diagnostics_burst_is_bitwise_off(cuda, name):
+    """From one cloned state and ring, two captured bursts at
+    ``diagnostics="off"`` and at ``"full"`` (on cuDNN's deterministic
+    algorithms, as the visual case needs): the same parameters, Adam
+    states, log α, step and generator to the bit, the same ``off``
+    metrics, one capture each; the full tier's |TD| counts cover every
+    update's batch and heads."""
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, name)
+    chunks = [_burst_chunk(cuda, shape, 50, gen) for _ in range(2)]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tier in ("off", "full"):
+            sac, st, buf = SAC(cfg.replace(diagnostics=tier), 1), state.clone(), ring.clone()
+            metrics = []
+            for chunk in chunks:
+                st, buf, m = sac.update_burst(st, buf, chunk, 5)
+                metrics.append(m)
+            runs[tier] = (st, metrics, sac.graph_captures)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (off, m_off, c_off), (full, m_full, c_full) = runs["off"], runs["full"]
+    torch.cuda.synchronize()
+    assert c_off == c_full == 1
+    assert _learner_gaps(full, off) == {"params": 0.0, "adam": 0.0, "log_alpha": 0.0,
+                                        "same_generator": True, "same_step": True}
+    for mo, mf in zip(m_off, m_full):
+        assert all(torch.equal(mo[k], mf[k]) for k in mo)
+        assert int(mf["diag/td_hist"].sum()) == 5 * cfg.batch_size * cfg.num_qs
+        assert all(bool(torch.isfinite(v).all()) for v in mf.values())
+
+
+@pytest.mark.gpu
+def test_bucket_counts_inside_a_capture_equal_eager(cuda):
+    """``bucket_counts`` captured in a CUDA graph and replayed over new
+    values in the captured input equals the eager histogram, exactly,
+    non-finite samples dropped; nothing synchronizes."""
+    from torch_actor_critic_tpu_torch.diagnostics.ingraph import TD_HIST_LO, bucket_counts
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    values = torch.empty(4096, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        bucket_counts(values.normal_(generator=gen))  # warm-up
+        with torch.cuda.graph(graph, stream=stream):
+            out = bucket_counts(values)
+    torch.cuda.current_stream().wait_stream(stream)
+    for scale in (1e-4, 1.0, 1e3):
+        values.copy_(torch.randn(4096, generator=gen, device=cuda) * scale)
+        values[:3] = torch.tensor([float("nan"), float("inf"), TD_HIST_LO], device=cuda)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = bucket_counts(values.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and int(out.sum()) == 4096 - 2
+        assert torch.equal(out.cpu(), bucket_counts(values.cpu()))
+
+
+@pytest.mark.gpu
+def test_cost_count_sees_the_kernels_by_formula_on_the_card(cuda):
+    """A counted update on the card: K2–K4 reported by formula from the
+    autograd thread too, and the same FLOPs and bytes as the same update
+    counted on the CPU."""
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.telemetry import costmodel
+
+    counts = {}
+    for device in ("cpu", "cuda"):
+        cfg, shape, state, ring, gen = _burst_learner(torch.device(device), "sequence",
+                                                      capacity=256, prefill=100)
+        sac = SAC(cfg, 1)
+        sac.cost.request(f"test/{device}")
+        sac.update_burst(state, ring, _burst_chunk(torch.device(device), shape, 10, gen), 1,
+                         eager=True)
+        counts[device] = costmodel.get_cost_registry().get(f"test/{device}")
+    layers = cfg.seq_num_layers
+    assert counts["cuda"]["kernels"] == {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                                         "flash_bwd_dkv": 2 * layers}
+    for key in ("flops", "kernel_flops", "kernel_bytes", "aten_flops"):
+        assert counts["cuda"][key] == counts["cpu"][key], key
+
+
+@pytest.mark.gpu
+def test_watchdog_flags_a_forced_recapture_in_steady_state(cuda):
+    """The burst's capture is noted under ``train/burst``; replays note
+    nothing; once ``train/`` is steady, a burst over a replaced ring
+    captures again and the watchdog flags it as an anomaly."""
+    from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    wd = get_watchdog().install()
+    wd.reset()
+    try:
+        cfg, shape, state, ring, gen = _burst_learner(cuda, "flat")
+        sac = SAC(cfg, 1)
+        for _ in range(2):
+            state, ring, _ = sac.update_burst(state, ring, _burst_chunk(cuda, shape, 50, gen), 5)
+        snap = wd.snapshot()
+        assert snap["by_source"] == {"train/burst": 1} and snap["live_captures"] == 1
+        wd.mark_steady("train/")
+        state, ring, _ = sac.update_burst(state, ring.clone(), _burst_chunk(cuda, shape, 50, gen),
+                                          5)
+        snap = wd.snapshot()
+        assert sac.graph_captures == 2 and snap["post_steady_captures"] == 1
+        assert [a["source"] for a in snap["anomalies"]] == ["train/burst"]
+    finally:
+        wd.reset()

@@ -333,8 +333,16 @@ def test_update_takes_no_gradient_into_the_critic_during_the_actor_step():
 
 
 def test_diagnostics_tier_is_not_ported():
-    with pytest.raises(NotImplementedError, match="diagnostics"):
-        SAC(SACConfig(diagnostics="light"), ACT_DIM)
+    """The solo learner runs every tier (tests/test_torch_diagnostics.py);
+    a population's diagnostics are not ported yet (ROADMAP queue 1 item 9)."""
+    from torch_actor_critic_tpu_torch.sac.population import PopulationSAC
+
+    for tier in ("off", "light", "full"):
+        assert SAC(SACConfig(diagnostics=tier), ACT_DIM).config.diagnostics == tier
+    with pytest.raises(NotImplementedError, match="diagnostics.*queue 1 item 9"):
+        PopulationSAC(SACConfig(diagnostics="light", population=2), ACT_DIM, 2)
+    with pytest.raises(ValueError, match="diagnostics"):
+        SACConfig(diagnostics="verbose")
 
 
 # -------------------------------------------------------------- polyak

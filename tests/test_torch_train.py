@@ -33,7 +33,7 @@ from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool
 from torch_actor_critic_tpu_torch.envs.wrappers import HistoryEnv, make_env
 from torch_actor_critic_tpu_torch.models import build_actor, build_models
 from torch_actor_critic_tpu_torch.resilience import TrainingDiverged
-from torch_actor_critic_tpu_torch.sac.trainer import NOT_PORTED, Trainer
+from torch_actor_critic_tpu_torch.sac.trainer import NOT_PORTED, SOLO_FIELDS, Trainer
 from torch_actor_critic_tpu_torch.serve import ModelRegistry
 from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
@@ -213,8 +213,11 @@ def test_trainer_without_updates_only_fills_the_buffer():
 ])
 def test_unported_config_fields_raise(field, value):
     assert field in NOT_PORTED
+    # The solo trainer runs telemetry and diagnostics; a population still
+    # refuses them (ROADMAP queue 1 item 9).
+    population = {"population": 2} if field in SOLO_FIELDS else {}
     with pytest.raises(NotImplementedError, match=field):
-        Trainer("PendulumNumpy-v1", _tiny_config(**{field: value}), device="cpu")
+        Trainer("PendulumNumpy-v1", _tiny_config(**{field: value}, **population), device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [

@@ -29,6 +29,8 @@ import threading
 import typing as t
 from pathlib import Path
 
+from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -128,8 +130,9 @@ def build_all(names: t.Iterable[str] | None = None) -> t.Dict[str, float]:
     """Compile every missing library of the kernels ``names`` (all by
     default) in parallel (one ``nvcc`` per source, started together)
     and wait for all of them. Returns ``{source: seconds}`` for the
-    ones built; raises :class:`KernelBuildError` with the compiler
-    output on failure."""
+    ones built, each also noted to the watchdog (``kernels/build``,
+    :mod:`..diagnostics.watchdog`); raises :class:`KernelBuildError`
+    with the compiler output on failure."""
     import time
 
     sources = sorted({SIGNATURES[n][0] for n in (names or SIGNATURES)})
@@ -160,6 +163,7 @@ def build_all(names: t.Iterable[str] | None = None) -> t.Dict[str, float]:
             continue
         os.replace(tmp, pending[source])  # atomic: readers never see a partial .so
         seconds[source] = time.perf_counter() - t0
+        get_watchdog().note_build(seconds[source])
     if errors:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(errors))
     return seconds

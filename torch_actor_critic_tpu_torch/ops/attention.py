@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from torch_actor_critic_tpu_torch.ops import _kernels
+from torch_actor_critic_tpu_torch.telemetry import costmodel
 
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -214,24 +215,25 @@ def flash_attention_forward(
     tensors the launch is :func:`_plain_flash_fwd` (the CPU has no
     kernel); any other device runs ``csrc/flash_fwd.cu`` and must be
     CUDA. The kernel reads q/k/v through their strides where
-    :func:`_reads_in_place` allows (the model's split views do) and
-    returns ``out`` as the ``(B, H, T, d)`` view of a ``(B, T, H, d)``
-    tensor. A build or launch failure raises; nothing falls back.
+    :func:`_reads_in_place` allows (the model's split views do). Both
+    routes return ``out`` as the ``(B, H, T, d)`` view of a ``(B, T, H,
+    d)`` tensor (the plain version's result is copied there), so what
+    follows runs the same ops on either. Under a
+    :class:`~..telemetry.costmodel.CostCount` the call counts K2's
+    formula work and none of its own ops. A build or launch failure
+    raises; nothing falls back.
     """
     on_cpu = q.device.type == "cpu"
     fn = None if on_cpu else _kernels.load("flash_fwd")
     _check_qkv("flash_attention_forward", q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    dp = _padded(d)
-    q, k, v = _pad(dp, q, k, v)
-    if on_cpu:
-        out, lse = _plain_flash_fwd(q, k, v, causal, scale)
-    else:
-        if not (q.is_cuda and k.is_cuda and v.is_cuda):
-            raise ValueError("flash_attention_forward: an operand is not a CUDA tensor")
-        q, k, v = (_kernel_view(x) for x in (q, k, v))
+    count = costmodel.note_kernel("flash_fwd", costmodel.attention_fwd_work,
+                                  (b, h, tq, tk, d), causal, q.dtype, return_lse)
+    with costmodel.paused(count):
+        scale = 1.0 / math.sqrt(d)
+        dp = _padded(d)
+        q, k, v = _pad(dp, q, k, v)
         # Written in the model's (B, T, H, d) layout: its merge of the
         # heads back into (B, T, D) is then a view, not a copy.
         out = _bthd(b, h, tq, dp, q)
@@ -239,15 +241,24 @@ def flash_attention_forward(
             torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
             if return_lse else None
         )
-        _kernels.launch("flash_fwd", fn, q.device, (
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            b, h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)), scale,
-            *(s for x in (q, k, v, out) for s in x.stride()[:3]),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        ), f"B={b}, H={h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}")
-    if dp != d:
-        out = out[..., :d]
+        if on_cpu:
+            plain_out, plain_lse = _plain_flash_fwd(q, k, v, causal, scale)
+            out.copy_(plain_out)
+            if lse is not None:
+                lse.copy_(plain_lse)
+        else:
+            if not (q.is_cuda and k.is_cuda and v.is_cuda):
+                raise ValueError("flash_attention_forward: an operand is not a CUDA tensor")
+            q, k, v = (_kernel_view(x) for x in (q, k, v))
+            _kernels.launch("flash_fwd", fn, q.device, (
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if lse is not None else None,
+                b, h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)), scale,
+                *(s for x in (q, k, v, out) for s in x.stride()[:3]),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            ), f"B={b}, H={h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}")
+        if dp != d:
+            out = out[..., :d]
     return (out, lse) if return_lse else out
 
 
@@ -270,7 +281,10 @@ def flash_attention_backward(
     tensors their plain versions run. The kernels read q/k/v/o/dO through
     their strides where :func:`_reads_in_place` allows (the model's views
     do) and write dq/dk/dv as ``(B, H, T, d)`` views of ``(B, T, H, d)``
-    tensors, so the backward of the model's head split is a view.
+    tensors (on both routes: the plain versions' results are copied
+    there), so the backward of the model's head split is a view. Under a
+    :class:`~..telemetry.costmodel.CostCount` the call counts K3's and
+    K4's formula work and none of its own ops.
     """
     on_cpu = q.device.type == "cpu"
     fns = None if on_cpu else (
@@ -289,35 +303,43 @@ def flash_attention_backward(
             "flash_attention_backward: lse must be f32 (B, H, Tq), got "
             f"{lse.dtype} {tuple(lse.shape)}"
         )
-    do = do.to(q.dtype)
-    scale = 1.0 / math.sqrt(d)
-    dp = _padded(d)
-    q, k, v, o, do = _pad(dp, q, k, v, o.to(q.dtype), do)
-    if on_cpu:
-        dq, delta = _plain_flash_bwd_dq(q, k, v, o, do, lse, causal, scale)
-        dk, dv = _plain_flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
-    else:
-        if not all(x.is_cuda for x in (q, k, v, o, do, lse)):
-            raise ValueError("flash_attention_backward: an operand is not a CUDA tensor")
-        q, k, v, o, do = (_kernel_view(x) for x in (q, k, v, o, do))
-        lse = lse.contiguous()
+    count = costmodel.note_kernel("flash_bwd_dq", costmodel.attention_bwd_work,
+                                  (b, h, tq, tk, d), causal, q.dtype, "flash_bwd_dq")
+    costmodel.note_kernel("flash_bwd_dkv", costmodel.attention_bwd_work,
+                          (b, h, tq, tk, d), causal, q.dtype, "flash_bwd_dkv")
+    with costmodel.paused(count):
+        do = do.to(q.dtype)
+        scale = 1.0 / math.sqrt(d)
+        dp = _padded(d)
+        q, k, v, o, do = _pad(dp, q, k, v, o.to(q.dtype), do)
         delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
         dq = _bthd(b, h, tq, dp, q)
         dk = _bthd(b, h, tk, dp, k)
         dv = _bthd(b, h, tk, dp, v)
-        common = (b, h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)), scale)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        note = f"B={b}, H={h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}"
-        _kernels.launch("flash_bwd_dq", fns[0], q.device, (
-            *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq)), *common,
-            *(s for x in (q, k, v, o, do, dq) for s in x.stride()[:3]), stream,
-        ), note)
-        _kernels.launch("flash_bwd_dkv", fns[1], q.device, (
-            *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)), *common,
-            *(s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]), stream,
-        ), note)
-    if dp != d:
-        dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
+        if on_cpu:
+            plain_dq, plain_delta = _plain_flash_bwd_dq(q, k, v, o, do, lse, causal, scale)
+            plain_dk, plain_dv = _plain_flash_bwd_dkv(q, k, v, do, lse, plain_delta, causal,
+                                                      scale)
+            for x, y in ((dq, plain_dq), (delta, plain_delta), (dk, plain_dk), (dv, plain_dv)):
+                x.copy_(y)
+        else:
+            if not all(x.is_cuda for x in (q, k, v, o, do, lse)):
+                raise ValueError("flash_attention_backward: an operand is not a CUDA tensor")
+            q, k, v, o, do = (_kernel_view(x) for x in (q, k, v, o, do))
+            lse = lse.contiguous()
+            common = (b, h, tq, tk, dp, _KERNEL_DTYPES[q.dtype], int(bool(causal)), scale)
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            note = f"B={b}, H={h}, Tq={tq}, Tk={tk}, d={dp}, {q.dtype}"
+            _kernels.launch("flash_bwd_dq", fns[0], q.device, (
+                *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq)), *common,
+                *(s for x in (q, k, v, o, do, dq) for s in x.stride()[:3]), stream,
+            ), note)
+            _kernels.launch("flash_bwd_dkv", fns[1], q.device, (
+                *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)), *common,
+                *(s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]), stream,
+            ), note)
+        if dp != d:
+            dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv, delta
 
 

@@ -18,7 +18,9 @@ For example ``b``, stack slot ``s``, row ``y``, column ``x``, channel
   port of the TPU kernel ``_pixel_kernel``); a build or launch failure
   raises, nothing falls back. (The kernel stages a block's source rows
   in shared memory, so it refuses a frame whose S stack rows exceed
-  the card's 227 KB of it.)
+  the card's 227 KB of it.) Under a
+  :class:`~..telemetry.costmodel.CostCount` both routes count K1's
+  formula work and none of their own ops.
 - :func:`fused_frame_gather_pair` — the same for a batch's two frame
   leaves (states, next states) at the same rows: one launch for both.
 - :func:`member_frame_gather_pair` — a population's: its ``(P,
@@ -46,6 +48,7 @@ import typing as t
 import torch
 
 from torch_actor_critic_tpu_torch.ops import _kernels
+from torch_actor_critic_tpu_torch.telemetry import costmodel
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -122,6 +125,13 @@ def _check_leaf(name: str, ring: torch.Tensor, idx: torch.Tensor, offsets, out_d
         raise ValueError(f"{name}: ring on {ring.device} (cpu or cuda)")
 
 
+def _note_work(ring, idx, shift: bool, out_dtype, frame_stack: int, leaves: int):
+    """K1's formula work (:func:`~..telemetry.costmodel.pixel_gather_work`)
+    to an active cost count, on either route; returns the count."""
+    return costmodel.note_kernel("pixel_gather", costmodel.pixel_gather_work, idx.shape[0],
+                                 tuple(ring.shape[1:]), frame_stack, out_dtype, shift, leaves)
+
+
 def _launch(rings, idx, offsets, pad, normalize, out_dtype, frame_stack) -> t.List[torch.Tensor]:
     """One launch of ``csrc/pixels.cu`` for one or two leaves on the
     card, each ``(ring, offsets)`` gathered at the rows ``idx``."""
@@ -168,11 +178,13 @@ def fused_frame_gather(
     (see :func:`gather_frames_reference`). A CPU ring runs the plain
     version; a CUDA ring launches ``csrc/pixels.cu``."""
     _check_leaf("fused_frame_gather", ring, idx, offsets, out_dtype)
-    if ring.device.type == "cpu":
-        return gather_frames_reference(
-            ring, idx, offsets, pad, normalize, out_dtype, frame_stack
-        )
-    return _launch([ring], idx, [offsets], pad, normalize, out_dtype, frame_stack)[0]
+    count = _note_work(ring, idx, offsets is not None, out_dtype, frame_stack, leaves=1)
+    with costmodel.paused(count):
+        if ring.device.type == "cpu":
+            return gather_frames_reference(
+                ring, idx, offsets, pad, normalize, out_dtype, frame_stack
+            )
+        return _launch([ring], idx, [offsets], pad, normalize, out_dtype, frame_stack)[0]
 
 
 def fused_frame_gather_pair(
@@ -204,12 +216,14 @@ def fused_frame_gather_pair(
         )
     for ring, offs in zip(rings, offsets):
         _check_leaf("fused_frame_gather_pair", ring, idx, offs, out_dtype)
-    if rings[0].device.type == "cpu":
-        return tuple(
-            gather_frames_reference(ring, idx, offs, pad, normalize, out_dtype, frame_stack)
-            for ring, offs in zip(rings, offsets)
-        )
-    return tuple(_launch(rings, idx, offsets, pad, normalize, out_dtype, frame_stack))
+    count = _note_work(rings[0], idx, offsets[0] is not None, out_dtype, frame_stack, leaves=2)
+    with costmodel.paused(count):
+        if rings[0].device.type == "cpu":
+            return tuple(
+                gather_frames_reference(ring, idx, offs, pad, normalize, out_dtype, frame_stack)
+                for ring, offs in zip(rings, offsets)
+            )
+        return tuple(_launch(rings, idx, offsets, pad, normalize, out_dtype, frame_stack))
 
 
 def member_frame_gather_pair(

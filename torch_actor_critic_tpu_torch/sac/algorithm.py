@@ -34,11 +34,19 @@ temperature knob) as device tensors that override the config's scalars
 in the update; a population's are ``(P,)``, one value per member. With
 them the Adam steps of actor and critic take their rate from a tensor
 (:func:`dynamic_lr_step`), so one captured update serves every rate.
-``diagnostics != "off"`` raises.
+
+``diagnostics`` ``"light"``/``"full"`` adds the JAX learner's in-graph
+learning-health metrics to each update's rows (:func:`_shared_diagnostics`
+and the gradient and update norms; ``diag/param_norm`` after each burst).
+They only read what the update computes (gradients, the Q surface, the
+backup, the policy's actions, the parameters before and after each
+step), so the parameters after a burst are bitwise those of ``"off"``,
+whose update is unchanged: the same kernels, the same metric keys.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import typing as t
@@ -49,11 +57,13 @@ from torch import nn
 
 from torch_actor_critic_tpu_torch.buffer.replay import push, sample, sample_fused_visual
 from torch_actor_critic_tpu_torch.core.types import Batch, BufferState, TrainState
+from torch_actor_critic_tpu_torch.diagnostics import ingraph as diag
 from torch_actor_critic_tpu_torch.diagnostics.ingraph import reduce_burst_metrics
 from torch_actor_critic_tpu_torch.ops.augment import augment_batch
 from torch_actor_critic_tpu_torch.ops.polyak import polyak_update_
 from torch_actor_critic_tpu_torch.sac import losses
 from torch_actor_critic_tpu_torch.sac.graph import BurstGraph, MetricStack
+from torch_actor_critic_tpu_torch.telemetry.costmodel import PendingCount
 
 Metrics = t.Dict[str, torch.Tensor]
 
@@ -138,17 +148,25 @@ def make_adam(params, lr: float, device: torch.device) -> torch.optim.Adam:
 class Learner:
     """What SAC and TD3 share: the config, the action size, and the burst
     (:meth:`update_burst`) over the subclass's ``update``. A subclass
-    gives ``init_state``, ``update`` and :meth:`burst_noise`."""
+    gives ``init_state``, ``update`` and :meth:`burst_noise`.
+    ``cost.request(name)`` counts the next eager update (its batch's
+    sampling included) into the cost registry under ``name``
+    (:class:`~..telemetry.costmodel.PendingCount`)."""
 
     def __init__(self, config, act_dim: int):
-        if config.diagnostics != "off":
-            raise NotImplementedError(
-                f"diagnostics={config.diagnostics!r} is not ported yet (off only)"
-            )
         self.config = config
         self.act_dim = act_dim
         self.graph: BurstGraph | None = None  # the last captured burst
         self.graph_captures = 0
+        self.cost = PendingCount()
+
+    def burst_diagnostics(self, state: TrainState, metrics: Metrics) -> Metrics:
+        """A burst's reduced metrics, with ``diag/param_norm`` (actor and
+        critic, after the burst) when a diagnostics tier is on."""
+        if self.config.diagnostics != "off":
+            metrics["diag/param_norm"] = diag.global_norm(
+                [*state.actor.parameters(), *state.critic.parameters()])
+        return metrics
 
     def burst_noise(self, eps: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         """``update``'s noise arguments from one update's slice of a
@@ -168,7 +186,7 @@ class Learner:
             raise ValueError("this burst captures a graph: run it with update_burst")
         buffer_state = push(buffer_state, chunk)
         self.graph.start(num_updates)
-        return Burst(self.graph, state, buffer_state)
+        return Burst(self, self.graph, state, buffer_state)
 
     def would_capture(self, state: TrainState, buffer_state: BufferState,
                       num_updates: int) -> bool:
@@ -209,10 +227,12 @@ class Learner:
         updates that ran."""
         hooked = indices is not None or eps is not None or offsets is not None
         if eager or hooked or buffer_state.data.rewards.device.type != "cuda":
-            return run_update_burst(
+            state, buffer_state, metrics = run_update_burst(
                 self.update, self.config, state, buffer_state, chunk, num_updates,
                 indices=indices, eps=eps, offsets=offsets, noise=self.burst_noise,
+                scope=self.cost.scope,
             )
+            return state, buffer_state, self.burst_diagnostics(state, metrics)
         buffer_state = push(buffer_state, chunk)
         key = graph_key(state, buffer_state)
         step = state.step
@@ -220,7 +240,8 @@ class Learner:
         if graph is None or not graph.serves(key, num_updates):
             self.graph = None  # its memory pool goes before the next capture
             graph = BurstGraph(
-                lambda stack: update_step(self.update, self.config, state, buffer_state, stack),
+                lambda stack: update_step(self.update, self.config, state, buffer_state, stack,
+                                          scope=self.cost.scope),
                 key, num_updates, state.generator,
             )
         try:
@@ -231,15 +252,17 @@ class Learner:
             graph.key = graph_key(state, buffer_state)  # now with the warm-up's Adam state
             self.graph = graph
             self.graph_captures += 1
-        return state, buffer_state, metrics
+        return state, buffer_state, self.burst_diagnostics(state, metrics)
 
 
 class Burst:
     """A burst in flight (:meth:`Learner.start_burst`): ``state.step``
     counts the updates enqueued so far."""
 
-    def __init__(self, graph: BurstGraph, state: TrainState, buffer_state: BufferState):
-        self.graph, self.state, self.buffer_state = graph, state, buffer_state
+    def __init__(self, learner: Learner, graph: BurstGraph, state: TrainState,
+                 buffer_state: BufferState):
+        self.learner, self.graph, self.state, self.buffer_state = (
+            learner, graph, state, buffer_state)
         self._step = state.step
 
     def advance(self) -> None:
@@ -247,7 +270,8 @@ class Burst:
 
     def finish(self) -> t.Tuple[TrainState, BufferState, Metrics]:
         self._enqueue(wait=True)
-        return self.state, self.buffer_state, self.graph.stack.reduce(self.graph.ran)
+        metrics = self.graph.stack.reduce(self.graph.ran)
+        return self.state, self.buffer_state, self.learner.burst_diagnostics(self.state, metrics)
 
     def _enqueue(self, wait: bool) -> None:
         try:
@@ -348,16 +372,25 @@ class SAC(Learner):
             )
         hp = state.hyperparams or {}
         alpha = state.log_alpha.detach().exp() if cfg.learn_alpha else hp.get("alpha", cfg.alpha)
+        diagnose = cfg.diagnostics != "off"
+        dm: Metrics = {}
 
         # --- critic step ---
         q_params = list(state.critic.parameters())
         loss_q, q_aux = losses.critic_loss(
             state.critic, actor=state.actor, target_critic=state.target_critic,
             batch=batch, alpha=alpha, gamma=cfg.gamma,
-            reward_scale=cfg.reward_scale, eps=eps_q,
+            reward_scale=cfg.reward_scale, eps=eps_q, diagnostics=diagnose,
         )
-        _set_grads(q_params, torch.autograd.grad(loss_q, q_params))
+        diag_q, diag_backup = q_aux.pop("diag_q", None), q_aux.pop("diag_backup", None)
+        q_grads = torch.autograd.grad(loss_q, q_params)
+        if diagnose:
+            dm["diag/grad_norm_q"] = diag.global_norm(q_grads)
+            q_before = diag.snapshot(q_params)
+        _set_grads(q_params, q_grads)
         dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
+        if diagnose:
+            dm["diag/update_ratio_q"] = diag.update_ratio(q_params, q_before)
 
         # --- actor step, on the updated critic (frozen: grads w.r.t. the
         # actor's parameters only) ---
@@ -366,12 +399,19 @@ class SAC(Learner):
         try:
             loss_pi, pi_aux = losses.actor_loss(
                 state.actor, critic=state.critic, batch=batch, alpha=alpha,
-                parity_pi_obs=cfg.parity_pi_obs, eps=eps_pi,
+                parity_pi_obs=cfg.parity_pi_obs, eps=eps_pi, diagnostics=diagnose,
             )
-            _set_grads(pi_params, torch.autograd.grad(loss_pi, pi_params))
+            pi_grads = torch.autograd.grad(loss_pi, pi_params)
         finally:
             state.critic.requires_grad_(True)
+        diag_pi = pi_aux.pop("diag_pi", None)
+        if diagnose:
+            dm["diag/grad_norm_pi"] = diag.global_norm(pi_grads)
+            pi_before = diag.snapshot(pi_params)
+        _set_grads(pi_params, pi_grads)
         dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))
+        if diagnose:
+            dm["diag/update_ratio_pi"] = diag.update_ratio(pi_params, pi_before)
 
         # --- entropy temperature ---
         if cfg.learn_alpha:
@@ -382,8 +422,14 @@ class SAC(Learner):
                 ),
                 [state.log_alpha],
             )
+            if diagnose:
+                dm["diag/grad_norm_alpha"] = a_grad.abs()
+                log_alpha_abs = state.log_alpha.detach().abs()
             state.log_alpha.grad = a_grad
             _step(state.alpha_opt)
+            if diagnose:
+                dm["diag/update_ratio_alpha"] = diag.norm_ratio(
+                    diag.scalar_adam_step(state.alpha_opt), log_alpha_abs)
             alpha_metric = state.log_alpha.detach().exp()
         elif "alpha" in hp:
             alpha_metric = hp["alpha"].clone()
@@ -403,7 +449,47 @@ class SAC(Learner):
             **q_aux,
             **pi_aux,
         }
+        if diagnose:
+            metrics.update(dm)
+            metrics.update(_shared_diagnostics(cfg, loss_q, loss_pi, diag_q, diag_backup,
+                                               diag_pi, state.actor.act_limit))
         return state, metrics
+
+
+def _shared_diagnostics(
+    config,
+    loss_q: torch.Tensor,
+    loss_pi: torch.Tensor,
+    diag_q: torch.Tensor | None,
+    diag_backup: torch.Tensor | None,
+    diag_pi: torch.Tensor | None,
+    act_limit: float,
+) -> Metrics:
+    """The in-graph diagnostics SAC and TD3 share (the JAX function): the
+    per-burst loss maxima, the Q statistics of the raw ``(num_qs, B)``
+    surface against the backup (minimum, maximum, the ensemble's mean
+    per-sample spread, online-vs-target bias), the policy's tanh
+    saturation and, at ``full``, the |TD| histogram with its exact
+    minimum, maximum and sum."""
+    metrics: Metrics = {"loss_q_max": loss_q.detach(), "loss_pi_max": loss_pi.detach()}
+    if diag_q is not None and diag_backup is not None:
+        metrics.update({
+            "diag/q_min": diag_q.amin(),
+            "diag/q_max": diag_q.amax(),
+            "diag/q_spread": (diag_q.amax(dim=0) - diag_q.amin(dim=0)).mean(),
+            "diag/q_bias": diag_q.mean() - diag_backup.mean(),
+        })
+        if config.diagnostics == "full":
+            abs_td = (diag_q - diag_backup[None, :]).abs()
+            metrics.update({
+                "diag/td_hist": diag.bucket_counts(abs_td),
+                "diag/td_abs_min": abs_td.amin(),
+                "diag/td_abs_max": abs_td.amax(),
+                "diag/td_abs_sum": abs_td.sum(),
+            })
+    if diag_pi is not None:
+        metrics["diag/act_sat"] = diag.saturation_fraction(diag_pi, act_limit)
+    return metrics
 
 def graph_key(state: TrainState, buffer_state: BufferState) -> tuple:
     """What a captured update reads and writes, compared by identity
@@ -454,13 +540,16 @@ def update_step(
     state: TrainState,
     buffer_state: BufferState,
     stack: MetricStack,
+    scope: t.Callable[[], t.ContextManager] = contextlib.nullcontext,
 ) -> None:
     """One update as the burst's CUDA graph captures it: a batch drawn
     from ``state.generator``, the update, and its metrics written at the
     stack's device counter. The eager loop's update, but for where the
-    metrics go."""
-    batch = sample_update_batch(config, buffer_state, generator=state.generator)
-    _, metrics = update_fn(state, batch)
+    metrics go. The batch and the update run under ``scope()`` (the
+    learner's pending cost count)."""
+    with scope():
+        batch = sample_update_batch(config, buffer_state, generator=state.generator)
+        _, metrics = update_fn(state, batch)
     stack.write(metrics)
 
 
@@ -475,6 +564,7 @@ def run_update_burst(
     eps: torch.Tensor | None = None,
     offsets: torch.Tensor | None = None,
     noise: t.Callable[[torch.Tensor], t.Dict[str, torch.Tensor]] | None = None,
+    scope: t.Callable[[], t.ContextManager] = contextlib.nullcontext,
 ) -> t.Tuple[TrainState, BufferState, Metrics]:
     """The eager push-then-loop burst (the CPU's, and the card's with
     ``eager=True``). Test hooks: ``indices`` ``(K, B)`` are the
@@ -483,17 +573,19 @@ def run_update_burst(
     ``noise(eps[i])`` turns into ``update_fn``'s keyword arguments (the
     learner's ``burst_noise``; SAC's takes ``(2, B, act_dim)``, ``(eps_q,
     eps_pi)``), ``offsets`` ``(K, 2, B, 2)`` each fused visual update's
-    DrQ shifts of states and next states."""
+    DrQ shifts of states and next states. Each update's batch and update
+    run under ``scope()`` (the learner's pending cost count)."""
     buffer_state = push(buffer_state, chunk)
     rows = []
     for i in range(num_updates):
-        batch = sample_update_batch(
-            config, buffer_state,
-            generator=state.generator if indices is None else None,
-            indices=None if indices is None else indices[i],
-            offsets=None if offsets is None else offsets[i],
-        )
-        state, metrics = update_fn(state, batch, **({} if eps is None else noise(eps[i])))
+        with scope():
+            batch = sample_update_batch(
+                config, buffer_state,
+                generator=state.generator if indices is None else None,
+                indices=None if indices is None else indices[i],
+                offsets=None if offsets is None else offsets[i],
+            )
+            state, metrics = update_fn(state, batch, **({} if eps is None else noise(eps[i])))
         rows.append(metrics)
     stacked = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
     return state, buffer_state, reduce_burst_metrics(stacked)

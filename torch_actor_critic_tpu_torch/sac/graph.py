@@ -47,11 +47,13 @@ from __future__ import annotations
 
 import collections
 import gc
+import time
 import typing as t
 
 import torch
 
 from torch_actor_critic_tpu_torch.diagnostics.ingraph import reduce_burst_metrics
+from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
 
 WARMUP_UPDATES = 1
 # Replays of a spread burst queued on the device at a time (BurstGraph.start).
@@ -94,7 +96,9 @@ class BurstGraph:
     burst only over those same objects (:meth:`serves`), of at most
     ``num_updates`` updates (its metric stack's rows), so bursts of
     alternating sizes replay one graph. ``generators`` (one or several)
-    are those the step draws from."""
+    are those the step draws from. Each capture (its warm-up included)
+    is noted to the watchdog under ``source`` (``train/burst``, or the
+    fused loop's ``train/acting``)."""
 
     def __init__(
         self,
@@ -102,6 +106,7 @@ class BurstGraph:
         key: t.Sequence[object],
         num_updates: int,
         generators: torch.Generator | t.Sequence[torch.Generator],
+        source: str = "train/burst",
     ):
         if num_updates < WARMUP_UPDATES:
             raise ValueError(f"a captured burst needs num_updates >= {WARMUP_UPDATES}, "
@@ -111,6 +116,7 @@ class BurstGraph:
         self.key = tuple(key)
         self.num_updates = num_updates
         self.generators = tuple(generators)
+        self.source = source
         self.stack = MetricStack(num_updates, self.generators[0].device)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.ran = 0  # updates the last burst ran (warm-up and replays)
@@ -174,6 +180,7 @@ class BurstGraph:
         inflight.clear()
 
     def _capture(self) -> None:
+        t0 = time.perf_counter()
         device = self.stack.step.device
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -200,3 +207,4 @@ class BurstGraph:
         finally:
             torch.cuda.current_stream(device).wait_stream(stream)
         self.graph = graph
+        get_watchdog().note_capture(time.perf_counter() - t0, self.source)

@@ -29,10 +29,13 @@ def critic_loss(
     reward_scale: float,
     eps: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    diagnostics: bool = False,
 ) -> t.Tuple[torch.Tensor, t.Dict[str, torch.Tensor]]:
     """Twin-critic Bellman MSE: ``sum_i mean((Q_i(s, a) - backup)^2)``
     with ``backup = reward_scale * r + gamma * (1 - done) *
-    (min_i Q_targ_i(s', a') - alpha * logp(a'|s'))``, ``a' ~ pi(.|s')``."""
+    (min_i Q_targ_i(s', a') - alpha * logp(a'|s'))``, ``a' ~ pi(.|s')``.
+    ``diagnostics`` adds the detached ``(num_qs, B)`` Q surface and the
+    backup under ``diag_q``/``diag_backup`` (the caller pops them)."""
     with torch.no_grad():
         next_action, next_logp = actor(
             batch.next_states, generator=generator, eps=eps
@@ -45,6 +48,9 @@ def critic_loss(
     q = critic(batch.states, batch.actions)  # (num_qs, B)
     loss = ((q - backup[None, :]) ** 2).mean(dim=-1).sum()
     aux = {"q_mean": q.detach().mean(), "backup_mean": backup.mean()}
+    if diagnostics:
+        aux["diag_q"] = q.detach()
+        aux["diag_backup"] = backup
     return loss, aux
 
 
@@ -57,16 +63,21 @@ def actor_loss(
     parity_pi_obs: bool = False,
     eps: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    diagnostics: bool = False,
 ) -> t.Tuple[torch.Tensor, t.Dict[str, torch.Tensor]]:
     """Policy loss ``mean(alpha * logp_pi - min_i Q_i(s, pi))``. The
-    caller differentiates with respect to the actor's parameters only."""
+    caller differentiates with respect to the actor's parameters only.
+    ``diagnostics`` adds the detached policy actions under ``diag_pi``."""
     pi_obs = batch.next_states if parity_pi_obs else batch.states
     pi, logp_pi = actor(pi_obs, generator=generator, eps=eps)
     q_pi = critic(batch.states, pi)
     q_pi_min = q_pi.amin(dim=0)
     loss = (alpha * logp_pi - q_pi_min).mean()
     logp = logp_pi.detach().mean()
-    return loss, {"logp_pi": logp, "entropy": -logp}
+    aux = {"logp_pi": logp, "entropy": -logp}
+    if diagnostics:
+        aux["diag_pi"] = pi.detach()
+    return loss, aux
 
 
 def alpha_loss(

@@ -38,9 +38,22 @@ hyperparameters (``TrainState.hyperparams``, ``(N,)``) start jittered
 and :meth:`PopulationOnDeviceLoop.pbt_step` runs the exploit/explore
 step on the device, in place, into the tensors the graphs hold.
 
-Not ported: the mesh (``mesh`` raises), the scenario loop, the
-cost-model telemetry and the ``pbt`` telemetry events (they wait for the
-telemetry module).
+At population 1 the loop takes the trainer's observability
+(:func:`train_on_device`'s recorder): each epoch's launch and read
+are lapped as ``burst_dispatch`` and ``drain`` into ``telemetry.jsonl``
+with the card's memory watermarks; one acting step and one update are
+counted into the cost registry (``train/act_step``, ``train/update``,
+eager calls: the capture's warm-up on the card) and each epoch's cost
+(``train/ondevice_epoch``: its windows' acting steps and updates) gives
+``cost/epoch_*`` metrics and a ``cost`` event; with a ``diagnostics``
+tier the bursts' in-graph metrics are reduced over the epoch on the
+device (:func:`~..diagnostics.ingraph.reduce_burst_metrics`) and read
+with the epoch's other metrics, and the watchdog counts the acting and
+burst graphs' captures.
+
+Not ported: the mesh (``mesh`` raises), the scenario loop, and a
+population's telemetry, diagnostics and ``pbt`` telemetry events
+(ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -66,7 +79,13 @@ from torch_actor_critic_tpu_torch.core.types import (
     TrainState,
     tree_map,
 )
-from torch_actor_critic_tpu_torch.diagnostics.ingraph import split_member_metrics
+from torch_actor_critic_tpu_torch.diagnostics.ingraph import (
+    host_read,
+    make_td_histogram,
+    reduce_burst_metrics,
+    split_member_metrics,
+)
+from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
 from torch_actor_critic_tpu_torch.envs.ondevice import (
     EnvState,
     get_on_device_env,
@@ -84,9 +103,24 @@ from torch_actor_critic_tpu_torch.sac.population import (
 )
 from torch_actor_critic_tpu_torch.sac.trainer import (
     POPULATION_FIELDS,
+    SOLO_FIELDS,
+    UPDATE_COST,
     check_ported,
     make_learner,
     save_metrics,
+)
+from torch_actor_critic_tpu_torch.telemetry.costmodel import (
+    PendingCount,
+    Peaks,
+    get_cost_registry,
+    roofline,
+    roofline_metrics,
+)
+from torch_actor_critic_tpu_torch.telemetry.recorder import (
+    PH_BURST,
+    PH_CKPT,
+    PH_DRAIN,
+    TelemetryRecorder,
 )
 from torch_actor_critic_tpu_torch.utils.checkpoint import member_state_dict
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
@@ -97,6 +131,8 @@ Metrics = t.Dict[str, torch.Tensor]
 
 # The acting step's per-step statistics among the stack's rows.
 _STATS = ("episodes_sum", "return_sum")
+# The cost registry's names of one acting step and of one epoch.
+ACT_COST, EPOCH_COST = "train/act_step", "train/ondevice_epoch"
 
 
 def _env_obs_spec(env_cls):
@@ -185,6 +221,7 @@ class OnDeviceLoop:
         self.device = resolve_device(device)
         self.act_graphs: t.Dict[bool, BurstGraph] = {}  # by warm-up flag
         self.act_captures = 0
+        self.cost = PendingCount()  # counts the next eager acting step
 
     # ------------------------------------------------------------------ init
 
@@ -261,9 +298,10 @@ class OnDeviceLoop:
                  eager: bool, noise=None, poses=None) -> t.Dict[str, torch.Tensor]:
         """One window of acting steps; returns the stack's rows."""
         def step(stack, t_=None):
-            self._act_step(state, env_states, act_gen, stack, warmup,
-                           noise=None if t_ is None or noise is None else noise[t_],
-                           pose=None if t_ is None or poses is None else poses[t_])
+            with self.cost.scope():
+                self._act_step(state, env_states, act_gen, stack, warmup,
+                               noise=None if t_ is None or noise is None else noise[t_],
+                               pose=None if t_ is None or poses is None else poses[t_])
 
         hooked = noise is not None or poses is not None
         if eager or hooked or self.device.type != "cuda":
@@ -275,7 +313,8 @@ class OnDeviceLoop:
         graph = self.act_graphs.get(warmup)
         if graph is None or not graph.serves(key, update_every):
             self.act_graphs.pop(warmup, None)  # its memory pool goes before the next capture
-            graph = BurstGraph(step, key, update_every, (act_gen, env_states.rng))
+            graph = BurstGraph(step, key, update_every, (act_gen, env_states.rng),
+                               source="train/acting")
             graph.play()
             self.act_graphs[warmup] = graph
             self.act_captures += 1
@@ -306,7 +345,9 @@ class OnDeviceLoop:
         states and acting generator (each updated in place) and the
         epoch's metrics as device scalars: ``loss_q`` and ``loss_pi``
         averaged over the windows, ``episodes`` ended, and ``reward``,
-        their mean return (NaN when none ended).
+        their mean return (NaN when none ended); with a ``diagnostics``
+        tier also the bursts' other metrics, reduced over the windows by
+        key suffix.
 
         Test hooks (the eager path): ``noise`` ``(steps, n_envs,
         act_dim)`` each step's uniform draw (warm-up) or policy noise;
@@ -321,6 +362,7 @@ class OnDeviceLoop:
         zero = torch.zeros(() if self.members is None else (self.members,),
                            dtype=torch.float32, device=self.device)
         loss_q, loss_pi, episodes, returns = (zero.clone() for _ in range(4))
+        diag_rows: t.List[Metrics] = []
 
         def window(hook, w, per):
             return None if hook is None else hook[w * per:(w + 1) * per]
@@ -344,6 +386,8 @@ class OnDeviceLoop:
             )
             loss_q += m["loss_q"]
             loss_pi += m["loss_pi"]
+            if self.sac.config.diagnostics != "off":
+                diag_rows.append({k: v for k, v in m.items() if k not in ("loss_q", "loss_pi")})
         metrics = {
             "loss_q": loss_q / n_windows,
             "loss_pi": loss_pi / n_windows,
@@ -353,6 +397,9 @@ class OnDeviceLoop:
             "reward": torch.where(episodes > 0, returns / episodes.clamp(min=1.0),
                                   torch.full_like(returns, math.nan)),
         }
+        if diag_rows:
+            metrics.update(reduce_burst_metrics(
+                {k: torch.stack([r[k] for r in diag_rows]) for k in diag_rows[0]}))
         return state, ring, env_states, act_gen, metrics
 
 
@@ -521,6 +568,8 @@ def train_on_device(
     device: str | torch.device | None = None,
     mesh=None,
     on_epoch: t.Callable[[int, dict], None] | None = None,
+    profile_epochs: t.Optional[t.Tuple[int, int]] = None,
+    trace_export: str | None = None,
 ) -> dict:
     """The host side of the fused loop: a warm-up epoch of
     ``warmup_steps(start_steps, update_every)`` uniform steps, then
@@ -533,8 +582,16 @@ def train_on_device(
     so far as ``step``; resumes learner and ring from the newest checkpoint with
     the envs reset again, as JAX's ``train_on_device`` does. Raises
     ``FloatingPointError`` on a non-finite ``loss_q`` (after that
-    epoch's save, as JAX's). Returns the last epoch's metrics."""
-    check_ported(config)
+    epoch's save, as JAX's). A recorder
+    (``TelemetryRecorder.for_run``: ``config.telemetry``, a
+    ``profile_epochs`` window, a ``trace_export`` path) and a
+    ``diagnostics`` tier add the observability of the module docstring.
+    Returns the last epoch's metrics."""
+    check_ported(config, allow=SOLO_FIELDS)
+    telemetry = TelemetryRecorder.for_run(config, tracker, profile_epochs, trace_export,
+                                          resolve_device(device))
+    watchdog = get_watchdog().install() if config.diagnostics != "off" else None
+    td_hist = make_td_histogram() if config.diagnostics == "full" else None
     env_cls = get_on_device_env(env_name)
     if env_cls is None:
         raise ValueError(
@@ -559,17 +616,30 @@ def train_on_device(
             update_every=config.update_every, warmup=True,
         )
         env_steps += n_warmup
+    if telemetry is not None:
+        loop.cost.request(ACT_COST)
+        learner.cost.request(UPDATE_COST)
 
-    keys = ("loss_q", "loss_pi", "episodes", "reward")
     last_epoch = start_epoch + config.epochs - 1
     metrics: dict = {}
+    cost_state = {"peaks": None}
     for e in range(start_epoch, last_epoch + 1):
+        if telemetry is not None:
+            telemetry.epoch_begin(e)
         t0 = time.time()
         state, ring, env_states, act_gen, m = loop.epoch(
             state, ring, env_states, act_gen, steps=config.steps_per_epoch,
             update_every=config.update_every,
         )
-        metrics = dict(zip(keys, torch.stack([m[k] for k in keys]).tolist()))  # the one read
+        if telemetry is not None:
+            telemetry.lap(PH_BURST)
+        # The one read; a _hist vector stays an array.
+        metrics = {k: v if k.endswith("_hist") else float(v) for k, v in host_read(m).items()}
+        hist = metrics.pop("diag/td_hist", None)
+        if hist is not None:
+            td_hist.merge_counts(hist, total=metrics["diag/td_abs_sum"],
+                                 vmin=metrics["diag/td_abs_min"],
+                                 vmax=metrics["diag/td_abs_max"])
         dt = time.time() - t0
         env_steps += config.steps_per_epoch
         metrics["env_steps_per_sec"] = config.steps_per_epoch * loop.n_envs / dt
@@ -577,22 +647,76 @@ def train_on_device(
             (config.steps_per_epoch // config.update_every) * config.updates_per_window / dt)
         metrics["graph_captures"] = learner.graph_captures
         metrics["act_graph_captures"] = loop.act_captures
+        if telemetry is not None:
+            telemetry.lap(PH_DRAIN)
+            _note_epoch_cost(loop, learner, config, metrics, dt, telemetry, e, cost_state)
+        if watchdog is not None:
+            snap = watchdog.snapshot()
+            metrics["watchdog_captures"] = snap["captures_total"]
+            metrics["watchdog_live_captures"] = snap["live_captures"]
+            metrics["watchdog_builds"] = snap["builds_total"]
+            if telemetry is not None:
+                telemetry.event("diagnostics", epoch=e,
+                                metrics={k: v for k, v in metrics.items()
+                                         if k.startswith("diag/")},
+                                td_hist=(td_hist.snapshot(prefix="td_abs_", unit="")
+                                         if hist is not None else None))
         # The last epoch always saves: a short run leaves a checkpoint.
-        if checkpointer is not None and (e % config.save_every == 0 or e == last_epoch):
+        saved = checkpointer is not None and (e % config.save_every == 0 or e == last_epoch)
+        if saved:
             t_save = time.perf_counter()
             checkpointer.save(e, state, ring,
                               extra={"config": config.to_json(), "step": env_steps,
                                      "on_device": True})
             metrics.update(save_metrics(checkpointer, t_save, saved=True))
+        if telemetry is not None:
+            telemetry.lap(PH_CKPT)
         if tracker is not None:
             tracker.log_metrics(metrics, e)
         if on_epoch is not None:
             on_epoch(e, dict(metrics))
+        if telemetry is not None:
+            telemetry.epoch_end(e, extra={
+                "step": env_steps, "env_steps": config.steps_per_epoch * loop.n_envs,
+                "env_steps_per_sec": round(metrics["env_steps_per_sec"], 2), "saved": saved})
+        if watchdog is not None and e > start_epoch:
+            # The first epoch captured both graphs; later ones replay them.
+            watchdog.mark_steady("train/")
         if not math.isfinite(metrics["loss_q"]):
             raise FloatingPointError(f"loss_q diverged at epoch {e}: {metrics}")
     if checkpointer is not None:
         checkpointer.wait()
+    if watchdog is not None:
+        watchdog.clear_steady("train/")
+    if telemetry is not None:
+        telemetry.close()
     return metrics
+
+
+def _note_epoch_cost(loop, learner, config, metrics: dict, dt: float, telemetry, epoch: int,
+                     cost_state: dict) -> None:
+    """The fused epoch's cost (telemetry on): its windows' acting steps
+    and updates (the counted ``train/act_step`` and ``train/update``),
+    registered as ``train/ondevice_epoch``, against the epoch's seconds;
+    ``cost/epoch_*`` metrics and one ``cost`` event."""
+    registry = get_cost_registry()
+    act, update = registry.get(ACT_COST), registry.get(UPDATE_COST)
+    if act is None or update is None:
+        return
+    windows = config.steps_per_epoch // config.update_every
+    cost = {k: windows * (config.update_every * act[k] + config.updates_per_window * update[k])
+            for k in ("flops", "bytes_accessed")}
+    if registry.get(EPOCH_COST) != cost:
+        registry.register(EPOCH_COST, cost)
+    if cost_state["peaks"] is None:
+        cost_state["peaks"] = Peaks.detect(config.compute_dtype)
+    rl = roofline(cost, dt, calls=1, peaks=cost_state["peaks"],
+                  compute_dtype=config.compute_dtype)
+    metrics.update(roofline_metrics("epoch", cost, rl))
+    telemetry.event("cost", epoch=int(epoch),
+                    programs={EPOCH_COST: rl, ACT_COST: act, UPDATE_COST: update},
+                    device_kind=cost_state["peaks"].device_kind,
+                    compute_dtype=config.compute_dtype)
 
 
 def train_population_on_device(

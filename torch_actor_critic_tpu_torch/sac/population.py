@@ -55,6 +55,19 @@ def member_seed(seed: int, member: int) -> int:
     return seed * 65_536 + member
 
 
+def refuse_population_observability(config) -> None:
+    """Raise ``NotImplementedError`` for a population with telemetry or
+    a diagnostics tier: the solo trainers port both, a population's wait
+    for ROADMAP queue 1 item 9."""
+    for name, value, default in (("telemetry", config.telemetry, False),
+                                 ("diagnostics", config.diagnostics, "off")):
+        if value != default:
+            raise NotImplementedError(
+                f"SACConfig.{name}={value!r} with a population: a population's telemetry "
+                "and diagnostics are not ported yet (ROADMAP queue 1 item 9); the solo "
+                "trainers (host and fused, population 1) run them")
+
+
 def make_population_learner(config, act_dim: int, members: int) -> Learner:
     """:class:`PopulationTD3` for ``algorithm="td3"``, else
     :class:`PopulationSAC`: ``members`` learners in one."""
@@ -71,6 +84,7 @@ class PopulationSAC(SAC):
         if config.algorithm != "sac":
             raise ValueError(f"PopulationSAC trains SAC members, not {config.algorithm!r}; "
                              "make_population_learner picks the learner")
+        refuse_population_observability(config)
         super().__init__(config, act_dim)
         self.members = int(members)
 
@@ -186,6 +200,7 @@ class PopulationTD3(TD3):
         if config.algorithm != "td3":
             raise ValueError(f"PopulationTD3 trains TD3 members, not {config.algorithm!r}; "
                              "make_population_learner picks the learner")
+        refuse_population_observability(config)
         super().__init__(config, act_dim)
         self.members = int(members)
 

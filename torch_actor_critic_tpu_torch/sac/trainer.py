@@ -98,6 +98,32 @@ one burst, one CUDA graph, for every member), rings ``(P, capacity,
 (``per_member``). Its checkpoints hold what JAX's do: the stacked
 learner, the member rings, the normalizer and the acting generator.
 
+Observability (JAX's ``telemetry``/``diagnostics``, the solo trainer
+only; a population refuses both, naming ROADMAP queue 1 item 9). With a
+:class:`~..telemetry.recorder.TelemetryRecorder` (built by
+``TelemetryRecorder.for_run`` for ``telemetry=True``, a
+``profile_epochs`` window or a ``trace_export`` path) the loop
+laps its eight phases (``act``, ``env_step``, ``stage``,
+``place_chunk``, ``burst_dispatch`` — the host's enqueue of the burst —,
+``drain`` — the epoch's wait for the device and its one read —,
+``sentinel``, ``checkpoint``) into ``telemetry.jsonl`` with the epoch's
+device-memory watermarks, and the first update is counted into the cost
+registry (``train/update``; the burst's cost is ``updates_per_window``
+of it), so each update epoch adds ``cost/update_burst_*`` metrics and a
+``cost`` event (MFU against the card's peak at ``compute_dtype``). With
+a ``diagnostics`` tier each burst's metric rows (the in-graph
+diagnostics and the aux metrics) stay on the device and are read once
+at the epoch's end, in the same transfer as the losses; the epoch's
+reduction lands in the metrics (``diag/*``), the |TD| histogram
+(``full``) is merged into a ``FixedBucketHistogram``, an
+:class:`~..diagnostics.monitor.EarlyWarningMonitor` turns the stream
+into ``early_warning`` events that feed the sentinel's
+``note_warning``, and the process's watchdog counts CUDA-graph captures
+and kernel builds (``watchdog_captures``, ``watchdog_live_captures``,
+``watchdog_builds``), marking ``train/`` steady one epoch after the
+first update epoch, so a later capture is a ``recompile_anomaly`` event.
+With telemetry and diagnostics off none of this runs.
+
 Config fields this slice does not implement raise
 ``NotImplementedError`` naming the field when they are not at their
 defaults (:data:`NOT_PORTED`); ``pbt_every`` raises here (PBT runs over
@@ -129,6 +155,13 @@ from torch_actor_critic_tpu_torch.buffer.replay import (
     warn_if_buffer_exceeds_hbm,
 )
 from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation, tree_map
+from torch_actor_critic_tpu_torch.diagnostics.ingraph import (
+    host_read,
+    make_td_histogram,
+    reduce_metric_rows,
+)
+from torch_actor_critic_tpu_torch.diagnostics.monitor import EarlyWarningMonitor
+from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
 from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool, stack_obs
 from torch_actor_critic_tpu_torch.models import build_models
 from torch_actor_critic_tpu_torch.parallel.population import PopulationLearner
@@ -138,8 +171,28 @@ from torch_actor_critic_tpu_torch.resilience.sentinel import (
     TrainingDiverged,
 )
 from torch_actor_critic_tpu_torch.sac.algorithm import SAC, Burst, Learner, Metrics
-from torch_actor_critic_tpu_torch.sac.population import make_population_learner
+from torch_actor_critic_tpu_torch.sac.population import (
+    make_population_learner,
+    refuse_population_observability,
+)
 from torch_actor_critic_tpu_torch.td3 import TD3
+from torch_actor_critic_tpu_torch.telemetry.costmodel import (
+    Peaks,
+    get_cost_registry,
+    roofline,
+    roofline_metrics,
+)
+from torch_actor_critic_tpu_torch.telemetry.recorder import (
+    PH_ACT,
+    PH_BURST,
+    PH_CKPT,
+    PH_DRAIN,
+    PH_ENV,
+    PH_PLACE,
+    PH_SENTINEL,
+    PH_STAGE,
+    TelemetryRecorder,
+)
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
 from torch_actor_critic_tpu_torch.utils.device import resolve_device
 from torch_actor_critic_tpu_torch.utils.normalize import (
@@ -167,6 +220,9 @@ NOT_PORTED = (
 # What the fused population (sac/ondevice.py) ports of NOT_PORTED; the
 # host trainer's population allows the first.
 POPULATION_FIELDS = ("population", "pbt_every")
+# What the solo trainers (the host trainer and the fused loop at
+# population 1) port of NOT_PORTED; a population refuses them.
+SOLO_FIELDS = ("telemetry", "diagnostics")
 
 
 def check_ported(config: SACConfig, allow: t.Sequence[str] = ()) -> None:
@@ -179,6 +235,8 @@ def check_ported(config: SACConfig, allow: t.Sequence[str] = ()) -> None:
         value = getattr(config, name)
         if name in allow or value == getattr(defaults, name):
             continue
+        if name in SOLO_FIELDS:
+            refuse_population_observability(config)
         if name == "pbt_every":
             raise NotImplementedError(
                 f"SACConfig.pbt_every={value!r}: PBT exploit/explore runs in-graph over the "
@@ -207,6 +265,26 @@ def save_metrics(checkpointer, t_save: float, saved: bool) -> dict:
     return out
 
 
+# The cost registry's names of one update and of one burst of them.
+UPDATE_COST, BURST_COST = "train/update", "train/update_burst"
+
+
+def epoch_fetch(losses_q: t.List[torch.Tensor], losses_pi: t.List[torch.Tensor],
+                rows: t.List[Metrics]) -> t.Tuple[float, float, t.List[dict]]:
+    """The epoch's one device-to-host read (:func:`~..diagnostics.ingraph.
+    host_read`): the bursts' mean ``loss_q`` and ``loss_pi`` (f32 means on
+    the device) and every burst's metric rows (``rows``, each a dict of
+    device tensors). Returns the two means (0.0 without bursts) and the
+    rows as host numpy arrays."""
+    if not losses_q:
+        return 0.0, 0.0, []
+    host = host_read({"loss_q": torch.stack(losses_q).mean(),
+                      "loss_pi": torch.stack(losses_pi).mean(),
+                      **{k: torch.stack([r[k] for r in rows]) for k in (rows[0] if rows else ())}})
+    loss_q, loss_pi = float(host.pop("loss_q")), float(host.pop("loss_pi"))
+    return loss_q, loss_pi, [{k: v[i] for k, v in host.items()} for i in range(len(rows))]
+
+
 def make_learner(config: SACConfig, act_dim: int) -> Learner:
     """The one algorithm dispatch, as the JAX trainer's: ``config.algorithm``
     picks :class:`~..td3.TD3` or :class:`~.algorithm.SAC`."""
@@ -231,9 +309,16 @@ class Trainer:
         seed: int = 0,
         device: str | torch.device | None = None,
         preemption: PreemptionGuard | None = None,
+        profile_epochs: t.Optional[t.Tuple[int, int]] = None,
+        trace_export: str | None = None,
     ):
         self.config = config or SACConfig()
-        check_ported(self.config, allow=("population",))
+        solo = self.config.population == 1
+        check_ported(self.config, allow=("population",) + (SOLO_FIELDS if solo else ()))
+        if (profile_epochs or trace_export) and not solo:
+            raise NotImplementedError(
+                "a profile window or trace export with a population: a population's "
+                "telemetry is not ported yet (ROADMAP queue 1 item 9)")
         self.device = resolve_device(device)
         self.env_name = env_name
         self.seed = seed
@@ -332,6 +417,21 @@ class Trainer:
         self._resume_step: int | None = None
         self.sentinel = DivergenceSentinel(cfg.max_rollbacks) if cfg.sentinel else None
         self.preemption = preemption
+        # Observability: None when off, and then the loop's only cost is
+        # one `rec is not None` check per phase mark.
+        self.telemetry = telemetry = TelemetryRecorder.for_run(
+            cfg, tracker, profile_epochs, trace_export, self.device)
+        if telemetry is not None:
+            self.sac.cost.request(UPDATE_COST)
+        self._peaks: Peaks | None = None
+        if cfg.diagnostics != "off":
+            self.monitor = EarlyWarningMonitor()
+            self.td_hist = make_td_histogram()
+            self.watchdog = get_watchdog().install()
+            self._wd_anomalies_seen = len(self.watchdog.snapshot()["anomalies"])
+        else:
+            self.monitor = self.td_hist = self.watchdog = None
+        self._first_update_epoch: int | None = None
 
     # ------------------------------------------------------------ helpers
 
@@ -424,18 +524,18 @@ class Trainer:
             self._acting_ready.record(torch.cuda.current_stream(self.device))
         self._acting_fresh = True
 
-    def _place_chunk(self, staging: t.List[t.List[tuple]]) -> Batch:
-        """Stack one window of each env's staged transitions into a chunk
-        on the device, each leaf in its own dtype (frames uint8): ``(window,
-        ...)`` leaves, a population's ``(P, window, ...)``."""
+    def _stage_chunk(self, staging: t.List[t.List[tuple]]) -> Batch:
+        """Stack one window of each env's staged transitions into a host
+        chunk, each leaf in its own dtype (frames uint8): ``(window, ...)``
+        leaves, a population's ``(P, window, ...)``;
+        ``chunk.map(self._to_device)`` places it on the device."""
 
         def field(k):
             per_env = [stack_obs([tr[k] for tr in env_staging]) for env_staging in staging]
             return per_env[0] if self.dp is None else stack_obs(per_env)
 
-        chunk = Batch(states=field(0), actions=field(1), rewards=field(2),
-                      next_states=field(3), done=field(4))
-        return chunk.map(self._to_device)
+        return Batch(states=field(0), actions=field(1), rewards=field(2),
+                     next_states=field(3), done=field(4))
 
     # --------------------------------------------------------- resilience
 
@@ -535,15 +635,24 @@ class Trainer:
         # A population's per-member returns: its P learning curves.
         member_rewards: t.List[list] = [[] for _ in range(n)]
         last_epoch = self.start_epoch + cfg.epochs - 1
+        # Loop-local alias: each phase mark is one `is not None` check when off.
+        rec = self.telemetry
+        diag_rows: t.List[Metrics] = []
 
         def take(m: Metrics | None) -> None:
-            # A burst's losses: device scalars, read once at epoch end.
+            # A burst's losses (and, with diagnostics, its other metric
+            # rows): device tensors, read once at epoch end.
             if m is not None:
                 losses_q.append(m["loss_q"])
                 losses_pi.append(m["loss_pi"])
+                if self.monitor is not None:
+                    diag_rows.append({k: v for k, v in m.items()
+                                      if k not in ("loss_q", "loss_pi")})
 
         t_epoch = time.time()
         for e in range(self.start_epoch, last_epoch + 1):
+            if rec is not None:
+                rec.epoch_begin(e)
             losses_q: t.List[torch.Tensor] = []
             losses_pi: t.List[torch.Tensor] = []
             for t_ in range(cfg.steps_per_epoch):
@@ -551,8 +660,12 @@ class Trainer:
                     actions = self.pool.sample_actions()
                 else:
                     actions = self._policy_actions(stack_obs(obs))
+                if rec is not None:
+                    rec.lap(PH_ACT)
                 if self._pending is not None:
                     self._pending.advance()
+                    if rec is not None:
+                        rec.lap(PH_BURST)
                 epoch_ended = t_ == cfg.steps_per_epoch - 1
                 # One lockstep dispatch for every env; then each env's
                 # bookkeeping, and a reset for each episode that ended.
@@ -580,21 +693,34 @@ class Trainer:
                                                    update=True, member=i)
                         ep_ret[i], ep_len[i] = 0.0, 0
                     obs[i] = next_obs
+                if rec is not None:
+                    rec.lap(PH_ENV)
 
                 window_full = (step + 1) % cfg.update_every == 0
                 if window_full:
-                    chunk = self._place_chunk(staging)
+                    chunk = self._stage_chunk(staging)
                     for env_staging in staging:
                         del env_staging[:]
+                    if rec is not None:
+                        rec.lap(PH_STAGE)
+                    chunk = chunk.map(self._to_device)
+                    if rec is not None:
+                        rec.lap(PH_PLACE)
                     take(self._finish_burst())
                     if step > cfg.update_after:
                         if self._acting is not None and step + 1 >= cfg.start_steps:
                             # The next window acts on these pre-burst
                             # parameters while the burst runs.
                             self._refresh_acting()
-                        take(self._burst(chunk, cfg.updates_per_window))
+                        if rec is None:
+                            take(self._burst(chunk, cfg.updates_per_window))
+                        else:
+                            with rec.annotate("train/update_burst"):
+                                take(self._burst(chunk, cfg.updates_per_window))
                     else:
                         self.buffer = push(self.buffer, chunk)
+                    if rec is not None:
+                        rec.lap(PH_BURST)
                 step += 1
 
                 # Urgent preemption (a second signal): the window boundary
@@ -608,10 +734,15 @@ class Trainer:
                         self._synchronize()
                         self._save_checkpoint(e, step)
                         self.checkpointer.wait()
+                    if rec is not None:
+                        rec.event("preempted", epoch=e, urgent=True)
                     raise Preempted(epoch=e, urgent=True)
 
             take(self._finish_burst())
             self._synchronize()
+            # The epoch's one read: the losses and the diagnostic rows.
+            loss_q, loss_pi, host_rows = epoch_fetch(losses_q, losses_pi, diag_rows)
+            diag_rows = []
             dt = time.time() - t_epoch
             # Every member's updates count.
             grad_steps = len(losses_q) * cfg.updates_per_window * self.population
@@ -622,8 +753,8 @@ class Trainer:
                 "reward_std": float(rew.std()) if rew.size else 0.0,
                 "reward_min": float(rew.min()) if rew.size else 0.0,
                 "reward_max": float(rew.max()) if rew.size else 0.0,
-                "loss_q": float(torch.stack(losses_q).mean()) if losses_q else 0.0,
-                "loss_pi": float(torch.stack(losses_pi).mean()) if losses_pi else 0.0,
+                "loss_q": loss_q,
+                "loss_pi": loss_pi,
                 "env_steps_per_sec": cfg.steps_per_epoch * n / dt,  # every env's steps
                 "grad_steps_per_sec": grad_steps / dt,
             }
@@ -633,6 +764,11 @@ class Trainer:
                     if rewards:
                         last_metrics[f"reward_m{i}"] = float(np.mean(rewards))
                 member_rewards = [[] for _ in range(n)]
+            if self.monitor is not None:
+                self._note_diagnostics(rec, last_metrics, host_rows, e)
+            if rec is not None:
+                rec.lap(PH_DRAIN)
+                self._note_epoch_cost(rec, last_metrics, len(losses_q), e)
             # Divergence sentinel: one all-finite pass over the learner
             # state, the ring and this epoch's losses, BEFORE anything is
             # saved, so every checkpoint on disk is sentinel-validated and
@@ -646,6 +782,8 @@ class Trainer:
                     # Budget first: raises TrainingDiverged once exhausted.
                     self.sentinel.note_divergence(f"state at epoch {e}")
                     rolled_to = self._rollback()
+                    if rec is not None:
+                        rec.event("rollback", epoch=e, rolled_to=rolled_to)
                     logger.warning(
                         "epoch %d: non-finite training state; rolled back to "
                         "checkpoint epoch %d (rollback %d, %d consecutive), "
@@ -656,6 +794,8 @@ class Trainer:
                     self.sentinel.note_good()
                 last_metrics["rollbacks"] = self.sentinel.total_rollbacks
             last_metrics["sentinel_s"] = round(time.perf_counter() - t_sentinel, 4)
+            if rec is not None:
+                rec.lap(PH_SENTINEL)
 
             # The last epoch always saves, so a short run leaves a
             # checkpoint to serve, evaluate and resume.
@@ -670,10 +810,36 @@ class Trainer:
                 last_metrics.update(save_metrics(self.checkpointer, t_save, saved_this_epoch))
             else:
                 last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
+            if rec is not None:
+                rec.lap(PH_CKPT)
             if self.tracker is not None:
                 self.tracker.log_metrics(last_metrics, e)
             if on_epoch is not None:
                 on_epoch(e, dict(last_metrics))
+            if rec is not None:
+                env_steps = cfg.steps_per_epoch * n
+                rec.inc("env_steps", env_steps)
+                rec.inc("grad_steps", grad_steps)
+                extra = {"step": step, "env_steps": env_steps, "grad_steps": grad_steps,
+                         "env_steps_per_sec": round(last_metrics["env_steps_per_sec"], 2),
+                         "saved": saved_this_epoch}
+                if self.watchdog is not None:
+                    extra["watchdog_captures"] = last_metrics["watchdog_captures"]
+                ev = rec.epoch_end(e, extra=extra)
+                attr = ev.get("attribution")
+                if attr is not None:
+                    logger.info("epoch %d attribution: %s (device %.0f%%, host %.0f%%, "
+                                "input %.0f%%)", e, attr["class"],
+                                100 * attr["device_busy_frac"], 100 * attr["host_frac"],
+                                100 * attr["input_frac"])
+            # Steady marking: the first update epoch captures the burst's
+            # graph; one epoch later the regime is steady, and any later
+            # capture under train/ is an anomaly.
+            if self.watchdog is not None:
+                if losses_q and self._first_update_epoch is None:
+                    self._first_update_epoch = e
+                elif self._first_update_epoch is not None and e > self._first_update_epoch:
+                    self.watchdog.mark_steady("train/")
 
             # Graceful preemption (one signal): the epoch is complete and,
             # if it passed the sentinel, saved: the lossless exit point.
@@ -682,6 +848,8 @@ class Trainer:
                     self._save_checkpoint(e, step)
                 if self.checkpointer is not None:
                     self.checkpointer.wait()
+                if rec is not None:
+                    rec.event("preempted", epoch=e, urgent=False)
                 raise Preempted(epoch=e)
             episode_rewards, episode_lengths = [], []
             t_epoch = time.time()
@@ -693,6 +861,72 @@ class Trainer:
         """Wait for the device's queued work (bursts, pushes)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------ observability
+
+    def _note_diagnostics(self, rec, last_metrics: dict, rows: t.List[dict], epoch: int) -> None:
+        """The epoch's diagnostics (diagnostics tier on): the host rows
+        reduced by suffix into the metrics, the |TD| counts merged into
+        :attr:`td_hist`, the early-warning monitor (its warnings to the
+        sentinel and to telemetry), and the watchdog's counts and new
+        anomalies."""
+        if rows:
+            reduced = reduce_metric_rows(rows)
+            hist = reduced.pop("diag/td_hist", None)
+            if hist is not None:
+                self.td_hist.merge_counts(
+                    hist, total=float(reduced.get("diag/td_abs_sum", 0.0)),
+                    vmin=float(reduced.get("diag/td_abs_min", np.inf)),
+                    vmax=float(reduced.get("diag/td_abs_max", 0.0)))
+            for k, v in reduced.items():
+                last_metrics[k] = float(v)
+            for w in self.monitor.update(reduced):
+                logger.warning("early warning %s: %s=%.4g vs baseline %.4g (deviation "
+                               "envelope %.4g) — a leading indicator", w["kind"], w["key"],
+                               w["value"], w["baseline"], w["spread"])
+                if self.sentinel is not None:
+                    self.sentinel.note_warning(w["kind"])
+                if rec is not None:
+                    rec.event("early_warning", epoch=epoch, **w)
+            last_metrics["early_warnings"] = (self.sentinel.warnings_total
+                                              if self.sentinel is not None
+                                              else self.monitor.fired_total)
+            if rec is not None:
+                rec.event("diagnostics", epoch=epoch,
+                          metrics={k: float(v) for k, v in reduced.items()},
+                          td_hist=(self.td_hist.snapshot(prefix="td_abs_", unit="")
+                                   if hist is not None else None))
+        snap = self.watchdog.snapshot()
+        last_metrics["watchdog_captures"] = snap["captures_total"]
+        last_metrics["watchdog_live_captures"] = snap["live_captures"]
+        last_metrics["watchdog_builds"] = snap["builds_total"]
+        new = snap["anomalies"][self._wd_anomalies_seen:]
+        self._wd_anomalies_seen = len(snap["anomalies"])
+        if rec is not None:
+            for a in new:
+                rec.event("recompile_anomaly", epoch=epoch, **a)
+
+    def _note_epoch_cost(self, rec, last_metrics: dict, n_bursts: int, epoch: int) -> None:
+        """Per-epoch cost attribution (telemetry on): the burst's cost
+        (``updates_per_window`` counted updates, registered as
+        ``train/update_burst``) against the epoch's burst_dispatch + drain
+        time; ``cost/update_burst_*`` metrics and one ``cost`` event."""
+        registry = get_cost_registry()
+        update = registry.get(UPDATE_COST)
+        if n_bursts == 0 or update is None:
+            return
+        k = self.config.updates_per_window
+        cost = {"flops": update["flops"] * k, "bytes_accessed": update["bytes_accessed"] * k}
+        if registry.get(BURST_COST) != cost:
+            registry.register(BURST_COST, cost)
+        if self._peaks is None:
+            self._peaks = Peaks.detect(self.config.compute_dtype)
+        burst_s = rec.timer.sums[PH_BURST] + rec.timer.sums[PH_DRAIN]
+        rl = roofline(cost, burst_s, calls=n_bursts, peaks=self._peaks,
+                      compute_dtype=self.config.compute_dtype)
+        last_metrics.update(roofline_metrics("update_burst", cost, rl))
+        rec.event("cost", epoch=int(epoch), programs={BURST_COST: rl, UPDATE_COST: update},
+                  device_kind=self._peaks.device_kind, compute_dtype=self.config.compute_dtype)
 
     # ------------------------------------------------------------- resume
 
@@ -792,5 +1026,12 @@ class Trainer:
         }
 
     def close(self) -> None:
+        """Release the env pool and finish telemetry (flush the JSONL sink,
+        stop a profiler trace left open); the steady regime of ``train/``
+        belongs to this trainer's graphs, so it is cleared."""
+        if self.watchdog is not None:
+            self.watchdog.clear_steady("train/")
+        if self.telemetry is not None:
+            self.telemetry.close()
         self.pool.close()
 

@@ -30,7 +30,14 @@ smoothing noise ``target_noise``) override the config's scalars, the
 rates through :func:`~..sac.algorithm.dynamic_lr_step`. The TD3
 population (:class:`~..sac.population.PopulationTD3`) is this update
 over member-stacked models: :mod:`.losses` gives it ``(P,)`` losses, and
-the gradient is taken of their sum. ``diagnostics != "off"`` raises.
+the gradient is taken of their sum.
+
+``diagnostics`` ``"light"``/``"full"`` adds the JAX learner's in-graph
+metrics (:func:`~..sac.algorithm._shared_diagnostics`, the gradient
+norms and the update ratios). On an update whose policy step is
+skipped they report the CANDIDATE step, as JAX's do (the applied one is
+zero by the select). They only read, so the parameters after a burst
+are bitwise those of ``"off"``.
 """
 
 from __future__ import annotations
@@ -42,12 +49,14 @@ import torch
 from torch import nn
 
 from torch_actor_critic_tpu_torch.core.types import Batch, TrainState
+from torch_actor_critic_tpu_torch.diagnostics import ingraph as diag
 from torch_actor_critic_tpu_torch.ops.augment import augment_batch
 from torch_actor_critic_tpu_torch.ops.polyak import polyak_select_, select_
 from torch_actor_critic_tpu_torch.sac.algorithm import (
     Learner,
     Metrics,
     _set_grads,
+    _shared_diagnostics,
     dynamic_lr_step,
     make_adam,
 )
@@ -136,15 +145,24 @@ class TD3(Learner):
 
         # --- critic step (every update) ---
         hp = state.hyperparams or {}
+        diagnose = cfg.diagnostics != "off"
+        dm: Metrics = {}
         q_params = list(state.critic.parameters())
         loss_q, q_aux = losses.critic_loss(
             state.critic, target_actor=state.target_actor,
             target_critic=state.target_critic, batch=batch, act_limit=state.actor.act_limit,
             target_noise=hp.get("target_noise", cfg.target_noise), noise_clip=cfg.noise_clip,
-            gamma=cfg.gamma, reward_scale=cfg.reward_scale, eps=eps_q,
+            gamma=cfg.gamma, reward_scale=cfg.reward_scale, eps=eps_q, diagnostics=diagnose,
         )
-        _set_grads(q_params, torch.autograd.grad(loss_q.sum(), q_params))
+        diag_q, diag_backup = q_aux.pop("diag_q", None), q_aux.pop("diag_backup", None)
+        q_grads = torch.autograd.grad(loss_q.sum(), q_params)
+        if diagnose:
+            dm["diag/grad_norm_q"] = diag.global_norm(q_grads)
+            q_before = diag.snapshot(q_params)
+        _set_grads(q_params, q_grads)
         dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
+        if diagnose:
+            dm["diag/update_ratio_q"] = diag.update_ratio(q_params, q_before)
 
         # --- candidate actor step, on the updated critic (frozen) ---
         do_pi = (state.device_step + 1) % cfg.policy_delay == 0
@@ -155,11 +173,20 @@ class TD3(Learner):
             torch._foreach_copy_(before, held)
         state.critic.requires_grad_(False)
         try:
-            loss_pi, pi_aux = losses.actor_loss(state.actor, critic=state.critic, batch=batch)
-            _set_grads(pi_params, torch.autograd.grad(loss_pi.sum(), pi_params))
+            loss_pi, pi_aux = losses.actor_loss(state.actor, critic=state.critic, batch=batch,
+                                                diagnostics=diagnose)
+            pi_grads = torch.autograd.grad(loss_pi.sum(), pi_params)
         finally:
             state.critic.requires_grad_(True)
+        diag_pi = pi_aux.pop("diag_pi", None)
+        if diagnose:
+            dm["diag/grad_norm_pi"] = diag.global_norm(pi_grads)
+        _set_grads(pi_params, pi_grads)
         dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))
+        if diagnose:
+            # The candidate step's ratio, read before the select, against
+            # the select's own copies of the parameters.
+            dm["diag/update_ratio_pi"] = diag.update_ratio(pi_params, before[:len(pi_params)])
 
         # --- the select, then both targets under it ---
         select_(do_pi, held, before, out=held)
@@ -170,4 +197,8 @@ class TD3(Learner):
         state.device_step.add_(1)
         state.step += 1
         metrics = {"loss_q": loss_q.detach(), "loss_pi": loss_pi.detach(), **q_aux, **pi_aux}
+        if diagnose:
+            metrics.update(dm)
+            metrics.update(_shared_diagnostics(cfg, loss_q, loss_pi, diag_q, diag_backup,
+                                               diag_pi, state.actor.act_limit))
         return state, metrics

@@ -35,6 +35,7 @@ def critic_loss(
     reward_scale: float,
     eps: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    diagnostics: bool = False,
 ) -> t.Tuple[torch.Tensor, t.Dict[str, torch.Tensor]]:
     """Twin-critic Bellman MSE with target-policy smoothing:
     ``a' = clip(pi_targ(s') + clip(target_noise * act_limit * eps,
@@ -42,7 +43,9 @@ def critic_loss(
     + gamma * (1 - done) * min_i Q_targ_i(s', a')``, ``loss = sum_i
     mean((Q_i(s, a) - backup)^2)``. ``eps`` (standard normal, the
     action's shape) or a draw from ``generator``. A ``(P,)``
-    ``target_noise`` scales member ``i``'s noise by its own value."""
+    ``target_noise`` scales member ``i``'s noise by its own value.
+    ``diagnostics`` adds the detached Q surface and the backup under
+    ``diag_q``/``diag_backup`` (the caller pops them)."""
     with torch.no_grad():
         next_action, _ = target_actor(
             batch.next_states, deterministic=True, with_logprob=False
@@ -66,6 +69,9 @@ def critic_loss(
     q = critic(batch.states, batch.actions)  # (..., num_qs, B)
     loss = ((q - backup.unsqueeze(-2)) ** 2).mean(dim=-1).sum(dim=-1)
     aux = {"q_mean": q.detach().mean(dim=(-2, -1)), "backup_mean": backup.mean(dim=-1)}
+    if diagnostics:
+        aux["diag_q"] = q.detach()
+        aux["diag_backup"] = backup
     return loss, aux
 
 
@@ -74,12 +80,17 @@ def actor_loss(
     *,
     critic: nn.Module,
     batch: Batch,
+    diagnostics: bool = False,
 ) -> t.Tuple[torch.Tensor, t.Dict[str, torch.Tensor]]:
     """Deterministic policy gradient loss ``-mean(Q_1(s, pi(s)))``: the
     FIRST critic head, not the min (the twin debiases the backup, not the
     policy objective). The caller differentiates with respect to the
-    actor's parameters only."""
+    actor's parameters only. ``diagnostics`` adds the detached policy
+    actions under ``diag_pi``."""
     pi, _ = actor(batch.states, deterministic=True, with_logprob=False)
     q_pi = critic(batch.states, pi).select(-2, 0)  # (..., B)
     loss = -q_pi.mean(dim=-1)
-    return loss, {"q_pi_mean": q_pi.detach().mean(dim=-1)}
+    aux = {"q_pi_mean": q_pi.detach().mean(dim=-1)}
+    if diagnostics:
+        aux["diag_pi"] = pi.detach()
+    return loss, aux

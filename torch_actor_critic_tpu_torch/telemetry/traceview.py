@@ -2,8 +2,11 @@
 
 A copy of the JAX package's ``telemetry/traceview.py``, which imports
 no JAX. The port's serving CLI writes request spans and router hops
-with it (``--trace-export``); the training and compile-event lanes
-wait for the port's recorder and watchdog.
+with it (``--trace-export``); the train CLI's ``--trace-export`` writes
+the training lane from the recorder's span ring (:func:`training_events`)
+and the compile lane from the watchdog's log (:func:`compile_events`:
+the port's CUDA-graph captures and kernel builds, where JAX's are XLA
+compiles).
 
 The phase aggregates answer "where did the epoch go"; this module
 answers "show me" — one ``trace_event``-format JSON timeline merging:
@@ -16,12 +19,12 @@ answers "show me" — one ``trace_event``-format JSON timeline merging:
   forward → respond per request, under its ``X-Request-Id``, so a
   slow (or shed) response can be correlated with exactly what the
   dispatcher and engine were doing;
-- **XLA compile events** from the recompilation watchdog's bounded
-  ring — a compile stall sits ON the same timeline as the request
-  that paid it.
+- **compile events** from the watchdog's bounded ring (the port's
+  CUDA-graph captures and kernel builds) — a stall sits ON the same
+  timeline as the step or request that paid it.
 
 Load the output at ``chrome://tracing`` or https://ui.perfetto.dev.
-``--trace-export PATH`` on the serving CLI writes it at exit.
+``--trace-export PATH`` on the train and serving CLIs writes it at exit.
 
 Timestamps: span sources use ``time.perf_counter`` (monotonic), the
 watchdog uses ``time.time``; both are mapped onto the wall clock via

@@ -41,6 +41,14 @@
     python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
         --population 4 --parallel-envs true --actor-param-lag true
 
+    # the observability plane (the solo trainers: host, or --on-device true
+    # at population 1): phase spans, memory watermarks and cost events in
+    # <run>/telemetry.jsonl, in-graph diagnostics, a device trace of epoch 1
+    # under <run>/trace/, and a Perfetto timeline at exit
+    python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
+        --history-len 16 --telemetry true --diagnostics full \
+        --profile-epochs 1:2 --trace-export trace.json
+
 Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
 true``, ...), built by the JAX CLI's loop. ``--run <id>`` takes the
 config, environment and seed from the run's stored params (the flags
@@ -78,8 +86,26 @@ trainer (one env each; per-member metrics ``reward_m0``, ...;
 JAX CLI does; ``--pbt-every`` there raises ``ValueError``, as in JAX.
 The scenario envs and ``--devices`` > 1 raise ``NotImplementedError``.
 
-Not ported: ``--devices`` > 1, ``--fsdp``, the profile and trace flags,
-``--render``.
+``--telemetry true`` (implied by ``--profile-epochs`` and
+``--trace-export``) streams the trainer's telemetry to
+``<run>/telemetry.jsonl``: a ``run_start`` line; per epoch an ``epoch``
+event (the eight phases' seconds, counts and maxima, the host/device/
+input attribution, the card's memory watermarks; on the fused loop the
+epoch's launch and read as ``burst_dispatch`` and ``drain``), a
+``cost`` event (the update burst's — or fused epoch's — counted FLOPs
+and bytes, achieved rate and MFU against the card's peak) and, with
+``--diagnostics light|full``, a ``diagnostics`` event (the epoch's
+reduced in-graph metrics; ``full`` adds the |TD| histogram);
+``early_warning``, ``recompile_anomaly``, ``rollback`` and
+``preempted`` as they happen. ``--profile-epochs A:B`` writes a
+``torch.profiler`` Chrome trace of epochs ``[A, B)`` to
+``<run>/trace/``; ``--profile DIR`` one of the whole run to
+``DIR/trace.json``; ``--trace-export PATH`` a Perfetto timeline of the
+recorded phase spans and the watchdog's captures and builds at exit.
+A population refuses ``--telemetry``, ``--diagnostics``,
+``--profile-epochs`` and ``--trace-export`` (ROADMAP queue 1 item 9).
+
+Not ported: ``--devices`` > 1, ``--fsdp``, ``--render``.
 """
 
 from __future__ import annotations
@@ -122,6 +148,22 @@ def parse_arguments(argv=None) -> argparse.Namespace:
         help="Leave the replay ring out of the checkpoints",
     )
     parser.add_argument("--runs-root", default="runs", help="Tracking root directory")
+    parser.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="Write a torch.profiler Chrome trace of the whole run to DIR/trace.json "
+        "(profile short runs: --epochs 2 --steps-per-epoch 500)",
+    )
+    parser.add_argument(
+        "--profile-epochs", metavar="A:B", default=None,
+        help="Trace the half-open epoch window A:B into <run_dir>/trace (a "
+        "torch.profiler Chrome trace); implies --telemetry true",
+    )
+    parser.add_argument(
+        "--trace-export", metavar="PATH", default=None,
+        help="Write a Perfetto (chrome://tracing) timeline to PATH at exit: every "
+        "recorded training phase span and the watchdog's graph captures and kernel "
+        "builds; implies --telemetry true",
+    )
     parser.add_argument(
         "--device", default=None,
         help="cuda (default; fails without a card) or cpu",
@@ -206,6 +248,58 @@ def run_setup(args: argparse.Namespace):
     return config, env_name, seed, tracker, checkpointer
 
 
+def observability(args: argparse.Namespace, config) -> dict:
+    """The trainer's keyword arguments for ``--profile-epochs`` and
+    ``--trace-export`` (each implies ``--telemetry true``: the trainer
+    builds its recorder with ``TelemetryRecorder.for_run``). A
+    population raises ``NotImplementedError`` (ROADMAP queue 1 item 9)."""
+    from torch_actor_critic_tpu_torch.telemetry.profiler import parse_profile_epochs
+
+    window = parse_profile_epochs(getattr(args, "profile_epochs", None))
+    trace_export = getattr(args, "trace_export", None)
+    if not (config.telemetry or window or trace_export):
+        return {}
+    if config.population > 1:
+        raise NotImplementedError(
+            "--telemetry/--profile-epochs/--trace-export with a population: a population's "
+            "telemetry is not ported yet (ROADMAP queue 1 item 9)")
+    return {"profile_epochs": window, "trace_export": trace_export}
+
+
+def raise_trace_buffer(args: argparse.Namespace) -> None:
+    """For a profiled run on the card (``--profile``, ``--profile-epochs``),
+    Kineto's device buffer raised (``trace_buffers``) once, before the
+    process's first trace, unless the process names a Kineto config."""
+    import os
+
+    import torch
+
+    from torch_actor_critic_tpu_torch.telemetry.profiler import trace_buffers
+
+    if not (args.profile or args.profile_epochs) or "KINETO_CONFIG" in os.environ:
+        return
+    if torch.device(args.device or "cuda").type == "cuda":
+        trace_buffers()
+
+
+def profiled(args: argparse.Namespace, fn):
+    """``fn()``, under a whole-run ``torch.profiler`` trace written to
+    ``DIR/trace.json`` with ``--profile DIR``."""
+    if getattr(args, "profile", None) is None:
+        return fn()
+    import os
+
+    from torch_actor_critic_tpu_torch.telemetry.profiler import start_profile, stop_profile
+
+    device = args.device or "cuda"
+    prof = start_profile(device)
+    try:
+        return fn()
+    finally:
+        path = stop_profile(prof, os.path.join(args.profile, "trace.json"), device)
+        logger.info("profiler trace written to %s", path)
+
+
 def build_trainer(args: argparse.Namespace, preemption=None, setup=None):
     """Tracker, checkpointer and :class:`Trainer` from parsed CLI args —
     the path :func:`main` trains, shared with smoke scripts. With
@@ -220,7 +314,7 @@ def build_trainer(args: argparse.Namespace, preemption=None, setup=None):
         env_name, config,
         tracker=tracker if args.logging else None,
         checkpointer=checkpointer,
-        seed=seed, device=args.device, preemption=preemption,
+        seed=seed, device=args.device, preemption=preemption, **observability(args, config),
     )
     if args.run is not None and trainer.checkpointer.latest_epoch() is not None:
         start = trainer.restore()
@@ -248,11 +342,12 @@ def train_on_device_cli(args: argparse.Namespace, setup) -> dict:
     config, env_name, seed, tracker, checkpointer = setup
     logger.info("on-device training: %s (run %s, population %d)", env_name, tracker.run_id,
                 config.population)
+    kwargs = observability(args, config)
     train_fn = train_population_on_device if config.population > 1 else train_on_device
-    metrics = train_fn(
+    metrics = profiled(args, lambda: train_fn(
         env_name, config, tracker=tracker if args.logging else None,
-        checkpointer=checkpointer, seed=seed, device=args.device, on_epoch=report,
-    )
+        checkpointer=checkpointer, seed=seed, device=args.device, on_epoch=report, **kwargs,
+    ))
     print(json.dumps({
         "run": tracker.run_id, "checkpoint_dir": str(checkpointer.directory),
         "final": metrics, "eval": None,
@@ -268,6 +363,7 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO)
     args = parse_arguments(argv)
+    raise_trace_buffer(args)
     # --on-device, or the stored config of the --run it resumes
     setup = run_setup(args)
     if setup[0].on_device:
@@ -279,7 +375,7 @@ def main(argv=None) -> dict:
             "training %s on %s (run %s)", trainer.env_name, trainer.device, tracker.run_id
         )
         try:
-            metrics = trainer.train(on_epoch=report)
+            metrics = profiled(args, lambda: trainer.train(on_epoch=report))
             evaluation = (
                 trainer.evaluate(args.eval_episodes, deterministic=True,
                                  seed=trainer.seed + 12345)
