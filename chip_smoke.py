@@ -259,6 +259,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1085,16 +1086,17 @@ def _serve_traced(kernels, args, drive, what: str) -> tuple:
 
 
 def _check_served_launches(what, engine, layers, wrapped, device, forwards, want_forwards):
-    """Each capture: one eager warm-up forward and the recorded one
-    through the wrappers; on the device the warm-up, then one replay per
-    warmed pair and per served forward: L K2 each."""
-    n_pairs = 2 * len(engine.buckets)
-    check(wrapped == 2 * layers * n_pairs,
-          f"{what}: warm-up K2 wrapper launches {wrapped} != {2 * layers * n_pairs}")
+    """Warm-up counts each bucket's forward once, eagerly, for the cost
+    registry; each capture then runs one eager warm-up forward and the
+    recorded one through the wrappers. On the device: those, then one
+    replay per warmed pair and per served forward: L K2 each."""
+    n_pairs, counted = 2 * len(engine.buckets), len(engine.buckets)
+    check(wrapped == layers * (2 * n_pairs + counted),
+          f"{what}: warm-up K2 wrapper launches {wrapped} != {layers * (2 * n_pairs + counted)}")
     check(forwards == want_forwards, f"{what}: {forwards} forwards, expected {want_forwards}")
-    check(device == layers * (2 * n_pairs + forwards),
-          f"{what}: {device} K2 launches traced over {n_pairs} captures and {forwards} "
-          f"served forwards, expected exactly {layers} a forward")
+    check(device == layers * (2 * n_pairs + counted + forwards),
+          f"{what}: {device} K2 launches traced over {n_pairs} captures, {counted} counted "
+          f"forwards and {forwards} served forwards, expected exactly {layers} a forward")
 
 
 def _graphs_vs_eager(engine, params, rng) -> dict:
@@ -1232,7 +1234,7 @@ def _tiers(kernels, attn, ckpt, config, actor, seed, rng, f32_actions, obs64, sm
             f32_bytes = sum(v.numel() * v.element_size() for v in actor.state_dict().values())
             row = {"precision": precision, "placed_bytes": placed, "f32_bytes": f32_bytes,
                    "launches": device, "forwards_traced": forwards,
-                   "k2_per_forward_traced": (device - layers * 2 * 2 * len(engine.buckets))
+                   "k2_per_forward_traced": (device - layers * 5 * len(engine.buckets))
                    / forwards, "captures": snap["compiles_total"]}
             if precision == "bf16":
                 gap = float(np.abs(got - f32_actions).max())
@@ -1315,23 +1317,83 @@ def _visual_run(seed, rng, root) -> dict:
         server.registry.close()
 
 
-def _fleet(ckpt, config, seed, rng) -> dict:
-    """``serve --fleet 2`` on the one card: routed requests, a rolling
-    reload under traffic, the router's /metrics totals against the
-    workers' own, a worker killed under traffic with no request lost,
-    and SIGTERM rolling the fleet down with exit 0."""
+# The fleet's admission bound, its batcher's group hold and the size of
+# a burst against them: four steady clients can never overflow a
+# worker's queue of 4; a burst of 96 concurrent requests does, as the
+# "group" batcher holds queued requests up to 20 ms hoping to fill a
+# bucket (their 429s are the shed-rate signal). In the continuous mode
+# the card drained 91 such bursts with no queue past 4.
+FLEET_QUEUE, FLEET_HOLD_MS, FLEET_BURST = 4, 20, 96
+
+
+def _get(url: str) -> dict:
+    return json.loads(urllib.request.urlopen(url, timeout=60).read())
+
+
+def _wait(pred, timeout: float, what: str) -> float:
+    """Seconds until ``pred()`` holds (polled every 0.1 s); fails the
+    smoke past ``timeout``."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout, f"fleet: timed out waiting for {what}")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def _child_pids(pid: int) -> list:
+    """The live children of ``pid`` (read from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        out.append(int(entry))
+            except (OSError, ValueError, IndexError):
+                pass
+    return out
+
+
+def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
+    """``serve --fleet 2 --obs --slo-config R --warm-pool 1 --elastic on``
+    on the one card: routed requests, a rolling reload under traffic, the
+    router's /metrics totals against the workers' own; then bursts that
+    overflow ``--queue-capacity`` until the ``shed_rate_ceiling`` rule
+    (delta mode) breaches and the controller draws the warm spare (2 -> 3
+    replicas), quiet windows that recover it and drain the newest worker
+    (3 -> 2), steady clients losing nothing; each worker's ``xla`` (12
+    captures, none live) and ``costs`` (MFU in (0, 1] against the card's
+    f32 peak), the router's ``fleet`` section; a worker killed under
+    traffic with no request lost; SIGTERM rolling the fleet down with
+    exit 0 and no process left. The batcher holds a group up to
+    FLEET_HOLD_MS (``--batch-mode group``), so a burst overflows the
+    queue on the card too."""
     import signal
     import threading
 
     from torch_actor_critic_tpu_torch.models import build_actor
+    from torch_actor_critic_tpu_torch.telemetry.costmodel import card_peaks
     from torch_actor_critic_tpu_torch.utils.checkpoint import save_actor
 
     here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="tac_chip_fleet_")
+    rules, trace = os.path.join(tmp, "slo.json"), os.path.join(tmp, "trace.json")
+    with open(rules, "w") as f:
+        json.dump([{"name": "shed_rate_ceiling", "path": "router.sheds_total", "op": "max",
+                    "threshold": 0, "mode": "delta", "breach_windows": 1,
+                    "recover_windows": 2}], f)
     ready: dict = {}
+    children: list = []
+    stop = threading.Event()
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch_actor_critic_tpu_torch.serve", "--ckpt-dir", ckpt,
          "--obs-dim", "3", "--act-dim", "1", "--act-limit", "2.0", "--port", "0",
-         "--poll-interval", "0", "--fleet", "2", "--router-poll", "0.2"],
+         "--poll-interval", "0", "--fleet", "2", "--router-poll", "0.2",
+         "--queue-capacity", str(FLEET_QUEUE), "--batch-mode", "group",
+         "--max-wait-ms", str(FLEET_HOLD_MS), "--obs", "--obs-interval", "0.5",
+         "--slo-config", rules, "--warm-pool", "1", "--elastic", "on",
+         "--elastic-min", "2", "--elastic-max", "3", "--elastic-out-cooldown", "1",
+         "--elastic-in-cooldown", "2", "--elastic-in-windows", "2", "--trace-export", trace],
         cwd=here, stdout=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=here),
     )
@@ -1340,31 +1402,51 @@ def _fleet(ckpt, config, seed, rng) -> dict:
         ready = json.loads(proc.stdout.readline())
         up_s = time.perf_counter() - t0
         router = ready["router"]
+        check(ready["elastic"] == "on" and ready["obs"], f"fleet: startup line {ready}")
         body = {"obs": rng.standard_normal((8, 16, 3)).astype("float32").tolist()}
-        errors, answered, stop = [], [0], threading.Event()
+        errors, answered = [], [0]
+        retried, sheds = [0], [0]
 
-        def traffic(n=None):
+        def traffic(n=None, retry_429=False):
             done = 0
             while (n is None and not stop.is_set()) or (n is not None and done < n):
                 try:
                     out = post(router + "/act", body)
                     check(len(out["action"]) == 8, "fleet: wrong answer shape")
                     answered[0] += 1
+                except urllib.error.HTTPError as e:
+                    # A 429 rejects before acceptance; the client retries.
+                    if retry_429 and e.code == 429:
+                        retried[0] += 1
+                    else:
+                        errors.append(repr(e)[:200])
                 except Exception as e:  # noqa: BLE001 — counted, checked below
                     errors.append(repr(e)[:200])
                 done += 1
 
-        herd = [threading.Thread(target=traffic, args=(16,)) for _ in range(4)]
-        for th in herd:
-            th.start()
-        for th in herd:
+        def burst_one():
+            try:
+                post(router + "/act", body)
+            except urllib.error.HTTPError as e:
+                if e.code == 429:
+                    sheds[0] += 1
+                else:
+                    errors.append(f"burst: {e!r}"[:200])
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"burst: {e!r}"[:200])
+
+        def run_herd(threads):
+            for th in threads:
+                th.daemon = True  # a failed check never waits on a client
+                th.start()
+            return threads
+
+        for th in run_herd([threading.Thread(target=traffic, args=(16,)) for _ in range(4)]):
             th.join(timeout=120)
         check(answered[0] == 64 and not errors, f"fleet: 64 routed, {answered[0]} answered, {errors[:3]}")
         save_actor(ckpt, 3, build_actor(config, (16, 3), 1, 2.0,
                                         generator=torch.Generator().manual_seed(seed + 3)), config)
-        herd = [threading.Thread(target=traffic) for _ in range(2)]
-        for th in herd:
-            th.start()
+        herd = run_herd([threading.Thread(target=traffic) for _ in range(2)])
         rolled = post(router + "/reload", {})["reload"]
         time.sleep(0.5)
         stop.set()
@@ -1375,17 +1457,82 @@ def _fleet(ckpt, config, seed, rng) -> dict:
             s["reload"]["default"]["epoch"] == 3 for s in rolled.values()),
             f"rolling reload: {rolled}")
         check(not errors, f"fleet: requests lost in the rolling reload: {errors[:3]}")
-        agg = json.loads(urllib.request.urlopen(router + "/metrics", timeout=60).read())
-        per = [json.loads(urllib.request.urlopen(a + "/metrics", timeout=60).read())
-               for a in ready["workers"].values()]
+        agg = _get(router + "/metrics")
+        per = [_get(a + "/metrics") for a in ready["workers"].values()]
         for key in ("responses_total", "requests_total", "batches_total"):
             check(agg[key] == sum(p[key] for p in per),
                   f"fleet /metrics {key}: {agg[key]} != {[p[key] for p in per]}")
+
+        # Elastic: the spare (booting since the startup line) ready, then
+        # bursts until the shed-rate breach scales out, then quiet.
+        _wait(lambda: _get(router + "/metrics")["fleet"]["warm_pool"]["ready"] == 1, 180,
+              "the warm spare")
+        pool = _get(router + "/metrics")["fleet"]["warm_pool"]
+        spare_s = time.perf_counter() - pool["last_refill_age_s"] - t0 - up_s
+
+        def elastic():
+            return _get(router + "/metrics")["fleet"]["elastic"]
+
+        stop.clear()
+        herd = run_herd([threading.Thread(target=traffic, kwargs={"retry_429": True})
+                         for _ in range(2)])
+        bursts, t_burst = 0, time.perf_counter()
+        while elastic()["scale_out_total"] == 0:
+            check(time.perf_counter() - t_burst < 60, f"fleet: no scale-out after {bursts} "
+                  f"bursts ({sheds[0]} sheds)")
+            t_last = time.perf_counter()
+            for th in run_herd([threading.Thread(target=burst_one)
+                                for _ in range(FLEET_BURST)]):
+                th.join(timeout=120)
+            bursts += 1
+            time.sleep(0.3)
+        burst_to_out_s = time.perf_counter() - t_last
+        quiet_to_in_s = _wait(lambda: elastic()["scale_in_total"] == 1, 60, "the scale-in")
+        removed_s = _wait(lambda: len(_get(router + "/metrics")["router"]["workers"]) == 2, 90,
+                          "the drained worker's removal")
+        stop.set()
+        for th in herd:
+            th.join(timeout=120)
+        check(not errors, f"fleet: requests lost through the scale-out/in: {errors[:3]}")
+        check(sheds[0] > 0, "fleet: the bursts shed nothing")
+        obs = _get(ready["obs"] + "/metrics")
+        rule = obs["slo"]["rules"]["shed_rate_ceiling"]
+        check(rule["breaches_total"] >= 1 and rule["recoveries_total"] >= 1,
+              f"fleet: shed_rate_ceiling {rule}")
+
+        # Each worker's xla and costs; the router's fleet section.
+        peaks = card_peaks(torch.cuda.get_device_name(0))
+        view = _get(router + "/metrics")
+        workers = {n: w["url"] for n, w in view["router"]["workers"].items()}
+        check(set(workers) == {"w0", "w1"}, f"fleet: workers after scale-in {workers}")
+        costs = {}
+        for name, url in workers.items():
+            snap = _get(url + "/metrics")
+            xla = snap["xla"]
+            check(xla["captures_total"] == 12 and xla["warmup_captures"] == 12
+                  and xla["live_captures"] == 0 and xla["post_steady_captures"] == 0,
+                  f"fleet {name} xla: {xla}")
+            check(bool(snap["costs"]), f"fleet {name}: no bucket in costs")
+            for bucket, c in snap["costs"].items():
+                check(c["flops_per_call"] > 0 and c["bytes_per_call"] > 0
+                      and 0 < c["mfu"] <= 1 and c["peak_flops"] == peaks.f32
+                      and c["calls"] == snap["bucket_forward"][bucket]["calls"],
+                      f"fleet {name} costs {bucket}: {c}")
+            costs[name] = {b: {k: c[k] for k in ("flops_per_call", "bytes_per_call", "calls",
+                                                 "duration_s", "mfu", "hbm_util", "bound")}
+                           for b, c in snap["costs"].items()}
+        fleet = view["fleet"]
+        check(fleet["scaler"]["spawned_total"] == 1 and fleet["scaler"]["drained_total"] == 1
+              and fleet["elastic"]["scale_out_total"] == 1
+              and fleet["elastic"]["scale_in_total"] == 1 and fleet["elastic"]["replicas"] == 2
+              and fleet["warm_pool"]["drawn"] == 1, f"fleet section: {fleet}")
+
+        # A worker killed under traffic: no request lost. The pool's next
+        # spare, booting since the scale-out's draw, replaces it later
+        # (the row records whether it had by the teardown).
         before_kill = answered[0]
         stop.clear()
-        herd = [threading.Thread(target=traffic) for _ in range(3)]
-        for th in herd:
-            th.start()
+        herd = run_herd([threading.Thread(target=traffic) for _ in range(3)])
         time.sleep(0.3)
         os.kill(ready["pids"][0], signal.SIGKILL)
         time.sleep(1.0)
@@ -1393,28 +1540,57 @@ def _fleet(ckpt, config, seed, rng) -> dict:
         for th in herd:
             th.join(timeout=120)
         check(not errors, f"fleet: requests lost when a worker died: {errors[:3]}")
-        health = json.loads(urllib.request.urlopen(router + "/healthz", timeout=60).read())
-        check(health["admitted_workers"] == 1, f"fleet: dead worker still admitted: {health}")
+        view = _get(router + "/metrics")["router"]
+        check(not view["workers"].get("w0", {}).get("admitted", False),
+              f"fleet: dead worker still admitted: {view}")
+        admitted_at_teardown = _get(router + "/metrics")["router"]["admitted_workers"]
+        children = _child_pids(proc.pid)
         proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=120)
+        rc = proc.wait(timeout=180)
         check(rc == 0, f"fleet: exit code {rc} after SIGTERM")
+        _wait(lambda: not [c for c in children if os.path.exists(f"/proc/{c}")], 60,
+              f"the fleet's processes {children} to exit")
+        with open(trace) as f:
+            lane = [e for e in json.load(f)["traceEvents"]
+                    if e.get("name", "").startswith("elastic ")]
+        spans = [e for e in lane if e["ph"] == "B"]
+        ends = [e for e in lane if e["ph"] == "E"]
+        moves = [(e["args"]["action"], e["args"]["replicas_before"], e["args"]["replicas_after"],
+                  e["args"]["outcome"]) for e in spans]
+        check(moves == [("scale_out", 2, 3, "spawned"), ("scale_in", 3, 2, "draining")],
+              f"fleet: elastic decisions {moves}")
         row = {"phase": "serve_fleet", "workers": 2, "startup_s": up_s,
+               "spare_ready_after_startup_s": spare_s,
                "answered_total": answered[0], "answered_after_kill": answered[0] - before_kill,
                "lost": len(errors), "rolling_reload": {k: v["readmitted"] for k, v in rolled.items()},
                "aggregate_responses_total": agg["responses_total"],
-               "workers_responses_total": [p["responses_total"] for p in per], "exit_code": rc}
+               "workers_responses_total": [p["responses_total"] for p in per],
+               "elastic": {"bursts": bursts, "burst_sheds": sheds[0],
+                           "steady_retried_429": retried[0],
+                           "burst_to_scale_out_seen_s": burst_to_out_s,
+                           "scale_out_to_scale_in_seen_s": quiet_to_in_s,
+                           "scale_in_to_removed_s": removed_s,
+                           "decision_ms": [(e["ts"] - b["ts"]) / 1e3
+                                           for b, e in zip(spans, ends)],
+                           "moves": moves, "rule": rule},
+               "worker_costs": costs, "fleet": fleet,
+               "admitted_at_teardown": admitted_at_teardown,
+               "processes": len(children), "exit_code": rc, "card": smi}
         emit(row)
         return row
     finally:
+        stop.set()
         if proc.poll() is None:
+            children = sorted(set(children) | set(_child_pids(proc.pid)))
             proc.kill()
             proc.wait(timeout=60)
-        for pid in ready.get("pids", []):
+        for pid in set(ready.get("pids", [])) | set(children):
             try:
                 os.kill(pid, signal.SIGKILL)
             except ProcessLookupError:
                 pass
         proc.stdout.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_serve(seed: int, kernels, attn, smi: str) -> dict:
@@ -1541,7 +1717,7 @@ def phase_serve(seed: int, kernels, attn, smi: str) -> dict:
         tiers = _tiers(kernels, attn, ckpt, config, served_actor, seed, rng, f32_actions,
                        obs64, smi)
         _visual_run(seed, rng, runs)
-        _fleet(ckpt, config, seed, rng)
+        _fleet(ckpt, config, seed, rng, smi)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(runs, ignore_errors=True)
@@ -4916,14 +5092,15 @@ def _chrome_kernels(path: str) -> dict:
 
 def _observed_run(seed: int, smi: str) -> tuple:
     """``train --telemetry true --diagnostics full --profile-epochs 1:2
-    --trace-export`` through ``train.main``: the sequence policy, 3 epochs
+    --trace-export --obs true`` through ``train.main``: the sequence policy, 3 epochs
     of OBS_STEPS steps, bursts of OBS_BURST updates. Checks the run's
     ``telemetry.jsonl`` (every epoch's eight phases and the card's memory
     watermarks, one cost event per update epoch with FLOPs > 0 and MFU in
     (0, 1], the |TD| histogram counting every update's batch and heads),
     the watchdog (the burst's one capture, none after epoch 1), the trace
-    of epoch 1 (exactly its K2-K4 launches) and the timeline (training
-    and compile lanes). Returns the row and epoch 1's traced launches."""
+    of epoch 1 (exactly its K2-K4 launches), the timeline (training
+    and compile lanes) and the obs series (:func:`_obs_series`). Returns
+    the row and epoch 1's traced launches."""
     from torch_actor_critic_tpu_torch import train as train_cli
     from torch_actor_critic_tpu_torch.telemetry import PHASES, get_cost_registry
     from torch_actor_critic_tpu_torch.telemetry.traceview import TRAIN_PID, XLA_PID
@@ -4937,6 +5114,7 @@ def _observed_run(seed: int, smi: str) -> tuple:
                         "--update-every", str(OBS_BURST),
                         "--telemetry", "true", "--diagnostics", "full",
                         "--profile-epochs", "1:2", "--trace-export", timeline,
+                        "--obs", "true", "--obs-interval-s", "0.5",
                         "--runs-root", runs, "--no-save-buffer", "--no-preemption-guard"])
         seconds = time.perf_counter() - t0
         (run_dir,) = [os.path.join(runs, "Default", d)
@@ -4983,7 +5161,8 @@ def _observed_run(seed: int, smi: str) -> tuple:
         check(update["kernels"] == {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
                                     "flash_bwd_dkv": 2 * layers},
               f"observability: the counted update saw {update['kernels']}")
-        row = {"seconds": seconds, "updates": updates, "td_abs_count": td,
+        obs = _obs_series(run_dir, metrics, events, seconds)
+        row = {"seconds": seconds, "obs": obs, "updates": updates, "td_abs_count": td,
                "watchdog_captures_by_epoch": captures, "epoch1_trace_launches": traced,
                "trace_bytes": os.path.getsize(trace), "timeline_lanes": lanes,
                "epoch_phases_s": [{k: v["total_s"] for k, v in e["phases"].items()}
@@ -4997,6 +5176,41 @@ def _observed_run(seed: int, smi: str) -> tuple:
         return row, dict(traced)
     finally:
         shutil.rmtree(runs, ignore_errors=True)
+
+
+def _obs_series(run_dir: str, metrics: list, events: list, seconds: float) -> dict:
+    """The run-wide obs plane of an observed run (``--obs true
+    --obs-interval-s 0.5``): ``obs.jsonl`` holds a row per scrape window
+    (every scrape the last epoch's ``obs/scrapes_total`` counted, and the
+    final one, with the ``learner`` source live in each; the gaps between
+    rows are reported), every epoch's metrics carry the ``obs/`` columns, and the
+    default ``mfu_floor`` rule's path and events are reported, not
+    checked: its path (``learner.metrics.cost/epoch_mfu``) is the fused
+    loop's column, as in the JAX package, and the host trainer's burst
+    reports ``cost/update_burst_mfu``."""
+    with open(os.path.join(run_dir, "obs.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    scraped = int(metrics[-1]["obs/scrapes_total"])
+    check(len(rows) > scraped >= 3 and all(
+        r["type"] == "obs" and r["sources"]["learner"]["live"] for r in rows),
+        f"observability: {len(rows)} obs rows for {scraped} scrapes by the last epoch")
+    cols = ("obs/scrapes_total", "obs/scrape_failed_total", "obs/sources_total",
+            "obs/sources_live", "obs/scrape_ms", "obs/slo_breaches_total", "obs/slo_active")
+    check(all(set(cols) <= set(m) and m["obs/sources_live"] == 1
+              and m["obs/scrape_failed_total"] == 0 for m in metrics),
+          f"observability: obs columns {[{k: m.get(k) for k in cols} for m in metrics]}")
+    seen = [r["learner"].get("metrics", {}) for r in rows]
+    slo = [e for e in events if e["type"] in ("slo_breach", "slo_recovered")]
+    gaps = np.diff([r["time"] for r in rows])
+    return {"rows": len(rows), "run_s": seconds,
+            "row_gap_s": {"median": float(np.median(gaps)), "max": float(gaps.max())},
+            "scrape_ms_max": max(r["sources"]["learner"]["last_scrape_ms"] for r in rows),
+            "columns_last_epoch": {k: metrics[-1][k] for k in cols},
+            "slo_events": [(e["type"], e.get("rule"), e.get("value")) for e in slo],
+            "mfu_floor": {
+                "fired": any(e.get("rule") == "mfu_floor" for e in slo),
+                "path_resolved_windows": sum("cost/epoch_mfu" in m for m in seen),
+                "update_burst_mfu_by_epoch": [m.get("cost/update_burst_mfu") for m in metrics]}}
 
 
 def _observed_fused_run(seed: int) -> tuple:

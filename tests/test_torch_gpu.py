@@ -2042,3 +2042,94 @@ def test_watchdog_flags_a_forced_recapture_in_steady_state(cuda):
         assert [a["source"] for a in snap["anomalies"]] == ["train/burst"]
     finally:
         wd.reset()
+
+
+# ------------------------------------------------ serving costs and captures
+
+
+@pytest.mark.gpu
+def test_warmed_engine_costs_read_the_card_peaks(cuda):
+    """A served server's ``/metrics`` ``costs``: the bucket with traffic
+    reports its warm-up-counted FLOPs and bytes (K2 twice, by formula),
+    ``calls`` equal to its forwards in ``bucket_forward``, and MFU in
+    (0, 1] against the card's f32 peak from ``card_peaks``."""
+    import json
+    import urllib.request
+
+    from torch_actor_critic_tpu_torch.serve import ModelRegistry, PolicyServer
+    from torch_actor_critic_tpu_torch.telemetry.costmodel import card_peaks, get_cost_registry
+
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    if peaks is None:
+        pytest.skip(f"no peak table row for {torch.cuda.get_device_name(0)}")
+    reg = ModelRegistry(device=cuda)
+    reg.register("default", _served_actor(0), ObsSpec((16, 3)),
+                 params=_served_actor(0).state_dict(), max_batch=64)
+    server = PolicyServer(reg, port=0, max_batch=64).start()
+    try:
+        body = json.dumps({"obs": _serve_obs(64, seed=1).tolist()}).encode()
+        for _ in range(5):
+            urllib.request.urlopen(urllib.request.Request(
+                server.address + "/act", data=body,
+                headers={"Content-Type": "application/json"}), timeout=60).read()
+        snap = json.loads(urllib.request.urlopen(server.address + "/metrics", timeout=60).read())
+    finally:
+        server.close()
+    cost = get_cost_registry().get("serve/forward[b64]")
+    assert cost["kernels"] == {"flash_fwd": SERVE_CFG.seq_num_layers}
+    entry = snap["costs"]["b64"]
+    assert entry["flops_per_call"] == cost["flops"] > 0
+    assert entry["bytes_per_call"] == cost["bytes_accessed"] > 0
+    assert entry["calls"] == snap["bucket_forward"]["b64"]["calls"] >= 5
+    assert entry["peak_flops"] == peaks.f32 and entry["peak_hbm_bw"] == peaks.hbm_bw
+    assert 0 < entry["mfu"] <= 1
+
+
+@pytest.mark.gpu
+def test_serving_captures_are_warmup_and_none_live_across_a_reload(cuda):
+    """The watchdog's ``xla`` view of a served slot: its 2·buckets graph
+    captures noted as warm-up under ``serve/forward[bN]``, none live, and
+    none added by served traffic or a hot reload."""
+    from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
+    from torch_actor_critic_tpu_torch.serve import ModelRegistry, PolicyServer
+
+    wd = get_watchdog().install()
+    wd.reset()
+    reg = ModelRegistry(device=cuda)
+    reg.register("default", _served_actor(0), ObsSpec((16, 3)),
+                 params=_served_actor(0).state_dict(), max_batch=64)
+    engine = reg.acquire()[0]
+    n = 2 * len(engine.buckets)
+    server = PolicyServer(reg, port=0, max_batch=64).start()
+    try:
+        server.client.act(_serve_obs(7, seed=2), timeout=60)
+        reg.swap("default", _served_actor(5).state_dict())
+        server.client.act(_serve_obs(64, seed=3), timeout=60)
+        snap = wd.snapshot()
+    finally:
+        server.close()
+    assert snap["captures_total"] == snap["warmup_captures"] == n
+    assert snap["live_captures"] == 0 and snap["post_steady_captures"] == 0
+    assert sum(v for k, v in snap["by_source"].items()
+               if k.startswith("serve/forward[b")) == n
+
+
+@pytest.mark.gpu
+def test_cost_count_at_warmup_leaves_the_captured_forward_bitwise(cuda):
+    """Two engines over the same weights, one warmed with the cost count
+    and one with it switched off: their captured forwards agree to the
+    bit at every bucket, deterministic and sampled from one state."""
+    params = _served_actor(0).state_dict()
+    counted = PolicyEngine(_served_actor(0), ObsSpec((16, 3)), max_batch=64, device=cuda)
+    plain = PolicyEngine(_served_actor(0), ObsSpec((16, 3)), max_batch=64, device=cuda)
+    plain.count_cost = lambda params, obs: None
+    pc, pp = counted.prepare_params(params), plain.prepare_params(params)
+    counted.warmup(pc)
+    plain.warmup(pp)
+    for bucket in counted.buckets:
+        obs = _serve_obs(bucket, seed=bucket)
+        np.testing.assert_array_equal(counted.act(pc, obs), plain.act(pp, obs))
+        gc_, gp = torch.Generator(device=cuda).manual_seed(bucket), \
+            torch.Generator(device=cuda).manual_seed(bucket)
+        np.testing.assert_array_equal(counted.act(pc, obs, gc_, deterministic=False),
+                                      plain.act(pp, obs, gp, deterministic=False))

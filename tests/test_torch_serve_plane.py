@@ -459,9 +459,18 @@ def test_cli_flags_parse_and_validate():
     with pytest.raises(SystemExit):
         check_ported(parse_arguments(["--submesh", "two"]))
     for flag, queue in ((["--log-transitions", "d"], 7), (["--warm-start", "auto"], 10),
-                        (["--obs"], 9), (["--elastic", "on"], 9), (["--warm-pool", "1"], 10)):
+                        (["--compile-cache", "d"], 10)):
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             check_ported(parse_arguments(flag))
+    # The obs plane, the warm pool and elastic serving are ported: with a
+    # fleet they parse and validate.
+    fleet = ["--ckpt-dir", "/tmp/x", "--obs-dim", "4", "--act-dim", "2", "--fleet", "2"]
+    for flag in (["--obs"], ["--warm-pool", "1"],
+                 ["--obs", "--warm-pool", "1", "--elastic", "on", "--slo-config", "r.json"]):
+        args = parse_arguments(fleet + flag)
+        assert check_ported(args) == (1, 1)
+    assert (args.obs, args.warm_pool, args.elastic, args.slo_config) == (True, 1, "on", "r.json")
+    assert (args.obs_interval, args.elastic_min, args.elastic_max) == (2.0, 1, 4)
 
 
 # ------------------------------------------------ engine-per-device fleet

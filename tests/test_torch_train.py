@@ -33,7 +33,12 @@ from torch_actor_critic_tpu_torch.envs.vec_env import make_env_pool
 from torch_actor_critic_tpu_torch.envs.wrappers import HistoryEnv, make_env
 from torch_actor_critic_tpu_torch.models import build_actor, build_models
 from torch_actor_critic_tpu_torch.resilience import TrainingDiverged
-from torch_actor_critic_tpu_torch.sac.trainer import NOT_PORTED, SOLO_FIELDS, Trainer
+from torch_actor_critic_tpu_torch.sac.trainer import (
+    NOT_PORTED,
+    OBS_FIELDS,
+    SOLO_FIELDS,
+    Trainer,
+)
 from torch_actor_critic_tpu_torch.serve import ModelRegistry
 from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer
 from torch_actor_critic_tpu_torch.utils.config import SACConfig
@@ -213,9 +218,9 @@ def test_trainer_without_updates_only_fills_the_buffer():
 ])
 def test_unported_config_fields_raise(field, value):
     assert field in NOT_PORTED
-    # The solo trainer runs telemetry and diagnostics; a population still
-    # refuses them (ROADMAP queue 1 item 9).
-    population = {"population": 2} if field in SOLO_FIELDS else {}
+    # The solo trainer runs telemetry and diagnostics, the solo host trainer
+    # the obs plane; a population still refuses them (ROADMAP queue 1 item 9).
+    population = {"population": 2} if field in SOLO_FIELDS + OBS_FIELDS else {}
     with pytest.raises(NotImplementedError, match=field):
         Trainer("PendulumNumpy-v1", _tiny_config(**{field: value}, **population), device="cpu")
 
@@ -277,3 +282,72 @@ def test_cli_without_device_needs_cuda(tmp_path):
     res = _cli("--environment", "PendulumNumpy-v1", "--epochs", "1",
                "--runs-root", str(tmp_path), timeout=120)
     assert res.returncode != 0 and "CUDA" in res.stderr
+
+
+def test_halfcheetah_schedule_matches_the_jax_trainer():
+    """The JAX trainer and the port's on gymnasium's HalfCheetah-v5 for
+    3000 env steps at PARITY.md's schedule (start = update_after = 1000,
+    update_every 50, max_ep_len 1000; small widths, which the schedule
+    does not read): the same count of uniform-random steps, gradient
+    bursts at the same env steps with the same update counts, and the
+    same ring ``done`` column, zero at the two truncations (rows 999 and
+    1999: a length cut keeps the bootstrap). Observations are not
+    compared: Threefry and Philox never draw the same actions."""
+    pytest.importorskip("mujoco")
+    from torch_actor_critic_tpu.parallel import make_mesh
+    from torch_actor_critic_tpu.sac.trainer import Trainer as JaxTrainer
+    from torch_actor_critic_tpu.utils.config import SACConfig as JaxConfig
+
+    sched = dict(epochs=3, steps_per_epoch=1000, start_steps=1000, update_after=1000,
+                 update_every=50, max_ep_len=1000, batch_size=16, hidden_sizes=(16, 16),
+                 buffer_size=4000, save_every=100)
+    runs = {}
+    for name, build in (
+            ("jax", lambda: JaxTrainer("HalfCheetah-v5", JaxConfig(**sched),
+                                       mesh=make_mesh(dp=1), seed=0)),
+            ("port", lambda: Trainer("HalfCheetah-v5", SACConfig(**sched), seed=0,
+                                     device="cpu"))):
+        tr = build()
+        seen = {"steps": 0, "random": 0, "bursts": []}
+        pool_step, sample = tr.pool.step, tr.pool.sample_actions
+
+        def step(actions, _f=pool_step, _s=seen):
+            _s["steps"] += 1
+            return _f(actions)
+
+        def random_actions(_f=sample, _s=seen):
+            _s["random"] += 1
+            return _f()
+
+        tr.pool.step, tr.pool.sample_actions = step, random_actions
+        if name == "jax":
+            burst = tr.dp.update_burst
+
+            def counted(state, buffer, chunk, n, _f=burst, _s=seen):
+                _s["bursts"].append((_s["steps"], int(n)))
+                return _f(state, buffer, chunk, n)
+
+            tr.dp.update_burst = counted
+        else:
+            burst = tr._burst
+
+            def counted(chunk, n, _f=burst, _s=seen):
+                _s["bursts"].append((_s["steps"], int(n)))
+                return _f(chunk, n)
+
+            tr._burst = counted
+        try:
+            tr.train()
+        finally:
+            tr.close()
+        seen["done"] = np.asarray(tr.buffer.data.done, np.float32).reshape(-1)[:3000]
+        seen["size"] = int(np.asarray(tr.buffer.size).reshape(-1)[0])
+        runs[name] = seen
+    jax_run, port_run = runs["jax"], runs["port"]
+    assert jax_run["steps"] == port_run["steps"] == 3000
+    assert jax_run["random"] == port_run["random"] == 1000
+    want = [(step, 50) for step in range(1050, 3001, 50)]
+    assert jax_run["bursts"] == port_run["bursts"] == want
+    assert jax_run["size"] == port_run["size"] == 3000
+    np.testing.assert_array_equal(port_run["done"], jax_run["done"])
+    assert port_run["done"][999] == port_run["done"][1999] == 0.0

@@ -56,9 +56,9 @@ def member_seed(seed: int, member: int) -> int:
 
 
 def refuse_population_observability(config) -> None:
-    """Raise ``NotImplementedError`` for a population with telemetry or
-    a diagnostics tier: the solo trainers port both, a population's wait
-    for ROADMAP queue 1 item 9."""
+    """Raise ``NotImplementedError`` for a population with telemetry, a
+    diagnostics tier or the run-wide obs plane: the solo trainers port
+    them, a population's wait for ROADMAP queue 1 item 9."""
     for name, value, default in (("telemetry", config.telemetry, False),
                                  ("diagnostics", config.diagnostics, "off")):
         if value != default:
@@ -66,6 +66,14 @@ def refuse_population_observability(config) -> None:
                 f"SACConfig.{name}={value!r} with a population: a population's telemetry "
                 "and diagnostics are not ported yet (ROADMAP queue 1 item 9); the solo "
                 "trainers (host and fused, population 1) run them")
+    for name, value, default in (("obs", config.obs, False),
+                                 ("obs_scrape", config.obs_scrape, ""),
+                                 ("slo_config", config.slo_config, "")):
+        if value != default:
+            raise NotImplementedError(
+                f"SACConfig.{name}={value!r} with a population: a population's run-wide "
+                "obs plane is not ported yet (ROADMAP queue 1 item 9); the solo host "
+                "trainer runs it")
 
 
 def make_population_learner(config, act_dim: int, members: int) -> Learner:

@@ -124,6 +124,17 @@ and kernel builds (``watchdog_captures``, ``watchdog_live_captures``,
 first update epoch, so a later capture is a ``recompile_anomaly`` event.
 With telemetry and diagnostics off none of this runs.
 
+The run-wide obs plane (JAX's ``obs``, ``obs_scrape``, ``slo_config``;
+the solo host trainer only): an
+:class:`~..obs.collector.ObsCollector`, started at :meth:`Trainer.train`
+and closed by :meth:`Trainer.close`, scrapes a ``learner`` source (the
+telemetry snapshot and the last epoch's numeric columns) and any
+``name=url`` extras every ``obs_interval_s`` into ``<run>/obs.jsonl``,
+evaluates the SLO rules (``slo_breach``/``slo_recovered`` events go to
+``telemetry.jsonl`` too) and mirrors its ``obs/`` columns into each
+epoch's metrics. A population and the fused loop refuse it (ROADMAP
+queue 1 item 9).
+
 Config fields this slice does not implement raise
 ``NotImplementedError`` naming the field when they are not at their
 defaults (:data:`NOT_PORTED`); ``pbt_every`` raises here (PBT runs over
@@ -223,6 +234,9 @@ POPULATION_FIELDS = ("population", "pbt_every")
 # What the solo trainers (the host trainer and the fused loop at
 # population 1) port of NOT_PORTED; a population refuses them.
 SOLO_FIELDS = ("telemetry", "diagnostics")
+# The run-wide obs plane: the solo host trainer ports it; a population
+# and the fused loop refuse it.
+OBS_FIELDS = ("obs", "obs_scrape", "slo_config")
 
 
 def check_ported(config: SACConfig, allow: t.Sequence[str] = ()) -> None:
@@ -235,8 +249,12 @@ def check_ported(config: SACConfig, allow: t.Sequence[str] = ()) -> None:
         value = getattr(config, name)
         if name in allow or value == getattr(defaults, name):
             continue
-        if name in SOLO_FIELDS:
+        if name in SOLO_FIELDS + OBS_FIELDS:
             refuse_population_observability(config)
+        if name in OBS_FIELDS:
+            raise NotImplementedError(
+                f"SACConfig.{name}={value!r} on the fused on-device loop: the run-wide obs "
+                "plane runs on the solo host trainer (ROADMAP queue 1 item 9)")
         if name == "pbt_every":
             raise NotImplementedError(
                 f"SACConfig.pbt_every={value!r}: PBT exploit/explore runs in-graph over the "
@@ -314,7 +332,8 @@ class Trainer:
     ):
         self.config = config or SACConfig()
         solo = self.config.population == 1
-        check_ported(self.config, allow=("population",) + (SOLO_FIELDS if solo else ()))
+        check_ported(self.config,
+                     allow=("population",) + (SOLO_FIELDS + OBS_FIELDS if solo else ()))
         if (profile_epochs or trace_export) and not solo:
             raise NotImplementedError(
                 "a profile window or trace export with a population: a population's "
@@ -432,6 +451,25 @@ class Trainer:
         else:
             self.monitor = self.td_hist = self.watchdog = None
         self._first_update_epoch: int | None = None
+        # The run-wide obs plane: built here, started at train() entry,
+        # None when off (no thread, no socket, no obs/ metric keys).
+        self.obs = None
+        self._obs_last_metrics: t.Dict[str, t.Any] = {}
+        if cfg.obs:
+            from torch_actor_critic_tpu_torch.obs import ObsCollector, load_rules
+
+            self.obs = ObsCollector(
+                interval_s=cfg.obs_interval_s,
+                run_dir=tracker.run_dir if tracker is not None and tracker.enabled else None,
+                port=cfg.obs_port,
+                rules=load_rules(cfg.slo_config) if cfg.slo_config else None,
+                telemetry=self.telemetry,
+                max_bytes=int(cfg.telemetry_max_mb * 1e6),
+            )
+            self.obs.add_source("learner", self._obs_learner_source)
+            for pair in filter(None, cfg.obs_scrape.split(",")):
+                name, _, url = pair.partition("=")
+                self.obs.add_source(name.strip(), url.strip())
 
     # ------------------------------------------------------------ helpers
 
@@ -638,6 +676,8 @@ class Trainer:
         # Loop-local alias: each phase mark is one `is not None` check when off.
         rec = self.telemetry
         diag_rows: t.List[Metrics] = []
+        if self.obs is not None:
+            self.obs.start()
 
         def take(m: Metrics | None) -> None:
             # A burst's losses (and, with diagnostics, its other metric
@@ -812,6 +852,12 @@ class Trainer:
                 last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
             if rec is not None:
                 rec.lap(PH_CKPT)
+            # The obs plane's flat summary rides this epoch's row, and the
+            # row goes back to the learner source (the paths SLO rules
+            # address as learner.metrics.<key>).
+            if self.obs is not None:
+                last_metrics.update(self.obs.metrics_columns())
+                self._obs_last_metrics = dict(last_metrics)
             if self.tracker is not None:
                 self.tracker.log_metrics(last_metrics, e)
             if on_epoch is not None:
@@ -855,6 +901,10 @@ class Trainer:
             t_epoch = time.time()
         if self.checkpointer is not None:
             self.checkpointer.wait()
+        # One final window while the run is alive: a run shorter than the
+        # scrape interval still ends with a row that saw its metrics.
+        if self.obs is not None:
+            self.obs.scrape_once()
         return last_metrics
 
     def _synchronize(self) -> None:
@@ -863,6 +913,18 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------ observability
+
+    def _obs_learner_source(self) -> dict:
+        """The learner plane's snapshot for the obs collector: the
+        telemetry snapshot and the numeric columns of the last logged
+        epoch (``learner.metrics.<key>`` to an SLO rule)."""
+        out: t.Dict[str, t.Any] = {}
+        if self.telemetry is not None:
+            out["telemetry"] = self.telemetry.snapshot()
+        if self._obs_last_metrics:
+            out["metrics"] = {k: v for k, v in self._obs_last_metrics.items()
+                              if isinstance(v, (int, float, bool))}
+        return out
 
     def _note_diagnostics(self, rec, last_metrics: dict, rows: t.List[dict], epoch: int) -> None:
         """The epoch's diagnostics (diagnostics tier on): the host rows
@@ -1031,6 +1093,14 @@ class Trainer:
         belongs to this trainer's graphs, so it is cleared."""
         if self.watchdog is not None:
             self.watchdog.clear_steady("train/")
+        if self.obs is not None:
+            # One final window (a run shorter than the interval still
+            # gets a row), then the run-exit SLO table.
+            if self.obs.scrapes_total == 0:
+                self.obs.scrape_once()
+            self.obs.close()
+            for line in self.obs.slo.report().splitlines():
+                logger.info("%s", line)
         if self.telemetry is not None:
             self.telemetry.close()
         self.pool.close()

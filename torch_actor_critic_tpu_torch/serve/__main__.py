@@ -29,15 +29,30 @@ every engine at that precision tier (:mod:`.sharded`); ``--submesh``
 takes only ``1x1``; ``--fleet N``
 spawns N worker processes on ephemeral ports and fronts them with the
 health-gated router (:mod:`.router`) on ``--port``; ``--trace-export
-PATH`` writes the request spans (or the router's hops) as a Perfetto
-trace at exit. Runs on the GPU unless ``--device cpu`` is given; the
-workers of ``--fleet`` share the card.
+PATH`` writes the request spans (or the router's hops, and the elastic
+decisions) as a Perfetto trace at exit. Runs on the GPU unless
+``--device cpu`` is given; the workers of ``--fleet`` share the card.
+
+With ``--fleet N``: ``--obs`` runs the run-wide observability plane
+(:mod:`~torch_actor_critic_tpu_torch.obs`: a collector thread scrapes
+the router's and every worker's ``/metrics`` every ``--obs-interval``
+seconds, merges them, evaluates the SLO rules of ``--slo-config`` (the
+JAX grammar; default :func:`~..obs.slo.default_rules`) and serves the
+merged view on ``--obs-port``); ``--warm-pool K`` keeps K warmed spare
+workers off-rotation (:class:`~..aot.WarmPool`), one of which replaces
+a worker that dies; ``--elastic on`` (needs both) scales the fleet
+between ``--elastic-min`` and ``--elastic-max`` workers
+(:class:`~..elastic.ElasticController` over a
+:class:`~..elastic.FleetScaler`): a breached scale-out rule draws a
+spare into rotation, ``--elastic-in-windows`` all-green windows drain
+the newest worker. The router's ``/metrics`` then carries a ``fleet``
+section (the pool's, the scaler's and the controller's counters). Off,
+each of them constructs nothing.
 
 Not ported, and refused with ``NotImplementedError`` naming their
 ROADMAP queue: sub-meshes larger than 1x1 (queue 6), the transition
-flywheel ``--log-transitions`` (queue 7), ``--obs``, ``--elastic``,
-``--slo-config`` (queue 9), ``--warm-start``, ``--compile-cache``,
-``--warm-pool`` (queue 10), and ``--sanitize``.
+flywheel ``--log-transitions`` (queue 7), ``--warm-start``,
+``--compile-cache`` (queue 10), and ``--sanitize``.
 """
 
 from __future__ import annotations
@@ -115,11 +130,40 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                           "health-gated fleet router on --port")
     flt.add_argument("--router-poll", type=float, default=1.0,
                      help="Fleet membership /healthz poll interval seconds")
-    flt.add_argument("--warm-pool", type=int, default=0, help="Not ported")
-    flt.add_argument("--obs", action="store_true", help="Not ported")
-    flt.add_argument("--slo-config", metavar="PATH", default=None, help="Not ported")
+    flt.add_argument("--warm-pool", type=int, default=0,
+                     help="Keep N warmed spare workers (booted, graphs "
+                          "captured) off-rotation behind the router; a dead "
+                          "worker is replaced by drawing a spare")
+    flt.add_argument("--obs", action="store_true",
+                     help="Run-wide observability plane: a collector thread "
+                          "scrapes the router and every worker's /metrics, "
+                          "merges them, evaluates SLO rules and serves the "
+                          "merged view on its own /metrics")
+    flt.add_argument("--obs-port", type=int, default=0,
+                     help="Port of the obs collector's endpoint (0 = "
+                          "ephemeral; printed in the fleet's startup JSON)")
+    flt.add_argument("--obs-interval", type=float, default=2.0,
+                     help="Obs collector scrape interval seconds")
+    flt.add_argument("--slo-config", metavar="PATH", default=None,
+                     help="JSON list of SLO rules for the obs collector "
+                          "(obs/slo.py grammar; default: the built-in rules)")
     flt.add_argument("--elastic", choices=("off", "on"), default="off",
-                     help="Not ported")
+                     help="SLO-driven autoscaling: a breached scale-out rule "
+                          "draws a warm spare into rotation; sustained green "
+                          "windows drain the newest worker. Needs --obs and "
+                          "--warm-pool >= 1")
+    flt.add_argument("--elastic-min", type=int, default=1,
+                     help="Elastic lower replica bound")
+    flt.add_argument("--elastic-max", type=int, default=4,
+                     help="Elastic upper replica bound (breaches past it are "
+                          "counted as bounded, not actuated)")
+    flt.add_argument("--elastic-out-cooldown", type=float, default=10.0,
+                     help="Per-rule scale-out cooldown seconds")
+    flt.add_argument("--elastic-in-cooldown", type=float, default=30.0,
+                     help="Scale-in cooldown seconds")
+    flt.add_argument("--elastic-in-windows", type=int, default=5,
+                     help="Consecutive all-green scrape windows before a "
+                          "scale-in is considered")
     ovl = p.add_argument_group("overload & degradation")
     ovl.add_argument("--queue-capacity", type=int, default=1024)
     ovl.add_argument("--breaker-threshold", type=int, default=5)
@@ -137,11 +181,16 @@ _NOT_PORTED = (
      "replay/diskstore.py)", 7),
     ("warm_start", None, "--warm-start (warm-start bundles)", 10),
     ("compile_cache", None, "--compile-cache", 10),
-    ("warm_pool", 0, "--warm-pool (pre-forked warm spares)", 10),
-    ("obs", False, "--obs (the run-wide observability plane)", 9),
-    ("slo_config", None, "--slo-config", 9),
-    ("elastic", "off", "--elastic (SLO-driven autoscaling)", 9),
     ("sanitize", "off", "--sanitize (the JAX transfer guard)", None),
+)
+
+# Flags that act on the fleet process only: with --fleet N the parent
+# owns them, and a worker's argv drops them (_worker_argv).
+_FLEET_FLAGS = (
+    "--fleet", "--port", "--router-poll", "--trace-export", "--warm-pool",
+    "--obs-port", "--obs-interval", "--slo-config", "--elastic",
+    "--elastic-min", "--elastic-max", "--elastic-out-cooldown",
+    "--elastic-in-cooldown", "--elastic-in-windows",
 )
 
 
@@ -161,6 +210,23 @@ def check_ported(args: argparse.Namespace) -> t.Tuple[int, int]:
         raise SystemExit(
             f"--submesh wants TPxFSDP (e.g. 1x1), got {args.submesh!r}"
         ) from None
+    if not args.fleet and (args.obs or args.warm_pool or args.elastic == "on"):
+        raise SystemExit("--obs, --warm-pool and --elastic act on a fleet: pass --fleet N")
+    if args.warm_pool < 0:
+        raise SystemExit(f"--warm-pool must be >= 0, got {args.warm_pool}")
+    if args.obs_interval <= 0:
+        raise SystemExit(f"--obs-interval must be > 0, got {args.obs_interval}")
+    if args.slo_config is not None and not args.obs:
+        raise SystemExit("--slo-config needs --obs (the collector evaluates the rules)")
+    if args.elastic == "on":
+        if not args.obs:
+            raise SystemExit(
+                "--elastic on needs --obs (the controller consumes the obs "
+                "collector's SLO scrape windows)")
+        if args.warm_pool < 1:
+            raise SystemExit(
+                "--elastic on needs --warm-pool >= 1 (scale-out draws warm "
+                "spares; it never cold-spawns on the serving path)")
     return check_submesh(submesh)
 
 
@@ -294,21 +360,21 @@ def build_server(args: argparse.Namespace, span_log=None):
 
 def _worker_argv(argv):
     """One fleet worker's argv: the parent's args minus the fleet flags
-    and the trace export (the router writes its own), with an ephemeral
-    port (each worker prints its address; the parent reads it back)."""
+    (:data:`_FLEET_FLAGS`; the router writes its own trace), with an
+    ephemeral port (each worker prints its address; the parent reads it
+    back)."""
     import sys
 
     src = list(sys.argv[1:] if argv is None else argv)
-    take_value = ("--fleet", "--port", "--router-poll", "--trace-export")
     out, skip = [], False
     for a in src:
         if skip:
             skip = False
             continue
-        if a in take_value:
+        if a in _FLEET_FLAGS:
             skip = True
             continue
-        if a.split("=", 1)[0] in take_value:
+        if a == "--obs" or a.split("=", 1)[0] in _FLEET_FLAGS:
             continue
         out.append(a)
     return out + ["--port", "0"]
@@ -368,9 +434,13 @@ def run_fleet(args, argv) -> None:
     Each worker is a full serving process (own engines, drain, breaker
     and reload machinery); the router owns membership and rolling
     reload. SIGTERM to THIS process rolls the fleet down: the workers
-    get SIGTERM (their drain answers everything accepted), then the
-    router stops. A worker dying on its own is not fatal: membership
-    ejects it and the others keep serving."""
+    (and any warm spare) get SIGTERM (their drain answers everything
+    accepted), then the router stops. A worker dying on its own is not
+    fatal: membership ejects it and the others keep serving; with
+    ``--warm-pool K`` a warmed spare is drawn to replace it. ``--obs``
+    and ``--elastic on`` wire the collector and the controller as JAX
+    ``serve.py`` ``run_fleet`` does."""
+    import itertools
     import signal
     import subprocess
     import threading
@@ -378,7 +448,7 @@ def run_fleet(args, argv) -> None:
     from torch_actor_critic_tpu_torch.serve.router import FleetRouter
 
     check_ported(args)
-    workers = [_spawn_worker(argv) for _ in range(args.fleet)]
+    workers, worker_lock = [_spawn_worker(argv) for _ in range(args.fleet)], threading.Lock()
     try:
         addresses = [_await_worker_ready(proc, i) for i, proc in enumerate(workers)]
     except BaseException:
@@ -401,40 +471,225 @@ def run_fleet(args, argv) -> None:
     )
     router.poll_once()
 
-    def _teardown(signum=None, frame=None):
-        logger.info("fleet teardown: draining %d workers", len(workers))
-        for proc in workers:
+    # The run-wide obs plane: one collector thread scrapes the router's
+    # aggregated /metrics and every worker's own, merges them and
+    # evaluates the SLO rules. A worker dying mid-scrape is a counted
+    # scrape failure, never a collector crash.
+    obs = None
+    if args.obs:
+        from torch_actor_critic_tpu_torch.obs import ObsCollector, http_source, load_rules
+
+        obs = ObsCollector(
+            interval_s=args.obs_interval, port=args.obs_port,
+            rules=load_rules(args.slo_config) if args.slo_config else None,
+        )
+        obs.add_source("router", http_source(router.address))
+        for i, addr in enumerate(addresses):
+            obs.add_source(f"w{i}", http_source(addr))
+        obs.start()
+        logger.info("obs collector serving on %s", obs.address)
+
+    # Warm spares: each a booted worker with its graphs captured, off
+    # rotation; the monitor below draws one when a live worker dies.
+    pool = scaler = controller = decision_log = None
+    # Every spare ever spawned: the teardown's last sweep (a spare still
+    # booting when the pool shuts down outlives the pool's join).
+    spares: list = []
+    worker_names: t.Dict[int, str] = {}  # id(proc) -> router name
+    monitor_stop = threading.Event()
+    if args.warm_pool > 0:
+        from torch_actor_critic_tpu_torch.aot import WarmPool
+
+        spare_idx = itertools.count(args.fleet)
+
+        def _spawn_spare():
+            idx = next(spare_idx)
+            proc = _spawn_worker(argv)
+            with worker_lock:
+                spares.append(proc)
+            try:
+                return proc, _await_worker_ready(proc, idx)
+            except BaseException:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                raise
+
+        def _kill_worker(proc):
             if proc.poll() is None:
                 proc.send_signal(signal.SIGTERM)
-        for proc in workers:
+                try:
+                    proc.wait(timeout=args.drain_timeout + 30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+
+        pool = WarmPool(_spawn_spare, _kill_worker, size=args.warm_pool)
+
+        # The controller rides the obs scrape thread (window_hook); with
+        # --elastic off the hook stays None.
+        if args.elastic == "on":
+            from torch_actor_critic_tpu_torch.elastic import (
+                DecisionLog,
+                ElasticController,
+                ElasticPolicy,
+                FleetScaler,
+            )
+
+            decision_log = DecisionLog()
+
+            def _on_drain_select(name, proc):
+                # Disown the scale-in victim BEFORE its SIGTERM, so its
+                # exit never reads as a crash the monitor would
+                # "replace" from the pool.
+                worker_names.pop(id(proc), None)
+                with worker_lock:
+                    if proc in workers:
+                        workers.remove(proc)
+
+            scaler = FleetScaler(
+                router, pool, obs=obs,
+                drain_exit_timeout_s=args.drain_timeout + 30,
+                obs_source=http_source,
+                on_drain_select=_on_drain_select,
+            )
+            for i, (proc, addr) in enumerate(zip(workers, addresses)):
+                worker_names[id(proc)] = f"w{i}"
+                scaler.register(f"w{i}", proc, addr)
+            controller = ElasticController(
+                scaler,
+                policy=ElasticPolicy(
+                    min_replicas=args.elastic_min,
+                    max_replicas=args.elastic_max,
+                    scale_out_cooldown_s=args.elastic_out_cooldown,
+                    scale_in_cooldown_s=args.elastic_in_cooldown,
+                    scale_in_ok_windows=args.elastic_in_windows,
+                ),
+                log=decision_log, plane="serve",
+            )
+            obs.window_hook = controller.observe_window
+            logger.info(
+                "elastic controller on: replicas [%d, %d], out-cooldown %.1fs, in after "
+                "%d green windows + %.1fs cooldown", args.elastic_min, args.elastic_max,
+                args.elastic_out_cooldown, args.elastic_in_windows, args.elastic_in_cooldown,
+            )
+
+        def _monitor():
+            handled = set()
+            while not monitor_stop.wait(max(args.router_poll, 0.2)):
+                with worker_lock:
+                    dead = [p for p in workers
+                            if p.poll() is not None and id(p) not in handled]
+                for proc in dead:
+                    handled.add(id(proc))
+                    if scaler is not None:
+                        # The scaler stops counting the corpse before the
+                        # controller's next window.
+                        dead_name = worker_names.pop(id(proc), None)
+                        if dead_name is not None:
+                            scaler.forget(dead_name)
+                    drawn = pool.draw(timeout=30.0)
+                    if drawn is None:
+                        logger.warning("worker pid %d died and no warm spare was ready; "
+                                       "relying on the surviving workers", proc.pid)
+                        continue
+                    with worker_lock:
+                        workers.append(drawn.handle)
+                    name = router.add_worker(drawn.address)
+                    worker_names[id(drawn.handle)] = name
+                    if scaler is not None:
+                        scaler.register(name, drawn.handle, drawn.address)
+                    if obs is not None:
+                        obs.add_source(name, http_source(drawn.address))
+                    logger.info("worker pid %d died; warm spare admitted as %s at %s "
+                                "(pool: %s)", proc.pid, name, drawn.address, pool.stats())
+
+        threading.Thread(target=_monitor, name="warm-pool-monitor", daemon=True).start()
+
+        # The router's /metrics grows a "fleet" section; with no pool
+        # the hook stays None and the key absent.
+        def _fleet_extra():
+            out = {"warm_pool": pool.stats()}
+            if scaler is not None:
+                out["scaler"] = scaler.stats()
+            if controller is not None:
+                out["elastic"] = controller.snapshot()
+            return out
+
+        router.fleet_extra = _fleet_extra
+
+    torn_down = threading.Lock()
+
+    def _teardown(signum=None, frame=None):
+        if not torn_down.acquire(blocking=False):
+            return
+        monitor_stop.set()
+        if obs is not None:
+            # No scale decision races the teardown's drain.
+            obs.window_hook = None
+        with worker_lock:
+            procs = list(workers)
+            idle = [p for p in spares if p not in procs]
+        # Spares first (a booting one would hold the pool's join), then
+        # the pool stops refilling.
+        for proc in idle:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        if pool is not None:
+            pool.shutdown()
+        procs.extend(idle)
+        if scaler is not None:
+            # Elastic-spawned workers live in the scaler's registry.
+            known = {id(p) for p in procs}
+            procs.extend(h for h in scaler.handles() if id(h) not in known)
+        logger.info("fleet teardown: draining %d workers", len(procs))
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in procs:
             try:
                 proc.wait(timeout=args.drain_timeout + 30)
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(timeout=30)
+        if scaler is not None:
+            scaler.shutdown(join_timeout=5.0)
         router._httpd.shutdown()
 
     signal.signal(signal.SIGTERM, lambda s, f: threading.Thread(
         target=_teardown, daemon=True).start())
+    with worker_lock:
+        pids = [proc.pid for proc in workers]
     print(json.dumps({
         "router": router.address,
         "workers": {f"w{i}": a for i, a in enumerate(addresses)},
-        "pids": [proc.pid for proc in workers],
+        "pids": pids,
+        "warm_pool": pool.stats() if pool is not None else None,
+        "obs": obs.address if obs is not None else None,
+        "elastic": args.elastic,
     }), flush=True)
     try:
         router.serve_forever()
     finally:
         _teardown()
+        if obs is not None:
+            obs.close()
+            for line in obs.slo.report().splitlines():
+                logger.info("%s", line)
         if span_log is not None:
             from torch_actor_critic_tpu_torch.telemetry.traceview import (
+                elastic_decision_events,
                 export_trace,
                 router_hop_events,
             )
 
-            summary = export_trace(
-                args.trace_export, router_hop_events(span_log.records()))
-            logger.info("router trace exported to %s (%d hop spans)",
-                        summary["path"], summary["router_spans"])
+            groups = [router_hop_events(span_log.records())]
+            if decision_log is not None:
+                groups.append(elastic_decision_events(decision_log.records()))
+            summary = export_trace(args.trace_export, *groups)
+            logger.info("router trace exported to %s (%d hop spans, %d elastic spans)",
+                        summary["path"], summary["router_spans"],
+                        summary.get("elastic_spans", 0))
 
 
 def main(argv=None):

@@ -49,9 +49,19 @@ reaching a client.
 time and dequantized by :meth:`materialize`, the forward's first op,
 inside the graph.
 
-Not ported (JAX/XLA machinery): the recompile watchdog, cost
-registration, the warm-start bundle, the transfer sanitizer, buffer
-donation.
+The process's watchdog (:mod:`~..diagnostics.watchdog`, installed by the
+engine as the JAX engine installs its own) counts each capture under
+``serve/forward[bN]``, as ``warmup`` inside :meth:`PolicyEngine.warmup`
+and ``live`` outside it; the server marks ``serve/`` steady once it
+serves, so a later capture is an anomaly. Warm-up also counts each
+bucket's deterministic forward once, eagerly and before its graph is
+captured (:class:`~..telemetry.costmodel.CostCount`; K2 by formula),
+into the cost registry as ``serve/forward[bN]``: the ``costs`` section
+of ``/metrics``. Nothing is counted per request, and a reload keeps the
+count (it copies into the same parameter buffers).
+
+Not ported (JAX/XLA machinery): the warm-start bundle, the transfer
+sanitizer, buffer donation.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from __future__ import annotations
 import gc
 import logging
 import threading
+import time
 import typing as t
 
 import numpy as np
@@ -66,6 +77,7 @@ import torch
 from torch.func import functional_call
 
 from torch_actor_critic_tpu_torch.core.types import MultiObservation
+from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
 from torch_actor_critic_tpu_torch.serve.admission import NonFiniteActionError
 from torch_actor_critic_tpu_torch.serve.sharded import (
     PRECISIONS,
@@ -165,6 +177,10 @@ class PolicyEngine:
     serialized under a lock.
     """
 
+    # Watchdog source and cost-registry prefix; per-bucket names are
+    # f"{TRACE_PREFIX}[b{N}]".
+    TRACE_PREFIX = "serve/forward"
+
     def __init__(
         self,
         actor_def: torch.nn.Module,
@@ -220,6 +236,7 @@ class PolicyEngine:
         self._warmup_active = False  # guarded-by: _lock
         self._warmed = False  # guarded-by: _lock
         self.bundle_loaded = False  # no warm-start bundles in the port
+        self._watchdog = get_watchdog().install()
 
     @property
     def graphed(self) -> bool:
@@ -441,7 +458,9 @@ class PolicyEngine:
         return self._inputs[bucket]
 
     def _capture(self, params, bucket: int, det: bool) -> _BucketGraph:
-        """Capture the ``(bucket, det)`` forward (under ``_fwd_lock``)."""
+        """Capture the ``(bucket, det)`` forward (under ``_fwd_lock``),
+        noted to the watchdog with its warm-up run's time."""
+        t0 = time.perf_counter()
         self._load_params(params)
         x = self._input(bucket)
         p = self._param_bufs
@@ -477,7 +496,11 @@ class PolicyEngine:
         entry = _BucketGraph(graph, out, (bucket, (out.numel() - 1) // bucket))
         self._graphs[(bucket, det)] = entry
         self._note_compile(bucket, det)
+        self._watchdog.note_capture(time.perf_counter() - t0, label=self.trace_name(bucket))
         return entry
+
+    def trace_name(self, bucket: int) -> str:
+        return f"{self.TRACE_PREFIX}[b{bucket}]"
 
     def graph_count(self) -> int:
         with self._fwd_lock:
@@ -493,8 +516,9 @@ class PolicyEngine:
     ) -> t.List[t.Tuple[int, bool]]:
         """Run every ``(bucket, deterministic)`` forward once on zeros —
         on CUDA capture its graph — so no live request pays a first-use
-        cost (kernel build, capture, allocator growth). Returns the
-        shapes warmed."""
+        cost (kernel build, capture, allocator growth). Each bucket's
+        forward is counted first (:meth:`count_cost`). Captures in here
+        are ``warmup`` to the watchdog. Returns the shapes warmed."""
         warmed = []
         with self._lock:
             self._warmup_active = True
@@ -502,10 +526,12 @@ class PolicyEngine:
             for bucket in (buckets or self.buckets):
                 zero_obs = _map(
                     lambda s: np.zeros((bucket, *s.shape), s.dtype), self.obs_spec)
+                self.count_cost(params, zero_obs)
                 for det in (True,) if deterministic_only else (True, False):
                     gen = None if det else self.generator
                     state = gen.get_state() if gen is not None else None
-                    self.act(params, zero_obs, gen, det)
+                    with self._watchdog.expected():
+                        self.act(params, zero_obs, gen, det)
                     if gen is not None:
                         gen.set_state(state)
                     warmed.append((bucket, det))
@@ -514,3 +540,20 @@ class PolicyEngine:
                 self._warmup_active = False
                 self._warmed = True
         return warmed
+
+    def count_cost(self, params, obs) -> dict:
+        """Count one deterministic forward over ``obs``'s bucket eagerly
+        (:class:`~..telemetry.costmodel.CostCount`: ATen ops by PyTorch's
+        FLOP formulas, K2 by its wrapper's formula) and register it as
+        ``serve/forward[bN]``. Warm-up calls it before the bucket's graph
+        is captured; it must never run inside a capture or per request."""
+        from torch_actor_critic_tpu_torch.telemetry.costmodel import CostCount, get_cost_registry
+
+        n = obs_rows(obs)
+        bucket = self.bucket_for(n)
+        x = _map(lambda a: torch.from_numpy(a).to(self.device), self._pad(obs, n, bucket))
+        with self._fwd_lock, torch.inference_mode(), CostCount() as count:
+            self._forward(params, x, None, True)
+        cost = count.cost()
+        get_cost_registry().register(self.trace_name(bucket), cost)
+        return cost

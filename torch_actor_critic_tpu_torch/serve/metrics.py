@@ -11,12 +11,14 @@ Total counters never reset either; :meth:`snapshot` derives
 requests/sec over the window between snapshots (falling back to the
 lifetime rate on the first call).
 
-Port note: copied from the JAX package without its cost roofline
-(``cost_snapshot``, which reads XLA cost analyses). The per-bucket
-forward times ``record_batch`` takes are kept (``bucket_times``) for
-it. :func:`aggregate_snapshots` folds the JAX package's
-``obs/merge.aggregate_snapshots`` (with the serving key set) into this
-module.
+Port note: copied from the JAX package. :meth:`ServeMetrics.cost_snapshot`
+is the per-bucket roofline of ``/metrics`` ``costs``: each bucket's
+forward cost, counted once at the engine's warm-up
+(``serve/forward[bN]`` in the cost registry), over the forward times
+``record_batch`` keeps, against the card's peaks at the served
+precision's compute dtype. :func:`aggregate_snapshots` delegates to
+:func:`~torch_actor_critic_tpu_torch.obs.merge.aggregate_snapshots`
+with the serving key set, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -73,6 +75,11 @@ class ServeMetrics:
         # is asserted against.
         self.reload_transfer_bytes_total = 0  # guarded-by: _lock
         self.param_placements_total = 0  # guarded-by: _lock
+        # The roofline's peaks (costmodel.Peaks, read once) at the
+        # served forward's compute dtype (the server sets it from its
+        # precision tier).
+        self._peaks = None  # guarded-by: _lock
+        self.compute_dtype = "float32"
 
     # ----------------------------------------------------------- recording
 
@@ -130,6 +137,36 @@ class ServeMetrics:
             )
 
     # ------------------------------------------------------------ snapshot
+
+    def cost_snapshot(self) -> t.Dict[str, t.Any]:
+        """Per-bucket live roofline for ``/metrics`` ``costs``: each
+        bucket's registered forward cost (``serve/forward[bN]``, counted
+        at engine warm-up) against its measured cumulative forward
+        time — achieved FLOP/s, arithmetic intensity, MFU and the
+        compute-/memory-bound class when the card's peaks are known.
+        Buckets with no registered cost or no traffic are omitted."""
+        from torch_actor_critic_tpu_torch.telemetry.costmodel import (
+            Peaks,
+            get_cost_registry,
+            roofline,
+        )
+
+        with self._lock:
+            buckets = {b: dict(agg) for b, agg in self._bucket_time.items()}
+            if self._peaks is None:
+                self._peaks = Peaks.detect(self.compute_dtype)
+            peaks = self._peaks
+        registry = get_cost_registry()
+        out: t.Dict[str, t.Any] = {}
+        for b, agg in sorted(buckets.items()):
+            cost = registry.get(f"serve/forward[b{b}]")
+            if cost is None or agg["total_s"] <= 0.0:
+                continue
+            entry = roofline(cost, agg["total_s"], calls=int(agg["calls"]), peaks=peaks,
+                             compute_dtype=self.compute_dtype)
+            entry["rows"] = int(agg["rows"])
+            out[f"b{b}"] = entry
+        return out
 
     def snapshot(self) -> t.Dict[str, t.Any]:
         """Point-in-time metrics dict (the ``/metrics`` payload and the
@@ -223,49 +260,25 @@ def aggregate_snapshots(
     have built from all the samples. A worker whose snapshot failed
     (``None``) appears as ``{"unreachable": true}`` and contributes
     nothing; a histogram that fails to merge is recorded as
-    ``latency_merge_error``, never raised."""
-    label_keys = _SUM_KEYS + (
-        "requests_per_sec", "shed_by_reason", "uptime_s",
-        "p50_ms", "p99_ms", "queue_capacity", "draining",
+    ``latency_merge_error``, never raised.
+
+    A thin delegate over the plane-generic
+    :func:`torch_actor_critic_tpu_torch.obs.merge.aggregate_snapshots`
+    that pins the serving key set."""
+    from torch_actor_critic_tpu_torch.obs.merge import (
+        aggregate_snapshots as merge_snapshots,
     )
-    out: t.Dict[str, t.Any] = {k: 0 for k in _SUM_KEYS}
-    out["shed_by_reason"] = {}
-    out["requests_per_sec"] = 0.0
-    per_worker: t.Dict[str, t.Any] = {}
-    merged = FixedBucketHistogram()
-    merge_error = None
-    for name, snap in workers.items():
-        if snap is None:
-            per_worker[name] = {"unreachable": True}
-            continue
-        per_worker[name] = {k: snap.get(k) for k in label_keys if k in snap}
-        for k in _SUM_KEYS:
-            v = snap.get(k)
-            if isinstance(v, (int, float)):
-                out[k] = out.get(k, 0) + int(v)
-        for reason, n in (snap.get("shed_by_reason") or {}).items():
-            out["shed_by_reason"][reason] = out["shed_by_reason"].get(reason, 0) + int(n)
-        rv = snap.get("requests_per_sec")
-        if isinstance(rv, (int, float)):
-            out["requests_per_sec"] = round(out["requests_per_sec"] + float(rv), 2)
-        hist = snap.get("latency_hist")
-        if hist is not None:
-            try:
-                merged.merge_raw(hist)
-            except (ValueError, KeyError, TypeError) as e:
-                merge_error = repr(e)[:200]
-    if merged.count:
-        p50, p95, p99 = merged.percentiles((50, 95, 99))
-        out.update(
-            mean_ms=round(merged.mean, 3), p50_ms=round(p50, 3),
-            p95_ms=round(p95, 3), p99_ms=round(p99, 3),
-            max_ms=round(merged.max, 3),
-        )
-    out["latency_hist"] = merged.raw_counts()
-    if merge_error is not None:
-        out["latency_merge_error"] = merge_error
-    out["workers"] = per_worker
-    out["workers_reporting"] = sum(
-        1 for v in per_worker.values() if not v.get("unreachable")
+
+    return merge_snapshots(
+        workers,
+        sum_keys=_SUM_KEYS,
+        rate_keys=("requests_per_sec",),
+        merge_dict_keys=("shed_by_reason",),
+        hist_key="latency_hist",
+        label_keys=_SUM_KEYS + (
+            "requests_per_sec", "shed_by_reason", "uptime_s",
+            "p50_ms", "p99_ms", "queue_capacity", "draining",
+        ),
+        sources_key="workers",
+        reporting_key="workers_reporting",
     )
-    return out

@@ -1,7 +1,8 @@
 """Multi-process fleet router: health-gated membership over N workers.
 
 A copy of the JAX package's ``serve/router.py``, which imports no JAX;
-only its imports name the port's modules.
+its imports name the port's modules, and its HTTP servers listen with a
+deeper backlog (:class:`BurstHTTPServer`).
 
 One worker process drives one accelerator's engines well; "millions of
 users" needs N of them behind something that knows which ones are
@@ -68,7 +69,18 @@ from torch_actor_critic_tpu_torch.serve.metrics import aggregate_snapshots
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["FleetRouter", "WorkerState"]
+__all__ = ["BurstHTTPServer", "FleetRouter", "WorkerState"]
+
+
+class BurstHTTPServer(ThreadingHTTPServer):
+    """The stdlib threading server with a listen backlog of 128 (its
+    default is 5): a burst of concurrent connections waits to be
+    accepted instead of being reset by the kernel, so admission control
+    (the queue capacity's 429) decides what a burst gets. The router and
+    the worker servers use it; the JAX package's use the default."""
+
+    request_queue_size = 128
+    daemon_threads = True
 
 
 class WorkerState:
@@ -188,8 +200,7 @@ class FleetRouter:
                 else:
                     self._send(404, {"error": f"no route {self.path}"})
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = BurstHTTPServer((host, port), Handler)
         self._thread: threading.Thread | None = None  # guarded-by: _lock
 
     # ---------------------------------------------------------- membership

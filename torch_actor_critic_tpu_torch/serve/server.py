@@ -4,9 +4,13 @@ Port of ``serve/server.py``: ``/act`` (flat, history and visual
 observations), ``/healthz``, ``/metrics`` (with the ``fleet`` and
 ``sharding`` sections), ``/reload``, the SIGTERM drain, per-request
 span logs (``span_log``), and the engine fleet (``devices``;
-:mod:`.fleet`); the precision tier is the registry's. Not ported:
-the transition flywheel (``/outcome``, ROADMAP queue 7) and the XLA
-watchdog and cost sections of ``/metrics`` (queue 9).
+:mod:`.fleet`); the precision tier is the registry's. ``/metrics``
+also holds ``xla``, the process's watchdog snapshot (the engines' graph
+captures under ``serve/forward[bN]``: ``captures_total``,
+``live_captures``, ...; JAX's key, the port's field names), and
+``costs``, the per-bucket roofline
+(:meth:`~.metrics.ServeMetrics.cost_snapshot`). Not ported: the
+transition flywheel (``/outcome``, ROADMAP queue 7).
 
 :class:`PolicyClient` is the zero-copy path for tests, benchmarks and
 co-located actors: observations go straight into the micro-batching
@@ -50,17 +54,19 @@ import time
 import typing as t
 import uuid
 from concurrent.futures import TimeoutError as FutureTimeoutError
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 
 import numpy as np
 
 from torch_actor_critic_tpu_torch.core.types import MultiObservation
+from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
 from torch_actor_critic_tpu_torch.serve.admission import (
     SUBMIT_SHED_REASONS,
     ShedError,
 )
 from torch_actor_critic_tpu_torch.serve.batcher import ActResult, MicroBatcher
 from torch_actor_critic_tpu_torch.serve.metrics import ServeMetrics
+from torch_actor_critic_tpu_torch.serve.router import BurstHTTPServer
 from torch_actor_critic_tpu_torch.serve.registry import ModelRegistry
 
 logger = logging.getLogger(__name__)
@@ -370,6 +376,11 @@ class PolicyServer:
         self.request_timeout_s = float(request_timeout_s)
         self.act_timeout_s = float(act_timeout_s)
         self.metrics = metrics if metrics is not None else ServeMetrics()
+        # The roofline's peaks follow the served precision's compute
+        # dtype (int8 dequantizes to f32 inside the forward).
+        self.metrics.compute_dtype = (
+            "bfloat16" if getattr(registry, "precision", "f32") == "bf16" else "float32"
+        )
         # devices=None (or 1) keeps the single-device batcher; an int
         # > 1 or an explicit device list builds an EngineFleet — one
         # engine replica per device behind this server's one admission
@@ -457,6 +468,9 @@ class PolicyServer:
                     snap["live_compiles"] = comp["live_compiles"]
                     snap["bundle_compiles"] = comp.get("bundle_compiles", 0)
                     snap["compiles"] = comp["slots"]
+                    # The process-wide watchdog: graph captures by
+                    # source, live ones and steady-state anomalies.
+                    snap["xla"] = get_watchdog().snapshot()
                     # Overload containment state: admission bound and
                     # per-slot breaker trips/probes/state.
                     snap["queue_capacity"] = server.batcher.capacity
@@ -465,6 +479,9 @@ class PolicyServer:
                     # Measured engine time per bucket (the dispatcher's
                     # per-call durations).
                     snap["bucket_forward"] = server.metrics.bucket_times()
+                    # Per-bucket live roofline: the counted forward's
+                    # FLOPs and bytes over the measured forward time.
+                    snap["costs"] = server.metrics.cost_snapshot()
                     # Engine-per-device fleet view (serve/fleet.py):
                     # per-replica load/EMA/dispatch share, breaker
                     # states and compile (capture) accounting.
@@ -602,8 +619,7 @@ class PolicyServer:
                     "model": slot,
                 }, headers=rid_hdr)
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = BurstHTTPServer((host, port), Handler)
         self._thread: threading.Thread | None = None  # guarded-by: _drain_lock
         # shutdown() on a loop that NEVER ran blocks forever (stdlib
         # waits on the flag only serve_forever sets); close() skips it
@@ -621,6 +637,9 @@ class PolicyServer:
 
     def start(self):
         """Serve on a background daemon thread (tests, smoke)."""
+        # The registered slots warmed up before this; from here on a
+        # capture under serve/ is a steady-state anomaly.
+        get_watchdog().install().mark_steady("serve/")
         with self._drain_lock:
             self._loop_started = True
             thread = self._thread = threading.Thread(
@@ -632,6 +651,7 @@ class PolicyServer:
 
     def serve_forever(self):
         """Block serving until interrupted (the CLI path)."""
+        get_watchdog().install().mark_steady("serve/")
         with self._drain_lock:
             self._loop_started = True
         try:
@@ -687,6 +707,7 @@ class PolicyServer:
         silently leaking — the caller deciding to exit anyway should
         know a non-daemon-joinable thread is still out there."""
         result = {"server_thread_stopped": True}
+        get_watchdog().clear_steady("serve/")
         # Read/clear the lifecycle handles under the lock; shutdown()
         # and join() run OUTSIDE it — a wedged handler wanting the
         # drain lock must never deadlock close().
