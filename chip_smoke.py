@@ -78,8 +78,8 @@ or of the JAX package. Phases, one JSON line each:
    ensemble) at SACConfig's widths (batch 64, update_every 50), trained
    through the train CLI's ``build_trainer`` on
    ``PendulumNumpy-v1|history:16`` (the port's numpy twin of
-   Pendulum-v1; the card's machine has no gymnasium) for 1000 steps, the
-   first 500 random: 500 gradient steps (cut from 1000 to keep the whole
+   Pendulum-v1; the card's machine has no gymnasium) for 750 steps, the
+   first 500 random: 250 gradient steps (cut from 1000, then 500, to keep the whole
    smoke near 5 minutes). The run is traced (``torch.profiler``): its
    bursts are CUDA graph replays, which launch the kernels without
    calling their wrappers, so its launches are read from the device
@@ -127,8 +127,8 @@ or of the JAX package. Phases, one JSON line each:
 7. train_visual — the JAX package's pixel recipe (conv 16,32 / 4,3 /
    2,2, Dense 128, cnn_features 64, /255, DrQ shift, learned α, fused
    pixel pipeline, hidden 256-256, batch 64, buffer 24000) through
-   ``build_trainer`` on ``PixelPendulumBalanceNumpy-v0`` for 1000 steps,
-   the first 500 random: 500 gradient steps. Checks: finite losses,
+   ``build_trainer`` on ``PixelPendulumBalanceNumpy-v0`` for 750 steps,
+   the first 500 random: 250 gradient steps. Checks: finite losses,
    exactly 1 K1 launch per update (both frame leaves), the checkpoint
    restores, and from one state the gradients (1e-4·max(1, max|g|)) and
    one update (params and outputs 1e-4, log α 1e-6) with K1's frames
@@ -164,12 +164,12 @@ or of the JAX package. Phases, one JSON line each:
    bytes beside the card's name and power limit;
 10. train_td3 — TD3 through ``build_trainer(--algorithm td3)``: flat at
    SACConfig's defaults (hidden 256,256, batch 64, policy_delay 2) on
-   ``PendulumNumpy-v1``, 500 gradient steps, traced; from clones of its
+   ``PendulumNumpy-v1``, 250 gradient steps, traced; from clones of its
    state, captured against eager bursts to the bit over 25-update bursts
    (odd starts) and with policy_delay 3, one capture each; one replayed
    update at a skipped step leaves the actor, ``pi_opt`` and both
    targets bitwise and moves the critic; visual at the pixel recipe's
-   widths (learn_alpha off), 500 gradient steps, traced: exactly 1 K1
+   widths (learn_alpha off), 250 gradient steps, traced: exactly 1 K1
    launch per update, captured == eager on cuDNN's deterministic
    algorithms; the wall-runner geometry at B 32 f32 in 25-update bursts;
    a flat ``--run`` resume bitwise (the target actor and the device step
@@ -188,7 +188,7 @@ or of the JAX package. Phases, one JSON line each:
    epoch that launches none of K1-K4 (traced in the sequence cell),
    a captured against an eager epoch from clones to the bit (learner,
    ring, env states, the three generators; the pixel cell on cuDNN's
-   deterministic algorithms), a traced 1000-step epoch whose device
+   deterministic algorithms), a traced 250-step epoch whose device
    launches are exactly L K2 per acting step and 5L K2, 2L K3, 2L K4
    (or 1 K1) per update, and whose device idle share is read from its
    own trace; the same epoch untraced and timed (env and gradient steps
@@ -213,19 +213,28 @@ or of the JAX package. Phases, one JSON line each:
    eager history-8 population epoch, to the bit, and a member against a
    lone ``OnDeviceLoop`` given its weights and draws, to 1e-4; the
    sequence cell (P = 8, history 8, 10^6 rows per member): a traced
-   500-step epoch whose launches are L K2 per acting step and 5L K2, 2L
+   250-step epoch whose launches are L K2 per acting step and 5L K2, 2L
    K3, 2L K4 per update, the same per update at P = 32, then save, run,
    restore in place under the graphs and run again, bitwise; untraced
    flat-cell rates and device memory at P = 1 and 32, one line each
    with the card.
 
-The populations, host_env_plane and observability phases follow, each
-in a child (their functions' docstrings say what they check); the last,
-the training observability plane: the sequence policy and the fused
-loop at population 1 through ``train.main`` with ``--telemetry true
---diagnostics full --profile-epochs 1:2 --trace-export``, and the
-diagnostics tiers' captured bursts from one state (bitwise, launches,
-synchronizing calls, steps/s).
+The populations, host_env_plane, observability and replay_plane phases
+follow, each in a child (their functions' docstrings say what they
+check); observability, the training observability plane: the sequence
+policy and the fused loop at population 1 through ``train.main`` with
+``--telemetry true --diagnostics full --profile-epochs 1:2
+--trace-export``, and the diagnostics tiers' captured bursts from one
+state (bitwise, launches, synchronizing calls, steps/s); the last,
+replay_plane, the tiered replay plane: the sequence policy trained with
+``--replay-tiers disk --replay-refill 2`` on a small ring (conservation,
+spill to disk, refill under the captured burst, exact launches, archival
+tiers bitwise tiers off), ``train --offline --offline-reg cql`` from its
+spilled rows (captured == eager, 7L K2 and 3L K3/K4 per update), and the
+serving flywheel (``--log-transitions``, ``/act`` + ``/outcome``, the
+drain's flush) feeding ``train --offline --offline-reg bc``. K2-K4 also
+have rows at the offline CQL critic call's fold (``CQL_FOLD_SHAPE``,
+layout ``cql_views``).
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
@@ -235,7 +244,8 @@ train_td3's visual run and the on-device pixel cell; K2-K4's include
 the population's traced sequence epoch; every ``launches`` is counted
 in the main path's runs from device traces: serving's (f32 and int8
 tiers) over each server's startup and traced forwards, training's, the
-resumed runs' and the on-device epochs'; ``flash_fwd_bf16`` is K2 in
+resumed runs', the on-device epochs' and the replay plane's tiered run
+and offline burst; ``flash_fwd_bf16`` is K2 in
 bf16 at the bf16 serving tier's shape, with that tier's traced
 launches),
 the nvidia-smi line, and last
@@ -272,6 +282,8 @@ SERVE_SHAPE = (64, 4, 16, 16)   # max_batch x heads x history x head_dim
 TRAIN_SHAPE = SERVE_SHAPE       # batch_size 64 x heads x history x head_dim
 # The stacked critics' attention: num_qs 2 folded into the batch axis.
 CRITIC_SHAPE = (2 * TRAIN_SHAPE[0], *TRAIN_SHAPE[1:])
+# The offline critic step's CQL fold at batch 64: num_qs·(K + 1)·B rows.
+CQL_FOLD_SHAPE = (2 * 5 * TRAIN_SHAPE[0], *TRAIN_SHAPE[1:])
 BENCH_SHAPE = (4, 8, 2048, 64)  # bench.py's attention shape
 # The port's host pendulum (the JAX package's PendulumJax dynamics): the
 # card's machine has no gymnasium, whose Pendulum-v1 it stands in for.
@@ -767,7 +779,8 @@ def critic_views(seed: int, history: int = TRAIN_SHAPE[2]):
 
 def _operands(layout, shape, dtype, gen, critic_qkv, n):
     """``n`` operands of ``shape``: the critic's own q, k, v (then a
-    cotangent in their layout), the model's split views, or contiguous."""
+    cotangent in their layout), the model's split views (``views``, and
+    ``cql_views`` at the offline CQL fold), or contiguous."""
     b, h, t, d = shape
     if layout == "critic_views":
         extra = (torch.randn((b, t, h * d), generator=gen, device="cuda")
@@ -775,7 +788,7 @@ def _operands(layout, shape, dtype, gen, critic_qkv, n):
         return (*critic_qkv, *extra)
     return tuple(
         (torch.randn((b, t, h * d), generator=gen, device="cuda")
-         .reshape(b, t, h, d).transpose(1, 2) if layout == "views"
+         .reshape(b, t, h, d).transpose(1, 2) if layout in ("views", "cql_views")
          else torch.randn(shape, generator=gen, device="cuda")).to(dtype)
         for _ in range(n)
     )
@@ -792,6 +805,8 @@ def phase_kernel_vs_plain(attn, seed: int, critic_qkv, cases=None) -> dict:
         # "critic_views" the stacked critic's own (critic_views()).
         (SERVE_SHAPE, True, torch.float32, 200, "views"),
         (CRITIC_SHAPE, True, torch.float32, 200, "critic_views"),
+        # the offline CQL critic step's fold of the K + 1 candidate actions
+        (CQL_FOLD_SHAPE, True, torch.float32, 200, "cql_views"),
         (SERVE_SHAPE, True, torch.float32, 200, "contiguous"),
         (BENCH_SHAPE, True, torch.float32, 5, "contiguous"),
         (BENCH_SHAPE, False, torch.float32, 5, "contiguous"),
@@ -880,6 +895,7 @@ def phase_bwd_vs_plain(attn, seed: int, critic_qkv, cases=None) -> dict:
         # "critic_views" the stacked critic's own q, k, v.
         (TRAIN_SHAPE, True, torch.float32, 200, "views"),
         (CRITIC_SHAPE, True, torch.float32, 200, "critic_views"),
+        (CQL_FOLD_SHAPE, True, torch.float32, 200, "cql_views"),
         (TRAIN_SHAPE, True, torch.float32, 200, "contiguous"),
         (BENCH_SHAPE, True, torch.float32, 5, "contiguous"),
         (BENCH_SHAPE, False, torch.float32, 5, "contiguous"),
@@ -1760,7 +1776,7 @@ def phase_train(seed: int, kernels) -> tuple:
     try:
         args = train_cli.parse_arguments([
             "--environment", TRAIN_ENV, "--history-len", "16", "--device", "cuda",
-            "--seed", str(seed), "--epochs", "1", "--steps-per-epoch", "1000",
+            "--seed", str(seed), "--epochs", "1", "--steps-per-epoch", "750",
             "--start-steps", "500", "--update-after", "500", "--runs-root", runs,
         ])
 
@@ -1782,7 +1798,7 @@ def phase_train(seed: int, kernels) -> tuple:
         for key in ("loss_q", "loss_pi", "reward"):
             check(math.isfinite(metrics[key]), f"train: {key} = {metrics[key]}")
         updates = trainer.state.step
-        check(updates == 500, f"train: {updates} gradient steps, expected 500")
+        check(updates == 250, f"train: {updates} gradient steps, expected 250")
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             check(wrapped.get(name, 0) > 0, f"train: {name} never launched by its wrapper")
             check(launches[name] > 0, f"train: {name} never ran on the device")
@@ -2456,7 +2472,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
     try:
         args = train_cli.parse_arguments([
             *VISUAL_ARGS, "--device", "cuda", "--seed", str(seed), "--epochs", "1",
-            "--steps-per-epoch", "1000", "--start-steps", "500", "--update-after", "500",
+            "--steps-per-epoch", "750", "--start-steps", "500", "--update-after", "500",
             "--buffer-size", "24000", "--runs-root", runs,
         ])
 
@@ -2478,7 +2494,7 @@ def phase_train_visual(seed: int, kernels) -> dict:
         for key in ("loss_q", "loss_pi", "reward"):
             check(math.isfinite(metrics[key]), f"train_visual: {key} = {metrics[key]}")
         updates = trainer.state.step
-        check(updates == 500, f"train_visual: {updates} gradient steps, expected 500")
+        check(updates == 250, f"train_visual: {updates} gradient steps, expected 250")
         check(wrapped.get("pixel_gather", 0) > 0, "train_visual: K1 never launched by its wrapper")
         check(launches["pixel_gather"] == updates,
               f"train_visual: pixel_gather ran {launches['pixel_gather']} times on the "
@@ -2871,20 +2887,21 @@ def phase_resume(seed: int, kernels, smi: str) -> dict:
         c.close()
         row["card_to_cpu"] = {"exact": True, "adam_step_devices_on_cpu": sorted(steps)}
 
-        # run_agent on C's run, twice, on the card.
-        evals = []
-        for _ in range(2):
-            res = subprocess.run(
-                [sys.executable, "-m", "torch_actor_critic_tpu_torch.run_agent",
-                 "--run", tracker_b.run_id, "--runs-root", runs, "--episodes", "2",
-                 "--seed", "0"],
-                cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
-                timeout=300)
-            check(res.returncode == 0, f"run_agent exited {res.returncode}: {res.stderr[-2000:]}")
-            evals.append(res.stdout.strip().splitlines()[-1])
-        out = json.loads(evals[0])
-        check(evals[0] == evals[1] and all(math.isfinite(v) for v in out.values()),
-              f"run_agent: {evals}")
+        # run_agent on C's run, twice, on the card: the CLI in a process of
+        # its own, then its main() here (a second process costs ~10 s).
+        from torch_actor_critic_tpu_torch import run_agent
+
+        agent_args = ["--run", tracker_b.run_id, "--runs-root", runs, "--episodes", "2",
+                      "--seed", "0"]
+        res = subprocess.run(
+            [sys.executable, "-m", "torch_actor_critic_tpu_torch.run_agent", *agent_args],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
+            timeout=300)
+        check(res.returncode == 0, f"run_agent exited {res.returncode}: {res.stderr[-2000:]}")
+        out = json.loads(res.stdout.strip().splitlines()[-1])
+        again = run_agent.main(agent_args)
+        check(out == again and all(math.isfinite(v) for v in out.values()),
+              f"run_agent: {out} then {again}")
         row["run_agent"] = out
 
         # D: a NaN reward in epoch 2, rolled back in place to epoch 1.
@@ -3066,7 +3083,7 @@ def phase_train_td3(seed: int, kernels, smi: str) -> dict:
     """TD3 on the card, through the train CLI's ``build_trainer``:
 
     flat — SACConfig's defaults (hidden 256,256, batch 64, policy_delay
-       2) on ``PendulumNumpy-v1``, 600 steps, 500 gradient steps in
+       2) on ``PendulumNumpy-v1``, 350 steps, 250 gradient steps in
        50-update captured bursts (the run traced); then, from clones of
        the trained state and ring, captured against eager bursts to the
        bit over three 25-update bursts (the second starts on an odd
@@ -3075,7 +3092,7 @@ def phase_train_td3(seed: int, kernels, smi: str) -> dict:
        ``pi_opt`` and both targets bitwise, the critic moved; each burst
        mode timed and profiled, beside a SAC flat learner's;
     visual — the pixel recipe's widths (learn_alpha off) on
-       ``PixelPendulumBalanceNumpy-v0``, 600 steps, 500 gradient steps,
+       ``PixelPendulumBalanceNumpy-v0``, 350 steps, 250 gradient steps,
        traced: exactly 1 K1 launch per update; captured against eager to
        the bit on cuDNN's deterministic algorithms; each burst mode;
     wall — the wall-runner geometry at B 32 f32 (SACConfig's visual
@@ -3122,9 +3139,9 @@ def phase_train_td3(seed: int, kernels, smi: str) -> dict:
                 check(math.isfinite(metrics[key]), f"{what}: {key} = {metrics[key]}")
             check(type(trainer.sac) is TD3, f"{what}: learner {type(trainer.sac).__name__}")
             updates = trainer.state.step
-            check(updates == int(trainer.state.device_step) == 500,
+            check(updates == int(trainer.state.device_step) == 250,
                   f"{what}: {updates} gradient steps, device step "
-                  f"{int(trainer.state.device_step)}, expected 500")
+                  f"{int(trainer.state.device_step)}, expected 250")
             check_through_graphs(what, launches, wrapped, per_update, updates,
                                  trainer.sac.graph_captures)
             check(trainer.sac.graph_captures == 1,
@@ -3134,7 +3151,7 @@ def phase_train_td3(seed: int, kernels, smi: str) -> dict:
                              "launches": launches, "wrapper_launches": wrapped,
                              "loss_q": metrics["loss_q"], "loss_pi": metrics["loss_pi"]}
 
-        steps = ["--epochs", "1", "--steps-per-epoch", "600", "--start-steps", "100",
+        steps = ["--epochs", "1", "--steps-per-epoch", "350", "--start-steps", "100",
                  "--update-after", "100"]
 
         # Flat.
@@ -3288,7 +3305,7 @@ ONDEVICE_CELLS = {
     "flat_td3": ["--environment", TRAIN_ENV, "--algorithm", "td3"],
 }
 ONDEVICE_STEPS = 1000  # the timed epoch: 1000 acting steps, 1000 updates
-ONDEVICE_TRACED_STEPS = 500  # the traced epoch (half the timed one: the smoke's time limit)
+ONDEVICE_TRACED_STEPS = 250  # the traced epoch (a quarter of the timed one: the time limit)
 T8_SHAPE = (64, 4, 8, 16)  # batch 64 x heads x history 8 x head_dim
 T8_ACT_SHAPE = (16, 4, 8, 16)  # the 16 twins' acting forward
 T8_CRITIC_SHAPE = (128, 4, 8, 16)  # num_qs 2 x batch 64, folded
@@ -3409,7 +3426,7 @@ def _clone_gen(gen):
 
 def ondevice_captured_vs_eager(make_loop, parts) -> dict:
     """From clones of one learner state, ring, env batch and acting
-    generator, two 100-step epochs (two windows each) with the acting
+    generator, one 100-step epoch (two windows) with the acting
     steps and the bursts as CUDA graph replays, and the same epochs
     eagerly, on the package's cuDNN setting: learner, ring, env states,
     the three generators and the metrics to the bit; one capture of each
@@ -3421,9 +3438,8 @@ def ondevice_captured_vs_eager(make_loop, parts) -> dict:
         state, ring, es, act_gen = parts
         run = (state.clone(), ring.clone(), es.clone(), _clone_gen(act_gen))
         metrics = []
-        for _ in range(2):
-            *run, m = loop.epoch(*run, steps=100, update_every=50, eager=eager)
-            metrics.append(m)
+        *run, m = loop.epoch(*run, steps=100, update_every=50, eager=eager)
+        metrics.append(m)
         torch.cuda.synchronize()
         runs[eager] = _ondevice_snapshot(*run, metrics)
         if not eager:
@@ -3432,7 +3448,7 @@ def ondevice_captured_vs_eager(make_loop, parts) -> dict:
     diff = bitwise_diff(runs[False], runs[True])
     check(not diff and captures == (1, 1),
           f"captured vs eager on-device epochs: differ at {diff[:8]}, captures {captures}")
-    return {"epochs": 2, "steps_per_epoch": 100, "bitwise": True,
+    return {"epochs": 1, "steps_per_epoch": 100, "bitwise": True,
             "captures": {"acting": captures[0], "burst": captures[1]}, "cudnn": cudnn}
 
 
@@ -3561,7 +3577,7 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
       (``mem_get_info``); the warm-up epoch of 1000 uniform steps, traced
       in the sequence cell (it launches no kernel); a captured against
       an eager 100-step epoch from clones, to the bit (the pixel cell on
-      cuDNN's deterministic algorithms); a traced 500-step epoch whose
+      cuDNN's deterministic algorithms); a traced 250-step epoch whose
       device launches are
       exactly L K2 per acting step and 5L K2 + 2L K3 + 2L K4 per update
       (sequence, L = 2: K2 = 12·S, K3 = K4 = 4·S) or 1 K1 per update
@@ -3757,7 +3773,7 @@ POP_FLAT_ARGS = ["--environment", "HalfCheetah-v5", "--on-device", "true", "--po
 POP_SEQ_ARGS = ["--environment", TRAIN_ENV, "--on-device", "true", "--history-len", "8",
                 "--population", "8"]
 POP_STEPS = 1000  # a cheetah episode: every member ends one in each 1000-step epoch
-POP_TRACED_STEPS = 500  # the sequence cell's traced epoch (half an epoch: the time limit)
+POP_TRACED_STEPS = 250  # the sequence cell's traced epoch (a quarter epoch: the time limit)
 # Before a timed epoch, one window captures the acting and burst graphs.
 CAPTURE_STEPS = 50
 # K2-K4 at the population's folded shapes (P = 8, history 8): the update
@@ -4207,7 +4223,7 @@ HOST_POP_CRITIC_SHAPE = (HOST_POP * 2 * 64, 4, 16, 16)
 # K1 at the fused pixel population's fold: 8 members' full 10^6-row rings as
 # one (8·10^6, 32, 32, 3) ring, 8·64 rows, both frame leaves in one launch.
 FOLD_MEMBERS, FOLD_CAPACITY, FOLD_BATCH = 8, 10**6, 64
-PIXEL_POP_TRACED_STEPS = 500
+PIXEL_POP_TRACED_STEPS = 250
 
 
 def pixel_fold_row(pixels, seed: int, iters: int = 200) -> dict:
@@ -4545,12 +4561,12 @@ def _fused_rates(args, seed: int, warmup: int, members=(1, 8)) -> dict:
 
 def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
     """The pixel recipe's fused population (P = 8, the balance twin) on
-    ``FUSED_RING``-row rings: a traced 500-step epoch with exactly 1 K1
+    ``FUSED_RING``-row rings: a traced 250-step epoch with exactly 1 K1
     per update for all members (none per acting step), then a timed
     1000-step one (the P = 8 rate; P = 1 from :func:`_fused_rates`); on
-    ``CHECK_RING``-row rings after a 500-step warm-up, captured against
+    ``CHECK_RING``-row rings after a 250-step warm-up, captured against
     eager epochs on cuDNN's deterministic algorithms and a member against
-    a lone learner. (Half-length traced epoch and warm-up: the smoke's
+    a lone learner. (Quarter-length traced epoch and warm-up: the smoke's
     time limit.)"""
     from torch_actor_critic_tpu_torch.sac.ondevice import _SpecView
 
@@ -5493,6 +5509,257 @@ def phase_observability(seed: int, kernels, smi: str, captured_per_update: float
     return launches
 
 
+# ------------------------------------------------- tiered replay plane
+
+REPLAY_RUN = ["--environment", TRAIN_ENV, "--history-len", "16", "--device", "cuda",
+              "--steps-per-epoch", "250", "--start-steps", "200", "--update-after", "200",
+              "--update-every", "50", "--buffer-size", "250"]
+FLYWHEEL_PAIRS, FLYWHEEL_EVERY = 64, 2
+
+
+def offline_cql_launches(layers: int) -> dict:
+    """K2-K4 launches of one offline CQL update (``OfflineLearner.update``),
+    counted from the code at L layers: K2 7L — the critic loss's 3L (the
+    actor on the next states, the target critic, the critic on the data),
+    the CQL gap's 2L (the policy action, the candidates' fold), the actor
+    step's 2L (the actor, the frozen critic); K3 and K4 3L each — the
+    critic step's loss call and fold, the actor step's actor."""
+    return {"flash_fwd": 7 * layers, "flash_bwd_dq": 3 * layers, "flash_bwd_dkv": 3 * layers}
+
+
+def _post_with_id(url: str, body: dict, rid: str) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          "X-Request-Id": rid})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        check(resp.headers.get("X-Request-Id") == rid, f"{url}: request id not echoed")
+        return json.loads(resp.read())
+
+
+def phase_replay_plane(seed: int, kernels, smi: str) -> dict:
+    """The tiered replay plane on the card (in a child):
+
+    (a) the sequence policy at full width through the train CLI's
+        ``build_trainer`` with a 250-row ring, ``--replay-tiers disk
+        --replay-refill 2 --replay-host-capacity 100 --telemetry true``,
+        2 epochs of 250 steps (300 gradient steps in 50-update captured
+        bursts), traced: the conservation invariant, rows spilled to
+        disk and refilled, one capture, exactly 5L K2 and 2L K3/K4 per
+        update through the graph, one ``replay`` telemetry event an
+        epoch; then one epoch with ``--replay-refill 0`` against one with
+        the tiers off from one seed, every leaf bitwise;
+    (b) ``train --offline --offline-reg cql`` from (a)'s disk tier: a
+        captured burst of 50 against an eager one from one state,
+        bitwise; one traced captured burst with exactly
+        :func:`offline_cql_launches` per update; finite losses and a
+        nonzero ``offline/cql_gap``; captured and eager gradient steps
+        per second; then the CLI itself, 3 bursts of 50;
+    (c) the flywheel through the CLI's ``build_server``: ``--run`` of
+        (a)'s run with ``--log-transitions DIR --log-sample-every 2``, 64
+        ``/act`` + ``/outcome`` pairs, the drain and the logger's flush
+        (rows on disk = matched outcomes = 64 / 2), then ``train --offline
+        --offline-reg bc`` for 2 bursts from DIR, finite.
+
+    Returns the traced launches of (a) and (b)."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.diagnostics.ingraph import host_read
+    from torch_actor_critic_tpu_torch.replay import DiskTier
+    from torch_actor_critic_tpu_torch.replay.offline import (
+        OfflineLearner,
+        _stack_batches,
+        load_dataset,
+    )
+    from torch_actor_critic_tpu_torch.serve.__main__ import build_server
+    from torch_actor_critic_tpu_torch.serve.__main__ import parse_arguments as serve_arguments
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    row = {"phase": "replay_plane", "card": smi, "seconds": {}}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        row["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_replay_")
+    try:
+        # (a) tiered training, traced.
+        args = train_cli.parse_arguments([
+            *REPLAY_RUN, "--epochs", "2", "--seed", str(seed), "--runs-root", runs,
+            "--replay-tiers", "disk", "--replay-refill", "2", "--replay-host-capacity", "100",
+            "--telemetry", "true"])
+        epochs: list = []
+
+        def drive():
+            epochs.clear()
+            trainer, tracker = train_cli.build_trainer(args)
+            kernels.reset_launch_counts()
+            t_run = time.perf_counter()
+            metrics = trainer.train(on_epoch=lambda e, m: epochs.append(m))
+            torch.cuda.synchronize()
+            return (trainer, tracker, metrics, time.perf_counter() - t_run,
+                    dict(kernels.launch_counts))
+
+        (trainer, tracker, metrics, run_s, wrapped), launches = traced(
+            drive, "replay_plane.tiered", discard=lambda out: out[0].close())
+        try:
+            cfg = trainer.config
+            layers = cfg.seq_num_layers
+            per_update = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                          "flash_bwd_dkv": 2 * layers}
+            updates, captures = trainer.state.step, trainer.sac.graph_captures
+            check(updates == 300 and captures == 1,
+                  f"replay_plane.tiered: {updates} updates, {captures} captures")
+            check_through_graphs("replay_plane.tiered", launches, wrapped, per_update, updates,
+                                 captures)
+            for key in ("loss_q", "loss_pi", "reward"):
+                check(math.isfinite(metrics[key]), f"replay_plane.tiered: {key} {metrics[key]}")
+            check(metrics["replay/conservation_ok"] == 1.0
+                  and metrics["replay/spilled_disk_total"] > 0
+                  and metrics["replay/refill_rows_total"] > 0
+                  and metrics["replay/refills_served"] > 0,
+                  f"replay_plane.tiered: {metrics}")
+            events = [json.loads(x)["type"] for x in open(
+                os.path.join(tracker.run_dir, "telemetry.jsonl")).read().splitlines()]
+            check(events.count("replay") == 2,
+                  f"replay_plane.tiered: {events.count('replay')} replay events in 2 epochs")
+            replay_dir = os.path.join(tracker.run_dir, "replay")
+            run_id = tracker.run_id
+        finally:
+            trainer.close()
+        row["tiered"] = {
+            "run_s": run_s, "updates": updates, "captures": captures, "launches": launches,
+            "wrapper_launches": wrapped, "launches_per_update": per_update,
+            "epoch_grad_steps_per_sec": [m["grad_steps_per_sec"] for m in epochs],
+            "replay": {k: v for k, v in metrics.items() if k.startswith("replay/")},
+        }
+        lap("tiered")
+
+        def one_epoch(*extra):
+            a = train_cli.parse_arguments([*REPLAY_RUN, "--epochs", "1", "--seed", str(seed),
+                                           "--runs-root", runs, "--no-save-buffer", *extra])
+            tr, _ = train_cli.build_trainer(a)
+            try:
+                tr.train()
+                torch.cuda.synchronize()
+                return learner_snapshot(tr), tr.sac.graph_captures
+            finally:
+                tr.close()
+
+        (off, c_off), (archival, c_arch) = one_epoch(), one_epoch(
+            "--replay-tiers", "disk", "--replay-refill", "0")
+        diff = bitwise_diff(off, archival)
+        check(diff == [] and c_off == c_arch == 1,
+              f"replay_plane: tiers on, refill 0 against tiers off: {diff[:8]}")
+        row["archival_vs_off"] = {"bitwise": True, "captures": c_off}
+        lap("archival_vs_off")
+
+        # (b) offline CQL from (a)'s disk tier.
+        rows, obs_spec, act_dim, act_limit = load_dataset(replay_dir)
+        ocfg = SACConfig(history_len=16, update_every=50, offline=True, offline_reg="cql",
+                         offline_dataset=replay_dir, offline_steps=150)
+        per = ocfg.update_every
+        learners = {}
+        for eager in (True, False):
+            lrn = OfflineLearner(ocfg, obs_spec, act_dim, act_limit, device="cuda", seed=seed)
+            m = lrn.burst(_stack_batches(rows, np.random.default_rng(seed), per,
+                                         ocfg.batch_size), eager=eager)
+            learners[eager] = (lrn, m)
+        torch.cuda.synchronize()
+        (le, me), (lg, mg) = learners[True], learners[False]
+        gaps = _learner_gaps(lg.state, le.state)
+        check(gaps == BITWISE and lg.graph_captures == 1
+              and all(torch.equal(mg[k], me[k]) for k in me),
+              f"replay_plane.offline: captured against eager burst {gaps}")
+        host = {k: float(v) for k, v in host_read(mg).items()}
+        check(all(math.isfinite(v) for v in host.values()) and host["offline/cql_gap"] != 0.0,
+              f"replay_plane.offline: burst metrics {host}")
+        sampler = np.random.default_rng(seed + 1)
+        batches = [_stack_batches(rows, sampler, per, ocfg.batch_size) for _ in range(3)]
+        kernels.reset_launch_counts()
+        _, off_launches = traced(lambda: lg.burst(batches[0]), "replay_plane.offline_burst")
+        want = {k: per * n for k, n in offline_cql_launches(ocfg.seq_num_layers).items()}
+        check({k: off_launches.get(k, 0) for k in want} == want
+              and not any(kernels.launch_counts.get(k, 0) for k in want),
+              f"replay_plane.offline: {off_launches} launches in a captured burst of {per}, "
+              f"expected {want} (wrappers {dict(kernels.launch_counts)})")
+        # Rates: three captured bursts, one eager (~18 steps/s: each eager
+        # burst costs seconds).
+        rates = {}
+        for mode, lrn, eager, timed_batches in (("captured", lg, False, batches),
+                                                ("eager", le, True, batches[:1])):
+            torch.cuda.synchronize()
+            t_rate = time.perf_counter()
+            for b in timed_batches:
+                lrn.burst(b, eager=eager)
+            torch.cuda.synchronize()
+            rates[mode] = len(timed_batches) * per / (time.perf_counter() - t_rate)
+        check(lg.graph_captures == 1, f"replay_plane.offline: {lg.graph_captures} captures")
+        lap("offline_learner")
+        cli = train_cli.main([
+            "--environment", TRAIN_ENV, "--history-len", "16", "--device", "cuda",
+            "--seed", str(seed), "--runs-root", runs, "--offline", "true",
+            "--offline-dataset", replay_dir, "--offline-reg", "cql", "--offline-steps", "150",
+            "--update-every", "50"])
+        check(cli["offline/steps"] == 150.0 and math.isfinite(cli["loss_q"])
+              and math.isfinite(cli["loss_pi"]) and cli["offline/cql_gap"] != 0.0,
+              f"replay_plane: train --offline --offline-reg cql: {cli}")
+        row["offline"] = {
+            "dataset_rows": len(rows["rewards"]), "captured_vs_eager": gaps,
+            "launches_per_update": offline_cql_launches(ocfg.seq_num_layers),
+            "traced_launches": off_launches, "burst_metrics": host,
+            "grad_steps_per_sec": rates, "cli": cli,
+        }
+        lap("offline_cli")
+
+        # (c) the flywheel through the serve CLI's build_server.
+        fly = os.path.join(runs, "flywheel")
+        server, _ = build_server(serve_arguments(_serve_args([
+            "--run", run_id, "--runs-root", runs, "--seed", str(seed),
+            "--log-transitions", fly, "--log-sample-every", str(FLYWHEEL_EVERY)])))
+        server.start()
+        rng = np.random.default_rng(seed)
+        matched = 0
+        try:
+            for i in range(FLYWHEEL_PAIRS):
+                obs = rng.standard_normal((16, 3)).astype(np.float32)
+                act = _post_with_id(server.address + "/act",
+                                    {"obs": obs.tolist(), "deterministic": False}, f"fly-{i}")
+                check(np.all(np.isfinite(act["action"])), f"flywheel: action {act}")
+                out = post(server.address + "/outcome", {
+                    "request_id": f"fly-{i}", "reward": float(rng.standard_normal()),
+                    "next_obs": rng.standard_normal((16, 3)).tolist(), "done": i % 16 == 15})
+                matched += int(out["logged"])
+            snap = _get(server.address + "/metrics")["flywheel"]
+            server.drain()
+        finally:
+            server.close()
+            server.transition_logger.close()
+        tier = DiskTier(fly)
+        check(matched == FLYWHEEL_PAIRS // FLYWHEEL_EVERY == tier.rows
+              == snap["logged_rows_total"],
+              f"flywheel: {tier.rows} rows on disk, {matched} matched outcomes, {snap}")
+        bc = train_cli.main([
+            "--environment", TRAIN_ENV, "--history-len", "16", "--device", "cuda",
+            "--seed", str(seed), "--runs-root", runs, "--offline", "true",
+            "--offline-dataset", fly, "--offline-reg", "bc", "--offline-steps", "100",
+            "--update-every", "50"])
+        check(bc["offline/steps"] == 100.0 and all(
+            math.isfinite(bc[k]) for k in ("loss_q", "loss_pi", "offline/bc_mse")),
+            f"replay_plane: train --offline --offline-reg bc: {bc}")
+        row["flywheel"] = {"pairs": FLYWHEEL_PAIRS, "sample_every": FLYWHEEL_EVERY,
+                           "rows_on_disk": tier.rows, "snapshot": snap, "bc": bc}
+        lap("flywheel")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    row["seconds"]["phase"] = time.perf_counter() - t_phase
+    emit(row)
+    print(f"replay_plane: {row['seconds']['phase']:.1f} s; offline CQL gradient steps/s "
+          f"captured {rates['captured']:.1f}, eager {rates['eager']:.1f} ({smi})", flush=True)
+    return {k: launches.get(k, 0) + off_launches.get(k, 0)
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5506,6 +5773,8 @@ def main(argv=None) -> int:
                    help="Run only the host_env_plane phase (the smoke starts it so, in a child)")
     p.add_argument("--observability-phase", action="store_true",
                    help="Run only the observability phase (the smoke starts it so, in a child)")
+    p.add_argument("--replay-plane-phase", action="store_true",
+                   help="Run only the replay_plane phase (the smoke starts it so, in a child)")
     p.add_argument("--captured-kernels-per-update", type=float, default=None,
                    help="The train phase's captured burst's device kernels per update, which "
                    "the observability phase's off tier must equal")
@@ -5540,6 +5809,10 @@ def main(argv=None) -> int:
                                        args.captured_kernels_per_update)
         emit({"observability_launches": launches})
         return 0
+    if args.replay_plane_phase:
+        launches = phase_replay_plane(args.seed, _kernels, nvidia_smi())
+        emit({"replay_plane_launches": launches})
+        return 0
     seconds, t_start = {}, time.perf_counter()
 
     def timed(name, fn, *a):
@@ -5572,8 +5845,9 @@ def main(argv=None) -> int:
     plane_launches = timed("host_env_plane", in_a_child, "host_env_plane", args.seed, 400)
     observed_launches = timed("observability", in_a_child, "observability", args.seed, 300,
                               ["--captured-kernels-per-update", repr(captured_per_update)])
+    replay_launches = timed("replay_plane", in_a_child, "replay_plane", args.seed, 240)
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
-    for more in (populations_launches, plane_launches, observed_launches):
+    for more in (populations_launches, plane_launches, observed_launches, replay_launches):
         for k, v in more.items():
             population_launches[k] = population_launches.get(k, 0) + v
     fwd_launches = (serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]

@@ -2133,3 +2133,219 @@ def test_cost_count_at_warmup_leaves_the_captured_forward_bitwise(cuda):
             torch.Generator(device=cuda).manual_seed(bucket)
         np.testing.assert_array_equal(counted.act(pc, obs, gc_, deterministic=False),
                                       plain.act(pp, obs, gp, deterministic=False))
+
+
+# ------------------------------------- tiered replay, refill and offline
+
+# The CQL fold of the offline critic step: num_qs·(K + 1)·B rows at batch 64.
+CQL_FOLD_SHAPE = (2 * 5 * 64, 4, 16, 16)
+
+
+def _warm_tiers(rows_of, n=5, window=40, capacity=64, host=256):
+    """A TieredReplay whose host tier holds spilled rows: ``n`` windows
+    of ``rows_of(window, i)`` through a ``capacity``-row shadow."""
+    from torch_actor_critic_tpu_torch.replay import TieredReplay, batch_to_rows
+
+    tiered = TieredReplay(hbm_capacity=capacity, host_capacity=host, seed=3)
+    for i in range(n):
+        tiered.ingest_rows(batch_to_rows(rows_of(window, i)))
+    return tiered
+
+
+def _host_rows(shape, n, seed):
+    """Numpy rows of a Batch for ``shape`` (flat, history or visual)."""
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+
+    rng = np.random.default_rng(seed)
+
+    def obs():
+        if isinstance(shape, MultiObservation):
+            return MultiObservation(
+                rng.standard_normal((n, *shape.features)).astype(np.float32),
+                rng.integers(0, 256, (n, *shape.frame), dtype=np.uint8))
+        return rng.standard_normal((n, *shape)).astype(np.float32)
+
+    return Batch(states=obs(), actions=rng.uniform(-2, 2, (n, 1)).astype(np.float32),
+                 rewards=rng.standard_normal(n).astype(np.float32), next_states=obs(),
+                 done=(rng.uniform(size=n) < 0.1).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sequence", "visual-fused"])
+def test_refill_on_the_card_is_the_cpu_ring_bitwise(cuda, name):
+    """The same refill chunks pushed through the pinned staging slots on
+    the card (more pushes than slots, so each slot is reused) and
+    directly on the CPU: the same ring leaves, cursor and size, bitwise."""
+    from torch_actor_critic_tpu_torch.buffer.replay import (
+        init_replay_buffer,
+        init_visual_replay_buffer,
+        push,
+    )
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+    from torch_actor_critic_tpu_torch.replay import RefillPrefetcher, batch_to_rows
+
+    _, shape = BURST_CASES[name]
+    shape = MultiObservation(*shape) if isinstance(shape[0], tuple) else shape
+    rings = {}
+    for device in ("cpu", cuda):
+        ring = (init_visual_replay_buffer(100, shape.features[0], shape.frame, 1, device)
+                if isinstance(shape, MultiObservation)
+                else init_replay_buffer(100, shape, 1, device))
+        ring = push(ring, _host_rows(shape, 70, 0).map(torch.from_numpy))
+        pf = RefillPrefetcher(_warm_tiers(lambda n, i: _host_rows(shape, n, 10 + i)),
+                              n_envs=1, refill_rows=16, async_prefetch=False)
+        for _ in range(5):
+            ring = pf.push_into(ring, batch_to_rows(pf.poll_local_chunk(), n_lead=2))
+        pf.close()
+        rings[str(device)] = ring
+    torch.cuda.synchronize()
+    cpu, card = rings["cpu"], rings[str(cuda)]
+    assert (card.ptr, card.size, int(card.device_size)) == (cpu.ptr, cpu.size, 100)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card.data.leaves(), cpu.data.leaves()))
+
+
+@pytest.mark.gpu
+def test_refill_under_a_captured_burst_causes_no_recapture(cuda):
+    """Burst, refill, burst, refill, burst: the refill writes the ring's
+    own tensors in place, so one graph serves every burst; and from one
+    cloned state the captured run equals the eager run bitwise (the
+    replays sample the refilled rows as the eager updates do)."""
+    from torch_actor_critic_tpu_torch.replay import RefillPrefetcher, batch_to_rows
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+
+    cfg, shape, state, ring, gen = _burst_learner(cuda, "sequence", capacity=512, prefill=400)
+    chunks = [_burst_chunk(cuda, shape, 50, gen) for _ in range(3)]
+    runs = {}
+    for captured in (False, True):
+        sac, st, buf = SAC(cfg, 1), state.clone(), ring.clone()
+        pf = RefillPrefetcher(_warm_tiers(lambda n, i: _host_rows(shape, n, 20 + i)),
+                              n_envs=1, refill_rows=64, async_prefetch=False)
+        for chunk in chunks:
+            st, buf, _ = sac.update_burst(st, buf, chunk, 10, eager=not captured)
+            buf = pf.push_into(buf, batch_to_rows(pf.poll_local_chunk(), n_lead=2))
+        pf.close()
+        runs[captured] = (st, buf, sac.graph_captures)
+    torch.cuda.synchronize()
+    (eager, ring_e, _), (graph, ring_g, captures) = runs[False], runs[True]
+    assert captures == 1
+    assert _learner_gaps(graph, eager) == {"params": 0.0, "adam": 0.0, "log_alpha": 0.0,
+                                           "same_generator": True, "same_step": True}
+    assert all(torch.equal(a, b) for a, b in zip(ring_g.data.leaves(), ring_e.data.leaves()))
+
+
+@pytest.mark.gpu
+def test_a_refill_under_the_lag_is_ordered_after_the_spread_burst(cuda):
+    """``actor_param_lag`` with tiers and refill on the card: every refill
+    push happens with no spread burst pending (after ``_finish_burst``
+    enqueued its last replay, on the same stream), one graph serves the
+    run, and every flow stays counted."""
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+
+    cfg = SACConfig(history_len=16, epochs=1, steps_per_epoch=400, start_steps=100,
+                    update_after=100, update_every=50, buffer_size=150,
+                    actor_param_lag=True, replay_tiers="host", replay_refill=8,
+                    replay_prefetch=False)
+    tr = Trainer("PendulumNumpy-v1", cfg, seed=0, device=cuda)
+    pushed, spread = [], []
+    push_into, start_burst = tr._prefetcher.push_into, tr.sac.start_burst
+
+    def watched_push(buffer, rows):
+        pushed.append(tr._pending is None)
+        return push_into(buffer, rows)
+
+    def watched_start(*a, **k):
+        spread.append(1)
+        return start_burst(*a, **k)
+
+    tr._prefetcher.push_into, tr.sac.start_burst = watched_push, watched_start
+    try:
+        m = tr.train()
+    finally:
+        tr.close()
+    assert spread and len(pushed) >= 3 and all(pushed), (len(spread), pushed)
+    assert tr.sac.graph_captures == 1
+    assert m["replay/conservation_ok"] == 1.0 and m["replay/refills_served"] == len(pushed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reg", ["none", "cql"])
+def test_offline_burst_captured_equals_eager_bitwise(cuda, reg):
+    """Two learners from one seed, bursts of 10, 10 and a tail of 4 from
+    the same host batches: replays of one captured update against the
+    eager updates, to the bit, with one capture (the tail replays it)."""
+    from torch_actor_critic_tpu_torch.envs.wrappers import ObsSpec
+    from torch_actor_critic_tpu_torch.replay.offline import OfflineLearner, _stack_batches
+    from torch_actor_critic_tpu_torch.replay import batch_to_rows
+
+    cfg = SACConfig(history_len=16, update_every=10, offline_steps=24, offline_reg=reg,
+                    learn_alpha=True)
+    rows = batch_to_rows(_host_rows((16, 3), 500, 7))
+    runs = {}
+    for eager in (True, False):
+        learner = OfflineLearner(cfg, ObsSpec((16, 3)), 1, 2.0, device=cuda, seed=0)
+        sampler = np.random.default_rng(0)
+        metrics = [learner.burst(_stack_batches(rows, sampler, k, cfg.batch_size), eager=eager)
+                   for k in (10, 10, 4)]
+        runs[eager] = (learner, metrics)
+    torch.cuda.synchronize()
+    (le, me), (lg, mg) = runs[True], runs[False]
+    assert lg.graph_captures == 1 and lg.state.step == le.state.step == 24
+    assert _learner_gaps(lg.state, le.state) == {
+        "params": 0.0, "adam": 0.0, "log_alpha": 0.0, "same_generator": True,
+        "same_step": True}
+    for a, b in zip(mg, me):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in b)
+
+
+@pytest.mark.gpu
+def test_kernels_at_the_cql_fold_shape_match_plain(cuda):
+    """K2-K4 at the offline CQL critic call's fold, (num_qs·(K+1)·B, H,
+    T, d) = (640, 4, 16, 16), on the model's split views."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    b, h, t, d = CQL_FOLD_SHAPE
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device=cuda)
+                   .reshape(b, t, h, d).transpose(1, 2) for _ in range(4))
+    out, lse = tattn.flash_attention_forward(q, k, v, True, return_lse=True)
+    ref, ref_lse = tattn.reference_attention(q, k, v, True, return_lse=True)
+    got = tattn.flash_attention_backward(q, k, v, out, lse, do, True)
+    want = _plain_backward(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    _assert_backward_close(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+def test_pixel_gather_over_a_refilled_ring_is_bitwise_plain(cuda):
+    """K1 over a visual ring whose newest rows were refilled from the host
+    tier (uint8 frames through the pinned staging): both frame leaves at
+    rows that include every refilled one, bitwise their plain version."""
+    from torch_actor_critic_tpu_torch.buffer.replay import init_visual_replay_buffer, push
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+    from torch_actor_critic_tpu_torch.ops.augment import shift_offsets
+    from torch_actor_critic_tpu_torch.ops.pixels import (
+        fused_frame_gather_pair,
+        gather_frames_reference,
+    )
+    from torch_actor_critic_tpu_torch.replay import RefillPrefetcher, batch_to_rows
+
+    shape = MultiObservation((1,), (32, 32, 3))
+    ring = init_visual_replay_buffer(200, 1, (32, 32, 3), 1, cuda)
+    ring = push(ring, _host_rows(shape, 120, 0).map(torch.from_numpy))
+    pf = RefillPrefetcher(_warm_tiers(lambda n, i: _host_rows(shape, n, 30 + i)),
+                          n_envs=1, refill_rows=32, async_prefetch=False)
+    refilled = []
+    for _ in range(2):
+        rows = batch_to_rows(pf.poll_local_chunk(), n_lead=2)
+        refilled += [(ring.ptr + j) % ring.capacity for j in range(32)]
+        ring = pf.push_into(ring, rows)
+    pf.close()
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    idx = torch.tensor(refilled + list(range(32)), device=cuda)
+    offsets = tuple(shift_offsets(idx.numel(), 4, gen, cuda) for _ in range(2))
+    frames = (ring.data.states.frame, ring.data.next_states.frame)
+    got = fused_frame_gather_pair(frames, idx, offsets, 4, True, torch.float32, 1)
+    for g, r, o in zip(got, frames, offsets):
+        want = gather_frames_reference(r, idx, o, 4, True, torch.float32, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(g, want)

@@ -458,10 +458,13 @@ def test_cli_flags_parse_and_validate():
         parse_arguments(["--ckpt-dir", "/tmp/x", "--serve-precision", "fp64"])
     with pytest.raises(SystemExit):
         check_ported(parse_arguments(["--submesh", "two"]))
-    for flag, queue in ((["--log-transitions", "d"], 7), (["--warm-start", "auto"], 10),
-                        (["--compile-cache", "d"], 10)):
+    for flag, queue in ((["--warm-start", "auto"], 10), (["--compile-cache", "d"], 10)):
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             check_ported(parse_arguments(flag))
+    # The transition flywheel is ported: its flags parse and validate.
+    args = parse_arguments(["--log-transitions", "d", "--log-sample-every", "4"])
+    assert check_ported(args) == (1, 1)
+    assert (args.log_transitions, args.log_sample_every, args.log_max_bytes) == ("d", 4, 0)
     # The obs plane, the warm pool and elastic serving are ported: with a
     # fleet they parse and validate.
     fleet = ["--ckpt-dir", "/tmp/x", "--obs-dim", "4", "--act-dim", "2", "--fleet", "2"]

@@ -212,7 +212,7 @@ def test_trainer_without_updates_only_fills_the_buffer():
 
 @pytest.mark.parametrize("field,value", [
     ("diagnostics", "light"), ("ma_critic", "per_agent"),
-    ("replay_tiers", "host"), ("telemetry", True), ("obs", True),
+    ("task_embed_dim", 8), ("telemetry", True), ("obs", True),
     ("decoupled", True), ("emit_bundle", True),
     ("compile_cache", "/nonexistent"),
 ])

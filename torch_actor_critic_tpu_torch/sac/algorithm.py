@@ -493,21 +493,27 @@ def _shared_diagnostics(
 
 def graph_key(state: TrainState, buffer_state: BufferState) -> tuple:
     """What a captured update reads and writes, compared by identity
-    (:meth:`~.graph.BurstGraph.serves`): the state and its modules (the
-    target actor too, for TD3), optimizers, ``log_alpha``, device step
-    and generator; every parameter, module buffer, Adam state tensor and
-    hyperparameter; the ring's leaves and device size. A
+    (:meth:`~.graph.BurstGraph.serves`): the learner state's
+    (:func:`state_key`), then the ring's leaves and device size. A
     restore that copies into those tensors
     (:meth:`~..core.types.TrainState.load_state_dict_`,
     :func:`~..buffer.replay.load_buffer_`) keeps the graph; one that
     replaced any of them (``Optimizer.load_state_dict`` builds new state
     tensors) is never replayed onto: the next burst captures anew."""
+    return (*state_key(state), buffer_state.data, buffer_state.device_size,
+            *buffer_state.data.leaves())
+
+
+def state_key(state: TrainState) -> tuple:
+    """The learner state's part of a graph key: the state and its
+    modules (the target actor too, for TD3), optimizers, ``log_alpha``,
+    device step and generator; every parameter, module buffer, Adam
+    state tensor and hyperparameter."""
     modules = state.modules()
     opts = (state.pi_opt, state.q_opt, state.alpha_opt)
     return (
         state, *modules, *opts, state.log_alpha, state.device_step, state.generator,
         *(state.hyperparams or {}).values(),
-        buffer_state.data, buffer_state.device_size, *buffer_state.data.leaves(),
         *(x for m in modules for x in (*m.parameters(), *m.buffers())),
         *(x for opt in opts for st in opt.state.values() for x in st.values()),
     )

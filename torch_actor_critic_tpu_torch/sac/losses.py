@@ -30,12 +30,15 @@ def critic_loss(
     eps: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     diagnostics: bool = False,
+    keep_q: bool = False,
 ) -> t.Tuple[torch.Tensor, t.Dict[str, torch.Tensor]]:
     """Twin-critic Bellman MSE: ``sum_i mean((Q_i(s, a) - backup)^2)``
     with ``backup = reward_scale * r + gamma * (1 - done) *
     (min_i Q_targ_i(s', a') - alpha * logp(a'|s'))``, ``a' ~ pi(.|s')``.
     ``diagnostics`` adds the detached ``(num_qs, B)`` Q surface and the
-    backup under ``diag_q``/``diag_backup`` (the caller pops them)."""
+    backup under ``diag_q``/``diag_backup`` (the caller pops them);
+    ``keep_q`` the ``(num_qs, B)`` Q surface itself, in the graph, under
+    ``q`` (the offline learner's CQL gap reads it)."""
     with torch.no_grad():
         next_action, next_logp = actor(
             batch.next_states, generator=generator, eps=eps
@@ -51,6 +54,8 @@ def critic_loss(
     if diagnostics:
         aux["diag_q"] = q.detach()
         aux["diag_backup"] = backup
+    if keep_q:
+        aux["q"] = q
     return loss, aux
 
 

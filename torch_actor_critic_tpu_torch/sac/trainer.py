@@ -135,6 +135,23 @@ evaluates the SLO rules (``slo_breach``/``slo_recovered`` events go to
 epoch's metrics. A population and the fused loop refuse it (ROADMAP
 queue 1 item 9).
 
+Tiered replay (JAX's ``replay_tiers``/``replay_refill``, the solo
+trainer only; the config refuses a population and ``on_device``, as
+JAX's does): :func:`~..replay.build_tiered_replay` builds a host shadow
+of the device ring, the host tier and, with ``"disk"``, the disk tier.
+Every staged window is ingested on the host (the shadow sees the ring's
+pushes in the ring's order), rows the ring overwrites spill down the
+tiers, and with ``replay_refill > 0`` a
+:class:`~..replay.RefillPrefetcher` chunk of host rows is pushed into
+the ring in place after each window's burst (a burst spread over the
+next window under ``actor_param_lag`` takes it when it finishes, so the
+push is ordered after its last replay; a captured burst graph reads the
+same tensors, so nothing recaptures). Each epoch adds the ``replay/*``
+columns and, with telemetry, one ``replay`` event; the checkpoint meta
+holds the tiers' counters (``replay_tiers``), and a restore moves the
+resident host rows to ``dropped_restart``. With ``replay_tiers="off"``
+none of it exists.
+
 Config fields this slice does not implement raise
 ``NotImplementedError`` naming the field when they are not at their
 defaults (:data:`NOT_PORTED`); ``pbt_every`` raises here (PBT runs over
@@ -162,6 +179,7 @@ import torch
 from torch_actor_critic_tpu_torch.buffer.replay import (
     init_replay_buffer,
     init_visual_replay_buffer,
+    nbytes,
     push,
     warn_if_buffer_exceeds_hbm,
 )
@@ -222,7 +240,7 @@ NOT_PORTED = (
     "population",
     "pbt_every", "ma_critic", "task_embed_dim",
     "decoupled", "serve_url", "actors",
-    "elastic", "replay_tiers", "replay_refill", "offline", "telemetry",
+    "elastic", "telemetry",
     "diagnostics", "sanitize", "compile_cache", "emit_bundle", "obs",
     "obs_scrape", "slo_config",
 )
@@ -301,6 +319,13 @@ def epoch_fetch(losses_q: t.List[torch.Tensor], losses_pi: t.List[torch.Tensor],
                       **{k: torch.stack([r[k] for r in rows]) for k in (rows[0] if rows else ())}})
     loss_q, loss_pi = float(host.pop("loss_q")), float(host.pop("loss_pi"))
     return loss_q, loss_pi, [{k: v[i] for k, v in host.items()} for i in range(len(rows))]
+
+
+def ring_leaf(x) -> np.ndarray:
+    """A host leaf in its ring dtype: uint8 frames stay uint8, the rest
+    float32."""
+    x = np.asarray(x)
+    return x if x.dtype == np.uint8 else x.astype(np.float32)
 
 
 def make_learner(config: SACConfig, act_dim: int) -> Learner:
@@ -432,6 +457,28 @@ class Trainer:
                 self.buffer = init_replay_buffer(
                     cfg.buffer_size, obs_shape, self.pool.act_dim, self.device
                 )
+        # Tiered replay: the device ring's host shadow, the host and disk
+        # tiers and the refill (None when off: the loop is then exactly
+        # the trainer without tiers).
+        self.tiered = self._prefetcher = None
+        self._refill_due = False
+        if cfg.replay_tiers != "off":
+            from torch_actor_critic_tpu_torch.replay import (
+                RefillPrefetcher,
+                build_tiered_replay,
+            )
+
+            self.tiered = build_tiered_replay(
+                cfg, spec, act_dim, hbm_capacity=self.buffer.capacity,
+                act_limit=float(self.pool.act_limit),
+                run_dir=(str(tracker.run_dir)
+                         if tracker is not None and tracker.enabled else None),
+                seed=seed,
+            )
+            if cfg.replay_refill > 0:
+                self._prefetcher = RefillPrefetcher(
+                    self.tiered, self.population, cfg.replay_refill,
+                    async_prefetch=cfg.replay_prefetch)
         self.start_epoch = 0
         self._resume_step: int | None = None
         self.sentinel = DivergenceSentinel(cfg.max_rollbacks) if cfg.sentinel else None
@@ -488,8 +535,7 @@ class Trainer:
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """A host array on the device: uint8 frames stay uint8 (4x fewer
         bytes; the model or the ring decodes them), the rest float32."""
-        x = np.asarray(x)
-        x = torch.from_numpy(x if x.dtype == np.uint8 else x.astype(np.float32))
+        x = torch.from_numpy(ring_leaf(x))
         if self.device.type == "cuda":
             x = x.pin_memory()
         return x.to(self.device, non_blocking=True)
@@ -539,12 +585,30 @@ class Trainer:
 
     def _finish_burst(self) -> Metrics | None:
         """Enqueue what is left of the spread burst and take its state and
-        ring; returns its metrics (``None`` without one)."""
-        if self._pending is None:
-            return None
-        pending, self._pending = self._pending, None
-        self.state, self.buffer, m = pending.finish()
+        ring, then push the window's refill if one is due (ordered after
+        the burst's last replay); returns the burst's metrics (``None``
+        without one)."""
+        m = None
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self.state, self.buffer, m = pending.finish()
+        if self._refill_due:
+            self._refill_due = False
+            self._refill()
         return m
+
+    def _refill(self) -> None:
+        """Host → device refill: the prefetcher's next chunk (if one is
+        ready) pushed into the ring in place, its rows re-entering the
+        waterfall as the shadow's next push."""
+        local = self._prefetcher.poll_local_chunk()
+        if local is None:
+            return
+        from torch_actor_critic_tpu_torch.replay import batch_to_rows
+
+        rows = batch_to_rows(local, n_lead=2)
+        self.buffer = self._prefetcher.push_into(self.buffer, rows)
+        self.tiered.note_refill(rows)
 
     @torch.no_grad()
     def _refresh_acting(self) -> None:
@@ -588,6 +652,9 @@ class Trainer:
             "step": int(step),
             "act_key": self._act_gen.get_state().tolist(),
             "act_key_device": self._act_gen.device.type,
+            # The tiers' counters only: the disk tier persists itself, and
+            # the host rows are declared lost (dropped_restart) at restore.
+            **({"replay_tiers": self.tiered.meta_state()} if self.tiered is not None else {}),
         }
 
     def _save_checkpoint(self, epoch: int, step: int) -> None:
@@ -627,6 +694,8 @@ class Trainer:
                     "is on %r and keeps its own state",
                     meta.get("act_key_device"), self._act_gen.device.type,
                 )
+        if self.tiered is not None and meta.get("replay_tiers"):
+            self.tiered.load_meta(meta["replay_tiers"])
         return meta
 
     def _rollback(self) -> int:
@@ -743,10 +812,15 @@ class Trainer:
                         del env_staging[:]
                     if rec is not None:
                         rec.lap(PH_STAGE)
-                    chunk = chunk.map(self._to_device)
+                    host_chunk, chunk = chunk, chunk.map(self._to_device)
                     if rec is not None:
                         rec.lap(PH_PLACE)
                     take(self._finish_burst())
+                    if self.tiered is not None:
+                        # The shadow sees the ring's pushes in the ring's
+                        # order: a refill due after the last burst went in
+                        # just above, this chunk goes in next.
+                        self.tiered.ingest_chunk(host_chunk.map(ring_leaf))
                     if step > cfg.update_after:
                         if self._acting is not None and step + 1 >= cfg.start_steps:
                             # The next window acts on these pre-burst
@@ -759,6 +833,13 @@ class Trainer:
                                 take(self._burst(chunk, cfg.updates_per_window))
                     else:
                         self.buffer = push(self.buffer, chunk)
+                    if self._prefetcher is not None:
+                        # Refill after the burst: a burst spread over the
+                        # next window (actor_param_lag) takes it when it
+                        # finishes, any other now.
+                        self._refill_due = True
+                        if self._pending is None:
+                            self._finish_burst()
                     if rec is not None:
                         rec.lap(PH_BURST)
                 step += 1
@@ -798,6 +879,16 @@ class Trainer:
                 "env_steps_per_sec": cfg.steps_per_epoch * n / dt,  # every env's steps
                 "grad_steps_per_sec": grad_steps / dt,
             }
+            if self.tiered is not None:
+                # Keys only with tiers on: the tiers' depths, flows and
+                # conservation verdict, the refill's counters and the
+                # ring's measured bytes.
+                last_metrics.update(self.tiered.metrics())
+                if self._prefetcher is not None:
+                    last_metrics.update(self._prefetcher.metrics())
+                last_metrics["replay/hbm_bytes"] = float(nbytes(self.buffer))
+                if rec is not None:
+                    rec.event("replay", epoch=e, **self.tiered.snapshot())
             if self.population > 1:
                 # Per-member epoch-mean returns: the P learning curves.
                 for i, rewards in enumerate(member_rewards):
@@ -1093,6 +1184,10 @@ class Trainer:
         belongs to this trainer's graphs, so it is cleared."""
         if self.watchdog is not None:
             self.watchdog.clear_steady("train/")
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+        if self.tiered is not None:
+            self.tiered.close()
         if self.obs is not None:
             # One final window (a run shorter than the interval still
             # gets a row), then the run-exit SLO table.

@@ -49,9 +49,17 @@ the newest worker. The router's ``/metrics`` then carries a ``fleet``
 section (the pool's, the scaler's and the controller's counters). Off,
 each of them constructs nothing.
 
+``--log-transitions DIR`` logs served transitions into a replay disk
+tier at DIR (:class:`~..replay.TransitionLogger`): every
+``--log-sample-every``-th answered ``/act`` is noted under its
+``X-Request-Id``, ``POST /outcome`` completes it, ``/metrics`` has a
+``flywheel`` section, chunk files rotate out past ``--log-max-bytes``,
+and the SIGTERM drain flushes the partial chunk; ``train --offline
+--offline-dataset DIR`` trains from it. Under ``--fleet N`` worker ``i``
+logs to ``DIR/worker-i``, as the JAX CLI does.
+
 Not ported, and refused with ``NotImplementedError`` naming their
-ROADMAP queue: sub-meshes larger than 1x1 (queue 6), the transition
-flywheel ``--log-transitions`` (queue 7), ``--warm-start``,
+ROADMAP queue: sub-meshes larger than 1x1 (queue 6), ``--warm-start``,
 ``--compile-cache`` (queue 10), and ``--sanitize``.
 """
 
@@ -171,14 +179,20 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     ovl.add_argument("--reload-retries", type=int, default=1)
     ovl.add_argument("--reload-retry-backoff", type=float, default=0.5)
     ovl.add_argument("--drain-timeout", type=float, default=30.0)
-    fwl = p.add_argument_group("data flywheel (not ported)")
-    fwl.add_argument("--log-transitions", metavar="DIR", default=None)
+    fwl = p.add_argument_group("data flywheel")
+    fwl.add_argument("--log-transitions", metavar="DIR", default=None,
+                     help="Log served transitions (obs/action from /act, outcome "
+                          "from POST /outcome) into a replay disk tier at DIR — "
+                          "the chunk format train --offline consumes")
+    fwl.add_argument("--log-sample-every", type=int, default=1,
+                     help="Keep every Nth answered /act (1 = keep all)")
+    fwl.add_argument("--log-max-bytes", type=int, default=0,
+                     help="Disk-tier byte budget for the transition log; oldest "
+                          "chunk files rotate out past it (0 = unbounded)")
     return p.parse_args(argv)
 
 
 _NOT_PORTED = (
-    ("log_transitions", None, "--log-transitions (the transition flywheel, "
-     "replay/diskstore.py)", 7),
     ("warm_start", None, "--warm-start (warm-start bundles)", 10),
     ("compile_cache", None, "--compile-cache", 10),
     ("sanitize", "off", "--sanitize (the JAX transfer guard)", None),
@@ -316,7 +330,7 @@ def build_server(args: argparse.Namespace, span_log=None):
     )
 
     check_ported(args)
-    actor_def, obs_spec, _, _, ckpt_dir = resolve_model(args)
+    actor_def, obs_spec, act_dim, act_limit, ckpt_dir = resolve_model(args)
     buckets = (
         [int(b) for b in args.buckets.split(",")] if args.buckets else None
     )
@@ -351,18 +365,37 @@ def build_server(args: argparse.Namespace, span_log=None):
         span_log=span_log,
         mode=args.batch_mode,
         devices=devices,
+        transition_logger=transition_logger(args, obs_spec, act_dim, act_limit),
     )
     return server, info
+
+
+def transition_logger(args: argparse.Namespace, obs_spec, act_dim: int, act_limit: float):
+    """``--log-transitions DIR``'s :class:`~..replay.TransitionLogger`
+    over the served slot's spec (``None`` without the flag)."""
+    if not args.log_transitions:
+        return None
+    from torch_actor_critic_tpu_torch.replay import TransitionLogger
+
+    out = TransitionLogger(
+        args.log_transitions, obs_spec, act_dim, act_limit=act_limit,
+        sample_every=args.log_sample_every, max_bytes=args.log_max_bytes,
+    )
+    logger.info("transition flywheel: logging 1/%d served acts to %s (budget %s)",
+                args.log_sample_every, args.log_transitions,
+                args.log_max_bytes or "unbounded")
+    return out
 
 
 # ------------------------------------------------------------------ fleet
 
 
-def _worker_argv(argv):
+def _worker_argv(argv, worker: int | None = None):
     """One fleet worker's argv: the parent's args minus the fleet flags
     (:data:`_FLEET_FLAGS`; the router writes its own trace), with an
     ephemeral port (each worker prints its address; the parent reads it
-    back)."""
+    back); worker ``worker`` logs transitions under
+    ``<--log-transitions>/worker-<worker>``."""
     import sys
 
     src = list(sys.argv[1:] if argv is None else argv)
@@ -377,6 +410,13 @@ def _worker_argv(argv):
         if a == "--obs" or a.split("=", 1)[0] in _FLEET_FLAGS:
             continue
         out.append(a)
+    if worker is not None:
+        for i, a in enumerate(out):
+            if a == "--log-transitions" and i + 1 < len(out):
+                out[i + 1] = os.path.join(out[i + 1], f"worker-{worker}")
+            elif a.startswith("--log-transitions="):
+                out[i] = "--log-transitions=" + os.path.join(a.split("=", 1)[1],
+                                                             f"worker-{worker}")
     return out + ["--port", "0"]
 
 
@@ -415,15 +455,15 @@ def _await_worker_ready(proc, idx: int, timeout_s: float = 300.0) -> str:
     return address
 
 
-def _spawn_worker(argv):
-    """One worker: ``python -m torch_actor_critic_tpu_torch.serve`` on an
-    ephemeral port."""
+def _spawn_worker(argv, worker: int | None = None):
+    """One worker (number ``worker``): ``python -m
+    torch_actor_critic_tpu_torch.serve`` on an ephemeral port."""
     import subprocess
     import sys
 
     return subprocess.Popen(
         [sys.executable, "-m", "torch_actor_critic_tpu_torch.serve"]
-        + _worker_argv(argv),
+        + _worker_argv(argv, worker),
         stdout=subprocess.PIPE, stderr=None, text=True, cwd=_REPO,
     )
 
@@ -448,7 +488,8 @@ def run_fleet(args, argv) -> None:
     from torch_actor_critic_tpu_torch.serve.router import FleetRouter
 
     check_ported(args)
-    workers, worker_lock = [_spawn_worker(argv) for _ in range(args.fleet)], threading.Lock()
+    workers = [_spawn_worker(argv, i) for i in range(args.fleet)]
+    worker_lock = threading.Lock()
     try:
         addresses = [_await_worker_ready(proc, i) for i, proc in enumerate(workers)]
     except BaseException:
@@ -504,7 +545,7 @@ def run_fleet(args, argv) -> None:
 
         def _spawn_spare():
             idx = next(spare_idx)
-            proc = _spawn_worker(argv)
+            proc = _spawn_worker(argv, idx)
             with worker_lock:
                 spares.append(proc)
             try:
@@ -714,6 +755,10 @@ def main(argv=None):
     try:
         server.serve_forever()
     finally:
+        if server.transition_logger is not None:
+            # The partial chunk, so a drained worker's last transitions
+            # reach the dataset.
+            server.transition_logger.close()
         if span_log is not None:
             from torch_actor_critic_tpu_torch.telemetry.traceview import (
                 export_trace,

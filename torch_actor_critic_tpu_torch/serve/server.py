@@ -9,8 +9,11 @@ also holds ``xla``, the process's watchdog snapshot (the engines' graph
 captures under ``serve/forward[bN]``: ``captures_total``,
 ``live_captures``, ...; JAX's key, the port's field names), and
 ``costs``, the per-bucket roofline
-(:meth:`~.metrics.ServeMetrics.cost_snapshot`). Not ported: the
-transition flywheel (``/outcome``, ROADMAP queue 7).
+(:meth:`~.metrics.ServeMetrics.cost_snapshot`). With a
+``transition_logger`` (:class:`~..replay.flywheel.TransitionLogger`,
+``serve --log-transitions``) an answered ``/act`` is noted under its
+``X-Request-Id``, ``POST /outcome`` completes the transition and
+``/metrics`` has a ``flywheel`` section.
 
 :class:`PolicyClient` is the zero-copy path for tests, benchmarks and
 co-located actors: observations go straight into the micro-batching
@@ -31,6 +34,10 @@ work:
   replica while in-flight work finishes)
 - ``GET /metrics``  :meth:`~torch_actor_critic_tpu_torch.serve.metrics.ServeMetrics.snapshot`
 - ``POST /reload``  force a checkpoint poll now (hot-reload check)
+- ``POST /outcome`` ``{"request_id": ..., "reward": r, "next_obs": [...],
+  "done": bool}`` -> ``{"logged": bool, "request_id": ...}``: what the
+  environment did with the action ``/act`` answered under that id (the
+  flywheel; 404 without a transition logger)
 
 Overload contract (docs/SERVING.md "Overload & degradation"): a
 request the admission layer rejects at submit time — queue full or
@@ -358,8 +365,13 @@ class PolicyServer:
         span_log=None,
         mode: str = "continuous",
         devices: t.Sequence | int | None = None,
+        transition_logger=None,
     ):
         self.registry = registry
+        # The data flywheel (replay/flywheel.py): when set, answered /act
+        # requests are noted and POST /outcome completes them; None costs
+        # one pointer check per request.
+        self.transition_logger = transition_logger
         # Per-request trace spans (telemetry.traceview.RequestSpanLog):
         # attached by --trace-export; None costs one pointer check per
         # request in the batcher.
@@ -497,6 +509,14 @@ class PolicyServer:
                         if hasattr(server.batcher, "sharding_stats")
                         else server.registry
                     ).sharding_stats()
+                    # Flywheel intake counters (sampled acts, matched
+                    # outcomes, disk-tier residency).
+                    if server.transition_logger is not None:
+                        try:
+                            snap["flywheel"] = server.transition_logger.snapshot()
+                        except Exception as e:  # noqa: BLE001 — the
+                            # base snapshot must survive a broken hook
+                            snap["flywheel_error"] = repr(e)[:200]
                     if server.extra_snapshot is not None:
                         try:
                             snap.update(server.extra_snapshot())
@@ -517,6 +537,8 @@ class PolicyServer:
                     return
                 if self.path == "/act":
                     self._act(body)
+                elif self.path == "/outcome":
+                    self._outcome(body)
                 elif self.path == "/reload":
                     self._send(200, {
                         "reload": server.registry.reload(body.get("model"))
@@ -612,12 +634,48 @@ class PolicyServer:
                         headers=rid_hdr,
                     )
                     return
+                if server.transition_logger is not None:
+                    # Flywheel intake: the answered half of a transition,
+                    # keyed by the id the caller echoes in POST /outcome.
+                    # Never allowed to fail a request already served.
+                    try:
+                        server.transition_logger.note_act(rid, obs, np.asarray(res.action))
+                    except Exception:  # noqa: BLE001
+                        logger.exception("transition log failed (request_id=%s)", rid)
                 self._send(200, {
                     "action": np.asarray(res.action).tolist(),
                     "generation": res.generation,
                     "epoch": res.epoch,
                     "model": slot,
                 }, headers=rid_hdr)
+
+            def _outcome(self, body: dict):
+                """Complete a flywheel transition: the caller reports what
+                the environment did with the served action."""
+                if server.transition_logger is None:
+                    self._send(404, {
+                        "error": "transition logging is not enabled "
+                                 "(start with --log-transitions DIR)",
+                    })
+                    return
+                rid = body.get("request_id")
+                if not rid:
+                    self._send(400, {"error": 'missing "request_id"'})
+                    return
+                if "reward" not in body or "next_obs" not in body:
+                    self._send(400, {"error": 'missing "reward"/"next_obs"'})
+                    return
+                try:
+                    engine, _, _ = server.registry.acquire(body.get("model", "default"))
+                    next_obs = _parse_obs(body["next_obs"], engine.obs_spec)
+                    matched = server.transition_logger.note_outcome(
+                        rid, float(body["reward"]), next_obs, bool(body.get("done", False)))
+                except (KeyError, ValueError, TypeError) as e:
+                    self._send(400, {"error": str(e)})
+                    return
+                # matched=False (an unknown, evicted or unsampled id) is not
+                # an error: downsampling drops ids by design.
+                self._send(200, {"logged": bool(matched), "request_id": rid})
 
         self._httpd = BurstHTTPServer((host, port), Handler)
         self._thread: threading.Thread | None = None  # guarded-by: _drain_lock

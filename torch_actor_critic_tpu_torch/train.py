@@ -105,6 +105,20 @@ recorded phase spans and the watchdog's captures and builds at exit.
 A population refuses ``--telemetry``, ``--diagnostics``,
 ``--profile-epochs`` and ``--trace-export`` (ROADMAP queue 1 item 9).
 
+``--replay-tiers host|disk`` puts the host and disk tiers under the
+ring (``--replay-refill R`` pushes R host rows back into it after each
+window's burst; ``--replay-prefetch false`` samples them synchronously):
+each epoch's line adds the ``replay/*`` columns. ``--offline true
+--offline-dataset DIR --offline-reg none|bc|cql`` trains from a disk tier
+alone (the trainer's spill, or ``serve --log-transitions``, of either
+package), with no env and no ring: one JSON line per burst, then the
+final line naming the checkpoint, which ``serve --run`` serves::
+
+    python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
+        --history-len 16 --replay-tiers disk --replay-refill 2
+    python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
+        --history-len 16 --offline true --offline-dataset DIR --offline-reg cql
+
 Not ported: ``--devices`` > 1, ``--fsdp``, ``--render``.
 """
 
@@ -355,6 +369,34 @@ def train_on_device_cli(args: argparse.Namespace, setup) -> dict:
     return metrics
 
 
+def train_offline_cli(args: argparse.Namespace, setup) -> dict:
+    """The ``--offline true`` path: regularized SAC from the disk tier at
+    ``--offline-dataset`` (``setup`` is :func:`run_setup`'s result), with
+    a telemetry recorder under ``--telemetry true``; prints one JSON line
+    per burst and the final line."""
+    from torch_actor_critic_tpu_torch.replay.offline import train_offline
+    from torch_actor_critic_tpu_torch.telemetry.recorder import TelemetryRecorder
+
+    config, _, seed, tracker, checkpointer = setup
+    logger.info("offline training from %s (reg=%s x %g, %d steps, run %s)",
+                config.offline_dataset or "<unset>", config.offline_reg,
+                config.offline_reg_weight, config.offline_steps, tracker.run_id)
+    telemetry = TelemetryRecorder.for_run(
+        config, tracker if args.logging else None, device=args.device)
+    try:
+        metrics = profiled(args, lambda: train_offline(
+            config, tracker=tracker if args.logging else None, checkpointer=checkpointer,
+            seed=seed, telemetry=telemetry, device=args.device, on_epoch=report))
+    finally:
+        if telemetry is not None:
+            telemetry.close()
+    print(json.dumps({
+        "run": tracker.run_id, "checkpoint_dir": str(checkpointer.directory),
+        "final": metrics, "eval": None,
+    }), flush=True)
+    return metrics
+
+
 def main(argv=None) -> dict:
     from torch_actor_critic_tpu_torch.resilience.preemption import (
         Preempted,
@@ -364,8 +406,10 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO)
     args = parse_arguments(argv)
     raise_trace_buffer(args)
-    # --on-device, or the stored config of the --run it resumes
+    # --offline / --on-device, or the stored config of the --run it resumes
     setup = run_setup(args)
+    if setup[0].offline:
+        return train_offline_cli(args, setup)
     if setup[0].on_device:
         return train_on_device_cli(args, setup)
     guard = PreemptionGuard().install() if args.preemption_guard else None
