@@ -102,10 +102,13 @@ or of the JAX package. Phases, one JSON line each:
    first burst must serve every later one; one Adam step, capturable
    (the card's) against plain (the CPU's, held to optax by the tier-1
    tests), within those tests' limits (atol 1e-5, rtol 1e-4). Reports,
-   for each burst mode in turn, gradient steps per second, one profiled
-   burst (exact launches per update from its device trace, device busy
-   vs idle, kernels per update, the top ones; idle also against the
-   unprofiled bursts' time); acting steps per second; the device
+   for each burst mode in turn, gradient steps per second; for the
+   captured mode one profiled burst (exact launches per update from its
+   device trace, device busy vs idle, kernels per update, the top ones;
+   idle also against the unprofiled bursts' time), for the eager mode
+   one traced 5-update burst whose device launches equal its wrappers' counts
+   (the later workloads' eager bursts are timed only); acting steps per
+   second; the device
    kernels of one stacked critic forward and of one forward + backward;
    and those of one Adam step of the actor and of the critic, plain and
    capturable;
@@ -219,8 +222,8 @@ or of the JAX package. Phases, one JSON line each:
    flat-cell rates and device memory at P = 1 and 32, one line each
    with the card.
 
-The populations, host_env_plane, observability and replay_plane phases
-follow, each in a child (their functions' docstrings say what they
+The populations, host_env_plane, observability, replay_plane and
+decoupled_plane phases follow, each in a child (their functions' docstrings say what they
 check); observability, the training observability plane: the sequence
 policy and the fused loop at population 1 through ``train.main`` with
 ``--telemetry true --diagnostics full --profile-epochs 1:2
@@ -234,7 +237,17 @@ spilled rows (captured == eager, 7L K2 and 3L K3/K4 per update), and the
 serving flywheel (``--log-transitions``, ``/act`` + ``/outcome``, the
 drain's flush) feeding ``train --offline --offline-reg bc``. K2-K4 also
 have rows at the offline CQL critic call's fold (``CQL_FOLD_SHAPE``,
-layout ``cql_views``).
+layout ``cql_views``). The last, decoupled_plane: ``train --decoupled
+true`` traced (L K2 per served action through the engine's graphs, 5L
+K2 and 2L K3/K4 per update through the burst's, one burst capture beside
+the engine's warm-up captures, a publish that is a snapshot, a NaN
+publish rejected), then ``train --actors 2 --elastic on`` through
+``train.main`` (the burst's capture held until both actors push through
+the ``/act`` proxy and overlapped by their requests, none failing; an
+actor killed and respawned, a SIGTERM and a traced ``--run`` resume with
+the ring bitwise, nothing ingested twice and L K2 per served forward;
+every actor push acted through the proxy; no actor on the card), and the
+lockstep, decoupled and fleet rates.
 
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
@@ -244,8 +257,9 @@ train_td3's visual run and the on-device pixel cell; K2-K4's include
 the population's traced sequence epoch; every ``launches`` is counted
 in the main path's runs from device traces: serving's (f32 and int8
 tiers) over each server's startup and traced forwards, training's, the
-resumed runs', the on-device epochs' and the replay plane's tiered run
-and offline burst; ``flash_fwd_bf16`` is K2 in
+resumed runs', the on-device epochs', the replay plane's tiered run
+and offline burst and the decoupled plane's traced run (its served
+actions included); ``flash_fwd_bf16`` is K2 in
 bf16 at the bf16 serving tier's shape, with that tier's traced
 launches),
 the nvidia-smi line, and last
@@ -264,10 +278,12 @@ import math
 import multiprocessing
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -1028,7 +1044,7 @@ def profile_requests(address, rng, history, obs_dim, n=16) -> dict:
 
 
 SERVE_TRACED = 16  # 64-row requests in the serving trace
-SERVE_TIMED = 300  # 64-row requests per mode for /act p50/p99
+SERVE_TIMED = 100  # 64-row requests per mode for /act p50/p99
 
 
 def _serve_args(extra) -> list:
@@ -1891,12 +1907,12 @@ def phase_train(seed: int, kernels) -> tuple:
             [sample(trainer.buffer, cfg.update_every, generator=gen) for _ in range(2)], per)
         chunk = sample(trainer.buffer, cfg.update_every, generator=gen)
 
-        def burst(eager):
+        def burst(eager, n=per):
             trainer.state, trainer.buffer, m = trainer.sac.update_burst(
-                trainer.state, trainer.buffer, chunk, per, eager=eager)
+                trainer.state, trainer.buffer, chunk, n, eager=eager)
             return m
 
-        modes = burst_modes(kernels, burst, per, 4, want)
+        modes = burst_modes(kernels, burst, per, 4, want, trace_eager=5)
         # The graph captured at the first burst of training served every
         # later one, here too.
         check(trainer.sac.graph_captures == 1,
@@ -2361,28 +2377,55 @@ def one_update_default_cudnn(make_sac, state, ring, chunks) -> dict:
     return row
 
 
-def burst_modes(kernels, burst, per: int, n_bursts: int, per_update: dict) -> dict:
+def burst_modes(kernels, burst, per: int, n_bursts: int, per_update: dict,
+                trace_eager: int = 0) -> dict:
     """The captured (default) and the eager burst of one workload, in
     turn: one burst to warm up (the captured one captures there unless
-    it has a graph), ``n_bursts`` timed (host clock to a synchronize),
-    then one profiled burst: device kernels, busy and idle per update,
+    it has a graph), ``n_bursts`` timed (host clock to a synchronize; half
+    as many eager ones, at least one: the time limit), then, captured
+    only, one profiled burst: device kernels, busy and idle per update,
     and exactly ``per_update`` launches of each named kernel per update
     in its device trace. The wrappers count those launches in the eager
-    mode and none in the captured one (a replay calls no wrapper)."""
+    mode, exactly ``per_update`` an update, and none in the captured one
+    (a replay calls no wrapper). With ``trace_eager`` = n > 0, one eager
+    burst of n updates (``burst(True, n)``) is also traced (device kernels
+    only, read from the raw events): its device launches equal its
+    wrappers' counts, ``per_update`` an update. Otherwise the eager row
+    holds the wrappers' counts only (a traced eager burst costs seconds
+    of the profiler's host work: the time limit)."""
     out = {}
     for mode, eager in (("captured", False), ("eager", True)):
+        timed = max(1, n_bursts // 2) if eager else n_bursts
         burst(eager)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        for _ in range(n_bursts):
+        for _ in range(timed):
             m = burst(eager)
         torch.cuda.synchronize()
-        burst_s = (time.perf_counter() - t0) / n_bursts
-        wrapped = {k: kernels.launch_counts.get(k, 0) / (per * n_bursts) for k in per_update}
+        burst_s = (time.perf_counter() - t0) / timed
+        wrapped = {k: kernels.launch_counts.get(k, 0) / (per * timed) for k in per_update}
         want = per_update if eager else dict.fromkeys(per_update, 0)
         check(wrapped == want, f"{mode} burst: wrapper launches per update {wrapped} != {want}")
         check(all(math.isfinite(float(v)) for v in m.values()), f"{mode} burst metrics not finite")
+        if eager:
+            out[mode] = {"burst_ms": burst_s * 1e3, "grad_steps_per_sec": per / burst_s,
+                         "wrapper_launches_per_update": wrapped}
+            if trace_eager:
+                def one():
+                    kernels.reset_launch_counts()
+                    burst(True, trace_eager)
+                    torch.cuda.synchronize()
+                    return dict(kernels.launch_counts)
+
+                seen, device = traced(one, "eager burst")
+                got = {k: device.get(k, 0) / trace_eager for k in per_update}
+                counted = {k: seen.get(k, 0) / trace_eager for k in per_update}
+                check(got == counted == per_update,
+                      f"eager burst: device launches per update {got}, wrappers {counted}, "
+                      f"want {per_update}")
+                out[mode]["launches_per_update"] = got
+            continue
         profiled = profile_burst(lambda: burst(eager), per)
         got = {k: profiled["launches_per_update"][k] for k in per_update}
         check(got == per_update,
@@ -3282,11 +3325,11 @@ def phase_train_td3(seed: int, kernels, smi: str) -> dict:
         resumed.close()
 
         for cell in ("flat", "visual", "wall_b32"):
-            for mode in ("captured", "eager"):
-                b = row[cell]["bursts"][mode]
-                print(f"train_td3 {cell} {mode}: {b['grad_steps_per_sec']:.2f} steps/s, "
-                      f"{b['device_kernels_per_update']:.2f} device kernels per update, "
-                      f"idle {b['device_idle_share']:.3f} ({smi})", flush=True)
+            b, e = row[cell]["bursts"]["captured"], row[cell]["bursts"]["eager"]
+            print(f"train_td3 {cell} captured: {b['grad_steps_per_sec']:.2f} steps/s, "
+                  f"{b['device_kernels_per_update']:.2f} device kernels per update, "
+                  f"idle {b['device_idle_share']:.3f}; eager {e['grad_steps_per_sec']:.2f} "
+                  f"steps/s ({smi})", flush=True)
         emit(row)
         return row["visual"]["launches"]
     finally:
@@ -3304,8 +3347,8 @@ ONDEVICE_CELLS = {
     "flat_sac": ["--environment", TRAIN_ENV],
     "flat_td3": ["--environment", TRAIN_ENV, "--algorithm", "td3"],
 }
-ONDEVICE_STEPS = 1000  # the timed epoch: 1000 acting steps, 1000 updates
-ONDEVICE_TRACED_STEPS = 250  # the traced epoch (a quarter of the timed one: the time limit)
+ONDEVICE_STEPS = 500  # the timed epoch: 500 acting steps, 500 updates (the time limit)
+ONDEVICE_TRACED_STEPS = 250  # the traced epoch (half the timed one: the time limit)
 T8_SHAPE = (64, 4, 8, 16)  # batch 64 x heads x history 8 x head_dim
 T8_ACT_SHAPE = (16, 4, 8, 16)  # the 16 twins' acting forward
 T8_CRITIC_SHAPE = (128, 4, 8, 16)  # num_qs 2 x batch 64, folded
@@ -3462,12 +3505,12 @@ def _timed_epoch(loop, parts, steps: int) -> tuple:
 
 
 def _host_trainer_epoch(cli, args) -> dict:
-    """The host ``Trainer`` at the same config (one env, 2 epochs of 300
+    """The host ``Trainer`` at the same config (one env, 2 epochs of 200
     steps, the first 100 random): its second epoch's rates."""
     from torch_actor_critic_tpu_torch import train as train_cli
 
     seen = []
-    trainer, _ = train_cli.build_trainer(cli(*args, "--epochs", "2", "--steps-per-epoch", "300",
+    trainer, _ = train_cli.build_trainer(cli(*args, "--epochs", "2", "--steps-per-epoch", "200",
                                              "--start-steps", "100", "--update-after", "100"))
     try:
         trainer.train(on_epoch=lambda e, m: seen.append(m))
@@ -3583,7 +3626,7 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
       (sequence, L = 2: K2 = 12·S, K3 = K4 = 4·S) or 1 K1 per update
       (pixel), the wrappers having seen one warm-up and one capture of
       each graph, and whose device idle share is 1 - busy / wall of that
-      traced run; a 1000-step epoch untraced and timed (env and gradient
+      traced run; a 500-step epoch untraced and timed (env and gradient
       steps per second, and the traced wall per step over this one's:
       the profiler's stretch); an epoch under ``torch.cuda.set_sync_debug_mode
       ("error")``; the captured burst alone and the host ``Trainer``'s
@@ -4447,8 +4490,8 @@ def host_populations(seed: int, kernels, smi: str) -> tuple:
     try:
         for name, args, per_step, per_update, steps, start in (
                 ("sequence", HOST_SEQ_ARGS, {"flash_fwd": 2},
-                 {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}, 300, 100),
-                ("pixel", HOST_PIXEL_ARGS, {}, {"pixel_gather": 1}, 400, 200)):
+                 {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}, 200, 100),
+                ("pixel", HOST_PIXEL_ARGS, {}, {"pixel_gather": 1}, 300, 200)):
             seen: dict = {}
             trainer, row = _host_population_run(
                 kernels, [*args, "--seed", str(seed)], f"host population {name}", per_step,
@@ -4703,8 +4746,8 @@ def phase_populations(seed: int, kernels, attn, pixels, smi: str) -> dict:
 # The host env plane: the native parallel env pool (one worker process per
 # env over the futex runtime, built from torch_actor_critic_tpu_torch/native)
 # and acting one window stale on its own stream (actor_param_lag), on the
-# host sequence population (HOST_SEQ_ARGS: P = 4, 300 lockstep steps) and the
-# host pixel population (HOST_PIXEL_ARGS: P = 4, 400 steps); the pools at
+# host sequence population (HOST_SEQ_ARGS: P = 4, 200 lockstep steps) and the
+# host pixel population (HOST_PIXEL_ARGS: P = 4, 300 steps); the pools at
 # n = 4 on both envs for POOL_STEPS lockstep steps.
 POOL_STEPS = 200
 # The trainer runs fork their env workers from a forkserver that imported
@@ -4913,7 +4956,7 @@ def host_sequence_plane(seed: int, kernels, runs: str) -> tuple:
     seen: dict = {}
     trainer, row = _host_population_run(
         kernels, [*HOST_SEQ_ARGS, *HOST_SEQ_CONFIGS["parallel_lag"], "--seed", str(seed)],
-        "host_env_plane parallel_lag", per_step, per_update, 300, 100, runs,
+        "host_env_plane parallel_lag", per_step, per_update, 200, 100, runs,
         prepare=lambda tr: bursts.update(_watch_bursts(tr, actor=True)),
         on_trace=lambda prof: seen.update(stream_overlap(prof)))
     check(type(trainer.pool).__name__ == "ParallelEnvPool",
@@ -4940,7 +4983,7 @@ def host_sequence_plane(seed: int, kernels, runs: str) -> tuple:
     for name, flags in HOST_SEQ_CONFIGS.items():
         cli = train_cli.parse_arguments([
             *HOST_SEQ_ARGS, *flags, "--seed", str(seed), "--device", "cuda", "--epochs", "2",
-            "--steps-per-epoch", "300", "--start-steps", "100", "--update-after", "100",
+            "--steps-per-epoch", "200", "--start-steps", "100", "--update-after", "100",
             "--runs-root", runs])
         trainer, _ = train_cli.build_trainer(cli)
         check(type(trainer.pool).__name__ == ("ParallelEnvPool" if "parallel" in name
@@ -5022,7 +5065,7 @@ def phase_host_env_plane(seed: int, kernels, smi: str) -> dict:
       (``pools_on_the_card``);
     - the host sequence population in four configurations
       (``host_sequence_plane``);
-    - the host pixel population with parallel + lag, 400 steps: 1 K1 per
+    - the host pixel population with parallel + lag, 300 steps: 1 K1 per
       update, its rates; two eager updates of it from one state bitwise on
       the package's cuDNN setting;
     - ring sizing (``ring_sizing``).
@@ -5051,7 +5094,7 @@ def phase_host_env_plane(seed: int, kernels, smi: str) -> dict:
         lap("sequence")
         trainer, pixel = _host_population_run(
             kernels, [*HOST_PIXEL_ARGS, *PARALLEL_ARGS, *LAG_ARGS, "--seed", str(seed)],
-            "host_env_plane pixel parallel_lag", {}, {"pixel_gather": 1}, 400, 200, runs)
+            "host_env_plane pixel parallel_lag", {}, {"pixel_gather": 1}, 300, 200, runs)
         for k, v in pixel["launches"].items():
             launches[k] = launches.get(k, 0) + v
         cfg, act_dim = trainer.config, trainer.pool.act_dim
@@ -5760,6 +5803,554 @@ def phase_replay_plane(seed: int, kernels, smi: str) -> dict:
             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
+DECOUPLED_ARGS = ["--environment", TRAIN_ENV, "--history-len", "16", "--device", "cuda",
+                  "--steps-per-epoch", "250", "--start-steps", "200", "--update-after", "200"]
+# The fleet run's ring: its checkpoint is written each epoch and compared
+# bitwise across the resume (the widths are the train phase's).
+FLEET_RING = "100000"
+FLEET_WAIT_S = 150.0  # the chaos thread's limit for each thing it waits for
+
+
+def _decoupled_rates(args: list) -> dict:
+    """One run of ``args`` through the train CLI's ``build_trainer``,
+    untraced, 2 epochs (the second all policy steps and bursts); the
+    second epoch's gradient and env steps per second."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+
+    trainer, _ = train_cli.build_trainer(train_cli.parse_arguments([*args, "--epochs", "2"]))
+    try:
+        m = trainer.train()
+    finally:
+        trainer.close()
+    torch.cuda.synchronize()
+    return {"grad_steps_per_sec": m["grad_steps_per_sec"],
+            "env_steps_per_sec": m["env_steps_per_sec"]}
+
+
+def _inprocess_plane(seed: int, kernels, runs: str) -> tuple:
+    """(1) of ``phase_decoupled_plane``; returns its row and traced
+    launches."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.resilience.faultinject import nan_params
+
+    args = train_cli.parse_arguments([*DECOUPLED_ARGS, "--decoupled", "true", "--epochs", "2",
+                                      "--seed", str(seed), "--runs-root", runs])
+    epochs: list = []
+    box: dict = {}
+
+    def drive():
+        epochs.clear()
+        # Counted from before the build: the engine's warm-up (each
+        # bucket's counted eager forward, then per mode an eager run, a
+        # capture, which records launches it does not run, and a replay,
+        # which runs them unseen) launches on the device what its wrappers
+        # count.
+        kernels.reset_launch_counts()
+        trainer, _ = train_cli.build_trainer(args)
+        engine, _, _ = trainer.registry.acquire("default")
+        box.update(trainer=trainer, engine=engine, served=0, updates=0,
+                   warmup_graphs=engine.graph_count(), warmup_stats=engine.compile_stats())
+        act, burst = engine.act, trainer.sac.update_burst
+
+        def counted_act(*a, **k):
+            box["served"] += 1
+            return act(*a, **k)
+
+        def counted_burst(state, buffer, chunk, n):
+            box["updates"] += n
+            return burst(state, buffer, chunk, n)
+
+        engine.act, trainer.sac.update_burst = counted_act, counted_burst
+        t0 = time.perf_counter()
+        trainer.train(on_epoch=lambda e, m: epochs.append(m))
+        torch.cuda.synchronize()
+        return trainer, time.perf_counter() - t0, dict(kernels.launch_counts)
+
+    (trainer, run_s, wrapped), device = traced(
+        drive, "decoupled_plane in-process", discard=lambda out: out[0].close())
+    engine, cfg = box["engine"], trainer.config
+    layers = cfg.seq_num_layers
+    per_update = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                  "flash_bwd_dkv": 2 * layers}
+    served, updates = box["served"], box["updates"]
+    # Serving's replays are L K2 each; the rest is the burst's, through
+    # one captured graph.
+    served_k2 = device["flash_fwd"] - (wrapped.get("flash_fwd", 0)
+                                       + (updates - 2) * per_update["flash_fwd"])
+    check(served == (2 * 250 - 200) and served_k2 == layers * served,
+          f"decoupled_plane: {served} served forwards, {served_k2} served K2 (want "
+          f"{layers} each)")
+    check_through_graphs("decoupled_plane in-process",
+                         {**device, "flash_fwd": device["flash_fwd"] - served_k2}, wrapped,
+                         per_update, updates, 1)
+    buckets = len(engine.buckets)
+    stats = engine.compile_stats()
+    check(trainer.sac.graph_captures == 1 and box["warmup_graphs"] == 2 * buckets
+          and engine.graph_count() == 2 * buckets and stats["live_compiles"] == 0
+          and stats["compiles_total"] == box["warmup_stats"]["compiles_total"] == 2 * buckets,
+          f"decoupled_plane: burst captures {trainer.sac.graph_captures}, engine graphs "
+          f"{box['warmup_graphs']} -> {engine.graph_count()}, {stats}")
+    check(len(epochs) == 2 and all(m["decoupled/conservation_ok"] == 1.0 for m in epochs)
+          and epochs[-1]["decoupled/published_generation"] == 2
+          and epochs[-1]["decoupled/fallback_actions_total"] == 0
+          and all(math.isfinite(epochs[-1][k]) for k in ("loss_q", "loss_pi")),
+          f"decoupled_plane: epochs {epochs}")
+    # A served action after the next burst is the eager forward of the
+    # published snapshot, bitwise, not of the learner's live parameters.
+    _, published, gen = trainer.registry.acquire("default")
+    live = trainer.state.actor.state_dict()
+    obs = np.random.default_rng(seed).standard_normal((1, 16, 3)).astype(np.float32)
+    chunk = trainer._stage_chunk([[(obs[0], np.zeros(1, np.float32), np.float32(0.0), obs[0],
+                                    np.float32(0.0))] * cfg.update_every]).map(trainer._to_device)
+    trainer.state, trainer.buffer, _ = trainer.sac.update_burst(
+        trainer.state, trainer.buffer, chunk, cfg.updates_per_window)
+    torch.cuda.synchronize()
+    served_after = trainer.client.act(obs, deterministic=True)
+    eager = engine.forward_eager(published, obs)
+    live_differs = not all(torch.equal(published[k], live[k]) for k in live)
+    check(np.array_equal(served_after.action, eager) and served_after.generation == gen
+          and live_differs and trainer.sac.graph_captures == 1,
+          f"decoupled_plane: served {served_after.action} vs the snapshot's eager {eager}, "
+          f"generation {served_after.generation} vs {gen}, live differs {live_differs}")
+    # A NaN publish is rejected and the last good generation serves.
+    keep = {k: v.clone() for k, v in live.items()}
+    with torch.no_grad():
+        for k, v in nan_params(live).items():
+            live[k].copy_(v)
+    trainer._publish_epoch(99, saved=False)
+    poisoned = trainer.client.act(obs, deterministic=True)
+    check(trainer._publish_rejected_total == 1 and poisoned.generation == gen
+          and np.array_equal(poisoned.action, eager) and trainer.registry.epoch_of() == 1,
+          f"decoupled_plane: NaN publish: rejected {trainer._publish_rejected_total}, "
+          f"generation {poisoned.generation}, action {poisoned.action}")
+    with torch.no_grad():
+        for k, v in keep.items():
+            live[k].copy_(v)
+    trainer.close()
+    row = {"served_forwards": served, "served_k2": served_k2, "updates": updates,
+           "launches": device, "wrapped": wrapped, "burst_captures": 1,
+           "engine_graphs": {"warmup": box["warmup_graphs"], "live": stats["live_compiles"],
+                             "on_publish": 0},
+           "published_generation": epochs[-1]["decoupled/published_generation"],
+           "conservation_ok": [m["decoupled/conservation_ok"] for m in epochs],
+           "fallback_actions_total": epochs[-1]["decoupled/fallback_actions_total"],
+           "served_equals_snapshot_eager": True, "nan_publish_rejected": True,
+           "traced_run_s": run_s}
+    return row, {k: device.get(k, 0) for k in per_update}
+
+
+class _FleetWatch:
+    """The fleet run's handle on the ``FleetTrainer`` that ``train.main``
+    builds. Its ``train`` is wrapped for the run: at its entry the
+    restored state is read and ``at_entry(trainer)`` runs, then a chaos
+    thread runs ``script(trainer)`` while it trains. Its ``/act`` proxy
+    is wrapped to time every proxied act and keep every failure. Its
+    ``_burst`` is wrapped to hold the burst that captures the learner's
+    graph until every actor of the fleet has pushed (so the capture
+    overlaps their served requests) and to time that capture."""
+
+    def __init__(self, script, at_entry=None):
+        from torch_actor_critic_tpu_torch.decoupled import fleet
+
+        self.fleet, self.script, self.at_entry = fleet, script, at_entry
+        self.trainer = None
+        self.entry: dict = {}
+        self.error: list = []
+        self.acts: list = []  # (start, end) of each proxied act that returned
+        self.failed: list = []  # each proxied act that raised
+        self.capture = None  # (start, end) of the burst that captured
+        self.hold_s = None
+        self._saved = {k: fleet.FleetTrainer.__dict__.get(k)
+                       for k in ("train", "_serve_act", "_burst")}
+
+    def __enter__(self):
+        watch, cls = self, self.fleet.FleetTrainer
+        train, serve_act, burst = cls.train, cls._serve_act, cls._burst
+
+        def watched_train(trainer, on_epoch=None):
+            watch.trainer = trainer
+            engine, _, _ = trainer.registry.acquire("default")
+            watch.entry = {"watermarks": trainer.transport.watermarks(),
+                           "buffer": trainer.buffer.state_dict(),
+                           "staging_depth": trainer.staging.depth(),
+                           "start_epoch": trainer.start_epoch,
+                           "transport": trainer.transport.snapshot(),
+                           "supervisor": trainer.supervisor.stats(),
+                           "serving_actions": trainer.actor.serving_actions_total,
+                           "engine": engine, "engine_graphs": engine.graph_count()}
+            if watch.at_entry is not None:  # before the supervisor spawns any actor
+                watch.at_entry(trainer)
+            thread = threading.Thread(target=watch._run, daemon=True)
+            thread.start()
+            return train(trainer, on_epoch)
+
+        def watched_act(trainer, obs, deterministic):
+            t0 = time.perf_counter()
+            try:
+                out = serve_act(trainer, obs, deterministic)
+            except BaseException as e:
+                watch.failed.append(repr(e))
+                raise
+            watch.acts.append((t0, time.perf_counter()))
+            return out
+
+        def watched_burst(trainer, chunk, num_updates):
+            if not (trainer.sac.graph_captures == 0 and trainer.sac.would_capture(
+                    trainer.state, trainer.buffer, num_updates)):
+                return burst(trainer, chunk, num_updates)
+            watch.hold_s = _wait_for(lambda: watch.acts and all(
+                _accepted(trainer, aid, a["incarnation"])
+                for aid, a in trainer.supervisor.stats()["actors"].items()),
+                "every actor's first push before the burst's capture")
+            t0 = time.perf_counter()
+            try:
+                return burst(trainer, chunk, num_updates)
+            finally:
+                watch.capture = (t0, time.perf_counter())
+
+        cls.train, cls._serve_act, cls._burst = watched_train, watched_act, watched_burst
+        return self
+
+    def _run(self):
+        try:
+            self.script(self.trainer)
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            self.error.append(repr(e))
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def __exit__(self, *exc):
+        cls = self.fleet.FleetTrainer
+        for name, fn in self._saved.items():
+            if fn is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, fn)
+
+    def serving(self, epochs: list) -> dict:
+        """The run's serving, read after it ended: the proxied acts, the
+        acts that overlapped the capture, the transport's accepted pushes,
+        the actor processes, the learner's own acts and the engine's and
+        burst's captures; checked: no proxied act failed and the learner
+        acted through serving only, an act overlapped the capture, every
+        push an actor made was acted through the proxy (each actor process
+        may have acted once more than it pushed: killed or stopped between
+        the two), the burst graph captured once and the engine's graphs
+        are the warm-up's."""
+        tr, entry = self.trainer, self.entry
+        engine = entry["engine"]
+        snap, sup = tr.transport.snapshot(), tr.supervisor.stats()
+        accepted = snap["accepted_total"] - entry["transport"]["accepted_total"]
+        procs = tr.supervisor.n_actors + sup["restarts_total"] - entry["supervisor"]["restarts_total"]
+        c0, c1 = self.capture or (0.0, 0.0)
+        out = {"proxied_acts": len(self.acts), "failed_acts": len(self.failed),
+               "acts_over_capture": sum(1 for a, b in self.acts if a < c1 and b > c0),
+               "capture_s": c1 - c0, "hold_s": self.hold_s,
+               "transport_acts": snap["acts_total"] - entry["transport"]["acts_total"],
+               "accepted_pushes": accepted, "actor_processes": procs,
+               "learner_serving_actions":
+                   tr.actor.serving_actions_total - entry["serving_actions"],
+               "learner_fallback_actions": epochs[-1]["decoupled/fallback_actions_total"],
+               "burst_captures": tr.sac.graph_captures,
+               "engine_graphs": {"warmup": entry["engine_graphs"],
+                                 "after": engine.graph_count(),
+                                 "live": engine.compile_stats()["live_compiles"]}}
+        buckets = 2 * len(engine.buckets)
+        check(not self.failed and out["learner_fallback_actions"] == 0
+              and out["acts_over_capture"] > 0 and out["transport_acts"] == len(self.acts)
+              and accepted <= len(self.acts) <= accepted + procs
+              and tr.sac.graph_captures == 1 and entry["engine_graphs"] == buckets
+              and engine.graph_count() == buckets and out["engine_graphs"]["live"] == 0,
+              f"decoupled_plane fleet: serving {out}, failures {self.failed[:4]}")
+        return out
+
+
+def _accepted(tr, aid, inc) -> bool:
+    """Whether actor ``aid``'s incarnation ``inc`` has had a push accepted."""
+    a = tr.transport.snapshot()["actors"].get(str(aid))
+    return a is not None and a["incarnation"] == inc and a["seq"] >= 0
+
+
+def _wait_for(pred, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > FLEET_WAIT_S:
+            raise TimeoutError(f"decoupled_plane fleet: waited {FLEET_WAIT_S} s for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _host_only(pids: list) -> dict:
+    """Each actor pid: among the card's compute apps, and device nodes open."""
+    apps = compute_app_pids()
+    return {str(pid): {"compute_app": pid in apps, "nvidia_fds": nvidia_fds(pid)}
+            for pid in pids}
+
+
+def _decoupled_fleet(seed: int, kernels, runs: str) -> dict:
+    """(2) of ``phase_decoupled_plane``; the resumed run is traced."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.decoupled.transport import encode_transition
+    from torch_actor_critic_tpu_torch.resilience.faultinject import kill_actor
+
+    seen: dict = {"pids": set(), "host_only": {}}
+    epochs: list = []
+    report = train_cli.report
+
+    def reporting(e, m):
+        epochs.append(m)
+        report(e, m)
+
+    def note_pids(tr):
+        pids = [a["pid"] for a in tr.supervisor.stats()["actors"].values() if a["pid"]]
+        seen["pids"].update(pids)
+        seen["host_only"].update(_host_only(pids))
+
+    def first_run(tr):
+        seen["spawn_s"] = _wait_for(lambda: _accepted(tr, 0, 0) and _accepted(tr, 1, 0),
+                                    "both actors' first accepted pushes")
+        note_pids(tr)
+        # The burst's capture, held until both pushed, runs with them.
+        _wait_for(lambda: tr.sac.graph_captures >= 1, "the burst's capture")
+        seen["killed_pid"] = kill_actor(tr.supervisor, idx=0)
+        seen["killed_in_epoch"] = tr._epoch
+        # The respawn, not its first push (an actor's start is mostly its
+        # imports): the restart is the supervisor's act.
+        seen["restart_s"] = _wait_for(
+            lambda: tr.supervisor.stats()["actors"][0]["incarnation"] == 1
+            and tr.supervisor.stats()["actors"][0]["alive"], "the restarted actor")
+        note_pids(tr)
+        seen["supervisor"] = tr.supervisor.stats()
+        # Requeue: the epoch in flight finishes, is saved, and main exits 75.
+        _wait_for(lambda: tr._epoch > seen["killed_in_epoch"] + 1, "an epoch after the restart")
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    def replay_pushes(tr):
+        # A push each actor retries across the restart (its last accepted
+        # seq, same incarnation) is deduplicated: nothing ingested twice.
+        staged = tr.staging.staged_total
+        zero = encode_transition(tuple(np.asarray(x)[:1] for x in _zero_transition()))
+        dups = []
+        for aid, m in seen["saved_marks"].items():
+            if m["seq"] < 0:
+                continue
+            code, out, _ = tr.transport.handle_stage({
+                "actor_id": int(aid), "incarnation": m["incarnation"], "seq": m["seq"],
+                "generation": 0, "epoch": None, "transition": zero})
+            dups.append((code, out.get("duplicate")))
+        seen["replayed"] = {"answers": dups, "staged_before": staged,
+                            "staged_after": tr.staging.staged_total}
+        # Counted from here: every served forward of the resumed run.
+        engine, _, _ = tr.registry.acquire("default")
+        act, burst = engine.act, tr.sac.update_burst
+
+        def counted_act(*a, **k):
+            box["served"] += 1
+            return act(*a, **k)
+
+        def counted_burst(state, buffer, chunk, n):
+            box["updates"] += n
+            return burst(state, buffer, chunk, n)
+
+        engine.act, tr.sac.update_burst = counted_act, counted_burst
+
+    def resumed_run(tr):
+        _wait_for(lambda: tr._epoch > tr.start_epoch, "the resumed run's first epoch")
+        note_pids(tr)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    flags = [*DECOUPLED_ARGS, "--actors", "2", "--elastic", "on", "--epochs", "40",
+             "--staging-policy", "drop_oldest", "--buffer-size", FLEET_RING,
+             "--seed", str(seed), "--runs-root", runs]
+    device = DECOUPLED_ARGS[DECOUPLED_ARGS.index("--device") + 1]
+    box: dict = {}
+    train_cli.report = reporting
+    try:
+        with _FleetWatch(first_run) as watch:
+            t0 = time.perf_counter()
+            try:
+                train_cli.main(flags)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            first_s = time.perf_counter() - t0
+        first, first_epochs = watch.trainer, list(epochs)
+        check(not watch.error and code == 75, f"decoupled_plane fleet: exit {code}, "
+              f"{watch.error}")
+        first_serving = watch.serving(first_epochs)
+        ckpt = first.checkpointer
+        meta = ckpt.peek_meta()
+        seen["saved_marks"] = meta["decoupled"]["transport_watermarks"]
+        saved_ring = first.buffer.state_dict()
+        run_id, run_dir = first.tracker.run_id, str(first.tracker.run_dir)
+        del first, watch
+        torch.cuda.empty_cache()
+        # A lost trace is taken again from the same checkpoint.
+        backup = os.path.join(runs, "_resume_from")
+        shutil.copytree(run_dir, backup)
+
+        def drive():
+            shutil.rmtree(run_dir)
+            shutil.copytree(backup, run_dir)
+            epochs.clear()
+            box.update(served=0, updates=0)
+            kernels.reset_launch_counts()
+            with _FleetWatch(resumed_run, at_entry=replay_pushes) as w:
+                try:
+                    train_cli.main(["--run", run_id, "--runs-root", runs, "--device", device])
+                    rc = 0
+                except SystemExit as e:
+                    rc = e.code
+            torch.cuda.synchronize()
+            return w, rc, dict(kernels.launch_counts)
+
+        (watch, code, wrapped), device_launches = traced(drive, "decoupled_plane fleet resume")
+        second = watch.trainer
+        check(not watch.error and code == 75, f"decoupled_plane fleet resume: exit {code}, "
+              f"{watch.error}")
+        second_serving = watch.serving(epochs)
+    finally:
+        train_cli.report = report
+    layers = second.config.seq_num_layers
+    per_update = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                  "flash_bwd_dkv": 2 * layers}
+    served, updates = box["served"], box["updates"]
+    served_k2 = device_launches["flash_fwd"] - (wrapped.get("flash_fwd", 0)
+                                                + (updates - 2) * per_update["flash_fwd"])
+    check(served == second_serving["learner_serving_actions"] + second_serving["proxied_acts"]
+          and served_k2 == layers * served,
+          f"decoupled_plane fleet resume: {served} served forwards ("
+          f"{second_serving['learner_serving_actions']} the learner's, "
+          f"{second_serving['proxied_acts']} proxied), {served_k2} served K2 (want {layers} each)")
+    check_through_graphs("decoupled_plane fleet resume",
+                         {**device_launches, "flash_fwd": device_launches["flash_fwd"] - served_k2},
+                         wrapped, per_update, updates, 1)
+    entry = watch.entry
+    ring_diff = bitwise_diff(saved_ring, entry["buffer"])
+    marks_equal = entry["watermarks"] == seen["saved_marks"]
+    rep = seen["replayed"]
+    sup = seen["supervisor"]
+    all_epochs = first_epochs + epochs
+    check(not ring_diff and marks_equal and entry["start_epoch"] == meta["epoch"] + 1
+          and entry["staging_depth"] == meta["decoupled"]["staging"]["count"],
+          f"decoupled_plane fleet: resume: ring differs at {ring_diff[:8]}, watermarks "
+          f"{entry['watermarks']} vs saved {seen['saved_marks']}, staging "
+          f"{entry['staging_depth']} vs {meta['decoupled']['staging']}")
+    check(rep["answers"] and all(a == (200, True) for a in rep["answers"])
+          and rep["staged_after"] == rep["staged_before"],
+          f"decoupled_plane fleet: replayed pushes {rep}")
+    check(sup["deaths_total"] >= 1 and sup["restarts_total"] >= 1
+          and sup["actors"][0]["incarnation"] >= 1
+          and first_epochs[-1]["decoupled/dropped_dead_actor_total"] >= sup["purged_on_death_total"]
+          and all(m["decoupled/conservation_ok"] == 1.0 for m in all_epochs),
+          f"decoupled_plane fleet: supervisor {sup}, epochs' conservation "
+          f"{[m['decoupled/conservation_ok'] for m in all_epochs]}")
+    check(seen["host_only"] and not any(v["compute_app"] or v["nvidia_fds"]
+                                        for v in seen["host_only"].values()),
+          f"decoupled_plane fleet: an actor holds the card: {seen['host_only']}")
+    last = first_epochs[-1]
+    return {
+        "first_run_s": first_s, "epochs_before_requeue": len(first_epochs),
+        "killed_pid": seen["killed_pid"], "killed_in_epoch": seen["killed_in_epoch"],
+        "actor_spawn_s": seen["spawn_s"], "actor_restart_s": seen["restart_s"],
+        "supervisor": {k: sup[k] for k in ("deaths_total", "restarts_total",
+                                           "purged_on_death_total")},
+        "dropped_dead_actor_total": last["decoupled/dropped_dead_actor_total"],
+        "transport_accepted_total": last["decoupled/transport_accepted_total"],
+        "serving": {"first": first_serving, "resumed": second_serving},
+        "resumed_trace": {"served_forwards": served, "served_k2": served_k2,
+                          "updates": updates, "launches": device_launches,
+                          "wrapped": wrapped},
+        "conservation_ok_every_epoch": True, "resume": {
+            "ring_bitwise": True, "watermarks_restored": True,
+            "staged_tail": entry["staging_depth"], "replayed_pushes": rep["answers"],
+            "ingested_twice": rep["staged_after"] - rep["staged_before"],
+            "epochs_after_resume": len(epochs)},
+        "actor_pids": sorted(seen["pids"]), "host_only": seen["host_only"],
+        "rates": {"grad_steps_per_sec": last["grad_steps_per_sec"],
+                  "env_steps_per_sec": last["env_steps_per_sec"]},
+    }
+
+
+def _zero_transition() -> tuple:
+    """One env's zero transition at the sequence widths (obs (16, 3), act 1),
+    batched over one env."""
+    obs = np.zeros((1, 16, 3), np.float32)
+    return (obs, np.zeros((1, 1), np.float32), np.zeros(1, np.float32), obs,
+            np.zeros(1, np.float32))
+
+
+def phase_decoupled_plane(seed: int, kernels, smi: str) -> dict:
+    """The decoupled actor/learner plane on the card (in a child), at the
+    train phase's widths (history 16, d_model 64, 4 heads, 2 layers,
+    batch 64, bursts of 50):
+
+    (1) ``train --decoupled true`` through the CLI's ``build_trainer``, 2
+        epochs of 250 steps (the first 200 random), traced: every served
+        forward a replay of the engine's graph with L K2, 5L K2 and 2L
+        K3/K4 per update through the one captured burst graph, 2 x buckets
+        engine captures at warm-up and none live or on publish, 2
+        publishes, conservation every epoch, no fallback action; then a
+        burst on the live parameters, after which a served action is the
+        published snapshot's eager forward, bitwise; and a ``nan_params``
+        publish rejected while the last good generation serves;
+    (2) ``train --actors 2 --elastic on`` through ``train.main`` (its
+        actors spawned, host only, acting through the learner's ``/act``
+        proxy): the burst that captures the learner's graph held until
+        both actors have pushed, so their requests overlap the capture;
+        an actor killed with ``kill_actor`` after it, respawned by the
+        supervisor with its tail purged; SIGTERM two epochs later (exit
+        75); ``--run <id>``, traced: the ring bitwise the saved one, the
+        watermarks and staged tail restored, each actor's last push
+        replayed and answered duplicate (nothing ingested twice), the
+        capture held and overlapped again, L K2 per served forward (the
+        learner's and the proxied acts), 5L K2 and 2L K3/K4 per update
+        through the burst graph; in both runs no proxied act failed and
+        the learner acted through serving only, every actor push was
+        acted through the proxy, 1 burst capture, the engine's graphs
+        the warm-up's and none live, conservation at every epoch; no
+        actor pid among the card's compute apps or holding a device node;
+        a second SIGTERM ends the resumed run;
+    (3) gradient and env steps per second of the in-process plane, the
+        fleet and the lockstep trainer on the same config (recorded).
+
+    Returns the traced launches of (1) and of (2)'s resumed run."""
+    row = {"phase": "decoupled_plane", "card": smi, "seconds": {}}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        row["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    runs = tempfile.mkdtemp(prefix="tac_chip_decoupled_")
+    try:
+        row["inprocess"], launches = _inprocess_plane(seed, kernels, runs)
+        lap("inprocess")
+        torch.cuda.empty_cache()
+        row["fleet"] = _decoupled_fleet(seed, kernels, runs)
+        for k, n in row["fleet"]["resumed_trace"]["launches"].items():
+            if k in launches:
+                launches[k] += n
+        lap("fleet")
+        common = [*DECOUPLED_ARGS, "--seed", str(seed), "--runs-root", runs]
+        row["rates"] = {
+            "lockstep": _decoupled_rates(common),
+            "decoupled_inprocess": _decoupled_rates([*common, "--decoupled", "true"]),
+            "fleet_actors_2": row["fleet"]["rates"],
+        }
+        lap("rates")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    row["seconds"]["phase"] = time.perf_counter() - t_phase
+    emit(row)
+    r = row["rates"]
+    print(f"decoupled_plane: {row['seconds']['phase']:.1f} s; gradient steps/s lockstep "
+          f"{r['lockstep']['grad_steps_per_sec']:.1f}, decoupled "
+          f"{r['decoupled_inprocess']['grad_steps_per_sec']:.1f}, fleet "
+          f"{r['fleet_actors_2']['grad_steps_per_sec']:.1f} ({smi})", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5775,6 +6366,8 @@ def main(argv=None) -> int:
                    help="Run only the observability phase (the smoke starts it so, in a child)")
     p.add_argument("--replay-plane-phase", action="store_true",
                    help="Run only the replay_plane phase (the smoke starts it so, in a child)")
+    p.add_argument("--decoupled-plane-phase", action="store_true",
+                   help="Run only the decoupled_plane phase (the smoke starts it so, in a child)")
     p.add_argument("--captured-kernels-per-update", type=float, default=None,
                    help="The train phase's captured burst's device kernels per update, which "
                    "the observability phase's off tier must equal")
@@ -5813,6 +6406,10 @@ def main(argv=None) -> int:
         launches = phase_replay_plane(args.seed, _kernels, nvidia_smi())
         emit({"replay_plane_launches": launches})
         return 0
+    if args.decoupled_plane_phase:
+        launches = phase_decoupled_plane(args.seed, _kernels, nvidia_smi())
+        emit({"decoupled_plane_launches": launches})
+        return 0
     seconds, t_start = {}, time.perf_counter()
 
     def timed(name, fn, *a):
@@ -5846,8 +6443,10 @@ def main(argv=None) -> int:
     observed_launches = timed("observability", in_a_child, "observability", args.seed, 300,
                               ["--captured-kernels-per-update", repr(captured_per_update)])
     replay_launches = timed("replay_plane", in_a_child, "replay_plane", args.seed, 240)
+    decoupled_launches = timed("decoupled_plane", in_a_child, "decoupled_plane", args.seed, 300)
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
-    for more in (populations_launches, plane_launches, observed_launches, replay_launches):
+    for more in (populations_launches, plane_launches, observed_launches, replay_launches,
+                 decoupled_launches):
         for k, v in more.items():
             population_launches[k] = population_launches.get(k, 0) + v
     fwd_launches = (serve_launches + train_launches["flash_fwd"] + resume_launches["flash_fwd"]

@@ -32,6 +32,8 @@ eager forward to the bit, the sampled ones from one generator state.
 
 import math
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -2349,3 +2351,117 @@ def test_pixel_gather_over_a_refilled_ring_is_bitwise_plain(cuda):
         want = gather_frames_reference(r, idx, o, 4, True, torch.float32, 1)
         torch.cuda.synchronize()
         assert torch.equal(g, want)
+
+
+# --------------------------------------------- the decoupled plane on the card
+
+DECOUPLED = dict(history_len=16, seq_d_model=64, seq_num_heads=4, seq_num_layers=2,
+                 batch_size=64, steps_per_epoch=250, start_steps=200, update_after=200,
+                 update_every=50, buffer_size=5000, save_every=1, decoupled=True)
+
+
+def _decoupled(cuda, **over):
+    from torch_actor_critic_tpu_torch.decoupled import DecoupledTrainer
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig as Cfg
+
+    return DecoupledTrainer("PendulumNumpy-v1", Cfg(**{**DECOUPLED, **over}), seed=3,
+                            device=cuda)
+
+
+@pytest.mark.gpu
+def test_decoupled_publish_is_a_snapshot_of_the_live_parameters(cuda):
+    """A publish is new tensors, cloned after the burst on the learner's
+    stream: the next captured burst (which writes the live parameters in
+    place) changes nothing served, and a served action equals the eager
+    forward of the published snapshot bitwise."""
+    tr = _decoupled(cuda, epochs=1)
+    try:
+        tr.train()
+        assert tr.sac.graph_captures == 1 and tr._published_generation == 1
+        engine, published, gen = tr.registry.acquire("default")
+        live = tr.state.actor.state_dict()
+        assert all(published[k].data_ptr() != live[k].data_ptr() for k in live)
+        assert all(torch.equal(published[k], live[k]) for k in live)
+        obs = np.random.default_rng(0).standard_normal((1, 16, 3)).astype(np.float32)
+        before = tr.client.act(obs, deterministic=True).action
+        chunk = tr._stage_chunk([[(obs[0], np.zeros(1, np.float32), np.float32(0.0), obs[0],
+                                   np.float32(0.0))] * 50]).map(tr._to_device)
+        tr.state, tr.buffer, _ = tr.sac.update_burst(tr.state, tr.buffer, chunk, 50)
+        torch.cuda.synchronize()
+        assert tr.sac.graph_captures == 1
+        assert not all(torch.equal(published[k], live[k]) for k in live)
+        after = tr.client.act(obs, deterministic=True)
+        assert after.generation == gen
+        np.testing.assert_array_equal(before, after.action)
+        np.testing.assert_array_equal(after.action, engine.forward_eager(published, obs))
+    finally:
+        tr.close()
+
+
+@pytest.mark.gpu
+def test_decoupled_serving_runs_through_the_burst_capture(cuda):
+    """A thread acts through the serving plane without pause while the
+    training thread captures its burst graph (the engine quiesced for the
+    capture): acts span the capture, one burst capture, no live engine
+    capture, no failed act."""
+    from torch_actor_critic_tpu_torch.sac import graph as graph_mod
+
+    tr = _decoupled(cuda, epochs=2)
+    stop, served, failed = threading.Event(), [], []
+    captures = []
+    capture = graph_mod.BurstGraph._capture
+
+    def noted(self):
+        t0 = time.perf_counter()
+        try:
+            return capture(self)
+        finally:
+            captures.append((t0, time.perf_counter()))
+
+    def hammer():
+        rng = np.random.default_rng(1)
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                res = tr.client.act(rng.standard_normal((1, 16, 3)).astype(np.float32),
+                                    deterministic=False, timeout=30.0)
+                assert np.isfinite(res.action).all()
+                served.append((t0, time.perf_counter()))
+            except Exception as e:  # noqa: BLE001 — every failure is counted
+                failed.append(repr(e))
+
+    graph_mod.BurstGraph._capture = noted
+    thread = threading.Thread(target=hammer, daemon=True)
+    try:
+        thread.start()
+        m = tr.train()
+    finally:
+        stop.set()
+        thread.join(60)
+        graph_mod.BurstGraph._capture = capture
+        tr.close()
+    assert failed == [] and served
+    assert len(captures) == 1 and tr.sac.graph_captures == 1
+    (c0, c1), = captures
+    assert any(a < c1 and b > c0 for a, b in served)
+    assert m["decoupled/conservation_ok"] == 1.0 and m["decoupled/published_generation"] == 2
+    engine, _, _ = tr.registry.acquire("default")
+    assert engine.compile_stats()["live_compiles"] == 0
+
+
+@pytest.mark.gpu
+def test_decoupled_skipped_window_does_not_recapture(cuda):
+    """max_actor_lag=0: windows the staleness gate leaves short are
+    skipped with no device work, so the burst's graph key never changes
+    and the one captured graph serves every burst."""
+    from torch_actor_critic_tpu_torch.sac.algorithm import graph_key
+
+    tr = _decoupled(cuda, epochs=3, max_actor_lag=0)
+    try:
+        m = tr.train()
+        assert m["decoupled/dropped_stale_total"] > 0
+        assert tr.sac.graph_captures == 1
+        assert tr.sac.graph.serves(graph_key(tr.state, tr.buffer), DECOUPLED["update_every"])
+        assert m["decoupled/conservation_ok"] == 1.0
+    finally:
+        tr.close()

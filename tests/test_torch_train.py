@@ -213,7 +213,7 @@ def test_trainer_without_updates_only_fills_the_buffer():
 @pytest.mark.parametrize("field,value", [
     ("diagnostics", "light"), ("ma_critic", "per_agent"),
     ("task_embed_dim", 8), ("telemetry", True), ("obs", True),
-    ("decoupled", True), ("emit_bundle", True),
+    ("sanitize", "on"), ("emit_bundle", True),
     ("compile_cache", "/nonexistent"),
 ])
 def test_unported_config_fields_raise(field, value):

@@ -1,11 +1,12 @@
-"""Elastic serving fleet: the actuator over the obs plane.
+"""Elastic fleets: the actuator over the obs plane.
 
 ``python -m torch_actor_critic_tpu_torch.serve --elastic on`` scales the
 serving fleet with load (:class:`ElasticController` over a
-:class:`FleetScaler`). Off (the default) constructs nothing: no
-threads, no sockets, no metric keys. The JAX package's training-plane
-manager (``TrainingElasticManager``: degrade to the surviving actor
-slice) waits for the port's actor fleet, ROADMAP queue 1 item 8.
+:class:`FleetScaler`); ``python -m torch_actor_critic_tpu_torch.train
+--actors N --elastic on`` degrades to the surviving actor slice when a
+slot exhausts its restarts and re-admits it at an epoch boundary
+(:class:`TrainingElasticManager`). Off (the default) constructs nothing:
+no threads, no sockets, no metric keys.
 """
 
 from torch_actor_critic_tpu_torch.elastic.controller import (
@@ -15,6 +16,7 @@ from torch_actor_critic_tpu_torch.elastic.controller import (
     ElasticPolicy,
 )
 from torch_actor_critic_tpu_torch.elastic.serving import FleetScaler
+from torch_actor_critic_tpu_torch.elastic.training import TrainingElasticManager
 
 __all__ = [
     "DECISION_FIELDS",
@@ -22,4 +24,5 @@ __all__ = [
     "ElasticController",
     "ElasticPolicy",
     "FleetScaler",
+    "TrainingElasticManager",
 ]

@@ -34,9 +34,11 @@ warning where the runtime could not load, as in the JAX package).
 from __future__ import annotations
 
 import atexit
+import contextlib
 import logging
 import multiprocessing as mp
 import os
+import threading
 import typing as t
 from multiprocessing import shared_memory
 
@@ -58,6 +60,37 @@ CTRL_STRIDE = 16
 _SEQ, _CMD, _ACK, _ERR = 0, 1, 2, 3
 
 _ALIGN = 64
+
+
+_CHILD_ENV_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def host_only_children():
+    """The environment of processes started inside the block (each child
+    snapshots ``os.environ`` at ``start()``): spawned children boot a fresh
+    interpreter that does not inherit the parent's ``sys.path``, so the
+    package root goes on ``PYTHONPATH``; and ``CUDA_VISIBLE_DEVICES`` is
+    blank, so no child ever holds a context on the card (env workers,
+    actor processes). Serialized across threads; the parent's environment
+    is restored on exit."""
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    with _CHILD_ENV_LOCK:
+        overrides = {
+            "PYTHONPATH": pkg_root
+            + (os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else ""),
+            "CUDA_VISIBLE_DEVICES": "",
+        }
+        saved = {k: os.environ.get(k) for k in overrides}
+        os.environ.update(overrides)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
 
 
 def stack_obs(obs: t.Sequence) -> t.Any:
@@ -309,28 +342,8 @@ class ParallelEnvPool:
         # across a fork; env construction is paid once, in parallel.
         ctx = mp.get_context(start_method)
         self._conns, self._procs = [], []
-        # Spawned children boot a fresh interpreter that does not inherit
-        # the parent's sys.path: export the package root via PYTHONPATH
-        # for the duration of the spawns (each child snapshots os.environ
-        # at start()), and hide every card from them.
-        pkg_root = os.path.dirname(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        )
-        overrides = {
-            "PYTHONPATH": pkg_root
-            + (os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else ""),
-            "CUDA_VISIBLE_DEVICES": "",
-        }
-        saved = {k: os.environ.get(k) for k in overrides}
-        os.environ.update(overrides)
-        try:
+        with host_only_children():
             self._spawn_workers(ctx, n, env_name, base_seed, seed_stride)
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
 
         try:
             specs = [self._recv(i, "spec") for i in range(n)]

@@ -152,6 +152,16 @@ holds the tiers' counters (``replay_tiers``), and a restore moves the
 resident host rows to ``dropped_restart``. With ``replay_tiers="off"``
 none of it exists.
 
+The decoupled actor/learner plane (:mod:`..decoupled`: ``decoupled``,
+``serve_url``, ``actors``, ``elastic``) is a subclass over this loop's
+seams, as in JAX: ``_stage`` and ``_drain_window`` (a ``None`` window
+skips the boundary's device work), ``_epoch_boundary_hook`` (after the
+save, before the metrics are logged), ``_checkpoint_arrays`` /
+``_checkpoint_abstract_arrays`` / ``_restore_extras`` (``arrays.pt``
+and the meta), ``publish_params`` (a snapshot of the actor for the
+serving plane), ``metrics_snapshot`` and ``extra_trace_events``. The
+lockstep trainer's own seams keep it as it was, bitwise.
+
 Config fields this slice does not implement raise
 ``NotImplementedError`` naming the field when they are not at their
 defaults (:data:`NOT_PORTED`); ``pbt_every`` raises here (PBT runs over
@@ -235,12 +245,11 @@ logger = logging.getLogger(__name__)
 
 # SACConfig fields whose non-default values select machinery this slice
 # does not port. (Fields that only parameterise one of these, such as
-# staging_policy under decoupled, are inert without it, as in JAX.)
+# obs_interval_s under obs, are inert without it, as in JAX.)
 NOT_PORTED = (
     "population",
     "pbt_every", "ma_critic", "task_embed_dim",
-    "decoupled", "serve_url", "actors",
-    "elastic", "telemetry",
+    "telemetry",
     "diagnostics", "sanitize", "compile_cache", "emit_bundle", "obs",
     "obs_scrape", "slo_config",
 )
@@ -374,6 +383,7 @@ class Trainer:
         pool_name = (
             f"{env_name}|history:{cfg.history_len}" if cfg.history_len > 1 else env_name
         )
+        self.pool_name = pool_name  # the env with its history stack, as actors make it
         self.pool = make_env_pool(pool_name, self.population, base_seed=seed,
                                   parallel=cfg.parallel_envs, seed_stride=10000,
                                   timeout_s=cfg.env_timeout_s,
@@ -480,6 +490,9 @@ class Trainer:
                     self.tiered, self.population, cfg.replay_refill,
                     async_prefetch=cfg.replay_prefetch)
         self.start_epoch = 0
+        # The epoch the loop is in (the decoupled staging gate's staleness
+        # reference).
+        self._epoch = 0
         self._resume_step: int | None = None
         self.sentinel = DivergenceSentinel(cfg.max_rollbacks) if cfg.sentinel else None
         self.preemption = preemption
@@ -626,6 +639,35 @@ class Trainer:
             self._acting_ready.record(torch.cuda.current_stream(self.device))
         self._acting_fresh = True
 
+    @torch.no_grad()
+    def publish_params(self) -> t.Dict[str, torch.Tensor]:
+        """A snapshot of the actor's parameters and buffers for the serving
+        plane (JAX's ``_fetch_params_single_transfer``): fresh tensors in a
+        new mapping, cloned on the learner's stream, so a later burst, which
+        writes the live ones in place, never reaches what was published. The
+        caller takes it after :meth:`_finish_burst`."""
+        return {k: v.detach().clone() for k, v in self.state.actor.state_dict().items()}
+
+    # Staging seams (the decoupled learner overrides them: its staging is
+    # a bounded StagingBuffer with backpressure and a staleness gate).
+    # The lockstep trainer appends each env's transition to its list and
+    # drains exactly one full window at every window boundary.
+
+    def _stage(self, staging: t.List[t.List[tuple]], transitions: t.List[tuple]) -> None:
+        """Admit one lockstep step's transitions, one per env."""
+        for env_staging, tr in zip(staging, transitions, strict=True):
+            env_staging.append(tr)
+
+    def _drain_window(self, staging: t.List[t.List[tuple]]) -> Batch | None:
+        """One update window as a host chunk, or ``None`` to skip this
+        window boundary's device work (the decoupled gate may leave less
+        than a window; the chunk's shape, and so the burst's graph, never
+        varies). The lockstep trainer always has exactly one window."""
+        chunk = self._stage_chunk(staging)
+        for env_staging in staging:
+            del env_staging[:]
+        return chunk
+
     def _stage_chunk(self, staging: t.List[t.List[tuple]]) -> Batch:
         """Stack one window of each env's staged transitions into a host
         chunk, each leaf in its own dtype (frames uint8): ``(window, ...)``
@@ -657,9 +699,25 @@ class Trainer:
             **({"replay_tiers": self.tiered.meta_state()} if self.tiered is not None else {}),
         }
 
+    def _checkpoint_arrays(self) -> t.Mapping[str, t.Any] | None:
+        """Named objects for the checkpoint's ``arrays.pt`` (the decoupled
+        learner's staged but undrained transitions); ``None`` = none."""
+        return None
+
+    def _checkpoint_abstract_arrays(self, meta_probe: dict) -> t.Mapping[str, t.Any] | None:
+        """The live objects :meth:`_checkpoint_arrays` named, sized from the
+        checkpoint's meta, to restore ``arrays.pt`` into; ``None`` = none."""
+        return None
+
+    def _restore_extras(self, meta: dict, arrays: t.Mapping[str, t.Any] | None) -> None:
+        """Apply what a subclass saved beyond the base trainer's state
+        (the decoupled learner's staging, publish counters and serving
+        generator)."""
+
     def _save_checkpoint(self, epoch: int, step: int) -> None:
         self.checkpointer.save(epoch, self.state, self.buffer,
-                               extra=self._checkpoint_extra(step))
+                               extra=self._checkpoint_extra(step),
+                               arrays=self._checkpoint_arrays())
 
     def _load_checkpoint(self, epoch: int | None = None, include_buffer: bool = True) -> dict:
         """Restore the learner (and the ring, with ``include_buffer``),
@@ -678,8 +736,10 @@ class Trainer:
                     f"trainer is configured for {self.config.algorithm!r}; pass "
                     f"--algorithm {saved_algo} to resume it"
                 )
-        self.state, buffer, meta = self.checkpointer.restore(
-            self.state, self.buffer if include_buffer else None, epoch=epoch)
+        abstract_arrays = self._checkpoint_abstract_arrays(meta_probe)
+        self.state, buffer, meta, *arrays = self.checkpointer.restore(
+            self.state, self.buffer if include_buffer else None, epoch=epoch,
+            abstract_arrays=abstract_arrays)
         self._acting_fresh = False  # the next acting step reads the restored actor
         if buffer is not None:
             self.buffer = buffer
@@ -696,6 +756,7 @@ class Trainer:
                 )
         if self.tiered is not None and meta.get("replay_tiers"):
             self.tiered.load_meta(meta["replay_tiers"])
+        self._restore_extras(meta, arrays[0] if arrays else None)
         return meta
 
     def _rollback(self) -> int:
@@ -760,6 +821,7 @@ class Trainer:
 
         t_epoch = time.time()
         for e in range(self.start_epoch, last_epoch + 1):
+            self._epoch = e
             if rec is not None:
                 rec.epoch_begin(e)
             losses_q: t.List[torch.Tensor] = []
@@ -779,6 +841,7 @@ class Trainer:
                 # One lockstep dispatch for every env; then each env's
                 # bookkeeping, and a reset for each episode that ended.
                 next_batch, rewards, terms, truncs = self.pool.step(actions)
+                transitions = []
                 for i in range(n):
                     next_obs = self._normalize(tree_map(lambda x: x[i], next_batch),
                                                update=True, member=i)
@@ -790,8 +853,8 @@ class Trainer:
                     # a truncation, so the bootstrap is not zeroed.
                     hit_cap = ep_len[i] >= cfg.max_ep_len
                     done_for_buffer = np.float32(terminated and not hit_cap)
-                    staging[i].append((obs[i], actions[i], np.float32(reward), next_obs,
-                                       done_for_buffer))
+                    transitions.append((obs[i], actions[i], np.float32(reward), next_obs,
+                                        done_for_buffer))
                     if terminated or truncated or hit_cap or epoch_ended:
                         episode_rewards.append(float(ep_ret[i]))
                         episode_lengths.append(ep_len[i])
@@ -802,17 +865,20 @@ class Trainer:
                                                    update=True, member=i)
                         ep_ret[i], ep_len[i] = 0.0, 0
                     obs[i] = next_obs
+                self._stage(staging, transitions)
                 if rec is not None:
                     rec.lap(PH_ENV)
 
                 window_full = (step + 1) % cfg.update_every == 0
+                host_chunk = None
                 if window_full:
-                    chunk = self._stage_chunk(staging)
-                    for env_staging in staging:
-                        del env_staging[:]
+                    host_chunk = self._drain_window(staging)
                     if rec is not None:
                         rec.lap(PH_STAGE)
-                    host_chunk, chunk = chunk, chunk.map(self._to_device)
+                # No chunk (the decoupled gate left less than a window): this
+                # boundary's device work is skipped; staging keeps the rest.
+                if host_chunk is not None:
+                    chunk = host_chunk.map(self._to_device)
                     if rec is not None:
                         rec.lap(PH_PLACE)
                     take(self._finish_burst())
@@ -943,6 +1009,9 @@ class Trainer:
                 last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
             if rec is not None:
                 rec.lap(PH_CKPT)
+            # The decoupled learner publishes the epoch and adds its
+            # staging metrics here (a no-op for the lockstep trainer).
+            self._epoch_boundary_hook(e, sentinel_ok, saved_this_epoch, last_metrics, rec)
             # The obs plane's flat summary rides this epoch's row, and the
             # row goes back to the learner source (the paths SLO rules
             # address as learner.metrics.<key>).
@@ -1003,15 +1072,34 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _epoch_boundary_hook(self, epoch: int, sentinel_ok: bool, saved: bool,
+                             last_metrics: dict, rec) -> None:
+        """Called once an epoch, after the sentinel and the save and before
+        the metrics are logged (the decoupled learner publishes the epoch
+        to its serving plane and adds its ``decoupled/*`` metrics)."""
+
     # ------------------------------------------------------ observability
+
+    def metrics_snapshot(self) -> dict:
+        """A ``/metrics``-mergeable view of planes beyond the learner (the
+        decoupled staging and transport); empty for the lockstep trainer."""
+        return {}
+
+    def extra_trace_events(self) -> t.List[dict]:
+        """Trace events beyond this process's recorder (the fleet's
+        staging spans and actor span files), merged into the
+        ``trace_export`` timeline at :meth:`close`."""
+        return []
 
     def _obs_learner_source(self) -> dict:
         """The learner plane's snapshot for the obs collector: the
-        telemetry snapshot and the numeric columns of the last logged
-        epoch (``learner.metrics.<key>`` to an SLO rule)."""
+        telemetry snapshot, :meth:`metrics_snapshot` and the numeric
+        columns of the last logged epoch (``learner.metrics.<key>`` to an
+        SLO rule)."""
         out: t.Dict[str, t.Any] = {}
         if self.telemetry is not None:
             out["telemetry"] = self.telemetry.snapshot()
+        out.update(self.metrics_snapshot())
         if self._obs_last_metrics:
             out["metrics"] = {k: v for k, v in self._obs_last_metrics.items()
                               if isinstance(v, (int, float, bool))}
@@ -1197,6 +1285,8 @@ class Trainer:
             for line in self.obs.slo.report().splitlines():
                 logger.info("%s", line)
         if self.telemetry is not None:
+            if self.telemetry.trace_export is not None:
+                self.telemetry.extra_events = self.extra_trace_events()
             self.telemetry.close()
         self.pool.close()
 

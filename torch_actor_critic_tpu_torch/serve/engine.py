@@ -66,6 +66,7 @@ sanitizer, buffer donation.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import logging
 import threading
@@ -505,6 +506,18 @@ class PolicyEngine:
     def graph_count(self) -> int:
         with self._fwd_lock:
             return len(self._graphs)
+
+    @contextlib.contextmanager
+    def quiesced(self):
+        """Hold the engine still for the block: its forward lock is held
+        and, on CUDA, the device synchronized first, so no forward of this
+        engine launches, synchronizes or allocates until the block ends
+        (another thread can capture a CUDA graph of its own meanwhile).
+        Forwards that arrive in the block wait for it; none fails."""
+        with self._fwd_lock:
+            if self._graphed:
+                torch.cuda.synchronize(self.device)
+            yield
 
     # ------------------------------------------------------------ warmup
 

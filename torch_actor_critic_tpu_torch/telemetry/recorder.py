@@ -189,6 +189,9 @@ class TelemetryRecorder:
     ):
         self.phases = tuple(phases)
         self.trace_export = trace_export
+        # Events from other planes (a trainer's extra_trace_events), merged
+        # into the exported timeline.
+        self.extra_events: t.List[dict] = []
         self._clock = clock
         self.timer = PhaseTimer(len(self.phases), clock)
         self.ring = SpanRing(ring_capacity)
@@ -458,7 +461,7 @@ class TelemetryRecorder:
         )
 
         summary = export_trace(path, training_events(self),
-                               compile_events(get_watchdog().compile_log()))
+                               compile_events(get_watchdog().compile_log()), self.extra_events)
         logger.info("trace exported to %s (%d train / %d compile spans) — load at "
                     "chrome://tracing or https://ui.perfetto.dev", summary["path"],
                     summary["train_spans"], summary["compile_spans"])

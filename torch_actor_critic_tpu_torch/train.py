@@ -119,6 +119,26 @@ final line naming the checkpoint, which ``serve --run`` serves::
     python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
         --history-len 16 --offline true --offline-dataset DIR --offline-reg cql
 
+``--decoupled true`` acts through the serving plane (an in-process
+registry and micro-batcher on the card, or the worker at ``--serve-url
+URL``, whose reload poller takes each epoch's checkpoint as the publish),
+stages tagged transitions in a bounded buffer behind a staleness gate
+(``--max-actor-lag``, ``--staging-capacity``, ``--staging-policy``) and
+publishes each validated epoch; ``--actors N`` adds N supervised actor
+processes (host only: they act over HTTP through the learner's ``/act``
+proxy) feeding the same buffer over the staging transport; ``--elastic
+on`` (with ``--actors`` >= 1) degrades to the surviving actor slice when a
+slot exhausts its restarts and re-admits it after
+``--elastic-readmit-epochs``. Each epoch's line adds the ``decoupled/*``
+columns (and ``elastic/*``). SIGTERM and ``--run <id>`` resume them with
+the staged tail, the transport's dedup watermarks and the serving
+generator::
+
+    python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
+        --history-len 16 --decoupled true
+    python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
+        --history-len 16 --actors 2 --elastic on
+
 Not ported: ``--devices`` > 1, ``--fsdp``, ``--render``.
 """
 
@@ -314,17 +334,48 @@ def profiled(args: argparse.Namespace, fn):
         logger.info("profiler trace written to %s", path)
 
 
+def trainer_class(config) -> type:
+    """The trainer the config selects, as the JAX CLI picks it (a resume
+    takes it from the run's stored config): ``--actors N`` the supervised
+    actor fleet over the decoupled learner, ``--decoupled true`` the
+    decoupled learner (serving in-process, or at ``--serve-url``), else
+    the lockstep trainer."""
+    if config.actors > 0:
+        from torch_actor_critic_tpu_torch.decoupled import FleetTrainer
+
+        logger.info(
+            "actor fleet: %d supervised actor processes, max_restarts=%d, heartbeat="
+            "%.2fs/%.2fs, staging=%d (%s), elastic %s",
+            config.actors, config.actor_max_restarts, config.heartbeat_interval_s,
+            config.heartbeat_timeout_s, config.resolved_staging_capacity,
+            config.staging_policy, config.elastic,
+        )
+        return FleetTrainer
+    if config.decoupled:
+        from torch_actor_critic_tpu_torch.decoupled import DecoupledTrainer
+
+        logger.info(
+            "decoupled actor/learner: serving=%s, max_actor_lag=%d, staging=%d (%s)",
+            config.serve_url or "in-process", config.max_actor_lag,
+            config.resolved_staging_capacity, config.staging_policy,
+        )
+        return DecoupledTrainer
+    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
+
+    return Trainer
+
+
 def build_trainer(args: argparse.Namespace, preemption=None, setup=None):
-    """Tracker, checkpointer and :class:`Trainer` from parsed CLI args —
-    the path :func:`main` trains, shared with smoke scripts. With
+    """Tracker, checkpointer and trainer (:func:`trainer_class`) from
+    parsed CLI args — the path :func:`main` trains, shared with smoke
+    scripts. With
     ``--run`` the run's stored params give the config, environment and
     seed, and the trainer is restored from the run's newest checkpoint.
     ``setup`` is :func:`run_setup`'s result, when the caller has it.
     Returns ``(trainer, tracker)``."""
-    from torch_actor_critic_tpu_torch.sac.trainer import Trainer
-
     config, env_name, seed, tracker, checkpointer = setup or run_setup(args)
-    trainer = Trainer(
+    trainer_cls = trainer_class(config)
+    trainer = trainer_cls(
         env_name, config,
         tracker=tracker if args.logging else None,
         checkpointer=checkpointer,
