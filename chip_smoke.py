@@ -207,8 +207,9 @@ or of the JAX package. Phases, one JSON line each:
    of a history-8 population of 8 ((512, 4, 8, 16), (1024, ...)) and at
    the critics' fold of 32 (4096, ...), against their plain versions at
    the limits of 3; the README's command (the cheetah twin, P = 32, 10^6
-   rows per member, ``--pbt-every 1``) through ``train.main`` for two
-   1000-step epochs, each PBT step checked in place (an exploited
+   rows per member, ``--pbt-every 1``, ``--telemetry true``) through
+   ``train.main`` for two 1000-step epochs, each PBT step checked in
+   place and its ``pbt`` event held to the check's (an exploited
    member's networks and all its Adam state bitwise its winner's, its
    hyperparameters the winner's times exactly 1.25^±1, rings and
    generators untouched; at least one exploit), ``loss_q_m0`` ...
@@ -224,7 +225,9 @@ or of the JAX package. Phases, one JSON line each:
 
 The populations, host_env_plane, observability, replay_plane and
 decoupled_plane phases follow, each in a child (their functions' docstrings say what they
-check); observability, the training observability plane: the sequence
+check); populations traces the host sequence population under
+``--telemetry true --diagnostics full`` and times the tiers' captured
+population bursts, bitwise ``off``; observability, the training observability plane: the sequence
 policy and the fused loop at population 1 through ``train.main`` with
 ``--telemetry true --diagnostics full --profile-epochs 1:2
 --trace-export``, and the diagnostics tiers' captured bursts from one
@@ -3911,7 +3914,7 @@ def _population_flat_cli(seed: int, smi: str) -> dict:
         with PBTChecks(PopulationOnDeviceLoop, 1.25) as pbt:
             final = train_cli.main([*POP_FLAT_ARGS, "--epochs", "2", "--steps-per-epoch",
                                     str(POP_STEPS), "--no-save-buffer", "--runs-root", runs,
-                                    "--seed", str(seed)])
+                                    "--seed", str(seed), "--telemetry", "true"])
         seconds = time.perf_counter() - t0
         (run_id,) = os.listdir(f"{runs}/Default")
         rows = [json.loads(x) for x in
@@ -3923,8 +3926,24 @@ def _population_flat_cli(seed: int, smi: str) -> dict:
         check(all(math.isfinite(x) for x in losses), f"population losses {losses}")
         check(len(pbt.steps) == 2 and pbt.steps[0]["exploited"],
               f"population PBT steps {pbt.steps}")
+        events = [json.loads(x) for x in
+                  open(f"{runs}/Default/{run_id}/telemetry.jsonl").read().splitlines()]
+        # One pbt event per PBT step, its exploited and src the step's own.
+        seen = [{"exploited": e["exploited"], "src": e["src"], "ready": e["ready"]}
+                for e in events if e["type"] == "pbt"]
+        want = [{k: s[k] for k in ("exploited", "src", "ready")} for s in pbt.steps]
+        check(seen == want, f"population pbt events {seen} != PBTChecks' steps {want}")
+        costs = [e["programs"]["train/population_epoch"] for e in events if e["type"] == "cost"]
+        check(len(costs) == 2 and all(math.isfinite(c["mfu"]) and 0 < c["mfu"] < 1
+                                      for c in costs), f"population cost events {costs}")
+        epochs = [e for e in events if e["type"] == "epoch"]
+        check([e["env_steps"] for e in epochs] == [POP_STEPS * 16 * 32] * 2,
+              f"population epoch events {[e.get('env_steps') for e in epochs]}")
         return {"population": 32, "ring_rows_per_member": 10**6, "seconds": seconds,
-                "pbt_steps": pbt.steps,
+                "pbt_steps": pbt.steps, "pbt_events": len(seen),
+                "epoch_mfu": [c["mfu"] for c in costs],
+                "epoch_gflops": costs[0]["flops_per_call"] / 1e9,
+                "phases_s": [{k: v["total_s"] for k, v in e["phases"].items()} for e in epochs],
                 "final": {k: final[k] for k in ("loss_q", "loss_pi", "reward", "episodes",
                                                 "env_steps_per_sec", "grad_steps_per_sec",
                                                 "pbt_exploits")},
@@ -4253,6 +4272,8 @@ CHECK_RING = 20_000
 HOST_POP = 4
 HOST_SEQ_ARGS = ["--environment", TRAIN_ENV, "--history-len", "16",
                  "--population", str(HOST_POP)]
+# The host sequence population's traced run takes the observability plane.
+HOST_PLANE_ARGS = ("--telemetry", "true", "--diagnostics", "full")
 HOST_PIXEL_ARGS = [*VISUAL_ARGS, "--population", str(HOST_POP),
                    "--buffer-size", str(CHECK_RING)]
 PIXEL_POP_ARGS = [*VISUAL_ARGS, "--on-device", "true", "--population", "8"]
@@ -4470,10 +4491,99 @@ def _captured_burst_rate(learner, state, ring, seed: int, per: int) -> float:
     return 4 * per / (time.perf_counter() - t0)
 
 
+def _population_plane(trainer, what: str) -> dict:
+    """A host population's run under ``--telemetry true --diagnostics
+    full``: the epoch's ``diag/*`` columns finite and reduced over the
+    members (no ``diag/*_m{i}``), a ``cost`` event of the burst with a
+    finite MFU under 1, and a ``diagnostics`` event whose |TD| histogram
+    counts every update's batch and critic heads for every member."""
+    cfg, p = trainer.config, trainer.population
+    m = trainer.tracker.metrics()[-1]
+    with open(trainer.tracker.run_dir / "telemetry.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    diag = {k: v for k, v in m.items() if k.startswith("diag/")}
+    check(len(diag) >= 10 and all(math.isfinite(v) for v in diag.values())
+          and not [k for k in diag for i in range(p) if k.endswith(f"_m{i}")],
+          f"{what}: diag columns {diag}")
+    (cost,) = [e for e in events if e["type"] == "cost"]
+    rl = cost["programs"]["train/update_burst"]
+    check(math.isfinite(rl["mfu"]) and 0 < rl["mfu"] < 1, f"{what}: cost event {rl}")
+    (d,) = [e for e in events if e["type"] == "diagnostics"]
+    count = d["td_hist"]["td_abs_count"]
+    want = trainer.state.step * cfg.batch_size * cfg.num_qs * p
+    check(count == want, f"{what}: |TD| count {count} != {want}")
+    epochs = [e for e in events if e["type"] == "epoch"]
+    check(len(epochs) == 1 and epochs[0]["env_steps"] == cfg.steps_per_epoch * p,
+          f"{what}: epoch events {epochs}")
+    return {"diag": diag, "mfu": rl["mfu"], "update_gflops": cost["programs"]["train/update"][
+                "flops"] / 1e9, "td_abs_count": count,
+            "phases_s": {k: v["total_s"] for k, v in epochs[0]["phases"].items()}}
+
+
+def _population_tiers(kernels, trainer, seed: int, per: int) -> dict:
+    """The diagnostics tiers' captured population bursts from clones of a
+    trained host population, one learner per tier and one chunk: each
+    tier's first burst captures (its warm-up and capture launch the same
+    kernels through the wrappers at every tier), then three timed turns
+    of one ``per``-update burst each. ``light`` and ``full`` leave the
+    learner state, the rings and the losses bitwise ``off``'s. Returns
+    each tier's updates and gradient steps (× P) per second and its rate
+    against ``off``."""
+    from torch_actor_critic_tpu_torch.buffer.replay import sample
+    from torch_actor_critic_tpu_torch.sac.population import make_population_learner
+
+    cfg, p = trainer.config, trainer.population
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    chunk = sample(trainer.buffer, cfg.update_every, generator=gen)
+    runs = {}
+    for tier in ("off", "light", "full"):
+        learner = make_population_learner(cfg.replace(diagnostics=tier), trainer.pool.act_dim, p)
+        before = dict(kernels.launch_counts)
+        st, ring, m = learner.update_burst(trainer.state.clone(), trainer.buffer.clone(), chunk,
+                                           per)
+        torch.cuda.synchronize()
+        runs[tier] = {"learner": learner, "state": st, "ring": ring, "losses": [m], "times": [],
+                      "capture_launches": {k: v - before.get(k, 0)
+                                           for k, v in kernels.launch_counts.items()}}
+    for _ in range(3):
+        for r in runs.values():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["state"], r["ring"], m = r["learner"].update_burst(r["state"], r["ring"], chunk, per)
+            torch.cuda.synchronize()
+            r["times"].append(time.perf_counter() - t0)
+            r["losses"].append(m)
+    off, rows = runs["off"], {}
+    for tier, r in runs.items():
+        gaps = _learner_gaps(r["state"], off["state"])
+        rings = all(torch.equal(x, y) for (_, x), (_, y) in
+                    zip(r["ring"].data.named_leaves(), off["ring"].data.named_leaves()))
+        losses = all(torch.equal(a[k], b[k]) for a, b in zip(r["losses"], off["losses"])
+                     for k in ("loss_q", "loss_pi"))
+        check(gaps == BITWISE and rings and losses and r["learner"].graph_captures == 1
+              and r["capture_launches"] == off["capture_launches"],
+              f"population tier {tier}: learner vs off's {gaps}, rings {rings}, losses "
+              f"{losses}, captures {r['learner'].graph_captures}, capture launches "
+              f"{r['capture_launches']} vs {off['capture_launches']}")
+        rate = per / statistics.median(r["times"])
+        rows[tier] = {"updates_per_sec": rate, "grad_steps_per_sec": rate * p,
+                      "capture_launches": r["capture_launches"],
+                      "diag_keys": sorted(k for k in r["losses"][-1] if k.startswith("diag/"))}
+    for r in rows.values():
+        r["rate_vs_off"] = r["updates_per_sec"] / rows["off"]["updates_per_sec"]
+    del runs
+    torch.cuda.empty_cache()
+    return rows
+
+
 def host_populations(seed: int, kernels, smi: str) -> tuple:
     """The host-loop populations through the CLI's builders: the sequence
     stack (P = 4, history 16: exactly 10 K2 and 4 K3 / 4 K4 per update
-    and 2 K2 per policy step for all members) and the pixel recipe (P = 4:
+    and 2 K2 per policy step for all members, traced under the
+    observability plane, ``--telemetry true --diagnostics full``:
+    :func:`_population_plane`, then the tiers' captured bursts bitwise
+    ``off`` with their rates, :func:`_population_tiers`) and the pixel
+    recipe (P = 4:
     exactly 1 K1 per update, none acting), each traced through its graphs, its captured burst against
     the eager one from clones (the pixel one on cuDNN's deterministic
     algorithms), a member against a lone learner, bursts of alternating
@@ -4488,15 +4598,17 @@ def host_populations(seed: int, kernels, smi: str) -> tuple:
     out, launches = {}, {}
     runs = tempfile.mkdtemp(prefix="tac_chip_host_population_")
     try:
-        for name, args, per_step, per_update, steps, start in (
-                ("sequence", HOST_SEQ_ARGS, {"flash_fwd": 2},
+        for name, args, plane, per_step, per_update, steps, start in (
+                ("sequence", HOST_SEQ_ARGS, HOST_PLANE_ARGS, {"flash_fwd": 2},
                  {"flash_fwd": 10, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}, 200, 100),
-                ("pixel", HOST_PIXEL_ARGS, {}, {"pixel_gather": 1}, 300, 200)):
+                ("pixel", HOST_PIXEL_ARGS, (), {}, {"pixel_gather": 1}, 300, 200)):
             seen: dict = {}
             trainer, row = _host_population_run(
-                kernels, [*args, "--seed", str(seed)], f"host population {name}", per_step,
-                per_update, steps, start, runs,
+                kernels, [*args, *plane, "--seed", str(seed)], f"host population {name}",
+                per_step, per_update, steps, start, runs,
                 on_trace=(lambda prof: seen.update(stream_overlap(prof))) if per_step else None)
+            if plane:
+                row["plane"] = _population_plane(trainer, f"host population {name}")
             if per_step:
                 # Without actor_param_lag acting runs on the burst's stream.
                 check(seen["side_stream_flash_fwd"] == 0 and seen["overlap_us"] == 0,
@@ -4545,14 +4657,19 @@ def host_populations(seed: int, kernels, smi: str) -> tuple:
             check(len(ev["per_member"]) == HOST_POP and math.isfinite(ev["ep_ret_mean"]),
                   f"host population {name}: evaluate {ev}")
             row["evaluate"] = ev
-            row["burst_updates_per_sec"] = _captured_burst_rate(
-                trainer.sac, trainer.state, trainer.buffer, seed, cfg.updates_per_window)
+            if plane:
+                # The tiers' captured bursts from clones; off's is the row's rate.
+                row["tiers"] = _population_tiers(kernels, trainer, seed, cfg.updates_per_window)
+                row["burst_updates_per_sec"] = row["tiers"]["off"]["updates_per_sec"]
+            else:
+                row["burst_updates_per_sec"] = _captured_burst_rate(
+                    trainer.sac, trainer.state, trainer.buffer, seed, cfg.updates_per_window)
             row["burst_grad_steps_per_sec"] = row["burst_updates_per_sec"] * HOST_POP
             trainer.close()
             del trainer
             torch.cuda.empty_cache()
             # The solo host trainer (P = 1) at the same config.
-            solo_args = [a for a in args if a not in ("--population", str(HOST_POP))]
+            solo_args = [a for a in args if a not in ("--population", str(HOST_POP))]  # no plane
             solo, _ = train_cli.build_trainer(train_cli.parse_arguments(
                 [*solo_args, "--seed", str(seed), "--device", "cuda", "--epochs", "1",
                  "--steps-per-epoch", str(steps), "--start-steps", str(start),

@@ -210,3 +210,56 @@ def test_sequence_update_cost_is_route_independent_and_analytic(monkeypatch):
                 "kernel_bytes", "ops", "kernels"):
         assert other[key] == base[key], key
     np.testing.assert_array_less(0, base["bytes_accessed"])
+
+
+def _counted_update(cfg, obs_shape, members):
+    """The counted cost of one update (its batch's sampling included) of a
+    lone learner (``members=0``) or of a member-stacked population."""
+    from torch_actor_critic_tpu_torch.parallel.population import PopulationLearner
+    from torch_actor_critic_tpu_torch.sac.population import make_population_learner
+    from torch_actor_critic_tpu_torch.sac.trainer import make_learner
+
+    g = torch.Generator().manual_seed(2)
+    lead = (members, 32) if members else (32,)
+    chunk = Batch(states=torch.randn(*lead, *obs_shape, generator=g),
+                  actions=torch.rand(*lead, ACT, generator=g) * 4 - 2,
+                  rewards=torch.randn(*lead, generator=g),
+                  next_states=torch.randn(*lead, *obs_shape, generator=g),
+                  done=torch.zeros(lead))
+    if members:
+        pop = PopulationLearner(make_population_learner(cfg, ACT, members), members)
+        learner = pop.learner
+        state = pop.init_state(0, obs_shape, ACT, 2.0, torch.device("cpu"))
+        buf = pop.init_buffer(64, obs_shape, ACT, torch.device("cpu"))
+    else:
+        learner = make_learner(cfg, ACT)
+        actor, critic = build_models(cfg, obs_shape, ACT, 2.0,
+                                     generator=torch.Generator().manual_seed(0))
+        state = learner.init_state(actor, critic, torch.Generator().manual_seed(1))
+        buf = replay.init_replay_buffer(64, obs_shape, ACT, "cpu")
+    registry = costmodel.get_cost_registry()
+    registry.reset()
+    learner.cost.request("train/update")
+    learner.update_burst(state, buf, chunk, 2)
+    return registry.get("train/update")
+
+
+@pytest.mark.parametrize("name", ["flat-sac", "sequence-sac", "flat-td3"])
+def test_stacked_update_counts_every_member(name):
+    """One stacked update of a population of 3 counts 3 times the FLOPs of
+    one lone learner's update at the same widths (within 1%): the cost a
+    population's ``train/update`` registers is every member's work, K2–K4
+    at their folded shapes included."""
+    over = {"flat-sac": dict(hidden_sizes=(32, 32), learn_alpha=True),
+            "sequence-sac": dict(history_len=T, seq_d_model=D, seq_num_heads=H,
+                                 seq_num_layers=L, learn_alpha=True),
+            "flat-td3": dict(hidden_sizes=(32, 32), algorithm="td3")}[name]
+    obs_shape = (T, OBS) if "history_len" in over else (OBS,)
+    solo = _counted_update(SACConfig(num_qs=Q, batch_size=B, **over), obs_shape, 0)
+    pop = _counted_update(SACConfig(num_qs=Q, batch_size=B, population=3, **over),
+                          obs_shape, 3)
+    assert solo["flops"] > 0
+    np.testing.assert_allclose(pop["flops"], 3 * solo["flops"], rtol=0.01)
+    if "history_len" in over:
+        assert pop["kernels"] == solo["kernels"]  # one launch a layer for all members
+        np.testing.assert_allclose(pop["kernel_flops"], 3 * solo["kernel_flops"], rtol=0.01)

@@ -277,6 +277,55 @@ def test_bucket_counts_match_jax_exactly():
     assert counts[0] == 3  # 0, lo/2 and 1e-30 underflow
 
 
+@pytest.mark.parametrize("members", [2, 3])
+def test_member_primitives_match_the_solo_ones_per_member(members):
+    """The per-member primitives of a member-stacked learner against the
+    solo ones on each member's slice: the global norm, the update ratio,
+    the action saturation one value per member (f32 rounding apart);
+    the shared Q/TD statistics against JAX's on each member's slice, and
+    the one |TD| count vector exactly the sum of JAX's per member."""
+    from torch_actor_critic_tpu.sac.algorithm import _shared_diagnostics as j_shared
+    from torch_actor_critic_tpu_torch.sac.algorithm import member_shared_diagnostics
+
+    g = torch.Generator().manual_seed(members)
+    shapes = [(members, 8, 5), (members, 5), (members, 2, 3, 4), (members,)]
+    params = [torch.randn(s, generator=g) * 3 for s in shapes]
+    before = [p - 1e-3 * torch.randn(p.shape, generator=g) for p in params]
+    got = diag.member_global_norm(params)
+    assert got.shape == (members,) and got.dtype == torch.float32
+    got_ratio = diag.member_update_ratio(params, before)
+    for i in range(members):
+        np.testing.assert_allclose(float(got[i]), float(diag.global_norm([p[i] for p in params])),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(
+            float(got_ratio[i]),
+            float(diag.update_ratio([p[i] for p in params], [b[i] for b in before])), rtol=1e-5)
+
+    cfg = SACConfig(diagnostics="full")
+    q = torch.randn(members, 2, BATCH, generator=g) * 10.0 ** torch.randn(members, 2, BATCH,
+                                                                          generator=g)
+    backup = torch.randn(members, BATCH, generator=g) * 5
+    actions = torch.randn(members, BATCH, ACT_DIM, generator=g) * ACT_LIMIT * 1.5
+    loss_q, loss_pi = torch.rand(members, generator=g), torch.randn(members, generator=g)
+    sat = diag.member_saturation_fraction(actions, ACT_LIMIT)
+    pop = member_shared_diagnostics(cfg, loss_q, loss_pi, q, backup, actions, ACT_LIMIT)
+    hist = pop.pop("diag/td_hist")
+    jcfg = JSACConfig(diagnostics="full")
+    solo = [{k: np.asarray(v) for k, v in j_shared(
+        jcfg, *(jnp.asarray(x[i].numpy()) for x in (loss_q, loss_pi, q, backup, actions)),
+        ACT_LIMIT).items()} for i in range(members)]
+    np.testing.assert_array_equal(hist.numpy(), sum(s["diag/td_hist"] for s in solo))
+    assert int(hist.sum()) == members * 2 * BATCH
+    assert set(pop) == set(solo[0]) - {"diag/td_hist"}
+    for i in range(members):
+        assert float(sat[i]) == float(jdiag.saturation_fraction(
+            jnp.asarray(actions[i].numpy()), ACT_LIMIT))
+        for k, v in pop.items():
+            assert v.shape == (members,), k
+            np.testing.assert_allclose(float(v[i]), float(solo[i][k]), rtol=1e-6, atol=1e-6,
+                                       err_msg=f"member {i} {k}")
+
+
 def test_td_histogram_merges_into_the_shared_schema():
     hist = diag.make_td_histogram()
     jhist = jdiag.make_td_histogram()

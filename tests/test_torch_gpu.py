@@ -1379,7 +1379,7 @@ HOST_POPULATION_CASES = {
 }
 
 
-def _host_population(cuda, name, members=3):
+def _host_population(cuda, name, members=3, **cfg_kw):
     from torch_actor_critic_tpu_torch.core.types import MultiObservation
     from torch_actor_critic_tpu_torch.parallel.population import PopulationLearner
     from torch_actor_critic_tpu_torch.sac.population import make_population_learner
@@ -1387,7 +1387,7 @@ def _host_population(cuda, name, members=3):
     over, shape = HOST_POPULATION_CASES[name]
     if shape == "pixel":
         shape = MultiObservation(features=(1,), frame=(32, 32, 3))
-    cfg = SACConfig(update_every=10, population=members, **over)
+    cfg = SACConfig(update_every=10, population=members, **{**over, **cfg_kw})
     learner = PopulationLearner(make_population_learner(cfg, 1, members), members)
     state = learner.init_state(0, shape, 1, 2.0, torch.device(cuda))
     ring = learner.init_buffer(500, shape, 1, torch.device(cuda))
@@ -1446,6 +1446,97 @@ def test_captured_host_population_bursts_equal_the_eager_bursts_bitwise(cuda, na
         torch.backends.cudnn.deterministic = saved
     assert _diff(runs[False], runs[True]) == []
     assert runs[False]["state"]["step"] == 60
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(HOST_POPULATION_CASES))
+def test_captured_host_population_tiers_are_bitwise_off(cuda, name):
+    """A ``PopulationLearner`` of 3 from one cloned state and ring, two
+    captured bursts of 10 at each diagnostics tier (on cuDNN's
+    deterministic algorithms): the learner state and the rings bitwise
+    ``off``'s at ``light`` and ``full``, the ``off`` metrics (losses
+    included) bitwise, one capture each, every ``diag/*`` value one per
+    member and finite; a replayed burst launches the same K2/K3/K4 at
+    every tier (the device trace)."""
+    from torch_actor_critic_tpu_torch.buffer.replay import push
+
+    learner, state, ring, shape = _host_population(cuda, name)
+    ring = push(ring, _host_chunk(shape, 3, 40, 0))
+    chunks = [_host_chunk(shape, 3, 10, i + 1) for i in range(2)]
+    over, _ = HOST_POPULATION_CASES[name]
+    runs, launches, saved = {}, {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tier in ("off", "light", "full"):
+            pop = _host_population(cuda, name, diagnostics=tier)[0].learner
+            st, buf = state.clone(), ring.clone()
+            metrics = []
+            for chunk in chunks:
+                st, buf, m = pop.update_burst(st, buf, chunk, 10)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            runs[tier] = {"state": st.state_dict(), "ring": buf.state_dict(),
+                          "metrics": [{k: v.cpu() for k, v in m.items()} for m in metrics]}
+            assert pop.graph_captures == 1, tier
+            launches[tier] = _flash_launches(lambda: pop.update_burst(st, buf, chunks[0], 10))
+            assert pop.graph_captures == 1, tier
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    off = runs["off"]
+    for tier in ("light", "full"):
+        got = runs[tier]
+        assert _diff({"state": got["state"], "ring": got["ring"]},
+                     {"state": off["state"], "ring": off["ring"]}) == [], tier
+        assert launches[tier] == launches["off"], (tier, launches)
+        for mo, mt in zip(off["metrics"], got["metrics"]):
+            assert all(torch.equal(mo[k], mt[k]) for k in mo), tier
+            diag = {k: v for k, v in mt.items() if k not in mo}
+            assert ("diag/td_hist" in diag) == (tier == "full")
+            for k, v in diag.items():
+                assert (v.shape == (3,)) != (k == "diag/td_hist"), k
+                assert bool(torch.isfinite(v.float()).all()), k
+    if name == "sequence":
+        layers = over["seq_num_layers"]
+        assert launches["off"] == {"flash_fwd_kernel": 5 * layers * 10,
+                                   "flash_bwd_dq_kernel": 2 * layers * 10,
+                                   "flash_bwd_dkv_kernel": 2 * layers * 10}, launches
+
+
+@pytest.mark.gpu
+def test_fused_population_emits_pbt_and_cost_events_on_the_card(cuda, tmp_path, monkeypatch):
+    """``train --on-device true --population 4 --pbt-every 1 --telemetry
+    true`` on the card: one ``pbt`` event per PBT step whose ``exploited``
+    and ``src`` are the step's own, a ``train/population_epoch`` cost per
+    epoch with a finite MFU under 1, one burst capture."""
+    import json
+
+    from torch_actor_critic_tpu_torch import train as train_mod
+    from torch_actor_critic_tpu_torch.sac.ondevice import PopulationOnDeviceLoop
+
+    steps, real = [], PopulationOnDeviceLoop.pbt_step
+
+    def pbt_step(loop, state, pbt_state, **k):
+        ev = real(loop, state, pbt_state, **k)
+        steps.append({"src": ev["src"].tolist(),
+                      "exploited": [i for i, x in enumerate(ev["exploited"].tolist()) if x]})
+        return ev
+
+    monkeypatch.setattr(PopulationOnDeviceLoop, "pbt_step", pbt_step)
+    metrics = train_mod.main([
+        "--environment", "Pendulum-v1", "--on-device", "true", "--population", "4",
+        "--pbt-every", "1", "--pbt-quantile", "0.25", "--telemetry", "true",
+        "--runs-root", str(tmp_path), "--epochs", "3", "--steps-per-epoch", "200",
+        "--update-every", "50", "--start-steps", "50", "--on-device-envs", "4",
+        "--batch-size", "64", "--buffer-size", "2000", "--hidden-sizes", "64,64"])
+    assert metrics["graph_captures"] == 1 and {"loss_q_m0", "loss_q_m3"} <= set(metrics)
+    (run_dir,) = (tmp_path / "Default").iterdir()
+    events = [json.loads(x) for x in (run_dir / "telemetry.jsonl").read_text().splitlines()]
+    pbt = [{"src": e["src"], "exploited": e["exploited"]} for e in events if e["type"] == "pbt"]
+    assert len(steps) == 3 and pbt == steps
+    assert any(s["exploited"] for s in steps)  # every member ends a 200-step episode
+    costs = [e["programs"]["train/population_epoch"] for e in events if e["type"] == "cost"]
+    assert len(costs) == 3
+    assert all(math.isfinite(c["mfu"]) and 0 < c["mfu"] < 1 for c in costs), costs
 
 
 @pytest.mark.gpu

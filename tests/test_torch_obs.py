@@ -434,15 +434,40 @@ def test_obs_off_constructs_nothing(tmp_path):
 
 
 @pytest.mark.parametrize("population,on_device,match", [
-    (2, False, "queue 1 item 9"), (1, True, "solo host trainer")])
+    (2, True, "solo host trainer and a host population"), (1, True, "solo host trainer")])
 def test_obs_refused_off_the_solo_host_trainer(population, on_device, match):
-    cfg = _obs_config(obs=True, population=population)
-    if on_device:
-        from torch_actor_critic_tpu_torch.sac.ondevice import train_on_device
+    """The fused loop refuses the obs plane at any population (JAX's fused
+    loop builds no collector); the host trainer runs it at any
+    population (:func:`test_train_population_obs_carries_the_member_curves`)."""
+    assert on_device
+    from torch_actor_critic_tpu_torch.sac.ondevice import (
+        train_on_device,
+        train_population_on_device,
+    )
 
-        with pytest.raises(NotImplementedError, match=match):
-            train_on_device("Pendulum-v1", _obs_config(obs=True, on_device=True),
-                            device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer("PendulumNumpy-v1", cfg, device="cpu")
+    train = train_population_on_device if population > 1 else train_on_device
+    with pytest.raises(NotImplementedError, match=match):
+        train("Pendulum-v1", _obs_config(obs=True, on_device=True, population=population),
+              device="cpu")
+
+
+def test_train_population_obs_carries_the_member_curves(tmp_path):
+    """``train --population 2 --obs true`` on the CPU: the collector's
+    ``obs.jsonl`` rows carry the learner source's last epoch with each
+    member's ``reward_m{i}``, and every epoch's line the ``obs/`` columns."""
+    from torch_actor_critic_tpu_torch import train as train_mod
+
+    metrics = train_mod.main([
+        "--environment", "PendulumNumpy-v1", "--population", "2", "--obs", "true",
+        "--obs-interval-s", "0.05", "--device", "cpu", "--runs-root", str(tmp_path),
+        "--hidden-sizes", "8", "--batch-size", "8", "--buffer-size", "400", "--epochs", "2",
+        "--steps-per-epoch", "40", "--start-steps", "10", "--update-after", "10",
+        "--update-every", "20", "--no-preemption-guard"])
+    assert {"reward_m0", "reward_m1", "obs/scrapes_total"} <= set(metrics)
+    assert _plane_threads() == []
+    (run_dir,) = (tmp_path / "Default").iterdir()
+    with open(run_dir / "obs.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    learner = [r["learner"]["metrics"] for r in rows if "metrics" in r.get("learner", {})]
+    assert learner and {"reward_m0", "reward_m1"} <= set(learner[-1])
+    assert learner[-1]["reward_m1"] == metrics["reward_m1"]

@@ -27,6 +27,7 @@ import torch
 
 from torch_actor_critic_tpu.core.types import Batch as JBatch
 from torch_actor_critic_tpu.core.types import MultiObservation as JMultiObservation
+from torch_actor_critic_tpu.diagnostics.ingraph import reduce_metric_rows as j_reduce_metric_rows
 from torch_actor_critic_tpu.envs.ondevice import PendulumJax, PixelPendulumJax
 from torch_actor_critic_tpu.envs.ondevice import history_env as j_history_env
 from torch_actor_critic_tpu.ops.pixels import fused_frame_gather as j_fused_frame_gather
@@ -40,6 +41,7 @@ from torch_actor_critic_tpu_torch import run_agent
 from torch_actor_critic_tpu_torch import train as train_mod
 from torch_actor_critic_tpu_torch.buffer.replay import fold_member_rows, push
 from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+from torch_actor_critic_tpu_torch.diagnostics.ingraph import host_read, reduce_metric_rows
 from torch_actor_critic_tpu_torch.models.population import build_population_models
 from torch_actor_critic_tpu_torch.ops.pixels import (
     gather_frames_reference,
@@ -50,6 +52,7 @@ from torch_actor_critic_tpu_torch.sac.population import (
     PopulationSAC,
     PopulationTD3,
     make_population_learner,
+    member_tensors,
 )
 from torch_actor_critic_tpu_torch.sac.trainer import Trainer
 from torch_actor_critic_tpu_torch.utils.checkpoint import Checkpointer, export_member_checkpoint
@@ -134,9 +137,10 @@ BURSTS = {
 }
 
 
-def _jax_setup(name):
+def _jax_setup(name, tier="off"):
     over, jbase, _ = BURSTS[name]
-    jcfg = JSACConfig(batch_size=BATCH, update_every=WINDOW, population=P, **over)
+    jcfg = JSACConfig(batch_size=BATCH, update_every=WINDOW, population=P, diagnostics=tier,
+                      **over)
     jenv = j_history_env(jbase, over["history_len"]) if "history_len" in over else jbase
     actor_def, critic_def = j_build_models(jcfg, JSpecView(jenv))
     jsac = j_make_learner(jcfg, actor_def, critic_def, 1)
@@ -200,11 +204,12 @@ def _member_burst_draws(rng, size, algorithm, fused):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_burst(name):
+def _jax_burst(name, tier="off"):
     """JAX's population of ``P`` after one burst of ``UPDATES`` on a
-    fresh ring, its state before, the chunk and every member's draws."""
+    fresh ring at the diagnostics ``tier``, its state before, the chunk
+    and every member's draws."""
     over, _, shape = BURSTS[name]
-    jcfg, jenv, jsac = _jax_setup(name)
+    jcfg, jenv, jsac = _jax_setup(name, tier)
     jpop = JPopulationLearner(jsac, P)
     example = jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
                                      _jax_obs_spec(shape))
@@ -218,9 +223,10 @@ def _jax_burst(name):
     return before, jts, jbuf, jm, chunk, draws
 
 
-def _port_learner(name, jts0):
+def _port_learner(name, jts0, tier="off"):
     over, _, shape = BURSTS[name]
-    cfg = SACConfig(batch_size=BATCH, update_every=WINDOW, population=P, **over)
+    cfg = SACConfig(batch_size=BATCH, update_every=WINDOW, population=P, diagnostics=tier,
+                    **over)
     learner = PopulationLearner(make_population_learner(cfg, 1, P), P)
     actor, critic = build_population_models(cfg, shape, 1, 2.0,
                                             [torch.Generator() for _ in range(P)])
@@ -253,6 +259,15 @@ def _assert_members(state, jts, updates):
     _close(state.log_alpha.detach(), jts.log_alpha, "log_alpha")
 
 
+def _burst_hooks(draws):
+    """The port's burst hooks from every member's JAX draws."""
+    hooks = {"indices": _t(np.stack([np.stack(d[0]) for d in draws], axis=1))}  # (K, P, B)
+    hooks["eps"] = _t(np.stack([np.stack(d[1]) for d in draws], axis=-3))  # (K, [2,] P, B, 1)
+    if draws[0][2]:
+        hooks["offsets"] = _t(np.stack([np.stack(d[2]) for d in draws], axis=2))  # (K, 2, P, B, 2)
+    return hooks
+
+
 @pytest.mark.parametrize("name", list(BURSTS))
 def test_population_learner_burst_matches_jax_member_by_member(name):
     """One burst of 3 updates of a population of 3 from JAX's member-stacked
@@ -262,13 +277,8 @@ def test_population_learner_burst_matches_jax_member_by_member(name):
     jts0, jts, jbuf, jm, chunk, draws = _jax_burst(name)
     learner, state, shape = _port_learner(name, jts0)
     ring = learner.init_buffer(CAPACITY, shape, 1, torch.device("cpu"))
-    hooks = {"indices": _t(np.stack([np.stack(d[0]) for d in draws], axis=1))}  # (K, P, B)
-    eps = np.stack([np.stack(d[1]) for d in draws], axis=-3)  # (K, [2,] P, B, 1)
-    hooks["eps"] = _t(eps)
-    if draws[0][2]:
-        hooks["offsets"] = _t(np.stack([np.stack(d[2]) for d in draws], axis=2))  # (K, 2, P, B, 2)
     state, ring, m = learner.learner.update_burst(state, ring, chunk.map(torch.from_numpy),
-                                                  UPDATES, **hooks)
+                                                  UPDATES, **_burst_hooks(draws))
     assert state.step == UPDATES and int(state.device_step) == UPDATES
     assert (ring.ptr, ring.size, ring.members) == (WINDOW, WINDOW, P)
     assert np.all(np.asarray(jbuf.size) == WINDOW)
@@ -280,6 +290,72 @@ def test_population_learner_burst_matches_jax_member_by_member(name):
     for k in ("loss_q", "loss_pi"):
         assert m[k].shape == (P,)
         _close(m[k], jm[k], k)
+
+
+@pytest.mark.parametrize("name", ["flat-sac", "sequence-sac", "visual-sac", "flat-td3"])
+def test_population_burst_diagnostics_match_jax(name):
+    """A population burst at ``full`` against JAX's ``PopulationLearner``
+    (the ``vmap`` of the solo burst): every ``diag/*`` value one per
+    member and each member's within the solo diagnostics' limits; the
+    epoch's ``reduce_metric_rows`` over bursts and members agreeing to
+    1e-4; the |TD| counts, one vector for all members, exactly the sum of
+    JAX's per-member counts; the state as at ``off``."""
+    jts0, jts, _, jm, chunk, draws = _jax_burst(name, "full")
+    learner, state, shape = _port_learner(name, jts0, "full")
+    ring = learner.init_buffer(CAPACITY, shape, 1, torch.device("cpu"))
+    state, ring, m = learner.learner.update_burst(state, ring, chunk.map(torch.from_numpy),
+                                                  UPDATES, **_burst_hooks(draws))
+    _assert_members(state, jts, UPDATES)
+    jm = _np(jm)
+    assert set(m) == set(jm)
+    assert "diag/param_norm" in m and "diag/grad_norm_q" in m
+    assert ("diag/update_ratio_alpha" in m) == (BURSTS[name][0].get("learn_alpha", False))
+    jhist = jm.pop("diag/td_hist")
+    assert jhist.shape[0] == P
+    hist = m.pop("diag/td_hist")
+    np.testing.assert_array_equal(hist.numpy(), jhist.sum(axis=0))
+    assert int(hist.sum()) == P * UPDATES * BATCH * 2
+    for k, v in m.items():
+        assert v.shape == (P,), k
+        _close(v, jm[k], f"{name} {k}", atol=1e-6, rtol=1e-4)
+    got = reduce_metric_rows([host_read({**m, "diag/td_hist": hist})])
+    want = j_reduce_metric_rows([{**jm, "diag/td_hist": jhist}])
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got.pop("diag/td_hist"), want.pop("diag/td_hist"))
+    for k in want:
+        _close(got[k], want[k], f"{name} reduced {k}", atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["flat-sac", "sequence-sac", "flat-td3"])
+def test_population_tiers_leave_the_state_bitwise_off(name):
+    """At P = 2, two bursts at ``light`` and at ``full`` from one start:
+    the networks, targets, Adam states and ``log_alpha`` bitwise those of
+    ``off``, the ``off`` metric keys bitwise, and only ``diag/*`` and
+    ``*_max`` keys added (the histogram at ``full`` only)."""
+    over, _, shape = BURSTS[name]
+    runs = {}
+    for tier in ("off", "light", "full"):
+        cfg = SACConfig(batch_size=BATCH, update_every=WINDOW, population=2, diagnostics=tier,
+                        **over)
+        pop = PopulationLearner(make_population_learner(cfg, 1, 2), 2)
+        state = pop.init_state(0, shape, 1, 2.0, torch.device("cpu"))
+        ring = pop.init_buffer(CAPACITY, shape, 1, torch.device("cpu"))
+        rows = []
+        for b in range(2):
+            chunk = _chunk(shape, seed=11 + b).map(lambda x: torch.from_numpy(x[:2]))
+            state, ring, m = pop.learner.update_burst(state, ring, chunk, UPDATES)
+            rows.append(m)
+        runs[tier] = (state, rows)
+    off, off_rows = runs["off"]
+    for tier in ("light", "full"):
+        st, rows = runs[tier]
+        extra = set(rows[0]) - set(off_rows[0])
+        assert extra and all(k.startswith("diag/") or k.endswith("_max") for k in extra), extra
+        assert ("diag/td_hist" in extra) == (tier == "full")
+        for a, b in zip(member_tensors(off), member_tensors(st), strict=True):
+            assert torch.equal(a, b), tier
+        for x, y in zip(off_rows, rows):
+            assert all(torch.equal(x[k], y[k]) for k in x), tier
 
 
 def test_population_learner_api():

@@ -41,6 +41,7 @@ from torch_actor_critic_tpu.sac.trainer import build_models as j_build_models
 from torch_actor_critic_tpu.utils.config import SACConfig as JSACConfig
 from torch_actor_critic_tpu_torch.buffer import replay
 from torch_actor_critic_tpu_torch.core.types import Batch
+from torch_actor_critic_tpu_torch.diagnostics import ingraph as diag_mod
 from torch_actor_critic_tpu_torch.models import build_models
 from torch_actor_critic_tpu_torch.ops.polyak import polyak_update_
 from torch_actor_critic_tpu_torch.sac import losses
@@ -333,14 +334,20 @@ def test_update_takes_no_gradient_into_the_critic_during_the_actor_step():
 
 
 def test_diagnostics_tier_is_not_ported():
-    """The solo learner runs every tier (tests/test_torch_diagnostics.py);
-    a population's diagnostics are not ported yet (ROADMAP queue 1 item 9)."""
-    from torch_actor_critic_tpu_torch.sac.population import PopulationSAC
+    """Every tier is ported now: the solo learner runs each of them
+    (tests/test_torch_diagnostics.py), and so does a population's, one
+    value per member (tests/test_torch_population_host.py); only an
+    unknown tier is refused."""
+    from torch_actor_critic_tpu_torch.sac.population import PopulationSAC, PopulationTD3
 
     for tier in ("off", "light", "full"):
         assert SAC(SACConfig(diagnostics=tier), ACT_DIM).config.diagnostics == tier
-    with pytest.raises(NotImplementedError, match="diagnostics.*queue 1 item 9"):
-        PopulationSAC(SACConfig(diagnostics="light", population=2), ACT_DIM, 2)
+        pop = PopulationSAC(SACConfig(diagnostics=tier, population=2), ACT_DIM, 2)
+        assert pop.config.diagnostics == tier and pop.members == 2
+        assert pop.diag_norm is diag_mod.member_global_norm
+        td3 = PopulationTD3(SACConfig(algorithm="td3", diagnostics=tier, population=2),
+                            ACT_DIM, 2)
+        assert td3.diag_update_ratio is diag_mod.member_update_ratio
     with pytest.raises(ValueError, match="diagnostics"):
         SACConfig(diagnostics="verbose")
 

@@ -8,6 +8,7 @@ full --profile-epochs --trace-export``; a population refuses it.
 """
 
 import json
+import logging
 import os
 
 import numpy as np
@@ -337,13 +338,85 @@ def test_fused_loop_runs_the_plane_at_population_one(tmp_path):
     ["--population", "2", "--trace-export", "x.json"],
     ["--population", "2", "--on-device", "true", "--profile-epochs", "0:1"],
     ["--population", "2", "--on-device", "true", "--diagnostics", "full"],
-])
-def test_populations_refuse_the_plane(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train_mod.main(["--environment", "PendulumNumpy-v1" if "--on-device" not in argv
-                        else "Pendulum-v1", "--hidden-sizes", "8,8", "--device", "cpu",
-                        "--runs-root", str(tmp_path), "--epochs", "1", "--steps-per-epoch",
-                        "20", "--no-preemption-guard", *argv])
+], ids=["host-telemetry", "host-diagnostics", "host-trace-export", "fused-profile",
+        "fused-diagnostics"])
+def test_populations_run_the_plane(tmp_path, caplog, argv):
+    """Each flag a population used to refuse, through the CLI: the host
+    population's epoch and cost events, its per-member-reduced
+    ``diag/*`` columns and its timeline; the fused population's profile
+    window, and its ``--diagnostics`` at ``off`` with JAX's warning."""
+    fused = "--on-device" in argv
+    argv = [a.replace("x.json", str(tmp_path / "x.json")) for a in argv]
+    with caplog.at_level(logging.WARNING):
+        metrics = train_mod.main([
+            "--environment", "Pendulum-v1" if fused else "PendulumNumpy-v1",
+            "--hidden-sizes", "8,8", "--device", "cpu", "--runs-root", str(tmp_path),
+            "--epochs", "1", "--steps-per-epoch", "20", "--start-steps", "10",
+            "--update-after", "5", "--update-every", "10", "--batch-size", "8",
+            "--buffer-size", "200", "--on-device-envs", "2", "--no-preemption-guard", *argv])
+    (run_dir,) = (tmp_path / "Default").iterdir()
+    if fused:
+        assert {"loss_q_m0", "loss_q_m1"} <= set(metrics)
+    else:
+        assert {"reward_m0", "reward_m1"} <= set(metrics)
+    flag = argv[-2]
+    if flag in ("--telemetry", "--trace-export", "--profile-epochs"):
+        events = _events(run_dir)
+        assert [e["epoch"] for e in events if e["type"] == "epoch"] == [0]
+        cost = next(e for e in events if e["type"] == "cost")
+        name = "train/population_epoch" if fused else "train/update_burst"
+        assert cost["programs"][name]["flops_per_call"] > 0
+    if flag == "--trace-export":
+        assert json.loads((tmp_path / "x.json").read_text())["traceEvents"]
+    if flag == "--profile-epochs":
+        assert (run_dir / "trace" / "trace_epochs_0_1.json").exists()
+    if flag == "--diagnostics" and not fused:
+        assert metrics["diag/grad_norm_q"] > 0 and metrics["diag/param_norm"] > 0
+        assert "diag/grad_norm_q_m0" not in metrics  # reduced over members, as JAX
+    if flag == "--diagnostics" and fused:
+        assert not [k for k in metrics if k.startswith("diag/")]
+        assert "--diagnostics full on the fused population" in caplog.text
+        assert "running at diagnostics=off" in caplog.text
+
+
+def test_cli_routes_population_fused_and_emits_pbt_events(tmp_path):
+    """The JAX test of the same name, through the port's CLI on the CPU:
+    per-member metrics, a schema-valid ``pbt`` event per PBT step (its
+    ``exploited`` the members whose ``src`` is another), the population
+    epoch's cost, and a ``--run`` resume."""
+    args = [
+        "--environment", "Pendulum-v1", "--on-device", "true", "--population", "2",
+        "--pbt-every", "1", "--pbt-quantile", "0.5", "--telemetry", "true",
+        "--device", "cpu", "--runs-root", str(tmp_path), "--epochs", "2",
+        "--steps-per-epoch", "100", "--update-every", "20", "--start-steps", "20",
+        "--update-after", "0", "--batch-size", "8", "--buffer-size", "400",
+        "--hidden-sizes", "16,16", "--on-device-envs", "2",
+    ]
+    metrics = train_mod.main(args)
+    assert "loss_q_m0" in metrics and "loss_q_m1" in metrics
+    (run_dir,) = (tmp_path / "Default").iterdir()
+    events = _events(run_dir)
+    pbt = [e for e in events if e.get("type") == "pbt"]
+    assert [e["epoch"] for e in pbt] == [0, 1]
+    for e in pbt:
+        assert {"epoch", "exploited", "src", "ready", "return_ema", "hyperparams"} <= set(e)
+        assert len(e["src"]) == 2 and len(e["return_ema"]) == 2
+        assert e["exploited"] == [i for i, s in enumerate(e["src"]) if s != i]
+        assert set(e["hyperparams"]) == {"actor_lr", "critic_lr", "alpha"}
+        assert all(len(v) == 2 for v in e["hyperparams"].values())
+    # The twin's 200-step episodes first end in epoch 1: both members are
+    # ranked then, so its step exploits one member.
+    assert not pbt[0]["ready"] and pbt[0]["exploited"] == []
+    assert pbt[1]["ready"] and len(pbt[1]["exploited"]) == 1
+    epochs = [e for e in events if e["type"] == "epoch"]
+    assert [e["env_steps"] for e in epochs] == [100 * 2 * 2] * 2  # every member's envs
+    assert all(e["programs"]["train/population_epoch"]["flops_per_call"] > 0
+               for e in events if e["type"] == "cost")
+    resumed = train_mod.main(["--run", run_dir.name, "--runs-root", str(tmp_path),
+                              "--device", "cpu"])
+    assert "loss_q_m0" in resumed
+    pbt = [e for e in _events(run_dir) if e.get("type") == "pbt"]
+    assert [e["epoch"] for e in pbt] == [0, 1, 2, 3]
 
 
 def test_cost_and_diagnostic_keys_reach_metrics_jsonl(tmp_path):

@@ -36,7 +36,7 @@ from torch_actor_critic_tpu_torch.resilience import TrainingDiverged
 from torch_actor_critic_tpu_torch.sac.trainer import (
     NOT_PORTED,
     OBS_FIELDS,
-    SOLO_FIELDS,
+    TELEMETRY_FIELDS,
     Trainer,
 )
 from torch_actor_critic_tpu_torch.serve import ModelRegistry
@@ -211,18 +211,39 @@ def test_trainer_without_updates_only_fills_the_buffer():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("diagnostics", "light"), ("ma_critic", "per_agent"),
-    ("task_embed_dim", 8), ("telemetry", True), ("obs", True),
+    ("ma_critic", "per_agent"), ("task_embed_dim", 8),
     ("sanitize", "on"), ("emit_bundle", True),
     ("compile_cache", "/nonexistent"),
 ])
 def test_unported_config_fields_raise(field, value):
     assert field in NOT_PORTED
-    # The solo trainer runs telemetry and diagnostics, the solo host trainer
-    # the obs plane; a population still refuses them (ROADMAP queue 1 item 9).
-    population = {"population": 2} if field in SOLO_FIELDS + OBS_FIELDS else {}
     with pytest.raises(NotImplementedError, match=field):
-        Trainer("PendulumNumpy-v1", _tiny_config(**{field: value}, **population), device="cpu")
+        Trainer("PendulumNumpy-v1", _tiny_config(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("diagnostics", "light"), ("telemetry", True), ("obs", True),
+])
+def test_population_host_trainer_runs_the_observability_fields(field, value):
+    """Telemetry, the diagnostics tiers and the obs plane run on the host
+    trainer at any population: a population of 2 builds what the solo
+    trainer builds for the field and trains an epoch with it."""
+    assert field in NOT_PORTED and field in TELEMETRY_FIELDS + OBS_FIELDS
+    cfg = _tiny_config(**{field: value}, population=2, epochs=1, steps_per_epoch=20,
+                       start_steps=10, update_after=10, update_every=10, hidden_sizes=(8,))
+    trainer = Trainer("PendulumNumpy-v1", cfg, device="cpu")
+    try:
+        built = {"diagnostics": trainer.monitor, "telemetry": trainer.telemetry,
+                 "obs": trainer.obs}[field]
+        assert built is not None
+        metrics = trainer.train()
+    finally:
+        trainer.close()
+    assert {"reward_m0", "reward_m1"} <= set(metrics)
+    if field == "diagnostics":
+        assert metrics["diag/grad_norm_q"] > 0 and "diag/param_norm" in metrics
+    if field == "obs":
+        assert metrics["obs/sources_total"] == 1
 
 
 @pytest.mark.parametrize("field,value", [

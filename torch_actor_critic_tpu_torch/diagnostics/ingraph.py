@@ -1,7 +1,8 @@
 """In-graph learning-health reductions (port of
 ``diagnostics/ingraph.py``), the burst-metric reduction by key suffix,
-and a population's per-member metric layout
-(:func:`split_member_metrics`).
+a population's per-member metric layout (:func:`split_member_metrics`)
+and the primitives' per-member forms (``member_*``: member-stacked
+tensors, member axis first, one value per member).
 
 Everything but the host-side helpers runs inside the update a burst's
 CUDA graph captures: a gradient global norm or a TD-error histogram is a
@@ -32,6 +33,15 @@ merges the device counts straight into it
 (:meth:`~..telemetry.histogram.FixedBucketHistogram.merge_counts`).
 ``cross_replica_reduce``/``replica_skew`` wait for data parallelism
 (ROADMAP queue 1 item 6).
+
+A population's update (``sac/population.py``) reduces each member on
+its own, as the JAX package's ``vmap`` of the solo update does: every
+``diag/*`` value of a member-stacked update is ``(P,)``, and the epoch's
+:func:`reduce_metric_rows` reduces over the bursts and the members
+alike. Its |TD| histogram is one count vector for all members (the
+host sums the member axis anyway): :func:`bucket_counts` over the
+member-stacked errors, whose counts are exactly the sum of the
+members' own.
 """
 
 from __future__ import annotations
@@ -212,13 +222,6 @@ def scalar_adam_step(opt: torch.optim.Adam) -> torch.Tensor:
     return group["lr"] / (1 - b1 ** step) * st["exp_avg"].abs() / denom
 
 
-def saturation_fraction(actions: torch.Tensor, act_limit: float,
-                        threshold: float = 0.99) -> torch.Tensor:
-    """Fraction of action components pinned against the tanh squash
-    (``|a| > threshold * act_limit``)."""
-    return (actions.abs() > threshold * act_limit).float().mean()
-
-
 def bucket_counts(
     values: torch.Tensor,
     lo: float = TD_HIST_LO,
@@ -241,3 +244,34 @@ def bucket_counts(
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     counts = torch.zeros(n_buckets + 2, dtype=torch.int32, device=v.device)
     return counts.scatter_add_(0, idx.long(), valid.to(torch.int32))
+
+
+# ------------------------------------------------ per-member primitives
+
+
+def member_global_norm(tensors: t.Iterable[torch.Tensor]) -> torch.Tensor:
+    """:func:`global_norm` per member of member-stacked tensors (member
+    axis first), in f32: the floating tensors' ``(P, -1)`` rows joined
+    into one ``(P, N)`` matrix (one copy), then each row's L2 norm (one
+    reduction). Returns ``(P,)``; member ``i``'s value is
+    :func:`global_norm` of the tensors' ``[i]`` slices: two kernels for
+    any number of tensors, where a reduction per tensor is one each."""
+    xs = [x.detach().float() for x in tensors if x.is_floating_point()]
+    return torch.cat([x.reshape(x.shape[0], -1) for x in xs], dim=1).norm(dim=1)
+
+
+@torch.no_grad()
+def member_update_ratio(params: t.Sequence[torch.Tensor], before: t.Sequence[torch.Tensor]
+                        ) -> torch.Tensor:
+    """:func:`update_ratio` per member: ``(P,)``."""
+    delta = torch._foreach_sub([p.detach() for p in params], list(before))
+    return norm_ratio(member_global_norm(delta), member_global_norm(before))
+
+
+def member_saturation_fraction(actions: torch.Tensor, act_limit: float,
+                               threshold: float = 0.99) -> torch.Tensor:
+    """Fraction of each member's action components pinned against the
+    tanh squash (``|a| > threshold * act_limit``) of ``(P, ...)``
+    actions: ``(P,)`` (JAX's ``saturation_fraction`` per member)."""
+    pinned = (actions.abs() > threshold * act_limit).float()
+    return pinned.reshape(pinned.shape[0], -1).mean(dim=1)

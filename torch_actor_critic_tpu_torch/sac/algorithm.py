@@ -37,7 +37,9 @@ them the Adam steps of actor and critic take their rate from a tensor
 
 ``diagnostics`` ``"light"``/``"full"`` adds the JAX learner's in-graph
 learning-health metrics to each update's rows (:func:`_shared_diagnostics`
-and the gradient and update norms; ``diag/param_norm`` after each burst).
+and the gradient and update norms; ``diag/param_norm`` after each burst;
+a population's per member, :func:`member_shared_diagnostics` and the
+learner's ``diag_*`` reductions).
 They only read what the update computes (gradients, the Q surface, the
 backup, the policy's actions, the parameters before and after each
 step), so the parameters after a burst are bitwise those of ``"off"``,
@@ -160,11 +162,20 @@ class Learner:
         self.graph_captures = 0
         self.cost = PendingCount()
 
+    # The diagnostics' reductions of one learner's tensors; a population
+    # (sac/population.py) reduces each member's on its own.
+    diag_norm = staticmethod(diag.global_norm)
+    diag_update_ratio = staticmethod(diag.update_ratio)
+
+    def diag_shared(self, *args) -> Metrics:
+        """:func:`_shared_diagnostics` of one learner's update."""
+        return _shared_diagnostics(self.config, *args)
+
     def burst_diagnostics(self, state: TrainState, metrics: Metrics) -> Metrics:
         """A burst's reduced metrics, with ``diag/param_norm`` (actor and
         critic, after the burst) when a diagnostics tier is on."""
         if self.config.diagnostics != "off":
-            metrics["diag/param_norm"] = diag.global_norm(
+            metrics["diag/param_norm"] = self.diag_norm(
                 [*state.actor.parameters(), *state.critic.parameters()])
         return metrics
 
@@ -385,12 +396,12 @@ class SAC(Learner):
         diag_q, diag_backup = q_aux.pop("diag_q", None), q_aux.pop("diag_backup", None)
         q_grads = torch.autograd.grad(loss_q, q_params)
         if diagnose:
-            dm["diag/grad_norm_q"] = diag.global_norm(q_grads)
+            dm["diag/grad_norm_q"] = self.diag_norm(q_grads)
             q_before = diag.snapshot(q_params)
         _set_grads(q_params, q_grads)
         dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
         if diagnose:
-            dm["diag/update_ratio_q"] = diag.update_ratio(q_params, q_before)
+            dm["diag/update_ratio_q"] = self.diag_update_ratio(q_params, q_before)
 
         # --- actor step, on the updated critic (frozen: grads w.r.t. the
         # actor's parameters only) ---
@@ -406,12 +417,12 @@ class SAC(Learner):
             state.critic.requires_grad_(True)
         diag_pi = pi_aux.pop("diag_pi", None)
         if diagnose:
-            dm["diag/grad_norm_pi"] = diag.global_norm(pi_grads)
+            dm["diag/grad_norm_pi"] = self.diag_norm(pi_grads)
             pi_before = diag.snapshot(pi_params)
         _set_grads(pi_params, pi_grads)
         dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))
         if diagnose:
-            dm["diag/update_ratio_pi"] = diag.update_ratio(pi_params, pi_before)
+            dm["diag/update_ratio_pi"] = self.diag_update_ratio(pi_params, pi_before)
 
         # --- entropy temperature ---
         if cfg.learn_alpha:
@@ -451,8 +462,8 @@ class SAC(Learner):
         }
         if diagnose:
             metrics.update(dm)
-            metrics.update(_shared_diagnostics(cfg, loss_q, loss_pi, diag_q, diag_backup,
-                                               diag_pi, state.actor.act_limit))
+            metrics.update(self.diag_shared(loss_q, loss_pi, diag_q, diag_backup, diag_pi,
+                                            state.actor.act_limit))
         return state, metrics
 
 
@@ -465,31 +476,57 @@ def _shared_diagnostics(
     diag_pi: torch.Tensor | None,
     act_limit: float,
 ) -> Metrics:
-    """The in-graph diagnostics SAC and TD3 share (the JAX function): the
-    per-burst loss maxima, the Q statistics of the raw ``(num_qs, B)``
-    surface against the backup (minimum, maximum, the ensemble's mean
-    per-sample spread, online-vs-target bias), the policy's tanh
-    saturation and, at ``full``, the |TD| histogram with its exact
-    minimum, maximum and sum."""
+    """The in-graph diagnostics SAC and TD3 share (the JAX function) of
+    one learner's update: :func:`member_shared_diagnostics` of a
+    population of one."""
+    def one(x):
+        return None if x is None else x[None]
+
+    m = member_shared_diagnostics(config, one(loss_q), one(loss_pi), one(diag_q),
+                                  one(diag_backup), one(diag_pi), act_limit)
+    return {k: v if k.endswith("_hist") else v[0] for k, v in m.items()}
+
+
+def member_shared_diagnostics(
+    config,
+    loss_q: torch.Tensor,
+    loss_pi: torch.Tensor,
+    diag_q: torch.Tensor | None,
+    diag_backup: torch.Tensor | None,
+    diag_pi: torch.Tensor | None,
+    act_limit: float,
+) -> Metrics:
+    """The shared in-graph diagnostics of a member-stacked update, each
+    over member ``i``'s slice alone, ``(P,)``: the per-burst loss maxima
+    (the losses ``(P,)``), the Q statistics of the raw ``(P, num_qs, B)``
+    surface against the ``(P, B)`` backup (minimum, maximum, the
+    ensemble's mean per-sample spread, online-vs-target bias), the
+    policy's tanh saturation (its actions ``(P, B, act)``) and, at
+    ``full``, the |TD| histogram — one ``(n_buckets + 2,)`` count vector,
+    the members' counts summed — with its exact minimum, maximum and
+    sum."""
     metrics: Metrics = {"loss_q_max": loss_q.detach(), "loss_pi_max": loss_pi.detach()}
     if diag_q is not None and diag_backup is not None:
+        flat_q = diag_q.reshape(diag_q.shape[0], -1)
         metrics.update({
-            "diag/q_min": diag_q.amin(),
-            "diag/q_max": diag_q.amax(),
-            "diag/q_spread": (diag_q.amax(dim=0) - diag_q.amin(dim=0)).mean(),
-            "diag/q_bias": diag_q.mean() - diag_backup.mean(),
+            "diag/q_min": flat_q.amin(dim=1),
+            "diag/q_max": flat_q.amax(dim=1),
+            "diag/q_spread": (diag_q.amax(dim=1) - diag_q.amin(dim=1)).mean(dim=-1),
+            "diag/q_bias": flat_q.mean(dim=1) - diag_backup.mean(dim=-1),
         })
         if config.diagnostics == "full":
-            abs_td = (diag_q - diag_backup[None, :]).abs()
+            abs_td = (diag_q - diag_backup[:, None, :]).abs()
+            flat_td = abs_td.reshape(abs_td.shape[0], -1)
             metrics.update({
                 "diag/td_hist": diag.bucket_counts(abs_td),
-                "diag/td_abs_min": abs_td.amin(),
-                "diag/td_abs_max": abs_td.amax(),
-                "diag/td_abs_sum": abs_td.sum(),
+                "diag/td_abs_min": flat_td.amin(dim=1),
+                "diag/td_abs_max": flat_td.amax(dim=1),
+                "diag/td_abs_sum": flat_td.sum(dim=1),
             })
     if diag_pi is not None:
-        metrics["diag/act_sat"] = diag.saturation_fraction(diag_pi, act_limit)
+        metrics["diag/act_sat"] = diag.member_saturation_fraction(diag_pi, act_limit)
     return metrics
+
 
 def graph_key(state: TrainState, buffer_state: BufferState) -> tuple:
     """What a captured update reads and writes, compared by identity

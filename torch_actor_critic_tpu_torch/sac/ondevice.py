@@ -51,9 +51,16 @@ device (:func:`~..diagnostics.ingraph.reduce_burst_metrics`) and read
 with the epoch's other metrics, and the watchdog counts the acting and
 burst graphs' captures.
 
-Not ported: the mesh (``mesh`` raises), the scenario loop, and a
-population's telemetry, diagnostics and ``pbt`` telemetry events
-(ROADMAP queue 1 item 9).
+A population takes the same recorder (:func:`train_population_on_device`):
+the laps and watermarks, one counted acting step and one counted update
+of the whole population, each epoch's cost as ``train/population_epoch``
+(JAX's name), and one ``pbt`` event per exploit/explore step, read with
+the epoch's metrics. Its ``diagnostics`` tier runs at ``off``, with
+JAX's warning: the JAX package's fused population has no in-graph rows.
+The run-wide obs plane is refused on the fused loop at any population
+(JAX's builds no collector there).
+
+Not ported: the mesh (``mesh`` raises) and the scenario loop.
 """
 
 from __future__ import annotations
@@ -103,7 +110,7 @@ from torch_actor_critic_tpu_torch.sac.population import (
 )
 from torch_actor_critic_tpu_torch.sac.trainer import (
     POPULATION_FIELDS,
-    SOLO_FIELDS,
+    TELEMETRY_FIELDS,
     UPDATE_COST,
     check_ported,
     make_learner,
@@ -131,8 +138,10 @@ Metrics = t.Dict[str, torch.Tensor]
 
 # The acting step's per-step statistics among the stack's rows.
 _STATS = ("episodes_sum", "return_sum")
-# The cost registry's names of one acting step and of one epoch.
+# The cost registry's names of one acting step and of one epoch (of the
+# fused population's epoch, JAX's name).
 ACT_COST, EPOCH_COST = "train/act_step", "train/ondevice_epoch"
+POPULATION_EPOCH_COST = "train/population_epoch"
 
 
 def _env_obs_spec(env_cls):
@@ -587,7 +596,7 @@ def train_on_device(
     ``profile_epochs`` window, a ``trace_export`` path) and a
     ``diagnostics`` tier add the observability of the module docstring.
     Returns the last epoch's metrics."""
-    check_ported(config, allow=SOLO_FIELDS)
+    check_ported(config, allow=TELEMETRY_FIELDS)
     telemetry = TelemetryRecorder.for_run(config, tracker, profile_epochs, trace_export,
                                           resolve_device(device))
     watchdog = get_watchdog().install() if config.diagnostics != "off" else None
@@ -694,10 +703,12 @@ def train_on_device(
 
 
 def _note_epoch_cost(loop, learner, config, metrics: dict, dt: float, telemetry, epoch: int,
-                     cost_state: dict) -> None:
+                     cost_state: dict, name: str = EPOCH_COST) -> None:
     """The fused epoch's cost (telemetry on): its windows' acting steps
-    and updates (the counted ``train/act_step`` and ``train/update``),
-    registered as ``train/ondevice_epoch``, against the epoch's seconds;
+    and updates (the counted ``train/act_step`` and ``train/update``; a
+    population's count every member), registered as ``name``
+    (``train/ondevice_epoch``, or the population's
+    ``train/population_epoch``), against the epoch's seconds;
     ``cost/epoch_*`` metrics and one ``cost`` event."""
     registry = get_cost_registry()
     act, update = registry.get(ACT_COST), registry.get(UPDATE_COST)
@@ -706,15 +717,15 @@ def _note_epoch_cost(loop, learner, config, metrics: dict, dt: float, telemetry,
     windows = config.steps_per_epoch // config.update_every
     cost = {k: windows * (config.update_every * act[k] + config.updates_per_window * update[k])
             for k in ("flops", "bytes_accessed")}
-    if registry.get(EPOCH_COST) != cost:
-        registry.register(EPOCH_COST, cost)
+    if registry.get(name) != cost:
+        registry.register(name, cost)
     if cost_state["peaks"] is None:
         cost_state["peaks"] = Peaks.detect(config.compute_dtype)
     rl = roofline(cost, dt, calls=1, peaks=cost_state["peaks"],
                   compute_dtype=config.compute_dtype)
     metrics.update(roofline_metrics("epoch", cost, rl))
     telemetry.event("cost", epoch=int(epoch),
-                    programs={EPOCH_COST: rl, ACT_COST: act, UPDATE_COST: update},
+                    programs={name: rl, ACT_COST: act, UPDATE_COST: update},
                     device_kind=cost_state["peaks"].device_kind,
                     compute_dtype=config.compute_dtype)
 
@@ -728,6 +739,8 @@ def train_population_on_device(
     device: str | torch.device | None = None,
     mesh=None,
     on_epoch: t.Callable[[int, dict], None] | None = None,
+    profile_epochs: t.Optional[t.Tuple[int, int]] = None,
+    trace_export: str | None = None,
 ) -> dict:
     """The host side of the fused population (the JAX package's
     ``train_population_on_device``): ``config.population`` members, each
@@ -747,9 +760,20 @@ def train_population_on_device(
     continues where the saved one was, and a checkpoint of another
     population raises ``ValueError``. A non-finite member ``loss_q``
     raises ``FloatingPointError`` naming the members (after that epoch's
-    save). The ``pbt`` telemetry events wait for the telemetry module.
-    Returns the last epoch's metrics."""
-    check_ported(config, allow=POPULATION_FIELDS)
+    save). A recorder (``TelemetryRecorder.for_run``: ``config.telemetry``,
+    a ``profile_epochs`` window, a ``trace_export`` path) adds the
+    observability of the module docstring: ``env_steps`` in its epoch
+    events counts every member's envs. A ``diagnostics`` tier runs at
+    ``off`` with a warning, as JAX's fused population does. Returns the
+    last epoch's metrics."""
+    check_ported(config, allow=POPULATION_FIELDS + TELEMETRY_FIELDS)
+    if config.diagnostics != "off":
+        logger.warning(
+            "--diagnostics %s on the fused population: the fused loop reports loss means "
+            "only (the JAX package's fused population has no in-graph diagnostic rows); "
+            "running at diagnostics=off", config.diagnostics)
+    telemetry = TelemetryRecorder.for_run(config, tracker, profile_epochs, trace_export,
+                                          resolve_device(device))
     env_cls = get_on_device_env(env_name)
     if env_cls is None:
         raise ValueError(
@@ -759,7 +783,7 @@ def train_population_on_device(
     if config.history_len > 1:
         env_cls = history_env(env_cls, config.history_len)
     p = config.population
-    learner = make_population_learner(config, env_cls.act_dim, p)
+    learner = make_population_learner(config.replace(diagnostics="off"), env_cls.act_dim, p)
     loop = PopulationOnDeviceLoop(learner, env_cls, p, n_envs=config.on_device_envs,
                                   pbt=config.pbt_every > 0, mesh=mesh, device=device)
     state, ring, env_states, act_gen, pbt_state = loop.init(seed, config.buffer_size)
@@ -783,12 +807,18 @@ def train_population_on_device(
             update_every=config.update_every, warmup=True,
         )
         env_steps += n_warmup
+    if telemetry is not None:
+        loop.cost.request(ACT_COST)
+        learner.cost.request(UPDATE_COST)
 
     keys = ("loss_q", "loss_pi", "episodes", "reward")
     last_epoch = start_epoch + config.epochs - 1
     windows = config.steps_per_epoch // config.update_every
     metrics: dict = {}
+    cost_state = {"peaks": None}
     for e in range(start_epoch, last_epoch + 1):
+        if telemetry is not None:
+            telemetry.epoch_begin(e)
         t0 = time.time()
         state, ring, env_states, act_gen, m = loop.epoch(
             state, ring, env_states, act_gen, steps=config.steps_per_epoch,
@@ -798,18 +828,40 @@ def train_population_on_device(
         event = None
         if config.pbt_every > 0 and (e + 1) % config.pbt_every == 0:
             event = loop.pbt_step(state, pbt_state)
-        read = [m[k] for k in keys] + ([event["exploited"].float()] if event else [])
-        host = torch.stack(read).tolist()  # the one read
+        if telemetry is not None:
+            telemetry.lap(PH_BURST)
+        read = {k: m[k] for k in keys}
+        hp = state.hyperparams or {}
+        if event is not None:
+            # The PBT step's outcome and the hyperparameters after it ride
+            # the epoch's one read.
+            read.update({f"pbt/{k}": event[k] for k in ("exploited", "src", "return_ema",
+                                                        "ready")})
+            read.update({f"pbt/hp/{k}": v for k, v in hp.items()})
+        host = host_read(read)  # the one read
         dt = time.time() - t0
         env_steps += config.steps_per_epoch
-        metrics = split_member_metrics(dict(zip(keys, host)))
+        metrics = split_member_metrics({k: host[k] for k in keys})
         metrics["env_steps_per_sec"] = config.steps_per_epoch * loop.n_envs * p / dt
         metrics["grad_steps_per_sec"] = windows * config.updates_per_window * p / dt
         metrics["graph_captures"] = learner.graph_captures
         metrics["act_graph_captures"] = loop.act_captures
+        if telemetry is not None:
+            telemetry.lap(PH_DRAIN)
+            _note_epoch_cost(loop, learner, config, metrics, dt, telemetry, e, cost_state,
+                             name=POPULATION_EPOCH_COST)
         if event is not None:
-            metrics["pbt_exploits"] = int(sum(host[-1]))
-        if checkpointer is not None and (e % config.save_every == 0 or e == last_epoch):
+            exploited = [i for i, x in enumerate(host["pbt/exploited"]) if x]
+            metrics["pbt_exploits"] = len(exploited)
+            if telemetry is not None:
+                # The JAX package's fields: hyperparameters per member.
+                telemetry.event(
+                    "pbt", epoch=e, exploited=exploited,
+                    src=[int(x) for x in host["pbt/src"]], ready=bool(host["pbt/ready"]),
+                    return_ema=[round(float(x), 4) for x in host["pbt/return_ema"]],
+                    hyperparams={k: [float(x) for x in host[f"pbt/hp/{k}"]] for k in hp})
+        saved = checkpointer is not None and (e % config.save_every == 0 or e == last_epoch)
+        if saved:
             t_save = time.perf_counter()
             checkpointer.save(
                 e, state, ring,
@@ -820,10 +872,16 @@ def train_population_on_device(
                 arrays=arrays,
             )
             metrics.update(save_metrics(checkpointer, t_save, saved=True))
+        if telemetry is not None:
+            telemetry.lap(PH_CKPT)
         if tracker is not None:
             tracker.log_metrics(metrics, e)
         if on_epoch is not None:
             on_epoch(e, dict(metrics))
+        if telemetry is not None:
+            telemetry.epoch_end(e, extra={
+                "step": env_steps, "env_steps": config.steps_per_epoch * loop.n_envs * p,
+                "env_steps_per_sec": round(metrics["env_steps_per_sec"], 2), "saved": saved})
         bad = [i for i in range(p) if not math.isfinite(metrics[f"loss_q_m{i}"])]
         if bad:
             raise FloatingPointError(
@@ -831,4 +889,6 @@ def train_population_on_device(
                 f"{ {k: v for k, v in metrics.items() if k.startswith('loss_q')} }")
     if checkpointer is not None:
         checkpointer.wait()
+    if telemetry is not None:
+        telemetry.close()
     return metrics

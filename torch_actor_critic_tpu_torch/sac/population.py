@@ -23,6 +23,19 @@ member, and the policy delay one select on the shared lockstep
 ``device_step``, as under JAX's ``vmap``. :func:`make_population_learner`
 picks one of the two from the config, and :func:`member_seed` seeds
 member ``i``'s models.
+
+A ``diagnostics`` tier (``light``/``full``) adds the solo update's
+in-graph metrics, each one value per member as under JAX's ``vmap`` of
+the solo update: the gradient norms and update ratios per member
+(:func:`~..diagnostics.ingraph.member_global_norm`,
+:func:`~..diagnostics.ingraph.member_update_ratio`; the temperature's
+step is already elementwise over the ``(P,)`` ``log_alpha``), the
+shared Q, TD and saturation statistics over each member's own slice
+(:func:`~.algorithm.member_shared_diagnostics`) and ``diag/param_norm``
+per member after a burst. The |TD| histogram is one count vector for
+all members.
+They only read, so the parameters after a burst are bitwise those of
+``off``, whose update, metric keys and captured graph are unchanged.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ import torch
 from torch import nn
 
 from torch_actor_critic_tpu_torch.core.types import Batch, TrainState
+from torch_actor_critic_tpu_torch.diagnostics import ingraph as diag
 from torch_actor_critic_tpu_torch.ops.augment import augment_batch
 from torch_actor_critic_tpu_torch.ops.polyak import polyak_update_
 from torch_actor_critic_tpu_torch.sac.algorithm import (
@@ -45,6 +59,7 @@ from torch_actor_critic_tpu_torch.sac.algorithm import (
     _step,
     dynamic_lr_step,
     make_adam,
+    member_shared_diagnostics,
 )
 from torch_actor_critic_tpu_torch.td3.algorithm import TD3
 
@@ -55,25 +70,15 @@ def member_seed(seed: int, member: int) -> int:
     return seed * 65_536 + member
 
 
-def refuse_population_observability(config) -> None:
-    """Raise ``NotImplementedError`` for a population with telemetry, a
-    diagnostics tier or the run-wide obs plane: the solo trainers port
-    them, a population's wait for ROADMAP queue 1 item 9."""
-    for name, value, default in (("telemetry", config.telemetry, False),
-                                 ("diagnostics", config.diagnostics, "off")):
-        if value != default:
-            raise NotImplementedError(
-                f"SACConfig.{name}={value!r} with a population: a population's telemetry "
-                "and diagnostics are not ported yet (ROADMAP queue 1 item 9); the solo "
-                "trainers (host and fused, population 1) run them")
-    for name, value, default in (("obs", config.obs, False),
-                                 ("obs_scrape", config.obs_scrape, ""),
-                                 ("slo_config", config.slo_config, "")):
-        if value != default:
-            raise NotImplementedError(
-                f"SACConfig.{name}={value!r} with a population: a population's run-wide "
-                "obs plane is not ported yet (ROADMAP queue 1 item 9); the solo host "
-                "trainer runs it")
+class MemberDiagnostics:
+    """The diagnostics' reductions of a member-stacked learner, one
+    value per member (mixed in before :class:`~.algorithm.Learner`)."""
+
+    diag_norm = staticmethod(diag.member_global_norm)
+    diag_update_ratio = staticmethod(diag.member_update_ratio)
+
+    def diag_shared(self, *args) -> Metrics:
+        return member_shared_diagnostics(self.config, *args)
 
 
 def make_population_learner(config, act_dim: int, members: int) -> Learner:
@@ -83,7 +88,7 @@ def make_population_learner(config, act_dim: int, members: int) -> Learner:
     return cls(config, act_dim, members)
 
 
-class PopulationSAC(SAC):
+class PopulationSAC(MemberDiagnostics, SAC):
     """SAC for ``members`` learners over member-stacked models: an actor
     ``actor(obs (P, B, ...)) -> ((P, B, act), (P, B))`` and a critic
     ensemble ``critic(obs, action) -> (P, num_qs, B)``."""
@@ -92,7 +97,6 @@ class PopulationSAC(SAC):
         if config.algorithm != "sac":
             raise ValueError(f"PopulationSAC trains SAC members, not {config.algorithm!r}; "
                              "make_population_learner picks the learner")
-        refuse_population_observability(config)
         super().__init__(config, act_dim)
         self.members = int(members)
 
@@ -143,6 +147,8 @@ class PopulationSAC(SAC):
             alpha = state.log_alpha.detach().exp()[:, None]
         else:
             alpha = hp["alpha"][:, None] if "alpha" in hp else cfg.alpha
+        diagnose = cfg.diagnostics != "off"
+        dm: Metrics = {}
 
         # --- critic step: each member's sum_i mean((Q_i - backup)^2) ---
         with torch.no_grad():
@@ -153,8 +159,14 @@ class PopulationSAC(SAC):
         q_params = list(state.critic.parameters())
         q = state.critic(batch.states, batch.actions)
         loss_q = ((q - backup[:, None, :]) ** 2).mean(dim=-1).sum(dim=-1)  # (P,)
-        _set_grads(q_params, torch.autograd.grad(loss_q.sum(), q_params))
+        q_grads = torch.autograd.grad(loss_q.sum(), q_params)
+        if diagnose:
+            dm["diag/grad_norm_q"] = self.diag_norm(q_grads)
+            q_before = diag.snapshot(q_params)
+        _set_grads(q_params, q_grads)
         dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
+        if diagnose:
+            dm["diag/update_ratio_q"] = self.diag_update_ratio(q_params, q_before)
 
         # --- actor step on the updated critic (frozen) ---
         pi_params = list(state.actor.parameters())
@@ -164,10 +176,16 @@ class PopulationSAC(SAC):
             pi, logp_pi = state.actor(pi_obs, eps=eps_pi)
             q_pi = state.critic(batch.states, pi).amin(dim=1)
             loss_pi = (alpha * logp_pi - q_pi).mean(dim=-1)  # (P,)
-            _set_grads(pi_params, torch.autograd.grad(loss_pi.sum(), pi_params))
+            pi_grads = torch.autograd.grad(loss_pi.sum(), pi_params)
         finally:
             state.critic.requires_grad_(True)
+        if diagnose:
+            dm["diag/grad_norm_pi"] = self.diag_norm(pi_grads)
+            pi_before = diag.snapshot(pi_params)
+        _set_grads(pi_params, pi_grads)
         dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))
+        if diagnose:
+            dm["diag/update_ratio_pi"] = self.diag_update_ratio(pi_params, pi_before)
         logp = logp_pi.detach().mean(dim=-1)
 
         # --- entropy temperature ---
@@ -175,8 +193,15 @@ class PopulationSAC(SAC):
             target_entropy = hp.get("target_entropy", self.target_entropy)
             loss_alpha = -state.log_alpha * (logp + target_entropy)
             (a_grad,) = torch.autograd.grad(loss_alpha.sum(), [state.log_alpha])
+            if diagnose:
+                dm["diag/grad_norm_alpha"] = a_grad.abs()
+                log_alpha_abs = state.log_alpha.detach().abs()
             state.log_alpha.grad = a_grad
             _step(state.alpha_opt)
+            if diagnose:
+                # Elementwise over the (P,) log_alpha: one ratio per member.
+                dm["diag/update_ratio_alpha"] = diag.norm_ratio(
+                    diag.scalar_adam_step(state.alpha_opt), log_alpha_abs)
             alpha_metric = state.log_alpha.detach().exp()
         elif "alpha" in hp:
             alpha_metric = hp["alpha"].clone()
@@ -192,10 +217,14 @@ class PopulationSAC(SAC):
             "q_mean": q.detach().mean(dim=(1, 2)), "backup_mean": backup.mean(dim=-1),
             "logp_pi": logp, "entropy": -logp,
         }
+        if diagnose:
+            metrics.update(dm)
+            metrics.update(self.diag_shared(loss_q, loss_pi, q.detach(), backup, pi.detach(),
+                                            state.actor.act_limit))
         return state, metrics
 
 
-class PopulationTD3(TD3):
+class PopulationTD3(MemberDiagnostics, TD3):
     """TD3 for ``members`` learners over member-stacked models: a
     deterministic actor ``actor(obs (P, B, ...)) -> ((P, B, act), None)``,
     its target, and a critic ensemble ``(P, num_qs, B)``. :meth:`TD3.update`
@@ -208,7 +237,6 @@ class PopulationTD3(TD3):
         if config.algorithm != "td3":
             raise ValueError(f"PopulationTD3 trains TD3 members, not {config.algorithm!r}; "
                              "make_population_learner picks the learner")
-        refuse_population_observability(config)
         super().__init__(config, act_dim)
         self.members = int(members)
 

@@ -98,8 +98,8 @@ one burst, one CUDA graph, for every member), rings ``(P, capacity,
 (``per_member``). Its checkpoints hold what JAX's do: the stacked
 learner, the member rings, the normalizer and the acting generator.
 
-Observability (JAX's ``telemetry``/``diagnostics``, the solo trainer
-only; a population refuses both, naming ROADMAP queue 1 item 9). With a
+Observability (JAX's ``telemetry``/``diagnostics``, at any population).
+With a
 :class:`~..telemetry.recorder.TelemetryRecorder` (built by
 ``TelemetryRecorder.for_run`` for ``telemetry=True``, a
 ``profile_epochs`` window or a ``trace_export`` path) the loop
@@ -122,18 +122,25 @@ into ``early_warning`` events that feed the sentinel's
 and kernel builds (``watchdog_captures``, ``watchdog_live_captures``,
 ``watchdog_builds``), marking ``train/`` steady one epoch after the
 first update epoch, so a later capture is a ``recompile_anomaly`` event.
-With telemetry and diagnostics off none of this runs.
+With telemetry and diagnostics off none of this runs. A population runs
+all of it as one learner does: its one stacked update is the counted
+one (every member's work), each burst's rows hold ``(P,)`` values (one
+per member, as JAX's ``vmap`` of the solo burst gives them), and the
+epoch's :func:`~..diagnostics.ingraph.reduce_metric_rows` reduces over
+the bursts and the members, as JAX's does: ``diag/grad_norm_q`` is the
+mean of the members' own norms. There are no per-member ``diag/*``
+columns (nor in JAX); the members' curves are the ``reward_m{i}``.
 
 The run-wide obs plane (JAX's ``obs``, ``obs_scrape``, ``slo_config``;
-the solo host trainer only): an
+the host trainer, at any population): an
 :class:`~..obs.collector.ObsCollector`, started at :meth:`Trainer.train`
 and closed by :meth:`Trainer.close`, scrapes a ``learner`` source (the
 telemetry snapshot and the last epoch's numeric columns) and any
 ``name=url`` extras every ``obs_interval_s`` into ``<run>/obs.jsonl``,
 evaluates the SLO rules (``slo_breach``/``slo_recovered`` events go to
 ``telemetry.jsonl`` too) and mirrors its ``obs/`` columns into each
-epoch's metrics. A population and the fused loop refuse it (ROADMAP
-queue 1 item 9).
+epoch's metrics (a population's ``reward_m{i}`` among them). The fused
+loop refuses it: JAX's builds no collector there.
 
 Tiered replay (JAX's ``replay_tiers``/``replay_refill``, the solo
 trainer only; the config refuses a population and ``on_device``, as
@@ -210,10 +217,7 @@ from torch_actor_critic_tpu_torch.resilience.sentinel import (
     TrainingDiverged,
 )
 from torch_actor_critic_tpu_torch.sac.algorithm import SAC, Burst, Learner, Metrics
-from torch_actor_critic_tpu_torch.sac.population import (
-    make_population_learner,
-    refuse_population_observability,
-)
+from torch_actor_critic_tpu_torch.sac.population import make_population_learner
 from torch_actor_critic_tpu_torch.td3 import TD3
 from torch_actor_critic_tpu_torch.telemetry.costmodel import (
     Peaks,
@@ -258,11 +262,12 @@ NOT_PORTED = (
 # What the fused population (sac/ondevice.py) ports of NOT_PORTED; the
 # host trainer's population allows the first.
 POPULATION_FIELDS = ("population", "pbt_every")
-# What the solo trainers (the host trainer and the fused loop at
-# population 1) port of NOT_PORTED; a population refuses them.
-SOLO_FIELDS = ("telemetry", "diagnostics")
-# The run-wide obs plane: the solo host trainer ports it; a population
-# and the fused loop refuse it.
+# Telemetry and the diagnostics tiers: every trainer ports them, at any
+# population (the fused population runs its diagnostics at "off", as
+# JAX's does).
+TELEMETRY_FIELDS = ("telemetry", "diagnostics")
+# The run-wide obs plane: the host trainer ports it at any population;
+# the fused loop refuses it (JAX's builds no collector).
 OBS_FIELDS = ("obs", "obs_scrape", "slo_config")
 
 
@@ -276,12 +281,11 @@ def check_ported(config: SACConfig, allow: t.Sequence[str] = ()) -> None:
         value = getattr(config, name)
         if name in allow or value == getattr(defaults, name):
             continue
-        if name in SOLO_FIELDS + OBS_FIELDS:
-            refuse_population_observability(config)
         if name in OBS_FIELDS:
             raise NotImplementedError(
                 f"SACConfig.{name}={value!r} on the fused on-device loop: the run-wide obs "
-                "plane runs on the solo host trainer (ROADMAP queue 1 item 9)")
+                "plane runs on the host trainer, the solo host trainer and a host population "
+                "alike (the JAX package's fused loop builds no collector either)")
         if name == "pbt_every":
             raise NotImplementedError(
                 f"SACConfig.pbt_every={value!r}: PBT exploit/explore runs in-graph over the "
@@ -365,13 +369,7 @@ class Trainer:
         trace_export: str | None = None,
     ):
         self.config = config or SACConfig()
-        solo = self.config.population == 1
-        check_ported(self.config,
-                     allow=("population",) + (SOLO_FIELDS + OBS_FIELDS if solo else ()))
-        if (profile_epochs or trace_export) and not solo:
-            raise NotImplementedError(
-                "a profile window or trace export with a population: a population's "
-                "telemetry is not ported yet (ROADMAP queue 1 item 9)")
+        check_ported(self.config, allow=("population",) + TELEMETRY_FIELDS + OBS_FIELDS)
         self.device = resolve_device(device)
         self.env_name = env_name
         self.seed = seed

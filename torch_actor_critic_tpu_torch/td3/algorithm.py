@@ -37,7 +37,9 @@ metrics (:func:`~..sac.algorithm._shared_diagnostics`, the gradient
 norms and the update ratios). On an update whose policy step is
 skipped they report the CANDIDATE step, as JAX's do (the applied one is
 zero by the select). They only read, so the parameters after a burst
-are bitwise those of ``"off"``.
+are bitwise those of ``"off"``. The reductions are the learner's
+(``diag_norm``, ``diag_update_ratio``, ``diag_shared``): the TD3
+population's give one value per member.
 """
 
 from __future__ import annotations
@@ -56,7 +58,6 @@ from torch_actor_critic_tpu_torch.sac.algorithm import (
     Learner,
     Metrics,
     _set_grads,
-    _shared_diagnostics,
     dynamic_lr_step,
     make_adam,
 )
@@ -157,12 +158,12 @@ class TD3(Learner):
         diag_q, diag_backup = q_aux.pop("diag_q", None), q_aux.pop("diag_backup", None)
         q_grads = torch.autograd.grad(loss_q.sum(), q_params)
         if diagnose:
-            dm["diag/grad_norm_q"] = diag.global_norm(q_grads)
+            dm["diag/grad_norm_q"] = self.diag_norm(q_grads)
             q_before = diag.snapshot(q_params)
         _set_grads(q_params, q_grads)
         dynamic_lr_step(state.q_opt, hp.get("critic_lr"))
         if diagnose:
-            dm["diag/update_ratio_q"] = diag.update_ratio(q_params, q_before)
+            dm["diag/update_ratio_q"] = self.diag_update_ratio(q_params, q_before)
 
         # --- candidate actor step, on the updated critic (frozen) ---
         do_pi = (state.device_step + 1) % cfg.policy_delay == 0
@@ -180,13 +181,14 @@ class TD3(Learner):
             state.critic.requires_grad_(True)
         diag_pi = pi_aux.pop("diag_pi", None)
         if diagnose:
-            dm["diag/grad_norm_pi"] = diag.global_norm(pi_grads)
+            dm["diag/grad_norm_pi"] = self.diag_norm(pi_grads)
         _set_grads(pi_params, pi_grads)
         dynamic_lr_step(state.pi_opt, hp.get("actor_lr"))
         if diagnose:
             # The candidate step's ratio, read before the select, against
             # the select's own copies of the parameters.
-            dm["diag/update_ratio_pi"] = diag.update_ratio(pi_params, before[:len(pi_params)])
+            dm["diag/update_ratio_pi"] = self.diag_update_ratio(pi_params,
+                                                                 before[:len(pi_params)])
 
         # --- the select, then both targets under it ---
         select_(do_pi, held, before, out=held)
@@ -199,6 +201,6 @@ class TD3(Learner):
         metrics = {"loss_q": loss_q.detach(), "loss_pi": loss_pi.detach(), **q_aux, **pi_aux}
         if diagnose:
             metrics.update(dm)
-            metrics.update(_shared_diagnostics(cfg, loss_q, loss_pi, diag_q, diag_backup,
-                                               diag_pi, state.actor.act_limit))
+            metrics.update(self.diag_shared(loss_q, loss_pi, diag_q, diag_backup, diag_pi,
+                                            state.actor.act_limit))
         return state, metrics

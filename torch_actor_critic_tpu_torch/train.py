@@ -41,13 +41,24 @@
     python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
         --population 4 --parallel-envs true --actor-param-lag true
 
-    # the observability plane (the solo trainers: host, or --on-device true
-    # at population 1): phase spans, memory watermarks and cost events in
-    # <run>/telemetry.jsonl, in-graph diagnostics, a device trace of epoch 1
-    # under <run>/trace/, and a Perfetto timeline at exit
+    # the observability plane (every trainer, at any population): phase
+    # spans, memory watermarks and cost events in <run>/telemetry.jsonl,
+    # in-graph diagnostics, a device trace of epoch 1 under <run>/trace/,
+    # and a Perfetto timeline at exit
     python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
         --history-len 16 --telemetry true --diagnostics full \
         --profile-epochs 1:2 --trace-export trace.json
+
+    # a host population under the plane: each diag/* reduced over the
+    # members too (the mean of the members' own gradient norms, ...),
+    # reward_m{i} in obs.jsonl's learner source
+    python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
+        --population 4 --telemetry true --diagnostics light --obs true
+
+    # a fused population with PBT: one pbt event per exploit/explore step
+    # and a train/population_epoch cost event per epoch
+    python -m torch_actor_critic_tpu_torch.train --on-device true \
+        --environment HalfCheetah-v5 --population 32 --pbt-every 5 --telemetry true
 
 Every ``SACConfig`` field is a flag (``--batch-size``, ``--learn-alpha
 true``, ...), built by the JAX CLI's loop. ``--run <id>`` takes the
@@ -102,8 +113,16 @@ reduced in-graph metrics; ``full`` adds the |TD| histogram);
 ``<run>/trace/``; ``--profile DIR`` one of the whole run to
 ``DIR/trace.json``; ``--trace-export PATH`` a Perfetto timeline of the
 recorded phase spans and the watchdog's captures and builds at exit.
-A population refuses ``--telemetry``, ``--diagnostics``,
-``--profile-epochs`` and ``--trace-export`` (ROADMAP queue 1 item 9).
+A population runs all of these on the host loop, and ``--obs true``:
+one stacked update is counted (every member's work), and each
+``diag/*`` column is reduced over the bursts and the members, as the
+JAX trainer reduces them. The fused population (``--on-device true
+--population N``) runs ``--telemetry``, ``--profile-epochs`` and
+``--trace-export``, its epoch's cost as ``train/population_epoch`` and
+a ``pbt`` event per exploit/explore step (``epoch``, ``exploited``,
+``src``, ``ready``, ``return_ema``, ``hyperparams``); its
+``--diagnostics`` runs at ``off`` with a warning, as JAX's does, and it
+refuses ``--obs`` (JAX's fused loop builds no collector).
 
 ``--replay-tiers host|disk`` puts the host and disk tiers under the
 ring (``--replay-refill R`` pushes R host rows back into it after each
@@ -285,18 +304,14 @@ def run_setup(args: argparse.Namespace):
 def observability(args: argparse.Namespace, config) -> dict:
     """The trainer's keyword arguments for ``--profile-epochs`` and
     ``--trace-export`` (each implies ``--telemetry true``: the trainer
-    builds its recorder with ``TelemetryRecorder.for_run``). A
-    population raises ``NotImplementedError`` (ROADMAP queue 1 item 9)."""
+    builds its recorder with ``TelemetryRecorder.for_run``), at any
+    population."""
     from torch_actor_critic_tpu_torch.telemetry.profiler import parse_profile_epochs
 
     window = parse_profile_epochs(getattr(args, "profile_epochs", None))
     trace_export = getattr(args, "trace_export", None)
     if not (config.telemetry or window or trace_export):
         return {}
-    if config.population > 1:
-        raise NotImplementedError(
-            "--telemetry/--profile-epochs/--trace-export with a population: a population's "
-            "telemetry is not ported yet (ROADMAP queue 1 item 9)")
     return {"profile_epochs": window, "trace_export": trace_export}
 
 
