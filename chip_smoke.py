@@ -144,9 +144,17 @@ or of the JAX package. Phases, one JSON line each:
    for the sequence policy; reports both burst modes as above;
 8. visual_burst — SACConfig's default visual widths (Atari trunk, Dense
    512, cnn_features 1) on the wall-runner geometry (168 features, 64x64x3
-   frame, act_dim 56) with synthetic transitions, as ``bench.py``'s
-   ``bench_visual`` (the card's machine has no dm_control): 25-update
-   fused bursts at B 32 f32 and B 512 bf16; captured against eager as in
+   frame, act_dim 56): 25-update fused bursts at B 32 f32, its ring and
+   chunks filled from real ``DeepMindWallRunner-v0`` transitions
+   (``tests/data/wallrunner_s0.npz``, tiled; the card's machine has no
+   dm_control, so they were recorded on the CPU by
+   ``scripts/record_wallrunner_torch.py``), and at B 512 bf16 on
+   synthetic transitions as ``bench.py``'s ``bench_visual`` makes them;
+   one eager full-width update from the real ring, the same weights and
+   the same injected draws on the CPU and on the card: losses and
+   gradients within ``WALL_CPU_CARD_TOL`` (max relative difference), every
+   parameter within 2·lr (Adam's first step);
+   captured against eager as in
    train_visual; each burst mode's finite losses, 1 K1 launch per update
    in its device trace,
    gradient steps per second and one profiled burst;
@@ -255,7 +263,8 @@ lockstep, decoupled and fleet rates.
 Then the ``{"kernels": [...]}`` line (``ms``, ``plain_ms`` and
 ``library_ms`` are device times; K2-K4's numbers are those of their rows
 on the model's views; K1's row is ``train_pair``, what the main path
-launches, with the launches of train_visual, the visual resume,
+launches, with the launches of train_visual, the real wall-runner
+burst's traced captured burst, the visual resume,
 train_td3's visual run and the on-device pixel cell; K2-K4's include
 the population's traced sequence epoch; every ``launches`` is counted
 in the main path's runs from device traces: serving's (f32 and int8
@@ -1359,6 +1368,9 @@ def _visual_run(seed, rng, root) -> dict:
 # bucket (their 429s are the shed-rate signal). In the continuous mode
 # the card drained 91 such bursts with no queue past 4.
 FLEET_QUEUE, FLEET_HOLD_MS, FLEET_BURST = 4, 20, 96
+# The bound on a killed worker's ejection: the router's membership poll
+# takes two failed /healthz of at most 2 s each (eject_after, health_timeout_s).
+FLEET_EJECT_S = 30.0
 
 
 def _get(url: str) -> dict:
@@ -1565,11 +1577,20 @@ def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
         # A worker killed under traffic: no request lost. The pool's next
         # spare, booting since the scale-out's draw, replaces it later
         # (the row records whether it had by the teardown).
+        # Traffic runs from before the kill until the router has ejected
+        # the dead worker, and a second longer. A request routed to it
+        # ejects it at once; when none is (routing prefers the worker with
+        # the shorter last-polled queue), the membership poll does, after
+        # ``eject_after`` failed /healthz, each up to the router's health
+        # timeout while the dying process still holds its socket.
         before_kill = answered[0]
         stop.clear()
         herd = run_herd([threading.Thread(target=traffic) for _ in range(3)])
         time.sleep(0.3)
         os.kill(ready["pids"][0], signal.SIGKILL)
+        kill_to_ejected_s = _wait(
+            lambda: not _get(router + "/metrics")["router"]["workers"]
+            .get("w0", {}).get("admitted", False), FLEET_EJECT_S, "the dead worker's ejection")
         time.sleep(1.0)
         stop.set()
         for th in herd:
@@ -1597,6 +1618,7 @@ def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
         row = {"phase": "serve_fleet", "workers": 2, "startup_s": up_s,
                "spare_ready_after_startup_s": spare_s,
                "answered_total": answered[0], "answered_after_kill": answered[0] - before_kill,
+               "kill_to_ejected_s": kill_to_ejected_s,
                "lost": len(errors), "rolling_reload": {k: v["readmitted"] for k, v in rolled.items()},
                "aggregate_responses_total": agg["responses_total"],
                "workers_responses_total": [p["responses_total"] for p in per],
@@ -2667,14 +2689,128 @@ def phase_train_visual(seed: int, kernels) -> dict:
         shutil.rmtree(runs, ignore_errors=True)
 
 
-def phase_visual_burst(seed: int, kernels) -> list:
+# Real DeepMindWallRunner-v0 transitions, recorded on a host with dm_control
+# (the card's machine has none) by scripts/record_wallrunner_torch.py.
+WALL_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "wallrunner_s0.npz")
+# The CPU-vs-card full-width update, with TF32 off and cuDNN's deterministic
+# algorithms: losses and gradients (Adam's first moment after one step is
+# 0.1·g) within this max relative difference (per loss |Δ|/|cpu|, per tensor
+# max|Δ|/max|cpu|; measured on an H100: gradients 3.0e-6, losses 5.7e-6).
+# Parameters are held to 2·lr + 1e-6 absolute: Adam's first step moves each
+# weight by about ±lr whatever its gradient's size, so a gradient element at
+# the rounding level moves its weight up to 2·lr apart on the two devices
+# (measured: 2.8e-4 absolute, 0.0068 of that conv weight's max).
+WALL_CPU_CARD_TOL = 1e-4
+
+
+def wall_transitions() -> dict:
+    """The fixture's transitions as numpy arrays, one row per action slot
+    that is not an episode's reset: the recorder's own ``transitions``
+    (its module needs numpy alone)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("record_wallrunner_torch", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", "record_wallrunner_torch.py"))
+    recorder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(recorder)
+    return recorder.transitions(np.load(WALL_FIXTURE))
+
+
+def wall_chunk(real: dict, start: int, n: int, device):
+    """``n`` real transitions from row ``start`` on, tiled, as a Batch on
+    ``device``."""
+    from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
+
+    rows = (start + np.arange(n)) % len(real["rewards"])
+
+    def t(key, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(real[key][rows]))
+        return (x if dtype is None else x.to(dtype)).to(device)
+
+    return Batch(states=MultiObservation(t("features"), t("frames")), actions=t("actions"),
+                 rewards=t("rewards"), next_states=MultiObservation(t("next_features"),
+                                                                    t("next_frames")),
+                 done=t("terminated", torch.float32))
+
+
+def wall_cpu_vs_card(seed: int, real: dict) -> dict:
+    """One eager update at SACConfig's full default visual widths, B 32
+    f32, fused pipeline, from the same weights (built once on the CPU,
+    copied to the card), the same real ring of 64 transitions, the same
+    injected rows and actor noise (``update_burst``'s hook), on the CPU
+    and on the card (K1 gathers the frames there): the losses, the
+    gradients (Adam's first moments) and every updated parameter, target
+    and log α, against :data:`WALL_CPU_CARD_TOL`."""
+    import copy
+
+    from torch_actor_critic_tpu_torch.buffer.replay import init_visual_replay_buffer
+    from torch_actor_critic_tpu_torch.core.types import MultiObservation
+    from torch_actor_critic_tpu_torch.models import build_models
+    from torch_actor_critic_tpu_torch.sac.algorithm import SAC
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    cfg = SACConfig(batch_size=32, pixel_pipeline="fused")
+    actor, critic = build_models(cfg, MultiObservation((WALL_FEATURES,), WALL_FRAME),
+                                 WALL_ACT_DIM, 1.0, generator=torch.Generator().manual_seed(seed))
+    draws = np.random.default_rng(seed + 11)
+    indices = torch.from_numpy(draws.integers(0, 64, (1, 32)))
+    eps = torch.from_numpy(draws.standard_normal((1, 2, 32, WALL_ACT_DIM)).astype(np.float32))
+    out = []
+    for dev in ("cpu", "cuda"):
+        sac = SAC(cfg, WALL_ACT_DIM)
+        state = sac.init_state(copy.deepcopy(actor).to(dev), copy.deepcopy(critic).to(dev),
+                               torch.Generator(device=dev).manual_seed(seed + 1))
+        ring = init_visual_replay_buffer(64, WALL_FEATURES, WALL_FRAME, WALL_ACT_DIM, dev)
+        state, _, m = sac.update_burst(state, ring, wall_chunk(real, 0, 64, dev), 1,
+                                       indices=indices.to(dev), eps=eps.to(dev))
+        params = {f"{name}.{k}": v.detach().float().cpu()
+                  for name in ("actor", "critic", "target_critic")
+                  for k, v in getattr(state, name).state_dict().items()}
+        params["log_alpha"] = state.log_alpha.detach().float().cpu().reshape(1)
+        grads = {f"{name}.{k}": opt.state[p]["exp_avg"].float().cpu()
+                 for name, opt in (("actor", state.pi_opt), ("critic", state.q_opt))
+                 for k, p in getattr(state, name).named_parameters() if p in opt.state}
+        out.append(({k: float(m[k]) for k in ("loss_q", "loss_pi")}, params, grads))
+    (loss_cpu, cpu, g_cpu), (loss_gpu, gpu, g_gpu) = out
+    check(all(math.isfinite(v) for v in (*loss_cpu.values(), *loss_gpu.values())),
+          f"wall-runner update losses not finite: {loss_cpu} {loss_gpu}")
+
+    def max_rel(a, b):
+        return {k: float((b[k] - a[k]).abs().max() / a[k].abs().max().clamp_min(1e-12))
+                for k in a}
+
+    rel, grad_rel = max_rel(cpu, gpu), max_rel(g_cpu, g_gpu)
+    worst, worst_grad = max(rel, key=rel.get), max(grad_rel, key=grad_rel.get)
+    param_abs = max(float((gpu[k] - cpu[k]).abs().max()) for k in cpu)
+    loss_rel = {k: abs(loss_gpu[k] - loss_cpu[k]) / max(abs(loss_cpu[k]), 1e-12)
+                for k in loss_cpu}
+    row = {"losses_cpu": loss_cpu, "losses_card": loss_gpu, "loss_max_rel": loss_rel,
+           "grad_max_rel": grad_rel[worst_grad], "grad_worst": worst_grad,
+           "param_max_rel": rel[worst], "param_worst": worst, "param_max_abs": param_abs,
+           "param_abs_limit": 2 * cfg.lr + 1e-6,
+           "params_beyond_1e-4_rel": sum(int(((gpu[k] - cpu[k]).abs()
+                                              > 1e-4 * cpu[k].abs().max()).sum()) for k in cpu),
+           "param_elements": sum(v.numel() for v in cpu.values()),
+           "tol": WALL_CPU_CARD_TOL, "tensors": len(rel), "grad_tensors": len(grad_rel),
+           "tf32": torch.backends.cuda.matmul.allow_tf32, "cudnn": package_cudnn()}
+    check(len(grad_rel) > 0 and max(loss_rel.values()) <= WALL_CPU_CARD_TOL
+          and grad_rel[worst_grad] <= WALL_CPU_CARD_TOL and param_abs <= row["param_abs_limit"],
+          f"wall-runner update CPU vs card: {row}")
+    return row
+
+
+def phase_visual_burst(seed: int, kernels) -> dict:
     """Fused-pipeline bursts at the repo's full visual width: SACConfig's
     default visual widths (Atari trunk 32/64/64, kernels 8/4/3, strides
     4/2/1, Dense 512, cnn_features 1) on the wall-runner geometry (168
-    features, 64x64x3 frame, act_dim 56), synthetic transitions as
-    bench.py's bench_visual makes them (the card's machine has no
-    dm_control). B 32 f32 as bench_visual runs it; B 512 bf16 with the
-    shift and /255."""
+    features, 64x64x3 frame, act_dim 56). B 32 f32 as bench.py's
+    bench_visual runs it, its ring and chunks from real wall-runner
+    transitions (:data:`WALL_FIXTURE`, tiled); B 512 bf16 with the shift
+    and /255, on synthetic transitions as bench_visual makes them. Then
+    one full-width update from the real ring on the CPU and on the card
+    (:func:`wall_cpu_vs_card`). Returns K1's device launches in the real
+    B 32's profiled captured burst."""
     from torch_actor_critic_tpu_torch.buffer.replay import init_visual_replay_buffer, push
     from torch_actor_critic_tpu_torch.core.types import Batch, MultiObservation
     from torch_actor_critic_tpu_torch.models import build_models
@@ -2682,8 +2818,10 @@ def phase_visual_burst(seed: int, kernels) -> list:
     from torch_actor_critic_tpu_torch.utils.config import SACConfig
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    real = wall_transitions()
+    cursor = 0
 
-    def chunk(n):
+    def synthetic(n):
         def obs():
             return MultiObservation(
                 torch.randn((n, WALL_FEATURES), generator=gen, device="cuda"),
@@ -2695,10 +2833,18 @@ def phase_visual_burst(seed: int, kernels) -> list:
             rewards=torch.randn(n, generator=gen, device="cuda"), next_states=obs(),
             done=torch.zeros(n, device="cuda"))
 
+    def recorded(n):
+        nonlocal cursor
+        out = wall_chunk(real, cursor, n, "cuda")
+        cursor += n
+        return out
+
     rows = []
+    k1_launches = 0
     burst_len, n_bursts = 25, 3
-    for bsz, dtype, augment, normalize in ((32, "float32", "none", False),
-                                           (512, "bfloat16", "shift", True)):
+    for bsz, dtype, augment, normalize, chunk in (
+            (32, "float32", "none", False, recorded),
+            (512, "bfloat16", "shift", True, synthetic)):
         cfg = SACConfig(batch_size=bsz, compute_dtype=dtype, pixel_pipeline="fused",
                         frame_augment=augment, normalize_pixels=normalize)
         shape = MultiObservation((WALL_FEATURES,), WALL_FRAME)
@@ -2728,8 +2874,12 @@ def phase_visual_burst(seed: int, kernels) -> list:
         modes = burst_modes(kernels, burst, burst_len, n_bursts, {"pixel_gather": 1})
         captured = modes["captured"]
         check(sac.graph_captures == 1, f"visual_burst B{bsz}: {sac.graph_captures} captures")
+        if chunk is recorded:
+            k1_launches += round(captured["launches_per_update"]["pixel_gather"] * burst_len)
         row = {
             "phase": "visual_burst", "batch": bsz, "dtype": dtype, "frame_augment": augment,
+            "transitions": ("recorded wall-runner, tiled" if chunk is recorded
+                            else "synthetic"),
             "normalize_pixels": normalize, "features": WALL_FEATURES,
             "frame": list(WALL_FRAME), "act_dim": WALL_ACT_DIM, "widths": {
                 "filters": cfg.filters, "kernel_sizes": cfg.kernel_sizes,
@@ -2747,7 +2897,11 @@ def phase_visual_burst(seed: int, kernels) -> list:
         rows.append(row)
         del state, buf, chunks, actor, critic
         torch.cuda.empty_cache()
-    return rows
+    t0 = time.perf_counter()
+    row = wall_cpu_vs_card(seed, real)
+    emit({"phase": "visual_burst", "cpu_vs_card_update": row, "transitions": len(real["rewards"]),
+          "seconds": time.perf_counter() - t0})
+    return {"pixel_gather": k1_launches}
 
 
 # The resume phase's runs: the README's sequence policy at SACConfig's widths,
@@ -5057,9 +5211,12 @@ def host_sequence_plane(seed: int, kernels, runs: str) -> tuple:
     """The host sequence population in the four configurations of
     ``HOST_SEQ_CONFIGS``, each untraced for two epochs: the second epoch's
     rates (all policy steps, no capture) and the host's time in each
-    burst (``_watch_bursts``). Parallel + lag traced too, for one epoch: 2
-    K2 per policy step, 10 K2 and 4 K3 / 4 K4 per update through the
-    graph; the acting stream's K2 kernels overlap the burst's (the
+    burst (``_watch_bursts``); each epoch 200 steps, the first epoch's
+    first 50 random, so that its second burst (the first captures) is
+    spread over its third window while that window acts. Parallel + lag
+    traced too, for one epoch: 2 K2 per policy step, 10 K2 and 4 K3 / 4
+    K4 per update through the graph; the acting stream's K2 kernels
+    overlap the burst's (the
     populations phase's trace of the sequential configuration holds
     none off the burst's stream); the snapshot after the epoch is the
     actor from before the last burst, bitwise, not the live one; and the
@@ -5073,7 +5230,7 @@ def host_sequence_plane(seed: int, kernels, runs: str) -> tuple:
     seen: dict = {}
     trainer, row = _host_population_run(
         kernels, [*HOST_SEQ_ARGS, *HOST_SEQ_CONFIGS["parallel_lag"], "--seed", str(seed)],
-        "host_env_plane parallel_lag", per_step, per_update, 200, 100, runs,
+        "host_env_plane parallel_lag", per_step, per_update, 200, 50, runs,
         prepare=lambda tr: bursts.update(_watch_bursts(tr, actor=True)),
         on_trace=lambda prof: seen.update(stream_overlap(prof)))
     check(type(trainer.pool).__name__ == "ParallelEnvPool",
@@ -5100,7 +5257,7 @@ def host_sequence_plane(seed: int, kernels, runs: str) -> tuple:
     for name, flags in HOST_SEQ_CONFIGS.items():
         cli = train_cli.parse_arguments([
             *HOST_SEQ_ARGS, *flags, "--seed", str(seed), "--device", "cuda", "--epochs", "2",
-            "--steps-per-epoch", "200", "--start-steps", "100", "--update-after", "100",
+            "--steps-per-epoch", "200", "--start-steps", "50", "--update-after", "50",
             "--runs-root", runs])
         trainer, _ = train_cli.build_trainer(cli)
         check(type(trainer.pool).__name__ == ("ParallelEnvPool" if "parallel" in name
@@ -6084,7 +6241,7 @@ class _FleetWatch:
         watch, cls = self, self.fleet.FleetTrainer
         train, serve_act, burst = cls.train, cls._serve_act, cls._burst
 
-        def watched_train(trainer, on_epoch=None):
+        def watched_train(trainer, on_epoch=None, render=False):
             watch.trainer = trainer
             engine, _, _ = trainer.registry.acquire("default")
             watch.entry = {"watermarks": trainer.transport.watermarks(),
@@ -6099,7 +6256,7 @@ class _FleetWatch:
                 watch.at_entry(trainer)
             thread = threading.Thread(target=watch._run, daemon=True)
             thread.start()
-            return train(trainer, on_epoch)
+            return train(trainer, on_epoch, render)
 
         def watched_act(trainer, obs, deterministic):
             t0 = time.perf_counter()
@@ -6550,7 +6707,7 @@ def main(argv=None) -> int:
     train_launches, captured_per_update = timed("train", phase_train, args.seed, _kernels)
     timed("graph_push", phase_graph_push, args.seed)
     visual_launches = timed("train_visual", phase_train_visual, args.seed, _kernels)
-    timed("visual_burst", phase_visual_burst, args.seed, _kernels)
+    wall_launches = timed("visual_burst", phase_visual_burst, args.seed, _kernels)
     resume_launches = timed("resume", phase_resume, args.seed, _kernels, smi)
     td3_launches = timed("train_td3", phase_train_td3, args.seed, _kernels, smi)
     ondevice_launches = timed("on_device", in_a_child, "on_device", args.seed, 900)
@@ -6583,7 +6740,8 @@ def main(argv=None) -> int:
          + ondevice_launches["flash_bwd_dkv"] + population_launches["flash_bwd_dkv"],
          bwd_rows["flash_bwd_dkv"]),
         ("pixel_gather", "pixels.cu", "torch_actor_critic_tpu/ops/pixels.py:261",
-         visual_launches["pixel_gather"] + resume_launches["pixel_gather"]
+         visual_launches["pixel_gather"] + wall_launches["pixel_gather"]
+         + resume_launches["pixel_gather"]
          + td3_launches["pixel_gather"] + ondevice_launches["pixel_gather"]
          + population_launches.get("pixel_gather", 0), pixel_row),
     ]

@@ -820,14 +820,40 @@ def test_kill_actor_raw_pid_and_supervisor_slot():
                 p.kill()
 
 
+# The CLI's main in a process of its own, its learner held after epoch 0
+# until the transport has accepted an actor's push (at most 200 s). A spawned
+# actor starts a fresh interpreter and imports torch; on a loaded host that
+# took longer than the learner's three short epochs, which then ended with
+# nothing pushed.
+_HELD_CLI = """
+import sys, time
+from torch_actor_critic_tpu_torch import train
+from torch_actor_critic_tpu_torch.decoupled import fleet
+base = fleet.FleetTrainer.train
+def held(self, on_epoch=None, render=False):
+    def after(epoch, metrics):
+        on_epoch(epoch, metrics)
+        t0 = time.monotonic()
+        while epoch == 0 and self.transport.snapshot()["accepted_total"] == 0:
+            if time.monotonic() - t0 > 200:
+                raise TimeoutError("no actor push accepted within 200 s")
+            time.sleep(0.05)
+    return base(self, after, render)
+fleet.FleetTrainer.train = held
+train.main(sys.argv[1:])
+"""
+
+
 def test_train_cli_actors_elastic_spawns_host_only_actor_processes(tmp_path):
-    """``train --actors 1 --elastic on`` through the CLI in a process of
-    its own (limit 240 s): the spawned actor feeds the learner over the
-    transport, the run completes with conservation green, and the actor
-    rolls down on the shutdown's SIGTERM. (It is started with
-    ``CUDA_VISIBLE_DEVICES`` blank; the card's side of that is
-    ``chip_smoke.py``'s.)"""
-    cmd = [sys.executable, "-m", "torch_actor_critic_tpu_torch.train",
+    """``train --actors 1 --elastic on`` through the CLI's main in a
+    process of its own (limit 240 s): the spawned actor feeds the learner
+    over the transport, the run completes with conservation green, and
+    the actor rolls down on the shutdown's SIGTERM. The learner waits
+    after epoch 0 for the actor's first accepted push (``_HELD_CLI``), so
+    how long the actor takes to start cannot decide the result. (It is
+    started with ``CUDA_VISIBLE_DEVICES`` blank; the card's side of that
+    is ``chip_smoke.py``'s.)"""
+    cmd = [sys.executable, "-c", _HELD_CLI,
            "--environment", ENV, "--device", "cpu", "--epochs", "3",
            "--steps-per-epoch", "200", "--start-steps", "10", "--update-after", "10",
            "--update-every", "50", "--hidden-sizes", "16,16", "--batch-size", "16",

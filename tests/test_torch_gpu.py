@@ -535,6 +535,32 @@ def test_pixel_gather_pair_is_one_launch_and_bitwise_per_leaf(cuda, ring_shape, 
 
 
 @pytest.mark.gpu
+def test_full_width_wall_runner_update_on_the_card_matches_the_cpu(cuda):
+    """One eager update at SACConfig's full default visual widths (B 32
+    f32, fused pipeline: K1 gathers the frames on the card) from the
+    recorded wall-runner transitions (``tests/data/wallrunner_s0.npz``),
+    the same weights and injected draws on the CPU and on the card:
+    losses and gradients (Adam's first moments) within
+    ``chip_smoke.WALL_CPU_CARD_TOL`` (max relative difference), every
+    updated parameter within 2·lr (Adam's first step moves a weight by
+    about ±lr), TF32 off, cuDNN deterministic."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    before = _kernels.launch_counts["pixel_gather"]
+    row = smoke.wall_cpu_vs_card(0, smoke.wall_transitions())
+    assert _kernels.launch_counts["pixel_gather"] == before + 1  # both leaves, one launch
+    assert not row["tf32"] and row["cudnn"]["deterministic"]
+    assert row["grad_max_rel"] <= smoke.WALL_CPU_CARD_TOL, row
+    assert max(row["loss_max_rel"].values()) <= smoke.WALL_CPU_CARD_TOL, row
+    assert row["param_max_abs"] <= row["param_abs_limit"], row
+
+
+@pytest.mark.gpu
 def test_visual_update_with_the_kernel_matches_the_plain_gather(cuda):
     """The pixel recipe's fused update on the card, its frames from K1
     and from the plain gather (bitwise equal), from one state."""

@@ -255,7 +255,7 @@ def _cli_args(root, *extra):
 
 
 def test_train_cli_maps_preempted_to_requeue_exit_code(tmp_path, monkeypatch):
-    def fake_train(self, on_epoch=None):
+    def fake_train(self, on_epoch=None, render=False):
         raise Preempted(epoch=0)
 
     monkeypatch.setattr(Trainer, "train", fake_train)

@@ -393,7 +393,8 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "scripts" / "record_wallrunner_torch.py"]
     offenders = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -111,11 +111,17 @@ def test_pendulum_v1_needs_gymnasium(monkeypatch):
     assert isinstance(make_env("PendulumNumpy-v1"), PendulumNumpy)
 
 
-def test_unported_envs_and_parallel_pool_raise():
-    with pytest.raises(NotImplementedError):
-        make_env("dm:cheetah:run")
-    with pytest.raises(NotImplementedError):
-        make_env("DeepMindWallRunner-v0")
+def test_unported_envs_and_parallel_pool_raise(monkeypatch):
+    """The dm_control names, once refused, now dispatch to the ported envs
+    (``tests/test_torch_dm_envs.py`` holds them to JAX's; the wall-runner
+    is built there in a child with a GL context)."""
+    from torch_actor_critic_tpu_torch.envs import wall_runner
+    from torch_actor_critic_tpu_torch.envs.wrappers import DmControlEnv
+
+    env = make_env("dm:cheetah:run")
+    assert isinstance(env, DmControlEnv) and env.obs_spec.shape == (17,) and env.act_dim == 6
+    monkeypatch.setattr(wall_runner, "DeepMindWallRunner", lambda seed=None: ("wall", seed))
+    assert make_env("DeepMindWallRunner-v0", seed=3) == ("wall", 3)
     pool = make_env_pool("PendulumNumpy-v1|history:3", 2, base_seed=1)
     obs = pool.reset_all([1, 2])
     assert obs.shape == (2, 3, 3) and pool.sample_actions().shape == (2, 1)

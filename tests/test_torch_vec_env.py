@@ -121,9 +121,9 @@ def _drive(pool, n, act_limit, seeds, steps=30):
 
 
 @needs_native
-@pytest.mark.parametrize("env", ["Pendulum-v1", "Pendulum-v1|history:4"])
+@pytest.mark.parametrize("env", ["Pendulum-v1", "Pendulum-v1|history:4", "dm:cartpole:balance"])
 def test_pools_equal_the_jax_sequential_pool_bitwise(env):
-    pytest.importorskip("gymnasium")
+    pytest.importorskip("dm_control" if env.startswith("dm:") else "gymnasium")
     n, base = 4, 3
     seeds = [base + 10000 * i for i in range(n)]
     ref = JSequentialEnvPool(env, n, base_seed=base)

@@ -671,14 +671,15 @@ class FleetTrainer(DecoupledTrainer):
         return proc
 
     def train(
-        self, on_epoch: t.Callable[[int, dict], None] | None = None
+        self, on_epoch: t.Callable[[int, dict], None] | None = None,
+        render: bool = False,
     ) -> dict:
         if not self._fleet_started:
             self._fleet_started = True
             self.supervisor.start(
                 start_incarnations=self._restored_incarnations
             )
-        return super().train(on_epoch)
+        return super().train(on_epoch, render)
 
     # ----------------------------------------------------- trace stitching
 

@@ -185,10 +185,11 @@ class DecoupledTrainer(Trainer):
         self._last_tag = (generation, epoch)
         return np.asarray(actions)
 
-    def train(self, on_epoch: t.Callable[[int, dict], None] | None = None) -> dict:
+    def train(self, on_epoch: t.Callable[[int, dict], None] | None = None,
+              render: bool = False) -> dict:
         self._collecting = True
         try:
-            return super().train(on_epoch)
+            return super().train(on_epoch, render)
         finally:
             self._collecting = False
 

@@ -78,5 +78,8 @@ class PendulumNumpy:
             -self.act_limit, self.act_limit, (self.act_dim,)
         ).astype(np.float32)
 
+    def render(self):
+        """No-op: the numpy pendulum draws nothing."""
+
     def close(self):
         pass

@@ -110,6 +110,9 @@ class _PixelObs:
             features=self._last_action.copy(), frame=np.stack(self._rods, axis=-1)
         )
 
+    def render(self):
+        """No-op: the frame is the observation."""
+
 
 class PixelPendulum(_PixelObs):
     """gymnasium's Pendulum-v1 seen through :func:`render_rod`.

@@ -45,7 +45,7 @@ from multiprocessing import shared_memory
 import numpy as np
 
 from torch_actor_critic_tpu_torch.core.types import MultiObservation
-from torch_actor_critic_tpu_torch.envs.wrappers import ObsSpec, make_env
+from torch_actor_critic_tpu_torch.envs.wrappers import ObsSpec, ensure_headless_gl, make_env
 
 logger = logging.getLogger(__name__)
 
@@ -72,8 +72,11 @@ def host_only_children():
     interpreter that does not inherit the parent's ``sys.path``, so the
     package root goes on ``PYTHONPATH``; and ``CUDA_VISIBLE_DEVICES`` is
     blank, so no child ever holds a context on the card (env workers,
-    actor processes). Serialized across threads; the parent's environment
-    is restored on exit."""
+    actor processes). On a host without a display ``MUJOCO_GL`` is
+    ``egl`` in the children, as :func:`~.wrappers.ensure_headless_gl`
+    would set it, so a dm_control env built in a worker renders headless.
+    Serialized across threads; the parent's environment is restored on
+    exit."""
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     with _CHILD_ENV_LOCK:
         overrides = {
@@ -81,6 +84,8 @@ def host_only_children():
             + (os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else ""),
             "CUDA_VISIBLE_DEVICES": "",
         }
+        if "MUJOCO_GL" not in os.environ and "DISPLAY" not in os.environ:
+            overrides["MUJOCO_GL"] = "egl"
         saved = {k: os.environ.get(k) for k in overrides}
         os.environ.update(overrides)
         try:
@@ -291,6 +296,7 @@ def _worker_main(
         if lib is None:  # parent checked before spawning; defensive
             conn.send(("error", "native runtime unavailable in worker"))
             return
+        ensure_headless_gl()  # before any dm_control import in this process
         env = make_env(env_name, seed=seed, **(env_kwargs or {}))
         conn.send(("spec", _spec_message(env)))
         shm_name, n, fields = conn.recv()

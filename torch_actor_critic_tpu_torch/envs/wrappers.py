@@ -12,8 +12,15 @@ then, and a missing gymnasium raises: no env is substituted), the
 port's numpy pendulum :class:`~.pendulum.PendulumNumpy` under its own
 name, the pixel pendulums of :mod:`.pixel_pendulum` (observations are
 :class:`~..core.types.MultiObservation` values, ``obs_spec`` one of
-:class:`ObsSpec` leaves), and ``"<name>|history:N"`` wraps a flat env in
-:class:`HistoryEnv`. dm_control and the wall-runner are not ported.
+:class:`ObsSpec` leaves), dm_control suite tasks as ``"dm:<domain>:<task>"``
+(:class:`DmControlEnv`), the CMU-humanoid wall-runner as
+``"DeepMindWallRunner-v0"`` (:mod:`.wall_runner`), and
+``"<name>|history:N"`` wraps a flat env in :class:`HistoryEnv`.
+
+dm_control pins its OpenGL platform when it is first imported, so
+:func:`ensure_headless_gl` runs before every dm_control import: on a host
+without a display it defaults ``MUJOCO_GL`` to ``egl``, and env worker
+processes inherit the variable.
 """
 
 from __future__ import annotations
@@ -34,11 +41,14 @@ class ObsSpec(t.NamedTuple):
 class GymnasiumEnv:
     """Adapter over ``gymnasium.make``."""
 
-    def __init__(self, name: str, seed: int | None = None):
+    def __init__(self, name: str, seed: int | None = None, **kwargs):
         import gymnasium
 
         self.name = name
-        self.env = gymnasium.make(name)
+        # kwargs reach gymnasium.make: the trainer passes render_mode="human"
+        # when it may render (gymnasium draws only in a mode set at
+        # construction).
+        self.env = gymnasium.make(name, **kwargs)
         # Seed the warmup action sampler so fixed-seed runs reproduce.
         self.env.action_space.seed(seed)
         space = self.env.action_space
@@ -58,8 +68,98 @@ class GymnasiumEnv:
     def sample_action(self) -> np.ndarray:
         return np.asarray(self.env.action_space.sample(), np.float32)
 
+    def render(self):
+        return self.env.render()
+
     def close(self):
         self.env.close()
+
+
+def ensure_headless_gl() -> None:
+    """Default ``MUJOCO_GL=egl`` on a host without a display, before the
+    first dm_control import in the process.
+
+    dm_control pins its OpenGL platform at import time: a dm env built
+    first without this latches the backend to glfw, and a later camera
+    env (the wall-runner's egocentric view) then fails to render. A value
+    already set (``disabled`` for physics-only runs, ``osmesa``) is kept.
+    """
+    import os
+
+    if "MUJOCO_GL" not in os.environ and "DISPLAY" not in os.environ:
+        os.environ["MUJOCO_GL"] = "egl"
+
+
+def reseed_dm_env(env, seed: int | None) -> None:
+    """Reseed a dm_control environment in place, suite or composer.
+
+    dm_control has no ``reset(seed)``: a suite env draws from its task's
+    ``RandomState``, a composer env from its own; replacing it reseeds.
+    ``seed=None`` leaves the env as it is.
+    """
+    if seed is None:
+        return
+    rs = np.random.RandomState(seed)
+    task = getattr(env, "task", None)
+    if task is not None and hasattr(task, "_random"):
+        task._random = rs  # suite control.Environment
+    elif hasattr(env, "_random_state"):
+        env._random_state = rs  # composer.Environment
+
+
+def dm_step_flags(ts) -> t.Tuple[bool, bool]:
+    """``(terminated, truncated)`` of a dm_control time step: the last
+    step is terminal only at discount 0; a last step at discount 1 is the
+    time limit's truncation, which keeps the bootstrap."""
+    terminated = bool(ts.last() and ts.discount == 0.0)
+    return terminated, bool(ts.last() and not terminated)
+
+
+class DmControlEnv:
+    """A dm_control suite task, its observation dict flattened in key
+    order into one float32 vector. ``sample_action`` draws uniformly in
+    the action spec's bounds from a generator seeded with the env (and
+    reseeded by a seeded ``reset``)."""
+
+    def __init__(self, domain: str, task: str, seed: int | None = None):
+        ensure_headless_gl()
+        from dm_control import suite
+
+        self.name = f"dm:{domain}:{task}"
+        self.env = suite.load(domain, task, task_kwargs={"random": seed})
+        spec = self.env.action_spec()
+        self.act_dim = int(np.prod(spec.shape))
+        self.act_limit = float(spec.maximum[0])
+        self._action_spec = spec
+        self._rng = np.random.default_rng(seed)
+        obs_dim = sum(int(np.prod(v.shape)) if v.shape else 1
+                      for v in self.env.observation_spec().values())
+        self.obs_spec = ObsSpec((obs_dim,), np.float32)
+
+    @staticmethod
+    def _flatten(obs_dict) -> np.ndarray:
+        return np.concatenate([np.ravel(np.asarray(v, np.float32)) for v in obs_dict.values()])
+
+    def reset(self, seed: int | None = None) -> np.ndarray:
+        if seed is not None:
+            reseed_dm_env(self.env, seed)
+            self._rng = np.random.default_rng(seed)
+        return self._flatten(self.env.reset().observation)
+
+    def step(self, action: np.ndarray):
+        ts = self.env.step(np.asarray(action))
+        terminated, truncated = dm_step_flags(ts)
+        return self._flatten(ts.observation), float(ts.reward or 0.0), terminated, truncated
+
+    def sample_action(self) -> np.ndarray:
+        spec = self._action_spec
+        return self._rng.uniform(spec.minimum, spec.maximum).astype(np.float32)
+
+    def render(self):
+        """No-op: dm_control draws only into camera observations."""
+
+    def close(self):
+        pass
 
 
 class HistoryEnv:
@@ -96,11 +196,14 @@ class HistoryEnv:
     def sample_action(self) -> np.ndarray:
         return self.env.sample_action()
 
+    def render(self):
+        return self.env.render()
+
     def close(self):
         self.env.close()
 
 
-_NOT_PORTED = ("DeepMindWallRunner-v0",)
+WALL_RUNNER = "DeepMindWallRunner-v0"
 
 # name -> (gymnasium physics?, balance start?)
 _PIXEL_ENVS = {
@@ -113,15 +216,32 @@ _PIXEL_ENVS = {
 
 def is_visual_env(name: str) -> bool:
     """Mixed-observation envs, which need the visual model and buffer."""
-    return name in _PIXEL_ENVS or name in _NOT_PORTED
+    return name in _PIXEL_ENVS or name == WALL_RUNNER
 
 
-def make_env(name: str, seed: int | None = None):
+def is_dm_env(name: str) -> bool:
+    """Envs on dm_control physics, which pay rewards in [0, 1] a step and
+    render through their own no-op paths."""
+    return name.startswith("dm:") or name == WALL_RUNNER
+
+
+def renders_itself(name: str) -> bool:
+    """Envs whose ``render()`` is their own no-op path, which renders
+    without a display: dm_control's, the pixel pendulums and the numpy
+    pendulum. Any other name is a gymnasium env, which draws only when
+    built with a ``render_mode``."""
+    base = name.partition("|history:")[0]
+    return is_dm_env(base) or is_visual_env(base) or base == "PendulumNumpy-v1"
+
+
+def make_env(name: str, seed: int | None = None, **kwargs):
     """Single env factory. ``"<base>|history:N"`` wraps the base env in
-    :class:`HistoryEnv`."""
+    :class:`HistoryEnv`. ``kwargs`` reach the gymnasium envs'
+    ``gymnasium.make`` (``render_mode``); the port's own envs take
+    none."""
     if "|history:" in name:
         base_name, _, horizon = name.rpartition("|history:")
-        return HistoryEnv(make_env(base_name, seed=seed), int(horizon))
+        return HistoryEnv(make_env(base_name, seed=seed, **kwargs), int(horizon))
     if name == "PendulumNumpy-v1":
         from torch_actor_critic_tpu_torch.envs.pendulum import PendulumNumpy
 
@@ -132,8 +252,11 @@ def make_env(name: str, seed: int | None = None):
         gym_physics, balance = _PIXEL_ENVS[name]
         cls = pixel_pendulum.PixelPendulum if gym_physics else pixel_pendulum.PixelPendulumNumpy
         return cls(seed=seed, balance=balance)
-    if name.startswith("dm:") or name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"env {name!r} (dm_control / the wall-runner) is not ported yet"
-        )
-    return GymnasiumEnv(name, seed=seed)
+    if name == WALL_RUNNER:
+        from torch_actor_critic_tpu_torch.envs.wall_runner import DeepMindWallRunner
+
+        return DeepMindWallRunner(seed=seed)
+    if name.startswith("dm:"):
+        _, domain, task = name.split(":")
+        return DmControlEnv(domain, task, seed=seed)
+    return GymnasiumEnv(name, seed=seed, **kwargs)

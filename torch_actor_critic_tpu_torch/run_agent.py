@@ -1,7 +1,7 @@
 """Evaluation CLI of the port (port of ``run_agent.py``)::
 
     python -m torch_actor_critic_tpu_torch.run_agent --run <id> \\
-        [--episodes N] [--seed S] [--random] [--device cpu|cuda]
+        [--episodes N] [--seed S] [--headless] [--random] [--device cpu|cuda]
 
 Loads the run's stored params (environment, config, seed), builds the
 run's learner from its config (SAC or TD3: a TD3 run gets the
@@ -11,9 +11,13 @@ policy (``--random``: sampled actions, TD3's with its exploration
 noise) and prints their mean return, spread and length as one
 JSON line. ``--seed S`` resets episode ``i`` with ``S + i`` and seeds
 the acting generator, so two invocations print the same line.
-``--headless`` is accepted and has no effect (the port does not
-render). Runs on the card unless ``--device cpu`` is given; without a
-card and without that flag it exits non-zero.
+Rendering is on by default and ``--headless`` turns it off, as in the JAX
+CLI: the trainer decides once whether the env can render (dm_control and
+the port's own envs through their no-op paths, a gymnasium env with
+``render_mode="human"`` only where a display is there, else a warning
+and a headless rollout), and each evaluated step renders. Runs on the
+card unless ``--device cpu`` is given; without a card and without that
+flag it exits non-zero.
 
 A fused population run (``--on-device true --population`` > 1, SAC or
 TD3, flat, history or pixel) is evaluated one member at a time:
@@ -45,7 +49,9 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--experiment", default="Default", help="Experiment name")
     parser.add_argument("--runs-root", default="runs")
     parser.add_argument("--episodes", type=int, default=100, help="Number of test episodes")
-    parser.add_argument("--headless", action="store_true", help="Accepted; nothing renders")
+    parser.add_argument(
+        "--headless", action="store_false", dest="render", help="Disable rendering"
+    )
     parser.add_argument(
         "--random", action="store_false", dest="deterministic", help="Stochastic policy"
     )
@@ -60,7 +66,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
         "--member", type=int, default=None,
         help="A population run's member to evaluate (default: the best by its return EMA)",
     )
-    parser.set_defaults(deterministic=True)
+    parser.set_defaults(render=True, deterministic=True)
     return parser.parse_args(argv)
 
 
@@ -89,13 +95,14 @@ def main(argv=None) -> dict:
         ckpt_dir, config = export, config.replace(population=1, pbt_every=0)
     trainer = Trainer(
         env_name, config, checkpointer=Checkpointer(ckpt_dir),
-        seed=params.get("seed", 0), device=args.device,
+        seed=params.get("seed", 0), device=args.device, render=args.render,
     )
     try:
         trainer.restore(include_buffer=False)
         logger.info("evaluating run %s on %s (%s)", args.run, env_name, trainer.device)
         metrics = trainer.evaluate(
-            episodes=args.episodes, deterministic=args.deterministic, seed=args.seed
+            episodes=args.episodes, deterministic=args.deterministic, seed=args.seed,
+            render=args.render,
         )
     finally:
         trainer.close()

@@ -158,7 +158,16 @@ generator::
     python -m torch_actor_critic_tpu_torch.train --environment PendulumNumpy-v1 \
         --history-len 16 --actors 2 --elastic on
 
-Not ported: ``--devices`` > 1, ``--fsdp``, ``--render``.
+``--render`` renders env 0 after each lockstep step of the host loop, as
+the JAX CLI does: dm_control envs (``dm:<domain>:<task>``,
+``DeepMindWallRunner-v0``) and the port's own envs through their no-op
+paths; a gymnasium env is built with ``render_mode="human"`` when a
+display is there, and otherwise the run warns and trains headless::
+
+    python -m torch_actor_critic_tpu_torch.train --environment dm:cheetah:run \
+        --learn-alpha true --render
+
+Not ported: ``--devices`` > 1, ``--fsdp``.
 """
 
 from __future__ import annotations
@@ -189,6 +198,9 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument(
         "--disable-logging", dest="logging", action="store_false",
         help="Turn off file tracking",
+    )
+    parser.add_argument(
+        "--render", dest="render", action="store_true", help="Render the environment"
     )
     parser.add_argument("--environment", default="HalfCheetah-v5", help="Environment to use")
     parser.add_argument("--seed", type=int, default=0)
@@ -246,7 +258,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
             parser.add_argument(flag, type=float, default=None)
         else:
             parser.add_argument(flag, type=type(f.default), default=None)
-    parser.set_defaults(logging=True, preemption_guard=True, save_buffer=True)
+    parser.set_defaults(logging=True, preemption_guard=True, save_buffer=True, render=False)
     return parser.parse_args(argv)
 
 
@@ -394,7 +406,8 @@ def build_trainer(args: argparse.Namespace, preemption=None, setup=None):
         env_name, config,
         tracker=tracker if args.logging else None,
         checkpointer=checkpointer,
-        seed=seed, device=args.device, preemption=preemption, **observability(args, config),
+        seed=seed, device=args.device, preemption=preemption, render=args.render,
+        **observability(args, config),
     )
     if args.run is not None and trainer.checkpointer.latest_epoch() is not None:
         start = trainer.restore()
@@ -485,7 +498,7 @@ def main(argv=None) -> dict:
             "training %s on %s (run %s)", trainer.env_name, trainer.device, tracker.run_id
         )
         try:
-            metrics = profiled(args, lambda: trainer.train(on_epoch=report))
+            metrics = profiled(args, lambda: trainer.train(on_epoch=report, render=args.render))
             evaluation = (
                 trainer.evaluate(args.eval_episodes, deterministic=True,
                                  seed=trainer.seed + 12345)
