@@ -15,7 +15,9 @@ or of the JAX package. Phases, one JSON line each:
 
 1. device — the card (``nvidia-smi`` name and power limit on its own line);
 2. build — compiles every kernel source of the port from ``csrc/`` (one
-   nvcc per source, in parallel) and reports the seconds;
+   nvcc per source, in parallel) and reports the seconds; trace_reader
+   (the profiler's raw events against ``key_averages()``) runs meanwhile,
+   after ``csrc/floor.cu`` (its lead-in's empty kernel) is built;
    floor — the device time of an empty kernel (``csrc/floor.cu``) at the
    attention kernels' main-path grid (64 blocks of 128 threads), without
    and with K3's shared memory there, at the stacked critics' grid (128
@@ -73,7 +75,17 @@ or of the JAX package. Phases, one JSON line each:
    forward, 1e-4); ``--fleet 2`` on the one card (64 routed requests, a
    rolling /reload under traffic, the router's /metrics totals equal to
    the workers' sum, a worker killed under traffic with no request
-   lost, SIGTERM exit 0);
+   lost, SIGTERM exit 0) with ``--warm-start`` on the checkpoint's
+   warm-start bundle, built in process first (no nvcc runs): every
+   worker and the drawn spare report 0 builds and the bundle's 12
+   programs as hits;
+   coldstart — fresh ``serve`` processes on that checkpoint
+   (:func:`phase_coldstart`): on the bundle with an empty
+   ``--compile-cache`` and no CUDA toolkit reachable (0 builds, 12
+   bundle hits, 0 live captures, actions bitwise an in-process engine's),
+   on an empty cache (builds equal the libraries loaded), on a bundle
+   with an edited fingerprint (one rejection naming the field, 0 builds);
+   each one's seconds from spawn to its first 64-row ``/act``;
 5. train — the same policy and its twin sequence critic (one stacked
    ensemble) at SACConfig's widths (batch 64, update_every 50), trained
    through the train CLI's ``build_trainer`` on
@@ -207,8 +219,9 @@ or of the JAX package. Phases, one JSON line each:
    epoch,
    an epoch under ``torch.cuda.set_sync_debug_mode("error")``; the async
    save of the full history-8 ring (seconds in ``save`` and to ``wait``,
-   bytes) and ``save_buffer=False``; ``train --on-device true`` then
-   ``--run <id>``;
+   bytes) and ``save_buffer=False``; ``train --on-device true
+   --compile-cache`` then ``--run <id>`` in a fresh process (a
+   restarted learner: 0 builds, K3 and K4 in its first burst);
 12. population — the fused population (``--population N``,
    ``sac/population.py``, ``PopulationOnDeviceLoop``), in a child
    process of its own: K2, K3 and K4 at the update and critics' folds
@@ -254,7 +267,9 @@ K2 and 2L K3/K4 per update through the burst's, one burst capture beside
 the engine's warm-up captures, a publish that is a snapshot, a NaN
 publish rejected), then ``train --actors 2 --elastic on`` through
 ``train.main`` (the burst's capture held until both actors push through
-the ``/act`` proxy and overlapped by their requests, none failing; an
+the ``/act`` proxy and overlapped by their requests, none failing;
+``--emit-bundle true``, its bundle's manifest holding every serving
+program and every library; an
 actor killed and respawned, a SIGTERM and a traced ``--run`` resume with
 the ring bitwise, nothing ingested twice and L K2 per served forward;
 every actor push acted through the proxy; no actor on the card), and the
@@ -282,6 +297,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import concurrent.futures
 import contextlib
 import itertools
 import json
@@ -1371,6 +1387,10 @@ FLEET_QUEUE, FLEET_HOLD_MS, FLEET_BURST = 4, 20, 96
 # The bound on a killed worker's ejection: the router's membership poll
 # takes two failed /healthz of at most 2 s each (eject_after, health_timeout_s).
 FLEET_EJECT_S = 30.0
+COLD_WORKER_S = 300.0  # a cold-start worker's limit from spawn to its exit
+# A serving process's cold-start counters (its /metrics xla section).
+COLD_KEYS = ("builds_total", "bundle_hits", "bundle_rejected", "cache_hits_total",
+             "cache_misses_total", "bundle_library_hits", "live_captures")
 
 
 def _get(url: str) -> dict:
@@ -1401,9 +1421,11 @@ def _child_pids(pid: int) -> list:
     return out
 
 
-def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
-    """``serve --fleet 2 --obs --slo-config R --warm-pool 1 --elastic on``
-    on the one card: routed requests, a rolling reload under traffic, the
+def _fleet(ckpt, config, seed, rng, smi: str, bundle_dir: str) -> dict:
+    """``serve --fleet 2 --obs --slo-config R --warm-pool 1 --elastic on
+    --warm-start <bundle>`` on the one card (every worker and the drawn
+    spare build no kernel library and count the bundle's 12 programs as
+    hits): routed requests, a rolling reload under traffic, the
     router's /metrics totals against the workers' own; then bursts that
     overflow ``--queue-capacity`` until the ``shed_rate_ceiling`` rule
     (delta mode) breaches and the controller draws the warm spare (2 -> 3
@@ -1440,7 +1462,8 @@ def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
          "--max-wait-ms", str(FLEET_HOLD_MS), "--obs", "--obs-interval", "0.5",
          "--slo-config", rules, "--warm-pool", "1", "--elastic", "on",
          "--elastic-min", "2", "--elastic-max", "3", "--elastic-out-cooldown", "1",
-         "--elastic-in-cooldown", "2", "--elastic-in-windows", "2", "--trace-export", trace],
+         "--elastic-in-cooldown", "2", "--elastic-in-windows", "2", "--trace-export", trace,
+         "--warm-start", bundle_dir],
         cwd=here, stdout=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=here),
     )
@@ -1534,6 +1557,11 @@ def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
             bursts += 1
             time.sleep(0.3)
         burst_to_out_s = time.perf_counter() - t_last
+        # The drawn spare, in rotation until the scale-in drains it.
+        spare_xla = {n: _get(w["url"] + "/metrics")["xla"] for n, w in
+                     _get(router + "/metrics")["router"]["workers"].items()
+                     if n not in ("w0", "w1")}
+        check(len(spare_xla) == 1, f"fleet: workers after the scale-out: {sorted(spare_xla)}")
         quiet_to_in_s = _wait(lambda: elastic()["scale_in_total"] == 1, 60, "the scale-in")
         removed_s = _wait(lambda: len(_get(router + "/metrics")["router"]["workers"]) == 2, 90,
                           "the drained worker's removal")
@@ -1552,13 +1580,16 @@ def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
         view = _get(router + "/metrics")
         workers = {n: w["url"] for n, w in view["router"]["workers"].items()}
         check(set(workers) == {"w0", "w1"}, f"fleet: workers after scale-in {workers}")
-        costs = {}
+        costs, cold = {}, {}
+        for name, spare in spare_xla.items():
+            cold[f"{name} (spare)"] = {k: spare[k] for k in COLD_KEYS}
         for name, url in workers.items():
             snap = _get(url + "/metrics")
             xla = snap["xla"]
             check(xla["captures_total"] == 12 and xla["warmup_captures"] == 12
                   and xla["live_captures"] == 0 and xla["post_steady_captures"] == 0,
                   f"fleet {name} xla: {xla}")
+            cold[name] = {k: xla[k] for k in COLD_KEYS}
             check(bool(snap["costs"]), f"fleet {name}: no bucket in costs")
             for bucket, c in snap["costs"].items():
                 check(c["flops_per_call"] > 0 and c["bytes_per_call"] > 0
@@ -1568,6 +1599,9 @@ def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
             costs[name] = {b: {k: c[k] for k in ("flops_per_call", "bytes_per_call", "calls",
                                                  "duration_s", "mfu", "hbm_util", "bound")}
                            for b, c in snap["costs"].items()}
+        check(all(c["builds_total"] == 0 and c["bundle_hits"] == 12
+                  and c["bundle_rejected"] == 0 for c in cold.values()),
+              f"fleet: workers and spare on the bundle: {cold}")
         fleet = view["fleet"]
         check(fleet["scaler"]["spawned_total"] == 1 and fleet["scaler"]["drained_total"] == 1
               and fleet["elastic"]["scale_out_total"] == 1
@@ -1630,7 +1664,7 @@ def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
                            "decision_ms": [(e["ts"] - b["ts"]) / 1e3
                                            for b, e in zip(spans, ends)],
                            "moves": moves, "rule": rule},
-               "worker_costs": costs, "fleet": fleet,
+               "worker_costs": costs, "fleet": fleet, "cold_start": cold,
                "admitted_at_teardown": admitted_at_teardown,
                "processes": len(children), "exit_code": rc, "card": smi}
         emit(row)
@@ -1650,6 +1684,28 @@ def _fleet(ckpt, config, seed, rng, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _serve_bundle(kernels, ckpt: str, config) -> dict:
+    """``build_bundle`` in process from the serve checkpoint's newest
+    epoch, beside it: the libraries are built already, so no nvcc runs."""
+    from torch_actor_critic_tpu_torch.aot import build_bundle
+    from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
+    from torch_actor_critic_tpu_torch.models import build_actor
+    from torch_actor_critic_tpu_torch.serve import ObsSpec
+    from torch_actor_critic_tpu_torch.utils.checkpoint import restore_actor_params
+
+    params, meta = restore_actor_params(ckpt)
+    actor_def = build_actor(config, (config.history_len, 3), 1, 2.0)
+    builds, logs = get_watchdog().install().snapshot()["builds_total"], dict(kernels.build_logs)
+    t0 = time.perf_counter()
+    bundle = build_bundle(os.path.join(os.path.dirname(ckpt), "warm_start"), actor_def,
+                          ObsSpec((config.history_len, 3)), params, max_batch=64)
+    seconds = time.perf_counter() - t0
+    check(get_watchdog().snapshot()["builds_total"] == builds and kernels.build_logs == logs,
+          "building the warm-start bundle ran nvcc")
+    return {"root": str(bundle.root), "build_s": seconds, "epoch": meta["epoch"],
+            "programs": len(bundle.programs()), "libraries": sorted(bundle.libraries())}
+
+
 def phase_serve(seed: int, kernels, attn, smi: str) -> dict:
     """The serving plane through the CLI's ``build_server``: every
     (bucket, deterministic) forward one CUDA graph captured at warmup,
@@ -1657,9 +1713,11 @@ def phase_serve(seed: int, kernels, attn, smi: str) -> dict:
     served forwards under one device trace (exactly L K2 launches a
     forward), captured == eager at every bucket, a reload under
     traffic, eager against captured host and /act times, the bf16 and
-    int8 tiers, the pixel recipe through ``--run`` and ``--fleet 2``.
+    int8 tiers, the pixel recipe through ``--run``, the warm-start bundle
+    of the checkpoint (:func:`_serve_bundle`) and ``--fleet 2`` on it.
     Returns the traced K2 launches of the f32 (with int8) and bf16
-    serving paths and the bf16 K2 row."""
+    serving paths, the bf16 K2 row and the checkpoint and bundle for
+    :func:`phase_coldstart` (which removes them)."""
     from torch_actor_critic_tpu_torch.models import build_actor
     from torch_actor_critic_tpu_torch.serve.__main__ import parse_arguments
     from torch_actor_critic_tpu_torch.utils.checkpoint import save_actor
@@ -1670,7 +1728,9 @@ def phase_serve(seed: int, kernels, attn, smi: str) -> dict:
     layers = config.seq_num_layers
     actor = build_actor(config, (history, obs_dim), act_dim, act_limit,
                         generator=torch.Generator().manual_seed(seed))
-    ckpt = tempfile.mkdtemp(prefix="tac_chip_smoke_")
+    # The checkpoint and, beside it, its warm-start bundle (both handed
+    # on to the coldstart phase).
+    ckpt = os.path.join(tempfile.mkdtemp(prefix="tac_chip_smoke_"), "checkpoints")
     runs = tempfile.mkdtemp(prefix="tac_chip_runs_")
     rng = np.random.default_rng(seed)
     try:
@@ -1774,12 +1834,171 @@ def phase_serve(seed: int, kernels, attn, smi: str) -> dict:
         tiers = _tiers(kernels, attn, ckpt, config, served_actor, seed, rng, f32_actions,
                        obs64, smi)
         _visual_run(seed, rng, runs)
-        _fleet(ckpt, config, seed, rng, smi)
+        bundle = _serve_bundle(kernels, ckpt, config)
+        _fleet(ckpt, config, seed, rng, smi, bundle["root"])
+    except BaseException:
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+        raise
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(runs, ignore_errors=True)
     return {"flash_fwd": launches + tiers["int8"]["launches"],
-            "flash_fwd_bf16": tiers["bf16"]["launches"], "bf16_row": tiers["bf16_row"]}
+            "flash_fwd_bf16": tiers["bf16"]["launches"], "bf16_row": tiers["bf16_row"],
+            "coldstart": {"ckpt": ckpt, **bundle}}
+
+
+def _no_toolkit_env(tmp: str) -> dict:
+    """This process's environment without the CUDA toolkit: no ``nvcc``
+    on ``PATH``, ``CUDA_HOME`` an empty directory (``_kernels._nvcc``
+    looks at both)."""
+    empty = os.path.join(tmp, "no-cuda")
+    os.makedirs(empty, exist_ok=True)
+    path = os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                           if d and not os.path.exists(os.path.join(d, "nvcc")))
+    return dict(os.environ, PATH=path, CUDA_HOME=empty)
+
+
+def _cold_worker(ckpt: str, extra: list, env: dict, obs64, log: str) -> dict:
+    """One fresh ``serve`` process on ``ckpt`` with ``extra``: the seconds
+    from its spawn to its first answered 64-row ``/act`` (deterministic,
+    ``obs64``), its actions, its ``/metrics`` ``xla`` cold-start counters;
+    then SIGTERM, which must exit 0."""
+    import signal
+    import threading
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(env, PYTHONPATH=here)
+    env.pop("TAC_COMPILE_CACHE", None)
+    with open(log, "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch_actor_critic_tpu_torch.serve", "--ckpt-dir", ckpt,
+             "--obs-dim", "3", "--act-dim", "1", "--act-limit", "2.0", "--port", "0",
+             "--poll-interval", "0", "--max-batch", "64", *extra],
+            cwd=here, stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+        hung = threading.Timer(COLD_WORKER_S, proc.kill)  # a worker that never answers
+        hung.start()
+        try:
+            line = proc.stdout.readline()
+            ready_s = time.perf_counter() - t0
+
+            def tail():
+                with open(log) as f:
+                    return f.read()[-3000:]
+
+            check(line.startswith("{"), f"cold worker {extra}: no startup line "
+                  f"(rc {proc.poll()}): {tail()}")
+            address = json.loads(line)["serving"]
+            out = post(address + "/act", {"obs": obs64.tolist(), "deterministic": True})
+            first_act_s = time.perf_counter() - t0
+            xla = _get(address + "/metrics")["xla"]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            check(rc == 0, f"cold worker {extra}: exit {rc} after SIGTERM: {tail()}")
+            hung.cancel()
+            return {"ready_s": ready_s, "first_act_s": first_act_s, "exit_code": rc,
+                    "action": np.asarray(out["action"], dtype=np.float32),
+                    "xla": {k: xla[k] for k in (*COLD_KEYS, "captures_total",
+                                                "bundle_reject_reasons")}}
+        finally:
+            hung.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            proc.stdout.close()
+
+
+def phase_coldstart(seed: int, smi: str, handoff: dict) -> dict:
+    """Cold start of a serving process on the serve phase's checkpoint and
+    its warm-start bundle (``handoff``; both removed at the end):
+
+    A. ``serve --warm-start <bundle> --compile-cache <empty dir>`` with no
+       CUDA toolkit reachable: a 64-row ``/act`` answered, ``/metrics``
+       ``xla`` 0 builds, 0 rejections, the bundle's programs as hits, 0
+       live captures, and deterministic actions bitwise those of an
+       in-process engine's forward on the same checkpoint;
+    B. no bundle, an empty cache: builds equal the libraries it loads
+       (all misses), which stay in the cache;
+    C. a copy of the bundle with one fingerprint field edited, on B's
+       cache: one rejection naming the field, 0 builds, it serves (the
+       same actions).
+
+    Records each leg's seconds from spawn to its first answered ``/act``."""
+    from torch_actor_critic_tpu_torch.aot import cache_entries, load_bundle
+    from torch_actor_critic_tpu_torch.models import build_actor
+    from torch_actor_critic_tpu_torch.serve import ObsSpec, PolicyEngine
+    from torch_actor_critic_tpu_torch.utils.checkpoint import restore_actor_params
+    from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+    t_phase = time.perf_counter()
+    ckpt, bundle_dir = handoff["ckpt"], handoff["root"]
+    tmp = tempfile.mkdtemp(prefix="tac_chip_coldstart_")
+    try:
+        bundle = load_bundle(bundle_dir)
+        bundle.check("cuda")
+        programs = len(bundle.programs())
+        config = SACConfig(history_len=16)
+        params, _ = restore_actor_params(ckpt)
+        engine = PolicyEngine(build_actor(config, (16, 3), 1, 2.0), ObsSpec((16, 3)),
+                              max_batch=64, device="cuda")
+        params = engine.prepare_params(params)
+        obs64 = np.random.default_rng(seed).standard_normal((64, 16, 3)).astype(np.float32)
+        # The eager forward: a served replay equals it bitwise (the serve
+        # phase's captured == eager at every bucket).
+        want = engine.forward_eager(params, obs64)
+        del engine, params
+        torch.cuda.empty_cache()
+        legs = {}
+        cache_a, cache_b = os.path.join(tmp, "cache_a"), os.path.join(tmp, "cache_b")
+        legs["A"] = _cold_worker(ckpt, ["--warm-start", bundle_dir, "--compile-cache", cache_a],
+                                 _no_toolkit_env(tmp), obs64, os.path.join(tmp, "a.log"))
+        a = legs["A"]["xla"]
+        check(a["builds_total"] == 0 and a["bundle_rejected"] == 0
+              and a["bundle_hits"] == programs and a["live_captures"] == 0
+              and a["bundle_library_hits"] == a["cache_hits_total"] >= 1
+              and a["cache_misses_total"] == 0 and not os.listdir(cache_a),
+              f"coldstart A (bundle, no toolkit): {a}")
+        check(np.array_equal(legs["A"]["action"], want),
+              "coldstart A: actions differ from the in-process engine's "
+              f"(max {float(np.abs(legs['A']['action'] - want).max())})")
+        legs["B"] = _cold_worker(ckpt, ["--compile-cache", cache_b], os.environ, obs64,
+                                 os.path.join(tmp, "b.log"))
+        b = legs["B"]["xla"]
+        built = sorted(f for f in os.listdir(cache_b) if f.endswith(".so"))
+        check(b["builds_total"] == b["cache_misses_total"] == cache_entries(cache_b) >= 1
+              and b["cache_hits_total"] == 0 and b["bundle_hits"] == 0
+              and np.array_equal(legs["B"]["action"], want),
+              f"coldstart B (empty cache): {b}, libraries {built}")
+        stale = os.path.join(tmp, "stale_bundle")
+        shutil.copytree(bundle_dir, stale)
+        with open(os.path.join(stale, "MANIFEST.json")) as f:
+            manifest = json.load(f)
+        manifest["fingerprint"]["torch"] = "0.0.0-elsewhere"
+        with open(os.path.join(stale, "MANIFEST.json"), "w") as f:
+            json.dump(manifest, f)
+        legs["C"] = _cold_worker(ckpt, ["--warm-start", stale, "--compile-cache", cache_b],
+                                 os.environ, obs64, os.path.join(tmp, "c.log"))
+        c = legs["C"]["xla"]
+        check(c["bundle_rejected"] == 1 and "torch: bundle='0.0.0-elsewhere'"
+              in c["bundle_reject_reasons"][0] and c["builds_total"] == 0
+              and c["bundle_hits"] == 0 and c["cache_hits_total"] == len(built)
+              and np.array_equal(legs["C"]["action"], want),
+              f"coldstart C (rejected bundle): {c}")
+        for leg in legs.values():
+            leg.pop("action")
+        row = {"phase": "coldstart", "card": smi, "programs": programs,
+               "bundle_build_s": handoff["build_s"], "libraries_built_by_b": built,
+               "seconds_to_first_act": {k: v["first_act_s"] for k, v in legs.items()},
+               "legs": legs, "actions_bitwise_in_process": True,
+               "seconds": time.perf_counter() - t_phase}
+        emit(row)
+        print(f"coldstart: first /act A {legs['A']['first_act_s']:.2f} s (bundle, no "
+              f"toolkit), B {legs['B']['first_act_s']:.2f} s (empty cache, "
+              f"{len(built)} built), C {legs['C']['first_act_s']:.2f} s (rejected) ({smi})",
+              flush=True)
+        return row
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
 
 
 def _param_gap(a, b) -> tuple:
@@ -2406,8 +2625,8 @@ def burst_modes(kernels, burst, per: int, n_bursts: int, per_update: dict,
                 trace_eager: int = 0) -> dict:
     """The captured (default) and the eager burst of one workload, in
     turn: one burst to warm up (the captured one captures there unless
-    it has a graph), ``n_bursts`` timed (host clock to a synchronize; half
-    as many eager ones, at least one: the time limit), then, captured
+    it has a graph), ``n_bursts`` timed (host clock to a synchronize; one
+    eager one: the time limit), then, captured
     only, one profiled burst: device kernels, busy and idle per update,
     and exactly ``per_update`` launches of each named kernel per update
     in its device trace. The wrappers count those launches in the eager
@@ -2420,7 +2639,7 @@ def burst_modes(kernels, burst, per: int, n_bursts: int, per_update: dict,
     of the profiler's host work: the time limit)."""
     out = {}
     for mode, eager in (("captured", False), ("eager", True)):
-        timed = max(1, n_bursts // 2) if eager else n_bursts
+        timed = 1 if eager else n_bursts
         burst(eager)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -3504,7 +3723,7 @@ ONDEVICE_CELLS = {
     "flat_sac": ["--environment", TRAIN_ENV],
     "flat_td3": ["--environment", TRAIN_ENV, "--algorithm", "td3"],
 }
-ONDEVICE_STEPS = 500  # the timed epoch: 500 acting steps, 500 updates (the time limit)
+ONDEVICE_STEPS = 250  # the timed epoch: 250 acting steps, 250 updates (the time limit)
 ONDEVICE_TRACED_STEPS = 250  # the traced epoch (half the timed one: the time limit)
 T8_SHAPE = (64, 4, 8, 16)  # batch 64 x heads x history 8 x head_dim
 T8_ACT_SHAPE = (16, 4, 8, 16)  # the 16 twins' acting forward
@@ -3740,29 +3959,62 @@ def _full_ring_save(state, ring, smi: str) -> dict:
         shutil.rmtree(directory, ignore_errors=True)
 
 
-def _cli_resume(seed: int) -> dict:
-    """``train --on-device true`` for one short epoch, then ``train --run
-    <id>``: the resumed run restores learner and ring, runs no warm-up
-    and captures each graph once."""
+def _cli_resume(seed: int, kernels) -> dict:
+    """``train --on-device true --compile-cache <the built libraries>`` for
+    one short epoch, then ``train --run <id>`` in a fresh process (a
+    restarted learner, :func:`phase_learner_restart`): it restores
+    learner and ring, runs no warm-up, captures each graph once, builds
+    no kernel library and launches K3 and K4 in its first burst."""
     from torch_actor_critic_tpu_torch import train as train_cli
 
     runs = tempfile.mkdtemp(prefix="tac_chip_ondevice_run_")
+    restart = start_child("learner_restart", seed)
     try:
         common = ["--runs-root", runs, "--seed", str(seed)]
         first = train_cli.main(["--on-device", "true", "--environment", TRAIN_ENV,
                                 "--history-len", "8", "--epochs", "1", "--steps-per-epoch",
                                 "100", "--start-steps", "50", "--buffer-size", "100000",
-                                *common])
+                                "--compile-cache", str(kernels.BUILD_DIR), *common])
         (run_id,) = os.listdir(f"{runs}/Default")
-        resumed = train_cli.main(["--run", run_id, *common])
+        restart = in_a_child("learner_restart", restart, 300, ["--restart-run", runs, run_id])
         meta = json.loads(open(f"{runs}/Default/{run_id}/artifacts/checkpoints/epoch_1/"
                                "meta.json").read())
-        check(meta["step"] == 250 and resumed["graph_captures"] == 1
-              and resumed["act_graph_captures"] == 1 and math.isfinite(resumed["loss_q"]),
-              f"on-device --run resume: meta {meta.get('step')}, {resumed}")
-        return {"first": first, "resumed": resumed, "resumed_epoch": meta["epoch"]}
+        check(meta["step"] == 250, f"on-device --run resume: meta {meta.get('step')}")
+        return {"first": first, "restart_launches": restart, "resumed_epoch": meta["epoch"]}
     finally:
+        if isinstance(restart, subprocess.Popen) and restart.poll() is None:
+            restart.kill()
+            restart.communicate()
         shutil.rmtree(runs, ignore_errors=True)
+
+
+def phase_learner_restart(seed: int, kernels, runs: str, run_id: str) -> dict:
+    """A learner restarted in a fresh process: ``train --run <id>``, whose
+    stored config names the kernel-library cache (``--compile-cache``).
+    Checks 0 builds and 0 misses, the cache's hits, K3 and K4 launched
+    in its first burst (the capture's warm-up and the capture, through
+    the wrappers), one capture of each graph and a finite loss. Returns
+    the wrappers' launches."""
+    from torch_actor_critic_tpu_torch import train as train_cli
+    from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
+
+    t0 = time.perf_counter()
+    wd = get_watchdog().install()
+    kernels.reset_launch_counts()
+    resumed = train_cli.main(["--run", run_id, "--runs-root", runs, "--seed", str(seed)])
+    snap = wd.snapshot()
+    launches = dict(kernels.launch_counts)
+    check(snap["builds_total"] == 0 and snap["cache_misses_total"] == 0
+          and snap["cache_hits_total"] >= 2, f"learner restart on the cache: {snap}")
+    check(launches.get("flash_bwd_dq", 0) > 0 and launches.get("flash_bwd_dkv", 0) > 0,
+          f"learner restart: no K3/K4 in its first burst: {launches}")
+    check(resumed["graph_captures"] == 1 and resumed["act_graph_captures"] == 1
+          and math.isfinite(resumed["loss_q"]), f"learner restart: {resumed}")
+    emit({"phase": "learner_restart", "builds": snap["builds_total"],
+          "cache_hits": snap["cache_hits_total"], "cache_misses": snap["cache_misses_total"],
+          "wrapper_launches": launches, "resumed": resumed,
+          "seconds": time.perf_counter() - t0})
+    return launches
 
 
 def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
@@ -3783,13 +4035,14 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
       (sequence, L = 2: K2 = 12·S, K3 = K4 = 4·S) or 1 K1 per update
       (pixel), the wrappers having seen one warm-up and one capture of
       each graph, and whose device idle share is 1 - busy / wall of that
-      traced run; a 500-step epoch untraced and timed (env and gradient
+      traced run; a 250-step epoch untraced and timed (env and gradient
       steps per second, and the traced wall per step over this one's:
       the profiler's stretch); an epoch under ``torch.cuda.set_sync_debug_mode
       ("error")``; the captured burst alone and the host ``Trainer``'s
       epoch at the same config; each part's seconds;
     - the async save of the full history-8 ring and ``save_buffer=False``;
-    - ``train --on-device true`` then ``train --run <id>``.
+    - ``train --on-device true --compile-cache`` then ``train --run <id>``
+      in a fresh process (:func:`phase_learner_restart`).
 
     Returns the traced trained epochs' K1-K4 launches, summed."""
     from torch_actor_critic_tpu_torch import train as train_cli
@@ -3944,27 +4197,42 @@ def phase_on_device(seed: int, kernels, attn, smi: str) -> dict:
               f"({smi})", flush=True)
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    row["cli_resume"] = _cli_resume(seed)
+    row["cli_resume"] = _cli_resume(seed, kernels)
     row["seconds"]["cli_resume"] = time.perf_counter() - t0
     row["seconds"]["phase"] = time.perf_counter() - t_phase
     emit(row)
     return totals
 
 
-def in_a_child(phase: str, seed: int, timeout: int, extra=()) -> dict:
+def start_child(phase: str, seed: int, extra=()) -> subprocess.Popen:
     """Phase ``phase`` in a process of its own (``--<phase>-phase``), so
     its rings and its profiler traces start from a fresh CUDA context
     after the earlier phases; the kernel libraries it loads are those
     ``phase_build`` left in ``_build/``; ``extra`` are more arguments.
-    Its lines pass through; returns the launches its last line reports."""
-    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the child's rings
+    Started ahead (``--wait-go``): it imports while the phase before it
+    runs and touches the card only when :func:`in_a_child` lets it go."""
     flag = f"--{phase.replace('_', '-')}-phase"
-    res = subprocess.run([sys.executable, os.path.abspath(__file__), flag, "--seed", str(seed),
-                          *extra], capture_output=True, text=True, timeout=timeout)
-    sys.stderr.write(res.stderr)
-    lines = res.stdout.splitlines()
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, "--seed", str(seed), "--wait-go",
+         *extra], stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def in_a_child(phase: str, child: subprocess.Popen, timeout: int, go=()) -> dict:
+    """Run the ``phase`` child :func:`start_child` started (``go``: more
+    arguments, known only now). Its lines pass through; returns the
+    launches its last line reports."""
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the child's rings
+    try:
+        out, err = child.communicate(json.dumps(list(go)) + "\n", timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    sys.stderr.write(err)
+    lines = out.splitlines()
     print("\n".join(lines[:-1]), flush=True)
-    check(res.returncode == 0 and lines, f"the {phase} phase exited {res.returncode}")
+    check(child.returncode == 0 and lines, f"the {phase} phase exited {child.returncode}")
     return json.loads(lines[-1])[f"{phase}_launches"]
 
 
@@ -4880,8 +5148,8 @@ def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
     1000-step one (the P = 8 rate; P = 1 from :func:`_fused_rates`); on
     ``CHECK_RING``-row rings after a 250-step warm-up, captured against
     eager epochs on cuDNN's deterministic algorithms and a member against
-    a lone learner. (Quarter-length traced epoch and warm-up: the smoke's
-    time limit.)"""
+    a lone learner. (Quarter-length traced epoch and warm-ups, on either
+    ring: the smoke's time limit.)"""
     from torch_actor_critic_tpu_torch.sac.ondevice import _SpecView
 
     torch.cuda.empty_cache()
@@ -4889,7 +5157,7 @@ def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
     cfg, loop = _population_loop(PIXEL_POP_ARGS, seed, FUSED_RING)
     parts = loop.init(seed, FUSED_RING)[:4]
     ring_bytes = sum(x.nbytes for _, x in parts[1].data.named_leaves())
-    parts = loop.epoch(*parts, steps=1000, update_every=50, warmup=True)[:4]
+    parts = loop.epoch(*parts, steps=PIXEL_POP_TRACED_STEPS, update_every=50, warmup=True)[:4]
     parts, m, traced_row = _population_counts(loop, parts, PIXEL_POP_TRACED_STEPS, kernels,
                                               "fused pixel population P=8", per_step={},
                                               per_update={"pixel_gather": 1})
@@ -4900,7 +5168,7 @@ def fused_pixel_population(seed: int, kernels, smi: str) -> tuple:
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "check_ring_rows_per_member": CHECK_RING, "traced_epoch": traced_row}
     del loop, parts
-    rates.update(_fused_rates(PIXEL_POP_ARGS, seed, 1000, members=(1,)))
+    rates.update(_fused_rates(PIXEL_POP_ARGS, seed, PIXEL_POP_TRACED_STEPS, members=(1,)))
     row["rates"] = rates
     cfg, loop = _population_loop(PIXEL_POP_ARGS, seed, CHECK_RING)
     parts = loop.init(seed, CHECK_RING)[:4]
@@ -6434,7 +6702,7 @@ def _decoupled_fleet(seed: int, kernels, runs: str) -> dict:
 
     flags = [*DECOUPLED_ARGS, "--actors", "2", "--elastic", "on", "--epochs", "40",
              "--staging-policy", "drop_oldest", "--buffer-size", FLEET_RING,
-             "--seed", str(seed), "--runs-root", runs]
+             "--seed", str(seed), "--runs-root", runs, "--emit-bundle", "true"]
     device = DECOUPLED_ARGS[DECOUPLED_ARGS.index("--device") + 1]
     box: dict = {}
     train_cli.report = reporting
@@ -6456,6 +6724,7 @@ def _decoupled_fleet(seed: int, kernels, runs: str) -> dict:
         seen["saved_marks"] = meta["decoupled"]["transport_watermarks"]
         saved_ring = first.buffer.state_dict()
         run_id, run_dir = first.tracker.run_id, str(first.tracker.run_dir)
+        seen["emitted_bundle"] = emitted_bundle(ckpt.directory)
         del first, watch
         torch.cuda.empty_cache()
         # A lost trace is taken again from the same checkpoint.
@@ -6540,9 +6809,30 @@ def _decoupled_fleet(seed: int, kernels, runs: str) -> dict:
             "ingested_twice": rep["staged_after"] - rep["staged_before"],
             "epochs_after_resume": len(epochs)},
         "actor_pids": sorted(seen["pids"]), "host_only": seen["host_only"],
+        "emitted_bundle": seen["emitted_bundle"],
         "rates": {"grad_steps_per_sec": last["grad_steps_per_sec"],
                   "env_steps_per_sec": last["env_steps_per_sec"]},
     }
+
+
+def emitted_bundle(ckpt_dir) -> dict:
+    """``train --emit-bundle true``'s bundle next to ``ckpt_dir``: its
+    manifest holds every serving program of the default ladder (max
+    batch 64) and this tree's library of every kernel source, each file
+    present; the bundle passes this process's checks."""
+    from torch_actor_critic_tpu_torch import aot
+    from torch_actor_critic_tpu_torch.ops import _kernels
+    from torch_actor_critic_tpu_torch.serve.engine import default_buckets
+
+    bundle = aot.load_bundle(aot.default_bundle_dir(ckpt_dir))
+    bundle.check("cuda")
+    want = [s.name for s in aot.serve_programs(default_buckets(64))]
+    libs = {s: _kernels.lib_name(s) for s in _kernels.sources()}
+    check(list(bundle.programs()) == want and bundle.libraries() == libs
+          and all((bundle.kernels_dir / n).is_file() for n in libs.values()),
+          f"emitted bundle: programs {list(bundle.programs())}, libraries "
+          f"{bundle.libraries()}")
+    return {"root": str(bundle.root), "programs": len(want), "libraries": sorted(libs)}
 
 
 def _zero_transition() -> tuple:
@@ -6642,10 +6932,27 @@ def main(argv=None) -> int:
                    help="Run only the replay_plane phase (the smoke starts it so, in a child)")
     p.add_argument("--decoupled-plane-phase", action="store_true",
                    help="Run only the decoupled_plane phase (the smoke starts it so, in a child)")
+    p.add_argument("--learner-restart-phase", action="store_true",
+                   help="Run only a learner restart (the on_device phase starts it so, in a "
+                   "child), on --restart-run RUNS_ROOT RUN_ID")
+    p.add_argument("--restart-run", nargs=2, metavar=("RUNS_ROOT", "RUN_ID"), default=None)
+    p.add_argument("--wait-go", action="store_true",
+                   help="Import, then wait for one JSON list of more arguments on stdin "
+                   "before touching the card (a child started ahead by start_child)")
     p.add_argument("--captured-kernels-per-update", type=float, default=None,
                    help="The train phase's captured burst's device kernels per update, which "
                    "the observability phase's off tier must equal")
     args = p.parse_args(argv)
+    if args.wait_go:
+        import torch_actor_critic_tpu_torch  # noqa: F401  (the imports, before the go)
+        from torch_actor_critic_tpu_torch import serve, train  # noqa: F401
+        from torch_actor_critic_tpu_torch.sac import ondevice, trainer  # noqa: F401
+        from torch_actor_critic_tpu_torch.telemetry import profiler  # noqa: F401
+
+        line = sys.stdin.readline()
+        if not line:  # the smoke that started this child ended before letting it go
+            return 3
+        args = p.parse_args([*(sys.argv[1:] if argv is None else argv), *json.loads(line)])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU only",
               file=sys.stderr)
@@ -6684,6 +6991,10 @@ def main(argv=None) -> int:
         launches = phase_decoupled_plane(args.seed, _kernels, nvidia_smi())
         emit({"decoupled_plane_launches": launches})
         return 0
+    if args.learner_restart_phase:
+        launches = phase_learner_restart(args.seed, _kernels, *args.restart_run)
+        emit({"learner_restart_launches": launches})
+        return 0
     seconds, t_start = {}, time.perf_counter()
 
     def timed(name, fn, *a):
@@ -6693,8 +7004,13 @@ def main(argv=None) -> int:
         return out
 
     smi = timed("device", phase_device)
-    timed("build", phase_build, _kernels)
-    timed("trace_reader", phase_trace_reader)
+    # The trace reader launches only the empty kernel (its traces' lead-in),
+    # built first: it runs while nvcc builds the rest.
+    _kernels.load("empty")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(timed, "build", phase_build, _kernels)
+        timed("trace_reader", phase_trace_reader)
+        building.result()
     timed("floor", phase_floor, _kernels, attn, args.seed)
     critic_qkv = critic_views(args.seed)
     serve_row = timed("kernel_vs_plain", phase_kernel_vs_plain, attn, args.seed, critic_qkv)
@@ -6702,6 +7018,7 @@ def main(argv=None) -> int:
     del critic_qkv
     pixel_row = timed("pixel_vs_plain", phase_pixel_vs_plain, pixels, args.seed)["train_pair"]
     serve = timed("serve", phase_serve, args.seed, _kernels, attn, smi)
+    timed("coldstart", phase_coldstart, args.seed, smi, serve["coldstart"])
     serve_launches = serve["flash_fwd"]
     check(serve_launches > 0, "the serving path launched no flash_fwd kernel")
     train_launches, captured_per_update = timed("train", phase_train, args.seed, _kernels)
@@ -6709,15 +7026,23 @@ def main(argv=None) -> int:
     visual_launches = timed("train_visual", phase_train_visual, args.seed, _kernels)
     wall_launches = timed("visual_burst", phase_visual_burst, args.seed, _kernels)
     resume_launches = timed("resume", phase_resume, args.seed, _kernels, smi)
+    # The child phases, each started ahead while the phase before it runs
+    # (its imports overlap that phase; it touches the card when let go).
+    chain = [("on_device", 900, ()), ("population", 600, ()), ("populations", 600, ()),
+             ("host_env_plane", 400, ()),
+             ("observability", 300, ("--captured-kernels-per-update", repr(captured_per_update))),
+             ("replay_plane", 240, ()), ("decoupled_plane", 300, ())]
+    ahead = start_child(chain[0][0], args.seed, chain[0][2])
     td3_launches = timed("train_td3", phase_train_td3, args.seed, _kernels, smi)
-    ondevice_launches = timed("on_device", in_a_child, "on_device", args.seed, 900)
-    population_launches = timed("population", in_a_child, "population", args.seed, 600)
-    populations_launches = timed("populations", in_a_child, "populations", args.seed, 600)
-    plane_launches = timed("host_env_plane", in_a_child, "host_env_plane", args.seed, 400)
-    observed_launches = timed("observability", in_a_child, "observability", args.seed, 300,
-                              ["--captured-kernels-per-update", repr(captured_per_update)])
-    replay_launches = timed("replay_plane", in_a_child, "replay_plane", args.seed, 240)
-    decoupled_launches = timed("decoupled_plane", in_a_child, "decoupled_plane", args.seed, 300)
+    child_launches = {}
+    for i, (phase, timeout, _) in enumerate(chain):
+        child = ahead
+        if i + 1 < len(chain):
+            ahead = start_child(chain[i + 1][0], args.seed, chain[i + 1][2])
+        child_launches[phase] = timed(phase, in_a_child, phase, child, timeout)
+    (ondevice_launches, population_launches, populations_launches, plane_launches,
+     observed_launches, replay_launches, decoupled_launches) = (
+        child_launches[phase] for phase, _, _ in chain)
     emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
     for more in (populations_launches, plane_launches, observed_launches, replay_launches,
                  decoupled_launches):

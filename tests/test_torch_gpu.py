@@ -2582,3 +2582,99 @@ def test_decoupled_skipped_window_does_not_recapture(cuda):
         assert m["decoupled/conservation_ok"] == 1.0
     finally:
         tr.close()
+
+
+# ------------------------------------------------------------- cold start
+
+_NO_TOOLKIT_ENGINE = """
+import json, sys
+import numpy as np, torch
+from torch_actor_critic_tpu_torch import aot
+from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
+from torch_actor_critic_tpu_torch.models import build_actor
+from torch_actor_critic_tpu_torch.ops import _kernels
+from torch_actor_critic_tpu_torch.serve import ObsSpec, PolicyEngine
+from torch_actor_critic_tpu_torch.utils.config import SACConfig
+
+bundle_dir, cache = sys.argv[1], sys.argv[2]
+aot.enable_persistent_cache(cache)
+wd = get_watchdog().install()
+bundle = aot.load_bundle(bundle_dir)
+bundle.check("cuda")
+actor = build_actor(SACConfig(history_len=16), (16, 3), 1, 2.0,
+                    generator=torch.Generator().manual_seed(0))
+armed = PolicyEngine(actor, ObsSpec((16, 3)), max_batch=64, device="cuda")
+params = armed.prepare_params(actor.state_dict())
+armed.warmup(params, bundle=bundle)
+plain = PolicyEngine(actor, ObsSpec((16, 3)), max_batch=64, device="cuda")
+plain.warmup(params)
+same = True
+for b in armed.buckets:
+    obs = np.random.default_rng(b).standard_normal((b, 16, 3)).astype(np.float32)
+    same &= bool(np.array_equal(armed.act(params, obs), plain.act(params, obs)))
+    gens = [torch.Generator(device="cuda").manual_seed(b) for _ in range(2)]
+    same &= bool(np.array_equal(armed.act(params, obs, gens[0], False),
+                                plain.act(params, obs, gens[1], False)))
+snap = wd.snapshot()
+print(json.dumps({"same": same, "builds": snap["builds_total"],
+                  "bundle_hits": snap["bundle_hits"], "live": snap["live_captures"],
+                  "library": str(_kernels.library("flash_fwd")),
+                  "programs": len(bundle.programs()), "graphs": armed.graph_count()}))
+"""
+
+
+def _without_toolkit(tmp_path):
+    """The environment of a serving host without the CUDA toolkit: no
+    nvcc on PATH, CUDA_HOME an empty directory."""
+    empty = tmp_path / "no-cuda"
+    empty.mkdir(exist_ok=True)
+    path = os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                           if p and not os.path.exists(os.path.join(p, "nvcc")))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PATH=path, CUDA_HOME=str(empty), PYTHONPATH=repo)
+    env.pop("TAC_COMPILE_CACHE", None)
+    return env, repo
+
+
+@pytest.mark.gpu
+def test_bundle_armed_engine_needs_no_toolkit_and_equals_the_unbundled_one(cuda, tmp_path):
+    """A process with the bundle, an empty cache and no toolkit loads K2
+    from the bundle's kernels/ with 0 builds; its captured forwards at
+    every bucket equal an unbundled engine's bitwise."""
+    import json
+    import subprocess
+    import sys
+
+    from torch_actor_critic_tpu_torch import aot
+
+    actor = _served_actor()
+    bundle = aot.build_bundle(tmp_path / "warm_start", actor, ObsSpec((16, 3)),
+                              actor.state_dict(), max_batch=64, device=cuda)
+    env, repo = _without_toolkit(tmp_path)
+    res = subprocess.run([sys.executable, "-c", _NO_TOOLKIT_ENGINE, str(bundle.root),
+                          str(tmp_path / "empty-cache")], env=env, cwd=repo,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["same"] and out["builds"] == 0 and out["live"] == 0
+    assert out["bundle_hits"] == out["programs"] == 2 * 6 and out["graphs"] == 12
+    assert out["library"].startswith(str(bundle.kernels_dir))
+
+
+@pytest.mark.gpu
+def test_no_toolkit_and_no_bundle_fails_with_kernel_build_error(cuda, tmp_path):
+    import subprocess
+    import sys
+
+    from torch_actor_critic_tpu_torch.utils.checkpoint import save_actor
+
+    save_actor(tmp_path / "ckpt", 1, _served_actor(), SERVE_CFG)
+    env, repo = _without_toolkit(tmp_path)
+    res = subprocess.run(
+        [sys.executable, "-m", "torch_actor_critic_tpu_torch.serve", "--ckpt-dir",
+         str(tmp_path / "ckpt"), "--obs-dim", "3", "--act-dim", "1", "--act-limit", "2.0",
+         "--port", "0", "--poll-interval", "0", "--compile-cache", str(tmp_path / "empty")],
+        env=env, cwd=repo, capture_output=True, text=True, timeout=600)
+    assert res.returncode != 0
+    assert "KernelBuildError" in res.stderr and "nvcc not found" in res.stderr
+    assert not res.stdout.strip()  # it never served

@@ -458,9 +458,11 @@ def test_cli_flags_parse_and_validate():
         parse_arguments(["--ckpt-dir", "/tmp/x", "--serve-precision", "fp64"])
     with pytest.raises(SystemExit):
         check_ported(parse_arguments(["--submesh", "two"]))
-    for flag, queue in ((["--warm-start", "auto"], 10), (["--compile-cache", "d"], 10)):
-        with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-            check_ported(parse_arguments(flag))
+    # The cold-start flags are ported: they parse and validate.
+    for flag, dest, value in ((["--warm-start", "auto"], "warm_start", "auto"),
+                              (["--compile-cache", "d"], "compile_cache", "d")):
+        args = parse_arguments(flag)
+        assert getattr(args, dest) == value and check_ported(args) == (1, 1)
     # The transition flywheel is ported: its flags parse and validate.
     args = parse_arguments(["--log-transitions", "d", "--log-sample-every", "4"])
     assert check_ported(args) == (1, 1)

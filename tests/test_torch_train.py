@@ -218,8 +218,7 @@ def test_trainer_without_updates_only_fills_the_buffer():
 
 @pytest.mark.parametrize("field,value", [
     ("ma_critic", "per_agent"), ("task_embed_dim", 8),
-    ("sanitize", "on"), ("emit_bundle", True),
-    ("compile_cache", "/nonexistent"),
+    ("sanitize", "on"), ("task_embed_dim", 1), ("task_embed_dim", 32),
 ])
 def test_unported_config_fields_raise(field, value):
     assert field in NOT_PORTED

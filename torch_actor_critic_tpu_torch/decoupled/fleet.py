@@ -211,9 +211,13 @@ def actor_main(
         level=logging.INFO,
         format=f"[actor {actor_id}.{incarnation}] %(message)s",
     )
-    # The JAX actor enables its persistent compile cache here so a
-    # respawned actor finds its acting programs compiled; the port's actor
-    # compiles nothing (it acts over HTTP and steps numpy envs).
+    # The learner's kernel-library cache, inherited through the env var
+    # (JAX's actor joins its compile cache here). The port's actor
+    # launches no kernel today (it acts over HTTP and steps numpy envs);
+    # joining keeps any it ever launches off nvcc.
+    from torch_actor_critic_tpu_torch.aot.cache import enable_cache_from_env
+
+    enable_cache_from_env()
     stop = threading.Event()
 
     def _stop_handler(signum, frame):  # pragma: no cover — signal path

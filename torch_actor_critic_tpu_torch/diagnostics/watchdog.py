@@ -30,6 +30,15 @@ counts are ``captures_total``, ``live_captures``, ``warmup_captures``,
 ``post_steady_captures`` and ``builds_total`` where JAX has
 ``compiles_total``, ``live_compiles``, ``warmup_compiles`` and
 ``post_steady_compiles``.
+
+The cold-start counters (:mod:`~..aot`) keep JAX's keys:
+``bundle_hits`` (programs a verified warm-start bundle warmed),
+``bundle_rejected`` and ``bundle_reject_reasons`` (bundles refused on a
+fingerprint, library or signature mismatch), ``cache_hits_total`` (a
+kernel library found on disk, in the armed bundle or the library cache)
+and ``cache_misses_total`` (a library that had to be built). The port
+adds ``bundle_library_hits``, the cache hits served from a bundle's
+``kernels/``. These count whether or not the watchdog is installed.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ _UNATTRIBUTED = "unattributed"
 BUILD_SOURCE = "kernels/build"
 _MAX_ANOMALIES = 100  # bounded memory; the counter keeps the true total
 _MAX_COMPILE_LOG = 256  # newest event records kept for the trace
+_MAX_REJECT_REASONS = 20  # newest bundle-rejection reasons kept
 
 
 class _SourceCtx:
@@ -105,6 +115,14 @@ class RecompilationWatchdog:
         self._compile_log: collections.deque = (  # guarded-by: _lock
             collections.deque(maxlen=_MAX_COMPILE_LOG)
         )
+        self.bundle_hits = 0  # guarded-by: _lock
+        self.bundle_rejected = 0  # guarded-by: _lock
+        self._bundle_reject_reasons: collections.deque = (  # guarded-by: _lock
+            collections.deque(maxlen=_MAX_REJECT_REASONS)
+        )
+        self.cache_hits_total = 0  # guarded-by: _lock
+        self.cache_misses_total = 0  # guarded-by: _lock
+        self.bundle_library_hits = 0  # guarded-by: _lock
 
     def install(self) -> "RecompilationWatchdog":
         """Start recording (idempotent)."""
@@ -146,12 +164,12 @@ class RecompilationWatchdog:
         self._note(secs, label, build=True)
 
     def _note(self, secs: float, label: str | None, build: bool) -> None:
-        if not self.installed:
-            return
         stack = getattr(self._tls, "stack", None)
         src = label or (stack[-1] if stack else _UNATTRIBUTED)
         expected = getattr(self._tls, "expected", 0) > 0
         with self._lock:
+            if not self.installed:
+                return
             if build:
                 self.builds_total += 1
             else:
@@ -190,6 +208,32 @@ class RecompilationWatchdog:
             "kernel build" if build else "CUDA-graph capture", src, secs,
         )
 
+    # ------------------------------------------------------- cold start
+
+    def note_bundle_hit(self, n: int = 1) -> None:
+        """Count ``n`` programs warmed from a verified warm-start bundle."""
+        with self._lock:
+            self.bundle_hits += int(n)
+
+    def note_bundle_rejected(self, reason: str) -> None:
+        """Count one refused bundle; the caller falls back to the library
+        cache (and ``nvcc``) for the same kernels."""
+        with self._lock:
+            self.bundle_rejected += 1
+            self._bundle_reject_reasons.append(str(reason)[:300])
+        logger.warning("warm-start bundle REJECTED (the kernel libraries come from the cache "
+                       "or nvcc instead): %s", reason)
+
+    def note_cache_probe(self, hit: bool, from_bundle: bool = False) -> None:
+        """One kernel library looked up on disk: found (``hit``; in the
+        armed bundle with ``from_bundle``) or to be built."""
+        with self._lock:
+            if hit:
+                self.cache_hits_total += 1
+                self.bundle_library_hits += int(from_bundle)
+            else:
+                self.cache_misses_total += 1
+
     # ----------------------------------------------------------- reports
 
     def compile_log(self) -> t.List[dict]:
@@ -211,6 +255,12 @@ class RecompilationWatchdog:
                 "live_by_source": dict(self._live_by_source),
                 "post_steady_captures": self.post_steady_total,
                 "anomalies": list(self.anomalies),
+                "bundle_hits": self.bundle_hits,
+                "bundle_rejected": self.bundle_rejected,
+                "bundle_reject_reasons": list(self._bundle_reject_reasons),
+                "cache_hits_total": self.cache_hits_total,
+                "cache_misses_total": self.cache_misses_total,
+                "bundle_library_hits": self.bundle_library_hits,
             }
 
     def live_captures_for(self, prefix: str = "") -> int:
@@ -247,6 +297,12 @@ class RecompilationWatchdog:
             self._live_by_source = {}
             self._steady_prefixes = set()
             self._compile_log.clear()
+            self.bundle_hits = 0
+            self.bundle_rejected = 0
+            self._bundle_reject_reasons.clear()
+            self.cache_hits_total = 0
+            self.cache_misses_total = 0
+            self.bundle_library_hits = 0
 
 
 _WATCHDOG: RecompilationWatchdog | None = None

@@ -15,6 +15,18 @@ adds one where its kernel launches, and nowhere else. Under a CUDA
 graph capture a wrapper's launch is recorded into the graph and counted
 once; the graph's replays launch it again without the wrapper and are
 not counted here (:mod:`..sac.graph`).
+
+**Where a library comes from** (:mod:`..aot`). :func:`library` resolves
+each source's library once per process, in this order: the armed
+warm-start bundle's ``kernels/`` (:func:`arm_bundle`), then the library
+cache directory (:func:`cache_dir`: the one :func:`set_cache_dir` chose,
+else ``$TAC_COMPILE_CACHE``, else ``_build/``), then ``nvcc`` into the
+cache directory. A library found is a cache hit, a build a miss; both
+are counted on the process's watchdog. The names hash the sources, the
+``.cuh`` headers and the flags, so a bundle or a cache built from other
+sources holds no library this tree would load. Choose the directory and
+arm a bundle before the first :func:`load`: loaded entry points are kept
+for the whole process.
 """
 
 from __future__ import annotations
@@ -71,9 +83,13 @@ SIGNATURES: t.Dict[str, t.Tuple[str, str, tuple]] = {
 
 launch_counts: t.Counter[str] = collections.Counter()
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _loaded: t.Dict[str, t.Callable[..., int]] = {}
 build_logs: t.Dict[str, str] = {}  # source -> nvcc's output (ptxas -v)
+CACHE_ENV_VAR = "TAC_COMPILE_CACHE"
+_cache_dir: Path | None = None  # set_cache_dir's choice
+_bundle_dir: Path | None = None  # the armed bundle's kernels/
+_resolved: t.Dict[str, Path] = {}  # source -> the library this process uses
 
 
 class KernelBuildError(RuntimeError):
@@ -117,61 +133,137 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(source: str) -> Path:
+def sources() -> t.Tuple[str, ...]:
+    """Every kernel source under ``csrc/`` that :data:`SIGNATURES` names."""
+    return tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
+
+
+def cache_dir() -> Path:
+    """The library cache directory: :func:`set_cache_dir`'s, else
+    ``$TAC_COMPILE_CACHE``, else ``_build/`` next to the package."""
+    if _cache_dir is not None:
+        return _cache_dir
+    env = os.environ.get(CACHE_ENV_VAR, "")
+    return Path(env) if env else BUILD_DIR
+
+
+def set_cache_dir(path: str | os.PathLike | None) -> None:
+    """Build into and look up libraries in ``path`` (None: back to the
+    default). Sources not yet resolved in this process are looked up
+    again there."""
+    global _cache_dir
+    with _lock:
+        _cache_dir = None if path is None else Path(path)
+        _resolved.clear()
+
+
+def arm_bundle(kernels_dir: str | os.PathLike | None) -> None:
+    """Look up libraries in a checked warm-start bundle's ``kernels/``
+    before the cache (None disarms); arming the armed one again changes
+    nothing."""
+    global _bundle_dir
+    new = None if kernels_dir is None else Path(kernels_dir)
+    with _lock:
+        if new != _bundle_dir:
+            _bundle_dir = new
+            _resolved.clear()
+
+
+def source_digest() -> str:
+    """One hash over every source, header and flag: the fingerprint's
+    ``kernel_digest``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def lib_name(source: str) -> str:
+    """This tree's library file name for ``source``."""
     src = SRC_DIR / f"{source}.cu"
     digest = hashlib.sha256(src.read_bytes())
     for extra in sorted(SRC_DIR.glob("*.cuh")):
         digest.update(extra.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{source}_{digest.hexdigest()[:16]}.so"
+    return f"lib{source}_{digest.hexdigest()[:16]}.so"
+
+
+def _lib_path(source: str) -> Path:
+    """Where ``source``'s library is cached (and built)."""
+    return cache_dir() / lib_name(source)
+
+
+def library(source: str) -> Path:
+    """The library of ``source`` this process uses, built if neither the
+    armed bundle nor the cache holds it."""
+    with _lock:
+        if source not in _resolved:
+            build_all(names=[n for n, sig in SIGNATURES.items() if sig[0] == source])
+        return _resolved[source]
 
 
 def build_all(names: t.Iterable[str] | None = None) -> t.Dict[str, float]:
-    """Compile every missing library of the kernels ``names`` (all by
-    default) in parallel (one ``nvcc`` per source, started together)
-    and wait for all of them. Returns ``{source: seconds}`` for the
-    ones built, each also noted to the watchdog (``kernels/build``,
+    """Resolve the library of every source of the kernels ``names`` (all
+    by default): found in the armed bundle or the cache (a hit), else
+    compiled there, all missing ones in parallel (one ``nvcc`` per
+    source, started together; a miss). Returns ``{source: seconds}`` for
+    the ones built, each also noted to the watchdog (``kernels/build``,
     :mod:`..diagnostics.watchdog`); raises :class:`KernelBuildError`
     with the compiler output on failure."""
     import time
 
-    sources = sorted({SIGNATURES[n][0] for n in (names or SIGNATURES)})
-    pending = {s: _lib_path(s) for s in sources if not _lib_path(s).exists()}
-    if not pending:
-        return {}
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for source, out in pending.items():
-        tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{source}.cu")]
-        procs[source] = (
-            subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            ),
-            tmp,
-        )
-    seconds = {}
-    errors = []
-    for source, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[source] = log
-        if proc.returncode != 0:
-            errors.append(f"{source}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, pending[source])  # atomic: readers never see a partial .so
-        seconds[source] = time.perf_counter() - t0
-        get_watchdog().note_build(seconds[source])
-    if errors:
-        raise KernelBuildError("kernel build failed:\n" + "\n".join(errors))
-    return seconds
+    wd = get_watchdog()
+    with _lock:
+        pending = {}
+        for source in sorted({SIGNATURES[n][0] for n in (names or SIGNATURES)}):
+            if source in _resolved:
+                continue
+            cached = _lib_path(source)
+            bundled = _bundle_dir / cached.name if _bundle_dir is not None else None
+            found = next((p for p in (bundled, cached) if p is not None and p.exists()), None)
+            wd.note_cache_probe(found is not None, from_bundle=found is not None
+                                and found == bundled)
+            if found is not None:
+                _resolved[source] = found
+            else:
+                pending[source] = cached
+        if not pending:
+            return {}
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        procs = {}
+        for source, out in pending.items():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".so.tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{source}.cu")]
+            procs[source] = (
+                subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                ),
+                tmp,
+            )
+        seconds = {}
+        errors = []
+        for source, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            build_logs[source] = log
+            if proc.returncode != 0:
+                errors.append(f"{source}: nvcc exited {proc.returncode}\n{log}")
+                continue
+            os.replace(tmp, pending[source])  # atomic: readers never see a partial .so
+            _resolved[source] = pending[source]
+            seconds[source] = time.perf_counter() - t0
+            wd.note_build(seconds[source])
+        if errors:
+            raise KernelBuildError("kernel build failed:\n" + "\n".join(errors))
+        return seconds
 
 
 def load(name: str) -> t.Callable[..., int]:
-    """The ctypes entry point of kernel ``name``, building its library
-    first if this checkout has not yet."""
+    """The ctypes entry point of kernel ``name`` from its source's
+    :func:`library` (built first if no bundle or cache holds it)."""
     fn = _loaded.get(name)
     if fn is not None:
         return fn
@@ -179,10 +271,10 @@ def load(name: str) -> t.Callable[..., int]:
         fn = _loaded.get(name)
         if fn is not None:
             return fn
-        build_all([name])
         source, symbol, argtypes = SIGNATURES[name]
+        path = library(source)
         try:
-            lib = ctypes.CDLL(str(_lib_path(source)))
+            lib = ctypes.CDLL(str(path))
             fn = getattr(lib, symbol)
         except (OSError, AttributeError) as e:
             raise KernelBuildError(f"cannot load kernel {name!r}: {e}") from e

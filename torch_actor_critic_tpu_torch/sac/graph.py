@@ -56,6 +56,8 @@ from torch_actor_critic_tpu_torch.diagnostics.ingraph import reduce_burst_metric
 from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
 
 WARMUP_UPDATES = 1
+# The watchdog source of a learner's update burst (the default source).
+BURST_SOURCE = "train/burst"
 # Replays of a spread burst queued on the device at a time (BurstGraph.start).
 INFLIGHT = 2
 
@@ -106,7 +108,7 @@ class BurstGraph:
         key: t.Sequence[object],
         num_updates: int,
         generators: torch.Generator | t.Sequence[torch.Generator],
-        source: str = "train/burst",
+        source: str = BURST_SOURCE,
     ):
         if num_updates < WARMUP_UPDATES:
             raise ValueError(f"a captured burst needs num_updates >= {WARMUP_UPDATES}, "

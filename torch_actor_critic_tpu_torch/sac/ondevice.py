@@ -141,6 +141,8 @@ _STATS = ("episodes_sum", "return_sum")
 # The cost registry's names of one acting step and of one epoch (of the
 # fused population's epoch, JAX's name).
 ACT_COST, EPOCH_COST = "train/act_step", "train/ondevice_epoch"
+# The watchdog source of the acting step's graph.
+ACT_SOURCE = "train/acting"
 POPULATION_EPOCH_COST = "train/population_epoch"
 
 
@@ -323,7 +325,7 @@ class OnDeviceLoop:
         if graph is None or not graph.serves(key, update_every):
             self.act_graphs.pop(warmup, None)  # its memory pool goes before the next capture
             graph = BurstGraph(step, key, update_every, (act_gen, env_states.rng),
-                               source="train/acting")
+                               source=ACT_SOURCE)
             graph.play()
             self.act_graphs[warmup] = graph
             self.act_captures += 1

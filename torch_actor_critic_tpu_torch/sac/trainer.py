@@ -187,6 +187,17 @@ the fused population). ``on_device`` selects the fused loop
 (:mod:`.ondevice`) in the train CLI; the host trainer ignores it, as
 JAX's does.
 
+Cold start (:mod:`~..aot`): ``emit_bundle`` writes a warm-start bundle
+next to the checkpoints (``<run>/artifacts/warm_start``) once, at the
+first epoch with updates, from the actor's weights then (one solo
+learner; a population's members are served one at a time and get
+none); a failed build is logged and training goes on, as JAX's does.
+``compile_cache`` (armed by the train CLI before the trainer is built)
+also installs the watchdog, so every epoch reports ``watchdog_builds``,
+``watchdog_cache_hits``, ``watchdog_cache_misses``,
+``watchdog_bundle_hits`` and ``watchdog_bundle_rejected`` (a diagnostics
+tier reports them too).
+
 Checkpoints are written asynchronously (:meth:`~..utils.checkpoint.
 Checkpointer.save`); the trainer waits for the write in flight before
 any restore or rollback, before it raises ``Preempted`` and at the end
@@ -268,8 +279,7 @@ NOT_PORTED = (
     "population",
     "pbt_every", "ma_critic", "task_embed_dim",
     "telemetry",
-    "diagnostics", "sanitize", "compile_cache", "emit_bundle", "obs",
-    "obs_scrape", "slo_config",
+    "diagnostics", "sanitize", "obs", "obs_scrape", "slo_config",
 )
 
 
@@ -540,10 +550,13 @@ class Trainer:
         if cfg.diagnostics != "off":
             self.monitor = EarlyWarningMonitor()
             self.td_hist = make_td_histogram()
+        else:
+            self.monitor = self.td_hist = None
+        self.watchdog = None
+        if cfg.diagnostics != "off" or cfg.compile_cache:
             self.watchdog = get_watchdog().install()
             self._wd_anomalies_seen = len(self.watchdog.snapshot()["anomalies"])
-        else:
-            self.monitor = self.td_hist = self.watchdog = None
+        self._bundle_emitted = not cfg.emit_bundle
         self._first_update_epoch: int | None = None
         # The run-wide obs plane: built here, started at train() entry,
         # None when off (no thread, no socket, no obs/ metric keys).
@@ -747,6 +760,36 @@ class Trainer:
         """Apply what a subclass saved beyond the base trainer's state
         (the decoupled learner's staging, publish counters and serving
         generator)."""
+
+    def _emit_warm_start_bundle(self, epoch: int) -> None:
+        """``emit_bundle``: build the warm-start bundle next to the
+        checkpoints (:func:`~..aot.bundle.emit_bundle`) from the actor's
+        weights now, once. Non-fatal: a failed build is logged and never
+        retried, and the checkpoint is untouched either way."""
+        self._bundle_emitted = True
+        if self.checkpointer is None:
+            return
+        if self.population > 1:
+            logger.warning("emit_bundle: a population's members are served one at a time "
+                           "(run_agent --member exports one); no bundle is written")
+            return
+        from torch_actor_critic_tpu_torch.aot.bundle import default_bundle_dir, emit_bundle
+        from torch_actor_critic_tpu_torch.models import build_actor
+
+        try:
+            actor_def = build_actor(self.config, self.obs_shape, self.pool.act_dim,
+                                    self.pool.act_limit)
+            params = {k: v.detach().clone() for k, v in self.state.actor.state_dict().items()}
+            bundle = emit_bundle(self.checkpointer.directory, actor_def, self.pool.obs_spec,
+                                 params, max_batch=self.config.bundle_max_batch,
+                                 device=self.device)
+            logger.info("epoch %d: warm-start bundle emitted at %s (%d programs, %d "
+                        "libraries): serve --warm-start auto builds no kernel", epoch,
+                        bundle.root, len(bundle.programs()), len(bundle.libraries()))
+        except Exception:  # noqa: BLE001 — the bundle is an artifact, not training state
+            logger.exception("epoch %d: warm-start bundle at %s failed; training continues "
+                             "(serve workers will resolve their kernels from the cache or "
+                             "nvcc)", epoch, default_bundle_dir(self.checkpointer.directory))
 
     def _save_checkpoint(self, epoch: int, step: int) -> None:
         self.checkpointer.save(epoch, self.state, self.buffer,
@@ -1003,6 +1046,8 @@ class Trainer:
                 member_rewards = [[] for _ in range(n)]
             if self.monitor is not None:
                 self._note_diagnostics(rec, last_metrics, host_rows, e)
+            if self.watchdog is not None:
+                self._note_watchdog(rec, last_metrics, e)
             if rec is not None:
                 rec.lap(PH_DRAIN)
                 self._note_epoch_cost(rec, last_metrics, len(losses_q), e)
@@ -1047,6 +1092,8 @@ class Trainer:
                 last_metrics.update(save_metrics(self.checkpointer, t_save, saved_this_epoch))
             else:
                 last_metrics["save_s"] = round(time.perf_counter() - t_save, 4)
+            if not self._bundle_emitted and losses_q:
+                self._emit_warm_start_bundle(e)
             if rec is not None:
                 rec.lap(PH_CKPT)
             # The decoupled learner publishes the epoch and adds its
@@ -1148,9 +1195,8 @@ class Trainer:
     def _note_diagnostics(self, rec, last_metrics: dict, rows: t.List[dict], epoch: int) -> None:
         """The epoch's diagnostics (diagnostics tier on): the host rows
         reduced by suffix into the metrics, the |TD| counts merged into
-        :attr:`td_hist`, the early-warning monitor (its warnings to the
-        sentinel and to telemetry), and the watchdog's counts and new
-        anomalies."""
+        :attr:`td_hist` and the early-warning monitor (its warnings to
+        the sentinel and to telemetry)."""
         if rows:
             reduced = reduce_metric_rows(rows)
             hist = reduced.pop("diag/td_hist", None)
@@ -1177,10 +1223,18 @@ class Trainer:
                           metrics={k: float(v) for k, v in reduced.items()},
                           td_hist=(self.td_hist.snapshot(prefix="td_abs_", unit="")
                                    if hist is not None else None))
+
+    def _note_watchdog(self, rec, last_metrics: dict, epoch: int) -> None:
+        """The watchdog's counts (captures, kernel builds, the library
+        cache's hits and misses, the bundle's) and its new anomalies."""
         snap = self.watchdog.snapshot()
         last_metrics["watchdog_captures"] = snap["captures_total"]
         last_metrics["watchdog_live_captures"] = snap["live_captures"]
         last_metrics["watchdog_builds"] = snap["builds_total"]
+        for key in ("cache_hits", "cache_misses"):
+            last_metrics[f"watchdog_{key}"] = snap[f"{key}_total"]
+        for key in ("bundle_hits", "bundle_rejected"):
+            last_metrics[f"watchdog_{key}"] = snap[key]
         new = snap["anomalies"][self._wd_anomalies_seen:]
         self._wd_anomalies_seen = len(snap["anomalies"])
         if rec is not None:

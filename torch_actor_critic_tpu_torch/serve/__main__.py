@@ -58,9 +58,20 @@ and the SIGTERM drain flushes the partial chunk; ``train --offline
 --offline-dataset DIR`` trains from it. Under ``--fleet N`` worker ``i``
 logs to ``DIR/worker-i``, as the JAX CLI does.
 
+Cold start (:mod:`~torch_actor_critic_tpu_torch.aot`): ``--compile-cache
+DIR`` builds and finds the kernel libraries in DIR (exported as
+``TAC_COMPILE_CACHE`` to every child; without the flag a process joins
+the directory its parent exported); ``--warm-start DIR|auto`` loads a
+warm-start bundle (``auto``: ``<ckpt parent>/warm_start``, where ``train
+--emit-bundle true`` writes it) before any engine is built: a bundle
+whose fingerprint or libraries do not fit is rejected and counted
+(``/metrics`` ``xla.bundle_rejected``), a fitting one supplies the
+kernel libraries (no ``nvcc``) and, on one f32 replica, verifies every
+program's signature at warm-up. Both flags reach ``--fleet`` workers and
+warm spares through their argv.
+
 Not ported, and refused with ``NotImplementedError`` naming their
-ROADMAP queue: sub-meshes larger than 1x1 (queue 6), ``--warm-start``,
-``--compile-cache`` (queue 10), and ``--sanitize``.
+ROADMAP queue: sub-meshes larger than 1x1 (queue 6) and ``--sanitize``.
 """
 
 from __future__ import annotations
@@ -129,9 +140,15 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                      help="Write a Perfetto (chrome://tracing) trace of the "
                           "per-request spans (router hops under --fleet) to "
                           "PATH at exit")
-    aot = p.add_argument_group("cold start (not ported)")
-    aot.add_argument("--warm-start", metavar="DIR", default=None)
-    aot.add_argument("--compile-cache", metavar="DIR", default=None)
+    aot = p.add_argument_group("cold start")
+    aot.add_argument("--warm-start", metavar="DIR", default=None,
+                     help="Warm-start bundle dir, or 'auto' (<ckpt parent>/"
+                          "warm_start): its kernel libraries replace nvcc and "
+                          "its program signatures are checked at warm-up; a "
+                          "bundle that does not fit is rejected and counted")
+    aot.add_argument("--compile-cache", metavar="DIR", default=None,
+                     help="Kernel-library cache dir shared by this process and "
+                          "its children (default: the package's _build/)")
     flt = p.add_argument_group("fleet (multi-process)")
     flt.add_argument("--fleet", type=int, default=0,
                      help="Spawn N worker processes and front them with the "
@@ -193,8 +210,6 @@ def parse_arguments(argv=None) -> argparse.Namespace:
 
 
 _NOT_PORTED = (
-    ("warm_start", None, "--warm-start (warm-start bundles)", 10),
-    ("compile_cache", None, "--compile-cache", 10),
     ("sanitize", "off", "--sanitize (the JAX transfer guard)", None),
 )
 
@@ -303,6 +318,43 @@ def resolve_model(args: argparse.Namespace):
     return actor_def, obs_spec, act_dim, act_limit, ckpt_dir
 
 
+def cold_start(args: argparse.Namespace, ckpt_dir: str, device):
+    """Arm the kernel-library cache and the warm-start bundle before any
+    engine is built (JAX ``serve.py``'s order). Returns the checked
+    bundle, or None (no ``--warm-start``, no bundle there, or one
+    rejected: counted on the watchdog, the kernels then come from the
+    cache or ``nvcc``)."""
+    from torch_actor_critic_tpu_torch.aot import (
+        BundleMismatchError,
+        default_bundle_dir,
+        enable_cache_from_env,
+        enable_persistent_cache,
+        load_bundle,
+    )
+    from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
+
+    if args.compile_cache:
+        enable_persistent_cache(args.compile_cache)
+    else:
+        enable_cache_from_env()
+    if not args.warm_start:
+        return None
+    bundle_dir = (default_bundle_dir(ckpt_dir) if args.warm_start == "auto"
+                  else args.warm_start)
+    try:
+        bundle = load_bundle(bundle_dir)
+        bundle.check(device)
+    except FileNotFoundError as e:
+        logger.warning("no warm-start bundle: %s", e)
+        return None
+    except BundleMismatchError as e:
+        get_watchdog().note_bundle_rejected(f"{bundle_dir}: {e.reason}")
+        return None
+    bundle.arm()
+    logger.info("warm-start bundle %s armed (%d programs)", bundle_dir, len(bundle.programs()))
+    return bundle
+
+
 def _devices(args, device_type: str):
     """``--devices`` as the server's ``devices``: None for one replica;
     on the CPU, N replicas of the one host device."""
@@ -341,6 +393,7 @@ def build_server(args: argparse.Namespace, span_log=None):
         precision=args.serve_precision,
     )
     devices = _devices(args, registry.device.type)
+    bundle = cold_start(args, ckpt_dir, registry.device)
     info = registry.register(
         "default", actor_def, obs_spec,
         ckpt_dir=ckpt_dir, max_batch=args.max_batch, buckets=buckets,
@@ -352,6 +405,10 @@ def build_server(args: argparse.Namespace, span_log=None):
         # buckets); warming the registry's engine too would capture
         # graphs nothing replays.
         warmup=devices is None,
+        # The bundle's programs are one f32 engine's (the JAX CLI also
+        # bundles the unsharded f32 forward only); other tiers still
+        # load the bundle's libraries.
+        bundle=bundle if args.serve_precision == "f32" else None,
     )
     if args.poll_interval > 0:
         registry.start_polling(args.poll_interval)
@@ -488,6 +545,11 @@ def run_fleet(args, argv) -> None:
     from torch_actor_critic_tpu_torch.serve.router import FleetRouter
 
     check_ported(args)
+    if args.compile_cache:
+        # Exported to every worker and spare (their argv carries it too).
+        from torch_actor_critic_tpu_torch.aot import enable_persistent_cache
+
+        enable_persistent_cache(args.compile_cache)
     workers = [_spawn_worker(argv, i) for i in range(args.fleet)]
     worker_lock = threading.Lock()
     try:

@@ -60,8 +60,16 @@ into the cost registry as ``serve/forward[bN]``: the ``costs`` section
 of ``/metrics``. Nothing is counted per request, and a reload keeps the
 count (it copies into the same parameter buffers).
 
-Not ported (JAX/XLA machinery): the warm-start bundle, the transfer
-sanitizer, buffer donation.
+``warmup(params, bundle=...)`` takes a warm-start bundle
+(:mod:`~..aot.bundle`): every program's signature (observation leaves
+at the bucket, parameter buffers, precision, ``deterministic``) is
+checked against the bundle before anything is dispatched, a mismatch
+raising ``BundleMismatchError``; then the bundle's kernel libraries are
+armed and the graphs captured as without one, counted under the
+``bundle`` column of :meth:`PolicyEngine.compile_stats` and as
+``bundle_hits`` on the watchdog (the captures stay ``warmup`` to it).
+
+Not ported (JAX/XLA machinery): the transfer sanitizer, buffer donation.
 """
 
 from __future__ import annotations
@@ -235,8 +243,9 @@ class PolicyEngine:
         self.compiles_total = 0  # guarded-by: _lock
         self.param_copies_total = 0  # guarded-by: _fwd_lock
         self._warmup_active = False  # guarded-by: _lock
+        self._bundle_active = False  # guarded-by: _lock
         self._warmed = False  # guarded-by: _lock
-        self.bundle_loaded = False  # no warm-start bundles in the port
+        self.bundle_loaded = False  # guarded-by: _lock
         self._watchdog = get_watchdog().install()
 
     @property
@@ -300,7 +309,9 @@ class PolicyEngine:
                 "live_compiles": sum(
                     c[1] for c in self._compile_counts.values()
                 ),
-                "bundle_compiles": 0,
+                "bundle_compiles": sum(
+                    c[2] for c in self._compile_counts.values()
+                ),
                 "bundle_loaded": self.bundle_loaded,
                 "buckets": {
                     str(b): {"warmup": c[0], "live": c[1], "bundle": c[2]}
@@ -316,7 +327,7 @@ class PolicyEngine:
             self._compiled.add(key_)
             counts = self._compile_counts.setdefault(bucket, [0, 0, 0])
             live = not self._warmup_active
-            counts[1 if live else 0] += 1
+            counts[2 if self._bundle_active else (1 if live else 0)] += 1
             self.compiles_total += 1
             if live and self._warmed:
                 logger.warning(
@@ -428,7 +439,8 @@ class PolicyEngine:
 
     def _load_params(self, params) -> None:
         """Make the graphs' parameter buffers hold ``params`` (a copy
-        only when they hold another mapping). Under ``_fwd_lock``."""
+        only when they hold another mapping). Callers hold
+        ``self._fwd_lock``."""
         if params is self._param_src:
             return
         if self._param_bufs is None:
@@ -450,6 +462,7 @@ class PolicyEngine:
         self._param_src = params
 
     def _input(self, bucket: int):
+        """The bucket's static input buffer. Callers hold ``self._fwd_lock``."""
         if bucket not in self._inputs:
             self._inputs[bucket] = _map(
                 lambda s: torch.zeros((bucket, *s.shape), device=self.device,
@@ -459,8 +472,8 @@ class PolicyEngine:
         return self._inputs[bucket]
 
     def _capture(self, params, bucket: int, det: bool) -> _BucketGraph:
-        """Capture the ``(bucket, det)`` forward (under ``_fwd_lock``),
-        noted to the watchdog with its warm-up run's time."""
+        """Capture the ``(bucket, det)`` forward, noted to the watchdog
+        with its warm-up run's time. Callers hold ``self._fwd_lock``."""
         t0 = time.perf_counter()
         self._load_params(params)
         x = self._input(bucket)
@@ -521,24 +534,48 @@ class PolicyEngine:
 
     # ------------------------------------------------------------ warmup
 
+    def zero_obs(self, bucket: int):
+        """``bucket`` rows of zeros in the slot's observation spec."""
+        return _map(lambda s: np.zeros((bucket, *s.shape), s.dtype), self.obs_spec)
+
+    def _verify_bundle(self, bundle, params, deterministic_only: bool,
+                       buckets: t.Sequence[int] | None) -> None:
+        """Every program this warm-up captures must be in ``bundle`` with
+        this engine's signature; raises ``BundleMismatchError`` before
+        anything is dispatched."""
+        from torch_actor_critic_tpu_torch.aot.bundle import program_signature
+        from torch_actor_critic_tpu_torch.aot.manifest import program_name
+
+        for bucket in (buckets or self.buckets):
+            for det in (True,) if deterministic_only else (True, False):
+                bundle.verify_program(program_name(self.TRACE_PREFIX, bucket, det),
+                                      program_signature(self, params, bucket, det))
+
     def warmup(
         self,
         params,
         deterministic_only: bool = False,
         buckets: t.Sequence[int] | None = None,
+        bundle=None,
     ) -> t.List[t.Tuple[int, bool]]:
         """Run every ``(bucket, deterministic)`` forward once on zeros —
         on CUDA capture its graph — so no live request pays a first-use
         cost (kernel build, capture, allocator growth). Each bucket's
         forward is counted first (:meth:`count_cost`). Captures in here
-        are ``warmup`` to the watchdog. Returns the shapes warmed."""
+        are ``warmup`` to the watchdog. With ``bundle`` (a checked
+        :class:`~..aot.WarmStartBundle`) the programs are verified against
+        it first and its kernel libraries armed (module docstring).
+        Returns the shapes warmed."""
+        if bundle is not None:
+            self._verify_bundle(bundle, params, deterministic_only, buckets)
+            bundle.arm()
         warmed = []
         with self._lock:
             self._warmup_active = True
+            self._bundle_active = bundle is not None
         try:
             for bucket in (buckets or self.buckets):
-                zero_obs = _map(
-                    lambda s: np.zeros((bucket, *s.shape), s.dtype), self.obs_spec)
+                zero_obs = self.zero_obs(bucket)
                 self.count_cost(params, zero_obs)
                 for det in (True,) if deterministic_only else (True, False):
                     gen = None if det else self.generator
@@ -551,7 +588,12 @@ class PolicyEngine:
         finally:
             with self._lock:
                 self._warmup_active = False
+                self._bundle_active = False
                 self._warmed = True
+                if bundle is not None:
+                    self.bundle_loaded = True
+        if bundle is not None:
+            self._watchdog.note_bundle_hit(len(warmed))
         return warmed
 
     def count_cost(self, params, obs) -> dict:

@@ -9,8 +9,11 @@ read here. Every engine it builds runs on the registry's ``device``
 ``precision`` tier (:mod:`.sharded`); params are placed there at
 register and reload time through ``engine.place_params`` (the int8
 tier quantizes then), and the bytes placed feed ``/metrics``
-``sharding`` (:meth:`ModelRegistry.sharding_stats`). The
-sharded-restore and warm-start-bundle hooks are not ported.
+``sharding`` (:meth:`ModelRegistry.sharding_stats`). ``register(...,
+bundle=)`` warms a slot from a warm-start bundle (:mod:`~..aot.bundle`);
+a bundle that does not fit the slot is counted as rejected on the
+watchdog, disarmed, and the slot warms from the library cache. The
+sharded-restore hook is not ported.
 
 A serving process holds one or more named **slots** (e.g. ``default``,
 ``canary``), each an immutable-at-a-glance triple
@@ -56,6 +59,7 @@ import threading
 import time
 import typing as t
 
+from torch_actor_critic_tpu_torch.diagnostics.watchdog import get_watchdog
 from torch_actor_critic_tpu_torch.resilience.retry import call_with_retries
 from torch_actor_critic_tpu_torch.resilience.sentinel import tree_all_finite
 from torch_actor_critic_tpu_torch.serve.breaker import CircuitBreaker
@@ -133,6 +137,7 @@ class ModelRegistry:
         warmup: bool = True,
         replace: bool = False,
         breaker: CircuitBreaker | None = None,
+        bundle=None,
     ) -> dict:
         """Create a slot. ``params`` (a state dict) seeds it directly
         (tests/bench); ``ckpt_dir`` loads the latest epoch from a port
@@ -141,7 +146,10 @@ class ModelRegistry:
         ``warmup`` compiles every bucket before the slot goes live, so
         the first live request never pays a compile. ``breaker``
         overrides the slot's default circuit breaker (tests inject one
-        with a fake clock).
+        with a fake clock). ``bundle`` (a checked
+        :class:`~..aot.WarmStartBundle`) warms the slot from it; a
+        mismatch is counted (``bundle_rejected``) and the slot warms
+        without it, its kernels from the library cache.
 
         Registering a name that already exists raises unless
         ``replace=True`` — a silent overwrite would discard the old
@@ -197,7 +205,16 @@ class ModelRegistry:
                 _user(event)
 
         breaker.on_event = _hook
-        if warmup:
+        if warmup and bundle is not None:
+            from torch_actor_critic_tpu_torch.aot.bundle import BundleMismatchError
+
+            try:
+                engine.warmup(params, bundle=bundle)
+            except BundleMismatchError as e:
+                get_watchdog().note_bundle_rejected(f"slot {name!r}: {e.reason}")
+                bundle.disarm()
+                engine.warmup(params)
+        elif warmup:
             engine.warmup(params)
         slot = _Slot(engine, params, epoch, checkpointer, breaker)
         with self._lock:

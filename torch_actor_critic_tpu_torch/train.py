@@ -97,6 +97,13 @@ trainer (one env each; per-member metrics ``reward_m0``, ...;
 JAX CLI does; ``--pbt-every`` there raises ``ValueError``, as in JAX.
 The scenario envs and ``--devices`` > 1 raise ``NotImplementedError``.
 
+``--compile-cache DIR`` builds and finds the kernel libraries in DIR
+(exported as ``TAC_COMPILE_CACHE`` to every child), so a learner
+restarted with ``--run <id>`` builds none; ``--emit-bundle true`` writes
+a warm-start bundle for ``serve --warm-start auto`` next to the
+checkpoints at the first epoch with updates (``--bundle-max-batch``
+sets its bucket ladder; the host trainer only, as in JAX).
+
 ``--telemetry true`` (implied by ``--profile-epochs`` and
 ``--trace-export``) streams the trainer's telemetry to
 ``<run>/telemetry.jsonl``: a ``run_start`` line; per epoch an ``epoch``
@@ -308,9 +315,24 @@ def run_setup(args: argparse.Namespace):
             "buffer_size": config.buffer_size,
             "seed": seed,
         })
+    cold_start(config)
     checkpointer = Checkpointer(tracker.artifact_path("checkpoints"),
                                 save_buffer=args.save_buffer)
     return config, env_name, seed, tracker, checkpointer
+
+
+def cold_start(config) -> None:
+    """Arm the kernel-library cache before anything launches a kernel
+    (JAX ``train.py``'s order): ``compile_cache`` (a ``--run`` restart
+    reads it from the run's stored config) is exported to every child
+    (fleet actors, the run's serve workers); without it, a process
+    joins the directory its parent exported."""
+    from torch_actor_critic_tpu_torch.aot import enable_cache_from_env, enable_persistent_cache
+
+    if config.compile_cache:
+        enable_persistent_cache(config.compile_cache)
+    else:
+        enable_cache_from_env()
 
 
 def observability(args: argparse.Namespace, config) -> dict:
